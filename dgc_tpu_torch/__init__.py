@@ -1,0 +1,13 @@
+"""dgc_tpu_torch — the PyTorch/CUDA port of ``dgc_tpu`` for one NVIDIA H100.
+
+It mirrors ``dgc_tpu``'s layout (``models/``, ``ops/``, ``engine/``,
+``cli.py``) and imports nothing of it, nor JAX: it keeps its own copies of
+the host modules it needs. Device work is hand-written CUDA
+(``csrc/``, built at first use by ``kernels.build``); the plain PyTorch
+versions in ``ops/`` are what the kernels are held against, and what runs
+when a caller passes ``device="cpu"``. Every engine and entry point takes
+an explicit ``device`` and defaults to ``cuda``.
+
+Ported so far: the minimal-k sweep on the ``ell`` and ``ell-bucketed``
+engines (ROADMAP lists the rest).
+"""

@@ -1,0 +1,257 @@
+// The speculative BSP superstep for Hopper (sm_90a), with a plain C
+// interface for ctypes (dgc_tpu_torch/kernels/superstep.py).
+//
+// Replaces the jitted XLA programs of the JAX package:
+//   K1 superstep_rows   — B1, the superstep rule fused with its gather:
+//                         dgc_tpu/ops/speculative.py:40 neighbor_stats,
+//                         :67 apply_update_mc, :124 speculative_update and
+//                         dgc_tpu/ops/bitmask.py:28 plane_masks,
+//                         :37 forbidden_planes, :75 first_fit, as gathered
+//                         by dgc_tpu/engine/superstep.py:69 superstep and
+//                         dgc_tpu/engine/bucketed.py:235 bucketed_superstep.
+//   K2 superstep_finish — the loop control of B2/B3: the while-loop bodies
+//                         of dgc_tpu/engine/superstep.py:82 _attempt_kernel
+//                         and dgc_tpu/engine/bucketed.py:273
+//                         _attempt_kernel_bucketed (status_step, :193).
+//
+// State. Two int32[V+1] buffers of packed words (color*2 + fresh, -1 for
+// uncolored); slot V of both holds -1 for good, so the pad sentinel needs
+// no per-step concatenation. A control block int32[8] (the CTRL_* slots
+// below) holds the attempt's loop carry and this superstep's counters. K1
+// reads buffer `cur` and writes the other one, for every bucket of the
+// superstep (BSP: every row reads the pre-step state); K2 flips `cur`
+// only when the step did not fail, so a failed step leaves the pre-step
+// state current (superstep.py:130, bucketed.py:313). K1 returns at once
+// when the status is no longer RUNNING, so the host enqueues a whole chunk
+// of supersteps and syncs once per chunk.
+//
+// Bound. A superstep must read each vertex's real neighbor entries once
+// (sum of degrees * 4 bytes; the sentinel padding past a row's degree is
+// not needed work), its degree and its state, and write the new state: at
+// 1M vertices and average degree 16 that is 16M entries (64 MB) plus
+// 12 MB, ~76 MB, ~23 us at the H100's 3.35 TB/s. The padded bucket tables
+// hold ~17.5M entries, the plain ELL table V*Delta. The 4 MB state fits the
+// 50 MB L2, so the random neighbor gathers should hit L2. This first
+// kernel is one thread per row with its planes in registers (templated on
+// the plane count), reading the row-major table row by row, padding
+// included: simple and exact, not yet shaped for coalesced table reads
+// (PERF.md has its measured time against the bound).
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kStatus = 0;
+constexpr int kStep = 1;
+constexpr int kPrevActive = 2;
+constexpr int kStall = 3;
+constexpr int kCur = 4;
+constexpr int kFail = 5;
+constexpr int kActive = 6;
+constexpr int kMc = 7;
+
+constexpr int kRunning = 0;
+constexpr int kSuccess = 1;
+constexpr int kFailure = 2;
+constexpr int kStalled = 3;
+
+constexpr int kBeatsBit = 30;
+constexpr int kNbrMask = (1 << kBeatsBit) - 1;
+constexpr int kDivergeBig = 1 << 30;
+constexpr int kThreads = 256;
+
+// Bit b of plane p is set iff color 32p+b < k. A shift by 32 is undefined
+// for a 32-bit word, so a full plane is special-cased (bitmask.py:31-34).
+__device__ __forceinline__ uint32_t plane_mask(int k, int p) {
+  const long long nbits = static_cast<long long>(k) - 32LL * p;
+  if (nbits >= 32) return 0xFFFFFFFFu;
+  if (nbits <= 0) return 0u;
+  return (1u << static_cast<uint32_t>(nbits)) - 1u;
+}
+
+// One thread per table row. PB planes are held in registers at a time; a
+// window wider than PB planes (only a widened hub window above 32 planes)
+// is scanned in groups of PB, re-reading the row for each group.
+template <int PB>
+__global__ void __launch_bounds__(kThreads)
+superstep_rows_kernel(int* ctrl, int* state, size_t stride,
+                      const int* __restrict__ table, int row0, int rows,
+                      int width, int planes, int k, int fail_valid) {
+  // the status is the same for every thread of the grid: a uniform exit
+  if (ctrl[kStatus] != kRunning) return;
+  const int cur = ctrl[kCur];
+  // the two buffers never overlap, so src and dst do not alias
+  const int* __restrict__ src = state + cur * stride;
+  int* __restrict__ dst = state + (1 - cur) * stride;
+
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  bool fail = false;
+  bool active = false;
+  int mc = -1;
+  if (r < rows) {
+    const int v = row0 + r;
+    const int me = src[v];
+    const int mycol = me >> 1;  // arithmetic: -1 stays -1
+    const int* __restrict__ row = table + static_cast<size_t>(r) * width;
+    bool clash = false;
+    bool found = false;     // a color under k is free of every neighbor
+    int cand = k;           // first-fit over all colored neighbors
+    bool old_free = false;  // a color under k is free of confirmed ones
+    const int groups = (planes + PB - 1) / PB;
+    for (int g = 0; g < groups; ++g) {
+      const int base = g * PB;
+      uint32_t fa[PB];
+      uint32_t fo[PB];
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        fa[p] = 0u;
+        fo[p] = 0u;
+      }
+      for (int j = 0; j < width; ++j) {
+        const int e = row[j];
+        const int word = src[e & kNbrMask];
+        if (word < 0) continue;  // uncolored neighbor or pad sentinel
+        const int c = word >> 1;
+        const bool fresh = (word & 1) != 0;
+        if (g == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) {
+          clash = true;
+        }
+        const int w = (c >> 5) - base;
+        const uint32_t bit = 1u << (c & 31);
+#pragma unroll
+        for (int p = 0; p < PB; ++p) {
+          if (p == w) {
+            fa[p] |= bit;
+            if (!fresh) fo[p] |= bit;
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        const int pg = base + p;
+        const uint32_t m = pg < planes ? plane_mask(k, pg) : 0u;
+        const uint32_t free_all = ~fa[p] & m;
+        if (!found && free_all != 0u) {
+          found = true;
+          cand = 32 * pg + __ffs(free_all) - 1;
+        }
+        if ((~fo[p] & m) != 0u) old_free = true;
+      }
+    }
+    const bool myfresh = me >= 0 && (me & 1) != 0;
+    const bool demote = myfresh && clash;
+    const bool needs = me < 0 || demote;
+    int next;
+    if (needs && found) {
+      next = cand * 2 + 1;  // speculative (fresh)
+    } else if (demote) {
+      next = -1;            // could not re-pick this round
+    } else if (myfresh) {
+      next = mycol * 2;     // confirm fresh -> old
+    } else {
+      next = me;
+    }
+    dst[v] = next;
+    fail = needs && !old_free;
+    active = next < 0 || (next & 1) != 0;
+    mc = needs ? (found ? cand : kDivergeBig) : -1;
+  }
+
+  // one atomic per block and counter
+  const int nfail = __syncthreads_count(fail && fail_valid != 0);
+  const int nactive = __syncthreads_count(active);
+  const int wmax = __reduce_max_sync(0xFFFFFFFFu, mc);
+  __shared__ int warp_max[kThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = wmax;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int bmax = warp_max[0];
+#pragma unroll
+    for (int i = 1; i < kThreads / 32; ++i) bmax = max(bmax, warp_max[i]);
+    if (nfail) atomicAdd(ctrl + kFail, nfail);
+    if (nactive) atomicAdd(ctrl + kActive, nactive);
+    if (bmax >= 0) atomicMax(ctrl + kMc, bmax);
+  }
+}
+
+// One thread: fold this superstep's counters into the loop carry.
+// FAILURE > SUCCESS > STALLED > RUNNING (bucketed.py:193 status_step); a
+// step is STALLED after `stall_window` steps without fewer active rows
+// (the bucketed rule) or when step+1 reaches `max_steps` (the ELL rule).
+__global__ void superstep_finish_kernel(int* ctrl, int max_steps,
+                                        int stall_window) {
+  if (ctrl[kStatus] != kRunning) return;
+  const int step = ctrl[kStep];
+  const int active = ctrl[kActive];
+  const bool any_fail = ctrl[kFail] > 0;
+  const int stall = active < ctrl[kPrevActive] ? 0 : ctrl[kStall] + 1;
+  int status = kRunning;
+  if (any_fail) {
+    status = kFailure;
+  } else if (active == 0) {
+    status = kSuccess;
+  } else if (stall >= stall_window || step + 1 >= max_steps) {
+    status = kStalled;
+  }
+  if (!any_fail) ctrl[kCur] ^= 1;  // on failure keep the pre-step state
+  ctrl[kStatus] = status;
+  ctrl[kStep] = step + 1;
+  ctrl[kPrevActive] = active;
+  ctrl[kStall] = stall;
+  ctrl[kFail] = 0;
+  ctrl[kActive] = 0;
+  ctrl[kMc] = -1;
+}
+
+template <int PB>
+void launch_rows(int* ctrl, int* state, const int* table, int row0, int rows,
+                 int width, int planes, int k, int fail_valid, int stride,
+                 cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+  superstep_rows_kernel<PB><<<blocks, kThreads, 0, stream>>>(
+      ctrl, state, static_cast<size_t>(stride), table, row0, rows, width,
+      planes, k, fail_valid);
+}
+
+}  // namespace
+
+extern "C" {
+
+// state: int32[2, stride] (stride = V+1); table: int32[rows, width] for
+// rows [row0, row0+rows). Returns the launch's cudaError_t (0 = launched).
+int dgc_superstep_rows(void* ctrl, void* state, const void* table, int row0,
+                       int rows, int width, int planes, int k, int fail_valid,
+                       int stride, void* stream) {
+  if (rows <= 0 || width <= 0 || planes <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* c = static_cast<int*>(ctrl);
+  auto* s = static_cast<int*>(state);
+  const auto* t = static_cast<const int*>(table);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (planes <= 1) {
+    launch_rows<1>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  } else if (planes <= 2) {
+    launch_rows<2>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  } else if (planes <= 4) {
+    launch_rows<4>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  } else if (planes <= 8) {
+    launch_rows<8>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  } else if (planes <= 16) {
+    launch_rows<16>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  } else {
+    launch_rows<32>(c, s, t, row0, rows, width, planes, k, fail_valid, stride, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dgc_superstep_finish(void* ctrl, int max_steps, int stall_window,
+                         void* stream) {
+  superstep_finish_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(ctrl), max_steps, stall_window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,216 @@
+"""Wrappers of the superstep kernels (``csrc/superstep.cu``), their plain
+PyTorch versions, and the chunked superstep loop both engines run.
+
+- ``superstep_rows`` (K1) is one superstep of the speculative rule over
+  the rows ``[row0, row0+R)`` of one table, its gather included: it reads
+  state buffer ``cur`` and writes the other one, and adds the rows' fail
+  count (when ``fail_valid``), active count and max candidate ``mc`` to
+  the control block.
+- ``superstep_finish`` (K2) folds those counters into the attempt's loop
+  carry (status, step, stall rounds) and flips ``cur`` unless the step
+  failed.
+
+For tensors on the CPU each wrapper runs its plain version
+(``*_reference``, built on ``ops.speculative``); for tensors on a card it
+launches its kernel or raises — it never falls back. The plain versions
+take tensors on any device, so a test on the card can hold a kernel
+against them on the same inputs.
+
+``launch_counts`` counts launches per kernel: a wrapper adds one where it
+launches, and nowhere else (the CPU path and the plain versions do not
+count), so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgc_tpu_torch.engine.base import AttemptStatus
+from dgc_tpu_torch.ops.speculative import decode_combined, speculative_update_mc
+
+# control block slots (the kernel's kStatus ... kMc)
+CTRL_STATUS, CTRL_STEP, CTRL_PREV_ACTIVE, CTRL_STALL, CTRL_CUR, \
+    CTRL_FAIL, CTRL_ACTIVE, CTRL_MC = range(8)
+CTRL_LEN = 8
+INT32_MAX = (1 << 31) - 1
+CHUNK_STEPS = 64  # supersteps enqueued per host sync (bucketed.py:340)
+_RUNNING = int(AttemptStatus.RUNNING)
+
+SOURCE = "superstep.cu"
+
+launch_counts = {"superstep_rows": 0, "superstep_finish": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def new_ctrl(step: int, prev_active: int, device) -> torch.Tensor:
+    """A control block for a fresh attempt: RUNNING at ``step``, state in
+    buffer 0, counters cleared."""
+    return torch.tensor([_RUNNING, step, prev_active, 0, 0, 0, 0, -1],
+                        dtype=torch.int32, device=device)
+
+
+def new_state(packed0: torch.Tensor) -> torch.Tensor:
+    """int32[2, V+1] state buffers: buffer 0 holds ``packed0``, slot V of
+    both holds the −1 pad sentinel."""
+    v = packed0.shape[0]
+    state = torch.full((2, v + 1), -1, dtype=torch.int32, device=packed0.device)
+    state[0, :v] = packed0
+    return state
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def superstep_rows_reference(ctrl: torch.Tensor, state: torch.Tensor,
+                             table: torch.Tensor, row0: int, planes: int, k: int,
+                             fail_valid: bool) -> None:
+    """K1's plain version: the rule of ``ops.speculative`` over one table."""
+    if int(ctrl[CTRL_STATUS]) != _RUNNING:
+        return
+    cur = int(ctrl[CTRL_CUR])
+    src, dst = state[cur], state[1 - cur]
+    rows = table.shape[0]
+    nb, beats = decode_combined(table)
+    new, fail_mask, active_mask, mc = speculative_update_mc(
+        src[row0: row0 + rows], src[nb.to(torch.int64)], beats, k, planes)
+    dst[row0: row0 + rows] = new
+    if fail_valid:
+        ctrl[CTRL_FAIL] += fail_mask.sum().to(torch.int32)
+    ctrl[CTRL_ACTIVE] += active_mask.sum().to(torch.int32)
+    ctrl[CTRL_MC] = torch.maximum(ctrl[CTRL_MC], mc)
+
+
+def status_step(any_fail: bool, active: int, stall_rounds: int,
+                stall_window: int) -> AttemptStatus:
+    """The per-superstep status transition (FAILURE > SUCCESS > STALLED >
+    RUNNING) of ``dgc_tpu.engine.bucketed.status_step``, on host scalars."""
+    if any_fail:
+        return AttemptStatus.FAILURE
+    if active == 0:
+        return AttemptStatus.SUCCESS
+    if stall_rounds >= stall_window:
+        return AttemptStatus.STALLED
+    return AttemptStatus.RUNNING
+
+
+def superstep_finish_reference(ctrl: torch.Tensor, max_steps: int,
+                               stall_window: int) -> None:
+    """K2's plain version: ``status_step``, plus the ELL engine's rule that
+    a RUNNING attempt stalls when step+1 reaches ``max_steps``."""
+    status, step, prev_active, stall, cur, fail, active, _ = ctrl.tolist()
+    if status != _RUNNING:
+        return
+    stall = 0 if active < prev_active else stall + 1
+    status = status_step(fail > 0, active, stall, stall_window)
+    if status == AttemptStatus.RUNNING and step + 1 >= max_steps:
+        status = AttemptStatus.STALLED
+    if fail == 0:
+        cur ^= 1  # on failure the pre-step state stays current
+    ctrl.copy_(torch.tensor([int(status), step + 1, active, stall, cur, 0, 0, -1],
+                            dtype=torch.int32))
+
+
+# ---- kernel launches --------------------------------------------------------
+
+def _library():
+    from dgc_tpu_torch.kernels.build import load
+
+    lib = load(SOURCE)
+    if not getattr(lib, "_dgc_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.dgc_superstep_rows.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                           ci, vp]
+        lib.dgc_superstep_rows.restype = ci
+        lib.dgc_superstep_finish.argtypes = [vp, ci, ci, vp]
+        lib.dgc_superstep_finish.restype = ci
+        lib._dgc_bound = True
+    return lib
+
+
+def _check_int32(name: str, t: torch.Tensor, device, ndim: int) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def superstep_rows(ctrl: torch.Tensor, state: torch.Tensor, table: torch.Tensor,
+                   row0: int, planes: int, k: int, fail_valid: bool) -> None:
+    """K1 over table rows ``[row0, row0 + table.shape[0])``; see the module
+    docstring. Runs on the current stream, does not synchronize."""
+    device = table.device
+    if device.type == "cpu":
+        return superstep_rows_reference(ctrl, state, table, row0, planes, k,
+                                        fail_valid)
+    if device.type != "cuda":
+        raise ValueError(f"superstep_rows: unsupported device {device}")
+    _check_int32("ctrl", ctrl, device, 1)
+    _check_int32("state", state, device, 2)
+    _check_int32("table", table, device, 2)
+    rows, width = table.shape
+    v = state.shape[1] - 1
+    if ctrl.shape[0] != CTRL_LEN or state.shape[0] != 2:
+        raise ValueError(f"ctrl must be [{CTRL_LEN}] and state [2, V+1]")
+    if not (0 <= row0 and row0 + rows <= v):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside [0, {v})")
+    if not (1 <= planes <= INT32_MAX // 32 and width >= 1):
+        raise ValueError(f"bad planes={planes} / width={width}")
+    if rows == 0:
+        return
+    # a budget past the window acts as the full window (the masks
+    # saturate), so clamping it to the kernel's int32 is exact
+    k = max(-INT32_MAX, min(int(k), INT32_MAX))
+    rc = _library().dgc_superstep_rows(
+        ctrl.data_ptr(), state.data_ptr(), table.data_ptr(), int(row0),
+        int(rows), int(width), int(planes), k, int(bool(fail_valid)),
+        int(state.shape[1]), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"superstep_rows launch failed: CUDA error {rc}")
+    launch_counts["superstep_rows"] += 1
+
+
+def superstep_finish(ctrl: torch.Tensor, max_steps: int,
+                     stall_window: int) -> None:
+    """K2; see the module docstring. Runs on the current stream."""
+    device = ctrl.device
+    if device.type == "cpu":
+        return superstep_finish_reference(ctrl, max_steps, stall_window)
+    if device.type != "cuda":
+        raise ValueError(f"superstep_finish: unsupported device {device}")
+    _check_int32("ctrl", ctrl, device, 1)
+    if ctrl.shape[0] != CTRL_LEN:
+        raise ValueError(f"ctrl must be [{CTRL_LEN}]")
+    rc = _library().dgc_superstep_finish(
+        ctrl.data_ptr(), int(min(max_steps, INT32_MAX)),
+        int(min(stall_window, INT32_MAX)), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"superstep_finish launch failed: CUDA error {rc}")
+    launch_counts["superstep_finish"] += 1
+
+
+def run_supersteps(ctrl: torch.Tensor, state: torch.Tensor, parts, k: int,
+                   max_steps: int, stall_window: int) -> list[int]:
+    """Enqueue ``CHUNK_STEPS`` supersteps — K1 for every ``(row0, table,
+    planes, fail_valid)`` part, then K2 — and read the control block back:
+    the one host sync of the chunk. Steps enqueued after the attempt left
+    RUNNING return at once on the card (and are skipped on the CPU)."""
+    for _ in range(CHUNK_STEPS):
+        for row0, table, planes, fail_valid in parts:
+            superstep_rows(ctrl, state, table, row0, planes, k, fail_valid)
+        superstep_finish(ctrl, max_steps, stall_window)
+        if ctrl.device.type == "cpu" and int(ctrl[CTRL_STATUS]) != _RUNNING:
+            break
+    return ctrl.tolist()

@@ -1,0 +1,66 @@
+"""The port (``dgc_tpu_torch``) and ``chip_smoke.py`` import neither JAX
+nor anything of ``dgc_tpu``.
+
+The import check runs in a subprocess: this test process already holds
+``jax`` (``tests/conftest.py`` imports it).
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "dgc_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "dgc_tpu"}
+# the package's modules; the git-ignored build directory holds no source
+SOURCES = sorted(p for p in PORT.rglob("*.py")
+                 if "_build" not in p.relative_to(PORT).parts) + [ROOT / "chip_smoke.py"]
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(ROOT).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def test_importing_every_module_leaves_jax_and_dgc_tpu_out():
+    modules = [_module_name(p) for p in SOURCES]
+    code = (
+        "import importlib, json, sys\n"
+        "for m in json.loads(sys.argv[1]):\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(modules)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    assert "dgc_tpu_torch.kernels.superstep" in modules
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_or_dgc_tpu(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    named = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            named.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            named.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            named.add(str(node.args[0].value).split(".")[0])
+    assert not named & FORBIDDEN, named & FORBIDDEN
