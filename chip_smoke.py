@@ -4,25 +4,41 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-0. Build: every CUDA source of the port, one ``nvcc`` each.
-1. Kernels vs plain: the superstep kernel (K1) and the loop-control
-   kernel (K2) against their plain PyTorch versions on seeded random
-   blocks — plane counts 1, 2, 3, 32, 40; budgets 1, 31, 32, 33, 32P, above
-   the window; exact and capped windows; rows full of pad sentinels;
-   either state buffer current; an attempt no longer running. Exact.
-2. Engines vs the CPU: ``ell-bucketed`` and ``ell`` on a 20k-vertex uniform
-   graph and ``ell-bucketed`` on a 20k RMAT graph, jump and strict mode:
-   every attempt's (k, status, supersteps, colors_used) and the final
-   colors equal the ``device="cpu"`` run byte for byte; so do single
-   attempts on K40 under a 1-plane window cap, on isolated vertices, and
-   at budgets below 1.
+0. Build: every CUDA source of the port, one ``nvcc`` each, all started
+   together.
+1. Kernels vs plain, exact. The superstep kernel (K1) and the
+   loop-control kernel (K2) on seeded random blocks — plane counts 1, 2,
+   3, 32, 40; budgets 1, 31, 32, 33, 32P, above the window; exact and
+   capped windows; rows full of pad sentinels; either state buffer
+   current; an attempt no longer running. The compact engine's kernels:
+   K3 (compaction) at densities from none to all and pads below, at and
+   above the active count; K4 (stage rows) over stage layouts with 33-
+   and 17-plane ranges; K5 (segmented superstep) over those slot lists
+   and over row spans with covering and capped windows, at budgets 1 to
+   past every window, live and in each way a stage stops; K6 (stage
+   finish) over 300 random loop carries with and without the ring.
+2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
+   20k-vertex uniform graph and ``ell-compact`` (with a ``flat_cap`` past
+   its widest bucket, so hub-free) and ``ell-bucketed`` on a 20k RMAT
+   graph, jump and strict mode: every attempt's (k, status,
+   supersteps, colors_used) and the final colors equal the
+   ``device="cpu"`` run byte for byte; so do single attempts (and the
+   compact engine's sweeps) on K40 under a 1-plane window cap, on
+   isolated vertices, with compaction stages at that size, and at budgets
+   below 1.
 3. The main path at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
-   --gen-method fast``), for ``ell-bucketed`` then ``ell``. The launch
-   counts are zeroed just before each sweep and read just after; the
-   coloring must validate. Then each kernel is timed with CUDA events at
-   the shapes of that path and held against its plain version there.
+   --gen-method fast``), for ``ell-compact`` (the CLI default), then
+   ``ell-bucketed`` and ``ell``. The launch counts are zeroed just before
+   each sweep and read just after, and each backend must launch every
+   kernel of its path; the coloring must validate, and ``ell-compact``'s
+   attempts and swept colors must equal ``ell-bucketed``'s. Then each
+   kernel is held against its plain version at the shapes of that path
+   and timed there: K1 and K2 at a first and a mid-attempt superstep;
+   K3-K6 at every call of one more ``sweep`` of the compact engine (a
+   test double over their wrappers), timed on its first attempt's
+   stage inputs.
 
 Output: one JSON line per phase-3 run, the card's name and power limit as
 ``nvidia-smi`` gives them, a ``{"kernels": [...]}`` line, and last
@@ -39,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -142,6 +159,153 @@ def phase_kernels(device) -> int:
     return err
 
 
+def _diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        return 1 << 40
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def _packed_words(rng, n: int, max_color: int, active: float) -> np.ndarray:
+    """Packed words: uncolored (−1) or fresh at rate ``active``, the rest
+    confirmed, colors below ``max_color``."""
+    col = rng.integers(0, max_color, size=n)
+    act = rng.random(n) < active
+    words = np.where(act, np.where(rng.random(n) < 0.5, -1, col * 2 + 1),
+                     col * 2)
+    return words.astype(np.int32)
+
+
+def _compact_state(rng, v: int, max_color: int, active: float, device):
+    """int32[2, V+2] buffers holding different words, the sentinel −1 at V
+    and the dummy row 0 at V+1 in both."""
+    state = np.stack([_packed_words(rng, v + 2, max_color, active)
+                      for _ in range(2)])
+    state[:, v], state[:, v + 1] = -1, 0
+    return torch.from_numpy(state).to(device)
+
+
+def _combined(rng, shape, v: int, sentinel_rate: float = 0.15) -> np.ndarray:
+    nb = rng.integers(0, v + 1, size=shape)
+    nb[rng.random(shape) < sentinel_rate] = v
+    return (nb | (rng.integers(0, 2, size=shape) << 30)).astype(np.int32)
+
+
+# stage width ranges (start, stop, width, planes): the 4096-vertex RMAT
+# layout's (planes 33 and 17) and a one-range stage
+K4_RANGES = (((0, 1, 1040, 33), (1, 14, 512, 17), (14, 94, 128, 5),
+              (94, 345, 44, 2), (345, 745, 16, 1), (745, 1024, 8, 1)),
+             ((0, 64, 16, 1),))
+# full-table parts (sizes, widths, planes): windows covering their widths,
+# and the same with capped windows (fail gate off unless k fits)
+K5_PARTS = (((40, 300, 900, 2000), (1040, 40, 12, 4), (33, 2, 1, 1)),
+            ((40, 300, 900, 2000), (1100, 80, 12, 4), (32, 1, 1, 1)))
+
+
+def phase_compact_kernels(device) -> int:
+    """K3-K6 vs their plain versions on seeded random cases; returns the
+    max abs difference."""
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.ops.segmented_gather import (plan_from_parts,
+                                                    plan_from_ranges)
+
+    rng = np.random.default_rng(1)
+    v = 5000
+    err = 0
+    # K3: densities from none to all, pads below, at and above the count,
+    # either buffer current, a row offset
+    for density in (0.0, 0.01, 0.3, 1.0):
+        for pad in (1, 64, 1500, 8192):
+            for cur, row0 in ((0, 0), (1, 0), (1, 37)):
+                state = _compact_state(rng, v, 200, density, device)
+                ctrl = kc.new_ctrl(3, v, device)
+                ctrl[kc.CTRL_CUR] = cur
+                s_p, c_p = state.clone(), ctrl.clone()
+                idx = kc.compact_slots(ctrl, state, row0, pad)
+                idx_p = kc.compact_slots_reference(c_p, s_p, row0, pad)
+                err = max(err, _diff(idx, idx_p), _diff(state, s_p),
+                          _diff(ctrl, c_p))
+    # K4 and K5 over slot lists: the stage layouts of K4_RANGES
+    flat_ext = torch.from_numpy(np.concatenate([
+        _combined(rng, (v, 1040), v),
+        np.full((1, 1040), v, np.int32)])).to(device)
+    budgets = (1, 31, 32, 33, 1056, 5000)
+    for ranges in K4_RANGES:
+        plan = plan_from_ranges(ranges)
+        desc = kc.plan_desc(plan, device)
+        pad = ranges[-1][1]
+        for density in (0.05, 0.5):
+            act = torch.from_numpy(rng.random(v) < density).to(device)
+            idx = kc.compact_idx(act, pad, v)
+            seg, gidx = kc.stage_rows(flat_ext, idx, plan, desc, 0, v)
+            seg_p, gidx_p = kc.stage_rows_reference(flat_ext, idx, plan, 0, v)
+            err = max(err, _diff(seg, seg_p), _diff(gidx, gidx_p))
+            for k in budgets:
+                err = max(err, _k5_case(kc, rng, v, seg, plan, desc, k,
+                                        device, gidx=gidx))
+    # K5 over row spans: covering and capped windows, a row offset
+    for sizes, widths, planes in K5_PARTS:
+        plan = plan_from_parts(sizes, widths, planes)
+        desc = kc.plan_desc(plan, device)
+        seg = torch.from_numpy(_combined(
+            rng, sum(s * w for s, w in zip(sizes, widths)), v)).to(device)
+        for k in budgets:
+            for row_base in (0, 1000):
+                err = max(err, _k5_case(kc, rng, v, seg, plan, desc, k, device,
+                                        row_base=row_base))
+    # K6 over random loop carries: pushes, failures, stalls, idle stages
+    for _ in range(300):
+        state = _compact_state(rng, v, 200, 0.3, device)
+        ring = (torch.from_numpy(rng.integers(-1, 99, (kc.REC_SLOTS, v + 2))
+                                 .astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(-1, 99, (kc.REC_SLOTS,
+                                                       kc.META_COLS))
+                                 .astype(np.int32)).to(device))
+        prev = int(rng.integers(0, 50))
+        vals = [int(rng.choice([0, 0, 0, 1, 2])), int(rng.integers(0, 100)),
+                prev, int(rng.integers(0, 70)), int(rng.integers(0, 2)),
+                int(rng.choice([0, 0, int(rng.integers(1, 5))])),
+                int(rng.choice([0, prev, int(rng.integers(0, 60))])),
+                int(rng.integers(-1, 40)), int(rng.integers(0, 9)),
+                int(rng.integers(-1, 40)), 0]
+        ctrl = torch.tensor(vals, dtype=torch.int32, device=device)
+        record = bool(rng.integers(0, 2))
+        thresh = int(rng.choice([0, 0, int(rng.integers(0, 60))]))
+        max_steps = int(rng.choice([kc.INT32_MAX, int(rng.integers(1, 110))]))
+        window = int(rng.choice([64, int(rng.integers(1, 70))]))
+        c_p, s_p = ctrl.clone(), state.clone()
+        r_p = (ring[0].clone(), ring[1].clone())
+        kc.stage_finish(ctrl, state, ring, thresh, max_steps, window, record)
+        kc.stage_finish_reference(c_p, s_p, r_p, thresh, max_steps, window,
+                                  record)
+        err = max(err, _diff(ctrl, c_p), _diff(ring[0], r_p[0]),
+                  _diff(ring[1], r_p[1]), _diff(state, s_p))
+    torch.cuda.synchronize()
+    check(err == 0, f"K3-K6 disagree with their plain versions: max abs "
+                    f"err {err}")
+    return err
+
+
+def _k5_case(kc, rng, v, seg, plan, desc, k, device, gidx=None,
+             row_base=0) -> int:
+    """K5 against its plain version from a random state, live and in each
+    of the three ways a stage is no longer live."""
+    err = 0
+    for status, prev, step in ((0, v, 3), (1, v, 3), (0, 10, 3), (0, v, 99)):
+        state = _compact_state(rng, v, 32 * max(s.planes for s in plan) + 40,
+                               0.4, device)
+        ctrl = kc.new_ctrl(step, prev, device)
+        ctrl[kc.CTRL_STATUS] = status
+        ctrl[kc.CTRL_CUR] = int(rng.integers(0, 2))
+        ctrl[kc.CTRL_MC] = int(rng.integers(-1, 5))
+        s_p, c_p = state.clone(), ctrl.clone()
+        kc.segmented_superstep(ctrl, state, seg, plan, desc, k, 10, 50,
+                               gidx=gidx, row_base=row_base)
+        kc.segmented_superstep_reference(c_p, s_p, seg, plan, k, 10, 50,
+                                         gidx=gidx, row_base=row_base)
+        err = max(err, _diff(state, s_p), _diff(ctrl, c_p))
+    return err
+
+
 # ---- phase 2: engines vs the CPU --------------------------------------------
 
 def _attempt_rows(result) -> list[tuple]:
@@ -152,13 +316,14 @@ def _attempt_rows(result) -> list[tuple]:
 def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
     from dgc_tpu_torch.cli import make_engine
     from dgc_tpu_torch.engine.minimal_k import find_minimal_coloring, make_validator
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
     from dgc_tpu_torch.models.graph import Graph
 
     rows = []
     graphs = [("uniform", Graph.generate(v, 32, seed=1, method="fast"),
-               ("ell-bucketed", "ell")),
+               ("ell-compact", "ell-bucketed", "ell")),
               ("rmat", Graph.generate(v, 32, seed=2, method="rmat"),
-               ("ell-bucketed",))]
+               ("ell-compact", "ell-bucketed"))]
     for gname, graph, backends in graphs:
         for backend in backends:
             k0 = graph.initial_k()
@@ -169,9 +334,18 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
                     k0 = rows[-1]["colors"] + 3
                 runs = {}
                 for dev in (device, "cpu"):
-                    args = argparse.Namespace(backend=backend, device=dev)
+                    if backend == "ell-compact" and gname == "rmat":
+                        # the hubs' degrees: a flat_cap past the widest
+                        # bucket keeps the layout hub-free
+                        engine = CompactFrontierEngine(
+                            graph.arrays, device=dev,
+                            flat_cap=max(256, 1 << graph.max_degree.bit_length()))
+                    else:
+                        engine = make_engine(
+                            argparse.Namespace(backend=backend, device=dev),
+                            graph)
                     runs[dev] = find_minimal_coloring(
-                        make_engine(args, graph), k0, strict_decrement=strict,
+                        engine, k0, strict_decrement=strict,
                         validate=make_validator(graph.arrays))
                 a, b = runs[device], runs["cpu"]
                 same = (_attempt_rows(a) == _attempt_rows(b)
@@ -188,10 +362,12 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
 
 
 def _edge_cases(device) -> list[dict]:
-    """Single attempts on small graphs that take the engines' rare paths:
-    K40 under a 1-plane window cap (capped fail gate, STALLED, widening),
-    isolated vertices, and budgets below 1 (no launch at all)."""
+    """Single attempts (and the compact engine's sweeps) on small graphs
+    that take the engines' rare paths: K40 under a 1-plane window cap
+    (capped fail gate, STALLED, widening), isolated vertices, compaction
+    stages at that size, and budgets below 1 (no launch at all)."""
     from dgc_tpu_torch.engine.bucketed import BucketedELLEngine
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
     from dgc_tpu_torch.engine.superstep import ELLEngine
     from dgc_tpu_torch.models.arrays import GraphArrays
 
@@ -205,6 +381,11 @@ def _edge_cases(device) -> list[dict]:
         ("isolated-bucketed", lambda d: BucketedELLEngine(iso, device=d),
          (3, 2, 1, 0, -1)),
         ("isolated-ell", lambda d: ELLEngine(iso, device=d), (3, 2, 1, 0)),
+        ("k40-cap1-compact", lambda d: CompactFrontierEngine(
+            k40, max_window_planes=1, stages=((None, 0),), device=d),
+         (41, 40, 39, 32, 0)),
+        ("isolated-compact", lambda d: CompactFrontierEngine(
+            iso, stages=((None, 4), (4, 0)), device=d), (3, 2, 1, 0, -1)),
     ]
     rows = []
     for name, make, budgets in cases:
@@ -214,6 +395,15 @@ def _edge_cases(device) -> list[dict]:
             check((a.status, a.supersteps) == (b.status, b.supersteps)
                   and np.array_equal(a.colors, b.colors),
                   f"{name} at k={k} differs from its CPU run")
+        if hasattr(engines["cpu"], "sweep"):
+            engines = {d: make(d) for d in (device, "cpu")}
+            pairs = [engines[d].sweep(budgets[0]) for d in (device, "cpu")]
+            for a, b in zip(*pairs):
+                check((a is None) == (b is None) and (
+                    a is None or ((a.status, a.supersteps, a.k)
+                                  == (b.status, b.supersteps, b.k)
+                                  and np.array_equal(a.colors, b.colors))),
+                      f"{name}: sweep({budgets[0]}) differs from its CPU run")
         rows.append({"graph": name, "budgets": list(budgets),
                      "status": a.status.name})
     return rows
@@ -266,17 +456,31 @@ def _device_ms(fn, reps: int, name: str | None = None) -> float:
 
 
 class _TimedEngine:
-    """Host wall time of each ``attempt`` call of the wrapped engine."""
+    """Host wall time of each ``attempt`` call of the wrapped engine, and
+    the results it returned."""
 
     def __init__(self, engine):
         self.engine = engine
         self.seconds: list[float] = []
+        self.results: list = []
 
     def attempt(self, k: int):
         t = time.perf_counter()
         res = self.engine.attempt(k)
         self.seconds.append(time.perf_counter() - t)
+        self.results.append(res)
         return res
+
+
+class _TimedSweepEngine(_TimedEngine):
+    """The same for an engine with a fused ``sweep``: one time per pair."""
+
+    def sweep(self, k: int):
+        t = time.perf_counter()
+        pair = self.engine.sweep(k)
+        self.seconds.append(time.perf_counter() - t)
+        self.results += [r for r in pair if r is not None]
+        return pair
 
 
 def _engine_parts(engine, k: int):
@@ -383,17 +587,275 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
     }
 
 
+_COMPACT_KERNELS = ("compact_slots", "stage_rows", "segmented_superstep",
+                    "stage_finish")
+
+
+class _HeldCompactKernels:
+    """A test double over the compact engine's kernel wrappers
+    (``kernels.compact``). While installed, every call runs the plain
+    version on copies of what the kernel reads and moves, then the kernel
+    on the engine's own tensors, and keeps the largest difference. It also
+    keeps each stage's inputs for timing: a stage begins at a K3 call (a
+    compaction stage) or at a K5 call on another table or control block
+    than the open stage's (the full-table phase); an attempt begins at a
+    new control block. K5's and K6's inputs are those of the stage's first
+    superstep. The engine runs unchanged and its launches count as usual,
+    so it is installed only outside a run whose counts are read."""
+
+    def __init__(self):
+        from dgc_tpu_torch.kernels import compact as kc
+
+        self.kc = kc
+        self.real = {name: getattr(kc, name) for name in _COMPACT_KERNELS}
+        self.err = 0
+        self.calls = dict.fromkeys(_COMPACT_KERNELS, 0)
+        self.stages: list[dict] = []
+        self.attempts = 0
+        self._ctrl = None  # the open attempt's control block
+
+    def __enter__(self):
+        for name in _COMPACT_KERNELS:
+            setattr(self.kc, name, getattr(self, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.kc, name, fn)
+
+    def _held(self, *pairs) -> None:
+        for a, b in pairs:
+            self.err = max(self.err, _diff(a, b))
+
+    def _open(self, ctrl, pad, seg=None) -> dict:
+        if ctrl is not self._ctrl:
+            self._ctrl = ctrl
+            self.attempts += 1
+        c = ctrl.tolist()
+        self.stages.append({"attempt": self.attempts - 1, "pad": pad,
+                            "seg": seg, "steps": 0,
+                            "entry_step": c[self.kc.CTRL_STEP],
+                            "entry_active": c[self.kc.CTRL_PREV_ACTIVE]})
+        return self.stages[-1]
+
+    def compact_slots(self, ctrl, state, row0, pad):
+        self.calls["compact_slots"] += 1
+        stage = self._open(ctrl, pad)
+        c_p, s_p = ctrl.clone(), state.clone()
+        stage["k3"] = (c_p.clone(), s_p.clone(), row0, pad)
+        idx_p = self.kc.compact_slots_reference(c_p, s_p, row0, pad)
+        idx = self.real["compact_slots"](ctrl, state, row0, pad)
+        self._held((idx, idx_p), (state, s_p), (ctrl, c_p))
+        return idx
+
+    def stage_rows(self, flat_ext, idx, plan, desc, row0, v):
+        self.calls["stage_rows"] += 1
+        seg, gidx = self.real["stage_rows"](flat_ext, idx, plan, desc, row0, v)
+        seg_p, gidx_p = self.kc.stage_rows_reference(flat_ext, idx, plan,
+                                                     row0, v)
+        self._held((seg, seg_p), (gidx, gidx_p))
+        self.stages[-1].update(seg=seg, k4=(flat_ext, idx, plan, desc, row0, v))
+        return seg, gidx
+
+    def segmented_superstep(self, ctrl, state, seg, plan, desc, k, thresh,
+                            max_steps, gidx=None, row_base=0):
+        self.calls["segmented_superstep"] += 1
+        stage = self.stages[-1] if self.stages else None
+        if stage is None or stage["seg"] is not seg or ctrl is not self._ctrl:
+            stage = self._open(ctrl, None, seg)  # the full-table phase
+        c_p, s_p = ctrl.clone(), state.clone()
+        if self.kc.stage_live(ctrl.tolist(), thresh, max_steps):
+            stage["steps"] += 1
+            if "k5" not in stage:
+                stage["k5"] = (c_p.clone(), s_p.clone(), seg, plan, desc, k,
+                               thresh, max_steps, gidx, row_base)
+        self.kc.segmented_superstep_reference(c_p, s_p, seg, plan, k, thresh,
+                                              max_steps, gidx=gidx,
+                                              row_base=row_base)
+        self.real["segmented_superstep"](ctrl, state, seg, plan, desc, k,
+                                         thresh, max_steps, gidx=gidx,
+                                         row_base=row_base)
+        self._held((state, s_p), (ctrl, c_p))
+
+    def stage_finish(self, ctrl, state, ring, thresh, max_steps, stall_window,
+                     record):
+        self.calls["stage_finish"] += 1
+        stage = self.stages[-1]
+        c_p, s_p = ctrl.clone(), state.clone()
+        r_p = None if ring is None else (ring[0].clone(), ring[1].clone())
+        if "k6" not in stage and "k5" in stage:
+            stage["k6"] = (c_p.clone(), s_p.clone(), thresh, max_steps,
+                           stall_window)
+        self.kc.stage_finish_reference(c_p, s_p, r_p, thresh, max_steps,
+                                       stall_window, record)
+        self.real["stage_finish"](ctrl, state, ring, thresh, max_steps,
+                                  stall_window, record)
+        self._held((ctrl, c_p), (state, s_p),
+                   *(() if ring is None else zip(ring, r_p)))
+
+
+def _time_stage(stage: dict, v: int) -> dict:
+    """Time K3-K6 on one stage's kept inputs (K5 and K6 at its first
+    superstep), their plain versions and library calls, and compute the
+    bounds from this run's data."""
+    from dgc_tpu_torch.engine.bucketed import STALL_WINDOW
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.ops.segmented_gather import plan_rows
+    from dgc_tpu_torch.ops.speculative import NBR_MASK
+
+    rec = {key: stage[key] for key in ("pad", "steps", "entry_step",
+                                       "entry_active")}
+    if stage["pad"] is not None:
+        ctrl, state, row0, pad = stage["k3"]
+        flat, idx, plan, desc, row0, _ = stage["k4"]
+        pk = state[int(ctrl[kc.CTRL_CUR]), row0:v]
+        act = (pk < 0) | ((pk & 1) == 1)
+        rows = idx.to(torch.int64)
+        total = int(stage["seg"].numel())
+        # K3 reads V words, copies them, writes the slot list; K4 reads the
+        # slot list and the entries, writes them and the indices
+        k3_bytes = (2 * (v - row0) + pad) * 4
+        k4_bytes = (2 * pad + 2 * total) * 4
+        rec.update({
+            "ranges": [list(s_) for s_ in plan], "stage_entries": total,
+            "k3_ms": _device_ms(lambda: kc.compact_slots(ctrl, state, row0,
+                                                         pad),
+                                20, "compact_slots_kernel"),
+            "k3_plain_ms": _host_ms(lambda: kc.compact_slots_reference(
+                ctrl, state, row0, pad), 3),
+            "k3_library_ms": _device_ms(lambda: torch.nonzero(act), 20),
+            "k3_bound_ms": k3_bytes / HBM_BYTES_PER_S * 1e3,
+            "k3_bytes": k3_bytes,
+            "k4_ms": _device_ms(lambda: kc.stage_rows(
+                flat, idx, plan, desc, row0, v), 20, "stage_rows_kernel"),
+            "k4_plain_ms": _host_ms(lambda: kc.stage_rows_reference(
+                flat, idx, plan, row0, v), 3),
+            "k4_library_ms": _device_ms(lambda: torch.cat([
+                flat[rows[s_.row0: s_.row0 + s_.rows], : s_.width]
+                .reshape(-1) for s_ in plan]), 20),
+            "k4_bound_ms": k4_bytes / HBM_BYTES_PER_S * 1e3,
+            "k4_bytes": k4_bytes,
+        })
+    # K5 from its first superstep's inputs; repeated calls redo the same
+    # step (the predicate's slots do not move)
+    ctrl, state, seg, plan, desc, k, thresh, max_steps, gidx, row_base = \
+        stage["k5"]
+
+    def k5(fn=kc.segmented_superstep, with_desc=True):
+        extra = (desc,) if with_desc else ()
+        fn(ctrl, state, seg, plan, *extra, k, thresh, max_steps, gidx=gidx,
+           row_base=row_base)
+
+    ids = seg & NBR_MASK
+    real = ids != v
+    if gidx is None:
+        own = torch.arange(row_base, row_base + plan_rows(plan),
+                           dtype=torch.int32, device=seg.device)
+    else:
+        own = gidx[gidx != v + 1]
+    # the real entries of the evaluated rows; each state word the step
+    # reads (the union of the gathered ids and the rows' own) once; each
+    # row written once; the slot list
+    n_real = int(real.sum())
+    words = int(torch.unique(torch.cat([ids[real], own])).numel())
+    slots = 0 if gidx is None else int(gidx.numel())
+    k5_bytes = 4 * (n_real + words + int(own.numel()) + slots)
+    src = state[int(ctrl[kc.CTRL_CUR])]
+    ids64 = ids.to(torch.int64)
+    # K6 from the first superstep's counters: a push (a new mc best, the
+    # state copied into the ring) and a launch that does not record
+    counted, state6, thresh, max_steps, window = stage["k6"]
+    pushed = counted.clone()
+    pushed[kc.CTRL_REC_BEST] = -1
+    cc = pushed.clone()
+    ring = kc.new_ring(v, seg.device)
+    k6_push_bytes = 4 * (2 * (v + 2) + 2 * kc.CTRL_LEN + kc.META_COLS)
+    rec.update({
+        "k5_rows": int(own.numel()), "k5_entries": int(seg.numel()),
+        "k5_real_entries": n_real, "k5_state_words": words,
+        "k5_ms": _device_ms(k5, 20, "segmented_superstep_kernel"),
+        "k5_plain_ms": _host_ms(lambda: k5(
+            kc.segmented_superstep_reference, False), 3),
+        "k5_bound_ms": k5_bytes / HBM_BYTES_PER_S * 1e3,
+        "k5_bytes": k5_bytes,
+        "k5_gather_yardstick_ms": _device_ms(lambda: src[ids64], 20),
+        "k6_push_ms": _device_ms(lambda: (cc.copy_(pushed), kc.stage_finish(
+            cc, state6, ring, thresh, max_steps, window, True)), 20,
+            "stage_finish_kernel"),
+        "k6_ms": _device_ms(lambda: (cc.copy_(counted), kc.stage_finish(
+            cc, state6, None, thresh, max_steps, window, False)), 20,
+            "stage_finish_kernel"),
+        "k6_plain_ms": _host_ms(lambda: (cc.copy_(pushed),
+                                         kc.stage_finish_reference(
+            cc, state6, ring, thresh, max_steps, window, True)), 5),
+        "k6_push_bound_ms": k6_push_bytes / HBM_BYTES_PER_S * 1e3,
+        "k6_bound_ms": 4 * 2 * kc.CTRL_LEN / HBM_BYTES_PER_S * 1e3,
+        "k6_push_bytes": k6_push_bytes,
+    })
+    check(window == STALL_WINDOW, f"K6 ran with stall window {window}")
+    return rec
+
+
+def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
+    """Run ``engine.sweep(k)`` — the main path's first engine call — with
+    every K3-K6 call held against its plain version; its attempts must
+    equal ``swept``'s first ones. Then time K3-K6 on the first attempt's
+    stage inputs, and time one attempt and one sweep unwrapped."""
+    from dgc_tpu_torch.kernels import compact as kc
+
+    v = engine.num_vertices
+    with _HeldCompactKernels() as held:
+        pair = engine.sweep(k)
+    rows = [(a.k, int(a.status), a.supersteps, a.colors_used)
+            for a in pair if a is not None]
+    check(rows == swept[:len(rows)], f"the held sweep({k}) gave {rows}, the "
+                                     f"main path {swept[:len(rows)]}")
+    check(held.err == 0, f"K3-K6 disagree with their plain versions at the "
+                         f"main path's shapes: max abs err {held.err}")
+    stages = [_time_stage(s_, v) for s_ in held.stages if s_["attempt"] == 0]
+    # one attempt and one sweep: host wall clock against device busy time
+    timings = {}
+    for name, fn in (("attempt", lambda: engine.attempt(k)),
+                     ("sweep", lambda: engine.sweep(k))):
+        engine.host_syncs = 0
+        kc.reset_launch_counts()
+        t = time.perf_counter()
+        fn()
+        timings[f"{name}_wall_ms"] = (time.perf_counter() - t) * 1e3
+        timings[f"{name}_host_syncs"] = engine.host_syncs
+        timings[f"{name}_launches"] = dict(kc.launch_counts)
+        timings[f"{name}_device_busy_ms"] = _device_ms(fn, reps=1)
+    # the stage ladder alone: no copy of the colors home, no decode
+    t = time.perf_counter()
+    engine._run(k)
+    torch.cuda.synchronize()
+    timings["ladder_wall_ms"] = (time.perf_counter() - t) * 1e3
+    full = stages[0]
+    first_stage = next(r for r in stages if r["pad"] is not None)
+    return {"stages": stages, "held_calls": held.calls,
+            "max_abs_err": held.err, "attempt_k": k,
+            "k3_ms": first_stage["k3_ms"], "k4_ms": first_stage["k4_ms"],
+            "k5_ms": full["k5_ms"], "k6_ms": full["k6_push_ms"], **timings}
+
+
 def phase_main_path(card: str, out_dir: Path) -> list[dict]:
+    """The CLI's calls for each backend, ``ell-compact`` (the default)
+    first; its attempts and swept colors must equal ``ell-bucketed``'s."""
     from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import compact as kc
     from dgc_tpu_torch.kernels import superstep as ks
     from dgc_tpu_torch.ops.validate import validate_coloring
 
     args = cli.build_parser().parse_args(
         MAIN_ARGS + ["--output-coloring", str(out_dir / "coloring.json")])
+    check(args.backend == "ell-compact", f"the CLI default is {args.backend}")
     t = time.perf_counter()
     graph = cli.load_graph(args)
     gen_s = time.perf_counter() - t
     records = []
+    swept = {}
+    own = {"ell-compact": kc.launch_counts, "ell-bucketed": ks.launch_counts,
+           "ell": ks.launch_counts}
     for backend in cli.BACKENDS:
         args.backend = backend
         t = time.perf_counter()
@@ -402,25 +864,32 @@ def phase_main_path(card: str, out_dir: Path) -> list[dict]:
         build_s = time.perf_counter() - t
         torch.cuda.reset_peak_memory_stats()
         ks.reset_launch_counts()
+        kc.reset_launch_counts()
         engine.host_syncs = 0
-        timed = _TimedEngine(engine)
+        timed = (_TimedSweepEngine if hasattr(engine, "sweep")
+                 else _TimedEngine)(engine)
         result = cli.sweep(args, graph, timed)
         torch.cuda.synchronize()
-        launches = dict(ks.launch_counts)
+        launches = {**ks.launch_counts, **kc.launch_counts}
         syncs_per_attempt = engine.host_syncs / len(result.attempts)
         peak_bytes = torch.cuda.max_memory_allocated()
         check(result.colors is not None, f"{backend}: no coloring")
         val = validate_coloring(graph.arrays.indptr, graph.arrays.indices,
                                 result.colors)
         check(val.valid, f"{backend}: invalid coloring {val}")
-        check(launches["superstep_rows"] > 0 and launches["superstep_finish"] > 0,
-              f"{backend}: the sweep launched no kernel: {launches}")
+        check(all(n > 0 for n in own[backend].values()),
+              f"{backend}: the sweep skipped a kernel of its path: {launches}")
         graph.save_coloring(args.output_coloring, result.colors)
         check(np.array_equal(graph.load_coloring(args.output_coloring),
                              result.colors), f"{backend}: coloring JSON")
+        best = [r for r in timed.results if r.success][-1]
+        swept[backend] = (_attempt_rows(result), best.colors)
         sweep_s = result.wall_time_s - result.post_reduce_s
-        meas = measure_kernels(engine, graph.initial_k(),
-                               graph.arrays.num_directed_edges)
+        if backend == "ell-compact":
+            meas = measure_compact(engine, graph.initial_k(), swept[backend][0])
+        else:
+            meas = measure_kernels(engine, graph.initial_k(),
+                                   graph.arrays.num_directed_edges)
         rec = {
             "phase": "main_path", "backend": backend,
             "vertices": graph.num_vertices,
@@ -439,8 +908,15 @@ def phase_main_path(card: str, out_dir: Path) -> list[dict]:
             "max_memory_allocated": peak_bytes,
             "card": card, **meas,
         }
+        if backend == "ell-compact":
+            rec["stage_ladder"] = [list(s_) for s_ in engine.stages]
+            rec["confirm_resumed_from_step"] = engine.resumed_from_step
         emit(rec)
         records.append(rec)
+        del engine, timed
+    a, b = swept["ell-compact"], swept["ell-bucketed"]
+    check(a[0] == b[0] and np.array_equal(a[1], b[1]),
+          f"ell-compact's sweep differs from ell-bucketed's: {a[0]} vs {b[0]}")
     return records
 
 
@@ -455,15 +931,18 @@ def main() -> int:
         return 1
     card = card_line()
     t = time.perf_counter()
-    for source in sorted(p.name for p in build.CSRC.glob("*.cu")):
-        build.build(source)
+    sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
+        list(pool.map(build.build, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "nvcc": {k: v.strip().splitlines()[-8:]
                    for k, v in build.build_log.items()}})
 
     t = time.perf_counter()
     kernel_err = phase_kernels("cuda")
-    emit({"phase": "kernels_vs_plain", "max_abs_err": kernel_err,
+    compact_err = phase_compact_kernels("cuda")
+    emit({"phase": "kernels_vs_plain", "max_abs_err": max(kernel_err,
+                                                           compact_err),
           "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
@@ -472,29 +951,60 @@ def main() -> int:
           "seconds": time.perf_counter() - t})
 
     with tempfile.TemporaryDirectory() as out_dir:
-        main_runs = phase_main_path(card, Path(out_dir))
-    bucketed = main_runs[0]
+        main_runs = {r["backend"]: r for r in phase_main_path(card, Path(out_dir))}
+    compact, bucketed = main_runs["ell-compact"], main_runs["ell-bucketed"]
     print(card)
-    source = "dgc_tpu_torch/csrc/superstep.cu"
+    k1k2 = "dgc_tpu_torch/csrc/superstep.cu"
+    k3k6 = "dgc_tpu_torch/csrc/compact.cu"
+    full = compact["stages"][0]
+    first = next(r for r in compact["stages"] if r["pad"] is not None)
+    compact_err = max(compact_err, compact["max_abs_err"])
+
+    def by_backend(name):
+        return {b: r["launches"][name] for b, r in main_runs.items()}
+
     emit({"kernels": [
-        {"name": "superstep_rows", "route": "cuda", "source": source,
+        {"name": "superstep_rows", "route": "cuda", "source": k1k2,
          "replaces": "dgc_tpu/ops/speculative.py:124",
          "launches": bucketed["launches"]["superstep_rows"],
-         "launches_by_backend": {r["backend"]: r["launches"]["superstep_rows"]
-                                 for r in main_runs},
-         "max_abs_err": max([kernel_err] + [r["max_abs_err"] for r in main_runs]),
+         "launches_by_backend": by_backend("superstep_rows"),
+         "max_abs_err": max([kernel_err] + [r["max_abs_err"] for b, r in
+                                            main_runs.items() if b != "ell-compact"]),
          "ms": bucketed["k1_ms"], "plain_ms": bucketed["k1_plain_ms"],
          "bound_ms": bucketed["k1_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
-        {"name": "superstep_finish", "route": "cuda", "source": source,
+        {"name": "superstep_finish", "route": "cuda", "source": k1k2,
          "replaces": "dgc_tpu/engine/bucketed.py:273",
          "launches": bucketed["launches"]["superstep_finish"],
-         "launches_by_backend": {r["backend"]: r["launches"]["superstep_finish"]
-                                 for r in main_runs},
+         "launches_by_backend": by_backend("superstep_finish"),
          "max_abs_err": kernel_err,
          "ms": bucketed["k2_ms"], "plain_ms": bucketed["k2_plain_ms"],
          "bound_ms": bucketed["k2_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "compact_slots", "route": "cuda", "source": k3k6,
+         "replaces": "dgc_tpu/engine/compact.py:288",
+         "launches": compact["launches"]["compact_slots"],
+         "max_abs_err": compact_err, "ms": first["k3_ms"],
+         "plain_ms": first["k3_plain_ms"], "bound_ms": first["k3_bound_ms"],
+         "bound_by": "bytes", "library_ms": first["k3_library_ms"]},
+        {"name": "stage_rows", "route": "cuda", "source": k3k6,
+         "replaces": "dgc_tpu/engine/compact.py:1526",
+         "launches": compact["launches"]["stage_rows"],
+         "max_abs_err": compact_err, "ms": first["k4_ms"],
+         "plain_ms": first["k4_plain_ms"], "bound_ms": first["k4_bound_ms"],
+         "bound_by": "bytes", "library_ms": first["k4_library_ms"]},
+        {"name": "segmented_superstep", "route": "cuda", "source": k3k6,
+         "replaces": "dgc_tpu/ops/segmented_gather.py:237",
+         "launches": compact["launches"]["segmented_superstep"],
+         "max_abs_err": compact_err, "ms": full["k5_ms"],
+         "plain_ms": full["k5_plain_ms"], "bound_ms": full["k5_bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "stage_finish", "route": "cuda", "source": k3k6,
+         "replaces": "dgc_tpu/engine/compact.py:1048",
+         "launches": compact["launches"]["stage_finish"],
+         "max_abs_err": compact_err, "ms": full["k6_push_ms"],
+         "plain_ms": full["k6_plain_ms"], "bound_ms": full["k6_push_bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,11 @@ coloring is the last *valid* one. Adds the engine (``--backend``) and the
 device (``--device``, default ``cuda``).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
-        --output-coloring colors.json [--backend ell] [--device cpu]
+        --output-coloring colors.json [--backend ell-compact] [--device cpu]
 
 Exit codes: 0 success, 1 no valid coloring, 2 usage or load error (a
-missing card for ``--device cuda`` included).
+missing card for ``--device cuda`` and a graph with a hub region under
+``--backend ell-compact`` included).
 """
 
 from __future__ import annotations
@@ -25,14 +26,14 @@ from dgc_tpu_torch.engine.minimal_k import (MinimalColoringResult,
                                             make_reducer, make_validator)
 from dgc_tpu_torch.models.graph import Graph
 
-BACKENDS = ("ell-bucketed", "ell")
+BACKENDS = ("ell-compact", "ell-bucketed", "ell")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dgc-tpu-torch",
         description="Minimal graph coloring on an NVIDIA GPU (PyTorch port "
-                    "of dgc_tpu, hand-written CUDA superstep kernel).",
+                    "of dgc_tpu, hand-written CUDA kernels).",
     )
     p.add_argument("--input", type=str, default=None,
                    help="input graph JSON (reference schema)")
@@ -49,9 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="reference",
                    help="random generator: reference semantics, vectorized "
                         "large-V, or RMAT")
-    p.add_argument("--backend", choices=list(BACKENDS), default="ell-bucketed",
-                   help="coloring engine (default: ell-bucketed, until the "
-                        "port's ell-compact engine lands)")
+    p.add_argument("--backend", choices=list(BACKENDS), default="ell-compact",
+                   help="coloring engine (default: ell-compact, the staged "
+                        "frontier-compacted engine; graphs with a hub region "
+                        "are not ported yet)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the engine runs (default: cuda; cpu runs the "
                         "plain PyTorch versions of the kernels)")
@@ -82,10 +84,16 @@ def load_graph(args) -> Graph:
 
 
 def make_engine(args, graph: Graph):
+    """The engine ``--backend`` names. ``ell-compact`` raises
+    ``NotImplementedError`` for a graph with a hub region."""
     if args.backend == "ell":
         from dgc_tpu_torch.engine.superstep import ELLEngine
 
         return ELLEngine(graph.arrays, device=args.device)
+    if args.backend == "ell-compact":
+        from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+
+        return CompactFrontierEngine(graph.arrays, device=args.device)
     from dgc_tpu_torch.engine.bucketed import BucketedELLEngine
 
     return BucketedELLEngine(graph.arrays, device=args.device)
@@ -131,7 +139,13 @@ def main(argv: list[str] | None = None) -> int:
     except (OSError, ValueError, KeyError) as e:
         print(f"Failed to load graph from {args.input}: {e}", file=sys.stderr)
         return 2
-    result = sweep(args, graph, make_engine(args, graph))
+    try:
+        engine = make_engine(args, graph)
+    except NotImplementedError as e:  # a layout the port cannot run yet
+        print(f"Cannot run --backend {args.backend} on this graph: {e}\n"
+              f"--backend ell-bucketed colors it.", file=sys.stderr)
+        return 2
+    result = sweep(args, graph, engine)
     total_s = time.perf_counter() - t_start
     if result.colors is None:
         print("No valid coloring found", file=sys.stderr)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from dgc_tpu_torch.engine.bucketed import MAX_WINDOW_PLANES, BucketedELLEngine
+from dgc_tpu_torch.engine.compact import CompactFrontierEngine
 from dgc_tpu_torch.engine.superstep import ELLEngine
 from dgc_tpu_torch.models.arrays import GraphArrays
 
@@ -41,4 +42,27 @@ def bucketed_engine_from_tables(perm, degrees, combined_list, planes,
     eng._setup(np.asarray(perm), np.asarray(degrees, np.int32),
                [int(r) for r in row0s], combined_list, tuple(planes),
                max_window_planes, device)
+    return eng
+
+
+def compact_engine_from_tables(perm, degrees, combined_list, planes,
+                               flat_ext, stages, stage_ranges,
+                               hub_buckets: int = 0,
+                               max_window_planes: int = MAX_WINDOW_PLANES,
+                               max_steps: int | None = None,
+                               device="cuda") -> CompactFrontierEngine:
+    """``CompactFrontierEngine.perm``, ``.degrees``, ``.combined_buckets``,
+    ``.planes`` (with its window cap), ``.flat_ext`` (None without
+    compaction stages), ``.stages``, ``.stage_ranges``, ``.hub_buckets``
+    and ``.max_steps`` → the port's ``CompactFrontierEngine``. A layout
+    with hub buckets raises ``NotImplementedError``."""
+    combined_list = [np.asarray(cb) for cb in combined_list]
+    row0s = np.cumsum([0] + [len(cb) for cb in combined_list[:-1]])
+    eng = CompactFrontierEngine.__new__(CompactFrontierEngine)
+    eng._setup(np.asarray(perm), np.asarray(degrees, np.int32),
+               [int(r) for r in row0s], combined_list, tuple(planes),
+               max_window_planes, device, max_steps=max_steps,
+               stages=tuple(stages), stage_ranges=tuple(stage_ranges),
+               hub_buckets=int(hub_buckets),
+               flat_ext=None if flat_ext is None else np.asarray(flat_ext))
     return eng

@@ -1,0 +1,160 @@
+// What the superstep kernels share: the speculative rule for one row, used
+// by K1 (superstep.cu) and K5 (compact.cu), and the loop-control fold of
+// one superstep, used by K2 (superstep.cu) and K6 (compact.cu).
+//
+// The rule is the port of dgc_tpu/ops/speculative.py:40 neighbor_stats and
+// :67 apply_update_mc over dgc_tpu/ops/bitmask.py:28 plane_masks, :37
+// forbidden_planes and :75 first_fit, for one row of a combined table
+// (neighbor id | beats bit 30) gathered from the state buffer `src`.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace dgc {
+
+// The control block's first eight slots (CTRL_* in kernels/superstep.py):
+// the attempt's loop carry and this superstep's counters. The compact
+// engine's block appends its ring and block-counter slots after them.
+constexpr int kStatus = 0;
+constexpr int kStep = 1;
+constexpr int kPrevActive = 2;
+constexpr int kStall = 3;
+constexpr int kCur = 4;
+constexpr int kFail = 5;
+constexpr int kActive = 6;
+constexpr int kMc = 7;
+
+constexpr int kRunning = 0;
+constexpr int kSuccess = 1;
+constexpr int kFailure = 2;
+constexpr int kStalled = 3;
+
+constexpr int kBeatsBit = 30;
+constexpr int kNbrMask = (1 << kBeatsBit) - 1;
+constexpr int kDivergeBig = 1 << 30;
+
+// Bit b of plane p is set iff color 32p+b < k. A shift by 32 is undefined
+// for a 32-bit word, so a full plane is special-cased (bitmask.py:31-34).
+__device__ __forceinline__ uint32_t plane_mask(int k, int p) {
+  const long long nbits = static_cast<long long>(k) - 32LL * p;
+  if (nbits >= 32) return 0xFFFFFFFFu;
+  if (nbits <= 0) return 0u;
+  return (1u << static_cast<uint32_t>(nbits)) - 1u;
+}
+
+struct RowResult {
+  int next;     // the row's new packed word
+  bool fail;    // needs a color and its confirmed set covers [0, k)
+  bool active;  // uncolored or fresh after the step
+  int mc;       // divergence candidate: -1, the candidate, or kDivergeBig
+};
+
+// The rule for a row whose packed word is `me`, over the `width` entries
+// at `row`, with a window of `planes` planes. PB planes are held in
+// registers at a time; a wider window is scanned in groups of PB,
+// re-reading the row for each group.
+template <int PB>
+__device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
+                                              const int* __restrict__ row,
+                                              int width, int planes, int k,
+                                              int me) {
+  const int mycol = me >> 1;  // arithmetic: -1 stays -1
+  bool clash = false;
+  bool found = false;     // a color under k is free of every neighbor
+  int cand = k;           // first-fit over all colored neighbors
+  bool old_free = false;  // a color under k is free of confirmed ones
+  const int groups = (planes + PB - 1) / PB;
+  for (int g = 0; g < groups; ++g) {
+    const int base = g * PB;
+    uint32_t fa[PB];
+    uint32_t fo[PB];
+#pragma unroll
+    for (int p = 0; p < PB; ++p) {
+      fa[p] = 0u;
+      fo[p] = 0u;
+    }
+    for (int j = 0; j < width; ++j) {
+      const int e = row[j];
+      const int word = src[e & kNbrMask];
+      if (word < 0) continue;  // uncolored neighbor or pad sentinel
+      const int c = word >> 1;
+      const bool fresh = (word & 1) != 0;
+      if (g == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) {
+        clash = true;
+      }
+      const int w = (c >> 5) - base;
+      const uint32_t bit = 1u << (c & 31);
+#pragma unroll
+      for (int p = 0; p < PB; ++p) {
+        if (p == w) {
+          fa[p] |= bit;
+          if (!fresh) fo[p] |= bit;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PB; ++p) {
+      const int pg = base + p;
+      const uint32_t m = pg < planes ? plane_mask(k, pg) : 0u;
+      const uint32_t free_all = ~fa[p] & m;
+      if (!found && free_all != 0u) {
+        found = true;
+        cand = 32 * pg + __ffs(free_all) - 1;
+      }
+      if ((~fo[p] & m) != 0u) old_free = true;
+    }
+  }
+  const bool myfresh = me >= 0 && (me & 1) != 0;
+  const bool demote = myfresh && clash;
+  const bool needs = me < 0 || demote;
+  RowResult r;
+  if (needs && found) {
+    r.next = cand * 2 + 1;  // speculative (fresh)
+  } else if (demote) {
+    r.next = -1;            // could not re-pick this round
+  } else if (myfresh) {
+    r.next = mycol * 2;     // confirm fresh -> old
+  } else {
+    r.next = me;
+  }
+  r.fail = needs && !old_free;
+  r.active = r.next < 0 || (r.next & 1) != 0;
+  r.mc = needs ? (found ? cand : kDivergeBig) : -1;
+  return r;
+}
+
+// Fold this superstep's counters into the loop carry, on one thread, for
+// an attempt still RUNNING. FAILURE > SUCCESS > STALLED > RUNNING
+// (dgc_tpu/engine/bucketed.py:193 status_step); a step is STALLED after
+// `stall_window` steps without fewer active rows, or when step+1 reaches
+// `max_steps` (the ELL rule; the compact engine tests max_steps before a
+// step instead and passes INT_MAX). Flips `cur` unless the step failed, so
+// a failed step leaves the pre-step state current, and clears the counters.
+__device__ __forceinline__ void finish_step(int* ctrl, int max_steps,
+                                            int stall_window) {
+  const int step = ctrl[kStep];
+  const int active = ctrl[kActive];
+  const bool any_fail = ctrl[kFail] > 0;
+  const int stall = active < ctrl[kPrevActive] ? 0 : ctrl[kStall] + 1;
+  int status = kRunning;
+  if (any_fail) {
+    status = kFailure;
+  } else if (active == 0) {
+    status = kSuccess;
+  } else if (stall >= stall_window || step + 1 >= max_steps) {
+    status = kStalled;
+  }
+  if (!any_fail) ctrl[kCur] ^= 1;
+  ctrl[kStatus] = status;
+  ctrl[kStep] = step + 1;
+  ctrl[kPrevActive] = active;
+  ctrl[kStall] = stall;
+  ctrl[kFail] = 0;
+  ctrl[kActive] = 0;
+  ctrl[kMc] = -1;
+}
+
+}  // namespace dgc

@@ -16,8 +16,8 @@
 //
 // State. Two int32[V+1] buffers of packed words (color*2 + fresh, -1 for
 // uncolored); slot V of both holds -1 for good, so the pad sentinel needs
-// no per-step concatenation. A control block int32[8] (the CTRL_* slots
-// below) holds the attempt's loop carry and this superstep's counters. K1
+// no per-step concatenation. A control block int32[8] (the slots in
+// rule.cuh) holds the attempt's loop carry and this superstep's counters. K1
 // reads buffer `cur` and writes the other one, for every bucket of the
 // superstep (BSP: every row reads the pre-step state); K2 flips `cur`
 // only when the step did not fail, so a failed step leaves the pre-step
@@ -41,39 +41,16 @@
 
 #include <cstdint>
 
+#include "rule.cuh"
+
 namespace {
 
-constexpr int kStatus = 0;
-constexpr int kStep = 1;
-constexpr int kPrevActive = 2;
-constexpr int kStall = 3;
-constexpr int kCur = 4;
-constexpr int kFail = 5;
-constexpr int kActive = 6;
-constexpr int kMc = 7;
+using namespace dgc;  // the control block's slots and statuses
 
-constexpr int kRunning = 0;
-constexpr int kSuccess = 1;
-constexpr int kFailure = 2;
-constexpr int kStalled = 3;
-
-constexpr int kBeatsBit = 30;
-constexpr int kNbrMask = (1 << kBeatsBit) - 1;
-constexpr int kDivergeBig = 1 << 30;
 constexpr int kThreads = 256;
 
-// Bit b of plane p is set iff color 32p+b < k. A shift by 32 is undefined
-// for a 32-bit word, so a full plane is special-cased (bitmask.py:31-34).
-__device__ __forceinline__ uint32_t plane_mask(int k, int p) {
-  const long long nbits = static_cast<long long>(k) - 32LL * p;
-  if (nbits >= 32) return 0xFFFFFFFFu;
-  if (nbits <= 0) return 0u;
-  return (1u << static_cast<uint32_t>(nbits)) - 1u;
-}
-
-// One thread per table row. PB planes are held in registers at a time; a
-// window wider than PB planes (only a widened hub window above 32 planes)
-// is scanned in groups of PB, re-reading the row for each group.
+// One thread per table row; the rule itself is dgc::row_rule (rule.cuh),
+// PB planes in registers at a time.
 template <int PB>
 __global__ void __launch_bounds__(kThreads)
 superstep_rows_kernel(int* ctrl, int* state, size_t stride,
@@ -92,71 +69,13 @@ superstep_rows_kernel(int* ctrl, int* state, size_t stride,
   int mc = -1;
   if (r < rows) {
     const int v = row0 + r;
-    const int me = src[v];
-    const int mycol = me >> 1;  // arithmetic: -1 stays -1
     const int* __restrict__ row = table + static_cast<size_t>(r) * width;
-    bool clash = false;
-    bool found = false;     // a color under k is free of every neighbor
-    int cand = k;           // first-fit over all colored neighbors
-    bool old_free = false;  // a color under k is free of confirmed ones
-    const int groups = (planes + PB - 1) / PB;
-    for (int g = 0; g < groups; ++g) {
-      const int base = g * PB;
-      uint32_t fa[PB];
-      uint32_t fo[PB];
-#pragma unroll
-      for (int p = 0; p < PB; ++p) {
-        fa[p] = 0u;
-        fo[p] = 0u;
-      }
-      for (int j = 0; j < width; ++j) {
-        const int e = row[j];
-        const int word = src[e & kNbrMask];
-        if (word < 0) continue;  // uncolored neighbor or pad sentinel
-        const int c = word >> 1;
-        const bool fresh = (word & 1) != 0;
-        if (g == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) {
-          clash = true;
-        }
-        const int w = (c >> 5) - base;
-        const uint32_t bit = 1u << (c & 31);
-#pragma unroll
-        for (int p = 0; p < PB; ++p) {
-          if (p == w) {
-            fa[p] |= bit;
-            if (!fresh) fo[p] |= bit;
-          }
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < PB; ++p) {
-        const int pg = base + p;
-        const uint32_t m = pg < planes ? plane_mask(k, pg) : 0u;
-        const uint32_t free_all = ~fa[p] & m;
-        if (!found && free_all != 0u) {
-          found = true;
-          cand = 32 * pg + __ffs(free_all) - 1;
-        }
-        if ((~fo[p] & m) != 0u) old_free = true;
-      }
-    }
-    const bool myfresh = me >= 0 && (me & 1) != 0;
-    const bool demote = myfresh && clash;
-    const bool needs = me < 0 || demote;
-    int next;
-    if (needs && found) {
-      next = cand * 2 + 1;  // speculative (fresh)
-    } else if (demote) {
-      next = -1;            // could not re-pick this round
-    } else if (myfresh) {
-      next = mycol * 2;     // confirm fresh -> old
-    } else {
-      next = me;
-    }
-    dst[v] = next;
-    fail = needs && !old_free;
-    active = next < 0 || (next & 1) != 0;
-    mc = needs ? (found ? cand : kDivergeBig) : -1;
+    const dgc::RowResult res =
+        dgc::row_rule<PB>(src, row, width, planes, k, src[v]);
+    dst[v] = res.next;
+    fail = res.fail;
+    active = res.active;
+    mc = res.mc;
   }
 
   // one atomic per block and counter
@@ -176,33 +95,12 @@ superstep_rows_kernel(int* ctrl, int* state, size_t stride,
   }
 }
 
-// One thread: fold this superstep's counters into the loop carry.
-// FAILURE > SUCCESS > STALLED > RUNNING (bucketed.py:193 status_step); a
-// step is STALLED after `stall_window` steps without fewer active rows
-// (the bucketed rule) or when step+1 reaches `max_steps` (the ELL rule).
+// One thread: fold this superstep's counters into the loop carry
+// (dgc::finish_step: the status order, both stall rules, the flip).
 __global__ void superstep_finish_kernel(int* ctrl, int max_steps,
                                         int stall_window) {
   if (ctrl[kStatus] != kRunning) return;
-  const int step = ctrl[kStep];
-  const int active = ctrl[kActive];
-  const bool any_fail = ctrl[kFail] > 0;
-  const int stall = active < ctrl[kPrevActive] ? 0 : ctrl[kStall] + 1;
-  int status = kRunning;
-  if (any_fail) {
-    status = kFailure;
-  } else if (active == 0) {
-    status = kSuccess;
-  } else if (stall >= stall_window || step + 1 >= max_steps) {
-    status = kStalled;
-  }
-  if (!any_fail) ctrl[kCur] ^= 1;  // on failure keep the pre-step state
-  ctrl[kStatus] = status;
-  ctrl[kStep] = step + 1;
-  ctrl[kPrevActive] = active;
-  ctrl[kStall] = stall;
-  ctrl[kFail] = 0;
-  ctrl[kActive] = 0;
-  ctrl[kMc] = -1;
+  finish_step(ctrl, max_steps, stall_window);
 }
 
 template <int PB>

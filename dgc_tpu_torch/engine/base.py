@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 
@@ -62,3 +63,27 @@ def empty_budget_failure(num_vertices: int, k: int) -> AttemptResult:
     return AttemptResult(
         AttemptStatus.FAILURE, np.full(num_vertices, -1, np.int32), 0, int(k)
     )
+
+
+def finish_sweep_pair(
+    first: AttemptResult,
+    used: int,
+    status2,
+    finish_second: Callable[[int], AttemptResult],
+    num_vertices: int,
+    attempt: Callable[[int], AttemptResult],
+) -> tuple[AttemptResult, AttemptResult | None]:
+    """Host epilogue of a fused ``sweep()`` (port of
+    ``dgc_tpu.engine.fused.finish_sweep_pair``): no confirm after a
+    non-success first attempt; ``k2 < 1`` is the empty-budget FAILURE; a
+    STALLED confirm falls back to ``attempt(k2)``, which owns the
+    widen-and-retry loop; otherwise ``finish_second(k2)`` materializes the
+    confirm attempt's result."""
+    if first.status != AttemptStatus.SUCCESS:
+        return first, None
+    k2 = int(used) - 1
+    if k2 < 1:
+        return first, empty_budget_failure(num_vertices, k2)
+    if AttemptStatus(int(status2)) == AttemptStatus.STALLED:
+        return first, attempt(k2)
+    return first, finish_second(k2)

@@ -160,13 +160,14 @@ class BucketedELLEngine:
     """Degree-sorted, width-bucketed speculative engine (single device)."""
 
     def __init__(self, arrays: GraphArrays,
-                 max_window_planes: int = MAX_WINDOW_PLANES, device="cuda"):
+                 max_window_planes: int = MAX_WINDOW_PLANES, device="cuda",
+                 max_steps: int | None = None):
         b = build_degree_buckets(arrays)
         self._setup(b.perm, b.degrees, b.row0, b.combined, None,
-                    max_window_planes, device)
+                    max_window_planes, device, max_steps=max_steps)
 
     def _setup(self, perm, degrees, row0s, combined_list, planes,
-               max_window_planes, device):
+               max_window_planes, device, max_steps=None):
         # also the build from given tables (convert.bucketed_engine_from_tables)
         self.device = resolve_device(device)
         v = len(perm)
@@ -180,7 +181,7 @@ class BucketedELLEngine:
         self.planes = (tuple(planes) if planes is not None else
                        bucket_planes(self.combined_buckets, max_planes=max_window_planes))
         self.degrees = torch.from_numpy(np.array(degrees, np.int32)).to(self.device)
-        self.max_steps = 2 * v + 4
+        self.max_steps = max_steps if max_steps is not None else 2 * v + 4
         self.host_syncs = 0
 
     def _maybe_widen_windows(self) -> bool:

@@ -1,0 +1,527 @@
+"""Frontier-compacted engine (port of ``dgc_tpu.engine.compact``), for
+bucket layouts without a hub region.
+
+The superstep is gather-bound, and most rows go inert (confirmed, with
+confirmed neighbors) long before an attempt ends, so the engine runs the
+update rule over fewer rows as the frontier (uncolored ∪ fresh) shrinks:
+
+1. **Full-table phase**: every bucket in one segmented superstep (K5 over
+   the plan of all buckets, each at its own color window) while the
+   frontier exceeds the first threshold.
+2. **Compaction stages** at static thresholds: at stage entry the active
+   rows are compacted, in relabeled order, into a slot list padded to
+   ``pow2(scale)`` (K3), their rows of the flat ``[V+1, W_flat]`` combined
+   table are gathered once into the stage's flat layout, each width range
+   clipped to its own width (K4), and the stage's supersteps run K5 over
+   those slots only.
+
+Compaction is exact: a confirmed vertex never becomes active again, so
+every row that can change is in the slot list; colors, supersteps and
+statuses equal ``BucketedELLEngine``'s and the JAX engine's.
+
+``sweep`` is the fused jump-mode pair: attempt k0 records the pre-state of
+every superstep that sets a new divergence candidate (``mc``) record into a
+ring of four (K6), and the confirm attempt at ``used − 1`` resumes from the
+entry whose ``(best, mc]`` bracket contains the budget — the run at that
+budget is identical up to that step — or starts over on a miss. Its step
+counter continues from the entry, so its result equals a scratch run.
+
+The host drives the schedule: per stage it launches K3 and K4, then
+enqueues chunks of ``STAGE_CHUNK`` supersteps (K5 + K6 each) and syncs once
+per chunk. The hub region (buckets wider than ``flat_cap``, JAX
+``_hub_dispatch`` and ``_unified_pipeline``) is not ported: such a layout
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dgc_tpu_torch.engine.base import (AttemptResult, AttemptStatus,
+                                       finish_sweep_pair)
+from dgc_tpu_torch.engine.bucketed import (MAX_WINDOW_PLANES, STALL_WINDOW,
+                                           BucketedELLEngine,
+                                           build_combined_rows,
+                                           build_degree_buckets)
+from dgc_tpu_torch.kernels import compact as kc
+from dgc_tpu_torch.models.arrays import GraphArrays
+from dgc_tpu_torch.ops.bitmask import num_planes_for
+from dgc_tpu_torch.ops.segmented_gather import plan_from_parts, plan_from_ranges
+
+_RUNNING = int(AttemptStatus.RUNNING)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def default_stages(v: int, heavy_tail: bool = False) -> tuple:
+    """((scale, run_down_to_threshold), ...); scale None = full-table
+    phase. A compaction stage's pad is ``pow2(scale)`` rows. Below 2^14
+    vertices there is no compaction at all; bounded-degree graphs get the
+    v/4 → v/16 → v/256 ladder, heavy-tailed ones two more rungs."""
+    if v <= 1 << 14:
+        return ((None, 0),)
+    if not heavy_tail:
+        return (
+            (None, v // 4),
+            (v // 4, v // 16),
+            (v // 16, v // 256),
+            (v // 256, 0),
+        )
+    return (
+        (None, v // 4),
+        (v // 4, v // 16),
+        (v // 16, v // 64),
+        (v // 64, v // 256),
+        (v // 256, v // 1024),
+        (v // 1024, 0),
+    )
+
+
+def stage_slot_ranges(flat_sizes, flat_widths, a_pad: int,
+                      max_ranges: int = 6,
+                      coalesce_pct: int = 10) -> tuple:
+    """Static width ranges ``((start, stop, width, planes), …)`` covering a
+    compaction stage's padded slot list ``[0, a_pad)``.
+
+    Slots fill in degree-descending relabeled order, so the row at slot i
+    belongs to a bucket at least as narrow as the one whose cumulative
+    size first covers i; each range keeps that width. Adjacent ranges
+    merge (taking the wider width) while the volume overhead stays under
+    ``coalesce_pct``, then down to ``max_ranges`` (cheapest merges first).
+    Planes are uncapped (``num_planes_for(w + 1)``)."""
+    if max_ranges < 1:
+        raise ValueError(f"max_ranges must be >= 1, got {max_ranges}")
+    if not 0 <= coalesce_pct <= 100:
+        raise ValueError(
+            f"coalesce_pct must be in [0, 100], got {coalesce_pct}")
+    exact = []
+    q = cum = 0
+    for sz, w in zip(flat_sizes, flat_widths):
+        cum += int(sz)
+        q1 = min(cum, a_pad)
+        if q1 > q:
+            exact.append((q, q1, int(w)))
+            q = q1
+        if q == a_pad:
+            break
+    if q < a_pad:
+        w = int(flat_widths[-1]) if len(flat_widths) else 1
+        exact.append((q, a_pad, w))
+
+    exact_vol = sum((r1 - r0) * w for r0, r1, w in exact)
+    budget = exact_vol * coalesce_pct // 100
+    ranges = []
+    for r0, r1, w in exact:
+        if ranges:
+            p0, p1, pw = ranges[-1]
+            extra = (pw - w) * (r1 - r0)  # widths are non-increasing
+            if extra <= budget:
+                budget -= extra
+                ranges[-1] = (p0, r1, pw)
+                continue
+        ranges.append((r0, r1, w))
+    while len(ranges) > max_ranges:
+        costs = [(ranges[i][2] - ranges[i + 1][2])
+                 * (ranges[i + 1][1] - ranges[i + 1][0])
+                 for i in range(len(ranges) - 1)]
+        i = costs.index(min(costs))
+        ranges[i] = (ranges[i][0], ranges[i + 1][1], ranges[i][2])
+        del ranges[i + 1]
+    return tuple((r0, r1, w, num_planes_for(w + 1)) for r0, r1, w in ranges)
+
+
+def hub_pad_for(rows: int) -> int:
+    """Row-compaction pad for a hub bucket (0 = never compact): buckets
+    with a ≥4× row-to-pad ratio get a compacted branch."""
+    pad = _pow2_ceil(max(rows // 8, 32))
+    return pad if rows > 4 * pad else 0
+
+
+# below this many table entries a hub bucket runs unconditioned
+HUB_UNCOND_ENTRIES = 1 << 17
+
+
+def hub_prune_cfg(rows: int, width: int, u_min: int = 128,
+                  u_div: int = 4,
+                  uncond_entries: int | None = None,
+                  p2_min: int = 32,
+                  p_div: int = 2,
+                  p2_div: int = 8) -> tuple | None:
+    """Static neighbor-pruning config ``(P, U)`` or ``(P, U, P2)`` for a
+    hub bucket, or None: ``U`` the pruned width, ``P`` the slot pad, ``P2``
+    the tier-2 re-capture pad (see ``dgc_tpu.engine.compact``)."""
+    for name, val in (("u_div", u_div), ("p_div", p_div),
+                      ("p2_div", p2_div)):
+        if not isinstance(val, int) or val < 1:
+            raise ValueError(
+                f"hub prune divisor {name} must be a positive int, "
+                f"got {val!r}")
+    if rows * width <= (HUB_UNCOND_ENTRIES if uncond_entries is None
+                        else uncond_entries):
+        return None
+    u = max(u_min, min(width // u_div, 2048))
+    if 2 * u > width:
+        return None
+    p = min(_pow2_ceil(max(rows // p_div, 32)), rows)
+    p2 = min(_pow2_ceil(max(p // p2_div, p2_min)), rows)
+    return (p, u, p2) if p2 < p else (p, u)
+
+
+DEFAULT_FLAT_CAP = 256
+DEFAULT_FLAT_BUDGET = 1 << 29  # table entries (×4 B = 2 GiB)
+
+
+def derive_schedule(sizes, widths, v: int, max_degree: int, *,
+                    stages: tuple | None = None,
+                    flat_cap: int | None = None,
+                    flat_budget: int | None = None,
+                    max_ranges: int = 6,
+                    range_coalesce_pct: int = 10,
+                    hub_uncond_entries: int | None = None,
+                    prune_u_min: int = 128, prune_u_div: int = 4,
+                    prune_p_div: int = 2,
+                    prune_p2_min: int = 32, prune_p2_div: int = 8,
+                    hub_prune_overrides: dict | None = None) -> dict:
+    """The staged engine's static schedule from the bucket layout
+    (``sizes``/``widths`` in degree-descending order) and the knobs: stage
+    ladder, hub/flat split, per-hub-bucket prune/uncond configs, and
+    per-stage width ranges. Knob validation raises ``ValueError``.
+
+    Returns ``dict(stages, row0s, hub_buckets, hub_prune, hub_uncond,
+    stage_ranges)``; ``stage_ranges`` is ``()`` when the ladder has no
+    compaction stage."""
+    cap = DEFAULT_FLAT_CAP if flat_cap is None else flat_cap
+    budget = DEFAULT_FLAT_BUDGET if flat_budget is None else flat_budget
+    uncond = (HUB_UNCOND_ENTRIES if hub_uncond_entries is None
+              else hub_uncond_entries)
+    for name, val, lo in (("flat_cap", cap, 1), ("flat_budget", budget, 1),
+                          ("max_ranges", max_ranges, 1),
+                          ("hub_uncond_entries", uncond, 0),
+                          ("prune_u_min", prune_u_min, 1),
+                          ("prune_p2_min", prune_p2_min, 1)):
+        if not isinstance(val, int) or isinstance(val, bool) or val < lo:
+            raise ValueError(f"{name} must be an int >= {lo}, got {val!r}")
+    if not isinstance(range_coalesce_pct, int) \
+            or isinstance(range_coalesce_pct, bool) \
+            or not 0 <= range_coalesce_pct <= 100:
+        raise ValueError(
+            f"range_coalesce_pct must be an int in [0, 100], "
+            f"got {range_coalesce_pct!r}")
+    if stages is None:
+        stages = default_stages(v, heavy_tail=max_degree > cap)
+    _check_stage_ladder(stages, v)
+
+    row0s = tuple(int(x) for x in
+                  np.concatenate([[0], np.cumsum(sizes[:-1])]))
+    # hub/flat split along the (width-descending) bucket order
+    hub = 0
+    while hub < len(widths):
+        w_flat = widths[hub]
+        rows = v - row0s[hub]
+        if w_flat <= cap and rows * w_flat <= budget:
+            break
+        hub += 1
+    overrides = hub_prune_overrides or {}
+    ovr_keys = {"u_min", "u_div", "p_div", "p2_min", "p2_div"}
+    for bi, ovr in overrides.items():
+        if not isinstance(bi, int) or isinstance(bi, bool) or bi < 0:
+            raise ValueError(
+                f"hub_prune_overrides key must be a bucket index >= 0, "
+                f"got {bi!r}")
+        if not isinstance(ovr, dict) or set(ovr) - ovr_keys:
+            raise ValueError(
+                f"hub_prune_overrides[{bi}] must be a dict with keys from "
+                f"{sorted(ovr_keys)}, got {ovr!r}")
+        for k2, v2 in ovr.items():
+            if not isinstance(v2, int) or isinstance(v2, bool) or v2 < 1:
+                raise ValueError(
+                    f"hub_prune_overrides[{bi}][{k2!r}] must be an int "
+                    f">= 1, got {v2!r}")
+
+    def _prune_for(bi: int):
+        kw = dict(u_min=prune_u_min, u_div=prune_u_div,
+                  p2_min=prune_p2_min, p_div=prune_p_div,
+                  p2_div=prune_p2_div)
+        kw.update(overrides.get(bi, {}))
+        return hub_prune_cfg(sizes[bi], widths[bi],
+                             uncond_entries=uncond, **kw)
+
+    hub_prune = tuple(_prune_for(bi) for bi in range(hub))
+    hub_uncond = tuple(
+        sizes[bi] * widths[bi] <= uncond for bi in range(hub)
+    )
+    if all(scale is None for scale, _ in stages):
+        stage_ranges = ()
+    else:
+        flat_sizes = sizes[hub:]
+        flat_widths = widths[hub:]
+        stage_ranges = tuple(
+            None if scale is None else
+            stage_slot_ranges(flat_sizes, flat_widths, _pow2_ceil(scale),
+                              max_ranges=max_ranges,
+                              coalesce_pct=range_coalesce_pct)
+            for scale, _ in stages
+        )
+    return dict(stages=stages, row0s=row0s, hub_buckets=hub,
+                hub_prune=hub_prune, hub_uncond=hub_uncond,
+                stage_ranges=stage_ranges)
+
+
+def _check_stage_ladder(stages: tuple, v: int) -> None:
+    """A compaction stage's scale must bound the frontier at entry (the
+    previous stage's exit threshold, or V at the start), and thresholds
+    must be non-increasing; a malformed ladder raises ``ValueError``."""
+    if not stages:
+        raise ValueError("stage ladder is empty; need at least one stage")
+    bound = v
+    for scale, thresh in stages:
+        if scale is not None:
+            if not isinstance(scale, int) or isinstance(scale, bool):
+                raise ValueError(
+                    f"stage scale must be int or None, got {scale!r}; "
+                    f"stages={stages}")
+            if scale < 1:
+                raise ValueError(
+                    f"stage scale must be >= 1, got {scale}; "
+                    f"stages={stages}")
+            if scale > v:
+                raise ValueError(
+                    f"stage scale {scale} > num_vertices {v} (a rung "
+                    f"above V pads past the graph); stages={stages}")
+            if scale < min(bound, v):
+                raise ValueError(
+                    f"stage scale {scale} < possible frontier "
+                    f"{min(bound, v)}; stages={stages}")
+        if not isinstance(thresh, int) or isinstance(thresh, bool):
+            raise ValueError(
+                f"stage threshold must be int, got {thresh!r}; "
+                f"stages={stages}")
+        if thresh < 0:
+            raise ValueError(
+                f"stage threshold must be >= 0, got {thresh}; "
+                f"stages={stages}")
+        if thresh > bound:
+            raise ValueError(
+                f"stage thresholds must be non-increasing, got {thresh} "
+                f"after {bound}; stages={stages}")
+        bound = thresh
+
+
+class CompactFrontierEngine(BucketedELLEngine):
+    """Staged frontier-compacted engine (single device, hub-free layouts).
+
+    Inherits the bucketed relabeling, tables and per-bucket color windows;
+    colors, supersteps and statuses equal ``BucketedELLEngine``'s.
+    """
+
+    FLAT_CAP = DEFAULT_FLAT_CAP
+    FLAT_BUDGET = DEFAULT_FLAT_BUDGET
+    STAGE_CHUNK = 16  # supersteps enqueued per host sync within a stage
+
+    def __init__(self, arrays: GraphArrays, max_steps: int | None = None,
+                 stages: tuple | None = None,
+                 max_window_planes: int = MAX_WINDOW_PLANES,
+                 flat_cap: int | None = None, device="cuda"):
+        v = arrays.num_vertices
+        b = build_degree_buckets(arrays)
+        sched = derive_schedule(
+            [cb.shape[0] for cb in b.combined],
+            [cb.shape[1] for cb in b.combined], v, int(arrays.max_degree),
+            stages=stages,
+            flat_cap=flat_cap if flat_cap is not None else self.FLAT_CAP,
+            flat_budget=self.FLAT_BUDGET)
+        _refuse_hubs(sched["hub_buckets"])  # before building the flat table
+        flat_ext = None
+        if sched["stage_ranges"]:
+            # hub-free: the flat table is the whole relabeled CSR
+            w_flat = max(cb.shape[1] for cb in b.combined)
+            flat_ext = np.concatenate([
+                build_combined_rows(b.indptr, b.indices, b.degrees, 0, v,
+                                    w_flat, v),
+                np.full((1, w_flat), v, np.int32)])
+        self._setup(b.perm, b.degrees, b.row0, b.combined, None,
+                    max_window_planes, device, max_steps=max_steps,
+                    stages=sched["stages"],
+                    stage_ranges=sched["stage_ranges"],
+                    hub_buckets=sched["hub_buckets"], flat_ext=flat_ext)
+
+    def _setup(self, perm, degrees, row0s, combined_list, planes,
+               max_window_planes, device, max_steps=None, *, stages,
+               stage_ranges, hub_buckets, flat_ext):
+        # also the build from given tables (convert.compact_engine_from_tables)
+        _refuse_hubs(hub_buckets)
+        super()._setup(perm, degrees, row0s, combined_list, planes,
+                       max_window_planes, device, max_steps=max_steps)
+        v = self.num_vertices
+        # the full-table phase's flat layout: the buckets' tables
+        # concatenated once; the buckets become views into it
+        self.seg_flat = torch.cat([cb.reshape(-1) for cb in self.combined_buckets])
+        views, off = [], 0
+        for cb in self.combined_buckets:
+            views.append(self.seg_flat[off: off + cb.numel()].view(cb.shape))
+            off += cb.numel()
+        self.combined_buckets = tuple(views)
+        self.stages = tuple(stages)
+        self.stage_ranges = tuple(stage_ranges)
+        self.hub_buckets = hub_buckets
+        self.flat_row0 = 0
+        deg = self.degrees.cpu().numpy()
+        self.init_bucket_active = (int(np.count_nonzero(deg > 0)),) if v else ()
+        self.flat_ext = None
+        self.flat_planes = 0
+        if flat_ext is not None:
+            self.flat_ext = torch.from_numpy(
+                np.array(flat_ext, dtype=np.int32)).to(self.device)
+            self.flat_planes = num_planes_for(self.flat_ext.shape[1] + 1)
+        self._stage_plans = {}
+        for si, (scale, _) in enumerate(self.stages):
+            if scale is None:
+                continue
+            ranges = (self.stage_ranges[si] if si < len(self.stage_ranges)
+                      and self.stage_ranges[si] else
+                      ((0, _pow2_ceil(scale), self.flat_ext.shape[1],
+                        self.flat_planes),))
+            plan = plan_from_ranges(ranges)
+            self._stage_plans[si] = (plan, kc.plan_desc(plan, self.device))
+        self._build_full_plan()
+        self.resumed_from_step = None  # the last sweep's confirm (None: scratch)
+
+    def _build_full_plan(self) -> None:
+        """The full-table phase's plan: every bucket at its (capped) window."""
+        plan = plan_from_parts([cb.shape[0] for cb in self.combined_buckets],
+                               [cb.shape[1] for cb in self.combined_buckets],
+                               self.planes)
+        self._full_plan = (plan, kc.plan_desc(plan, self.device))
+
+    def _maybe_widen_windows(self) -> bool:
+        widened = super()._maybe_widen_windows()
+        if widened:
+            self._build_full_plan()
+        return widened
+
+    # ---- the staged pipeline -------------------------------------------
+
+    def _fresh(self):
+        """(state, ctrl) of a fresh attempt: the round-1 outcome."""
+        packed0 = torch.where(self.degrees == 0, 0, 1).to(torch.int32)
+        return (kc.new_state(kc.extend_packed(packed0)),
+                kc.new_ctrl(step=1, prev_active=self.num_vertices + 1,
+                            device=self.device))
+
+    def _run(self, k: int, start=None, ring=None):
+        """One k-attempt through the stage ladder from ``start`` (a
+        ``(state, ctrl)`` pair; fresh when None), pushing into ``ring``
+        when given. Returns ``(state, c, status)``, ``c`` the final control
+        block as a list."""
+        state, ctrl = self._fresh() if start is None else start
+        record = ring is not None
+        v = self.num_vertices
+        c = ctrl.tolist()
+        self.host_syncs += 1
+        for si, (scale, thresh) in enumerate(self.stages):
+            if c[kc.CTRL_STATUS] != _RUNNING:
+                break
+            if not kc.stage_live(c, thresh, self.max_steps):
+                continue  # the frontier is already below this stage's exit
+            if scale is None:
+                (plan, desc), seg, gidx = self._full_plan, self.seg_flat, None
+            else:
+                plan, desc = self._stage_plans[si]
+                idx = kc.compact_slots(ctrl, state, self.flat_row0,
+                                       _pow2_ceil(scale))
+                seg, gidx = kc.stage_rows(self.flat_ext, idx, plan, desc,
+                                          self.flat_row0, v)
+            while kc.stage_live(c, thresh, self.max_steps):
+                for _ in range(self.STAGE_CHUNK):
+                    kc.segmented_superstep(ctrl, state, seg, plan, desc, k,
+                                           thresh, self.max_steps, gidx=gidx,
+                                           row_base=self.flat_row0)
+                    kc.stage_finish(ctrl, state, ring, thresh, self.max_steps,
+                                    STALL_WINDOW, record)
+                c = ctrl.tolist()
+                self.host_syncs += 1
+        status = AttemptStatus(c[kc.CTRL_STATUS])
+        if status == AttemptStatus.RUNNING:
+            # nothing left to do, or the step budget ran out
+            status = (AttemptStatus.SUCCESS if c[kc.CTRL_PREV_ACTIVE] == 0
+                      else AttemptStatus.STALLED)
+        return state, c, status
+
+    def _packed(self, state, c) -> np.ndarray:
+        self.host_syncs += 1
+        return state[c[kc.CTRL_CUR], : self.num_vertices].cpu().numpy()
+
+    def attempt(self, k: int) -> AttemptResult:
+        if k < 1:
+            return self._finish(np.full(self.num_vertices, -1, np.int32),
+                                AttemptStatus.FAILURE, 0, k)
+        while True:  # window-cap retry loop (STALLED + capped windows)
+            state, c, status = self._run(k)
+            if status == AttemptStatus.STALLED and self._maybe_widen_windows():
+                continue
+            break
+        return self._finish(self._packed(state, c), status,
+                            c[kc.CTRL_STEP], int(k))
+
+    def _resume_point(self, ring, c, k: int):
+        """The ring entry whose ``(best, mc]`` bracket contains ``k``, as a
+        ``(state, ctrl)`` start, or None on a miss (the latest matching
+        slot wins, as in ``dgc_tpu.engine.compact.restore_from_ring``)."""
+        ring_pe, ring_meta = ring
+        meta = ring_meta.tolist()
+        self.host_syncs += 1
+        hit = None
+        for j in range(kc.REC_SLOTS):
+            if j < c[kc.CTRL_REC_CNT] and meta[j][1] < k <= meta[j][2]:
+                hit = j
+        if hit is None:
+            return None
+        step, _, _, stall, prev_active = meta[hit]
+        self.resumed_from_step = step
+        return (kc.new_state(ring_pe[hit]),
+                kc.new_ctrl(step=step, prev_active=prev_active,
+                            device=self.device, stall=stall))
+
+    def sweep(self, k0: int) -> tuple[AttemptResult, AttemptResult | None]:
+        """Fused jump-mode pair: attempt(k0), recording into the ring, then
+        the confirm attempt at ``colors_used − 1``, resumed from the ring.
+        Returns ``(first, second)``; ``second`` is None when attempt 1 did
+        not succeed. Equal to calling ``attempt`` twice."""
+        v = self.num_vertices
+        self.resumed_from_step = None
+        if k0 < 1:
+            return self.attempt(k0), None
+        while True:  # window-cap retry loop (STALLED + capped windows)
+            ring = kc.new_ring(v, self.device)
+            state, c, status1 = self._run(k0, ring=ring)
+            if status1 == AttemptStatus.STALLED and self._maybe_widen_windows():
+                continue
+            break
+        packed1 = self._packed(state, c)
+        first = self._finish(packed1, status1, c[kc.CTRL_STEP], int(k0))
+        used = int(np.where(packed1 >= 0, packed1 >> 1, -1).max(initial=-1)) + 1
+        k2 = used - 1
+        status2, second = AttemptStatus.FAILURE, None
+        if status1 == AttemptStatus.SUCCESS and k2 >= 1:
+            second = self._run(k2, start=self._resume_point(ring, c, k2))
+            status2 = second[2]
+
+        def finish_second(k: int) -> AttemptResult:
+            state2, c2, st2 = second
+            return self._finish(self._packed(state2, c2), st2,
+                                c2[kc.CTRL_STEP], k)
+
+        return finish_sweep_pair(first, used, status2, finish_second, v,
+                                 self.attempt)
+
+
+def _refuse_hubs(hub_buckets: int) -> None:
+    if hub_buckets > 0:
+        raise NotImplementedError(
+            f"ell-compact: this graph's bucket layout has {hub_buckets} hub "
+            "bucket(s) (wider than flat_cap or past the flat-table budget); "
+            "the hub region is not ported yet (ROADMAP A5(c)). Pass a "
+            "flat_cap of at least the maximum degree, or use ell-bucketed.")

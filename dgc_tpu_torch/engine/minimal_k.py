@@ -8,9 +8,11 @@ success from ground truth, and by default jumps: a success that used ``u``
 colors proves every ``k ≥ u`` succeeds identically, so the next attempt is
 at ``u − 1``. ``strict_decrement=True`` restores the one-by-one schedule.
 
-The fused ``sweep()`` pair, checkpointing and the blocked loop
-(``attempt_block``) belong to engines and slices still to be ported
-(ROADMAP).
+Engines with a fused ``sweep()`` (``engine.compact``) run the jump-mode
+pair through it when not strict; results equal two ``attempt`` calls, and
+a confirm attempt below ``k_min`` is dropped, as the per-attempt loop never
+makes it. Checkpointing and the blocked loop (``attempt_block``) belong to
+slices still to be ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -57,24 +59,34 @@ def find_minimal_coloring(
     result = MinimalColoringResult(minimal_colors=None, colors=None)
     k = initial_k
     best: AttemptResult | None = None
+    done = False
+    fused = not strict_decrement and hasattr(engine, "sweep")
 
-    while k >= k_min:
-        res = engine.attempt(k)
-        result.attempts.append(res)
-        val = None
-        if res.success:
-            if validate is not None:
-                val = validate(res.colors)
-                if not val.valid:
-                    raise AssertionError(
-                        f"engine produced invalid coloring at k={res.k}: {val}"
-                    )
-            best = res
-        if on_attempt is not None:
-            on_attempt(res, val)
-        if not res.success:
-            break
-        k = (res.colors_used - 1) if not strict_decrement else (res.k - 1)
+    while not done and k >= k_min:
+        pair = engine.sweep(k) if fused else (engine.attempt(k),)
+        for res in pair:
+            if res is None:
+                continue
+            if fused and res.k < k_min:
+                # the pair's confirm below the floor: an attempt the
+                # per-attempt loop never makes
+                continue
+            result.attempts.append(res)
+            val = None
+            if res.success:
+                if validate is not None:
+                    val = validate(res.colors)
+                    if not val.valid:
+                        raise AssertionError(
+                            f"engine produced invalid coloring at k={res.k}: {val}"
+                        )
+                best = res
+            if on_attempt is not None:
+                on_attempt(res, val)
+            if not res.success:
+                done = True
+                break
+            k = (res.colors_used - 1) if not strict_decrement else (res.k - 1)
 
     return _finalize_result(result, best, validate, post_reduce, t0)
 

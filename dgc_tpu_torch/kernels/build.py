@@ -3,8 +3,9 @@
 Each source in ``dgc_tpu_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface — no PyTorch
 headers, so a build takes seconds — under ``dgc_tpu_torch/_build/``
-(git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is. Nothing here
+(git-ignored), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is loaded as it is. Nothing here
 falls back: no ``nvcc``, a failed build or a failed load raises.
 """
 
@@ -41,7 +42,9 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes()
+    # the shared headers are part of every source's build
+    text = b"".join([(CSRC / source).read_bytes()]
+                    + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 

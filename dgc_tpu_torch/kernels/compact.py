@@ -1,0 +1,352 @@
+"""Wrappers of the compact engine's kernels (``csrc/compact.cu``), their
+plain PyTorch versions, and the control-block and ring layout they share.
+
+- ``compact_slots`` (K3): the ordered slot list of a stage's active rows
+  (``compact_idx``, the port of ``dgc_tpu.engine.compact._compact_idx``),
+  after copying the current state buffer over the other one.
+- ``stage_rows`` (K4): each slot's row of the flat table, clipped to its
+  range's width, into the stage's flat layout, and the slots' state
+  indices (the dummy slot ``V+1`` for unused slots).
+- ``segmented_superstep`` (K5): one superstep over a whole plan
+  (``ops.segmented_gather``), rows from a slot list or from ``row_base``
+  on; adds the fail count, active count and ``mc`` to the control block.
+- ``stage_finish`` (K6): the superstep epilogue: the prefix-resume ring
+  push, stall, status, and the flip unless the step failed.
+
+K5 and K6 run a superstep only while the stage is live (``stage_live``):
+the attempt RUNNING, its carried active count above the stage threshold
+and its step below ``max_steps``; else they return at once, so a chunk of
+enqueued supersteps can overrun a stage's end harmlessly.
+
+For tensors on the CPU each wrapper runs its plain version; for tensors on
+a card it launches its kernel or raises — it never falls back.
+``launch_counts`` counts launches per kernel: a wrapper adds one where it
+launches and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgc_tpu_torch.engine.base import AttemptStatus
+from dgc_tpu_torch.kernels.superstep import (  # the first eight slots
+    CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL, CTRL_MC, CTRL_PREV_ACTIVE, CTRL_STALL,
+    CTRL_STATUS, CTRL_STEP, INT32_MAX, _check_int32, _stream, finish_step)
+from dgc_tpu_torch.ops.segmented_gather import (plan_max_planes, plan_rows,
+                                                plan_size, segmented_update)
+
+# the control block is kernels.superstep's eight slots (kStatus ... kMc)
+# and three more (kRecCnt, kRecBest, kDone): the ring's count and best
+# candidate, and K6's block counter
+CTRL_REC_CNT, CTRL_REC_BEST, CTRL_DONE = range(8, 11)
+CTRL_LEN = 11
+REC_SLOTS = 4   # prefix-resume ring: pre-states of the last 4 record steps
+META_COLS = 5   # [step, best before, mc, stall, prev_active]
+MAX_SEGS = 64   # segments a plan may have on the card (kMaxSegs)
+_RUNNING = int(AttemptStatus.RUNNING)
+
+SOURCE = "compact.cu"
+
+launch_counts = {"compact_slots": 0, "stage_rows": 0,
+                 "segmented_superstep": 0, "stage_finish": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def new_ctrl(step: int, prev_active: int, device, stall: int = 0) -> torch.Tensor:
+    """A control block: RUNNING at ``step``, state in buffer 0, counters
+    cleared, an empty ring (count 0, best −1)."""
+    return torch.tensor([_RUNNING, step, prev_active, stall, 0, 0, 0, -1,
+                         0, -1, 0], dtype=torch.int32, device=device)
+
+
+def new_state(pe_ext: torch.Tensor) -> torch.Tensor:
+    """int32[2, V+2] state buffers, both holding ``pe_ext`` (the
+    ``extend_packed`` layout: a fresh attempt's words, or a ring entry)."""
+    return pe_ext.to(torch.int32).unsqueeze(0).repeat(2, 1).contiguous()
+
+
+def extend_packed(packed: torch.Tensor) -> torch.Tensor:
+    """``packed`` (int32[V]) with the pad sentinel −1 and the dummy row 0
+    appended: the ``packed_ext`` layout (``dgc_tpu.engine.compact``)."""
+    tail = torch.tensor([-1, 0], dtype=torch.int32, device=packed.device)
+    return torch.cat([packed.to(torch.int32), tail])
+
+
+def new_ring(v: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ring_pe int32[4, V+2], ring_meta int32[4, 5]) of an empty ring."""
+    return (torch.zeros((REC_SLOTS, v + 2), dtype=torch.int32, device=device),
+            torch.full((REC_SLOTS, META_COLS), -1, dtype=torch.int32,
+                       device=device))
+
+
+def stage_live(c, thresh: int, max_steps: int) -> bool:
+    """Does the stage run another superstep from control block ``c`` (a
+    list)? The while conds of ``dgc_tpu.engine.compact._staged_pipeline``."""
+    return (c[CTRL_STATUS] == _RUNNING and c[CTRL_PREV_ACTIVE] > thresh
+            and c[CTRL_STEP] < max_steps)
+
+
+def plan_desc(plan: tuple, device) -> torch.Tensor:
+    """int32[S, 5] (row0, rows, width, planes, flat0) of a plan, the
+    kernels' view of it."""
+    return torch.tensor([list(s) for s in plan], dtype=torch.int32,
+                        device=device).reshape(len(plan), 5)
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def compact_idx(act: torch.Tensor, pad: int, n: int) -> torch.Tensor:
+    """Ordered index list of the ≤ ``pad`` active positions of ``act``
+    (bool[n]); unused slots hold the dummy index ``n``. Port of
+    ``dgc_tpu.engine.compact._compact_idx``."""
+    pos = torch.cumsum(act.to(torch.int32), 0).to(torch.int32) - 1
+    idx = torch.full((pad,), n, dtype=torch.int32, device=act.device)
+    keep = act & (pos < pad)  # actives past pad are dropped
+    idx[pos[keep].to(torch.int64)] = torch.arange(
+        act.shape[0], dtype=torch.int32, device=act.device)[keep]
+    return idx
+
+
+def compact_slots_reference(ctrl: torch.Tensor, state: torch.Tensor,
+                            row0: int, pad: int) -> torch.Tensor:
+    """K3's plain version: copy buffer ``cur`` over the other one's rows
+    ``[row0, V)`` and compact those rows' actives."""
+    cur = int(ctrl[CTRL_CUR])
+    v = state.shape[1] - 2
+    src = state[cur, row0:v]
+    state[1 - cur, row0:v] = src
+    return compact_idx((src < 0) | ((src & 1) == 1), pad, v - row0)
+
+
+def stage_rows_reference(flat_ext: torch.Tensor, idx: torch.Tensor,
+                         plan: tuple, row0: int, v: int):
+    """K4's plain version: ``(seg int32[plan_size], gidx int32[pad])``."""
+    rows = idx.to(torch.int64)
+    seg = torch.cat([flat_ext[rows[s.row0: s.row0 + s.rows], : s.width]
+                     .reshape(-1) for s in plan])
+    n = flat_ext.shape[0] - 1
+    gidx = torch.where(idx == n, v + 1, idx + row0).to(torch.int32)
+    return seg, gidx
+
+
+def segmented_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
+                                  seg: torch.Tensor, plan: tuple, k: int,
+                                  thresh: int, max_steps: int,
+                                  gidx: torch.Tensor | None = None,
+                                  row_base: int = 0) -> None:
+    """K5's plain version: ``ops.segmented_gather.segmented_update`` over
+    the state buffer ``cur``, written into the other one."""
+    if not stage_live(ctrl.tolist(), thresh, max_steps):
+        return
+    cur = int(ctrl[CTRL_CUR])
+    src, dst = state[cur], state[1 - cur]
+    if gidx is None:
+        rows = slice(row_base, row_base + plan_rows(plan))
+    else:
+        rows = gidx.to(torch.int64)
+    new, fail, act, mc = segmented_update(src, seg, plan, src[rows], k)
+    dst[rows] = new  # duplicate slots are the dummy row: same word
+    ctrl[CTRL_FAIL] += fail
+    ctrl[CTRL_ACTIVE] += act
+    ctrl[CTRL_MC] = torch.maximum(ctrl[CTRL_MC], mc)
+
+
+def stage_finish_reference(ctrl: torch.Tensor, state: torch.Tensor,
+                           ring, thresh: int, max_steps: int,
+                           stall_window: int, record: bool) -> None:
+    """K6's plain version: ``_make_recstep`` and ``_superstep_epilogue``."""
+    c = ctrl.tolist()
+    if not stage_live(c, thresh, max_steps):
+        return
+    step, prev, stall, cur, fail, mc, cnt, best = (
+        c[i] for i in (CTRL_STEP, CTRL_PREV_ACTIVE, CTRL_STALL, CTRL_CUR,
+                       CTRL_FAIL, CTRL_MC, CTRL_REC_CNT, CTRL_REC_BEST))
+    if record and fail == 0 and mc > best:
+        slot = cnt % REC_SLOTS
+        ring[0][slot] = state[cur]
+        ring[1][slot] = torch.tensor([step, best, mc, stall, prev],
+                                     dtype=torch.int32)
+        cnt, best = cnt + 1, mc
+    # max_steps was tested before the step (stage_live): no ELL stall rule
+    ctrl.copy_(torch.tensor(finish_step(c, INT32_MAX, stall_window)
+                            + [cnt, best, 0], dtype=torch.int32))
+
+
+# ---- kernel launches --------------------------------------------------------
+
+def _library():
+    from dgc_tpu_torch.kernels.build import load
+
+    lib = load(SOURCE)
+    if not getattr(lib, "_dgc_bound", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dgc_compact_slots_tiles.argtypes = [ci]
+        lib.dgc_compact_slots_tiles.restype = ci
+        lib.dgc_compact_slots.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
+        lib.dgc_compact_slots.restype = ci
+        lib.dgc_stage_rows.argtypes = [vp, ci, ci, vp, ci, vp, ci, cll, ci, ci,
+                                       vp, vp, vp]
+        lib.dgc_stage_rows.restype = ci
+        lib.dgc_segmented_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
+                                                vp, ci, ci, ci, ci, ci, vp]
+        lib.dgc_segmented_superstep.restype = ci
+        lib.dgc_stage_finish.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci,
+                                         vp]
+        lib.dgc_stage_finish.restype = ci
+        lib._dgc_bound = True
+    return lib
+
+
+def _check_cuda(name: str, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+
+
+def _check_state(ctrl: torch.Tensor, state: torch.Tensor, device) -> None:
+    _check_int32("ctrl", ctrl, device, 1)
+    _check_int32("state", state, device, 2)
+    if ctrl.shape[0] != CTRL_LEN or state.shape[0] != 2 or state.shape[1] < 2:
+        raise ValueError(f"ctrl must be [{CTRL_LEN}] and state [2, V+2]")
+
+
+def _clamp_k(k: int) -> int:
+    # a budget past every window acts as the full window, so clamping it
+    # to the kernel's int32 is exact
+    return max(-INT32_MAX, min(int(k), INT32_MAX))
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def compact_slots(ctrl: torch.Tensor, state: torch.Tensor, row0: int,
+                  pad: int) -> torch.Tensor:
+    """K3: int32[pad] slot list of the active rows of ``[row0, V)`` of
+    buffer ``cur`` (dummy ``V − row0``), after copying those rows of
+    ``cur`` over the other buffer. Runs on the current stream."""
+    device = state.device
+    if device.type == "cpu":
+        return compact_slots_reference(ctrl, state, row0, pad)
+    _check_cuda("compact_slots", device)
+    _check_state(ctrl, state, device)
+    v = state.shape[1] - 2
+    n = v - row0
+    if not (0 <= row0 < v and pad >= 1):
+        raise ValueError(f"bad row0={row0} / pad={pad} for V={v}")
+    lib = _library()
+    tiles = lib.dgc_compact_slots_tiles(n)
+    idx = torch.empty(pad, dtype=torch.int32, device=device)
+    scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=device)
+    _raise_on(lib.dgc_compact_slots(
+        ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]), int(row0),
+        int(n), int(pad), idx.data_ptr(), scratch.data_ptr(), _stream(device)),
+        "compact_slots")
+    launch_counts["compact_slots"] += 1
+    return idx
+
+
+def stage_rows(flat_ext: torch.Tensor, idx: torch.Tensor, plan: tuple,
+               desc: torch.Tensor, row0: int, v: int):
+    """K4: ``(seg int32[plan_size], gidx int32[pad])`` of a stage whose
+    plan (``plan_from_ranges``, device view ``desc``) covers the slot list
+    ``idx``. Runs on the current stream."""
+    device = idx.device
+    if device.type == "cpu":
+        return stage_rows_reference(flat_ext, idx, plan, row0, v)
+    _check_cuda("stage_rows", device)
+    _check_int32("flat_ext", flat_ext, device, 2)
+    _check_int32("idx", idx, device, 1)
+    _check_int32("desc", desc, device, 2)
+    pad = idx.shape[0]
+    n, w_flat = flat_ext.shape[0] - 1, flat_ext.shape[1]
+    if plan_rows(plan) != pad or len(plan) > MAX_SEGS or \
+            tuple(desc.shape) != (len(plan), 5):
+        raise ValueError(f"plan of {plan_rows(plan)} rows / {len(plan)} "
+                         f"segments does not fit {pad} slots")
+    if max(s.width for s in plan) > w_flat:
+        raise ValueError(f"a range is wider than the flat table ({w_flat})")
+    total = plan_size(plan)
+    seg = torch.empty(total, dtype=torch.int32, device=device)
+    gidx = torch.empty(pad, dtype=torch.int32, device=device)
+    _raise_on(_library().dgc_stage_rows(
+        flat_ext.data_ptr(), int(w_flat), int(n), idx.data_ptr(), int(pad),
+        desc.data_ptr(), len(plan), int(total), int(row0), int(v),
+        seg.data_ptr(), gidx.data_ptr(), _stream(device)), "stage_rows")
+    launch_counts["stage_rows"] += 1
+    return seg, gidx
+
+
+def segmented_superstep(ctrl: torch.Tensor, state: torch.Tensor,
+                        seg: torch.Tensor, plan: tuple, desc, k: int,
+                        thresh: int, max_steps: int,
+                        gidx: torch.Tensor | None = None,
+                        row_base: int = 0) -> None:
+    """K5 over ``plan`` (device view ``desc``): rows from the slot list
+    ``gidx``, or rows ``row_base + r``. Runs on the current stream, does
+    not synchronize."""
+    device = state.device
+    if device.type == "cpu":
+        return segmented_superstep_reference(ctrl, state, seg, plan, k,
+                                             thresh, max_steps, gidx, row_base)
+    _check_cuda("segmented_superstep", device)
+    _check_state(ctrl, state, device)
+    _check_int32("seg", seg, device, 1)
+    _check_int32("desc", desc, device, 2)
+    v = state.shape[1] - 2
+    rows = plan_rows(plan)
+    if len(plan) > MAX_SEGS or tuple(desc.shape) != (len(plan), 5):
+        raise ValueError(f"plan of {len(plan)} segments: desc "
+                         f"{tuple(desc.shape)}, at most {MAX_SEGS} segments")
+    if seg.shape[0] != plan_size(plan):
+        raise ValueError(f"seg holds {seg.shape[0]} entries, the plan "
+                         f"{plan_size(plan)}")
+    if gidx is not None:
+        _check_int32("gidx", gidx, device, 1)
+        if gidx.shape[0] != rows:
+            raise ValueError(f"gidx holds {gidx.shape[0]} slots, the plan {rows}")
+    elif not (0 <= row_base and row_base + rows <= v):
+        raise ValueError(f"rows [{row_base}, {row_base + rows}) outside [0, {v})")
+    if rows == 0:
+        return
+    _raise_on(_library().dgc_segmented_superstep(
+        ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]), seg.data_ptr(),
+        desc.data_ptr(), len(plan), int(rows), int(plan_max_planes(plan)),
+        None if gidx is None else gidx.data_ptr(), int(row_base), v + 1,
+        _clamp_k(k), int(thresh), int(min(max_steps, INT32_MAX)),
+        _stream(device)), "segmented_superstep")
+    launch_counts["segmented_superstep"] += 1
+
+
+def stage_finish(ctrl: torch.Tensor, state: torch.Tensor, ring,
+                 thresh: int, max_steps: int, stall_window: int,
+                 record: bool) -> None:
+    """K6; ``ring`` is ``new_ring``'s pair, or None when not recording.
+    Runs on the current stream."""
+    device = state.device
+    if device.type == "cpu":
+        return stage_finish_reference(ctrl, state, ring, thresh, max_steps,
+                                      stall_window, record)
+    _check_cuda("stage_finish", device)
+    _check_state(ctrl, state, device)
+    ring_pe = ring_meta = None
+    if record:
+        ring_pe, ring_meta = ring
+        _check_int32("ring_pe", ring_pe, device, 2)
+        _check_int32("ring_meta", ring_meta, device, 2)
+        if tuple(ring_pe.shape) != (REC_SLOTS, state.shape[1]) or \
+                tuple(ring_meta.shape) != (REC_SLOTS, META_COLS):
+            raise ValueError("ring must be [4, V+2] and [4, 5]")
+    _raise_on(_library().dgc_stage_finish(
+        ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
+        None if ring_pe is None else ring_pe.data_ptr(),
+        None if ring_meta is None else ring_meta.data_ptr(), int(thresh),
+        int(min(max_steps, INT32_MAX)), int(min(stall_window, INT32_MAX)),
+        int(bool(record)), _stream(device)), "stage_finish")
+    launch_counts["stage_finish"] += 1

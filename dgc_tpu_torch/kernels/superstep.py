@@ -98,20 +98,29 @@ def status_step(any_fail: bool, active: int, stall_rounds: int,
     return AttemptStatus.RUNNING
 
 
-def superstep_finish_reference(ctrl: torch.Tensor, max_steps: int,
-                               stall_window: int) -> None:
-    """K2's plain version: ``status_step``, plus the ELL engine's rule that
-    a RUNNING attempt stalls when step+1 reaches ``max_steps``."""
-    status, step, prev_active, stall, cur, fail, active, _ = ctrl.tolist()
-    if status != _RUNNING:
-        return
+def finish_step(c: list, max_steps: int, stall_window: int) -> list[int]:
+    """The first eight slots of control block ``c`` (a list, RUNNING)
+    after one superstep's fold: ``status_step``, plus the ELL engine's
+    rule that the attempt stalls when step+1 reaches ``max_steps``; the
+    flip unless the step failed; the counters cleared. The plain version
+    of ``dgc::finish_step`` (``csrc/rule.cuh``), shared by K2 and K6."""
+    _, step, prev_active, stall, cur, fail, active, _ = c[:CTRL_LEN]
     stall = 0 if active < prev_active else stall + 1
     status = status_step(fail > 0, active, stall, stall_window)
     if status == AttemptStatus.RUNNING and step + 1 >= max_steps:
         status = AttemptStatus.STALLED
     if fail == 0:
         cur ^= 1  # on failure the pre-step state stays current
-    ctrl.copy_(torch.tensor([int(status), step + 1, active, stall, cur, 0, 0, -1],
+    return [int(status), step + 1, active, stall, cur, 0, 0, -1]
+
+
+def superstep_finish_reference(ctrl: torch.Tensor, max_steps: int,
+                               stall_window: int) -> None:
+    """K2's plain version: ``finish_step`` on a RUNNING attempt."""
+    c = ctrl.tolist()
+    if c[CTRL_STATUS] != _RUNNING:
+        return
+    ctrl.copy_(torch.tensor(finish_step(c, max_steps, stall_window),
                             dtype=torch.int32))
 
 

@@ -7,7 +7,8 @@ the CPU.
   ``Graph`` JSON, ``validate_coloring``, ``reduce_color_count`` with
   ``native=False``) equal their originals;
 - ``python -m dgc_tpu_torch --device cpu`` writes the same coloring JSON as
-  ``dgc_tpu.cli`` with the same backend.
+  ``dgc_tpu.cli`` with the same backend (``ell-compact``, the default of
+  both, ``ell-bucketed`` and ``ell``).
 """
 
 import numpy as np
@@ -140,7 +141,7 @@ def test_validate_and_reduce_equal_jax(seed):
 
 @pytest.mark.parametrize("extra", [[], ["--strict-decrement"],
                                    ["--no-reduce-colors"]])
-@pytest.mark.parametrize("backend", ["ell-bucketed", "ell"])
+@pytest.mark.parametrize("backend", ["ell-compact", "ell-bucketed", "ell"])
 def test_cli_writes_the_jax_cli_coloring(tmp_path, capsys, backend, extra):
     from dgc_tpu import cli as jcli
 
@@ -177,7 +178,7 @@ def test_cli_exit_codes(tmp_path, capsys):
         tcli.main(["--output-coloring", out, "--backend", "dense"])
     assert e.value.code == 2
     assert tcli.build_parser().parse_args(
-        ["--output-coloring", out]).backend == "ell-bucketed"
+        ["--output-coloring", out]).backend == "ell-compact"
     assert tcli.build_parser().parse_args(
         ["--output-coloring", out]).device == "cuda"
     capsys.readouterr()
