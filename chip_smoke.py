@@ -16,29 +16,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 17-plane ranges; K5 (segmented superstep) over those slot lists
    and over row spans with covering and capped windows, at budgets 1 to
    past every window, live and in each way a stage stops; K6 (stage
-   finish) over 300 random loop carries with and without the ring.
+   finish) over 300 random loop carries with and without the ring and a
+   hub region's live table. The hub kernels K7 (branch and slot lists)
+   and K8 (the branches' rows) on 72 random hub regions: every ladder and
+   branch, captures that hold and fail, 1-, 32- and mixed-plane windows.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
-   20k-vertex uniform graph and ``ell-compact`` (with a ``flat_cap`` past
-   its widest bucket, so hub-free) and ``ell-bucketed`` on a 20k RMAT
-   graph, jump and strict mode: every attempt's (k, status,
-   supersteps, colors_used) and the final colors equal the
-   ``device="cpu"`` run byte for byte; so do single attempts (and the
-   compact engine's sweeps) on K40 under a 1-plane window cap, on
-   isolated vertices, with compaction stages at that size, and at budgets
-   below 1.
-3. The main path at full size: the CLI's calls (``cli.load_graph``,
+   20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
+   hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
+   hub-free, at the default knobs and at forced knobs (every conditioned
+   branch), and ``ell-bucketed`` there, jump and strict mode: every
+   attempt's (k, status, supersteps, colors_used) and the final colors
+   equal the ``device="cpu"`` run byte for byte; so do single attempts
+   (and the compact engine's sweeps) on K40 under a 1-plane window cap,
+   on isolated vertices, with compaction stages at that size, and at
+   budgets below 1. One more sweep of the forced-knob and ``flat_cap=4``
+   cases, held against the plain versions, must take the hub branches
+   that case exists for (rebase, pruned, shrink, pruned2; compact).
+3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
-   --gen-method fast``), for ``ell-compact`` (the CLI default), then
-   ``ell-bucketed`` and ``ell``. The launch counts are zeroed just before
-   each sweep and read just after, and each backend must launch every
-   kernel of its path; the coloring must validate, and ``ell-compact``'s
-   attempts and swept colors must equal ``ell-bucketed``'s. Then each
-   kernel is held against its plain version at the shapes of that path
-   and timed there: K1 and K2 at a first and a mid-attempt superstep;
-   K3-K6 at every call of one more ``sweep`` of the compact engine (a
-   test double over their wrappers), timed on its first attempt's
-   stage inputs.
+   --gen-method fast``) for ``ell-compact`` (the CLI default), then
+   ``ell-bucketed`` and ``ell``; and on a 1M-vertex RMAT graph (``--gen-method
+   rmat``, Δ 38,104: a hub region) for ``ell-compact`` and
+   ``ell-bucketed``. The launch counts are zeroed just before each sweep
+   and read just after, and each backend must launch every kernel of its
+   path (K7 and K8 on RMAT only); the coloring must validate, and
+   ``ell-compact``'s attempts and swept colors must equal
+   ``ell-bucketed``'s. Then each kernel is held against its plain version
+   at the shapes of that path and timed there: K1 and K2 at a first and
+   a mid-attempt superstep; K3-K8 at every call of one more ``sweep`` and
+   one more ``attempt`` of the compact engine (a test double over their
+   wrappers), K3-K6 timed on the uniform sweep's first stage inputs, K7
+   and K8 over the RMAT sweep's launches; the branches each hub bucket
+   took are counted.
 
 Output: one JSON line per phase-3 run, the card's name and power limit as
 ``nvidia-smi`` gives them, a ``{"kernels": [...]}`` line, and last
@@ -65,6 +75,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SMOKE_V = 20_000
 MAIN_ARGS = ["--node-count", "1000000", "--max-degree", "32",
              "--gen-method", "fast", "--seed", "0", "--device", "cuda"]
+# the heavy-tail main path: RMAT of average degree 16, no degree cap
+RMAT_ARGS = ["--node-count", "1000000", "--max-degree", "32",
+             "--gen-method", "rmat", "--seed", "0", "--device", "cuda"]
 
 
 class SmokeFailure(RuntimeError):
@@ -252,14 +265,20 @@ def phase_compact_kernels(device) -> int:
             for row_base in (0, 1000):
                 err = max(err, _k5_case(kc, rng, v, seg, plan, desc, k, device,
                                         row_base=row_base))
-    # K6 over random loop carries: pushes, failures, stalls, idle stages
+    # K6 over random loop carries: pushes, failures, stalls, idle stages,
+    # with and without a hub region's live table
     for _ in range(300):
         state = _compact_state(rng, v, 200, 0.3, device)
-        ring = (torch.from_numpy(rng.integers(-1, 99, (kc.REC_SLOTS, v + 2))
-                                 .astype(np.int32)).to(device),
-                torch.from_numpy(rng.integers(-1, 99, (kc.REC_SLOTS,
-                                                       kc.META_COLS))
-                                 .astype(np.int32)).to(device))
+        nh = int(rng.integers(0, 8))
+        nb = nh + (1 if nh == 0 else int(rng.integers(0, 2)))
+
+        def rand(*shape):
+            return torch.from_numpy(rng.integers(-1, 99, shape)
+                                    .astype(np.int32)).to(device)
+
+        ring = (rand(kc.REC_SLOTS, v + 2), rand(kc.REC_SLOTS, nb),
+                rand(kc.REC_SLOTS, kc.META_COLS))
+        live = rand(kc.LIVE_ROWS, nb)
         prev = int(rng.integers(0, 50))
         vals = [int(rng.choice([0, 0, 0, 1, 2])), int(rng.integers(0, 100)),
                 prev, int(rng.integers(0, 70)), int(rng.integers(0, 2)),
@@ -272,13 +291,14 @@ def phase_compact_kernels(device) -> int:
         thresh = int(rng.choice([0, 0, int(rng.integers(0, 60))]))
         max_steps = int(rng.choice([kc.INT32_MAX, int(rng.integers(1, 110))]))
         window = int(rng.choice([64, int(rng.integers(1, 70))]))
-        c_p, s_p = ctrl.clone(), state.clone()
-        r_p = (ring[0].clone(), ring[1].clone())
-        kc.stage_finish(ctrl, state, ring, thresh, max_steps, window, record)
-        kc.stage_finish_reference(c_p, s_p, r_p, thresh, max_steps, window,
-                                  record)
-        err = max(err, _diff(ctrl, c_p), _diff(ring[0], r_p[0]),
-                  _diff(ring[1], r_p[1]), _diff(state, s_p))
+        c_p, s_p, l_p = ctrl.clone(), state.clone(), live.clone()
+        r_p = tuple(t.clone() for t in ring)
+        kc.stage_finish(ctrl, state, ring, live, nh, thresh, max_steps, window,
+                        record)
+        kc.stage_finish_reference(c_p, s_p, r_p, l_p, nh, thresh, max_steps,
+                                  window, record)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p), _diff(live, l_p),
+                  *(_diff(a, b) for a, b in zip(ring, r_p)))
     torch.cuda.synchronize()
     check(err == 0, f"K3-K6 disagree with their plain versions: max abs "
                     f"err {err}")
@@ -306,6 +326,109 @@ def _k5_case(kc, rng, v, seg, plan, desc, k, device, gidx=None,
     return err
 
 
+# hub buckets (rows, width, ladder): None is the hub_pad_for ladder (a
+# compaction pad of 64 at 300 rows, none at 40), a tuple a prune config
+# (P, U) or (P, U, P2); P = rows drops the full branch
+HUB_BUCKETS = ((1, 2048, "uncond"), (300, 64, None), (20, 1024, (20, 256)),
+               (190, 512, (128, 128, 32)), (100, 256, (64, 64)),
+               (40, 512, None))
+
+
+def _hub_pool(rng, plan, pool, device) -> None:
+    """Captures as a rebase and a shrink leave them: per tier, ordered
+    distinct slots padded with the dummy row, neighbor lists and planes."""
+    v = 5000
+    for b in plan.buckets:
+        if not b.u:
+            continue
+        for slots, comb, conf, n in ((b.slots1, b.comb1, b.conf1, b.pad),
+                                     (b.slots2, b.comb2, b.conf2, b.p2)):
+            if not n:
+                continue
+            m = int(rng.integers(0, n + 1))
+            chosen = np.sort(rng.choice(b.rows, size=min(m, b.rows),
+                                        replace=False))
+            words = np.full(n, b.rows, np.int64)
+            words[: len(chosen)] = chosen
+            pool[slots: slots + n] = torch.from_numpy(words).to(device)
+            pool[comb: comb + n * b.u] = torch.from_numpy(
+                _combined(rng, n * b.u, v, 0.4)).to(device)
+            pool[conf: conf + n * b.planes] = torch.from_numpy(
+                rng.integers(-2**31, 2**31, n * b.planes).astype(np.int32)
+            ).to(device)
+
+
+def phase_hub_kernels(device) -> int:
+    """K7 and K8 vs their plain versions on seeded random hub regions:
+    every ladder and branch (each reached, checked), pads below, at and
+    above the live count, rebases whose capture holds and fails, tier 1 to
+    2, 1- and 32-plane windows and mixed ones, budgets 1 to past the
+    window, dummy slots, either buffer current, and stages that are not
+    live. Returns the max abs difference."""
+    from dgc_tpu_torch.engine import hub as th
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+
+    rng = np.random.default_rng(2)
+    v = 5000
+    sizes = [b[0] for b in HUB_BUCKETS]
+    widths = [b[1] for b in HUB_BUCKETS]
+    prune = tuple(b[2] if isinstance(b[2], tuple) else None
+                  for b in HUB_BUCKETS)
+    uncond = tuple(b[2] == "uncond" for b in HUB_BUCKETS)
+    row0s = np.concatenate([[0], np.cumsum(sizes[:-1])]) + 37
+    table = torch.from_numpy(_combined(
+        rng, sum(r * w for r, w in zip(sizes, widths)), v)).to(device)
+    err = 0
+    branches, oks = set(), set()
+    for trial in range(72):
+        planes = ((1,) * 6 if trial % 3 == 0 else (32,) * 6 if trial % 3 == 1
+                  else tuple(int(p) for p in rng.choice([1, 2, 3, 32], 6)))
+        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond, device)
+        pool = kh.new_pool(plan, device)
+        _hub_pool(rng, plan, pool, device)
+        nb = len(sizes) + 1
+        live = torch.from_numpy(rng.integers(-5, 50, (kc.LIVE_ROWS, nb))
+                                .astype(np.int32)).to(device)
+        for bi, b in enumerate(plan.buckets):
+            cuts = [0, 1, b.pad, b.pad + 1, b.rows, b.p2, b.p2 + 1]
+            live[kc.LIVE_BA, bi] = int(rng.choice([c for c in cuts
+                                                   if 0 <= c <= b.rows]))
+            live[kc.LIVE_TIER, bi] = int(rng.integers(0, 3 if b.p2 else
+                                                      2 if b.u else 1))
+        state = _compact_state(rng, v, 32 * max(planes) + 40,
+                               float(rng.choice([0.02, 0.3, 1.0])), device)
+        ctrl = kc.new_ctrl(3, v, device)
+        ctrl[kc.CTRL_CUR] = trial % 2
+        ctrl[kc.CTRL_MC] = int(rng.integers(-1, 5))
+        if trial % 9 == 8:  # a stage that is not live: nothing may move
+            ctrl[[kc.CTRL_STATUS, kc.CTRL_PREV_ACTIVE, kc.CTRL_STEP][
+                trial % 27 // 9]] = [1, 10, 99][trial % 27 // 9]
+        k = int(rng.choice([1, 31, 33, 32 * max(planes), 32 * max(planes) + 7,
+                            v]))
+        c_p, s_p, l_p, p_p = (t.clone() for t in (ctrl, state, live, pool))
+        kh.hub_slots(ctrl, state, live, plan, pool, 10, 50)
+        kh.hub_slots_reference(c_p, s_p, l_p, plan, p_p, 10, 50)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p), _diff(live, l_p),
+                  _diff(pool, p_p))
+        if kc.stage_live(ctrl.tolist(), 10, 50):
+            branches |= set(l_p[kc.LIVE_BRANCH, :len(sizes)].tolist())
+        kh.hub_superstep(ctrl, state, table, live, plan, pool, k, 10, 50)
+        kh.hub_superstep_reference(c_p, s_p, table, l_p, plan, p_p, k, 10, 50)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p), _diff(live, l_p),
+                  _diff(pool, p_p))
+        for bi in range(len(sizes)):
+            if int(l_p[kc.LIVE_BRANCH, bi]) == th.BRANCH_REBASE:
+                oks.add(int(l_p[kc.LIVE_TIER_NEXT, bi]))
+    torch.cuda.synchronize()
+    check(branches == set(range(len(th.BRANCH_NAMES))),
+          f"phase 1 reached only the hub branches {sorted(branches)}")
+    check(oks == {0, 1}, f"rebase captures held only as {sorted(oks)}")
+    check(err == 0, f"K7/K8 disagree with their plain versions: max abs "
+                    f"err {err}")
+    return err
+
+
 # ---- phase 2: engines vs the CPU --------------------------------------------
 
 def _attempt_rows(result) -> list[tuple]:
@@ -319,13 +442,41 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
     from dgc_tpu_torch.engine.compact import CompactFrontierEngine
     from dgc_tpu_torch.models.graph import Graph
 
+    def cli(backend):
+        return lambda g, dev: make_engine(
+            argparse.Namespace(backend=backend, device=dev), g)
+
+    def compact(**knobs):
+        return lambda g, dev: CompactFrontierEngine(g.arrays, device=dev,
+                                                    **knobs)
+
+    uniform = Graph.generate(v, 32, seed=1, method="fast")
+    rmat = Graph.generate(v, 32, seed=2, method="rmat")
+    graphs = [
+        ("uniform", uniform, (("ell-compact", cli("ell-compact")),
+                              ("ell-bucketed", cli("ell-bucketed")),
+                              ("ell", cli("ell")))),
+        ("rmat", rmat, (
+            # a flat_cap past the widest bucket: hub-free
+            ("ell-compact flat_cap>max", compact(
+                flat_cap=max(256, 1 << rmat.max_degree.bit_length()))),
+            # the CLI's default knobs: hub buckets, all unconditioned
+            ("ell-compact", cli("ell-compact")),
+            # forced knobs: the conditioned ladder, every branch
+            ("ell-compact forced", compact(flat_cap=8, prune_u_min=4,
+                                           hub_uncond_entries=0)),
+            ("ell-bucketed", cli("ell-bucketed")))),
+        # every bucket a hub, no prune config: the compact branch
+        ("uniform", uniform, (("ell-compact flat_cap=4", compact(
+            flat_cap=4, hub_uncond_entries=0)),)),
+    ]
+    # the hub branches a case exists for, seen on one held sweep of it
+    must_take = {"ell-compact forced": {"rebase", "pruned", "shrink",
+                                        "pruned2"},
+                 "ell-compact flat_cap=4": {"compact"}}
     rows = []
-    graphs = [("uniform", Graph.generate(v, 32, seed=1, method="fast"),
-               ("ell-compact", "ell-bucketed", "ell")),
-              ("rmat", Graph.generate(v, 32, seed=2, method="rmat"),
-               ("ell-compact", "ell-bucketed"))]
     for gname, graph, backends in graphs:
-        for backend in backends:
+        for backend, make in backends:
             k0 = graph.initial_k()
             for strict in (False, True):
                 if strict and gname == "rmat":
@@ -334,18 +485,8 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
                     k0 = rows[-1]["colors"] + 3
                 runs = {}
                 for dev in (device, "cpu"):
-                    if backend == "ell-compact" and gname == "rmat":
-                        # the hubs' degrees: a flat_cap past the widest
-                        # bucket keeps the layout hub-free
-                        engine = CompactFrontierEngine(
-                            graph.arrays, device=dev,
-                            flat_cap=max(256, 1 << graph.max_degree.bit_length()))
-                    else:
-                        engine = make_engine(
-                            argparse.Namespace(backend=backend, device=dev),
-                            graph)
                     runs[dev] = find_minimal_coloring(
-                        engine, k0, strict_decrement=strict,
+                        make(graph, dev), k0, strict_decrement=strict,
                         validate=make_validator(graph.arrays))
                 a, b = runs[device], runs["cpu"]
                 same = (_attempt_rows(a) == _attempt_rows(b)
@@ -357,6 +498,15 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
                              "strict": strict, "k0": k0,
                              "attempts": len(a.attempts),
                              "colors": a.minimal_colors})
+            if backend in must_take:
+                with _HeldCompactKernels() as held:
+                    make(graph, device).sweep(graph.initial_k())
+                taken = {b for seen in held.branches.values() for b in seen}
+                check(held.err == 0, f"{backend} on {gname}: K3-K8 disagree "
+                                     f"with their plain versions ({held.err})")
+                check(must_take[backend] <= taken,
+                      f"{backend} on {gname} took only the branches {taken}")
+                rows[-1]["branches"] = sorted(taken)
     rows += _edge_cases(device)
     return rows
 
@@ -437,22 +587,26 @@ def _host_ms(fn, reps: int) -> float:
 def _device_ms(fn, reps: int, name: str | None = None) -> float:
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
     durations of the CUDA events whose name contains ``name`` (every
-    device event when None). Fails the run when the profiler saw no such
-    event: the kernels' ``ms`` is device time, never a host-side rate."""
+    device event when None). A profile that holds no such event is taken
+    again, twice at most, and then fails the run: the kernels' ``ms`` is
+    device time, never a host-side or CUDA-event rate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (name is None or name in e.name)]
-    check(bool(device), f"torch.profiler saw no device event"
-                        f"{'' if name is None else ' of ' + name}")
-    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (name is None or name in e.name)]
+        if device:
+            return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+    raise SmokeFailure(f"torch.profiler saw no device event"
+                       f"{'' if name is None else ' of ' + name} in 3 profiles")
 
 
 class _TimedEngine:
@@ -589,109 +743,291 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
 
 _COMPACT_KERNELS = ("compact_slots", "stage_rows", "segmented_superstep",
                     "stage_finish")
+_HUB_KERNELS = ("hub_slots", "hub_superstep")
+
+
+def _active_words(words: torch.Tensor) -> torch.Tensor:
+    return (words < 0) | ((words & 1) == 1)
+
+
+def _k5_bytes(src, seg, plan, gidx, row_base: int, v: int) -> int:
+    """The bytes one K5 superstep needs from this data: the real entries of
+    its active rows, each state word it reads once (those entries'
+    neighbors and every row's own word), each active row written, and the
+    slot list."""
+    from dgc_tpu_torch.ops.segmented_gather import plan_rows
+    from dgc_tpu_torch.ops.speculative import NBR_MASK
+
+    dev = seg.device
+    if gidx is None:
+        own = torch.arange(row_base, row_base + plan_rows(plan), device=dev)
+    else:
+        own = gidx.to(torch.int64)
+    real_row = own != v + 1
+    act = _active_words(src[own]) & real_row
+    row_of = torch.cat([torch.arange(s_.row0, s_.row0 + s_.rows, device=dev)
+                        .repeat_interleave(s_.width) for s_ in plan])
+    ids = (seg & NBR_MASK).to(torch.int64)
+    need = act[row_of] & (ids != v)
+    words = int(torch.unique(torch.cat([ids[need], own[real_row]])).numel())
+    slots = 0 if gidx is None else int(own.numel())
+    return 4 * (int(need.sum()) + words + int(act.sum()) + slots)
+
+
+def _hub_rows(b, branch: int, src, table, pool, v: int):
+    """(row indices, their entries, conf planes read) of bucket ``b`` on
+    ``branch``, after K7: the rows K8 reads for it."""
+    from dgc_tpu_torch.engine import hub as th
+
+    dev = src.device
+    cb = table[b.cb: b.cb + b.rows * b.width].view(b.rows, b.width)
+    if branch == th.BRANCH_FULL:
+        return torch.arange(b.rows, device=dev), cb, False
+    if branch in (th.BRANCH_COMPACT, th.BRANCH_REBASE):
+        idx = pool[b.slots: b.slots + b.pad].to(torch.int64)
+        real = idx < b.rows
+        return idx[real], cb[idx[real]], False
+    t2 = branch == th.BRANCH_PRUNED2
+    n = b.p2 if t2 else b.pad
+    slots = pool[(b.slots2 if t2 else b.slots1):][:n].to(torch.int64)
+    comb = pool[(b.comb2 if t2 else b.comb1):][: n * b.u].view(n, b.u)
+    if branch == th.BRANCH_SHRINK:
+        sel = pool[b.sel: b.sel + b.p2].to(torch.int64)
+        sel = sel[sel < b.pad]
+        slots, comb = slots[sel], comb[sel]
+    real = slots < b.rows
+    return slots[real], comb[real], True
+
+
+def _k8_bytes(src, table, live, plan, pool, v: int) -> int:
+    """The bytes one K8 launch needs from this data, after K7 chose the
+    branches: the entries of the rows each branch must evaluate (its active
+    rows; every slot of a rebase, for the capture), each state word read
+    once, each evaluated row written, the slot lists and captured planes
+    read, and the captures written."""
+    from dgc_tpu_torch.engine import hub as th
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.ops.speculative import NBR_MASK
+
+    ids_all, own_all = [], []
+    count = 0
+    for bi, b in enumerate(plan.buckets):
+        branch = int(live[kc.LIVE_BRANCH, bi])
+        if branch == th.BRANCH_SKIP:
+            continue
+        idx, ent, seeded = _hub_rows(b, branch, src, table, pool, v)
+        own = b.row0 + idx
+        act = (torch.ones_like(own, dtype=torch.bool)
+               if branch == th.BRANCH_REBASE else _active_words(src[own]))
+        ids = (ent & NBR_MASK).to(torch.int64)
+        need = act[:, None] & (ids != v)
+        ids_all.append(ids[need])
+        own_all.append(own)
+        count += int(need.sum()) + int(act.sum())
+        if branch != th.BRANCH_FULL:
+            count += b.p2 if branch in (th.BRANCH_SHRINK,
+                                        th.BRANCH_PRUNED2) else b.pad
+        if seeded:
+            count += int(act.sum()) * b.planes
+        if branch == th.BRANCH_REBASE:
+            count += b.pad * (b.u + b.planes)
+        elif branch == th.BRANCH_SHRINK:
+            count += b.p2 * (1 + b.u + b.planes)
+    if own_all:
+        count += int(torch.unique(torch.cat(ids_all + own_all)).numel())
+    return 4 * count
+
+
+def _k7_bytes(live, plan) -> int:
+    """K7 reads and copies every hub row's word, reads the live counts and
+    tiers, writes the branch and staged rows and the slot lists."""
+    from dgc_tpu_torch.engine import hub as th
+    from dgc_tpu_torch.kernels import compact as kc
+
+    count = 0
+    for bi, b in enumerate(plan.buckets):
+        branch = int(live[kc.LIVE_BRANCH, bi])
+        count += 2 * b.rows + 5
+        if branch in (th.BRANCH_COMPACT, th.BRANCH_REBASE):
+            count += b.pad
+        elif branch == th.BRANCH_SHRINK:
+            count += b.pad + b.p2
+    return 4 * count
 
 
 class _HeldCompactKernels:
     """A test double over the compact engine's kernel wrappers
-    (``kernels.compact``). While installed, every call runs the plain
-    version on copies of what the kernel reads and moves, then the kernel
-    on the engine's own tensors, and keeps the largest difference. It also
-    keeps each stage's inputs for timing: a stage begins at a K3 call (a
-    compaction stage) or at a K5 call on another table or control block
-    than the open stage's (the full-table phase); an attempt begins at a
-    new control block. K5's and K6's inputs are those of the stage's first
-    superstep. The engine runs unchanged and its launches count as usual,
-    so it is installed only outside a run whose counts are read."""
+    (``kernels.compact`` K3-K6 and ``kernels.hub`` K7-K8). While installed,
+    every call runs the plain version on copies of what the kernel reads
+    and moves, then the kernel on the engine's own tensors, and keeps the
+    largest difference, the bytes the call needed (``_k5_bytes`` and the
+    like; zero for a call past its stage's end), the plain versions' host
+    time, and which branch each hub bucket took. It also keeps each stage's
+    inputs for timing: a stage begins at a K3 call (a compaction stage) or
+    at a K5 call on another table or control block than the open stage's
+    (the full-table phase); an attempt begins at a new control block. K5's
+    and K6's inputs are those of the stage's first superstep. The engine
+    runs unchanged and its launches count as usual, so it is installed
+    only outside a run whose counts are read."""
 
     def __init__(self):
         from dgc_tpu_torch.kernels import compact as kc
+        from dgc_tpu_torch.kernels import hub as kh
 
-        self.kc = kc
-        self.real = {name: getattr(kc, name) for name in _COMPACT_KERNELS}
+        self.kc, self.kh = kc, kh
+        self.mods = {**dict.fromkeys(_COMPACT_KERNELS, kc),
+                     **dict.fromkeys(_HUB_KERNELS, kh)}
+        self.real = {name: getattr(mod, name) for name, mod in self.mods.items()}
         self.err = 0
-        self.calls = dict.fromkeys(_COMPACT_KERNELS, 0)
+        self.calls = dict.fromkeys(self.real, 0)
+        self.bytes: dict[int, dict[str, int]] = {}  # attempt -> kernel -> B
+        self.plain_s = dict.fromkeys(self.real, 0.0)
+        self.branches: dict[int, dict[str, int]] = {}  # bucket -> branch -> n
         self.stages: list[dict] = []
         self.attempts = 0
         self._ctrl = None  # the open attempt's control block
 
     def __enter__(self):
-        for name in _COMPACT_KERNELS:
-            setattr(self.kc, name, getattr(self, name))
+        for name, mod in self.mods.items():
+            setattr(mod, name, getattr(self, name))
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.real.items():
-            setattr(self.kc, name, fn)
+            setattr(self.mods[name], name, fn)
 
     def _held(self, *pairs) -> None:
         for a, b in pairs:
             self.err = max(self.err, _diff(a, b))
 
-    def _open(self, ctrl, pad, seg=None) -> dict:
+    def _plain(self, name: str, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.plain_s[name] += time.perf_counter() - t
+        return out
+
+    def _attempt(self, ctrl) -> int:
         if ctrl is not self._ctrl:
             self._ctrl = ctrl
             self.attempts += 1
+            self.bytes[self.attempts - 1] = dict.fromkeys(self.real, 0)
+        return self.attempts - 1
+
+    def _count(self, ctrl, name: str, nbytes: int) -> None:
+        self.calls[name] += 1
+        self.bytes[self._attempt(ctrl)][name] += nbytes
+
+    def _open(self, ctrl, pad, seg=None) -> dict:
+        attempt = self._attempt(ctrl)
         c = ctrl.tolist()
-        self.stages.append({"attempt": self.attempts - 1, "pad": pad,
+        self.stages.append({"attempt": attempt, "pad": pad,
                             "seg": seg, "steps": 0,
                             "entry_step": c[self.kc.CTRL_STEP],
                             "entry_active": c[self.kc.CTRL_PREV_ACTIVE]})
         return self.stages[-1]
 
     def compact_slots(self, ctrl, state, row0, pad):
-        self.calls["compact_slots"] += 1
         stage = self._open(ctrl, pad)
+        self._count(ctrl, "compact_slots", 4 * (2 * (state.shape[1] - 2 - row0)
+                                                + pad))
         c_p, s_p = ctrl.clone(), state.clone()
         stage["k3"] = (c_p.clone(), s_p.clone(), row0, pad)
-        idx_p = self.kc.compact_slots_reference(c_p, s_p, row0, pad)
+        idx_p = self._plain("compact_slots", self.kc.compact_slots_reference,
+                            c_p, s_p, row0, pad)
         idx = self.real["compact_slots"](ctrl, state, row0, pad)
         self._held((idx, idx_p), (state, s_p), (ctrl, c_p))
         return idx
 
     def stage_rows(self, flat_ext, idx, plan, desc, row0, v):
-        self.calls["stage_rows"] += 1
         seg, gidx = self.real["stage_rows"](flat_ext, idx, plan, desc, row0, v)
-        seg_p, gidx_p = self.kc.stage_rows_reference(flat_ext, idx, plan,
-                                                     row0, v)
+        self._count(self._ctrl, "stage_rows",
+                    4 * (2 * idx.numel() + 2 * seg.numel()))
+        seg_p, gidx_p = self._plain("stage_rows", self.kc.stage_rows_reference,
+                                    flat_ext, idx, plan, row0, v)
         self._held((seg, seg_p), (gidx, gidx_p))
         self.stages[-1].update(seg=seg, k4=(flat_ext, idx, plan, desc, row0, v))
         return seg, gidx
 
     def segmented_superstep(self, ctrl, state, seg, plan, desc, k, thresh,
                             max_steps, gidx=None, row_base=0):
-        self.calls["segmented_superstep"] += 1
         stage = self.stages[-1] if self.stages else None
         if stage is None or stage["seg"] is not seg or ctrl is not self._ctrl:
             stage = self._open(ctrl, None, seg)  # the full-table phase
         c_p, s_p = ctrl.clone(), state.clone()
-        if self.kc.stage_live(ctrl.tolist(), thresh, max_steps):
+        live = self.kc.stage_live(ctrl.tolist(), thresh, max_steps)
+        v = state.shape[1] - 2
+        self._count(ctrl, "segmented_superstep", _k5_bytes(
+            state[int(c_p[self.kc.CTRL_CUR])], seg, plan, gidx, row_base, v)
+            if live else 0)
+        if live:
             stage["steps"] += 1
             if "k5" not in stage:
                 stage["k5"] = (c_p.clone(), s_p.clone(), seg, plan, desc, k,
                                thresh, max_steps, gidx, row_base)
-        self.kc.segmented_superstep_reference(c_p, s_p, seg, plan, k, thresh,
-                                              max_steps, gidx=gidx,
-                                              row_base=row_base)
+        self._plain("segmented_superstep",
+                    self.kc.segmented_superstep_reference, c_p, s_p, seg,
+                    plan, k, thresh, max_steps, gidx=gidx, row_base=row_base)
         self.real["segmented_superstep"](ctrl, state, seg, plan, desc, k,
                                          thresh, max_steps, gidx=gidx,
                                          row_base=row_base)
         self._held((state, s_p), (ctrl, c_p))
 
-    def stage_finish(self, ctrl, state, ring, thresh, max_steps, stall_window,
-                     record):
-        self.calls["stage_finish"] += 1
+    def stage_finish(self, ctrl, state, ring, live, hub_buckets, thresh,
+                     max_steps, stall_window, record):
+        kc = self.kc
         stage = self.stages[-1]
-        c_p, s_p = ctrl.clone(), state.clone()
-        r_p = None if ring is None else (ring[0].clone(), ring[1].clone())
+        c = ctrl.tolist()
+        nbytes = 0
+        if kc.stage_live(c, thresh, max_steps):
+            nb = live.shape[1]
+            push = (record and c[kc.CTRL_FAIL] == 0
+                    and c[kc.CTRL_MC] > c[kc.CTRL_REC_BEST])
+            nbytes = 4 * (2 * kc.CTRL_LEN + 4 * nb
+                          + (2 * (state.shape[1] + nb) + kc.META_COLS
+                             if push else 0))
+        self._count(ctrl, "stage_finish", nbytes)
+        c_p, s_p, l_p = ctrl.clone(), state.clone(), live.clone()
+        r_p = None if ring is None else tuple(t.clone() for t in ring)
         if "k6" not in stage and "k5" in stage:
-            stage["k6"] = (c_p.clone(), s_p.clone(), thresh, max_steps,
-                           stall_window)
-        self.kc.stage_finish_reference(c_p, s_p, r_p, thresh, max_steps,
-                                       stall_window, record)
-        self.real["stage_finish"](ctrl, state, ring, thresh, max_steps,
-                                  stall_window, record)
-        self._held((ctrl, c_p), (state, s_p),
+            stage["k6"] = (c_p.clone(), s_p.clone(), l_p.clone(), hub_buckets,
+                           thresh, max_steps, stall_window)
+        self._plain("stage_finish", kc.stage_finish_reference, c_p, s_p, r_p,
+                    l_p, hub_buckets, thresh, max_steps, stall_window, record)
+        self.real["stage_finish"](ctrl, state, ring, live, hub_buckets, thresh,
+                                  max_steps, stall_window, record)
+        self._held((ctrl, c_p), (state, s_p), (live, l_p),
                    *(() if ring is None else zip(ring, r_p)))
+
+    def hub_slots(self, ctrl, state, live, plan, pool, thresh, max_steps):
+        from dgc_tpu_torch.engine.hub import BRANCH_NAMES
+
+        c_p, s_p, l_p, p_p = (t.clone() for t in (ctrl, state, live, pool))
+        self._plain("hub_slots", self.kh.hub_slots_reference, c_p, s_p, l_p,
+                    plan, p_p, thresh, max_steps)
+        live_step = self.kc.stage_live(ctrl.tolist(), thresh, max_steps)
+        self._count(ctrl, "hub_slots", _k7_bytes(l_p, plan) if live_step else 0)
+        if live_step:
+            for bi, br in enumerate(l_p[self.kc.LIVE_BRANCH,
+                                        :len(plan.buckets)].tolist()):
+                seen = self.branches.setdefault(bi, {})
+                seen[BRANCH_NAMES[br]] = seen.get(BRANCH_NAMES[br], 0) + 1
+        self.real["hub_slots"](ctrl, state, live, plan, pool, thresh, max_steps)
+        self._held((ctrl, c_p), (state, s_p), (live, l_p), (pool, p_p))
+
+    def hub_superstep(self, ctrl, state, table, live, plan, pool, k, thresh,
+                      max_steps):
+        c_p, s_p, l_p, p_p = (t.clone() for t in (ctrl, state, live, pool))
+        live_step = self.kc.stage_live(ctrl.tolist(), thresh, max_steps)
+        nbytes = _k8_bytes(state[int(c_p[self.kc.CTRL_CUR])], table, live,
+                           plan, pool, state.shape[1] - 2) if live_step else 0
+        self._count(ctrl, "hub_superstep", nbytes)
+        self._plain("hub_superstep", self.kh.hub_superstep_reference, c_p,
+                    s_p, table, l_p, plan, p_p, k, thresh, max_steps)
+        self.real["hub_superstep"](ctrl, state, table, live, plan, pool, k,
+                                   thresh, max_steps)
+        self._held((ctrl, c_p), (state, s_p), (live, l_p), (pool, p_p))
 
 
 def _time_stage(stage: dict, v: int) -> dict:
@@ -764,12 +1100,14 @@ def _time_stage(stage: dict, v: int) -> dict:
     ids64 = ids.to(torch.int64)
     # K6 from the first superstep's counters: a push (a new mc best, the
     # state copied into the ring) and a launch that does not record
-    counted, state6, thresh, max_steps, window = stage["k6"]
+    counted, state6, live6, nh, thresh, max_steps, window = stage["k6"]
     pushed = counted.clone()
     pushed[kc.CTRL_REC_BEST] = -1
     cc = pushed.clone()
-    ring = kc.new_ring(v, seg.device)
-    k6_push_bytes = 4 * (2 * (v + 2) + 2 * kc.CTRL_LEN + kc.META_COLS)
+    nb = live6.shape[1]
+    ring = kc.new_ring(v, nb, seg.device)
+    k6_push_bytes = 4 * (2 * (v + 2 + nb) + 2 * kc.CTRL_LEN + kc.META_COLS
+                         + 4 * nb)
     rec.update({
         "k5_rows": int(own.numel()), "k5_entries": int(seg.numel()),
         "k5_real_entries": n_real, "k5_state_words": words,
@@ -780,28 +1118,68 @@ def _time_stage(stage: dict, v: int) -> dict:
         "k5_bytes": k5_bytes,
         "k5_gather_yardstick_ms": _device_ms(lambda: src[ids64], 20),
         "k6_push_ms": _device_ms(lambda: (cc.copy_(pushed), kc.stage_finish(
-            cc, state6, ring, thresh, max_steps, window, True)), 20,
-            "stage_finish_kernel"),
+            cc, state6, ring, live6.clone(), nh, thresh, max_steps, window,
+            True)), 20, "stage_finish_kernel"),
         "k6_ms": _device_ms(lambda: (cc.copy_(counted), kc.stage_finish(
-            cc, state6, None, thresh, max_steps, window, False)), 20,
-            "stage_finish_kernel"),
+            cc, state6, None, live6.clone(), nh, thresh, max_steps, window,
+            False)), 20, "stage_finish_kernel"),
         "k6_plain_ms": _host_ms(lambda: (cc.copy_(pushed),
                                          kc.stage_finish_reference(
-            cc, state6, ring, thresh, max_steps, window, True)), 5),
+            cc, state6, ring, live6.clone(), nh, thresh, max_steps, window,
+            True)), 5),
         "k6_push_bound_ms": k6_push_bytes / HBM_BYTES_PER_S * 1e3,
-        "k6_bound_ms": 4 * 2 * kc.CTRL_LEN / HBM_BYTES_PER_S * 1e3,
+        "k6_bound_ms": 4 * (2 * kc.CTRL_LEN + 4 * nb) / HBM_BYTES_PER_S * 1e3,
         "k6_push_bytes": k6_push_bytes,
     })
     check(window == STALL_WINDOW, f"K6 ran with stall window {window}")
     return rec
 
 
+_KERNEL_NAMES = {"compact_slots": "compact_slots_kernel",
+                 "stage_rows": "stage_rows_kernel",
+                 "segmented_superstep": "segmented_superstep_kernel",
+                 "stage_finish": "stage_finish_kernel",
+                 "hub_slots": "hub_slots_kernel",
+                 "hub_superstep": "hub_superstep_kernel"}
+
+
+def _profiled(fn, launches: dict) -> dict:
+    """``fn()`` under ``torch.profiler``: per kernel of ``_KERNEL_NAMES``
+    the device time summed over its launches and their count. The profile
+    is taken again (twice at most) until it holds ``launches`` of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        sums = {}
+        for name, kname in _KERNEL_NAMES.items():
+            ev = [e for e in device if kname in e.name]
+            sums[name] = (sum(e.time_range.elapsed_us() for e in ev) / 1e3,
+                          len(ev))
+        if all(sums[n][1] == c for n, c in launches.items()):
+            return sums
+    raise SmokeFailure(f"the profiled sweep showed {sums}, the held one "
+                       f"launched {launches}")
+
+
 def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
     """Run ``engine.sweep(k)`` — the main path's first engine call — with
-    every K3-K6 call held against its plain version; its attempts must
-    equal ``swept``'s first ones. Then time K3-K6 on the first attempt's
-    stage inputs, and time one attempt and one sweep unwrapped."""
+    every K3-K8 call held against its plain version; its attempts must
+    equal ``swept``'s first ones. Then ``attempt(k)`` held too. The bytes
+    the calls needed give the sweep's and the attempt's bounds, and one
+    more sweep under the profiler the device time of the same launches. On
+    a hub-free layout K3-K6 are also timed on the first attempt's stage
+    inputs; on a hub layout K7 and K8 are timed over the sweep's launches,
+    and each bucket's branches are counted. Last, one attempt and one
+    sweep unwrapped."""
     from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
 
     v = engine.num_vertices
     with _HeldCompactKernels() as held:
@@ -810,88 +1188,144 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
             for a in pair if a is not None]
     check(rows == swept[:len(rows)], f"the held sweep({k}) gave {rows}, the "
                                      f"main path {swept[:len(rows)]}")
-    check(held.err == 0, f"K3-K6 disagree with their plain versions at the "
-                         f"main path's shapes: max abs err {held.err}")
-    stages = [_time_stage(s_, v) for s_ in held.stages if s_["attempt"] == 0]
+    with _HeldCompactKernels() as held_a:
+        res = engine.attempt(k)
+    check([(res.k, int(res.status), res.supersteps, res.colors_used)]
+          == swept[:1], f"the held attempt({k}) differs from the main path")
+    err = max(held.err, held_a.err)
+    check(err == 0, f"K3-K8 disagree with their plain versions at the main "
+                    f"path's shapes: max abs err {err}")
+    # on a hub-free layout K3-K6 are timed on the held stage inputs
+    stages = ([] if engine.hub_buckets else
+              [_time_stage(s_, v) for s_ in held.stages if s_["attempt"] == 0])
+    # the same sweep again, unheld, under the profiler: the device time of
+    # the very launches the held sweep checked
+    prof = _profiled(lambda: engine.sweep(k), held.calls)
+
+    def per_kernel(h):
+        return {name: sum(b[name] for b in h.bytes.values())
+                for name in h.real}
+
+    sweep_bytes, attempt_bytes = per_kernel(held), per_kernel(held_a)
+    out = {"held_calls": held.calls, "held_attempt_calls": held_a.calls,
+           "max_abs_err": err, "attempt_k": k,
+           "sweep_bytes_by_kernel": sweep_bytes,
+           "attempt_bytes_by_kernel": attempt_bytes,
+           "sweep_bound_ms": sum(sweep_bytes.values()) / HBM_BYTES_PER_S * 1e3,
+           "attempt_bound_ms":
+               sum(attempt_bytes.values()) / HBM_BYTES_PER_S * 1e3,
+           "sweep_device_ms_by_kernel": {n: t for n, (t, _) in prof.items()},
+           "plain_ms_by_kernel": {n: held.plain_s[n] * 1e3 / held.calls[n]
+                                  for n in held.real if held.calls[n]}}
+    if engine.hub_buckets:
+        for name, key in (("hub_slots", "k7"), ("hub_superstep", "k8")):
+            t, n = prof[name]
+            out.update({f"{key}_ms": t / n, f"{key}_plain_ms":
+                        held.plain_s[name] * 1e3 / n,
+                        f"{key}_bound_ms": sweep_bytes[name] / n
+                        / HBM_BYTES_PER_S * 1e3,
+                        f"{key}_bytes_per_launch": sweep_bytes[name] / n})
+        # K7's yardstick: one torch.nonzero over the hub rows' active mask
+        pk = engine._fresh()[0][0, : engine.flat_row0]
+        act = _active_words(pk)
+        out["k7_library_ms"] = _device_ms(lambda: torch.nonzero(act), 20)
+        out["branches_by_bucket"] = {
+            f"{bi}: {b.rows}x{b.width} {['uncond', 'pad', 'prune'][b.kind]}"
+            f"{'' if b.cfg is None else list(b.cfg)}": held.branches.get(bi, {})
+            for bi, b in enumerate(engine._hub_plan.buckets)}
+    else:
+        full = stages[0]
+        first_stage = next(r for r in stages if r["pad"] is not None)
+        out.update({"stages": stages, "k3_ms": first_stage["k3_ms"],
+                    "k4_ms": first_stage["k4_ms"], "k5_ms": full["k5_ms"],
+                    "k6_ms": full["k6_push_ms"]})
     # one attempt and one sweep: host wall clock against device busy time
-    timings = {}
     for name, fn in (("attempt", lambda: engine.attempt(k)),
                      ("sweep", lambda: engine.sweep(k))):
         engine.host_syncs = 0
         kc.reset_launch_counts()
+        kh.reset_launch_counts()
         t = time.perf_counter()
         fn()
-        timings[f"{name}_wall_ms"] = (time.perf_counter() - t) * 1e3
-        timings[f"{name}_host_syncs"] = engine.host_syncs
-        timings[f"{name}_launches"] = dict(kc.launch_counts)
-        timings[f"{name}_device_busy_ms"] = _device_ms(fn, reps=1)
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t) * 1e3
+        out[f"{name}_host_syncs"] = engine.host_syncs
+        out[f"{name}_launches"] = {**kc.launch_counts, **kh.launch_counts}
+        out[f"{name}_device_busy_ms"] = _device_ms(fn, reps=1)
     # the stage ladder alone: no copy of the colors home, no decode
     t = time.perf_counter()
     engine._run(k)
     torch.cuda.synchronize()
-    timings["ladder_wall_ms"] = (time.perf_counter() - t) * 1e3
-    full = stages[0]
-    first_stage = next(r for r in stages if r["pad"] is not None)
-    return {"stages": stages, "held_calls": held.calls,
-            "max_abs_err": held.err, "attempt_k": k,
-            "k3_ms": first_stage["k3_ms"], "k4_ms": first_stage["k4_ms"],
-            "k5_ms": full["k5_ms"], "k6_ms": full["k6_push_ms"], **timings}
+    out["ladder_wall_ms"] = (time.perf_counter() - t) * 1e3
+    return out
 
 
-def phase_main_path(card: str, out_dir: Path) -> list[dict]:
-    """The CLI's calls for each backend, ``ell-compact`` (the default)
-    first; its attempts and swept colors must equal ``ell-bucketed``'s."""
+def phase_main_path(card: str, out_dir: Path, argv: list[str],
+                    backends: tuple) -> list[dict]:
+    """The CLI's calls on the graph ``argv`` names, for each of
+    ``backends``, ``ell-compact`` (the default) first; its attempts and
+    swept colors must equal ``ell-bucketed``'s. The launch counts are
+    zeroed just before each sweep and read just after."""
     from dgc_tpu_torch import cli
     from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
     from dgc_tpu_torch.kernels import superstep as ks
     from dgc_tpu_torch.ops.validate import validate_coloring
 
     args = cli.build_parser().parse_args(
-        MAIN_ARGS + ["--output-coloring", str(out_dir / "coloring.json")])
+        argv + ["--output-coloring", str(out_dir / "coloring.json")])
     check(args.backend == "ell-compact", f"the CLI default is {args.backend}")
     t = time.perf_counter()
     graph = cli.load_graph(args)
     gen_s = time.perf_counter() - t
     records = []
     swept = {}
-    own = {"ell-compact": kc.launch_counts, "ell-bucketed": ks.launch_counts,
-           "ell": ks.launch_counts}
-    for backend in cli.BACKENDS:
+    for backend in backends:
         args.backend = backend
         t = time.perf_counter()
         engine = cli.make_engine(args, graph)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t
+        hubs = getattr(engine, "hub_buckets", 0)
         torch.cuda.reset_peak_memory_stats()
         ks.reset_launch_counts()
         kc.reset_launch_counts()
+        kh.reset_launch_counts()
         engine.host_syncs = 0
         timed = (_TimedSweepEngine if hasattr(engine, "sweep")
                  else _TimedEngine)(engine)
         result = cli.sweep(args, graph, timed)
         torch.cuda.synchronize()
-        launches = {**ks.launch_counts, **kc.launch_counts}
-        syncs_per_attempt = engine.host_syncs / len(result.attempts)
+        launches = {**ks.launch_counts, **kc.launch_counts, **kh.launch_counts}
+        own = (({**kc.launch_counts, **kh.launch_counts} if hubs else
+                kc.launch_counts) if backend == "ell-compact"
+               else ks.launch_counts)
+        host_syncs = engine.host_syncs
+        syncs_per_attempt = host_syncs / len(result.attempts)
         peak_bytes = torch.cuda.max_memory_allocated()
         check(result.colors is not None, f"{backend}: no coloring")
         val = validate_coloring(graph.arrays.indptr, graph.arrays.indices,
                                 result.colors)
         check(val.valid, f"{backend}: invalid coloring {val}")
-        check(all(n > 0 for n in own[backend].values()),
+        check(all(n > 0 for n in own.values()),
               f"{backend}: the sweep skipped a kernel of its path: {launches}")
+        check(backend != "ell-compact" or hubs or
+              not any(kh.launch_counts.values()),
+              f"{backend}: hub kernels launched on a hub-free layout")
         graph.save_coloring(args.output_coloring, result.colors)
         check(np.array_equal(graph.load_coloring(args.output_coloring),
                              result.colors), f"{backend}: coloring JSON")
         best = [r for r in timed.results if r.success][-1]
         swept[backend] = (_attempt_rows(result), best.colors)
         sweep_s = result.wall_time_s - result.post_reduce_s
+        meas = {}
         if backend == "ell-compact":
             meas = measure_compact(engine, graph.initial_k(), swept[backend][0])
-        else:
+        elif not any(a == "rmat" for a in argv):
             meas = measure_kernels(engine, graph.initial_k(),
                                    graph.arrays.num_directed_edges)
         rec = {
             "phase": "main_path", "backend": backend,
+            "graph": " ".join(argv),
             "vertices": graph.num_vertices,
             "directed_edges": graph.arrays.num_directed_edges,
             "max_degree": graph.max_degree, "gen_s": gen_s,
@@ -904,12 +1338,16 @@ def phase_main_path(card: str, out_dir: Path) -> list[dict]:
             "colors_swept": result.swept_colors,
             "colors_after_post_pass": result.minimal_colors,
             "launches": launches,
+            "host_syncs": host_syncs,
             "host_syncs_per_attempt": syncs_per_attempt,
             "max_memory_allocated": peak_bytes,
             "card": card, **meas,
         }
         if backend == "ell-compact":
             rec["stage_ladder"] = [list(s_) for s_ in engine.stages]
+            rec["hub_buckets"] = hubs
+            rec["hub_prune"] = [None if c is None else list(c)
+                                for c in engine.hub_prune]
             rec["confirm_resumed_from_step"] = engine.resumed_from_step
         emit(rec)
         records.append(rec)
@@ -920,7 +1358,9 @@ def phase_main_path(card: str, out_dir: Path) -> list[dict]:
     return records
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -941,8 +1381,9 @@ def main() -> int:
     t = time.perf_counter()
     kernel_err = phase_kernels("cuda")
     compact_err = phase_compact_kernels("cuda")
-    emit({"phase": "kernels_vs_plain", "max_abs_err": max(kernel_err,
-                                                           compact_err),
+    hub_err = phase_hub_kernels("cuda")
+    emit({"phase": "kernels_vs_plain",
+          "max_abs_err": max(kernel_err, compact_err, hub_err),
           "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
@@ -950,20 +1391,45 @@ def main() -> int:
     emit({"phase": "engines_vs_cpu", "runs": rows,
           "seconds": time.perf_counter() - t})
 
+    from dgc_tpu_torch.cli import BACKENDS
+
     with tempfile.TemporaryDirectory() as out_dir:
-        main_runs = {r["backend"]: r for r in phase_main_path(card, Path(out_dir))}
-    compact, bucketed = main_runs["ell-compact"], main_runs["ell-bucketed"]
+        main_runs = {r["backend"]: r for r in phase_main_path(
+            card, Path(out_dir), MAIN_ARGS, tuple(BACKENDS))}
+        rmat_runs = {r["backend"]: r for r in phase_main_path(
+            card, Path(out_dir), RMAT_ARGS, ("ell-compact", "ell-bucketed"))}
     print(card)
+    emit({"kernels": kernels_line(main_runs, rmat_runs, kernel_err,
+                                  compact_err, hub_err)})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def kernels_line(main_runs: dict, rmat_runs: dict, kernel_err: int,
+                 compact_err: int, hub_err: int) -> list[dict]:
+    """Every kernel of the port: its launches on its main path, its time,
+    plain time, bound and library time at that path's shapes. K3-K6 are
+    read on the 1M uniform path (``launches_rmat`` beside), K7 and K8 on
+    the 1M RMAT path."""
+    compact, bucketed = main_runs["ell-compact"], main_runs["ell-bucketed"]
+    hub = rmat_runs["ell-compact"]
     k1k2 = "dgc_tpu_torch/csrc/superstep.cu"
     k3k6 = "dgc_tpu_torch/csrc/compact.cu"
+    k7k8 = "dgc_tpu_torch/csrc/hub.cu"
     full = compact["stages"][0]
     first = next(r for r in compact["stages"] if r["pad"] is not None)
-    compact_err = max(compact_err, compact["max_abs_err"])
+    compact_err = max(compact_err, compact["max_abs_err"], hub["max_abs_err"])
+    hub_err = max(hub_err, hub["max_abs_err"])
 
     def by_backend(name):
         return {b: r["launches"][name] for b, r in main_runs.items()}
 
-    emit({"kernels": [
+    def rmat(name):
+        return hub["launches"][name]
+
+    return [
         {"name": "superstep_rows", "route": "cuda", "source": k1k2,
          "replaces": "dgc_tpu/ops/speculative.py:124",
          "launches": bucketed["launches"]["superstep_rows"],
@@ -984,32 +1450,44 @@ def main() -> int:
         {"name": "compact_slots", "route": "cuda", "source": k3k6,
          "replaces": "dgc_tpu/engine/compact.py:288",
          "launches": compact["launches"]["compact_slots"],
+         "launches_rmat": rmat("compact_slots"),
          "max_abs_err": compact_err, "ms": first["k3_ms"],
          "plain_ms": first["k3_plain_ms"], "bound_ms": first["k3_bound_ms"],
          "bound_by": "bytes", "library_ms": first["k3_library_ms"]},
         {"name": "stage_rows", "route": "cuda", "source": k3k6,
          "replaces": "dgc_tpu/engine/compact.py:1526",
          "launches": compact["launches"]["stage_rows"],
+         "launches_rmat": rmat("stage_rows"),
          "max_abs_err": compact_err, "ms": first["k4_ms"],
          "plain_ms": first["k4_plain_ms"], "bound_ms": first["k4_bound_ms"],
          "bound_by": "bytes", "library_ms": first["k4_library_ms"]},
         {"name": "segmented_superstep", "route": "cuda", "source": k3k6,
          "replaces": "dgc_tpu/ops/segmented_gather.py:237",
          "launches": compact["launches"]["segmented_superstep"],
+         "launches_rmat": rmat("segmented_superstep"),
          "max_abs_err": compact_err, "ms": full["k5_ms"],
          "plain_ms": full["k5_plain_ms"], "bound_ms": full["k5_bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "stage_finish", "route": "cuda", "source": k3k6,
          "replaces": "dgc_tpu/engine/compact.py:1048",
          "launches": compact["launches"]["stage_finish"],
+         "launches_rmat": rmat("stage_finish"),
          "max_abs_err": compact_err, "ms": full["k6_push_ms"],
          "plain_ms": full["k6_plain_ms"], "bound_ms": full["k6_push_bound_ms"],
          "bound_by": "bytes", "library_ms": None},
-    ]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+        {"name": "hub_slots", "route": "cuda", "source": k7k8,
+         "replaces": "dgc_tpu/engine/compact.py:713",
+         "launches": rmat("hub_slots"), "max_abs_err": hub_err,
+         "ms": hub["k7_ms"], "plain_ms": hub["k7_plain_ms"],
+         "bound_ms": hub["k7_bound_ms"], "bound_by": "bytes",
+         "library_ms": hub["k7_library_ms"]},
+        {"name": "hub_superstep", "route": "cuda", "source": k7k8,
+         "replaces": "dgc_tpu/engine/compact.py:1074",
+         "launches": rmat("hub_superstep"), "max_abs_err": hub_err,
+         "ms": hub["k8_ms"], "plain_ms": hub["k8_plain_ms"],
+         "bound_ms": hub["k8_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+    ]
 
 
 if __name__ == "__main__":

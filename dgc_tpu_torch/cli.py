@@ -10,8 +10,7 @@ device (``--device``, default ``cuda``).
         --output-coloring colors.json [--backend ell-compact] [--device cpu]
 
 Exit codes: 0 success, 1 no valid coloring, 2 usage or load error (a
-missing card for ``--device cuda`` and a graph with a hub region under
-``--backend ell-compact`` included).
+missing card for ``--device cuda`` included).
 """
 
 from __future__ import annotations
@@ -52,8 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "large-V, or RMAT")
     p.add_argument("--backend", choices=list(BACKENDS), default="ell-compact",
                    help="coloring engine (default: ell-compact, the staged "
-                        "frontier-compacted engine; graphs with a hub region "
-                        "are not ported yet)")
+                        "frontier-compacted engine)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the engine runs (default: cuda; cpu runs the "
                         "plain PyTorch versions of the kernels)")
@@ -84,8 +82,7 @@ def load_graph(args) -> Graph:
 
 
 def make_engine(args, graph: Graph):
-    """The engine ``--backend`` names. ``ell-compact`` raises
-    ``NotImplementedError`` for a graph with a hub region."""
+    """The engine ``--backend`` names."""
     if args.backend == "ell":
         from dgc_tpu_torch.engine.superstep import ELLEngine
 
@@ -139,13 +136,7 @@ def main(argv: list[str] | None = None) -> int:
     except (OSError, ValueError, KeyError) as e:
         print(f"Failed to load graph from {args.input}: {e}", file=sys.stderr)
         return 2
-    try:
-        engine = make_engine(args, graph)
-    except NotImplementedError as e:  # a layout the port cannot run yet
-        print(f"Cannot run --backend {args.backend} on this graph: {e}\n"
-              f"--backend ell-bucketed colors it.", file=sys.stderr)
-        return 2
-    result = sweep(args, graph, engine)
+    result = sweep(args, graph, make_engine(args, graph))
     total_s = time.perf_counter() - t_start
     if result.colors is None:
         print("No valid coloring found", file=sys.stderr)

@@ -47,15 +47,18 @@ def bucketed_engine_from_tables(perm, degrees, combined_list, planes,
 
 def compact_engine_from_tables(perm, degrees, combined_list, planes,
                                flat_ext, stages, stage_ranges,
-                               hub_buckets: int = 0,
+                               hub_buckets: int = 0, hub_prune=(),
+                               hub_uncond=(),
                                max_window_planes: int = MAX_WINDOW_PLANES,
                                max_steps: int | None = None,
                                device="cuda") -> CompactFrontierEngine:
     """``CompactFrontierEngine.perm``, ``.degrees``, ``.combined_buckets``,
     ``.planes`` (with its window cap), ``.flat_ext`` (None without
-    compaction stages), ``.stages``, ``.stage_ranges``, ``.hub_buckets``
-    and ``.max_steps`` → the port's ``CompactFrontierEngine``. A layout
-    with hub buckets raises ``NotImplementedError``."""
+    compaction stages; rows ``[flat_row0, V)`` and the dummy row),
+    ``.stages``, ``.stage_ranges``, ``.hub_buckets``, ``.hub_prune``,
+    ``.hub_uncond`` and ``.max_steps`` → the port's
+    ``CompactFrontierEngine``, any bucket layout; ``flat_row0`` is the
+    first flat bucket's row."""
     combined_list = [np.asarray(cb) for cb in combined_list]
     row0s = np.cumsum([0] + [len(cb) for cb in combined_list[:-1]])
     eng = CompactFrontierEngine.__new__(CompactFrontierEngine)
@@ -64,5 +67,6 @@ def compact_engine_from_tables(perm, degrees, combined_list, planes,
                max_window_planes, device, max_steps=max_steps,
                stages=tuple(stages), stage_ranges=tuple(stage_ranges),
                hub_buckets=int(hub_buckets),
-               flat_ext=None if flat_ext is None else np.asarray(flat_ext))
+               flat_ext=None if flat_ext is None else np.asarray(flat_ext),
+               hub_prune=tuple(hub_prune), hub_uncond=tuple(hub_uncond))
     return eng

@@ -14,8 +14,11 @@
 //                            fail_gate, as run at compact.py:959 (the
 //                            full-table phase) and :1557-1564 (a stage).
 //   K6 stage_finish        — B7/B8, compact.py:1004 _make_recstep (the
-//                            prefix-resume ring push) and :1048
-//                            _superstep_epilogue (stall, status, revert).
+//                            prefix-resume ring push, the live counts
+//                            `ba` included) and :1048 _superstep_epilogue
+//                            (stall, status, and the commit of the hub
+//                            region's staged live counts and prune tiers
+//                            unless the step failed).
 //
 // State. Two int32[V+2] buffers (packed words): slot V holds -1 (the pad
 // sentinel) and slot V+1 holds 0 (the dummy row of unused slots), in both
@@ -24,7 +27,8 @@
 // candidate, and K6's block counter. K5 reads buffer `cur` and writes the
 // other one; K6 flips `cur` unless the step failed. A stage writes only its
 // slot rows, so K3 copies the current buffer over the other one at stage
-// entry: rows outside the slot list then hold the same word in both.
+// entry: rows outside the slot list then hold the same word in both. (The
+// hub region's rows are copied by K7 every superstep, csrc/hub.cu.)
 //
 // Loop control. A superstep runs iff the attempt is RUNNING, its carried
 // active count is above the stage's threshold and its step is below
@@ -69,12 +73,6 @@ constexpr int kMaxSegs = 64;    // segments of one plan (the wrapper checks)
 constexpr int kDescCols = 5;    // row0, rows, width, planes, flat0
 constexpr int kScanItems = 8;   // K3: items per thread
 constexpr int kScanTile = kThreads * kScanItems;
-
-__device__ __forceinline__ bool stage_live(const int* ctrl, int thresh,
-                                           int max_steps) {
-  return ctrl[kStatus] == kRunning && ctrl[kPrevActive] > thresh &&
-         ctrl[kStep] < max_steps;
-}
 
 __device__ __forceinline__ void load_desc(int* s_desc, const int* desc,
                                           int nseg) {
@@ -286,15 +284,20 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
 //
 // Every block copies its share of the pre-step state into the ring when the
 // step pushes; the last block to finish (a counter in the control block)
-// writes the ring meta and folds the counters into the loop carry with K2's
-// dgc::finish_step (rule.cuh). Every block reads the control block before
-// it counts itself done, so none sees the last block's writes.
+// writes the ring meta and the pre-step live counts, commits the staged
+// live counts and tiers of the `nh` hub buckets (and the flat region's
+// total, the step's active count less theirs, when the live table has a
+// column for it) unless the step failed, and folds the counters into the
+// loop carry with K2's dgc::finish_step (rule.cuh). Every block reads the
+// control block before it counts itself done, so none sees the last
+// block's writes.
 
 __global__ void __launch_bounds__(kThreads)
 stage_finish_kernel(int* ctrl, const int* state, size_t stride,
-                    int* __restrict__ ring_pe, int* __restrict__ ring_meta,
-                    int words, int thresh, int max_steps, int stall_window,
-                    int record) {
+                    int* __restrict__ ring_pe, int* __restrict__ ring_ba,
+                    int* __restrict__ ring_meta, int* __restrict__ live,
+                    int nh, int nb, int words, int thresh, int max_steps,
+                    int stall_window, int record) {
   if (!stage_live(ctrl, thresh, max_steps)) return;
   const int fail = ctrl[kFail];
   const int mc = ctrl[kMc];
@@ -328,6 +331,19 @@ stage_finish_kernel(int* ctrl, const int* state, size_t stride,
     meta[4] = ctrl[kPrevActive];
     ctrl[kRecCnt] = cnt + 1;
     ctrl[kRecBest] = mc;
+    for (int i = 0; i < nb; ++i) {
+      ring_ba[slot * nb + i] = live[kLiveBa * nb + i];
+    }
+  }
+  if (fail == 0) {
+    int hub_active = 0;
+    for (int i = 0; i < nh; ++i) {
+      const int a = live[kLiveBaNext * nb + i];
+      live[kLiveBa * nb + i] = a;
+      live[kLiveTier * nb + i] = live[kLiveTierNext * nb + i];
+      hub_active += a;
+    }
+    if (nb > nh) live[kLiveBa * nb + nh] = ctrl[kActive] - hub_active;
   }
   // max_steps was tested before the step (stage_live): no ELL stall rule
   finish_step(ctrl, INT_MAX, stall_window);
@@ -425,12 +441,16 @@ int dgc_segmented_superstep(void* ctrl, void* state, int stride,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ring_pe: int32[4, words] and ring_meta: int32[4, 5], or null when
-// record is 0 (one block then); words = stride = V+2.
+// ring_pe: int32[4, words], ring_ba: int32[4, nb] and ring_meta:
+// int32[4, 5], or null when record is 0 (one block then); words = stride =
+// V+2; live: int32[5, nb], nb = nh or nh + 1.
 int dgc_stage_finish(void* ctrl, const void* state, int stride, void* ring_pe,
-                     void* ring_meta, int thresh, int max_steps,
-                     int stall_window, int record, void* stream) {
-  if (record != 0 && (ring_pe == nullptr || ring_meta == nullptr)) {
+                     void* ring_ba, void* ring_meta, void* live, int nh,
+                     int nb, int thresh, int max_steps, int stall_window,
+                     int record, void* stream) {
+  if ((record != 0 && (ring_pe == nullptr || ring_ba == nullptr ||
+                       ring_meta == nullptr)) ||
+      live == nullptr || nh < 0 || nb < nh || nb > nh + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   unsigned blocks = 1;
@@ -443,8 +463,9 @@ int dgc_stage_finish(void* ctrl, const void* state, int stride, void* ring_pe,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(ctrl), static_cast<const int*>(state),
       static_cast<size_t>(stride), static_cast<int*>(ring_pe),
-      static_cast<int*>(ring_meta), stride, thresh, max_steps, stall_window,
-      record);
+      static_cast<int*>(ring_ba), static_cast<int*>(ring_meta),
+      static_cast<int*>(live), nh, nb, stride, thresh, max_steps,
+      stall_window, record);
   return static_cast<int>(cudaGetLastError());
 }
 

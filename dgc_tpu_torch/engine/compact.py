@@ -1,5 +1,4 @@
-"""Frontier-compacted engine (port of ``dgc_tpu.engine.compact``), for
-bucket layouts without a hub region.
+"""Frontier-compacted engine (port of ``dgc_tpu.engine.compact``).
 
 The superstep is gather-bound, and most rows go inert (confirmed, with
 confirmed neighbors) long before an attempt ends, so the engine runs the
@@ -26,11 +25,18 @@ entry whose ``(best, mc]`` bracket contains the budget — the run at that
 budget is identical up to that step — or starts over on a miss. Its step
 counter continues from the entry, so its result equals a scratch run.
 
+Buckets wider than ``flat_cap`` (or past the flat table's budget) form
+the **hub region** (``engine.hub``; the hubs of a power-law graph): every
+superstep each hub bucket takes a branch of its ladder by its live count
+and prune tier — skip an inert bucket, all rows, only the active rows, or
+only the rows' captured unconfirmed neighbors — chosen on the card by K7
+and run by K8 (``kernels.hub``). The flat region (the rest) is what the
+full-table phase's K5 and the compaction stages cover; its table
+``flat_ext`` holds rows ``[flat_row0, V)`` only.
+
 The host drives the schedule: per stage it launches K3 and K4, then
-enqueues chunks of ``STAGE_CHUNK`` supersteps (K5 + K6 each) and syncs once
-per chunk. The hub region (buckets wider than ``flat_cap``, JAX
-``_hub_dispatch`` and ``_unified_pipeline``) is not ported: such a layout
-raises ``NotImplementedError``.
+enqueues chunks of ``STAGE_CHUNK`` supersteps (K5, K7, K8 and K6 each) and
+syncs once per chunk.
 """
 
 from __future__ import annotations
@@ -44,16 +50,15 @@ from dgc_tpu_torch.engine.bucketed import (MAX_WINDOW_PLANES, STALL_WINDOW,
                                            BucketedELLEngine,
                                            build_combined_rows,
                                            build_degree_buckets)
+from dgc_tpu_torch.engine.hub import (HUB_UNCOND_ENTRIES, hub_prune_cfg,
+                                      pow2_ceil)
 from dgc_tpu_torch.kernels import compact as kc
+from dgc_tpu_torch.kernels import hub as kh
 from dgc_tpu_torch.models.arrays import GraphArrays
 from dgc_tpu_torch.ops.bitmask import num_planes_for
 from dgc_tpu_torch.ops.segmented_gather import plan_from_parts, plan_from_ranges
 
 _RUNNING = int(AttemptStatus.RUNNING)
-
-
-def _pow2_ceil(n: int) -> int:
-    return 1 << max(0, (int(n) - 1).bit_length())
 
 
 def default_stages(v: int, heavy_tail: bool = False) -> tuple:
@@ -131,43 +136,6 @@ def stage_slot_ranges(flat_sizes, flat_widths, a_pad: int,
         ranges[i] = (ranges[i][0], ranges[i + 1][1], ranges[i][2])
         del ranges[i + 1]
     return tuple((r0, r1, w, num_planes_for(w + 1)) for r0, r1, w in ranges)
-
-
-def hub_pad_for(rows: int) -> int:
-    """Row-compaction pad for a hub bucket (0 = never compact): buckets
-    with a ≥4× row-to-pad ratio get a compacted branch."""
-    pad = _pow2_ceil(max(rows // 8, 32))
-    return pad if rows > 4 * pad else 0
-
-
-# below this many table entries a hub bucket runs unconditioned
-HUB_UNCOND_ENTRIES = 1 << 17
-
-
-def hub_prune_cfg(rows: int, width: int, u_min: int = 128,
-                  u_div: int = 4,
-                  uncond_entries: int | None = None,
-                  p2_min: int = 32,
-                  p_div: int = 2,
-                  p2_div: int = 8) -> tuple | None:
-    """Static neighbor-pruning config ``(P, U)`` or ``(P, U, P2)`` for a
-    hub bucket, or None: ``U`` the pruned width, ``P`` the slot pad, ``P2``
-    the tier-2 re-capture pad (see ``dgc_tpu.engine.compact``)."""
-    for name, val in (("u_div", u_div), ("p_div", p_div),
-                      ("p2_div", p2_div)):
-        if not isinstance(val, int) or val < 1:
-            raise ValueError(
-                f"hub prune divisor {name} must be a positive int, "
-                f"got {val!r}")
-    if rows * width <= (HUB_UNCOND_ENTRIES if uncond_entries is None
-                        else uncond_entries):
-        return None
-    u = max(u_min, min(width // u_div, 2048))
-    if 2 * u > width:
-        return None
-    p = min(_pow2_ceil(max(rows // p_div, 32)), rows)
-    p2 = min(_pow2_ceil(max(p // p2_div, p2_min)), rows)
-    return (p, u, p2) if p2 < p else (p, u)
 
 
 DEFAULT_FLAT_CAP = 256
@@ -260,7 +228,7 @@ def derive_schedule(sizes, widths, v: int, max_degree: int, *,
         flat_widths = widths[hub:]
         stage_ranges = tuple(
             None if scale is None else
-            stage_slot_ranges(flat_sizes, flat_widths, _pow2_ceil(scale),
+            stage_slot_ranges(flat_sizes, flat_widths, pow2_ceil(scale),
                               max_ranges=max_ranges,
                               coalesce_pct=range_coalesce_pct)
             for scale, _ in stages
@@ -311,10 +279,12 @@ def _check_stage_ladder(stages: tuple, v: int) -> None:
 
 
 class CompactFrontierEngine(BucketedELLEngine):
-    """Staged frontier-compacted engine (single device, hub-free layouts).
+    """Staged frontier-compacted engine (single device), any bucket layout.
 
     Inherits the bucketed relabeling, tables and per-bucket color windows;
-    colors, supersteps and statuses equal ``BucketedELLEngine``'s.
+    colors, supersteps and statuses equal ``BucketedELLEngine``'s. The
+    schedule knobs are ``dgc_tpu``'s, with its names and defaults
+    (``derive_schedule``); they move work, never results.
     """
 
     FLAT_CAP = DEFAULT_FLAT_CAP
@@ -322,42 +292,57 @@ class CompactFrontierEngine(BucketedELLEngine):
     STAGE_CHUNK = 16  # supersteps enqueued per host sync within a stage
 
     def __init__(self, arrays: GraphArrays, max_steps: int | None = None,
-                 stages: tuple | None = None,
+                 min_width: int = 4, stages: tuple | None = None,
                  max_window_planes: int = MAX_WINDOW_PLANES,
-                 flat_cap: int | None = None, device="cuda"):
+                 flat_cap: int | None = None,
+                 prune_u_min: int = 128, prune_u_div: int = 4,
+                 prune_p2_min: int = 32,
+                 hub_uncond_entries: int | None = None,
+                 max_ranges: int = 6, range_coalesce_pct: int = 10,
+                 prune_p_div: int = 2, prune_p2_div: int = 8,
+                 hub_prune_overrides: dict | None = None, device="cuda"):
         v = arrays.num_vertices
-        b = build_degree_buckets(arrays)
+        b = build_degree_buckets(arrays, min_width=min_width)
+        sizes = [cb.shape[0] for cb in b.combined]
+        widths = [cb.shape[1] for cb in b.combined]
         sched = derive_schedule(
-            [cb.shape[0] for cb in b.combined],
-            [cb.shape[1] for cb in b.combined], v, int(arrays.max_degree),
-            stages=stages,
+            sizes, widths, v, int(arrays.max_degree), stages=stages,
             flat_cap=flat_cap if flat_cap is not None else self.FLAT_CAP,
-            flat_budget=self.FLAT_BUDGET)
-        _refuse_hubs(sched["hub_buckets"])  # before building the flat table
+            flat_budget=self.FLAT_BUDGET, max_ranges=max_ranges,
+            range_coalesce_pct=range_coalesce_pct,
+            hub_uncond_entries=hub_uncond_entries,
+            prune_u_min=prune_u_min, prune_u_div=prune_u_div,
+            prune_p_div=prune_p_div, prune_p2_min=prune_p2_min,
+            prune_p2_div=prune_p2_div,
+            hub_prune_overrides=hub_prune_overrides)
+        hub = sched["hub_buckets"]
         flat_ext = None
         if sched["stage_ranges"]:
-            # hub-free: the flat table is the whole relabeled CSR
-            w_flat = max(cb.shape[1] for cb in b.combined)
+            # the flat table: the relabeled CSR's rows [flat_row0, V)
+            w_flat = max(widths[hub:]) if hub < len(widths) else 1
+            f0 = sched["row0s"][hub] if hub < len(widths) else v
             flat_ext = np.concatenate([
-                build_combined_rows(b.indptr, b.indices, b.degrees, 0, v,
+                build_combined_rows(b.indptr, b.indices, b.degrees, f0, v,
                                     w_flat, v),
                 np.full((1, w_flat), v, np.int32)])
         self._setup(b.perm, b.degrees, b.row0, b.combined, None,
                     max_window_planes, device, max_steps=max_steps,
                     stages=sched["stages"],
-                    stage_ranges=sched["stage_ranges"],
-                    hub_buckets=sched["hub_buckets"], flat_ext=flat_ext)
+                    stage_ranges=sched["stage_ranges"], hub_buckets=hub,
+                    flat_ext=flat_ext, hub_prune=sched["hub_prune"],
+                    hub_uncond=sched["hub_uncond"])
 
     def _setup(self, perm, degrees, row0s, combined_list, planes,
                max_window_planes, device, max_steps=None, *, stages,
-               stage_ranges, hub_buckets, flat_ext):
+               stage_ranges, hub_buckets, flat_ext, hub_prune=(),
+               hub_uncond=()):
         # also the build from given tables (convert.compact_engine_from_tables)
-        _refuse_hubs(hub_buckets)
         super()._setup(perm, degrees, row0s, combined_list, planes,
                        max_window_planes, device, max_steps=max_steps)
         v = self.num_vertices
-        # the full-table phase's flat layout: the buckets' tables
-        # concatenated once; the buckets become views into it
+        # every bucket's table concatenated once, hub buckets first: the
+        # hub kernels read them at their offsets, the full-table phase the
+        # flat buckets' part; the buckets become views into it
         self.seg_flat = torch.cat([cb.reshape(-1) for cb in self.combined_buckets])
         views, off = [], 0
         for cb in self.combined_buckets:
@@ -366,10 +351,19 @@ class CompactFrontierEngine(BucketedELLEngine):
         self.combined_buckets = tuple(views)
         self.stages = tuple(stages)
         self.stage_ranges = tuple(stage_ranges)
-        self.hub_buckets = hub_buckets
-        self.flat_row0 = 0
+        self.hub_buckets = hub = int(hub_buckets)
+        self.hub_prune = tuple(hub_prune)
+        self.hub_uncond = tuple(hub_uncond)
+        has_flat = hub < len(self.combined_buckets)
+        self.flat_row0 = self.row0[hub] if has_flat else v
+        # the live counts ba: per hub bucket, then the flat region's total
         deg = self.degrees.cpu().numpy()
-        self.init_bucket_active = (int(np.count_nonzero(deg > 0)),) if v else ()
+        sizes = [cb.shape[0] for cb in self.combined_buckets]
+        init = [int(np.count_nonzero(deg[r0: r0 + vb] > 0))
+                for r0, vb in zip(self.row0[:hub], sizes[:hub])]
+        if has_flat:
+            init.append(int(np.count_nonzero(deg[self.flat_row0:] > 0)))
+        self.init_bucket_active = tuple(init)
         self.flat_ext = None
         self.flat_planes = 0
         if flat_ext is not None:
@@ -378,11 +372,11 @@ class CompactFrontierEngine(BucketedELLEngine):
             self.flat_planes = num_planes_for(self.flat_ext.shape[1] + 1)
         self._stage_plans = {}
         for si, (scale, _) in enumerate(self.stages):
-            if scale is None:
+            if scale is None or not has_flat:
                 continue
             ranges = (self.stage_ranges[si] if si < len(self.stage_ranges)
                       and self.stage_ranges[si] else
-                      ((0, _pow2_ceil(scale), self.flat_ext.shape[1],
+                      ((0, pow2_ceil(scale), self.flat_ext.shape[1],
                         self.flat_planes),))
             plan = plan_from_ranges(ranges)
             self._stage_plans[si] = (plan, kc.plan_desc(plan, self.device))
@@ -390,11 +384,26 @@ class CompactFrontierEngine(BucketedELLEngine):
         self.resumed_from_step = None  # the last sweep's confirm (None: scratch)
 
     def _build_full_plan(self) -> None:
-        """The full-table phase's plan: every bucket at its (capped) window."""
-        plan = plan_from_parts([cb.shape[0] for cb in self.combined_buckets],
-                               [cb.shape[1] for cb in self.combined_buckets],
-                               self.planes)
-        self._full_plan = (plan, kc.plan_desc(plan, self.device))
+        """The full-table phase's plan (every flat bucket at its window) and
+        the hub plan (every hub bucket at its window); the pool's
+        ``[P, planes]`` captures follow the windows."""
+        hub = self.hub_buckets
+        cbs = self.combined_buckets
+        self._full_plan = None
+        if hub < len(cbs):
+            plan = plan_from_parts([cb.shape[0] for cb in cbs[hub:]],
+                                   [cb.shape[1] for cb in cbs[hub:]],
+                                   self.planes[hub:])
+            off = sum(cb.numel() for cb in cbs[:hub])
+            self._full_plan = (plan, kc.plan_desc(plan, self.device),
+                               self.seg_flat[off:])
+        self._hub_plan = self._hub_pool = None
+        if hub:
+            self._hub_plan = kh.hub_plan(
+                self.row0[:hub], [cb.shape[0] for cb in cbs[:hub]],
+                [cb.shape[1] for cb in cbs[:hub]], self.planes[:hub],
+                self.hub_prune, self.hub_uncond, self.device)
+            self._hub_pool = kh.new_pool(self._hub_plan, self.device)
 
     def _maybe_widen_windows(self) -> bool:
         widened = super()._maybe_widen_windows()
@@ -405,20 +414,28 @@ class CompactFrontierEngine(BucketedELLEngine):
     # ---- the staged pipeline -------------------------------------------
 
     def _fresh(self):
-        """(state, ctrl) of a fresh attempt: the round-1 outcome."""
+        """(state, ctrl, ba) of a fresh attempt: the round-1 outcome."""
         packed0 = torch.where(self.degrees == 0, 0, 1).to(torch.int32)
         return (kc.new_state(kc.extend_packed(packed0)),
                 kc.new_ctrl(step=1, prev_active=self.num_vertices + 1,
-                            device=self.device))
+                            device=self.device),
+                self._ba(self.init_bucket_active))
+
+    def _ba(self, values) -> torch.Tensor:
+        # a live table has at least one column (``_empty_rec``'s max(nb, 1))
+        return torch.tensor(list(values) or [0], dtype=torch.int32,
+                            device=self.device)
 
     def _run(self, k: int, start=None, ring=None):
         """One k-attempt through the stage ladder from ``start`` (a
-        ``(state, ctrl)`` pair; fresh when None), pushing into ``ring``
-        when given. Returns ``(state, c, status)``, ``c`` the final control
-        block as a list."""
-        state, ctrl = self._fresh() if start is None else start
+        ``(state, ctrl, ba)`` triple; fresh when None), pushing into
+        ``ring`` when given. Returns ``(state, c, status)``, ``c`` the final
+        control block as a list."""
+        state, ctrl, ba = self._fresh() if start is None else start
+        live = kc.new_live(ba)  # the prune state is fresh in every run
         record = ring is not None
         v = self.num_vertices
+        hub = self.hub_buckets
         c = ctrl.tolist()
         self.host_syncs += 1
         for si, (scale, thresh) in enumerate(self.stages):
@@ -426,21 +443,32 @@ class CompactFrontierEngine(BucketedELLEngine):
                 break
             if not kc.stage_live(c, thresh, self.max_steps):
                 continue  # the frontier is already below this stage's exit
-            if scale is None:
-                (plan, desc), seg, gidx = self._full_plan, self.seg_flat, None
-            else:
+            flat = None
+            if self._full_plan is not None and scale is None:
+                plan, desc, seg = self._full_plan
+                flat = (seg, plan, desc, None)
+            elif self._full_plan is not None:
                 plan, desc = self._stage_plans[si]
                 idx = kc.compact_slots(ctrl, state, self.flat_row0,
-                                       _pow2_ceil(scale))
+                                       pow2_ceil(scale))
                 seg, gidx = kc.stage_rows(self.flat_ext, idx, plan, desc,
                                           self.flat_row0, v)
+                flat = (seg, plan, desc, gidx)
             while kc.stage_live(c, thresh, self.max_steps):
                 for _ in range(self.STAGE_CHUNK):
-                    kc.segmented_superstep(ctrl, state, seg, plan, desc, k,
-                                           thresh, self.max_steps, gidx=gidx,
-                                           row_base=self.flat_row0)
-                    kc.stage_finish(ctrl, state, ring, thresh, self.max_steps,
-                                    STALL_WINDOW, record)
+                    if flat is not None:
+                        seg, plan, desc, gidx = flat
+                        kc.segmented_superstep(
+                            ctrl, state, seg, plan, desc, k, thresh,
+                            self.max_steps, gidx=gidx, row_base=self.flat_row0)
+                    if hub:
+                        kh.hub_slots(ctrl, state, live, self._hub_plan,
+                                     self._hub_pool, thresh, self.max_steps)
+                        kh.hub_superstep(ctrl, state, self.seg_flat, live,
+                                         self._hub_plan, self._hub_pool, k,
+                                         thresh, self.max_steps)
+                    kc.stage_finish(ctrl, state, ring, live, hub, thresh,
+                                    self.max_steps, STALL_WINDOW, record)
                 c = ctrl.tolist()
                 self.host_syncs += 1
         status = AttemptStatus(c[kc.CTRL_STATUS])
@@ -468,9 +496,9 @@ class CompactFrontierEngine(BucketedELLEngine):
 
     def _resume_point(self, ring, c, k: int):
         """The ring entry whose ``(best, mc]`` bracket contains ``k``, as a
-        ``(state, ctrl)`` start, or None on a miss (the latest matching
+        ``(state, ctrl, ba)`` start, or None on a miss (the latest matching
         slot wins, as in ``dgc_tpu.engine.compact.restore_from_ring``)."""
-        ring_pe, ring_meta = ring
+        ring_pe, ring_ba, ring_meta = ring
         meta = ring_meta.tolist()
         self.host_syncs += 1
         hit = None
@@ -483,7 +511,8 @@ class CompactFrontierEngine(BucketedELLEngine):
         self.resumed_from_step = step
         return (kc.new_state(ring_pe[hit]),
                 kc.new_ctrl(step=step, prev_active=prev_active,
-                            device=self.device, stall=stall))
+                            device=self.device, stall=stall),
+                ring_ba[hit].clone())
 
     def sweep(self, k0: int) -> tuple[AttemptResult, AttemptResult | None]:
         """Fused jump-mode pair: attempt(k0), recording into the ring, then
@@ -495,7 +524,8 @@ class CompactFrontierEngine(BucketedELLEngine):
         if k0 < 1:
             return self.attempt(k0), None
         while True:  # window-cap retry loop (STALLED + capped windows)
-            ring = kc.new_ring(v, self.device)
+            ring = kc.new_ring(v, max(len(self.init_bucket_active), 1),
+                               self.device)
             state, c, status1 = self._run(k0, ring=ring)
             if status1 == AttemptStatus.STALLED and self._maybe_widen_windows():
                 continue
@@ -516,12 +546,3 @@ class CompactFrontierEngine(BucketedELLEngine):
 
         return finish_sweep_pair(first, used, status2, finish_second, v,
                                  self.attempt)
-
-
-def _refuse_hubs(hub_buckets: int) -> None:
-    if hub_buckets > 0:
-        raise NotImplementedError(
-            f"ell-compact: this graph's bucket layout has {hub_buckets} hub "
-            "bucket(s) (wider than flat_cap or past the flat-table budget); "
-            "the hub region is not ported yet (ROADMAP A5(c)). Pass a "
-            "flat_cap of at least the maximum degree, or use ell-bucketed.")

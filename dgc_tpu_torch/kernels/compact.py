@@ -11,12 +11,19 @@ plain PyTorch versions, and the control-block and ring layout they share.
   (``ops.segmented_gather``), rows from a slot list or from ``row_base``
   on; adds the fail count, active count and ``mc`` to the control block.
 - ``stage_finish`` (K6): the superstep epilogue: the prefix-resume ring
-  push, stall, status, and the flip unless the step failed.
+  push (the pre-step state, live counts and meta), stall, status, the
+  commit of the hub region's staged live counts and prune tiers, and the
+  flip, the last two unless the step failed.
 
-K5 and K6 run a superstep only while the stage is live (``stage_live``):
-the attempt RUNNING, its carried active count above the stage threshold
-and its step below ``max_steps``; else they return at once, so a chunk of
+K5-K8 run a superstep only while the stage is live (``stage_live``): the
+attempt RUNNING, its carried active count above the stage threshold and
+its step below ``max_steps``; else they return at once, so a chunk of
 enqueued supersteps can overrun a stage's end harmlessly.
+
+The live table (``new_live``) is int32[5, nb]: per hub bucket, then the
+flat region's total when there is one, the live counts ``ba``, their
+staged next values, the prune tiers, their staged next values, and the
+branch the hub kernels (``kernels.hub``) took this superstep.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
@@ -42,6 +49,9 @@ from dgc_tpu_torch.ops.segmented_gather import (plan_max_planes, plan_rows,
 # candidate, and K6's block counter
 CTRL_REC_CNT, CTRL_REC_BEST, CTRL_DONE = range(8, 11)
 CTRL_LEN = 11
+# the live table's rows (kLive* in csrc/rule.cuh)
+LIVE_BA, LIVE_BA_NEXT, LIVE_TIER, LIVE_TIER_NEXT, LIVE_BRANCH = range(5)
+LIVE_ROWS = 5
 REC_SLOTS = 4   # prefix-resume ring: pre-states of the last 4 record steps
 META_COLS = 5   # [step, best before, mc, stall, prev_active]
 MAX_SEGS = 64   # segments a plan may have on the card (kMaxSegs)
@@ -78,11 +88,23 @@ def extend_packed(packed: torch.Tensor) -> torch.Tensor:
     return torch.cat([packed.to(torch.int32), tail])
 
 
-def new_ring(v: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ring_pe int32[4, V+2], ring_meta int32[4, 5]) of an empty ring."""
+def new_ring(v: int, nb: int, device) -> tuple[torch.Tensor, ...]:
+    """(ring_pe int32[4, V+2], ring_ba int32[4, nb], ring_meta int32[4, 5])
+    of an empty ring (``_empty_rec``)."""
     return (torch.zeros((REC_SLOTS, v + 2), dtype=torch.int32, device=device),
+            torch.zeros((REC_SLOTS, nb), dtype=torch.int32, device=device),
             torch.full((REC_SLOTS, META_COLS), -1, dtype=torch.int32,
                        device=device))
+
+
+def new_live(ba: torch.Tensor) -> torch.Tensor:
+    """The live table of an attempt that starts from the live counts
+    ``ba`` (int32[nb]): staged values, tiers and branches cleared (the
+    prune state is fresh in every attempt, ``_fresh_prune``)."""
+    live = torch.zeros((LIVE_ROWS, ba.shape[0]), dtype=torch.int32,
+                       device=ba.device)
+    live[LIVE_BA] = ba
+    return live
 
 
 def stage_live(c, thresh: int, max_steps: int) -> bool:
@@ -158,8 +180,9 @@ def segmented_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
 
 
 def stage_finish_reference(ctrl: torch.Tensor, state: torch.Tensor,
-                           ring, thresh: int, max_steps: int,
-                           stall_window: int, record: bool) -> None:
+                           ring, live: torch.Tensor, hub_buckets: int,
+                           thresh: int, max_steps: int, stall_window: int,
+                           record: bool) -> None:
     """K6's plain version: ``_make_recstep`` and ``_superstep_epilogue``."""
     c = ctrl.tolist()
     if not stage_live(c, thresh, max_steps):
@@ -170,9 +193,16 @@ def stage_finish_reference(ctrl: torch.Tensor, state: torch.Tensor,
     if record and fail == 0 and mc > best:
         slot = cnt % REC_SLOTS
         ring[0][slot] = state[cur]
-        ring[1][slot] = torch.tensor([step, best, mc, stall, prev],
+        ring[1][slot] = live[LIVE_BA]
+        ring[2][slot] = torch.tensor([step, best, mc, stall, prev],
                                      dtype=torch.int32)
         cnt, best = cnt + 1, mc
+    if fail == 0:
+        nh = hub_buckets
+        live[LIVE_BA, :nh] = live[LIVE_BA_NEXT, :nh]
+        live[LIVE_TIER, :nh] = live[LIVE_TIER_NEXT, :nh]
+        if live.shape[1] > nh:  # the flat region's total
+            live[LIVE_BA, nh] = c[CTRL_ACTIVE] - int(live[LIVE_BA_NEXT, :nh].sum())
     # max_steps was tested before the step (stage_live): no ELL stall rule
     ctrl.copy_(torch.tensor(finish_step(c, INT32_MAX, stall_window)
                             + [cnt, best, 0], dtype=torch.int32))
@@ -196,8 +226,8 @@ def _library():
         lib.dgc_segmented_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
                                                 vp, ci, ci, ci, ci, ci, vp]
         lib.dgc_segmented_superstep.restype = ci
-        lib.dgc_stage_finish.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci, ci,
-                                         vp]
+        lib.dgc_stage_finish.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
+                                         ci, ci, ci, ci, vp]
         lib.dgc_stage_finish.restype = ci
         lib._dgc_bound = True
     return lib
@@ -325,28 +355,37 @@ def segmented_superstep(ctrl: torch.Tensor, state: torch.Tensor,
 
 
 def stage_finish(ctrl: torch.Tensor, state: torch.Tensor, ring,
-                 thresh: int, max_steps: int, stall_window: int,
-                 record: bool) -> None:
-    """K6; ``ring`` is ``new_ring``'s pair, or None when not recording.
+                 live: torch.Tensor, hub_buckets: int, thresh: int,
+                 max_steps: int, stall_window: int, record: bool) -> None:
+    """K6; ``ring`` is ``new_ring``'s triple, or None when not recording;
+    ``live`` the live table of ``hub_buckets`` hub buckets (``new_live``).
     Runs on the current stream."""
     device = state.device
     if device.type == "cpu":
-        return stage_finish_reference(ctrl, state, ring, thresh, max_steps,
-                                      stall_window, record)
+        return stage_finish_reference(ctrl, state, ring, live, hub_buckets,
+                                      thresh, max_steps, stall_window, record)
     _check_cuda("stage_finish", device)
     _check_state(ctrl, state, device)
-    ring_pe = ring_meta = None
+    _check_int32("live", live, device, 2)
+    nb = live.shape[1]
+    if live.shape[0] != LIVE_ROWS or not 0 <= hub_buckets <= nb <= hub_buckets + 1:
+        raise ValueError(f"live must be [{LIVE_ROWS}, nb] with nb = "
+                         f"{hub_buckets} or {hub_buckets + 1}")
+    ring_pe = ring_ba = ring_meta = None
     if record:
-        ring_pe, ring_meta = ring
-        _check_int32("ring_pe", ring_pe, device, 2)
-        _check_int32("ring_meta", ring_meta, device, 2)
+        ring_pe, ring_ba, ring_meta = ring
+        for name, t in (("ring_pe", ring_pe), ("ring_ba", ring_ba),
+                        ("ring_meta", ring_meta)):
+            _check_int32(name, t, device, 2)
         if tuple(ring_pe.shape) != (REC_SLOTS, state.shape[1]) or \
+                tuple(ring_ba.shape) != (REC_SLOTS, nb) or \
                 tuple(ring_meta.shape) != (REC_SLOTS, META_COLS):
-            raise ValueError("ring must be [4, V+2] and [4, 5]")
+            raise ValueError("ring must be [4, V+2], [4, nb] and [4, 5]")
     _raise_on(_library().dgc_stage_finish(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
-        None if ring_pe is None else ring_pe.data_ptr(),
-        None if ring_meta is None else ring_meta.data_ptr(), int(thresh),
+        *(None if t is None else t.data_ptr()
+          for t in (ring_pe, ring_ba, ring_meta)),
+        live.data_ptr(), int(hub_buckets), int(nb), int(thresh),
         int(min(max_steps, INT32_MAX)), int(min(stall_window, INT32_MAX)),
         int(bool(record)), _stream(device)), "stage_finish")
     launch_counts["stage_finish"] += 1

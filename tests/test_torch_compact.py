@@ -12,8 +12,9 @@
   isolated-vertex graph, with explicit stage ladders (the default ladder
   does not compact below 2^14 vertices); also jump and strict sweeps,
   k < 1, failing budgets, window widening, a step budget that stalls, a
-  confirm resumed from the ring and one that misses it. A hub layout
-  raises ``NotImplementedError``.
+  confirm resumed from the ring and one that misses it.
+- The CLI colors a hub layout (a 301-vertex star) as ``dgc_tpu.cli`` does.
+  ``tests/test_torch_hub*.py`` hold the hub region itself against JAX.
 """
 
 import numpy as np
@@ -32,6 +33,7 @@ from dgc_tpu.models.generators import (generate_random_graph,  # noqa: E402
 from dgc_tpu.models.graph import Graph as JaxGraph  # noqa: E402
 from dgc_tpu_torch import convert  # noqa: E402
 from dgc_tpu_torch.engine import compact as tc  # noqa: E402
+from dgc_tpu_torch.engine import hub as th  # noqa: E402
 from dgc_tpu_torch.engine.base import AttemptStatus  # noqa: E402
 from dgc_tpu_torch.engine.minimal_k import find_minimal_coloring  # noqa: E402
 from dgc_tpu_torch.kernels import compact as kc  # noqa: E402
@@ -83,7 +85,8 @@ def port_engine(name: str, build: str):
         jax_engine.planes,
         None if jax_engine.flat_ext is None else np.asarray(jax_engine.flat_ext),
         jax_engine.stages, jax_engine.stage_ranges,
-        hub_buckets=jax_engine.hub_buckets,
+        hub_buckets=jax_engine.hub_buckets, hub_prune=jax_engine.hub_prune,
+        hub_uncond=jax_engine.hub_uncond,
         max_window_planes=jax_engine._window_cap,
         max_steps=jax_engine.max_steps, device="cpu")
 
@@ -192,13 +195,13 @@ def test_bad_knobs_raise_like_jax(knobs):
 
 def test_hub_configs_equal_jax():
     for rows in (1, 31, 100, 1000, 10_000):
-        assert tc.hub_pad_for(rows) == jc.hub_pad_for(rows)
+        assert th.hub_pad_for(rows) == jc.hub_pad_for(rows)
         for width in (64, 512, 8192):
             for kw in ({}, dict(u_min=8, uncond_entries=0),
                        dict(p_div=1, p2_div=16, p2_min=4)):
-                assert tc.hub_prune_cfg(rows, width, **kw) == \
+                assert th.hub_prune_cfg(rows, width, **kw) == \
                     jc.hub_prune_cfg(rows, width, **kw)
-    _raises_alike(lambda: tc.hub_prune_cfg(10, 10, p_div=0),
+    _raises_alike(lambda: th.hub_prune_cfg(10, 10, p_div=0),
                   lambda: jc.hub_prune_cfg(10, 10, p_div=0))
 
 
@@ -370,50 +373,41 @@ def test_ring_miss_confirms_from_scratch_like_jax(name, monkeypatch):
 def test_resume_point_takes_the_latest_bracket():
     ours = port_engine("isolated", "port")
     v = ours.num_vertices
-    ring = kc.new_ring(v, "cpu")
+    ring = kc.new_ring(v, 1, "cpu")
     ring[0][:] = torch.arange(4)[:, None]
+    ring[1][:] = torch.arange(10, 14)[:, None]
     meta = [[2, -1, 3, 0, 9], [3, 3, 5, 1, 7], [4, 5, 9, 0, 5],
             [5, 2, 6, 2, 4]]
-    ring[1][:] = torch.tensor(meta, dtype=torch.int32)
+    ring[2][:] = torch.tensor(meta, dtype=torch.int32)
     c = [0] * kc.CTRL_LEN
     c[kc.CTRL_REC_CNT] = 4
     assert ours._resume_point(ring, c, -1) is None       # under every bracket
     assert ours._resume_point(ring, c, 10) is None       # over every bracket
-    state, ctrl = ours._resume_point(ring, c, 6)         # slots 2 and 3: 3 wins
+    state, ctrl, ba = ours._resume_point(ring, c, 6)     # slots 2 and 3: 3 wins
     assert ours.resumed_from_step == 5
     assert torch.equal(state[0], ring[0][3]) and torch.equal(state[1], ring[0][3])
     assert ctrl.tolist()[:5] == [0, 5, 4, 2, 0]
+    assert ba.tolist() == [13]                           # the live counts too
     c[kc.CTRL_REC_CNT] = 2                               # slots 2, 3 unwritten
     assert ours._resume_point(ring, c, 6) is None
 
 
-def test_hub_layout_raises():
-    g, jax_engine = config("rmat")
-    with pytest.raises(NotImplementedError, match="A5\\(c\\)"):
-        tc.CompactFrontierEngine(convert.graph_from_numpy(g.indptr, g.indices),
-                                 flat_cap=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="hub"):
-        convert.compact_engine_from_tables(
-            jax_engine.perm, np.asarray(jax_engine.degrees),
-            [np.asarray(c) for c in jax_engine.combined_buckets],
-            jax_engine.planes, np.asarray(jax_engine.flat_ext),
-            jax_engine.stages, jax_engine.stage_ranges, hub_buckets=1,
-            device="cpu")
-
-
-def test_cli_exits_2_on_a_hub_layout(tmp_path, capsys):
+def test_cli_colors_a_hub_layout_like_jax(tmp_path):
     """A graph whose widest bucket passes flat_cap (256): the default
-    backend refuses it with the NotImplementedError text, rc 2."""
+    backend colors it as ``dgc_tpu.cli`` does (the post-pass off: the JAX
+    CLI's may take its native walk, which the port does not have)."""
+    from dgc_tpu import cli as jcli
     from dgc_tpu_torch import cli as tcli
 
     edges = np.array([[0, j] for j in range(1, 301)])
     JaxGraph(JaxArrays.from_edge_list(301, edges)).serialize(tmp_path / "g.json")
-    assert tcli.main(["--input", str(tmp_path / "g.json"), "--device", "cpu",
-                      "--output-coloring", str(tmp_path / "c.json")]) == 2
-    err = capsys.readouterr().err
-    assert "hub" in err and "A5(c)" in err
-    assert "--backend ell-bucketed" in err  # the backend that colors it
-    assert not (tmp_path / "c.json").exists()
+    common = ["--input", str(tmp_path / "g.json"), "--no-reduce-colors"]
+    assert jcli.main(common + ["--output-coloring",
+                               str(tmp_path / "jax.json")]) == 0
+    assert tcli.main(common + ["--device", "cpu", "--output-coloring",
+                               str(tmp_path / "port.json")]) == 0
+    assert (tmp_path / "port.json").read_bytes() == \
+        (tmp_path / "jax.json").read_bytes()
 
 
 def test_cpu_engine_never_counts_launches():
