@@ -20,6 +20,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    hub region's live table. The hub kernels K7 (branch and slot lists)
    and K8 (the branches' rows) on 72 random hub regions: every ladder and
    branch, captures that hold and fail, 1-, 32- and mixed-plane windows.
+   The attempt block's K9 (record) and K10 (start) on 240 random blocks:
+   every status, open, done and full blocks, rings whose brackets hold
+   the budget in no, one or several slots, 1 to 140,000 vertices.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -31,7 +34,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on isolated vertices, with compaction stages at that size, and at
    budgets below 1. One more sweep of the forced-knob and ``flat_cap=4``
    cases, held against the plain versions, must take the hub branches
-   that case exists for (rebase, pruned, shrink, pruned2; compact).
+   that case exists for (rebase, pruned, shrink, pruned2; compact). Every
+   ``ell-compact`` case also runs the blocked driver on the card at 2 and
+   4 attempts a block, jump and strict, against the same CPU run.
 3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
@@ -48,10 +53,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one more ``attempt`` of the compact engine (a test double over their
    wrappers), K3-K6 timed on the uniform sweep's first stage inputs, K7
    and K8 over the RMAT sweep's launches; the branches each hub bucket
-   took are counted.
+   took are counted. Then ``ell-compact`` again through the CLI's calls
+   with ``--attempts-per-dispatch``: on 1M uniform jump and strict
+   (from k0 = 33), sequential and at 4 a block, on 1M RMAT jump,
+   sequential and at 4; each blocked sweep must equal its sequential one,
+   launch K9 and K10 and bring no row of V words home between the
+   attempts of a block. K9 and K10 are held against their plain versions
+   over one more block of each jump sweep and timed there.
+4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
+   degree 16) from k = 465, about 450 attempts, and its jump sweep,
+   blocked on the card at 2 and 4 a block against the CPU sequential
+   runs (computed in a child process on one core while phases 1-3 run);
+   the strict chain killed at a block boundary and resumed from its
+   checkpoint on the card must equal the uninterrupted one.
 
-Output: one JSON line per phase-3 run, the card's name and power limit as
-``nvidia-smi`` gives them, a ``{"kernels": [...]}`` line, and last
+Output: one JSON line per phase and per phase-3 run, the card's name and
+power limit as ``nvidia-smi`` gives them, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present or the port is missing. Imports no JAX and nothing
 of ``dgc_tpu``.
@@ -65,7 +82,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from multiprocessing import get_context
 from pathlib import Path
 
 import numpy as np
@@ -429,6 +447,93 @@ def phase_hub_kernels(device) -> int:
     return err
 
 
+def _block_case(rng, v: int, nb: int, attempts: int, device):
+    """A random block: state buffers, a control block (every status, a
+    RUNNING one with and without work left), a block record open or done
+    or full, a ring whose brackets hold the budget in no, one or several
+    slots (a count above 4 too), degrees with isolated rows, a live table
+    and the fresh live counts."""
+    from dgc_tpu_torch.kernels import block as kb
+    from dgc_tpu_torch.kernels import compact as kc
+
+    state = _compact_state(rng, v, 200, 0.3, device)
+    state[:, :v] = torch.from_numpy(np.where(
+        rng.random((2, v)) < 0.2, -1,
+        rng.integers(0, 2 * int(rng.choice([1, 40, 400])), (2, v)))
+        .astype(np.int32)).to(device)
+    k = int(rng.integers(1, 60))
+    cnt = int(rng.choice([0, 1, 3, 4, 9]))
+    meta = np.full((kc.REC_SLOTS, kc.META_COLS), -1, np.int64)
+    for j in range(kc.REC_SLOTS):
+        lo = int(rng.integers(-1, 70))
+        meta[j] = (rng.integers(1, 90), lo, lo + int(rng.integers(1, 30)),
+                   rng.integers(0, 60), rng.integers(0, v + 2))
+        if rng.random() < 0.3:  # this slot's bracket holds k
+            meta[j, 1], meta[j, 2] = k - int(rng.integers(1, 5)), \
+                k + int(rng.integers(0, 5))
+    ring = (torch.from_numpy(rng.integers(-1, 99, (kc.REC_SLOTS, v + 2))
+                             .astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, 99, (kc.REC_SLOTS, nb))
+                             .astype(np.int32)).to(device),
+            torch.from_numpy(meta.astype(np.int32)).to(device))
+    prev = int(rng.choice([0, 0, int(rng.integers(1, v + 2))]))
+    ctrl = torch.tensor([int(rng.choice([0, 0, 1, 2, 3])),
+                         int(rng.integers(1, 99)), prev,
+                         int(rng.integers(0, 60)), int(rng.integers(0, 2)),
+                         int(rng.integers(0, 3)), int(rng.integers(0, 9)),
+                         int(rng.integers(-1, 40)), cnt,
+                         int(rng.integers(-1, 70)), 0],
+                        dtype=torch.int32, device=device)
+    blk = kb.new_block(k, attempts, ctrl[kc.CTRL_REC_CNT:
+                                         kc.CTRL_REC_BEST + 1])[2].clone()
+    n_att = int(rng.integers(0, attempts + 1))
+    blk[kb.BLK_N_ATT] = n_att
+    blk[kb.BLK_DONE] = int(rng.random() < 0.15)
+    degrees = torch.from_numpy(np.where(rng.random(v) < 0.1, 0,
+                                        rng.integers(1, 40, v))
+                               .astype(np.int32)).to(device)
+    live = torch.from_numpy(rng.integers(-5, 50, (kc.LIVE_ROWS, nb))
+                            .astype(np.int32)).to(device)
+    init_ba = torch.from_numpy(rng.integers(0, v, nb).astype(np.int32)
+                               ).to(device)
+    best = torch.from_numpy(rng.integers(-1, 9, v + 2).astype(np.int32)
+                            ).to(device)
+    return ctrl, state, blk, ring, degrees, live, init_ba, best
+
+
+def phase_block_kernels(device) -> int:
+    """K9 and K10 vs their plain versions on seeded random blocks (sizes
+    from 1 vertex to past one grid's stride, 1 to 8 attempts, strict and
+    jump, floors below, at and above the next budget); returns the max
+    abs difference."""
+    from dgc_tpu_torch.kernels import block as kb
+
+    rng = np.random.default_rng(3)
+    err = 0
+    for trial in range(240):
+        v = int(rng.choice([1, 7, 255, 256, 5000, 140_000]))
+        nb = int(rng.choice([1, 1, 3, 8]))
+        attempts = int(rng.choice([1, 2, 4, 8]))
+        ctrl, state, blk, ring, degrees, live, init_ba, best = _block_case(
+            rng, v, nb, attempts, device)
+        k_min = int(rng.integers(-2, 70))
+        strict = bool(trial % 2)
+        held = [t.clone() for t in (ctrl, state, blk, best)]
+        kb.block_record(ctrl, state, blk, best, k_min, strict)
+        kb.block_record_reference(*held[:3], held[3], k_min, strict)
+        err = max(err, *(_diff(a, b) for a, b in
+                         zip((ctrl, state, blk, best), held)))
+        held = [t.clone() for t in (ctrl, blk, state, live)]
+        kb.block_start(ctrl, blk, state, live, ring, degrees, init_ba)
+        kb.block_start_reference(*held, ring, degrees, init_ba)
+        err = max(err, *(_diff(a, b) for a, b in
+                         zip((ctrl, blk, state, live), held)))
+    torch.cuda.synchronize()
+    check(err == 0, f"K9/K10 disagree with their plain versions: max abs "
+                    f"err {err}")
+    return err
+
+
 # ---- phase 2: engines vs the CPU --------------------------------------------
 
 def _attempt_rows(result) -> list[tuple]:
@@ -498,6 +603,10 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
                              "strict": strict, "k0": k0,
                              "attempts": len(a.attempts),
                              "colors": a.minimal_colors})
+                if backend.startswith("ell-compact"):
+                    rows[-1]["blocks"] = _blocked_matches(
+                        make, graph, k0, strict, _attempt_rows(b), b.colors,
+                        device, make_validator(graph.arrays))
             if backend in must_take:
                 with _HeldCompactKernels() as held:
                     make(graph, device).sweep(graph.initial_k())
@@ -556,6 +665,127 @@ def _edge_cases(device) -> list[dict]:
                       f"{name}: sweep({budgets[0]}) differs from its CPU run")
         rows.append({"graph": name, "budgets": list(budgets),
                      "status": a.status.name})
+    return rows
+
+
+BLOCK_SIZES = (2, 4)  # attempts per block on the card
+# the long strict chain: RMAT, seed 1, average degree 16 (Δ 750 from the
+# NumPy generator), from k = 465, about 450 attempts
+CHAIN = dict(v=3000, seed=1, k0=465)
+
+
+def _blocked_matches(make, graph, k0: int, strict: bool, ref_rows: list,
+                     ref_colors: np.ndarray, device, validate) -> list[int]:
+    """The blocked driver on the card at every ``BLOCK_SIZES``: each run's
+    attempts and colors must equal the CPU sequential run's; returns the
+    blocks each run took."""
+    from dgc_tpu_torch.engine.minimal_k import find_minimal_coloring
+
+    blocks = []
+    for a in BLOCK_SIZES:
+        seen = []
+        got = find_minimal_coloring(
+            make(graph, device), k0, strict_decrement=strict,
+            validate=validate, attempts_per_dispatch=a,
+            on_block=lambda k, n: seen.append(k))
+        check(_attempt_rows(got) == ref_rows
+              and np.array_equal(got.colors, ref_colors),
+              f"the blocked driver at A={a} (strict={strict}, k0={k0}) "
+              f"differs from the CPU sequential run: {_attempt_rows(got)} vs "
+              f"{ref_rows}")
+        blocks.append(len(seen))
+    return blocks
+
+
+def _chain_graph():
+    from dgc_tpu_torch.models.graph import Graph
+
+    return Graph.generate(CHAIN["v"], 32, seed=CHAIN["seed"], method="rmat")
+
+
+def chain_reference() -> dict:
+    """The long chain's CPU sequential runs, strict and jump, on one thread
+    (run in a child process beside the card's phases): per mode the
+    attempts, the colors and the seconds."""
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_validator)
+
+    torch.set_num_threads(1)
+    graph = _chain_graph()
+    out = {}
+    for strict in (True, False):
+        t = time.perf_counter()
+        ref = find_minimal_coloring(
+            CompactFrontierEngine(graph.arrays, device="cpu"), CHAIN["k0"],
+            strict_decrement=strict, validate=make_validator(graph.arrays))
+        out[strict] = (_attempt_rows(ref), ref.colors,
+                       time.perf_counter() - t)
+    return out
+
+
+def phase_block_engines(device, reference: dict) -> list[dict]:
+    """The long chain (``CHAIN``) strict and jump, blocked on the card at
+    ``BLOCK_SIZES`` against ``reference`` (``chain_reference``); then the
+    strict chain killed at a block boundary (an ``on_block`` that raises)
+    and resumed from its checkpoint on the card equals the uninterrupted
+    one."""
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_validator)
+    from dgc_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def make(g, dev):
+        return CompactFrontierEngine(g.arrays, device=dev)
+
+    graph = _chain_graph()
+    validate = make_validator(graph.arrays)
+    k0 = CHAIN["k0"]
+    rows = []
+    for strict in (True, False):
+        ref_rows, ref_colors, cpu_s = reference[strict]
+        t = time.perf_counter()
+        blocks = _blocked_matches(make, graph, k0, strict, ref_rows,
+                                  ref_colors, device, validate)
+        rows.append({"graph": f"rmat {CHAIN['v']} seed {CHAIN['seed']}",
+                     "max_degree": graph.max_degree, "k0": k0,
+                     "strict": strict, "attempts": len(ref_rows),
+                     "blocks": blocks, "cpu_sequential_s": cpu_s,
+                     "card_blocked_s": time.perf_counter() - t})
+
+    class Kill(Exception):
+        pass
+
+    def killer(k, attempts):
+        if len(seen) == 3:
+            raise Kill
+        seen.append(k)
+
+    with tempfile.TemporaryDirectory() as d:
+        seen, pre = [], []
+        try:
+            find_minimal_coloring(
+                make(graph, device), k0, strict_decrement=True,
+                validate=validate, checkpoint=CheckpointManager(d),
+                attempts_per_dispatch=4, on_block=killer,
+                on_attempt=lambda r, val: pre.append(r))
+            raise SmokeFailure("the kill at a block boundary never fired")
+        except Kill:
+            pass
+        post = find_minimal_coloring(
+            make(graph, device), k0, strict_decrement=True,
+            validate=validate, checkpoint=CheckpointManager(d),
+            attempts_per_dispatch=4)
+    resumed = [(a.k, int(a.status), a.supersteps, a.colors_used)
+               for a in pre] + _attempt_rows(post)[1:]
+    ref_rows, ref_colors, _ = reference[True]
+    check(len(pre) == 12 and resumed == ref_rows
+          and np.array_equal(post.colors, ref_colors),
+          "the strict chain killed after 3 blocks of 4 did not resume "
+          "exactly on the card")
+    rows.append({"resume": "strict chain killed after 3 blocks of 4, "
+                 "resumed from its checkpoint", "attempts_before_kill":
+                 len(pre), "attempts_after": len(post.attempts) - 1})
     return rows
 
 
@@ -1259,12 +1489,251 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
     return out
 
 
+class _TimedBlockEngine(_TimedSweepEngine):
+    """The same for the blocked driver: one time per ``attempt_block``
+    call, and every copy home of the engine's ``_read`` in that call (its
+    bytes, and whether it was a whole row of V words)."""
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.blocks: list[list[tuple[int, bool]]] = []
+        read, v = engine._read, engine.num_vertices
+
+        def counted(t):
+            self.blocks[-1].append((t.numel() * t.element_size(),
+                                    t.numel() >= v))
+            return read(t)
+
+        engine._read = counted
+
+    def attempt_block(self, k: int, attempts: int, **kw):
+        self.blocks.append([])
+        t = time.perf_counter()
+        out = self.engine.attempt_block(k, attempts, **kw)
+        self.seconds.append(time.perf_counter() - t)
+        self.results += out.results
+        return out
+
+
+class _HeldBlockKernels:
+    """A test double over ``kernels.block``'s wrappers: every K9 and K10
+    call runs the plain version on copies, then the kernel on the engine's
+    own tensors, and keeps the largest difference and the inputs of the
+    first K9 call on a success and of the first K10 call that starts from
+    the ring (the first K10 call when none does), for timing."""
+
+    def __init__(self):
+        from dgc_tpu_torch.kernels import block as kb
+
+        self.kb = kb
+        self.real = {n: getattr(kb, n) for n in ("block_record",
+                                                 "block_start")}
+        self.err = 0
+        self.calls = dict.fromkeys(self.real, 0)
+        self.k9 = self.k10 = None
+        self.k10_hit = False
+
+    def __enter__(self):
+        for name in self.real:
+            setattr(self.kb, name, getattr(self, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.kb, name, fn)
+
+    def block_record(self, ctrl, state, blk, best_pe, k_min, strict):
+        from dgc_tpu_torch.kernels.compact import CTRL_STATUS
+
+        self.calls["block_record"] += 1
+        held = [t.clone() for t in (ctrl, state, blk, best_pe)]
+        if self.k9 is None and int(ctrl[CTRL_STATUS]) == 1:
+            self.k9 = [t.clone() for t in held] + [k_min, strict]
+        self.kb.block_record_reference(*held, k_min, strict)
+        self.real["block_record"](ctrl, state, blk, best_pe, k_min, strict)
+        for a, b in zip((ctrl, state, blk, best_pe), held):
+            self.err = max(self.err, _diff(a, b))
+
+    def block_start(self, ctrl, blk, state, live, ring, degrees, init_ba):
+        kb = self.kb
+        self.calls["block_start"] += 1
+        held = [t.clone() for t in (ctrl, blk, state, live)]
+        b, cnt = blk.tolist(), int(ctrl[kb.CTRL_REC_CNT])
+        hit = kb.block_open(b) and any(
+            j < cnt and m[1] < b[kb.BLK_K] <= m[2]
+            for j, m in enumerate(ring[2].tolist()))
+        if self.k10 is None or (hit and not self.k10_hit):
+            self.k10_hit = hit  # a start from the ring is kept if any
+            self.k10 = ([t.clone() for t in held]
+                        + [tuple(t.clone() for t in ring), degrees, init_ba])
+        self.kb.block_start_reference(*held, ring, degrees, init_ba)
+        self.real["block_start"](ctrl, blk, state, live, ring, degrees,
+                                 init_ba)
+        for a, b in zip((ctrl, blk, state, live), held):
+            self.err = max(self.err, _diff(a, b))
+
+
+def measure_block(engine, k: int, strict: bool, swept: list[tuple]) -> dict:
+    """One block of 4 at ``k`` with every K9 and K10 call held against its
+    plain version (the held block's attempts must equal the start of
+    ``swept``); then K9 (on a success: the reduce and the best-row copy)
+    and K10 timed on the held inputs (warm, and cold: the L2 cache evicted
+    before each launch), their plain versions, library calls
+    (``torch.amax`` and ``copy_``; one ``copy_`` of the row into both
+    buffers) and byte bounds."""
+    from dgc_tpu_torch.kernels import block as kb
+
+    with _HeldBlockKernels() as held:
+        out = engine.attempt_block(k, 4, strict_decrement=strict)
+    rows = [(a.k, int(a.status), a.supersteps, a.colors_used)
+            for a in out.results]
+    check(rows == swept[:len(rows)], f"the held block at {k} gave {rows}, "
+                                     f"the sweep {swept[:len(rows)]}")
+    check(held.err == 0, f"K9/K10 disagree with their plain versions at the "
+                         f"main path's shapes: max abs err {held.err}")
+    check(held.k9 is not None, "the held block recorded no success")
+    ctrl, state, blk0, best, k_min, strict_ = held.k9
+    blk = blk0.clone()
+    v = state.shape[1] - 2
+    pe = state[int(ctrl[kb.CTRL_CUR])]
+    k9_bytes = 4 * 2 * (v + 2)  # the state read, the best row written
+    c10, b10, s10, l10, ring, degrees, init_ba = held.k10
+    hit = held.k10_hit
+    # a ring row (or the degrees) read, two state rows and the live table
+    # written
+    k10_bytes = 4 * ((v + 2 if hit else v) + 2 * (v + 2)
+                     + kb.LIVE_ROWS * l10.shape[1])
+    src = ring[0][0]
+    # 64 MB written between launches evicts the 50 MB L2: the cold times
+    flush = torch.empty(16 << 20, dtype=torch.int32, device=state.device)
+    return {
+        "held_calls": held.calls, "max_abs_err": held.err,
+        "k10_ring_hit": hit,
+        "k9_ms": _device_ms(lambda: (blk.copy_(blk0), kb.block_record(
+            ctrl, state, blk, best, k_min, strict_)), 20,
+            "block_record_kernel"),
+        "k9_cold_ms": _device_ms(lambda: (flush.zero_(), blk.copy_(blk0),
+                                          kb.block_record(
+            ctrl, state, blk, best, k_min, strict_)), 20,
+            "block_record_kernel"),
+        "k9_plain_ms": _host_ms(lambda: (blk.copy_(blk0),
+                                         kb.block_record_reference(
+            ctrl, state, blk, best, k_min, strict_)), 5),
+        "k9_library_ms": _device_ms(lambda: (torch.amax(pe[:v]),
+                                             best.copy_(pe)), 20),
+        "k9_bound_ms": k9_bytes / HBM_BYTES_PER_S * 1e3,
+        "k9_bytes": k9_bytes,
+        "k10_ms": _device_ms(lambda: kb.block_start(
+            c10, b10, s10, l10, ring, degrees, init_ba), 20,
+            "block_start_kernel"),
+        "k10_cold_ms": _device_ms(lambda: (flush.zero_(), kb.block_start(
+            c10, b10, s10, l10, ring, degrees, init_ba)), 20,
+            "block_start_kernel"),
+        "k10_plain_ms": _host_ms(lambda: kb.block_start_reference(
+            c10, b10, s10, l10, ring, degrees, init_ba), 5),
+        "k10_library_ms": _device_ms(
+            lambda: s10.copy_(src.expand(2, -1)), 20),
+        "k10_bound_ms": k10_bytes / HBM_BYTES_PER_S * 1e3,
+        "k10_bytes": k10_bytes,
+    }
+
+
+def phase_blocked_main(card: str, out_dir: Path, argv: list[str],
+                       runs: tuple, graph=None) -> list[dict]:
+    """``ell-compact`` through the CLI's calls on the graph ``argv`` names,
+    for each ``(strict, A)`` of ``runs``: sequential at A = 1, blocked
+    above. The launch counts are zeroed just before each sweep and read
+    just after; a blocked sweep must launch K9 and K10, and bring no row
+    of V words home between the attempts of a block. Every run's attempts
+    and colors must equal the sequential run of its mode."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import block as kb
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+    from dgc_tpu_torch.ops.validate import validate_coloring
+
+    args = cli.build_parser().parse_args(
+        argv + ["--output-coloring", str(out_dir / "coloring.json")])
+    if graph is None:
+        graph = cli.load_graph(args)
+    records, seq = [], {}
+    for strict, a in runs:
+        args.strict_decrement, args.attempts_per_dispatch = strict, str(a)
+        engine = cli.make_engine(args, graph)
+        for mod in (kc, kh, kb):
+            mod.reset_launch_counts()
+        engine.host_syncs = engine.d2h_bytes = 0
+        timed = (_TimedBlockEngine if a > 1 else _TimedSweepEngine)(engine)
+        result = cli.sweep(args, graph, timed)
+        torch.cuda.synchronize()
+        launches = {**kc.launch_counts, **kh.launch_counts, **kb.launch_counts}
+        syncs, d2h = engine.host_syncs, engine.d2h_bytes
+        val = validate_coloring(graph.arrays.indptr, graph.arrays.indices,
+                                result.colors)
+        check(val.valid, f"strict={strict} A={a}: invalid coloring {val}")
+        rows = _attempt_rows(result)
+        key = (rows, result.colors.tobytes())
+        if a == 1:
+            seq[strict] = key
+        check(key == seq[strict], f"strict={strict} A={a}: {rows} differ "
+                                  f"from the sequential sweep's {seq[strict][0]}")
+        need = ("compact_slots", "segmented_superstep", "stage_finish") + (
+            ("block_record", "block_start") if a > 1 else ())
+        check(all(launches[n] > 0 for n in need)
+              and (a > 1 or not any(kb.launch_counts.values())),
+              f"strict={strict} A={a}: launches {launches}")
+        n = len(result.attempts)
+        rec = {"phase": "blocked_main", "graph": " ".join(argv),
+               "gen": args.gen_method,
+               "strict": strict, "attempts_per_dispatch": a,
+               "k0": graph.initial_k(), "attempts": rows,
+               "colors_swept": result.swept_colors,
+               "sweep_s": result.wall_time_s - result.post_reduce_s,
+               "engine_call_s": timed.seconds,
+               "validation_in_loop_s": (result.wall_time_s
+                                        - result.post_reduce_s
+                                        - sum(timed.seconds)),
+               "launches": launches, "host_syncs": syncs,
+               "host_syncs_per_attempt": syncs / n, "d2h_bytes": d2h,
+               "d2h_bytes_per_attempt": d2h / n, "card": card}
+        if a > 1:
+            rows_home = [sum(1 for _, row in b if row) for b in timed.blocks]
+            small = [[nb for nb, row in b if not row] for b in timed.blocks]
+            # per block at most the final attempt's row and the best row
+            check(all(r <= 2 for r in rows_home),
+                  f"strict={strict} A={a}: rows of V words per block "
+                  f"{rows_home}")
+            rec.update({
+                "blocks": len(timed.blocks),
+                "rows_home_per_block": rows_home,
+                "d2h_bytes_between_attempts_max": max(
+                    (x for b in small for x in b), default=0),
+                "d2h_row_bytes": 4 * graph.num_vertices})
+            if not strict:
+                rec.update(measure_block(engine, graph.initial_k(), strict,
+                                         rows))
+                engine.host_syncs = engine.d2h_bytes = 0
+                t = time.perf_counter()
+                out = engine.attempt_block(graph.initial_k(), 4)
+                rec["block_wall_ms"] = (time.perf_counter() - t) * 1e3
+                rec["block_attempts_run"] = len(out.results)
+                rec["block_host_syncs"] = engine.host_syncs
+                rec["block_device_busy_ms"] = _device_ms(
+                    lambda: engine.attempt_block(graph.initial_k(), 4), 1)
+        emit(rec)
+        records.append(rec)
+        del engine, timed
+    return records
+
+
 def phase_main_path(card: str, out_dir: Path, argv: list[str],
-                    backends: tuple) -> list[dict]:
+                    backends: tuple, blocked_runs: tuple):
     """The CLI's calls on the graph ``argv`` names, for each of
     ``backends``, ``ell-compact`` (the default) first; its attempts and
     swept colors must equal ``ell-bucketed``'s. The launch counts are
-    zeroed just before each sweep and read just after."""
+    zeroed just before each sweep and read just after. Then
+    ``phase_blocked_main`` on the same graph. Returns the records by
+    backend and the blocked records."""
     from dgc_tpu_torch import cli
     from dgc_tpu_torch.kernels import compact as kc
     from dgc_tpu_torch.kernels import hub as kh
@@ -1355,7 +1824,8 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
     a, b = swept["ell-compact"], swept["ell-bucketed"]
     check(a[0] == b[0] and np.array_equal(a[1], b[1]),
           f"ell-compact's sweep differs from ell-bucketed's: {a[0]} vs {b[0]}")
-    return records
+    blocked = phase_blocked_main(card, out_dir, argv, blocked_runs, graph)
+    return {r["backend"]: r for r in records}, blocked
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1378,41 +1848,54 @@ def main(argv: list[str] | None = None) -> int:
           "nvcc": {k: v.strip().splitlines()[-8:]
                    for k, v in build.build_log.items()}})
 
-    t = time.perf_counter()
-    kernel_err = phase_kernels("cuda")
-    compact_err = phase_compact_kernels("cuda")
-    hub_err = phase_hub_kernels("cuda")
-    emit({"phase": "kernels_vs_plain",
-          "max_abs_err": max(kernel_err, compact_err, hub_err),
-          "seconds": time.perf_counter() - t})
+    # the long chain's CPU reference runs in a child beside the card
+    with ProcessPoolExecutor(1, mp_context=get_context("spawn")) as child:
+        reference = child.submit(chain_reference)
+        t = time.perf_counter()
+        kernel_err = phase_kernels("cuda")
+        compact_err = phase_compact_kernels("cuda")
+        hub_err = phase_hub_kernels("cuda")
+        block_err = phase_block_kernels("cuda")
+        emit({"phase": "kernels_vs_plain",
+              "max_abs_err": max(kernel_err, compact_err, hub_err, block_err),
+              "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    rows = phase_engines("cuda")
-    emit({"phase": "engines_vs_cpu", "runs": rows,
-          "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        rows = phase_engines("cuda")
+        emit({"phase": "engines_vs_cpu", "runs": rows,
+              "seconds": time.perf_counter() - t})
 
-    from dgc_tpu_torch.cli import BACKENDS
+        from dgc_tpu_torch.cli import BACKENDS
 
-    with tempfile.TemporaryDirectory() as out_dir:
-        main_runs = {r["backend"]: r for r in phase_main_path(
-            card, Path(out_dir), MAIN_ARGS, tuple(BACKENDS))}
-        rmat_runs = {r["backend"]: r for r in phase_main_path(
-            card, Path(out_dir), RMAT_ARGS, ("ell-compact", "ell-bucketed"))}
+        with tempfile.TemporaryDirectory() as out_dir:
+            main_runs, blocked = phase_main_path(
+                card, Path(out_dir), MAIN_ARGS, tuple(BACKENDS),
+                ((False, 1), (False, 4), (True, 1), (True, 4)))
+            rmat_runs, blocked_rmat = phase_main_path(
+                card, Path(out_dir), RMAT_ARGS,
+                ("ell-compact", "ell-bucketed"), ((False, 1), (False, 4)))
+            blocked += blocked_rmat
+        t = time.perf_counter()
+        rows = phase_block_engines("cuda", reference.result())
+        emit({"phase": "block_engines_vs_cpu", "runs": rows,
+              "seconds": time.perf_counter() - t})
     print(card)
-    emit({"kernels": kernels_line(main_runs, rmat_runs, kernel_err,
-                                  compact_err, hub_err)})
+    emit({"kernels": kernels_line(main_runs, rmat_runs, blocked, kernel_err,
+                                  compact_err, hub_err, block_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def kernels_line(main_runs: dict, rmat_runs: dict, kernel_err: int,
-                 compact_err: int, hub_err: int) -> list[dict]:
+def kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
+                 kernel_err: int, compact_err: int, hub_err: int,
+                 block_err: int) -> list[dict]:
     """Every kernel of the port: its launches on its main path, its time,
     plain time, bound and library time at that path's shapes. K3-K6 are
     read on the 1M uniform path (``launches_rmat`` beside), K7 and K8 on
-    the 1M RMAT path."""
+    the 1M RMAT path, K9 and K10 on the 1M uniform jump sweep at A = 4
+    (the strict one's and RMAT's launches beside)."""
     compact, bucketed = main_runs["ell-compact"], main_runs["ell-bucketed"]
     hub = rmat_runs["ell-compact"]
     k1k2 = "dgc_tpu_torch/csrc/superstep.cu"
@@ -1428,6 +1911,15 @@ def kernels_line(main_runs: dict, rmat_runs: dict, kernel_err: int,
 
     def rmat(name):
         return hub["launches"][name]
+
+    k9k10 = "dgc_tpu_torch/csrc/block.cu"
+    jump4 = next(r for r in blocked if not r["strict"]
+                 and r["attempts_per_dispatch"] > 1)
+    others = {f"{'strict' if r['strict'] else 'jump'} {r['gen']}": r
+              for r in blocked
+              if r["attempts_per_dispatch"] > 1 and r is not jump4}
+    block_err = max([block_err] + [r["max_abs_err"] for r in blocked
+                                   if "max_abs_err" in r])
 
     return [
         {"name": "superstep_rows", "route": "cuda", "source": k1k2,
@@ -1487,6 +1979,23 @@ def kernels_line(main_runs: dict, rmat_runs: dict, kernel_err: int,
          "ms": hub["k8_ms"], "plain_ms": hub["k8_plain_ms"],
          "bound_ms": hub["k8_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "block_record", "route": "cuda", "source": k9k10,
+         "replaces": "dgc_tpu/engine/compact.py:1799",
+         "launches": jump4["launches"]["block_record"],
+         "launches_other": {n: r["launches"]["block_record"]
+                            for n, r in others.items()},
+         "max_abs_err": block_err, "ms": jump4["k9_ms"],
+         "plain_ms": jump4["k9_plain_ms"], "bound_ms": jump4["k9_bound_ms"],
+         "bound_by": "bytes", "library_ms": jump4["k9_library_ms"]},
+        {"name": "block_start", "route": "cuda", "source": k9k10,
+         "replaces": "dgc_tpu/engine/compact.py:1784",
+         "launches": jump4["launches"]["block_start"],
+         "launches_other": {n: r["launches"]["block_start"]
+                            for n, r in others.items()},
+         "max_abs_err": block_err, "ms": jump4["k10_ms"],
+         "plain_ms": jump4["k10_plain_ms"],
+         "bound_ms": jump4["k10_bound_ms"], "bound_by": "bytes",
+         "library_ms": jump4["k10_library_ms"]},
     ]
 
 

@@ -3,8 +3,14 @@
 Keeps the reference's flags and mutual-requirement validation: ``--input``
 *or* (``--node-count`` + ``--max-degree``), optional ``--output-graph``,
 required ``--output-coloring``, in the reference's JSON schemas; the saved
-coloring is the last *valid* one. Adds the engine (``--backend``) and the
-device (``--device``, default ``cuda``).
+coloring is the last *valid* one (``--compat-failed-output``: the
+reference's failed final attempt's partial one). Adds the engine
+(``--backend``), the device (``--device``, default ``cuda``), the attempt
+block (``--attempts-per-dispatch A|auto``: up to A budgets chained on the
+card per block, ``ell-compact`` only) and checkpoint/resume
+(``--checkpoint-dir``, ``--checkpoint-write-behind``), as ``dgc_tpu.cli``
+has them. Not ported: ``--speculate-k``, tuned configs, telemetry and
+the resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
         --output-coloring colors.json [--backend ell-compact] [--device cpu]
@@ -26,6 +32,12 @@ from dgc_tpu_torch.engine.minimal_k import (MinimalColoringResult,
 from dgc_tpu_torch.models.graph import Graph
 
 BACKENDS = ("ell-compact", "ell-bucketed", "ell")
+# the host work the attempt block saves per attempt: the engine time of the
+# 1M-vertex uniform strict sweep (k0 = 33, 24 attempts), sequential less
+# blocked at A = 4, over its attempts ((0.378 - 0.194 s) / 24), measured by
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W. ``auto`` picks the
+# same A for any positive value (utils.schedule_model).
+ATTEMPT_HOST_COST_S = 7.67e-3
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,7 +73,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-reduce-colors", action="store_true",
                    help="disable the top-class recolor post-pass "
                         "(ops.reduce_colors)")
+    p.add_argument("--attempts-per-dispatch", type=str, default=None,
+                   metavar="A|auto",
+                   help="chain up to A attempts of the minimal-k loop on the "
+                        "card per block, the stopping rule, the ring resume "
+                        "and the best row kept there (ell-compact); 'auto' "
+                        "prices A off the expected attempt count; 1/unset "
+                        "is the sequential driver; results are the same at "
+                        "any A")
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="checkpoint/resume directory (a completed "
+                        "checkpoint short-circuits the run)")
+    p.add_argument("--checkpoint-write-behind", action="store_true",
+                   help="write checkpoints from a background thread (newest "
+                        "snapshot wins), flushed before exit; the files are "
+                        "the synchronous manager's")
+    p.add_argument("--compat-failed-output", action="store_true",
+                   help="reproduce the reference's quirk of saving the "
+                        "failed attempt's partial coloring")
     return p
+
+
+def parse_attempts_per_dispatch(value: str | None) -> int | str:
+    """``--attempts-per-dispatch``: 1 when unset, a positive int, or
+    ``"auto"``; anything else raises ``ValueError`` with the JAX CLI's
+    message."""
+    if not value:
+        return 1
+    if value == "auto":
+        return value
+    try:
+        a = int(value)
+    except ValueError:
+        a = 0
+    if a < 1:
+        raise ValueError(f"--attempts-per-dispatch must be a positive integer "
+                         f"or 'auto', got {value!r}")
+    return a
+
+
+def attempts_per_dispatch(args, graph: Graph) -> int:
+    """The block size the arguments ask for on ``graph``."""
+    a = parse_attempts_per_dispatch(getattr(args, "attempts_per_dispatch",
+                                            None))
+    if a == "auto":
+        from dgc_tpu_torch.utils.schedule_model import \
+            auto_attempts_per_dispatch
+
+        return auto_attempts_per_dispatch(graph.initial_k(),
+                                          overhead_s=ATTEMPT_HOST_COST_S)
+    return a
+
+
+def make_checkpoint(args, graph: Graph):
+    """The checkpoint manager ``--checkpoint-dir`` names, or None."""
+    if not getattr(args, "checkpoint_dir", None):
+        return None
+    from dgc_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                WriteBehindCheckpointManager,
+                                                graph_fingerprint)
+
+    cls = (WriteBehindCheckpointManager if args.checkpoint_write_behind
+           else CheckpointManager)
+    return cls(args.checkpoint_dir,
+               fingerprint=graph_fingerprint(graph.arrays, args.backend,
+                                             args.strict_decrement))
 
 
 def load_graph(args) -> Graph:
@@ -106,16 +182,20 @@ def _print_attempt(res, val) -> None:
     print("attempt: " + " ".join(fields))
 
 
-def sweep(args, graph: Graph, engine) -> MinimalColoringResult:
-    """The minimal-k sweep the arguments ask for on ``engine``, with
-    validation and the post-pass."""
+def sweep(args, graph: Graph, engine,
+          checkpoint=None) -> MinimalColoringResult:
+    """The minimal-k sweep the arguments ask for on ``engine`` (blocked at
+    ``--attempts-per-dispatch``), with validation, the post-pass and
+    ``checkpoint``."""
     return find_minimal_coloring(
         engine,
         initial_k=graph.initial_k(),
         strict_decrement=args.strict_decrement,
         validate=make_validator(graph.arrays),
         on_attempt=_print_attempt,
+        checkpoint=checkpoint,
         post_reduce=None if args.no_reduce_colors else make_reducer(graph.arrays),
+        attempts_per_dispatch=attempts_per_dispatch(args, graph),
     )
 
 
@@ -127,6 +207,11 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
     try:
+        parse_attempts_per_dispatch(args.attempts_per_dispatch)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
+    try:
         resolve_device(args.device)
     except RuntimeError as e:  # a card asked for where there is none
         print(f"Cannot run on --device {args.device}: {e}", file=sys.stderr)
@@ -136,12 +221,22 @@ def main(argv: list[str] | None = None) -> int:
     except (OSError, ValueError, KeyError) as e:
         print(f"Failed to load graph from {args.input}: {e}", file=sys.stderr)
         return 2
-    result = sweep(args, graph, make_engine(args, graph))
+    checkpoint = make_checkpoint(args, graph)
+    try:
+        result = sweep(args, graph, make_engine(args, graph), checkpoint)
+    finally:
+        close = getattr(checkpoint, "close", None)  # write-behind: flush
+        if close is not None:
+            close()
     total_s = time.perf_counter() - t_start
     if result.colors is None:
         print("No valid coloring found", file=sys.stderr)
         return 1
-    graph.save_coloring(args.output_coloring, result.colors)
+    out_colors = result.colors
+    if args.compat_failed_output and result.attempts \
+            and not result.attempts[-1].success:
+        out_colors = result.attempts[-1].colors  # the reference's quirk
+    graph.save_coloring(args.output_coloring, out_colors)
     print(f"Minimal number of colors: {result.minimal_colors}")
     print(f"Total time: {total_s:.4f} s")
     return 0

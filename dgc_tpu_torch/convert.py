@@ -9,6 +9,7 @@ packages can be run over exactly the same tables. Nothing here imports
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from dgc_tpu_torch.engine.bucketed import MAX_WINDOW_PLANES, BucketedELLEngine
 from dgc_tpu_torch.engine.compact import CompactFrontierEngine
@@ -70,3 +71,18 @@ def compact_engine_from_tables(perm, degrees, combined_list, planes,
                flat_ext=None if flat_ext is None else np.asarray(flat_ext),
                hub_prune=tuple(hub_prune), hub_uncond=tuple(hub_uncond))
     return eng
+
+
+def ring_from_jax(rec, device="cuda") -> tuple:
+    """A JAX prefix-resume ring (``dgc_tpu.engine.compact._empty_rec``'s
+    five-tuple ``(rpe, rba, rmeta, count, best)``, as NumPy) → the port's
+    attempt-block carry ``(best_pe, (ring_pe, ring_ba, ring_meta), rec)``
+    (``CompactFrontierEngine._fresh_block_carry``'s layout), the best row
+    zero."""
+    rpe, rba, rmeta, cnt, best = (np.asarray(x) for x in rec)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.int32)).to(device)
+
+    return (t(np.zeros(rpe.shape[1], np.int32)), (t(rpe), t(rba), t(rmeta)),
+            t([int(cnt), int(best)]))

@@ -44,6 +44,24 @@ class AttemptResult:
         return int(colored.max()) + 1 if len(colored) else 0
 
 
+@dataclass
+class BlockAttemptResult(AttemptResult):
+    """One attempt of an attempt block
+    (``CompactFrontierEngine.attempt_block``): the block returns a scalar
+    record for every chained attempt but only the final and best color
+    rows, so ``colors`` may be None until the driver fills it in at a
+    block boundary (``engine.minimal_k``). ``used`` is the count the card
+    took (max color + 1), so ``colors_used`` is exact without the row."""
+
+    used: int = 0
+
+    @property
+    def colors_used(self) -> int:
+        if self.colors is None:
+            return int(self.used)
+        return AttemptResult.colors_used.fget(self)
+
+
 def clamp_budget(k: int, capacity: int) -> int:
     """Clamp an oversized color budget to the engine's static capacity.
 
@@ -63,6 +81,29 @@ def empty_budget_failure(num_vertices: int, k: int) -> AttemptResult:
     return AttemptResult(
         AttemptStatus.FAILURE, np.full(num_vertices, -1, np.int32), 0, int(k)
     )
+
+
+@dataclass
+class BlockOutcome:
+    """One attempt block (port of ``dgc_tpu.engine.fused.BlockOutcome``).
+
+    ``results``: the chained attempts in order (``BlockAttemptResult``;
+    ``colors`` is set on the final attempt and on a STALLED budget's
+    re-run, intermediate successes stay scalar-only).
+    ``k_next``: the next budget; after a failure the *failed* budget (the
+    checkpoint convention).
+    ``done``: the stopping rule fired inside (or at the edge of) the block.
+    ``carry``: the card-resident carry for the next block, or None to start
+    fresh; consumed by the next ``attempt_block`` call, never reused.
+    ``best_colors``: the best row, copied home only at a boundary sync
+    (checkpointing, the sweep's end, the STALLED fallback); else None.
+    """
+
+    results: list
+    k_next: int
+    done: bool
+    carry: tuple | None
+    best_colors: object | None = None
 
 
 def finish_sweep_pair(

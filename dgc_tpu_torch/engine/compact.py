@@ -37,6 +37,12 @@ full-table phase's K5 and the compaction stages cover; its table
 The host drives the schedule: per stage it launches K3 and K4, then
 enqueues chunks of ``STAGE_CHUNK`` supersteps (K5, K7, K8 and K6 each) and
 syncs once per chunk.
+
+``attempt_block`` chains up to A attempts of the minimal-k loop with the
+stopping rule on the card (``kernels.block``): every attempt records into
+and resumes from one ring carried across attempts and blocks, K9 records
+each attempt where it ends and K10 starts the next, and the host reads
+one small buffer per attempt instead of the colors row.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from dgc_tpu_torch.engine.base import (AttemptResult, AttemptStatus,
+                                       BlockAttemptResult, BlockOutcome,
                                        finish_sweep_pair)
 from dgc_tpu_torch.engine.bucketed import (MAX_WINDOW_PLANES, STALL_WINDOW,
                                            BucketedELLEngine,
@@ -52,6 +59,7 @@ from dgc_tpu_torch.engine.bucketed import (MAX_WINDOW_PLANES, STALL_WINDOW,
                                            build_degree_buckets)
 from dgc_tpu_torch.engine.hub import (HUB_UNCOND_ENTRIES, hub_prune_cfg,
                                       pow2_ceil)
+from dgc_tpu_torch.kernels import block as kb
 from dgc_tpu_torch.kernels import compact as kc
 from dgc_tpu_torch.kernels import hub as kh
 from dgc_tpu_torch.models.arrays import GraphArrays
@@ -380,8 +388,10 @@ class CompactFrontierEngine(BucketedELLEngine):
                         self.flat_planes),))
             plan = plan_from_ranges(ranges)
             self._stage_plans[si] = (plan, kc.plan_desc(plan, self.device))
+        self._init_ba = self._ba(self.init_bucket_active)
         self._build_full_plan()
         self.resumed_from_step = None  # the last sweep's confirm (None: scratch)
+        self.d2h_bytes = 0  # bytes copied home (with host_syncs)
 
     def _build_full_plan(self) -> None:
         """The full-table phase's plan (every flat bucket at its window) and
@@ -419,12 +429,18 @@ class CompactFrontierEngine(BucketedELLEngine):
         return (kc.new_state(kc.extend_packed(packed0)),
                 kc.new_ctrl(step=1, prev_active=self.num_vertices + 1,
                             device=self.device),
-                self._ba(self.init_bucket_active))
+                self._init_ba.clone())
 
     def _ba(self, values) -> torch.Tensor:
         # a live table has at least one column (``_empty_rec``'s max(nb, 1))
         return torch.tensor(list(values) or [0], dtype=torch.int32,
                             device=self.device)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` copied home: one host sync and its bytes."""
+        self.host_syncs += 1
+        self.d2h_bytes += t.numel() * t.element_size()
+        return t.cpu().numpy()
 
     def _run(self, k: int, start=None, ring=None):
         """One k-attempt through the stage ladder from ``start`` (a
@@ -433,11 +449,17 @@ class CompactFrontierEngine(BucketedELLEngine):
         control block as a list."""
         state, ctrl, ba = self._fresh() if start is None else start
         live = kc.new_live(ba)  # the prune state is fresh in every run
+        c = self._ladder(k, state, ctrl, live, ring,
+                        self._read(ctrl).tolist())
+        return state, c, AttemptStatus(kb.final_status(c))
+
+    def _ladder(self, k: int, state, ctrl, live, ring, c: list) -> list:
+        """Drive the stage ladder of one k-attempt whose control block
+        reads ``c``, pushing into ``ring`` when given; returns the control
+        block read at the attempt's last chunk."""
         record = ring is not None
         v = self.num_vertices
         hub = self.hub_buckets
-        c = ctrl.tolist()
-        self.host_syncs += 1
         for si, (scale, thresh) in enumerate(self.stages):
             if c[kc.CTRL_STATUS] != _RUNNING:
                 break
@@ -469,18 +491,11 @@ class CompactFrontierEngine(BucketedELLEngine):
                                          thresh, self.max_steps)
                     kc.stage_finish(ctrl, state, ring, live, hub, thresh,
                                     self.max_steps, STALL_WINDOW, record)
-                c = ctrl.tolist()
-                self.host_syncs += 1
-        status = AttemptStatus(c[kc.CTRL_STATUS])
-        if status == AttemptStatus.RUNNING:
-            # nothing left to do, or the step budget ran out
-            status = (AttemptStatus.SUCCESS if c[kc.CTRL_PREV_ACTIVE] == 0
-                      else AttemptStatus.STALLED)
-        return state, c, status
+                c = self._read(ctrl).tolist()
+        return c
 
     def _packed(self, state, c) -> np.ndarray:
-        self.host_syncs += 1
-        return state[c[kc.CTRL_CUR], : self.num_vertices].cpu().numpy()
+        return self._read(state[c[kc.CTRL_CUR], : self.num_vertices])
 
     def attempt(self, k: int) -> AttemptResult:
         if k < 1:
@@ -499,8 +514,7 @@ class CompactFrontierEngine(BucketedELLEngine):
         ``(state, ctrl, ba)`` start, or None on a miss (the latest matching
         slot wins, as in ``dgc_tpu.engine.compact.restore_from_ring``)."""
         ring_pe, ring_ba, ring_meta = ring
-        meta = ring_meta.tolist()
-        self.host_syncs += 1
+        meta = self._read(ring_meta).tolist()
         hit = None
         for j in range(kc.REC_SLOTS):
             if j < c[kc.CTRL_REC_CNT] and meta[j][1] < k <= meta[j][2]:
@@ -546,3 +560,98 @@ class CompactFrontierEngine(BucketedELLEngine):
 
         return finish_sweep_pair(first, used, status2, finish_second, v,
                                  self.attempt)
+
+    # ---- the attempt block ---------------------------------------------
+
+    def _fresh_block_carry(self):
+        """The attempt block's card-resident carry: the best packed row
+        (int32[V+2]), the prefix-resume ring (``new_ring``'s triple) and
+        the ring's count and best candidate (int32[2]). The next block
+        updates it in place, so it needs no donated twin."""
+        v = self.num_vertices
+        return (torch.zeros(v + 2, dtype=torch.int32, device=self.device),
+                kc.new_ring(v, self._init_ba.shape[0], self.device),
+                torch.tensor([0, -1], dtype=torch.int32, device=self.device))
+
+    def attempt_block(self, k: int, attempts: int, *,
+                      strict_decrement: bool = False, carry=None,
+                      k_min: int = 1, want_best: bool = False) -> BlockOutcome:
+        """Up to ``attempts`` chained k-attempts with the stopping rule on
+        the card (port of ``dgc_tpu.engine.compact.CompactFrontierEngine.
+        attempt_block``); drive it with ``engine.minimal_k.
+        find_minimal_coloring(..., attempts_per_dispatch=A)``.
+
+        The host drives each attempt's stage ladder as ``attempt`` does,
+        recording into the carried ring; at the chunk sync where an
+        attempt ends it launches K9 (its record, the best row, the next
+        budget: ``k − 1`` strict, ``used − 1`` jump) and K10 (the next
+        attempt's start from the ring, or fresh), and reads the control
+        block and the block record in one copy. No colors row comes home
+        between attempts: the final attempt's row once per block, the best
+        row only at ``want_best``, at ``done`` or before a carry reset.
+        Always pass the *returned* carry to the next call.
+
+        A STALLED attempt ends the block: its budget re-runs through
+        ``attempt`` (which owns the widen-and-retry loop) and the next
+        block starts from a fresh carry. The attempt sequence (budgets,
+        statuses, supersteps, colors used) equals the sequential driver's
+        in strict and jump mode: an entry recorded at any larger budget
+        whose bracket holds the budget is the state a scratch run reaches.
+        """
+        v = self.num_vertices
+        if k < 1:
+            res = self._finish(np.full(v, -1, np.int32),
+                               AttemptStatus.FAILURE, 0, k)
+            return BlockOutcome([res], int(k), True, None, None)
+        if carry is None:
+            carry = self._fresh_block_carry()
+        best_pe, ring, rec = carry
+        strict = bool(strict_decrement)
+        buf, ctrl, blk = kb.new_block(k, max(1, int(attempts)), rec)
+        state = torch.empty((2, v + 2), dtype=torch.int32, device=self.device)
+        live = torch.empty((kc.LIVE_ROWS, self._init_ba.shape[0]),
+                           dtype=torch.int32, device=self.device)
+
+        def start_next() -> list:
+            kb.block_start(ctrl, blk, state, live, ring, self.degrees,
+                           self._init_ba)
+            return self._read(buf).tolist()
+
+        b = start_next()
+        while kb.block_open(b[kc.CTRL_LEN:]):
+            self._ladder(b[kc.CTRL_LEN + kb.BLK_K], state, ctrl, live, ring,
+                         b[: kc.CTRL_LEN])
+            kb.block_record(ctrl, state, blk, best_pe, k_min, strict)
+            b = start_next()
+        c, rows = b[: kc.CTRL_LEN], kb.attempt_rows(b[kc.CTRL_LEN:])
+        k_next = b[kc.CTRL_LEN + kb.BLK_K]
+        done = bool(b[kc.CTRL_LEN + kb.BLK_DONE])
+
+        stalled_tail = bool(rows) and \
+            rows[-1][kb.BKC_STATUS] == int(AttemptStatus.STALLED)
+        results = [BlockAttemptResult(
+            AttemptStatus(r[kb.BKC_STATUS]), None, r[kb.BKC_STEPS],
+            r[kb.BKC_K], used=r[kb.BKC_USED])
+            for r in (rows[:-1] if stalled_tail else rows)]
+        if results and not stalled_tail:
+            # the final attempt's colors always come home: a failing row is
+            # the --compat-failed-output row, a sweep-ending success the
+            # result row; intermediate successes stay scalar-only
+            results[-1].colors = self._decode_colors(self._packed(state, c))
+        best_colors = None
+        carry_out = (best_pe, ring, buf[kc.CTRL_REC_CNT: kc.CTRL_REC_BEST + 1])
+        if stalled_tail:
+            # the best row dies with the carry: bring it home first
+            best_colors = self._decode_colors(self._read(best_pe[:v]))
+            k_st = rows[-1][kb.BKC_K]
+            res_st = self.attempt(k_st)  # owns the widen-and-retry loop
+            results.append(res_st)
+            if res_st.success:
+                k_next = k_st - 1 if strict else res_st.colors_used - 1
+                done = k_next < k_min
+            else:
+                k_next, done = k_st, True
+            carry_out = None
+        elif want_best or done:
+            best_colors = self._decode_colors(self._read(best_pe[:v]))
+        return BlockOutcome(results, k_next, done, carry_out, best_colors)
