@@ -22,7 +22,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    branch, captures that hold and fail, 1-, 32- and mixed-plane windows.
    The attempt block's K9 (record) and K10 (start) on 240 random blocks:
    every status, open, done and full blocks, rings whose brackets hold
-   the budget in no, one or several slots, 1 to 140,000 vertices.
+   the budget in no, one or several slots, 1 to 140,000 vertices. The
+   dense engine's K11 (forbidden sets on the tensor cores, first fit) and
+   K12 (conflicts, new colors, status) on random adjacencies of 1 to
+   5,000 vertices (on and off the 256-vertex tile, isolated rows, hub rows
+   whose first fit lies in a late color tile): colors with no, some and
+   all −1s, either buffer current, budgets from 1 to 2,432 (one-hot
+   widths of 128 and 2,432), failing and stalling steps, an attempt no
+   longer running.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -36,14 +43,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cases, held against the plain versions, must take the hub branches
    that case exists for (rebase, pruned, shrink, pruned2; compact). Every
    ``ell-compact`` case also runs the blocked driver on the card at 2 and
-   4 attempts a block, jump and strict, against the same CPU run.
+   4 attempts a block, jump and strict, against the same CPU run. The
+   dense engine on a 2,000-vertex uniform and RMAT graph, jump and
+   strict, and single attempts below 1, above kmax (equal to the k0
+   attempt) and under a ``max_steps`` that stalls.
 3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
    --gen-method fast``) for ``ell-compact`` (the CLI default), then
    ``ell-bucketed`` and ``ell``; and on a 1M-vertex RMAT graph (``--gen-method
-   rmat``, Δ 38,104: a hub region) for ``ell-compact`` and
-   ``ell-bucketed``. The launch counts are zeroed just before each sweep
+   rmat``, Δ 38,142: a hub region) for ``ell-compact`` and
+   ``ell-bucketed``. Both graphs are drawn by the C++ generators, as
+   ``dgc_tpu.cli`` draws them: the run fails when the native library does
+   not build or a draw's sha256 is not the pinned one (``DRAW_SHA256``). The launch counts are zeroed just before each sweep
    and read just after, and each backend must launch every kernel of its
    path (K7 and K8 on RMAT only); the coloring must validate, and
    ``ell-compact``'s attempts and swept colors must equal
@@ -59,7 +71,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sequential and at 4; each blocked sweep must equal its sequential one,
    launch K9 and K10 and bring no row of V words home between the
    attempts of a block. K9 and K10 are held against their plain versions
-   over one more block of each jump sweep and timed there.
+   over one more block of each jump sweep and timed there. Then the
+   dense backend through the CLI's calls at its cap, 16,384 vertices
+   (``--max-degree 32 --seed 0``, uniform and RMAT, kmax 128 and 2,432):
+   both kernels must launch, the sweep held call by call against the
+   plain versions on the card's tensors must give the same attempts and
+   colors, K11 and K12 are timed per superstep over the k0 attempt
+   beside their bounds, plain versions and (K11) ``torch.matmul``;
+   ``oracle`` and ``reference-sim`` run on the same graphs; and
+   ``python -m dgc_tpu_torch`` with the RMAT flags on the card writes the
+   coloring JSON its ``--device cpu`` run (a child process) wrote.
 4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
    degree 16) from k = 465, about 450 attempts, and its jump sweep,
    blocked on the card at 2 and 4 a block against the CPU sequential
@@ -77,6 +98,7 @@ of ``dgc_tpu``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -93,9 +115,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SMOKE_V = 20_000
 MAIN_ARGS = ["--node-count", "1000000", "--max-degree", "32",
              "--gen-method", "fast", "--seed", "0", "--device", "cuda"]
+# the 1M paths' backends, by name (BACKENDS also holds dense and the host
+# engines, which the 1M graphs are not for)
+ELL_BACKENDS = ("ell-compact", "ell-bucketed", "ell")
 # the heavy-tail main path: RMAT of average degree 16, no degree cap
 RMAT_ARGS = ["--node-count", "1000000", "--max-degree", "32",
              "--gen-method", "rmat", "--seed", "0", "--device", "cuda"]
+
+
+# sha256 of the 1M main-path draws (``graph_sha256``): the C++ generators
+# of ``dgc_tpu_torch.native``, the same graphs ``dgc_tpu.cli`` draws at
+# these flags (uniform: 15,999,324 directed edges; RMAT: Δ 38,142)
+DRAW_SHA256 = {
+    "fast": "1c2e21ab7a90f850e863f810e3907e7cbd697d5e513a9a62d17dc1e1a0fc3e9f",
+    "rmat": "35f35683fdfe8e6820c54d25e10f6da2b0a969befdbec097913c2b7979500f16",
+}
+
+
+def graph_sha256(arrays) -> str:
+    """sha256 of a graph's CSR: ``indptr`` then ``indices``, int32 LE."""
+    return hashlib.sha256(arrays.indptr.astype("<i4").tobytes()
+                          + arrays.indices.astype("<i4").tobytes()).hexdigest()
 
 
 class SmokeFailure(RuntimeError):
@@ -665,6 +705,168 @@ def _edge_cases(device) -> list[dict]:
                       f"{name}: sweep({budgets[0]}) differs from its CPU run")
         rows.append({"graph": name, "budgets": list(budgets),
                      "status": a.status.name})
+    return rows
+
+
+# ---- the dense engine: K11 and K12, and the engine vs the CPU ---------------
+
+def _dense_case(rng, v: int, avg: float, hubs: int, max_color: int,
+                uncolored: float, device):
+    """A random 0/1 adjacency on ``v`` vertices padded to the vertex tile
+    (average degree ``avg``, the last 5% isolated, and ``hubs`` rows joined
+    to a quarter of the graph or more whose neighbors hold the colors
+    0, 1, 2, ... so their first fit lies in a late column tile), its
+    degrees, and two color buffers with −1s at rate ``uncolored``."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    vp = kd.padded_size(v)
+    iso = v - max(1, v // 20)
+    m = int(v * avg / 2) if iso > 1 else 0
+    src = [rng.integers(0, max(iso, 1), m)]
+    dst = [rng.integers(0, max(iso, 1), m)]
+    colors = np.where(rng.random(v) < uncolored, -1,
+                      rng.integers(0, max_color, v))
+    for _ in range(hubs):
+        h = int(rng.integers(0, iso))
+        n = int(rng.integers(iso // 4, iso - 1))
+        nb = rng.choice(iso, size=n, replace=False)
+        src.append(np.full(n, h))
+        dst.append(nb)
+        c_h = int(rng.integers(0, min(n, max_color)))
+        colors[nb[:c_h]] = np.arange(c_h)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    keep = src != dst
+    s = torch.from_numpy(src[keep]).to(device)
+    d = torch.from_numpy(dst[keep]).to(device)
+    adj = torch.zeros((vp, vp), dtype=torch.bfloat16, device=device)
+    adj[s, d] = 1
+    adj[d, s] = 1
+    degrees = (adj != 0).sum(dim=1).to(torch.int32)
+    buf = np.full((2, vp), -1, np.int32)
+    buf[0, :v] = colors
+    buf[1, :v] = rng.permutation(colors)
+    return adj, degrees, torch.from_numpy(buf).to(device)
+
+
+# (v, average degree, hubs, colors drawn below, budgets): V below, at and
+# past a multiple of the 256-vertex tile; one-hot widths of 128 and 2,432
+DENSE_CASES = (
+    (1, 0, 0, 1, (1, 2)),
+    (64, 6, 0, 5, (1, 3, 6, 128)),
+    (512, 8, 1, 40, (1, 9, 41, 128)),
+    (1000, 16, 0, 20, (1, 5, 12, 21, 128)),
+    (1500, 16, 2, 300, (4, 100, 200, 301, 384)),
+    (5000, 16, 6, 2432, (1, 300, 1500, 2000, 2432)),
+)
+
+
+def phase_dense_kernels(device) -> int:
+    """K11 and K12 vs their plain versions on seeded random cases: colors
+    with −1s (none, some, all), either buffer current, budgets below and
+    above the colors in use, isolated and pad rows, one-hot widths of 128
+    and 2,432, a step that fails, one that reaches ``max_steps`` and an
+    attempt no longer running; returns the max abs difference."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    rng = np.random.default_rng(6)
+    err = 0
+    cases = 0
+    for v, avg, hubs, max_color, budgets in DENSE_CASES:
+        for uncolored in (0.0, 0.4, 1.0):
+            adj, degrees, state0 = _dense_case(rng, v, avg, hubs, max_color,
+                                               uncolored, device)
+            for k in budgets:
+                ctrl = kd.new_dense_ctrl(device)
+                ctrl[kd.DCTRL_CUR] = cases % 2
+                ctrl[kd.DCTRL_STEP] = int(rng.integers(0, 9))
+                max_steps = int(rng.choice([kd.INT32_MAX, 1,
+                                            int(ctrl[kd.DCTRL_STEP]) + 1]))
+                state = state0.clone()
+                cand = torch.full((adj.shape[0],), 7, dtype=torch.int32,
+                                  device=device)
+                held = [t.clone() for t in (ctrl, state, cand)]
+                kd.dense_forbid(ctrl, state, adj, cand, v, k)
+                kd.dense_forbid_reference(*held[:2], adj, held[2], v, k)
+                err = max(err, *(_diff(a, b) for a, b in
+                                 zip((ctrl, state, cand), held)))
+                kd.dense_resolve(ctrl, state, adj, cand, degrees, v,
+                                 max_steps)
+                kd.dense_resolve_reference(held[0], held[1], adj, held[2],
+                                           degrees, v, max_steps)
+                err = max(err, *(_diff(a, b) for a, b in
+                                 zip((ctrl, state, cand), held)))
+                cases += 1
+    # an attempt that already left RUNNING: neither kernel touches anything
+    ctrl = kd.new_dense_ctrl(device)
+    ctrl[kd.DCTRL_STATUS] = 1
+    cand = torch.full((adj.shape[0],), 7, dtype=torch.int32, device=device)
+    before = [t.clone() for t in (ctrl, state0, cand)]
+    kd.dense_forbid(ctrl, state0, adj, cand, v, 5)
+    kd.dense_resolve(ctrl, state0, adj, cand, degrees, v, kd.INT32_MAX)
+    err = max(err, *(_diff(a, b) for a, b in
+                     zip((ctrl, state0, cand), before)))
+    torch.cuda.synchronize()
+    check(err == 0, f"K11/K12 disagree with their plain versions: max abs "
+                    f"err {err}")
+    return err
+
+
+DENSE_SMOKE_V = 2000
+
+
+def phase_dense_engines(device) -> list[dict]:
+    """The dense engine on the card against its CPU run: sweeps on a
+    2,000-vertex uniform and RMAT graph (jump, and strict from a few
+    budgets above the jump result), and single attempts at budgets below
+    1, above kmax (equal to the k0 attempt) and under a ``max_steps`` that
+    stalls."""
+    from dgc_tpu_torch.engine.dense_engine import DenseEngine
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_validator)
+    from dgc_tpu_torch.models.graph import Graph
+
+    rows = []
+    for gen in ("fast", "rmat"):
+        graph = Graph.generate(DENSE_SMOKE_V, 32, seed=1, method=gen)
+        k0 = graph.initial_k()
+        for strict in (False, True):
+            if strict:
+                k0 = rows[-1]["colors"] + 3
+            runs = [find_minimal_coloring(
+                DenseEngine(graph.arrays, device=d), k0,
+                strict_decrement=strict, validate=make_validator(graph.arrays))
+                for d in (device, "cpu")]
+            a, b = runs
+            check(_attempt_rows(a) == _attempt_rows(b)
+                  and np.array_equal(a.colors, b.colors),
+                  f"dense on {gen} (strict={strict}) differs from its CPU "
+                  f"run: {_attempt_rows(a)} vs {_attempt_rows(b)}")
+            rows.append({"graph": gen, "backend": "dense", "strict": strict,
+                         "k0": k0, "attempts": _attempt_rows(a),
+                         "colors": a.minimal_colors})
+        engines = {d: DenseEngine(graph.arrays, device=d)
+                   for d in (device, "cpu")}
+        stall = {d: DenseEngine(graph.arrays, max_steps=2, device=d)
+                 for d in (device, "cpu")}
+        kmax = engines["cpu"].kmax
+        for name, ens, k in (("k<1", engines, 0), ("k0", engines, k0),
+                             ("k>kmax", engines, kmax + 50),
+                             ("max_steps=2", stall, k0)):
+            a, b = (ens[d].attempt(k) for d in (device, "cpu"))
+            check((a.status, a.supersteps, a.k) == (b.status, b.supersteps,
+                                                    b.k)
+                  and np.array_equal(a.colors, b.colors),
+                  f"dense {name} on {gen} differs from its CPU run")
+            rows.append({"graph": gen, "backend": "dense", "case": name,
+                         "k": k, "status": a.status.name,
+                         "supersteps": a.supersteps})
+        top, first = (engines[device].attempt(kmax + 50),
+                      engines[device].attempt(graph.initial_k()))
+        check((top.status, top.supersteps) == (first.status, first.supersteps)
+              and np.array_equal(top.colors, first.colors),
+              f"dense on {gen}: k > kmax differs from the k0 attempt")
+        check(stall["cpu"].attempt(k0).status.name == "STALLED",
+              f"dense on {gen}: max_steps=2 did not stall")
     return rows
 
 
@@ -1370,13 +1572,17 @@ _KERNEL_NAMES = {"compact_slots": "compact_slots_kernel",
                  "segmented_superstep": "segmented_superstep_kernel",
                  "stage_finish": "stage_finish_kernel",
                  "hub_slots": "hub_slots_kernel",
-                 "hub_superstep": "hub_superstep_kernel"}
+                 "hub_superstep": "hub_superstep_kernel",
+                 "dense_forbid": "dense_forbid_kernel",
+                 "dense_resolve": "dense_resolve_kernel"}
 
 
-def _profiled(fn, launches: dict) -> dict:
+def _profiled(fn, launches: dict, min_share: float = 1.0) -> dict:
     """``fn()`` under ``torch.profiler``: per kernel of ``_KERNEL_NAMES``
     the device time summed over its launches and their count. The profile
-    is taken again (twice at most) until it holds ``launches`` of each."""
+    is taken again (twice at most) until it holds ``launches`` of each
+    (at least ``min_share`` of them, where a caller takes the mean over
+    the records the profiler kept)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1392,7 +1598,7 @@ def _profiled(fn, launches: dict) -> dict:
             ev = [e for e in device if kname in e.name]
             sums[name] = (sum(e.time_range.elapsed_us() for e in ev) / 1e3,
                           len(ev))
-        if all(sums[n][1] == c for n, c in launches.items()):
+        if all(min_share * c <= sums[n][1] <= c for n, c in launches.items()):
             return sums
     raise SmokeFailure(f"the profiled sweep showed {sums}, the held one "
                        f"launched {launches}")
@@ -1740,12 +1946,21 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
     from dgc_tpu_torch.kernels import superstep as ks
     from dgc_tpu_torch.ops.validate import validate_coloring
 
+    from dgc_tpu_torch.native.bindings import native_available
+
     args = cli.build_parser().parse_args(
         argv + ["--output-coloring", str(out_dir / "coloring.json")])
     check(args.backend == "ell-compact", f"the CLI default is {args.backend}")
+    # without the C++ library the draw would silently be the NumPy stream's
+    check(native_available(), "the native library did not build: the 1M "
+                              "draw would not be dgc_tpu's")
     t = time.perf_counter()
     graph = cli.load_graph(args)
     gen_s = time.perf_counter() - t
+    sha = graph_sha256(graph.arrays)
+    check(sha == DRAW_SHA256[args.gen_method],
+          f"the {args.gen_method} draw's sha256 is {sha}, not the pinned "
+          f"{DRAW_SHA256[args.gen_method]}")
     records = []
     swept = {}
     for backend in backends:
@@ -1798,6 +2013,7 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
             "vertices": graph.num_vertices,
             "directed_edges": graph.arrays.num_directed_edges,
             "max_degree": graph.max_degree, "gen_s": gen_s,
+            "generator": "native", "draw_sha256": sha,
             "engine_build_s": build_s, "sweep_s": sweep_s,
             "post_reduce_s": result.post_reduce_s,
             "attempt_s": timed.seconds,
@@ -1828,6 +2044,270 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
     return {r["backend"]: r for r in records}, blocked
 
 
+# ---- the dense engine at full width ------------------------------------------
+
+TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16
+DENSE_V = 16384  # the dense engine's cap
+DENSE_REPS = 3  # replays of each superstep in the timing profile
+DENSE_ARGS = {gen: ["--node-count", str(DENSE_V), "--max-degree", "32",
+                    "--gen-method", gen, "--seed", "0", "--backend", "dense"]
+              for gen in ("fast", "rmat")}
+
+
+class _HeldDenseKernels:
+    """While active, every K11 and K12 call made through
+    ``kernels.dense``'s wrappers (as the engine makes them) also runs its
+    plain version on copies of its inputs; ``err`` is the largest
+    difference seen over ``calls`` calls."""
+
+    def __enter__(self):
+        from dgc_tpu_torch.kernels import dense as kd
+
+        self.kd, self.err, self.calls = kd, 0, 0
+        self._orig = forbid, resolve = kd.dense_forbid, kd.dense_resolve
+
+        def held_forbid(ctrl, state, adj, cand, v, k):
+            ref = [t.clone() for t in (ctrl, state, cand)]
+            kd.dense_forbid_reference(ref[0], ref[1], adj, ref[2], v, k)
+            forbid(ctrl, state, adj, cand, v, k)
+            self._hold((ctrl, state, cand), ref)
+
+        def held_resolve(ctrl, state, adj, cand, degrees, v, max_steps):
+            ref = [t.clone() for t in (ctrl, state)]
+            kd.dense_resolve_reference(ref[0], ref[1], adj, cand, degrees, v,
+                                       max_steps)
+            resolve(ctrl, state, adj, cand, degrees, v, max_steps)
+            self._hold((ctrl, state), ref)
+
+        kd.dense_forbid, kd.dense_resolve = held_forbid, held_resolve
+        return self
+
+    def _hold(self, got, want) -> None:
+        self.calls += 1
+        self.err = max(self.err, *(_diff(a, b) for a, b in zip(got, want)))
+
+    def __exit__(self, *exc):
+        self.kd.dense_forbid, self.kd.dense_resolve = self._orig
+        return False
+
+
+def measure_dense(engine, k: int) -> dict:
+    """K11 and K12 over the supersteps of the attempt at ``k``: device time
+    per superstep from ``torch.profiler``, the bound this data needs (each
+    step reads the adjacency rows of its uncolored vertices; K11's
+    product needs 2·Vp·(first-fit width) operations a row), the plain
+    versions' time, and the library yardstick for K11 (``torch.matmul``
+    of the adjacency and the bf16 one-hot, then the first-fit argmax)."""
+    from dgc_tpu_torch.engine.base import AttemptStatus, clamp_budget
+    from dgc_tpu_torch.kernels import dense as kd
+
+    adj, deg, v = engine.adj, engine.degrees, engine.num_vertices
+    vp, dev = adj.shape[0], adj.device
+    k_run = clamp_budget(k, engine.kmax)
+    max_steps = engine.max_steps
+
+    def fresh():
+        return (kd.new_dense_ctrl(dev), kd.new_dense_state(engine._colors0),
+                torch.empty(vp, dtype=torch.int32, device=dev))
+
+    # one superstep at a time: what each step's data needs
+    ctrl, state, cand = fresh()
+    steps, mid = [], None
+    while int(ctrl[kd.DCTRL_STATUS]) == int(AttemptStatus.RUNNING):
+        colors = state[int(ctrl[kd.DCTRL_CUR])]
+        if len(steps) == 2:
+            mid = colors.clone()
+        uncolored = int((colors[:v] < 0).sum())
+        kd.dense_forbid(ctrl, state, adj, cand, v, k_run)
+        kd.dense_resolve(ctrl, state, adj, cand, deg, v, max_steps)
+        c = cand[:v]
+        steps.append((uncolored, int((c[c >= 0] + 1).sum())))
+    n = len(steps)
+    mid = state[int(ctrl[kd.DCTRL_CUR])].clone() if mid is None else mid
+    k11_bytes = sum(u * vp * 2 + 2 * vp * 4 for u, _ in steps) / n
+    k11_ops = sum(2 * vp * w for _, w in steps) / n
+    k12_bytes = sum(u * vp * 2 + 3 * vp * 4 + v * 4 for u, _ in steps) / n
+
+    # the same supersteps under one profile, each replayed DENSE_REPS times
+    # from its control block (K11 rewrites `cand`, K12 the other buffer:
+    # a replay does the same work); the mean over the launches the
+    # profiler recorded, at least 90 % of them (a long window can drop a
+    # few records, which single-step windows did not avoid either)
+    def replay():
+        ctrl, state, cand = fresh()
+        for _ in range(n):
+            snap = ctrl.clone()
+            for _ in range(DENSE_REPS):
+                ctrl.copy_(snap)
+                kd.dense_forbid(ctrl, state, adj, cand, v, k_run)
+                kd.dense_resolve(ctrl, state, adj, cand, deg, v, max_steps)
+
+    sums = _profiled(replay, {"dense_forbid": n * DENSE_REPS,
+                              "dense_resolve": n * DENSE_REPS}, 0.9)
+    dev_ms = {name: sums[name][0] / sums[name][1] for name in
+              ("dense_forbid", "dense_resolve")}
+
+    # the plain versions over the same supersteps, host clock each call
+    plain = {"forbid": 0.0, "resolve": 0.0}
+    ctrl, state, cand = fresh()
+    for _ in range(n):
+        for name, fn, a in (
+                ("forbid", kd.dense_forbid_reference, (cand, v, k_run)),
+                ("resolve", kd.dense_resolve_reference,
+                 (cand, deg, v, max_steps))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(ctrl, state, adj, *a)
+            torch.cuda.synchronize()
+            plain[name] += time.perf_counter() - t
+
+    col = torch.arange(engine.kmax, device=dev)
+
+    def library():
+        onehot = (mid[:, None] == col[None, :]).to(torch.bfloat16)
+        counts = torch.matmul(adj, onehot)
+        free = (counts < 0.5) & (col[None, :] < k_run)
+        return free.to(torch.uint8).argmax(dim=1)
+
+    full_bytes = vp * vp * 2
+    return {
+        "dense_k": k_run, "dense_supersteps": n, "kmax": engine.kmax,
+        "uncolored_per_step": [u for u, _ in steps],
+        "k11_ms": dev_ms["dense_forbid"],
+        "k11_plain_ms": plain["forbid"] * 1e3 / n,
+        "k11_bytes": k11_bytes, "k11_ops": k11_ops,
+        "k11_bound_ms": max(k11_bytes / HBM_BYTES_PER_S,
+                            k11_ops / TENSOR_BF16_OPS_PER_S) * 1e3,
+        "k11_bound_by": ("bytes" if k11_bytes / HBM_BYTES_PER_S
+                         >= k11_ops / TENSOR_BF16_OPS_PER_S else "operations"),
+        "k11_library_ms": _cuda_ms(library, reps=10),
+        "k12_ms": dev_ms["dense_resolve"],
+        "profiled_launches": {name: sums[name][1] for name in dev_ms},
+        "k12_plain_ms": plain["resolve"] * 1e3 / n,
+        "k12_bytes": k12_bytes,
+        "k12_bound_ms": k12_bytes / HBM_BYTES_PER_S * 1e3,
+        # the whole adjacency once, and the product at the full one-hot
+        "full_adjacency_bytes": full_bytes,
+        "full_adjacency_bound_ms": full_bytes / HBM_BYTES_PER_S * 1e3,
+        "k11_full_mma_bound_ms": 2 * vp * vp * engine.kmax
+        / TENSOR_BF16_OPS_PER_S * 1e3,
+    }
+
+
+def dense_cpu_reference(out: str) -> str:
+    """The CLI on the CPU (the plain K11 and K12) at the 16,384-vertex
+    RMAT flags; runs in a child process beside the card's phases. Returns
+    the coloring JSON's path."""
+    from dgc_tpu_torch import cli
+
+    torch.set_num_threads(4)
+    rc = cli.main(DENSE_ARGS["rmat"] + ["--device", "cpu",
+                                        "--output-coloring", out])
+    check(rc == 0, f"the CPU CLI run exited {rc}")
+    return out
+
+
+def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
+    """The dense backend through the CLI's calls (``cli.load_graph``,
+    ``make_engine``, ``sweep``) at 16,384 vertices, uniform and RMAT. The
+    launch counts are zeroed just before each sweep and read just after;
+    both kernels must launch. The same sweep again with every K11 and K12
+    call held against its plain version on the card's tensors must give
+    the same attempts and colors. Then ``oracle`` and ``reference-sim``
+    on the same graph, and the CLI itself (``python -m dgc_tpu_torch``,
+    ``--device cuda``) on the RMAT flags, whose coloring JSON must equal
+    the ``--device cpu`` run's (``cpu_coloring``)."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import dense as kd
+    from dgc_tpu_torch.ops.validate import validate_coloring
+
+    records = {}
+    for gen, argv in DENSE_ARGS.items():
+        args = cli.build_parser().parse_args(
+            argv + ["--output-coloring", str(out_dir / "dense.json")])
+        t = time.perf_counter()
+        graph = cli.load_graph(args)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        engine = cli.make_engine(args, graph)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        check(type(engine).__name__ == "DenseEngine", f"{type(engine)}")
+        torch.cuda.reset_peak_memory_stats()
+        kd.reset_launch_counts()
+        engine.host_syncs = 0
+        timed = _TimedEngine(engine)
+        result = cli.sweep(args, graph, timed)
+        torch.cuda.synchronize()
+        launches = dict(kd.launch_counts)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        check(all(n > 0 for n in launches.values()),
+              f"dense on {gen}: the sweep skipped a kernel: {launches}")
+        val = validate_coloring(graph.arrays.indptr, graph.arrays.indices,
+                                result.colors)
+        check(val.valid, f"dense on {gen}: invalid coloring {val}")
+        graph.save_coloring(args.output_coloring, result.colors)
+        check(np.array_equal(graph.load_coloring(args.output_coloring),
+                             result.colors), f"dense on {gen}: coloring JSON")
+        rows = _attempt_rows(result)
+        with _HeldDenseKernels() as held:
+            again = cli.sweep(args, graph, engine)
+        torch.cuda.synchronize()
+        check(held.err == 0 and held.calls > 0,
+              f"dense on {gen}: K11/K12 disagree with their plain versions "
+              f"over the sweep ({held.err} over {held.calls} calls)")
+        check(_attempt_rows(again) == rows
+              and np.array_equal(again.colors, result.colors),
+              f"dense on {gen}: the held sweep gave {_attempt_rows(again)}, "
+              f"the kernels' {rows}")
+        rec = {"phase": "dense_main", "backend": "dense",
+               "graph": " ".join(argv), "vertices": graph.num_vertices,
+               "directed_edges": graph.arrays.num_directed_edges,
+               "max_degree": graph.max_degree, "gen_s": gen_s,
+               "engine_build_s": build_s,
+               "sweep_s": result.wall_time_s - result.post_reduce_s,
+               "post_reduce_s": result.post_reduce_s,
+               "attempt_s": timed.seconds, "attempts": rows,
+               "supersteps": result.total_supersteps,
+               "colors_swept": result.swept_colors,
+               "colors_after_post_pass": result.minimal_colors,
+               "launches": launches, "host_syncs": engine.host_syncs,
+               "held_calls": held.calls, "max_abs_err": held.err,
+               "max_memory_allocated": peak_bytes, "card": card,
+               **measure_dense(engine, graph.initial_k())}
+        del engine, timed
+        for backend in cli.HOST_BACKENDS:
+            args.backend = backend
+            t = time.perf_counter()
+            res = cli.sweep(args, graph, cli.make_engine(args, graph))
+            val = validate_coloring(graph.arrays.indptr, graph.arrays.indices,
+                                    res.colors)
+            check(val.valid, f"{backend} on {gen}: invalid coloring {val}")
+            rec[backend] = {"seconds": time.perf_counter() - t,
+                            "attempts": _attempt_rows(res),
+                            "colors": res.minimal_colors}
+        emit(rec)
+        records[gen] = rec
+    # the user's command on the card, against the CPU run's file
+    out = out_dir / "dense_cli.json"
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dgc_tpu_torch", *DENSE_ARGS["rmat"],
+         "--output-coloring", str(out)], capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the dense CLI exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    check(out.read_bytes() == Path(cpu_coloring).read_bytes(),
+          "the dense CLI's coloring on the card differs from --device cpu's")
+    records["rmat"]["cli_cuda_s"] = cli_s
+    records["rmat"]["cli_equals_cpu"] = True
+    emit({"phase": "dense_cli", "argv": DENSE_ARGS["rmat"], "seconds": cli_s,
+          "equals_cpu": True,
+          "stdout_tail": proc.stdout.strip().splitlines()[-3:]})
+    return records
+
+
 def main(argv: list[str] | None = None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -1848,40 +2328,46 @@ def main(argv: list[str] | None = None) -> int:
           "nvcc": {k: v.strip().splitlines()[-8:]
                    for k, v in build.build_log.items()}})
 
-    # the long chain's CPU reference runs in a child beside the card
-    with ProcessPoolExecutor(1, mp_context=get_context("spawn")) as child:
+    # the long chain's and the dense CLI's CPU references run in children
+    # beside the card
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            2, mp_context=get_context("spawn")) as child:
+        out_dir = Path(tmp)
         reference = child.submit(chain_reference)
+        dense_cpu = child.submit(dense_cpu_reference,
+                                 str(out_dir / "dense_cpu.json"))
         t = time.perf_counter()
         kernel_err = phase_kernels("cuda")
         compact_err = phase_compact_kernels("cuda")
         hub_err = phase_hub_kernels("cuda")
         block_err = phase_block_kernels("cuda")
+        dense_err = phase_dense_kernels("cuda")
         emit({"phase": "kernels_vs_plain",
-              "max_abs_err": max(kernel_err, compact_err, hub_err, block_err),
+              "max_abs_err": max(kernel_err, compact_err, hub_err, block_err,
+                                 dense_err),
               "seconds": time.perf_counter() - t})
 
         t = time.perf_counter()
-        rows = phase_engines("cuda")
+        rows = phase_engines("cuda") + phase_dense_engines("cuda")
         emit({"phase": "engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
 
-        from dgc_tpu_torch.cli import BACKENDS
-
-        with tempfile.TemporaryDirectory() as out_dir:
-            main_runs, blocked = phase_main_path(
-                card, Path(out_dir), MAIN_ARGS, tuple(BACKENDS),
-                ((False, 1), (False, 4), (True, 1), (True, 4)))
-            rmat_runs, blocked_rmat = phase_main_path(
-                card, Path(out_dir), RMAT_ARGS,
-                ("ell-compact", "ell-bucketed"), ((False, 1), (False, 4)))
-            blocked += blocked_rmat
+        main_runs, blocked = phase_main_path(
+            card, out_dir, MAIN_ARGS, ELL_BACKENDS,
+            ((False, 1), (False, 4), (True, 1), (True, 4)))
+        rmat_runs, blocked_rmat = phase_main_path(
+            card, out_dir, RMAT_ARGS, ("ell-compact", "ell-bucketed"),
+            ((False, 1), (False, 4)))
+        blocked += blocked_rmat
+        dense_runs = phase_dense_main(card, out_dir, dense_cpu.result())
         t = time.perf_counter()
         rows = phase_block_engines("cuda", reference.result())
         emit({"phase": "block_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
     print(card)
     emit({"kernels": kernels_line(main_runs, rmat_runs, blocked, kernel_err,
-                                  compact_err, hub_err, block_err)})
+                                  compact_err, hub_err, block_err)
+          + dense_kernels_line(dense_runs, dense_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -1996,6 +2482,38 @@ def kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
          "plain_ms": jump4["k10_plain_ms"],
          "bound_ms": jump4["k10_bound_ms"], "bound_by": "bytes",
          "library_ms": jump4["k10_library_ms"]},
+    ]
+
+
+
+def dense_kernels_line(dense_runs: dict, dense_err: int) -> list[dict]:
+    """K11 and K12 read on the 16,384-vertex RMAT dense path (kmax 2,432),
+    the uniform path's numbers beside."""
+    rmat, uniform = dense_runs["rmat"], dense_runs["fast"]
+    source = "dgc_tpu_torch/csrc/dense.cu"
+    err = max(dense_err, rmat["max_abs_err"], uniform["max_abs_err"])
+
+    def beside(name):
+        return {key: uniform[f"{name}_{key}"]
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")
+                if f"{name}_{key}" in uniform}
+
+    return [
+        {"name": "dense_forbid", "route": "cuda", "source": source,
+         "replaces": "dgc_tpu/engine/dense_engine.py:44",
+         "launches": rmat["launches"]["dense_forbid"],
+         "launches_uniform": uniform["launches"]["dense_forbid"],
+         "max_abs_err": err, "ms": rmat["k11_ms"],
+         "plain_ms": rmat["k11_plain_ms"], "bound_ms": rmat["k11_bound_ms"],
+         "bound_by": rmat["k11_bound_by"],
+         "library_ms": rmat["k11_library_ms"], "uniform": beside("k11")},
+        {"name": "dense_resolve", "route": "cuda", "source": source,
+         "replaces": "dgc_tpu/engine/dense_engine.py:44",
+         "launches": rmat["launches"]["dense_resolve"],
+         "launches_uniform": uniform["launches"]["dense_resolve"],
+         "max_abs_err": err, "ms": rmat["k12_ms"],
+         "plain_ms": rmat["k12_plain_ms"], "bound_ms": rmat["k12_bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "uniform": beside("k12")},
     ]
 
 

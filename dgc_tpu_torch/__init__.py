@@ -8,6 +8,9 @@ versions in ``ops/`` are what the kernels are held against, and what runs
 when a caller passes ``device="cpu"``. Every engine and entry point takes
 an explicit ``device`` and defaults to ``cuda``.
 
-Ported so far: the minimal-k sweep on the ``ell`` and ``ell-bucketed``
-engines (ROADMAP lists the rest).
+Ported so far: the minimal-k sweep (sequential, fused and blocked, with
+checkpoints) on the ``ell``, ``ell-bucketed``, ``ell-compact`` and
+``dense`` engines, the host backends ``oracle`` and ``reference-sim``,
+and the native host paths (``native/``: the C++ generators, relabel,
+table build and post-pass walks). ROADMAP lists the rest.
 """

@@ -5,12 +5,17 @@ Keeps the reference's flags and mutual-requirement validation: ``--input``
 required ``--output-coloring``, in the reference's JSON schemas; the saved
 coloring is the last *valid* one (``--compat-failed-output``: the
 reference's failed final attempt's partial one). Adds the engine
-(``--backend``), the device (``--device``, default ``cuda``), the attempt
-block (``--attempts-per-dispatch A|auto``: up to A budgets chained on the
-card per block, ``ell-compact`` only) and checkpoint/resume
+(``--backend``: the three ELL engines, ``dense`` for V up to 16,384, and
+the host parity targets ``oracle`` and ``reference-sim`` with
+``--sim-variant``, whose counts the post-pass never touches), the device
+(``--device``, default ``cuda``), the attempt block
+(``--attempts-per-dispatch A|auto``: up to A budgets chained on the card
+per block, ``ell-compact`` only) and checkpoint/resume
 (``--checkpoint-dir``, ``--checkpoint-write-behind``), as ``dgc_tpu.cli``
-has them. Not ported: ``--speculate-k``, tuned configs, telemetry and
-the resilience flags (ROADMAP).
+has them. The graph drawn at ``--seed`` is ``dgc_tpu.cli``'s (the C++
+generators above 50,000 vertices, where a toolchain exists). Not ported:
+the sharded backends, ``--speculate-k``, tuned configs, telemetry and the
+resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
         --output-coloring colors.json [--backend ell-compact] [--device cpu]
@@ -31,7 +36,11 @@ from dgc_tpu_torch.engine.minimal_k import (MinimalColoringResult,
                                             make_reducer, make_validator)
 from dgc_tpu_torch.models.graph import Graph
 
-BACKENDS = ("ell-compact", "ell-bucketed", "ell")
+BACKENDS = ("ell-compact", "ell-bucketed", "ell", "dense", "reference-sim",
+            "oracle")
+# the host backends are the reference's semantics: their count is the
+# parity target, so the post-pass never touches it
+HOST_BACKENDS = ("reference-sim", "oracle")
 # the host work the attempt block saves per attempt: the engine time of the
 # 1M-vertex uniform strict sweep (k0 = 33, 24 attempts), sequential less
 # blocked at A = 4, over its attempts ((0.378 - 0.194 s) / 24), measured by
@@ -91,6 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compat-failed-output", action="store_true",
                    help="reproduce the reference's quirk of saving the "
                         "failed attempt's partial coloring")
+    p.add_argument("--sim-variant", choices=["optimized", "baseline"],
+                   default="optimized",
+                   help="reference-sim backend: which reference engine's "
+                        "semantics")
     return p
 
 
@@ -158,7 +171,20 @@ def load_graph(args) -> Graph:
 
 
 def make_engine(args, graph: Graph):
-    """The engine ``--backend`` names."""
+    """The engine ``--backend`` names (the host backends ignore
+    ``--device``: they are NumPy)."""
+    if args.backend == "dense":
+        from dgc_tpu_torch.engine.dense_engine import DenseEngine
+
+        return DenseEngine(graph.arrays, device=args.device)
+    if args.backend == "reference-sim":
+        from dgc_tpu_torch.engine.reference_sim import ReferenceSimEngine
+
+        return ReferenceSimEngine(graph.arrays, variant=args.sim_variant)
+    if args.backend == "oracle":
+        from dgc_tpu_torch.engine.oracle import OracleEngine
+
+        return OracleEngine(graph.arrays)
     if args.backend == "ell":
         from dgc_tpu_torch.engine.superstep import ELLEngine
 
@@ -194,7 +220,9 @@ def sweep(args, graph: Graph, engine,
         validate=make_validator(graph.arrays),
         on_attempt=_print_attempt,
         checkpoint=checkpoint,
-        post_reduce=None if args.no_reduce_colors else make_reducer(graph.arrays),
+        post_reduce=(None if args.no_reduce_colors
+                     or args.backend in HOST_BACKENDS
+                     else make_reducer(graph.arrays)),
         attempts_per_dispatch=attempts_per_dispatch(args, graph),
     )
 

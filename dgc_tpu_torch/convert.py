@@ -13,7 +13,9 @@ import torch
 
 from dgc_tpu_torch.engine.bucketed import MAX_WINDOW_PLANES, BucketedELLEngine
 from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+from dgc_tpu_torch.engine.dense_engine import DenseEngine
 from dgc_tpu_torch.engine.superstep import ELLEngine
+from dgc_tpu_torch.kernels.dense import padded_size
 from dgc_tpu_torch.models.arrays import GraphArrays
 
 
@@ -86,3 +88,21 @@ def ring_from_jax(rec, device="cuda") -> tuple:
 
     return (t(np.zeros(rpe.shape[1], np.int32)), (t(rpe), t(rba), t(rmeta)),
             t([int(cnt), int(best)]))
+
+
+def dense_from_jax(adj, degrees, kmax: int, max_steps: int,
+                   device="cuda") -> DenseEngine:
+    """``DenseEngine.adj`` (as float32 NumPy), ``.degrees``, ``.kmax`` and
+    ``.max_steps`` → the port's ``DenseEngine`` on the same adjacency, its
+    rows and columns padded with zeros to the port's vertex tile."""
+    adj = np.asarray(adj, np.float32)
+    v = adj.shape[0]
+    vp = padded_size(v)
+    dev = torch.device(device)
+    dense = torch.zeros((vp, vp), dtype=torch.bfloat16, device=dev)
+    dense[:v, :v] = torch.from_numpy(adj).to(dev, torch.bfloat16)
+    deg = np.zeros(vp, np.int32)
+    deg[:v] = np.asarray(degrees)
+    eng = DenseEngine.__new__(DenseEngine)
+    eng._setup(dense, deg, v, int(kmax), int(max_steps), dev)
+    return eng

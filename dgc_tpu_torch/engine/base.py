@@ -10,7 +10,7 @@ k-attempt; the minimal-k outer loop drives it.
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -81,6 +81,17 @@ def empty_budget_failure(num_vertices: int, k: int) -> AttemptResult:
     return AttemptResult(
         AttemptStatus.FAILURE, np.full(num_vertices, -1, np.int32), 0, int(k)
     )
+
+
+@dataclass
+class SuperstepTrace:
+    """Per-superstep uncolored counts (the reference prints them per
+    superstep, ``coloring.py:89``); the host engines record into it."""
+
+    uncolored: list[int] = field(default_factory=list)
+
+    def record(self, uncolored: int) -> None:
+        self.uncolored.append(uncolored)
 
 
 @dataclass

@@ -11,10 +11,12 @@ only after the last bucket (BSP). The host enqueues 64 supersteps at a
 time (``CHUNK_STEPS``) and syncs once per chunk, checking ``max_steps``
 at chunk boundaries as the JAX engine does.
 
-The host table builds here are the NumPy reference paths of the JAX
-package (``native=False``); its C++ ones are still to be ported. The
-status rule (``status_step``) lives with the loop control in
-``kernels.superstep``, beside the kernel that applies it on the card.
+The host table builds take the C++ paths of ``dgc_tpu_torch.native``
+(the degree relabel and the one-pass combined table) at the JAX package's
+size thresholds, and its NumPy paths below them or where the library
+cannot be built; the two give the same tables. The status rule
+(``status_step``) lives with the loop control in ``kernels.superstep``,
+beside the kernel that applies it on the card.
 
 Round-1 specialization (as in the JAX engine): the first superstep's
 outcome is known without a gather — isolated vertices confirm color 0,
@@ -66,9 +68,18 @@ def _bucket_widths(max_degree: int, min_width: int = 4,
 
 
 def build_combined_rows(indptr, indices, degrees, row0: int, end: int,
-                        width: int, v: int) -> np.ndarray:
+                        width: int, v: int, native: bool = False) -> np.ndarray:
     """Combined (neighbor id | beats bit) ELL table for relabeled CSR rows
-    [row0, end) — the NumPy path of the JAX package's table build."""
+    [row0, end). ``native=True`` takes the C++ one-pass table build (the same
+    table, without the full-table temporaries), falling back to the NumPy
+    chain where the library is unavailable."""
+    if native:
+        from dgc_tpu_torch.native.bindings import build_combined_native
+
+        out = build_combined_native(indptr, indices, degrees, row0,
+                                    end - row0, width, v)
+        if out is not None:
+            return out
     sub_indptr = indptr[row0: end + 1] - indptr[row0]
     sub_indices = indices[indptr[row0]: indptr[end]]
     nb, _ = csr_to_ell(sub_indptr, sub_indices, width=width, sentinel=v)
@@ -96,7 +107,11 @@ class DegreeBuckets:
     combined: list[np.ndarray]       # int32[Vb, Wb]
 
 
-def build_degree_buckets(arrays: GraphArrays, min_width: int = 4) -> DegreeBuckets:
+def build_degree_buckets(arrays: GraphArrays, min_width: int = 4,
+                         native: bool | None = None) -> DegreeBuckets:
+    """The relabeled graph and its bucket tables. ``native=None`` takes the
+    C++ relabel and table build at 1M directed edges and more (the JAX
+    package's threshold), ``True`` at any size, ``False`` never."""
     v = arrays.num_vertices
     if v >= 1 << BEATS_BIT:
         raise ValueError(f"V={v} exceeds combined-table id capacity 2^{BEATS_BIT}")
@@ -110,12 +125,22 @@ def build_degree_buckets(arrays: GraphArrays, min_width: int = 4) -> DegreeBucke
     deg_new = degrees_old[perm].astype(np.int32)
     new_indptr = np.zeros(v + 1, dtype=np.int64)
     np.cumsum(deg_new, out=new_indptr[1:])
-    # relabeled CSR, entries keyed by (new_row, new_col)
-    rows_old = np.repeat(np.arange(v, dtype=np.int64), degrees_old)
-    new_row = inv[rows_old].astype(np.int64)
-    new_col = inv[arrays.indices].astype(np.int64)
-    order = np.argsort(new_row * v + new_col, kind="stable")
-    new_indices = new_col[order].astype(np.int32)
+    if native is None:
+        native = len(arrays.indices) >= 1_000_000
+    relabeled = None
+    if native:
+        from dgc_tpu_torch.native.bindings import relabel_csr_native
+
+        relabeled = relabel_csr_native(arrays.indptr, arrays.indices, perm)
+    if relabeled is not None:
+        new_indices = relabeled[1]
+    else:
+        # relabeled CSR, entries keyed by (new_row, new_col)
+        rows_old = np.repeat(np.arange(v, dtype=np.int64), degrees_old)
+        new_row = inv[rows_old].astype(np.int64)
+        new_col = inv[arrays.indices].astype(np.int64)
+        order = np.argsort(new_row * v + new_col, kind="stable")
+        new_indices = new_col[order].astype(np.int32)
 
     # split rows into buckets by width (descending degrees → contiguous)
     widths_desc = sorted(widths, reverse=True)
@@ -130,7 +155,8 @@ def build_degree_buckets(arrays: GraphArrays, min_width: int = 4) -> DegreeBucke
         if end > row:
             row0s.append(row)
             combined_list.append(build_combined_rows(
-                new_indptr, new_indices, deg_new, row, end, width, v))
+                new_indptr, new_indices, deg_new, row, end, width, v,
+                native=native))
         row = end
     if row != v:
         raise AssertionError(f"buckets cover {row} of {v} rows")

@@ -331,7 +331,8 @@ class CompactFrontierEngine(BucketedELLEngine):
             f0 = sched["row0s"][hub] if hub < len(widths) else v
             flat_ext = np.concatenate([
                 build_combined_rows(b.indptr, b.indices, b.degrees, f0, v,
-                                    w_flat, v),
+                                    w_flat, v,
+                                    native=len(b.indices) >= 1_000_000),
                 np.full((1, w_flat), v, np.int32)])
         self._setup(b.perm, b.degrees, b.row0, b.combined, None,
                     max_window_planes, device, max_steps=max_steps,

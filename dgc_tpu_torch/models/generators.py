@@ -1,4 +1,4 @@
-"""Random-graph generators (the port's copy of the NumPy paths of
+"""Random-graph generators (the port's copy of
 ``dgc_tpu.models.generators``).
 
 ``generate_random_graph`` reproduces the reference generator's semantics
@@ -13,11 +13,12 @@ the candidate pool saturates — SURVEY.md §2.1 hazard (a)) and an explicit see
 sampling, Poisson-like degrees, optional degree cap) — the 1M-vertex configs.
 ``generate_rmat_graph`` is the power-law RMAT generator.
 
-Only the NumPy paths are here: each function equals its ``dgc_tpu``
-original called with ``native=False``. The C++ generators of
-``dgc_tpu.native`` are still to be ported (ROADMAP), so a 1M-vertex draw
-here is a different graph from the one the JAX package's native path
-draws at the same seed.
+Each takes ``native``: ``None`` (the default) picks the C++ generator of
+``dgc_tpu_torch.native`` at ``node_count >= 50_000`` (same semantics,
+another RNG stream), ``True`` asks for it at any size and ``False`` keeps
+the NumPy path. Both are the JAX package's own, at its thresholds, so a
+draw here equals ``dgc_tpu``'s at the same arguments. Where the C++
+library cannot be built (no toolchain), the NumPy path runs.
 """
 
 from __future__ import annotations
@@ -29,14 +30,37 @@ import numpy as np
 from dgc_tpu_torch.models.arrays import GraphArrays
 
 
+def _native():
+    """The C++ generator module, or None (import deferred to avoid cycles)."""
+    from dgc_tpu_torch.native import bindings
+
+    return bindings if bindings.native_available() else None
+
+
 def generate_random_graph(
     node_count: int,
     max_degree: int,
     seed: int | None = None,
     max_retries_per_vertex: int | None = None,
+    native: bool | None = None,
 ) -> GraphArrays:
-    """Reference-semantics generator (bounded retries), deterministic
-    under ``random.Random(seed)``."""
+    """Reference-semantics generator (bounded retries).
+
+    ``native=None`` auto-selects the C++ implementation for large V (same
+    semantics, different RNG stream); ``native=False`` forces the Python
+    path (deterministic under ``random.Random(seed)``).
+    """
+    if native is None:
+        native = node_count >= 50_000
+    if native:
+        nb = _native()
+        if nb is not None:
+            out = nb.generate_reference_native(
+                node_count, max_degree, seed=seed,
+                max_retries_per_vertex=max_retries_per_vertex,
+            )
+            if out is not None:
+                return out
     rng = random.Random(seed)
     neighbors: list[set[int]] = [set() for _ in range(node_count)]
     if max_retries_per_vertex is None:
@@ -60,13 +84,25 @@ def generate_random_graph_fast(
     avg_degree: float,
     seed: int | None = None,
     max_degree: int | None = None,
+    native: bool | None = None,
 ) -> GraphArrays:
     """Vectorized uniform edge sampling for large graphs.
 
     Draws ``node_count * avg_degree / 2`` candidate edges uniformly, removes
     self loops and duplicates, and (optionally) drops edges at vertices that
     exceed ``max_degree`` (processed in sampled order, like the reference cap).
+    ``native=None`` auto-selects the C++ implementation for large V.
     """
+    if native is None:
+        native = node_count >= 50_000
+    if native:
+        nb = _native()
+        if nb is not None:
+            out = nb.generate_fast_native(
+                node_count, avg_degree, seed=seed, max_degree=max_degree
+            )
+            if out is not None:
+                return out
     rng = np.random.default_rng(seed)
     m = int(node_count * avg_degree / 2)
     src = rng.integers(0, node_count, size=m, dtype=np.int64)
@@ -92,12 +128,25 @@ def generate_rmat_graph(
     b: float = 0.19,
     c: float = 0.19,
     max_degree: int | None = None,
+    native: bool | None = None,
 ) -> GraphArrays:
     """R-MAT power-law generator (Chakrabarti et al.): recursive quadrant
     sampling, vectorized over all edges at once. ``node_count`` is rounded up
     to a power of two internally; vertices beyond ``node_count`` are remapped
     by modulo so the returned graph has exactly ``node_count`` vertices.
+    ``native=None`` auto-selects the C++ implementation for large V.
     """
+    if native is None:
+        native = node_count >= 50_000
+    if native:
+        nb = _native()
+        if nb is not None:
+            out = nb.generate_rmat_native(
+                node_count, avg_degree, seed=seed, a=a, b=b, c=c,
+                max_degree=max_degree,
+            )
+            if out is not None:
+                return out
     rng = np.random.default_rng(seed)
     scale = max(1, int(np.ceil(np.log2(max(node_count, 2)))))
     m = int(node_count * avg_degree / 2)
@@ -131,7 +180,8 @@ def _cap_degrees(node_count: int, edges: np.ndarray, max_degree: int) -> np.ndar
     cap (``graph.py:38``). It is slightly stricter than a sequential greedy
     cap — an edge rejected at one endpoint still counts against ranks at the
     other — so degrees come out ≤ max_degree, marginally under-filled when
-    overflow is common.
+    overflow is common. The native C++ generator (``dgc_tpu_torch.native``)
+    implements the exact sequential greedy cap for the large-graph paths.
     """
     m = len(edges)
     if m == 0:

@@ -1,9 +1,10 @@
 """Color-count reduction post-pass (top-class elimination + Kempe swaps) —
-the port's copy of the Python paths of ``dgc_tpu.ops.reduce_colors``.
+the port's copy of ``dgc_tpu.ops.reduce_colors``.
 
-Each function equals its ``dgc_tpu`` original called with ``native=False``,
-at the same budgets. The C++ walks (a 20x larger Kempe budget, and the
-greedy resweep above 200k vertices) are still to be ported (ROADMAP).
+Each function equals its ``dgc_tpu`` original at the same arguments: the
+C++ walks of ``dgc_tpu_torch.native`` (a 20x larger Kempe budget, the
+greedy resweep at any size) where the library builds, the Python walks
+where it does not, and ``last_run`` records which ran.
 
 Greedy engines occasionally finish one class above what the reference's
 shuffle-ordered greedy reaches (README: rare +2 gaps on heavy-tail draws vs
@@ -37,6 +38,9 @@ model").
 """
 
 from __future__ import annotations
+
+import threading
+from collections.abc import MutableMapping
 
 import numpy as np
 
@@ -146,7 +150,8 @@ def _first_fit_members(indptr: np.ndarray, indices: np.ndarray,
     return first
 
 
-# the same budgets as the JAX package's Python path
+# shared by the Python path and the native call below — the two paths are
+# bit-identical only while these stay a single fact.
 # _MAX_PAIR_TRIES 64 → 512 in round 5: the 50k-scale parity ensemble found
 # draws where the sole stubborn top-class member is freed only by a pair
 # beyond the first 64 (seed 2: 48 → 47 colors at 512 tries, measured
@@ -240,15 +245,119 @@ def eliminate_top_class(indptr: np.ndarray, indices: np.ndarray,
 _DEFAULT_WORK_LIMIT = 100_000
 
 
+# the native (C++) walk runs ~100x the Python BFS rate, so it affords a
+# 20x visit budget in far less wall-clock: measured ~0.9 s worst case at
+# 1M-uniform (all-failing chains), 8 ms typical at 1M-RMAT; every quality
+# win in the 300-draw ensembles landed under 200k visits
+_NATIVE_WORK_LIMIT = 2_000_000
+
+
+# diagnostic record of the last reduce_color_count call: which walk ran —
+# "native" (C walk completed), "python" (C library unavailable),
+# "native+python" (C walk made progress then fell back), or
+# "native-failed+python" (C walk failed mid-run with no progress; its
+# spent visits still shrank the Python budget) — and the visit budget each
+# was given. Default-mode output legitimately differs across machines
+# with/without the C toolchain (the native walk affords a 20x budget —
+# the JAX package's notes); this makes a cross-machine count difference
+# attributable.
+#
+# Concurrency contract: the record is THREAD-LOCAL — each
+# thread sees only the record of ITS last ``reduce_color_count`` call, so
+# concurrent post-passes (the resilience supervisor's attempt watchdog
+# runs engine work on worker threads) cannot interleave their key writes.
+# Read it from the same thread that ran the reduction, immediately after
+# the call; callers on other threads see an empty record.
+class _ThreadLocalRecord(MutableMapping):
+    """Dict-shaped view over per-thread storage (keeps the historical
+    ``last_run.update(...)`` / ``dict(last_run)`` call sites working)."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    @property
+    def _d(self) -> dict:
+        d = getattr(self._local, "d", None)
+        if d is None:
+            d = self._local.d = {}
+        return d
+
+    def __getitem__(self, k):
+        return self._d[k]
+
+    def __setitem__(self, k, v):
+        self._d[k] = v
+
+    def __delitem__(self, k):
+        del self._d[k]
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self):
+        return len(self._d)
+
+    def __repr__(self):
+        return repr(self._d)
+
+
+last_run: MutableMapping = _ThreadLocalRecord()
+
+
 def _kempe_reduce(indptr: np.ndarray, indices: np.ndarray,
                   colors: np.ndarray,
-                  work_limit: int | None = None) -> np.ndarray:
+                  work_limit: int | None = None,
+                  native: bool | None = None) -> np.ndarray:
     """The Kempe tier: iteratively eliminate top color classes while every
     member can move. Always returns a valid coloring using ≤ the input's
-    count."""
+    count. Updates ``last_run`` path/budget keys as a side effect."""
     colors = np.asarray(colors)
-    budget = _WorkBudget(work_limit if work_limit is not None
-                         else _DEFAULT_WORK_LIMIT)
+    fallback_limit = work_limit if work_limit is not None else _DEFAULT_WORK_LIMIT
+    if native is not False:
+        from dgc_tpu_torch.native.bindings import reduce_top_class_native
+
+        remaining = work_limit if work_limit is not None else _NATIVE_WORK_LIMIT
+        last_run.update(path="native", native_budget=remaining)
+        unavailable = False
+        result = colors
+        while True:
+            r = reduce_top_class_native(
+                indptr, indices, result, max_pair_tries=_MAX_PAIR_TRIES,
+                chain_cap=_CHAIN_CAP, kempe_max_class=_KEMPE_MAX_CLASS,
+                budget_remaining=remaining)
+            if r is None:
+                unavailable = True
+                break
+            rc, nxt, remaining = r
+            if rc < 0:  # failed mid-run; its spent visits still count
+                break
+            if nxt is None:
+                return result
+            result = nxt
+        progressed = result is not colors
+        if native is True:
+            # the discriminator is tracked, not inferred from progress: a
+            # first-round mid-run failure is NOT "unavailable"
+            raise RuntimeError(
+                "native reduce requested but the library "
+                + ("is unavailable" if unavailable else "failed mid-run"))
+        colors = result  # keep any progress the native rounds made
+        # visits the native rounds spent stay spent: the caller's
+        # work_limit bounds the TOTAL across both paths (when no explicit
+        # limit was given, also clamp to the cheaper Python default —
+        # the pure-Python walk must not inherit the native-scale budget)
+        fallback_limit = max(0, min(remaining, fallback_limit))
+        if unavailable:
+            # no native walk ran at all — drop its budget from the record
+            last_run.clear()
+            last_run["path"] = "python"
+        else:
+            last_run["path"] = ("native+python" if progressed
+                                else "native-failed+python")
+
+    budget = _WorkBudget(fallback_limit)
+    last_run.setdefault("path", "python")
+    last_run["python_budget"] = fallback_limit
     while True:
         nxt = eliminate_top_class(indptr, indices, colors, budget=budget)
         if nxt is None:
@@ -256,19 +365,45 @@ def _kempe_reduce(indptr: np.ndarray, indices: np.ndarray,
         colors = nxt
 
 
-# Python greedy above this V is too slow to be a post-pass
+# Python greedy above this V is too slow to be a post-pass (the native
+# walk has no such cap); measured ~0.3 s at 50k, so ~1.2 s here
 _GREEDY_PY_MAX_V = 200_000
 
 
-def _greedy_seq(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray | None:
+def _greedy_seq(indptr: np.ndarray, indices: np.ndarray,
+                native: bool | None) -> np.ndarray | None:
     """Sequential first-fit greedy in (degree desc, id asc) order — the
     optimized reference's conflict priority applied globally
-    (``coloring_optimized.py:170-172``); None above ``_GREEDY_PY_MAX_V``."""
+    (``coloring_optimized.py:170-172``), which is why its count tracks the
+    reference's so closely (measured: exact match on every 50k draw that
+    resisted the Kempe tier). Native C++ walk when available; Python form
+    (bit-identical, same Python-computed order) up to ``_GREEDY_PY_MAX_V``.
+    """
     v = int(indptr.shape[0]) - 1
-    if v > _GREEDY_PY_MAX_V:
+    # establish that a consumer of the order will run before paying the
+    # O(V log V) sort: no-toolchain machines at 4M-scale would otherwise
+    # sort for nothing on every post-pass
+    use_native = False
+    if native is not False:
+        from dgc_tpu_torch.native.bindings import csr_fits_int32, native_available
+
+        use_native = native_available() and csr_fits_int32(indptr)
+    if not use_native and v > _GREEDY_PY_MAX_V:
+        last_run["greedy"] = "skipped-large"
         return None
     degrees = np.diff(indptr)
     order = np.lexsort((np.arange(v), -degrees.astype(np.int64)))
+    if use_native:
+        from dgc_tpu_torch.native.bindings import greedy_color_native
+
+        out = greedy_color_native(indptr, indices, order)
+        if out is not None:
+            last_run["greedy"] = "native"
+            return out
+        if v > _GREEDY_PY_MAX_V:  # native failed post-check; too big for Python
+            last_run["greedy"] = "skipped-large"
+            return None
+    last_run["greedy"] = "python"
     colors = np.full(v, -1, dtype=np.int32)
     stamp = np.full(v + 1, -1, dtype=np.int64)
     for i, u in enumerate(order):
@@ -284,23 +419,44 @@ def _greedy_seq(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray | None:
 def reduce_color_count(indptr: np.ndarray, indices: np.ndarray,
                        colors: np.ndarray,
                        work_limit: int | None = None,
+                       native: bool | None = None,
                        greedy_resweep: bool = True) -> np.ndarray:
     """Color-count reduction: Kempe tier + greedy-resweep tier.
 
     Always returns a valid coloring using ≤ the input's color count (the
     input itself when nothing improves). ``work_limit`` bounds Kempe-walk
-    vertex visits per tier. The greedy-resweep tier recolors from scratch
-    in the reference's priority order, Kempe-reduces that, and keeps
-    whichever coloring uses fewer colors (see the JAX module's docstring
-    for why it exists).
+    vertex visits per tier. ``native=None`` auto-selects the C++ walks
+    (bit-identical at equal budgets) and falls back to the Python paths.
+    The diagnostic ``last_run`` record this call fills is thread-local —
+    read it from the calling thread (see the ``last_run`` contract above).
+
+    The greedy-resweep tier (round 5) exists because single-vertex Kempe
+    moves have a structural ceiling: the 50k parity ensemble found draws
+    where 1-2 stubborn members resist *every* (a, b) pair, leaving the
+    count 2-3 above the reference. A from-scratch sequential greedy in
+    the reference's own priority order matched the reference's count
+    exactly on each such draw (and after its own Kempe pass sometimes
+    beat it); the tier recolors from scratch, Kempe-reduces that, and
+    keeps whichever coloring uses fewer colors — deterministic, and by
+    construction never worse than the Kempe tier alone.
     """
-    out = _kempe_reduce(indptr, indices, colors, work_limit)
+    last_run.clear()
+    out = _kempe_reduce(indptr, indices, colors, work_limit, native)
     if not greedy_resweep:
         return out
     base = int(out.max()) + 1
-    seq = _greedy_seq(indptr, indices)
-    if seq is not None and int(seq.max()) + 1 <= base:
-        seq = _kempe_reduce(indptr, indices, seq, work_limit)
-        if int(seq.max()) + 1 < base:
-            return seq
+    seq = _greedy_seq(indptr, indices, native)
+    if seq is not None:
+        last_run["greedy_colors"] = int(seq.max()) + 1
+        if last_run["greedy_colors"] <= base:
+            # the second Kempe run's path/budget stats mirror the first's;
+            # keep the first tier's record authoritative
+            snapshot = dict(last_run)
+            seq = _kempe_reduce(indptr, indices, seq, work_limit, native)
+            last_run.clear()
+            last_run.update(snapshot)
+            if int(seq.max()) + 1 < base:
+                last_run["chosen"] = "greedy+kempe"
+                return seq
+    last_run["chosen"] = "sweep+kempe"
     return out

@@ -394,8 +394,8 @@ def test_resume_point_takes_the_latest_bracket():
 
 def test_cli_colors_a_hub_layout_like_jax(tmp_path):
     """A graph whose widest bucket passes flat_cap (256): the default
-    backend colors it as ``dgc_tpu.cli`` does (the post-pass off: the JAX
-    CLI's may take its native walk, which the port does not have)."""
+    backend colors it as ``dgc_tpu.cli`` does (the post-pass off: the
+    sweep is what this case is about)."""
     from dgc_tpu import cli as jcli
     from dgc_tpu_torch import cli as tcli
 

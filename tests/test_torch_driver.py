@@ -133,7 +133,7 @@ def test_validate_and_reduce_equal_jax(seed):
     for colors in (wasteful, res.colors, (res.colors * 3).astype(np.int32)):
         for greedy in (True, False):
             ours = reduce_color_count(g.indptr, g.indices, colors,
-                                      greedy_resweep=greedy)
+                                      greedy_resweep=greedy, native=False)
             ref = jax_reduce(g.indptr, g.indices, colors, native=False,
                              greedy_resweep=greedy)
             np.testing.assert_array_equal(ours, ref)
@@ -175,7 +175,7 @@ def test_cli_exit_codes(tmp_path, capsys):
     assert tcli.main(["--input", str(tmp_path / "g.json"), "--device", "cpu",
                       "--output-coloring", str(tmp_path / "x.json")]) == 2
     with pytest.raises(SystemExit) as e:
-        tcli.main(["--output-coloring", out, "--backend", "dense"])
+        tcli.main(["--output-coloring", out, "--backend", "sharded"])
     assert e.value.code == 2
     assert tcli.build_parser().parse_args(
         ["--output-coloring", out]).backend == "ell-compact"

@@ -47,6 +47,14 @@ def test_importing_every_module_leaves_jax_and_dgc_tpu_out():
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert "dgc_tpu_torch.kernels.superstep" in modules
+    assert "dgc_tpu_torch.native.bindings" in modules
+
+
+def test_native_paths_build_from_the_ports_own_source():
+    from dgc_tpu_torch.native import bindings
+
+    assert bindings.SRC == PORT / "native" / "graphgen.cpp"
+    assert bindings.BUILD_DIR == PORT / "_build"
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
