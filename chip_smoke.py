@@ -29,7 +29,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whose first fit lies in a late color tile): colors with no, some and
    all −1s, either buffer current, budgets from 1 to 2,432 (one-hot
    widths of 128 and 2,432), failing and stalling steps, an attempt no
-   longer running.
+   longer running. The recording variants (B11, in-kernel telemetry):
+   K2 writing rows into buffers that hold the step or not; K5 and K8
+   filling the unconf vector over the cases above (every hub branch); K6
+   writing rows from 300 random loop carries and live tables, its clock
+   on and off; K9 closing an attempt's span into a stack and K10
+   starting the next. Every column is exact but the timestamp, which
+   must be −1 where the plain version's is and a masked clock reading
+   where it is not.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -46,7 +53,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    4 attempts a block, jump and strict, against the same CPU run. The
    dense engine on a 2,000-vertex uniform and RMAT graph, jump and
    strict, and single attempts below 1, above kmax (equal to the k0
-   attempt) and under a ``max_steps`` that stalls.
+   attempt) and under a ``max_steps`` that stalls. Then telemetry on:
+   ``ell-compact`` on the 20k uniform and RMAT graphs (default and forced
+   knobs), sweeps with the card's clock and blocked runs at 4, and
+   ``ell-bucketed`` and ``ell`` attempts: every result and trajectory
+   equals the CPU's but for ``step_us``, which must be −1 first and
+   non-negative after; telemetry off gives the same results.
 3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
@@ -71,7 +83,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sequential and at 4; each blocked sweep must equal its sequential one,
    launch K9 and K10 and bring no row of V words home between the
    attempts of a block. K9 and K10 are held against their plain versions
-   over one more block of each jump sweep and timed there. Then the
+   over one more block of each jump sweep and timed there. The recording
+   variants are held and timed beside them on the same inputs (K2 on the
+   bucketed shapes, K5 and K6 on the full-table superstep, K9 and K10 on
+   the held block) and over one more held and one more profiled sweep
+   with telemetry on (K5, K6, K8). Then the telemetry runs: ``cli.main``
+   with ``--log-json --run-manifest --metrics-prom --superstep-timing``
+   on 1M uniform jump, 1M RMAT jump, 1M uniform strict at
+   ``--attempts-per-dispatch 4`` and 1M uniform ``ell-bucketed``, each
+   against the same run with ``--log-json`` alone: the launch counts,
+   zeroed just before each run and read just after, must show the
+   recording kernels of the path and not the ones they replace (and the
+   reverse with telemetry off); the coloring JSON and the attempts must
+   be the same, the host syncs too, and the bytes copied home larger by
+   the trajectory buffers alone; the three files parse under the port's
+   schema copy, every attempt's trajectory spans it, a SUCCESS ends with
+   no active row, a FAILURE's last row fails, ``step_us`` is −1 first
+   and non-negative after, and ``dgc_device_dispatches_total`` counts
+   the engine calls (a block once). Then the
    dense backend through the CLI's calls at its cap, 16,384 vertices
    (``--max-degree 32 --seed 0``, uniform and RMAT, kmax 128 and 2,432):
    both kernels must launch, the sweep held call by call against the
@@ -574,6 +603,232 @@ def phase_block_kernels(device) -> int:
     return err
 
 
+def _ts_ok(kernel: torch.Tensor, plain: torch.Tensor, timing: bool) -> bool:
+    """The timestamp column (col 5) of a kernel's trajectory rows against
+    its plain version's: −1 in the same rows, and where timing is on a
+    masked clock reading (0 to ``US_MASK``) in the rows the plain version
+    wrote, which read the host clock instead."""
+    from dgc_tpu_torch.layout import COL_TS_US, US_MASK
+
+    a, b = kernel[..., COL_TS_US], plain[..., COL_TS_US]
+    if not timing:
+        return bool((a == b).all())
+    written = b >= 0
+    return bool(((a == -1) == ~written).all()
+                and ((a[written] >= 0) & (a[written] <= US_MASK)).all())
+
+
+def _traj_diff(kernel: torch.Tensor, plain: torch.Tensor,
+               timing: bool = False) -> int:
+    """Max abs difference of two trajectory buffers over every column but
+    the timestamp, which ``_ts_ok`` must accept (else a failure)."""
+    from dgc_tpu_torch.layout import COL_TS_US
+
+    keep = [c for c in range(kernel.shape[-1]) if c != COL_TS_US]
+    err = _diff(kernel[..., keep], plain[..., keep])
+    return err if _ts_ok(kernel, plain, timing) else max(err, 1 << 40)
+
+
+def phase_telemetry_kernels(device) -> int:
+    """The recording variants (B11) vs their plain versions on seeded
+    random cases: K2 writing rows into buffers that hold the step or not,
+    K5 and K8 filling the unconf vector over the cases of
+    ``phase_compact_kernels`` and ``phase_hub_kernels``, K6 writing rows
+    from random loop carries and live tables with the clock on and off,
+    K9 closing an attempt's span and K10 starting the next. Every column
+    is exact but the timestamp (``_ts_ok``). Returns the max abs
+    difference."""
+    from dgc_tpu_torch.engine import hub as th
+    from dgc_tpu_torch.kernels import block as kb
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+    from dgc_tpu_torch.kernels import superstep as ks
+    from dgc_tpu_torch.obs.kernel import traj_empty
+    from dgc_tpu_torch.ops.segmented_gather import (plan_from_parts,
+                                                    plan_from_ranges)
+
+    rng = np.random.default_rng(7)
+    err = 0
+    v = 5000
+
+    def rand(lo, hi, *shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32)
+                                ).to(device)
+
+    # K2: random loop carries into buffers of 1 to 130 rows (the step is
+    # in the buffer or past it), gather calls -1 or a bucket count
+    for _ in range(300):
+        step = int(rng.integers(0, 100))
+        prev = int(rng.integers(0, 50))
+        ctrl = torch.tensor(
+            [int(rng.choice([0, 0, 0, 1, 2])), step, prev,
+             int(rng.integers(0, 70)), int(rng.integers(0, 2)),
+             int(rng.choice([0, 0, int(rng.integers(1, 5))])),
+             int(rng.choice([0, prev, int(rng.integers(0, 60))])),
+             int(rng.integers(-1, 9))], dtype=torch.int32, device=device)
+        traj = traj_empty(int(rng.choice([1, 64, 130])), device=device)
+        gcalls = int(rng.choice([-1, int(rng.integers(1, 20))]))
+        c_p, t_p = ctrl.clone(), traj.clone()
+        max_steps = int(rng.choice([ks.INT32_MAX, int(rng.integers(1, 110))]))
+        ks.superstep_finish(ctrl, max_steps, 64, traj, gcalls)
+        ks.superstep_finish_reference(c_p, max_steps, 64, t_p, gcalls)
+        err = max(err, _diff(ctrl, c_p), _traj_diff(traj, t_p))
+
+    # K5 over slot lists and row spans, live and not, into a random column
+    flat_ext = torch.from_numpy(np.concatenate([
+        _combined(rng, (v, 1040), v), np.full((1, 1040), v, np.int32)])
+    ).to(device)
+    k5_cases = []
+    for ranges in K4_RANGES:
+        plan = plan_from_ranges(ranges)
+        act = torch.from_numpy(rng.random(v) < 0.3).to(device)
+        idx = kc.compact_idx(act, ranges[-1][1], v)
+        seg, gidx = kc.stage_rows_reference(flat_ext, idx, plan, 0, v)
+        k5_cases.append((plan, seg, gidx, 0))
+    for sizes, widths, planes in K5_PARTS:
+        plan = plan_from_parts(sizes, widths, planes)
+        seg = torch.from_numpy(_combined(
+            rng, sum(a * w for a, w in zip(sizes, widths)), v)).to(device)
+        k5_cases += [(plan, seg, None, 0), (plan, seg, None, 1000)]
+    for plan, seg, gidx, row_base in k5_cases:
+        desc = kc.plan_desc(plan, device)
+        for k in (1, 33, 5000):
+            for status, prev, step in ((0, v, 3), (0, v, 3), (1, v, 3),
+                                       (0, 10, 3)):
+                state = _compact_state(
+                    rng, v, 32 * max(s_.planes for s_ in plan) + 40,
+                    float(rng.choice([0.05, 0.4, 1.0])), device)
+                ctrl = kc.new_ctrl(step, prev, device)
+                ctrl[kc.CTRL_STATUS] = status
+                ctrl[kc.CTRL_CUR] = int(rng.integers(0, 2))
+                umax = rand(0, 30, 4)
+                ucol = int(rng.integers(0, 4))
+                s_p, c_p, u_p = state.clone(), ctrl.clone(), umax.clone()
+                kc.segmented_superstep(ctrl, state, seg, plan, desc, k, 10,
+                                       50, gidx=gidx, row_base=row_base,
+                                       umax=umax, ucol=ucol)
+                kc.segmented_superstep_reference(
+                    c_p, s_p, seg, plan, k, 10, 50, gidx=gidx,
+                    row_base=row_base, umax=u_p, ucol=ucol)
+                err = max(err, _diff(state, s_p), _diff(ctrl, c_p),
+                          _diff(umax, u_p))
+
+    # K6: random loop carries and live tables, the clock on and off, rows
+    # in and past the buffer, with and without the ring
+    for trial in range(300):
+        state = _compact_state(rng, v, 200, 0.3, device)
+        nh = int(rng.integers(0, 8))
+        nb = nh + (1 if nh == 0 else int(rng.integers(0, 2)))
+        ring = (rand(-1, 99, kc.REC_SLOTS, v + 2), rand(-1, 99, kc.REC_SLOTS,
+                                                          nb),
+                rand(-1, 99, kc.REC_SLOTS, kc.META_COLS))
+        live = rand(-1, 99, kc.LIVE_ROWS, nb)
+        prev = int(rng.integers(0, 50))
+        ctrl = torch.tensor(
+            [int(rng.choice([0, 0, 0, 1, 2])), int(rng.integers(0, 100)),
+             prev, int(rng.integers(0, 70)), int(rng.integers(0, 2)),
+             int(rng.choice([0, 0, int(rng.integers(1, 5))])),
+             int(rng.choice([0, prev, int(rng.integers(0, 60))])),
+             int(rng.integers(-1, 40)), int(rng.integers(0, 9)),
+             int(rng.integers(-1, 40)), 0], dtype=torch.int32, device=device)
+        timing = trial % 2 == 1
+        tel = kc.Telemetry(traj_empty(int(rng.choice([1, 60, 120])), nb,
+                                      unconf_b=True, device=device),
+                           rand(0, 40, nb), rand(0, 2, nb),
+                           int(rng.integers(0, 3)), timing)
+        record = bool(rng.integers(0, 2))
+        thresh = int(rng.choice([0, 0, int(rng.integers(0, 60))]))
+        max_steps = int(rng.choice([kc.INT32_MAX, int(rng.integers(1, 110))]))
+        c_p, s_p, l_p = ctrl.clone(), state.clone(), live.clone()
+        r_p = tuple(t.clone() for t in ring)
+        t_p = kc.Telemetry(tel.traj.clone(), tel.umax.clone(), tel.gc_w,
+                           tel.gc_const, timing)
+        kc.stage_finish(ctrl, state, ring, live, nh, thresh, max_steps, 64,
+                        record, tel=tel)
+        kc.stage_finish_reference(c_p, s_p, r_p, l_p, nh, thresh, max_steps,
+                                  64, record, tel=t_p)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p), _diff(live, l_p),
+                  *(_diff(a, b) for a, b in zip(ring, r_p)),
+                  _diff(tel.umax, t_p.umax),
+                  _traj_diff(tel.traj, t_p.traj, timing))
+
+    # K8 over the random hub regions of phase_hub_kernels, K7's plain
+    # version choosing the branches
+    sizes = [b_[0] for b_ in HUB_BUCKETS]
+    widths = [b_[1] for b_ in HUB_BUCKETS]
+    prune = tuple(b_[2] if isinstance(b_[2], tuple) else None
+                  for b_ in HUB_BUCKETS)
+    uncond = tuple(b_[2] == "uncond" for b_ in HUB_BUCKETS)
+    row0s = np.concatenate([[0], np.cumsum(sizes[:-1])]) + 37
+    table = torch.from_numpy(_combined(
+        rng, sum(r * w for r, w in zip(sizes, widths)), v)).to(device)
+    branches = set()
+    for trial in range(72):
+        planes = ((1,) * 6 if trial % 3 == 0 else (32,) * 6 if trial % 3 == 1
+                  else tuple(int(p) for p in rng.choice([1, 2, 3, 32], 6)))
+        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond, device)
+        pool = kh.new_pool(plan, device)
+        _hub_pool(rng, plan, pool, device)
+        live = rand(-5, 50, kc.LIVE_ROWS, len(sizes) + 1)
+        for bi, b in enumerate(plan.buckets):
+            cuts = [0, 1, b.pad, b.pad + 1, b.rows, b.p2, b.p2 + 1]
+            live[kc.LIVE_BA, bi] = int(rng.choice([c for c in cuts
+                                                   if 0 <= c <= b.rows]))
+            live[kc.LIVE_TIER, bi] = int(rng.integers(0, 3 if b.p2 else
+                                                      2 if b.u else 1))
+        state = _compact_state(rng, v, 32 * max(planes) + 40,
+                               float(rng.choice([0.02, 0.3, 1.0])), device)
+        ctrl = kc.new_ctrl(3, v, device)
+        ctrl[kc.CTRL_CUR] = trial % 2
+        if trial % 9 == 8:  # a stage that is not live
+            ctrl[kc.CTRL_STATUS] = 1
+        k = int(rng.choice([1, 33, 32 * max(planes) + 7, v]))
+        kh.hub_slots_reference(ctrl, state, live, plan, pool, 10, 50)
+        if trial % 9 != 8:
+            branches |= set(live[kc.LIVE_BRANCH, :len(sizes)].tolist())
+        umax = rand(0, 9, len(sizes) + 1)
+        c_p, s_p, l_p, p_p, u_p = (t.clone() for t in
+                                   (ctrl, state, live, pool, umax))
+        kh.hub_superstep(ctrl, state, table, live, plan, pool, k, 10, 50,
+                         umax=umax)
+        kh.hub_superstep_reference(c_p, s_p, table, l_p, plan, p_p, k, 10, 50,
+                                   umax=u_p)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p), _diff(live, l_p),
+                  _diff(pool, p_p), _diff(umax, u_p))
+    check(branches == set(range(len(th.BRANCH_NAMES))),
+          f"the recording K8 reached only the branches {sorted(branches)}")
+
+    # K9 and K10 over random blocks, with a random span and stack
+    for trial in range(120):
+        v_b = int(rng.choice([1, 7, 5000, 140_000]))
+        attempts = int(rng.choice([1, 2, 4]))
+        ctrl, state, blk, ring, degrees, live, init_ba, best = _block_case(
+            rng, v_b, int(rng.choice([1, 3])), attempts, device)
+        cap = int(rng.choice([1, 40, 4096]))
+        traj = rand(-1, 99, cap, 8)
+        tstack = rand(-1, 99, attempts, cap, 8)
+        k_min = int(rng.integers(-2, 70))
+        strict = bool(trial % 2)
+        held = [t.clone() for t in (ctrl, state, blk, best, traj, tstack)]
+        kb.block_record(ctrl, state, blk, best, k_min, strict, traj=traj,
+                        tstack=tstack)
+        kb.block_record_reference(*held[:4], k_min, strict, traj=held[4],
+                                  tstack=held[5])
+        err = max(err, *(_diff(a, b) for a, b in
+                         zip((ctrl, state, blk, best, traj, tstack), held)))
+        held = [t.clone() for t in (ctrl, blk, state, live, traj)]
+        kb.block_start(ctrl, blk, state, live, ring, degrees, init_ba,
+                       traj=traj)
+        kb.block_start_reference(*held[:4], ring, degrees, init_ba,
+                                 traj=held[4])
+        err = max(err, *(_diff(a, b) for a, b in
+                         zip((ctrl, blk, state, live, traj), held)))
+    torch.cuda.synchronize()
+    check(err == 0, f"the recording kernels disagree with their plain "
+                    f"versions: max abs err {err}")
+    return err
+
+
 # ---- phase 2: engines vs the CPU --------------------------------------------
 
 def _attempt_rows(result) -> list[tuple]:
@@ -657,6 +912,85 @@ def phase_engines(device, v: int = SMOKE_V) -> list[dict]:
                       f"{backend} on {gname} took only the branches {taken}")
                 rows[-1]["branches"] = sorted(taken)
     rows += _edge_cases(device)
+    return rows
+
+
+def _same_trajectories(a, b, what: str, timing: bool) -> None:
+    """Results ``a`` (the card's, timed when ``timing``) and ``b`` (the
+    CPU's, untimed) equal, trajectories included but for ``step_us``,
+    which the card's must carry when timed: −1 first, non-negative after."""
+    check((a is None) == (b is None), f"{what}: one result is missing")
+    if a is None:
+        return
+    check((a.k, a.status, a.supersteps) == (b.k, b.status, b.supersteps)
+          and (a.colors is None or np.array_equal(a.colors, b.colors)),
+          f"{what}: k={a.k} differs from its CPU run")
+    x, y = a.trajectory.to_dict(), b.trajectory.to_dict()
+    su = x.pop("step_us", None)
+    y.pop("step_us", None)
+    check(x == y, f"{what}: k={a.k}: the trajectory differs from the CPU's")
+    check((su is not None) == timing and (
+        su is None or (su[0] == -1 and all(u >= 0 for u in su[1:]))),
+          f"{what}: k={a.k}: step_us {su}")
+    check(a.trajectory.first_step + len(a.trajectory) == a.supersteps,
+          f"{what}: k={a.k}: rows do not span the attempt")
+
+
+def phase_telemetry_engines(device, v: int = SMOKE_V) -> list[dict]:
+    """The engines with telemetry on (the recording kernels) against
+    their CPU runs: ``ell-compact`` on a uniform and an RMAT graph at the
+    default and forced knobs (every conditioned branch), sweeps with the
+    card's clock on, and the strict and jump blocks at A = 4;
+    ``ell-bucketed`` and ``ell`` attempts. Every result and trajectory
+    equals the CPU's but for ``step_us``; telemetry off gives the same
+    results."""
+    from dgc_tpu_torch.engine.bucketed import BucketedELLEngine
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+    from dgc_tpu_torch.engine.minimal_k import find_minimal_coloring
+    from dgc_tpu_torch.engine.superstep import ELLEngine
+    from dgc_tpu_torch.models.graph import Graph
+
+    uniform = Graph.generate(v, 32, seed=1, method="fast")
+    rmat = Graph.generate(v, 32, seed=2, method="rmat")
+    cases = [("uniform", uniform, {}), ("rmat", rmat, {}),
+             ("rmat forced", rmat, dict(flat_cap=8, prune_u_min=4,
+                                        hub_uncond_entries=0))]
+    rows = []
+    for name, graph, knobs in cases:
+        def make(dev, rec=True, knobs=knobs, graph=graph):
+            e = CompactFrontierEngine(graph.arrays, device=dev, **knobs)
+            e.record_trajectory = rec
+            e.record_timing = rec and dev == device
+            return e
+
+        k0 = graph.initial_k()
+        card, cpu, off = make(device), make("cpu"), make(device, False)
+        for a, b, c in zip(card.sweep(k0), cpu.sweep(k0), off.sweep(k0)):
+            _same_trajectories(a, b, f"{name} sweep", True)
+            check(a is None or (c.trajectory is None and np.array_equal(
+                a.colors, c.colors) and a.supersteps == c.supersteps),
+                  f"{name}: telemetry on and off differ")
+        used = [r for r in cpu.sweep(k0) if r is not None][0].colors_used
+        for strict, start in ((True, used + 2), (False, k0)):
+            runs = [find_minimal_coloring(make(dev), start,
+                                          strict_decrement=strict,
+                                          attempts_per_dispatch=4)
+                    for dev in (device, "cpu")]
+            check(len(runs[0].attempts) == len(runs[1].attempts),
+                  f"{name}: blocked attempt counts differ")
+            for a, b in zip(*(r.attempts for r in runs)):
+                _same_trajectories(a, b, f"{name} block strict={strict}",
+                                   True)
+        rows.append({"graph": name, "k0": k0, "colors": used,
+                     "confirm_resumed_from_step": card.resumed_from_step})
+    for name, cls in (("ell-bucketed", BucketedELLEngine), ("ell", ELLEngine)):
+        engines = [cls(uniform.arrays, device=dev) for dev in (device, "cpu")]
+        for e in engines:
+            e.record_trajectory = True
+        for k in (uniform.initial_k(), 9):
+            a, b = (e.attempt(k) for e in engines)
+            _same_trajectories(a, b, name, False)
+        rows.append({"graph": "uniform", "backend": name})
     return rows
 
 
@@ -1016,17 +1350,31 @@ def _host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t) * 1e3 / reps
 
 
-def _device_ms(fn, reps: int, name: str | None = None) -> float:
+# a profiler window drops some launch records (of 20 launches of a 5 µs
+# kernel it kept 17 to 20): _device_ms takes a profile that kept at least
+# this share of the named launches, and the mean over those it kept
+_DEVICE_MS_KEPT = 0.5
+
+
+def _device_ms(fn, reps: int, name: str | None = None,
+               per_call: int = 1) -> float:
     """Device time per call of ``fn`` from ``torch.profiler``: the summed
     durations of the CUDA events whose name contains ``name`` (every
-    device event when None). A profile that holds no such event is taken
-    again, twice at most, and then fails the run: the kernels' ``ms`` is
-    device time, never a host-side or CUDA-event rate."""
+    device event when None). With a ``name``, ``fn`` launches ``per_call``
+    such kernels a call, the profile must keep at least
+    ``_DEVICE_MS_KEPT`` of them, and the time is their mean times
+    ``per_call`` (the plain sum when it kept them all).
+    Without a name, at least one event. A profile that falls short is
+    taken again, five times at most, and then fails the run: the
+    kernels' ``ms`` is device time, never a host-side or CUDA-event
+    rate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    want = per_call * reps
+    kept = []
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1035,10 +1383,17 @@ def _device_ms(fn, reps: int, name: str | None = None) -> float:
         device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and (name is None or name in e.name)]
-        if device:
-            return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
-    raise SmokeFailure(f"torch.profiler saw no device event"
-                       f"{'' if name is None else ' of ' + name} in 3 profiles")
+        total = sum(e.time_range.elapsed_us() for e in device) / 1e3
+        if name is None and device:
+            return total / reps
+        if (name is not None
+                and _DEVICE_MS_KEPT * want <= len(device) <= want):
+            return total / len(device) * per_call
+        kept.append(len(device))
+    raise SmokeFailure(f"torch.profiler kept {kept} device events"
+                       f"{'' if name is None else ' of ' + name}"
+                       f"{'' if name is None else f', not {want},'} in 6 "
+                       f"profiles")
 
 
 class _TimedEngine:
@@ -1120,7 +1475,8 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
     ctrl, state = fresh()
     k1_ms = _cuda_ms(lambda: k1(ctrl, state), reps=50)
     k1_device_ms = _device_ms(lambda: k1(ctrl, state), reps=20,
-                              name="superstep_rows_kernel")
+                              name="superstep_rows_kernel",
+                              per_call=len(parts))
     ctrl, state = fresh()
     k1_plain_ms = _host_ms(
         lambda: k1(ctrl, state, ks.superstep_rows_reference), reps=3)
@@ -1133,6 +1489,24 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
     ctrl, _ = fresh()
     k2_plain_ms = _host_ms(
         lambda: ks.superstep_finish_reference(ctrl, ks.INT32_MAX, 64), reps=50)
+    # K2 folding a running step (the control block reset before each
+    # launch, so none returns early), without and with the row write (B11)
+    from dgc_tpu_torch.obs.kernel import traj_cap_for, traj_empty
+
+    running, _ = fresh()
+    running[ks.CTRL_ACTIVE] = v // 2
+    ctrl = running.clone()
+    traj = traj_empty(traj_cap_for(engine.max_steps), device=packed0.device)
+    gcalls = len(parts) if step0 else -1
+
+    def k2(rec=False, fn=ks.superstep_finish):
+        ctrl.copy_(running)
+        fn(ctrl, ks.INT32_MAX, 64, *((traj, gcalls) if rec else ()))
+
+    k2_fold_ms = _device_ms(k2, 50, "superstep_finish_kernel")
+    k2_rec_ms = _device_ms(lambda: k2(True), 50, "superstep_finish_kernel")
+    k2_rec_plain_ms = _host_ms(
+        lambda: k2(True, ks.superstep_finish_reference), reps=50)
     # yardstick only (the port never calls it): one torch gather of the
     # state through every table entry
     src = state[0]
@@ -1169,6 +1543,10 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
         "attempt_k": k, "attempt_wall_ms": attempt_wall_ms,
         "attempt_device_busy_ms": attempt_device_ms,
         "k2_bound_ms": 2 * 8 * 4 / HBM_BYTES_PER_S * 1e3,
+        "k2_fold_ms": k2_fold_ms, "k2_rec_ms": k2_rec_ms,
+        "k2_rec_plain_ms": k2_rec_plain_ms,
+        # the control block read and written, the row of 6 words written
+        "k2_rec_bound_ms": (2 * 8 + 6) * 4 / HBM_BYTES_PER_S * 1e3,
         "gather_yardstick_ms": gather_ms, "max_abs_err": err,
     }
 
@@ -1383,7 +1761,8 @@ class _HeldCompactKernels:
         return seg, gidx
 
     def segmented_superstep(self, ctrl, state, seg, plan, desc, k, thresh,
-                            max_steps, gidx=None, row_base=0):
+                            max_steps, gidx=None, row_base=0, umax=None,
+                            ucol=0):
         stage = self.stages[-1] if self.stages else None
         if stage is None or stage["seg"] is not seg or ctrl is not self._ctrl:
             stage = self._open(ctrl, None, seg)  # the full-table phase
@@ -1398,16 +1777,20 @@ class _HeldCompactKernels:
             if "k5" not in stage:
                 stage["k5"] = (c_p.clone(), s_p.clone(), seg, plan, desc, k,
                                thresh, max_steps, gidx, row_base)
+        u_p = None if umax is None else umax.clone()
         self._plain("segmented_superstep",
                     self.kc.segmented_superstep_reference, c_p, s_p, seg,
-                    plan, k, thresh, max_steps, gidx=gidx, row_base=row_base)
+                    plan, k, thresh, max_steps, gidx=gidx, row_base=row_base,
+                    umax=u_p, ucol=ucol)
         self.real["segmented_superstep"](ctrl, state, seg, plan, desc, k,
                                          thresh, max_steps, gidx=gidx,
-                                         row_base=row_base)
-        self._held((state, s_p), (ctrl, c_p))
+                                         row_base=row_base, umax=umax,
+                                         ucol=ucol)
+        self._held((state, s_p), (ctrl, c_p),
+                   *(() if umax is None else ((umax, u_p),)))
 
     def stage_finish(self, ctrl, state, ring, live, hub_buckets, thresh,
-                     max_steps, stall_window, record):
+                     max_steps, stall_window, record, tel=None):
         kc = self.kc
         stage = self.stages[-1]
         c = ctrl.tolist()
@@ -1425,12 +1808,19 @@ class _HeldCompactKernels:
         if "k6" not in stage and "k5" in stage:
             stage["k6"] = (c_p.clone(), s_p.clone(), l_p.clone(), hub_buckets,
                            thresh, max_steps, stall_window)
+        t_p = None if tel is None else tel._replace(
+            traj=tel.traj.clone(), umax=tel.umax.clone())
         self._plain("stage_finish", kc.stage_finish_reference, c_p, s_p, r_p,
-                    l_p, hub_buckets, thresh, max_steps, stall_window, record)
+                    l_p, hub_buckets, thresh, max_steps, stall_window, record,
+                    tel=t_p)
         self.real["stage_finish"](ctrl, state, ring, live, hub_buckets, thresh,
-                                  max_steps, stall_window, record)
+                                  max_steps, stall_window, record, tel=tel)
         self._held((ctrl, c_p), (state, s_p), (live, l_p),
-                   *(() if ring is None else zip(ring, r_p)))
+                   *(() if ring is None else zip(ring, r_p)),
+                   *(() if tel is None else ((tel.umax, t_p.umax),)))
+        if tel is not None:
+            self.err = max(self.err, _traj_diff(tel.traj, t_p.traj,
+                                                tel.timing))
 
     def hub_slots(self, ctrl, state, live, plan, pool, thresh, max_steps):
         from dgc_tpu_torch.engine.hub import BRANCH_NAMES
@@ -1449,17 +1839,20 @@ class _HeldCompactKernels:
         self._held((ctrl, c_p), (state, s_p), (live, l_p), (pool, p_p))
 
     def hub_superstep(self, ctrl, state, table, live, plan, pool, k, thresh,
-                      max_steps):
+                      max_steps, umax=None):
         c_p, s_p, l_p, p_p = (t.clone() for t in (ctrl, state, live, pool))
+        u_p = None if umax is None else umax.clone()
         live_step = self.kc.stage_live(ctrl.tolist(), thresh, max_steps)
         nbytes = _k8_bytes(state[int(c_p[self.kc.CTRL_CUR])], table, live,
                            plan, pool, state.shape[1] - 2) if live_step else 0
         self._count(ctrl, "hub_superstep", nbytes)
         self._plain("hub_superstep", self.kh.hub_superstep_reference, c_p,
-                    s_p, table, l_p, plan, p_p, k, thresh, max_steps)
+                    s_p, table, l_p, plan, p_p, k, thresh, max_steps,
+                    umax=u_p)
         self.real["hub_superstep"](ctrl, state, table, live, plan, pool, k,
-                                   thresh, max_steps)
-        self._held((ctrl, c_p), (state, s_p), (live, l_p), (pool, p_p))
+                                   thresh, max_steps, umax=umax)
+        self._held((ctrl, c_p), (state, s_p), (live, l_p), (pool, p_p),
+                   *(() if umax is None else ((umax, u_p),)))
 
 
 def _time_stage(stage: dict, v: int) -> dict:
@@ -1509,10 +1902,12 @@ def _time_stage(stage: dict, v: int) -> dict:
     ctrl, state, seg, plan, desc, k, thresh, max_steps, gidx, row_base = \
         stage["k5"]
 
-    def k5(fn=kc.segmented_superstep, with_desc=True):
+    umax = torch.zeros(1, dtype=torch.int32, device=seg.device)
+
+    def k5(fn=kc.segmented_superstep, with_desc=True, rec=False):
         extra = (desc,) if with_desc else ()
         fn(ctrl, state, seg, plan, *extra, k, thresh, max_steps, gidx=gidx,
-           row_base=row_base)
+           row_base=row_base, umax=umax if rec else None)
 
     ids = seg & NBR_MASK
     real = ids != v
@@ -1540,6 +1935,23 @@ def _time_stage(stage: dict, v: int) -> dict:
     ring = kc.new_ring(v, nb, seg.device)
     k6_push_bytes = 4 * (2 * (v + 2 + nb) + 2 * kc.CTRL_LEN + kc.META_COLS
                          + 4 * nb)
+    # the recording K6 (B11) on the same counters, its clock on: one row
+    # of 6 + 2·nb words written, the unconf vector read and cleared, the
+    # gather-call weights read
+    from dgc_tpu_torch.obs.kernel import traj_cap_for, traj_empty
+
+    tel = kc.Telemetry(traj_empty(traj_cap_for(2 * v + 4), nb, unconf_b=True,
+                                  device=seg.device),
+                       torch.zeros(nb, dtype=torch.int32, device=seg.device),
+                       torch.ones(nb, dtype=torch.int32, device=seg.device),
+                       0, True)
+    row_bytes = 4 * (kc.TRAJ_COLS + 2 * nb + 3 * nb)
+
+    def k6(rec=False, fn=kc.stage_finish):
+        cc.copy_(counted)
+        fn(cc, state6, None, live6.clone(), nh, thresh, max_steps, window,
+           False, tel=tel if rec else None)
+
     rec.update({
         "k5_rows": int(own.numel()), "k5_entries": int(seg.numel()),
         "k5_real_entries": n_real, "k5_state_words": words,
@@ -1560,6 +1972,17 @@ def _time_stage(stage: dict, v: int) -> dict:
             cc, state6, ring, live6.clone(), nh, thresh, max_steps, window,
             True)), 5),
         "k6_push_bound_ms": k6_push_bytes / HBM_BYTES_PER_S * 1e3,
+        "k5_rec_ms": _device_ms(lambda: k5(rec=True), 20,
+                                "segmented_superstep_kernel"),
+        "k5_rec_plain_ms": _host_ms(lambda: k5(
+            kc.segmented_superstep_reference, False, True), 3),
+        "k5_rec_bound_ms": (k5_bytes + 8) / HBM_BYTES_PER_S * 1e3,
+        "k6_rec_ms": _device_ms(lambda: k6(True), 20, "stage_finish_kernel"),
+        "k6_rec_plain_ms": _host_ms(lambda: k6(
+            True, kc.stage_finish_reference), 5),
+        "k6_rec_bound_ms": (4 * (2 * kc.CTRL_LEN + 4 * nb) + row_bytes)
+        / HBM_BYTES_PER_S * 1e3,
+        "k6_row_bytes": row_bytes,
         "k6_bound_ms": 4 * (2 * kc.CTRL_LEN + 4 * nb) / HBM_BYTES_PER_S * 1e3,
         "k6_push_bytes": k6_push_bytes,
     })
@@ -1580,12 +2003,13 @@ _KERNEL_NAMES = {"compact_slots": "compact_slots_kernel",
 def _profiled(fn, launches: dict, min_share: float = 1.0) -> dict:
     """``fn()`` under ``torch.profiler``: per kernel of ``_KERNEL_NAMES``
     the device time summed over its launches and their count. The profile
-    is taken again (twice at most) until it holds ``launches`` of each
-    (at least ``min_share`` of them, where a caller takes the mean over
-    the records the profiler kept)."""
+    is taken again (five times at most: a long window now and then drops
+    a few launch records) until it holds ``launches`` of each (at least
+    ``min_share`` of them, where a caller takes the mean over the records
+    the profiler kept)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(6):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1637,6 +2061,23 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
     # the same sweep again, unheld, under the profiler: the device time of
     # the very launches the held sweep checked
     prof = _profiled(lambda: engine.sweep(k), held.calls)
+    # with telemetry on (B11, the clock too): the held sweep holds the
+    # recording K5, K6 and K8 against their plain versions (every column
+    # but the clock exact), then the profiled one times them
+    engine.record_trajectory = engine.record_timing = True
+    try:
+        with _HeldCompactKernels() as held_rec:
+            pair_rec = engine.sweep(k)
+        prof_rec = _profiled(lambda: engine.sweep(k), held_rec.calls)
+    finally:
+        engine.record_trajectory = engine.record_timing = False
+    rows_rec = [(a.k, int(a.status), a.supersteps, a.colors_used)
+                for a in pair_rec if a is not None]
+    check(rows_rec == rows and held_rec.err == 0,
+          f"the recording sweep({k}) gave {rows_rec} (max abs err "
+          f"{held_rec.err}), the plain one {rows}")
+    check(held_rec.calls == held.calls, f"the recording sweep launched "
+                                        f"{held_rec.calls}, not {held.calls}")
 
     def per_kernel(h):
         return {name: sum(b[name] for b in h.bytes.values())
@@ -1652,7 +2093,17 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
                sum(attempt_bytes.values()) / HBM_BYTES_PER_S * 1e3,
            "sweep_device_ms_by_kernel": {n: t for n, (t, _) in prof.items()},
            "plain_ms_by_kernel": {n: held.plain_s[n] * 1e3 / held.calls[n]
-                                  for n in held.real if held.calls[n]}}
+                                  for n in held.real if held.calls[n]},
+           # per launch over the same sweep, telemetry off and on
+           "per_launch_ms": {n: t / c for n, (t, c) in prof.items() if c},
+           "per_launch_rec_ms": {n: t / c for n, (t, c) in prof_rec.items()
+                                 if c},
+           "plain_rec_ms_by_kernel": {
+               n: held_rec.plain_s[n] * 1e3 / held_rec.calls[n]
+               for n in held_rec.real if held_rec.calls[n]},
+           "bytes_per_launch": {n: sweep_bytes[n] / held.calls[n]
+                                for n in held.real if held.calls[n]},
+           "max_abs_err_rec": held_rec.err}
     if engine.hub_buckets:
         for name, key in (("hub_slots", "k7"), ("hub_superstep", "k8")):
             t, n = prof[name]
@@ -1687,6 +2138,20 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
         out[f"{name}_host_syncs"] = engine.host_syncs
         out[f"{name}_launches"] = {**kc.launch_counts, **kh.launch_counts}
         out[f"{name}_device_busy_ms"] = _device_ms(fn, reps=1)
+    # telemetry off and on in turns (off, on, on, off): one sweep's wall
+    # time each, the clock on with the trajectories
+    walls = []
+    for rec in (False, True, True, False):
+        engine.record_trajectory = engine.record_timing = rec
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.sweep(k)
+        walls.append((time.perf_counter() - t) * 1e3)
+    engine.record_trajectory = engine.record_timing = True
+    out["sweep_wall_ms_off_on_on_off"] = walls
+    out["sweep_device_busy_ms_rec"] = _device_ms(lambda: engine.sweep(k),
+                                                 reps=1)
+    engine.record_trajectory = engine.record_timing = False
     # the stage ladder alone: no copy of the colors home, no decode
     t = time.perf_counter()
     engine._run(k)
@@ -1748,34 +2213,41 @@ class _HeldBlockKernels:
         for name, fn in self.real.items():
             setattr(self.kb, name, fn)
 
-    def block_record(self, ctrl, state, blk, best_pe, k_min, strict):
+    def block_record(self, ctrl, state, blk, best_pe, k_min, strict,
+                     traj=None, tstack=None):
         from dgc_tpu_torch.kernels.compact import CTRL_STATUS
 
         self.calls["block_record"] += 1
-        held = [t.clone() for t in (ctrl, state, blk, best_pe)]
+        rec = () if traj is None else (traj, tstack)
+        held = [t.clone() for t in (ctrl, state, blk, best_pe, *rec)]
         if self.k9 is None and int(ctrl[CTRL_STATUS]) == 1:
-            self.k9 = [t.clone() for t in held] + [k_min, strict]
-        self.kb.block_record_reference(*held, k_min, strict)
-        self.real["block_record"](ctrl, state, blk, best_pe, k_min, strict)
-        for a, b in zip((ctrl, state, blk, best_pe), held):
+            self.k9 = [t.clone() for t in held[:4]] + [k_min, strict]
+        self.kb.block_record_reference(*held[:4], k_min, strict,
+                                       *(held[4:] if rec else (None, None)))
+        self.real["block_record"](ctrl, state, blk, best_pe, k_min, strict,
+                                  traj=traj, tstack=tstack)
+        for a, b in zip((ctrl, state, blk, best_pe, *rec), held):
             self.err = max(self.err, _diff(a, b))
 
-    def block_start(self, ctrl, blk, state, live, ring, degrees, init_ba):
+    def block_start(self, ctrl, blk, state, live, ring, degrees, init_ba,
+                    traj=None):
         kb = self.kb
         self.calls["block_start"] += 1
-        held = [t.clone() for t in (ctrl, blk, state, live)]
+        rec = () if traj is None else (traj,)
+        held = [t.clone() for t in (ctrl, blk, state, live, *rec)]
         b, cnt = blk.tolist(), int(ctrl[kb.CTRL_REC_CNT])
         hit = kb.block_open(b) and any(
             j < cnt and m[1] < b[kb.BLK_K] <= m[2]
             for j, m in enumerate(ring[2].tolist()))
         if self.k10 is None or (hit and not self.k10_hit):
             self.k10_hit = hit  # a start from the ring is kept if any
-            self.k10 = ([t.clone() for t in held]
+            self.k10 = ([t.clone() for t in held[:4]]
                         + [tuple(t.clone() for t in ring), degrees, init_ba])
-        self.kb.block_start_reference(*held, ring, degrees, init_ba)
+        self.kb.block_start_reference(*held[:4], ring, degrees, init_ba,
+                                      held[4] if rec else None)
         self.real["block_start"](ctrl, blk, state, live, ring, degrees,
-                                 init_ba)
-        for a, b in zip((ctrl, blk, state, live), held):
+                                 init_ba, traj=traj)
+        for a, b in zip((ctrl, blk, state, live, *rec), held):
             self.err = max(self.err, _diff(a, b))
 
 
@@ -1812,7 +2284,37 @@ def measure_block(engine, k: int, strict: bool, swept: list[tuple]) -> dict:
     src = ring[0][0]
     # 64 MB written between launches evicts the 50 MB L2: the cold times
     flush = torch.empty(16 << 20, dtype=torch.int32, device=state.device)
+    # the recording K9 and K10 (B11) on the same inputs: an attempt's
+    # buffer (the engine's cap and row width) copied into its slot of a
+    # stack of 4, and emptied
+    from dgc_tpu_torch.obs.kernel import traj_cap_for, traj_empty
+
+    traj = traj_empty(traj_cap_for(engine.max_steps),
+                      len(engine.init_bucket_active), unconf_b=True,
+                      device=state.device)
+    tstack = torch.full((4, *traj.shape), -1, dtype=torch.int32,
+                        device=state.device)
+    tw = traj.numel()
     return {
+        "traj_words": tw,
+        "k9_rec_ms": _device_ms(lambda: (blk.copy_(blk0), kb.block_record(
+            ctrl, state, blk, best, k_min, strict_, traj=traj,
+            tstack=tstack)), 20, "block_record_kernel"),
+        "k9_rec_plain_ms": _host_ms(lambda: (blk.copy_(blk0),
+                                             kb.block_record_reference(
+            ctrl, state, blk, best, k_min, strict_, traj=traj,
+            tstack=tstack)), 5),
+        "k9_rec_library_ms": _device_ms(lambda: (
+            torch.amax(pe[:v]), best.copy_(pe), tstack[0].copy_(traj)), 20),
+        "k9_rec_bound_ms": (k9_bytes + 8 * tw) / HBM_BYTES_PER_S * 1e3,
+        "k10_rec_ms": _device_ms(lambda: kb.block_start(
+            c10, b10, s10, l10, ring, degrees, init_ba, traj=traj), 20,
+            "block_start_kernel"),
+        "k10_rec_plain_ms": _host_ms(lambda: kb.block_start_reference(
+            c10, b10, s10, l10, ring, degrees, init_ba, traj=traj), 5),
+        "k10_rec_library_ms": _device_ms(lambda: (
+            s10.copy_(src.expand(2, -1)), traj.fill_(-1)), 20),
+        "k10_rec_bound_ms": (k10_bytes + 4 * tw) / HBM_BYTES_PER_S * 1e3,
         "held_calls": held.calls, "max_abs_err": held.err,
         "k10_ring_hit": hit,
         "k9_ms": _device_ms(lambda: (blk.copy_(blk0), kb.block_record(
@@ -2042,6 +2544,232 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
           f"ell-compact's sweep differs from ell-bucketed's: {a[0]} vs {b[0]}")
     blocked = phase_blocked_main(card, out_dir, argv, blocked_runs, graph)
     return {r["backend"]: r for r in records}, blocked
+
+
+# the telemetry runs (B11): the CLI with all four telemetry flags on the
+# 1M draws, against the same run with the event log alone (telemetry off)
+TELEMETRY_RUNS = (
+    ("uniform jump", MAIN_ARGS, []),
+    ("rmat jump", RMAT_ARGS, []),
+    ("uniform strict A=4", MAIN_ARGS, ["--strict-decrement",
+                                       "--attempts-per-dispatch", "4"]),
+    ("uniform ell-bucketed", MAIN_ARGS, ["--backend", "ell-bucketed"]),
+)
+# the recording kernels each run must launch, and the kernels they replace,
+# which it must not
+_REC_KERNELS = {
+    "uniform jump": ("segmented_superstep_rec", "stage_finish_rec"),
+    "rmat jump": ("segmented_superstep_rec", "stage_finish_rec",
+                  "hub_superstep_rec"),
+    "uniform strict A=4": ("segmented_superstep_rec", "stage_finish_rec",
+                           "block_record_rec", "block_start_rec"),
+    "uniform ell-bucketed": ("superstep_finish_rec",),
+}
+
+
+def _cli_run(argv: list[str]) -> tuple:
+    """``cli.main(argv)`` with the launch counts zeroed just before and
+    read just after; returns (rc, launches, the engine it built, wall s)."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import block as kb
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+    from dgc_tpu_torch.kernels import superstep as ks
+
+    built, real = [], cli.make_engine
+
+    def make_engine(args, graph):
+        built.append(real(args, graph))
+        return built[-1]
+
+    cli.make_engine = make_engine
+    try:
+        for mod in (ks, kc, kh, kb):
+            mod.reset_launch_counts()
+        t = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        cli.make_engine = real
+    launches = {name: n for mod in (ks, kc, kh, kb)
+                for counts in (mod.launch_counts, mod.rec_launch_counts)
+                for name, n in counts.items()}
+    return rc, launches, built[-1] if built else None, wall
+
+
+def _check_telemetry_files(name: str, d: Path, timing: bool) -> dict:
+    """The run's JSONL, manifest and Prometheus file parse under the
+    port's schema copy; every attempt has its trajectory: its rows span
+    the attempt from its first step, a SUCCESS ends with no active row, a
+    FAILURE's last row is its failing step (and no earlier one fails),
+    ``step_us`` is −1 first and non-negative after (timed runs only)."""
+    from dgc_tpu_torch.obs.manifest import load_manifest
+    from dgc_tpu_torch.obs.schema import validate_record
+
+    events = [json.loads(line) for line in
+              (d / "run.jsonl").read_text().splitlines()]
+    bad = [p for e in events for p in validate_record(e)]
+    check(not bad, f"{name}: the event log breaks the schema: {bad[:3]}")
+    attempts = [e for e in events if e["event"] == "attempt"]
+    trajs = [e for e in events if e["event"] == "trajectory"]
+    check(len(attempts) == len(trajs) > 0, f"{name}: {len(attempts)} "
+                                           f"attempts, {len(trajs)} trajectories")
+    step_us = []
+    for a, t in zip(attempts, trajs):
+        n = len(t["active"])
+        check(t["k"] == a["k"] and t["first_step"] + n == a["supersteps"]
+              and not t["truncated"], f"{name}: k={a['k']}: rows "
+                                      f"{t['first_step']}+{n}, supersteps "
+                                      f"{a['supersteps']}")
+        if a["status"] == "SUCCESS":
+            check(t["active"][-1] == 0, f"{name}: k={a['k']}: SUCCESS with "
+                                        f"{t['active'][-1]} active")
+        if a["status"] == "FAILURE":
+            check(t["fail"][-1] == 1 and not any(t["fail"][:-1]),
+                  f"{name}: k={a['k']}: fail column {t['fail']}")
+        su = t.get("step_us")
+        check((su is not None) == timing, f"{name}: k={a['k']}: step_us "
+                                          f"{'missing' if timing else 'set'}")
+        if su is not None:
+            check(su[0] == -1 and all(u >= 0 for u in su[1:]),
+                  f"{name}: k={a['k']}: step_us {su[:8]}")
+            step_us += su[1:]
+    doc = load_manifest(str(d / "manifest.json"))
+    check(len(doc["attempts"]) == len(attempts) and all(
+        m["trajectory"] is not None for m in doc["attempts"]),
+          f"{name}: the manifest's attempts lack trajectories")
+    prom = {}
+    for line in (d / "metrics.prom").read_text().splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            prom[key] = float(value)
+    calls = sum(1 for e in events if e["event"] == "phase")
+    check(prom.get("dgc_device_dispatches_total") == calls,
+          f"{name}: {prom.get('dgc_device_dispatches_total')} dispatches "
+          f"counted, {calls} engine calls")
+    return {"attempts": len(attempts), "trajectory_rows":
+            sum(len(t["active"]) for t in trajs),
+            "dispatches": calls,
+            "blocks": sum(1 for e in events if e["event"] == "attempt_block"),
+            "step_us_median": float(np.median(step_us)) if step_us else None,
+            "step_us_sum": int(sum(step_us)),
+            "engine_call_s": [e["seconds"] for e in events
+                              if e["event"] == "phase"],
+            "first_trajectory": {k: trajs[0][k][:12] for k in (
+                "active", "gather_calls", "max_unconf", "step_us")
+                if k in trajs[0]}}
+
+
+# telemetry off and on alternate, three runs a side, so that a drift over
+# the phase falls on both sides alike
+TELEMETRY_ORDER = (False, True, True, False, False, True)
+
+
+def _spread(off: list[float], on: list[float]) -> dict:
+    """Median and range of each side; the difference is resolved only where
+    the two ranges do not overlap."""
+    return {"off": off, "on": on,
+            "off_median": float(np.median(off)),
+            "on_median": float(np.median(on)),
+            "off_range": [min(off), max(off)], "on_range": [min(on), max(on)],
+            "resolved": max(off) < min(on) or max(on) < min(off)}
+
+
+def phase_telemetry_main(card: str, out_dir: Path) -> dict:
+    """Each of ``TELEMETRY_RUNS`` through ``cli.main`` on the card, in the
+    order ``TELEMETRY_ORDER``: with ``--log-json`` alone (telemetry off),
+    or with all four flags. The launch counts are zeroed just before each
+    run and read just after: a telemetry run must launch the recording
+    kernels of its path and not the ones they replace, a run without the
+    reverse. Every run's coloring JSON and attempts must be byte for byte
+    the first telemetry-off run's, the host syncs the same, and the bytes
+    copied home larger by the trajectory buffers alone
+    (``_check_telemetry_files`` checks the rest of each telemetry run).
+    The engine time and the CLI's wall time of each side are reported as
+    median and range. Returns the records by run."""
+    from dgc_tpu_torch.obs.kernel import traj_cap_for, traj_cols
+
+    out = {}
+    for name, graph_args, extra in TELEMETRY_RUNS:
+        runs = {False: [], True: []}
+        timing = "ell-bucketed" not in extra
+        files = None
+        for i, tel in enumerate(TELEMETRY_ORDER):
+            d = out_dir / f"telemetry-{name.replace(' ', '-')}-{i}"
+            d.mkdir(parents=True, exist_ok=True)
+            argv = graph_args + extra + [
+                "--output-coloring", str(d / "colors.json"),
+                "--log-json", str(d / "run.jsonl")]
+            if tel:
+                argv += ["--run-manifest", str(d / "manifest.json"),
+                         "--metrics-prom", str(d / "metrics.prom"),
+                         "--superstep-timing"]
+            rc, launches, engine, wall = _cli_run(argv)
+            check(rc == 0, f"{name}: the CLI exited {rc}")
+            need = _REC_KERNELS[name]
+            off = [n[:-4] for n in need]
+            on_names, off_names = (need, off) if tel else (off, need)
+            check(all(launches[n] > 0 for n in on_names)
+                  and not any(launches[n] for n in off_names),
+                  f"{name} (telemetry {'on' if tel else 'off'}): launches "
+                  f"{launches}")
+            events = [json.loads(line) for line in
+                      (d / "run.jsonl").read_text().splitlines()]
+            runs[tel].append({
+                "dir": d, "launches": launches, "wall_s": wall,
+                "colors": (d / "colors.json").read_bytes(),
+                "attempts": [{k: v for k, v in e.items() if k != "t"}
+                             for e in events if e["event"] == "attempt"],
+                "engine_s": sum(e["seconds"] for e in events
+                                if e["event"] == "phase"),
+                "host_syncs": engine.host_syncs,
+                "d2h_bytes": getattr(engine, "d2h_bytes", None),
+                "traj_bytes": 4 * traj_cap_for(engine.max_steps) * traj_cols(
+                    len(getattr(engine, "init_bucket_active", ())),
+                    hasattr(engine, "init_bucket_active"))})
+            del engine
+            if tel:
+                checked = _check_telemetry_files(name, d, timing)
+                files = files or checked
+        a, b = runs[False][0], runs[True][0]
+        for r, same in ((r, side[0]) for side in runs.values()
+                        for r in side):
+            check(r["colors"] == a["colors"] and r["attempts"] == a["attempts"],
+                  f"{name}: telemetry on changed the result")
+            check(r["host_syncs"] == a["host_syncs"],
+                  f"{name}: host syncs {a['host_syncs']} off, "
+                  f"{r['host_syncs']} in {r['dir'].name}")
+            check(r["launches"] == same["launches"]
+                  and r["d2h_bytes"] == same["d2h_bytes"],
+                  f"{name}: {r['dir'].name} launched {r['launches']} and "
+                  f"copied {r['d2h_bytes']} B home, {same['dir'].name} "
+                  f"{same['launches']} and {same['d2h_bytes']} B")
+        n_att = len(b["attempts"])
+        rec = {"phase": "telemetry_main", "run": name,
+               "graph": " ".join(graph_args + extra), "attempts": n_att,
+               "order": ["on" if t else "off" for t in TELEMETRY_ORDER],
+               "launches": b["launches"],
+               "sweep_engine_s": _spread([r["engine_s"] for r in runs[False]],
+                                         [r["engine_s"] for r in runs[True]]),
+               "cli_wall_s": _spread([r["wall_s"] for r in runs[False]],
+                                     [r["wall_s"] for r in runs[True]]),
+               "host_syncs": b["host_syncs"],
+               "host_syncs_per_attempt": b["host_syncs"] / n_att,
+               "traj_buffer_bytes": b["traj_bytes"], "card": card, **files}
+        if b["d2h_bytes"] is not None:
+            # one buffer per attempt, or a stack of A per block
+            a_blk = 4 if "--attempts-per-dispatch" in extra else 1
+            n_buf = files["blocks"] * a_blk if a_blk > 1 else n_att
+            extra_bytes = b["d2h_bytes"] - a["d2h_bytes"]
+            check(extra_bytes == n_buf * b["traj_bytes"],
+                  f"{name}: {extra_bytes} more bytes home, the trajectory "
+                  f"buffers are {n_buf} x {b['traj_bytes']}")
+            rec.update({"d2h_bytes_per_attempt_off": a["d2h_bytes"] / n_att,
+                        "d2h_bytes_per_attempt_on": b["d2h_bytes"] / n_att})
+        emit(rec)
+        out[name] = rec
+    return out
 
 
 # ---- the dense engine at full width ------------------------------------------
@@ -2342,14 +3070,19 @@ def main(argv: list[str] | None = None) -> int:
         hub_err = phase_hub_kernels("cuda")
         block_err = phase_block_kernels("cuda")
         dense_err = phase_dense_kernels("cuda")
+        tel_err = phase_telemetry_kernels("cuda")
         emit({"phase": "kernels_vs_plain",
               "max_abs_err": max(kernel_err, compact_err, hub_err, block_err,
-                                 dense_err),
+                                 dense_err, tel_err),
               "seconds": time.perf_counter() - t})
 
         t = time.perf_counter()
         rows = phase_engines("cuda") + phase_dense_engines("cuda")
         emit({"phase": "engines_vs_cpu", "runs": rows,
+              "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        rows = phase_telemetry_engines("cuda")
+        emit({"phase": "telemetry_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
 
         main_runs, blocked = phase_main_path(
@@ -2359,6 +3092,7 @@ def main(argv: list[str] | None = None) -> int:
             card, out_dir, RMAT_ARGS, ("ell-compact", "ell-bucketed"),
             ((False, 1), (False, 4)))
         blocked += blocked_rmat
+        telemetry = phase_telemetry_main(card, out_dir)
         dense_runs = phase_dense_main(card, out_dir, dense_cpu.result())
         t = time.perf_counter()
         rows = phase_block_engines("cuda", reference.result())
@@ -2367,7 +3101,9 @@ def main(argv: list[str] | None = None) -> int:
     print(card)
     emit({"kernels": kernels_line(main_runs, rmat_runs, blocked, kernel_err,
                                   compact_err, hub_err, block_err)
-          + dense_kernels_line(dense_runs, dense_err)})
+          + dense_kernels_line(dense_runs, dense_err)
+          + telemetry_kernels_line(main_runs, rmat_runs, blocked, telemetry,
+                                   tel_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -2484,6 +3220,87 @@ def kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
          "library_ms": jump4["k10_library_ms"]},
     ]
 
+
+
+def telemetry_kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
+                           telemetry: dict, tel_err: int) -> list[dict]:
+    """The recording variants (B11): launches on the telemetry runs of
+    their paths (``phase_telemetry_main``); K2 timed on the 1M uniform
+    bucketed shapes, K5 and K6 on the 1M uniform full-table superstep's
+    inputs, K8 the mean over the 1M RMAT recording sweep's launches, K9
+    and K10 on one held block of the 1M uniform jump sweep. ``off_ms`` is
+    the kernel without recording on the same inputs, timed in the same
+    run; ``sweep_mean_ms`` the per-launch means over a whole sweep, off
+    and on."""
+    bucketed = main_runs["ell-bucketed"]
+    compact, hub = main_runs["ell-compact"], rmat_runs["ell-compact"]
+    full = compact["stages"][0]
+    jump4 = next(r for r in blocked if not r["strict"]
+                 and r["attempts_per_dispatch"] > 1)
+    err = max([tel_err, compact["max_abs_err_rec"], hub["max_abs_err_rec"]])
+
+    def launches(run, name):
+        return telemetry[run]["launches"][name]
+
+    def sweep_means(name):
+        return {g: [r["per_launch_ms"][name], r["per_launch_rec_ms"][name]]
+                for g, r in (("uniform", compact), ("rmat", hub))
+                if name in r["per_launch_ms"]}
+
+    nh = hub["hub_buckets"]
+    k8_bytes = hub["bytes_per_launch"]["hub_superstep"] + 4 * nh
+    base = {"route": "cuda", "max_abs_err": err, "bound_by": "bytes"}
+    return [
+        {**base, "name": "superstep_finish_rec",
+         "source": "dgc_tpu_torch/csrc/superstep.cu",
+         "replaces": "dgc_tpu/obs/kernel.py:95",
+         "launches": launches("uniform ell-bucketed", "superstep_finish_rec"),
+         "ms": bucketed["k2_rec_ms"], "plain_ms": bucketed["k2_rec_plain_ms"],
+         "bound_ms": bucketed["k2_rec_bound_ms"], "library_ms": None,
+         "off_ms": bucketed["k2_fold_ms"]},
+        {**base, "name": "segmented_superstep_rec",
+         "source": "dgc_tpu_torch/csrc/compact.cu",
+         "replaces": "dgc_tpu/ops/segmented_gather.py:203",
+         "launches": launches("uniform jump", "segmented_superstep_rec"),
+         "launches_other": {n: r["launches"]["segmented_superstep_rec"]
+                            for n, r in telemetry.items()},
+         "ms": full["k5_rec_ms"], "plain_ms": full["k5_rec_plain_ms"],
+         "bound_ms": full["k5_rec_bound_ms"], "library_ms": None,
+         "off_ms": full["k5_ms"],
+         "sweep_mean_ms": sweep_means("segmented_superstep")},
+        {**base, "name": "stage_finish_rec",
+         "source": "dgc_tpu_torch/csrc/compact.cu",
+         "replaces": "dgc_tpu/obs/kernel.py:95",
+         "launches": launches("uniform jump", "stage_finish_rec"),
+         "launches_other": {n: r["launches"]["stage_finish_rec"]
+                            for n, r in telemetry.items()},
+         "ms": full["k6_rec_ms"], "plain_ms": full["k6_rec_plain_ms"],
+         "bound_ms": full["k6_rec_bound_ms"], "library_ms": None,
+         "off_ms": full["k6_ms"], "row_bytes": full["k6_row_bytes"],
+         "sweep_mean_ms": sweep_means("stage_finish")},
+        {**base, "name": "hub_superstep_rec",
+         "source": "dgc_tpu_torch/csrc/hub.cu",
+         "replaces": "dgc_tpu/engine/compact.py:257",
+         "launches": launches("rmat jump", "hub_superstep_rec"),
+         "ms": hub["per_launch_rec_ms"]["hub_superstep"],
+         "plain_ms": hub["plain_rec_ms_by_kernel"]["hub_superstep"],
+         "bound_ms": k8_bytes / HBM_BYTES_PER_S * 1e3, "library_ms": None,
+         "off_ms": hub["per_launch_ms"]["hub_superstep"]},
+        {**base, "name": "block_record_rec",
+         "source": "dgc_tpu_torch/csrc/block.cu",
+         "replaces": "dgc_tpu/engine/compact.py:1806",
+         "launches": launches("uniform strict A=4", "block_record_rec"),
+         "ms": jump4["k9_rec_ms"], "plain_ms": jump4["k9_rec_plain_ms"],
+         "bound_ms": jump4["k9_rec_bound_ms"],
+         "library_ms": jump4["k9_rec_library_ms"], "off_ms": jump4["k9_ms"]},
+        {**base, "name": "block_start_rec",
+         "source": "dgc_tpu_torch/csrc/block.cu",
+         "replaces": "dgc_tpu/engine/compact.py:1770",
+         "launches": launches("uniform strict A=4", "block_start_rec"),
+         "ms": jump4["k10_rec_ms"], "plain_ms": jump4["k10_rec_plain_ms"],
+         "bound_ms": jump4["k10_rec_bound_ms"],
+         "library_ms": jump4["k10_rec_library_ms"], "off_ms": jump4["k10_ms"]},
+    ]
 
 
 def dense_kernels_line(dense_runs: dict, dense_err: int) -> list[dict]:

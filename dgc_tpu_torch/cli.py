@@ -13,12 +13,26 @@ the host parity targets ``oracle`` and ``reference-sim`` with
 per block, ``ell-compact`` only) and checkpoint/resume
 (``--checkpoint-dir``, ``--checkpoint-write-behind``), as ``dgc_tpu.cli``
 has them. The graph drawn at ``--seed`` is ``dgc_tpu.cli``'s (the C++
-generators above 50,000 vertices, where a toolchain exists). Not ported:
-the sharded backends, ``--speculate-k``, tuned configs, telemetry and the
-resilience flags (ROADMAP).
+generators above 50,000 vertices, where a toolchain exists).
+
+Telemetry, with ``dgc_tpu.cli``'s semantics and file schemas:
+``--log-json PATH`` appends the JSONL event stream (``obs.events``, the
+schema of ``obs.schema``); ``--run-manifest PATH`` writes the run manifest
+(``obs.manifest``) and ``--metrics-prom PATH`` the Prometheus text of the
+run's metrics (``obs.metrics``; ``dgc_device_dispatches_total`` counts an
+attempt block once). Either of the last two switches the engines'
+in-kernel trajectories on (the recording kernels; one ``trajectory``
+event per attempt); ``--superstep-timing`` then adds each superstep's
+timestamp (``step_us``), on ``ell-compact`` only: it is the card's
+``%globaltimer`` (the host clock with ``--device cpu``), not the JAX
+package's host clock, so only its differences mean anything. Not ported:
+the sharded backends, ``--speculate-k``, tuned configs, the profiler
+windows and flight recorder, and the resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
-        --output-coloring colors.json [--backend ell-compact] [--device cpu]
+        --output-coloring colors.json [--backend ell-compact] [--device cpu] \\
+        [--log-json run.jsonl --run-manifest run.json \\
+         --metrics-prom run.prom --superstep-timing]
 
 Exit codes: 0 success, 1 no valid coloring, 2 usage or load error (a
 missing card for ``--device cuda`` included).
@@ -30,11 +44,15 @@ import argparse
 import sys
 import time
 
+import torch
+
 from dgc_tpu_torch.device import resolve_device
 from dgc_tpu_torch.engine.minimal_k import (MinimalColoringResult,
                                             find_minimal_coloring,
                                             make_reducer, make_validator)
 from dgc_tpu_torch.models.graph import Graph
+from dgc_tpu_torch.obs import (MetricsRegistry, ObservedEngine,
+                               PhaseCollector, RunLogger, RunManifest)
 
 BACKENDS = ("ell-compact", "ell-bucketed", "ell", "dense", "reference-sim",
             "oracle")
@@ -104,6 +122,18 @@ def build_parser() -> argparse.ArgumentParser:
                    default="optimized",
                    help="reference-sim backend: which reference engine's "
                         "semantics")
+    p.add_argument("--log-json", type=str, default=None,
+                   help="append the structured JSONL event stream here")
+    p.add_argument("--run-manifest", type=str, default=None,
+                   help="write the run manifest JSON here (attempts with "
+                        "their in-kernel superstep trajectories, phases, "
+                        "metrics)")
+    p.add_argument("--metrics-prom", type=str, default=None,
+                   help="write the run's metrics in Prometheus text format")
+    p.add_argument("--superstep-timing", action="store_true",
+                   help="with --run-manifest/--metrics-prom: record each "
+                        "superstep's timestamp in the trajectory "
+                        "(ell-compact; the card's clock)")
     return p
 
 
@@ -208,23 +238,37 @@ def _print_attempt(res, val) -> None:
     print("attempt: " + " ".join(fields))
 
 
-def sweep(args, graph: Graph, engine,
-          checkpoint=None) -> MinimalColoringResult:
+def sweep(args, graph: Graph, engine, checkpoint=None, on_attempt=None,
+          on_block=None) -> MinimalColoringResult:
     """The minimal-k sweep the arguments ask for on ``engine`` (blocked at
     ``--attempts-per-dispatch``), with validation, the post-pass and
-    ``checkpoint``."""
+    ``checkpoint``; ``on_attempt(res, val)`` (default: the console line)
+    and ``on_block(k, attempts)`` as ``find_minimal_coloring`` takes
+    them."""
     return find_minimal_coloring(
         engine,
         initial_k=graph.initial_k(),
         strict_decrement=args.strict_decrement,
         validate=make_validator(graph.arrays),
-        on_attempt=_print_attempt,
+        on_attempt=on_attempt if on_attempt is not None else _print_attempt,
         checkpoint=checkpoint,
         post_reduce=(None if args.no_reduce_colors
                      or args.backend in HOST_BACKENDS
                      else make_reducer(graph.arrays)),
         attempts_per_dispatch=attempts_per_dispatch(args, graph),
+        on_block=on_block,
     )
+
+
+def write_obs_outputs(args, logger, manifest, phases, registry) -> None:
+    """Write the manifest and the metrics files the arguments name."""
+    if args.run_manifest:
+        manifest.finalize(phases=phases, registry=registry)
+        manifest.write(args.run_manifest)
+        logger.event("manifest_written", path=args.run_manifest)
+    if args.metrics_prom:
+        registry.write_prom(args.metrics_prom)
+        logger.event("metrics_written", path=args.metrics_prom)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -244,27 +288,98 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:  # a card asked for where there is none
         print(f"Cannot run on --device {args.device}: {e}", file=sys.stderr)
         return 2
+    # the event stream goes to --log-json only; the console keeps the
+    # port's own lines
+    logger = RunLogger(jsonl_path=args.log_json, echo=False)
     try:
-        graph = load_graph(args)
-    except (OSError, ValueError, KeyError) as e:
-        print(f"Failed to load graph from {args.input}: {e}", file=sys.stderr)
-        return 2
+        return _run(args, logger, t_start)
+    finally:
+        logger.close()
+
+
+def _run(args, logger, t_start: float) -> int:
+    registry = MetricsRegistry()
+    phases = PhaseCollector(logger=logger, registry=registry)
+    manifest = RunManifest()
+    logger.add_sink(manifest)
+    with phases.section("host_graph"):
+        try:
+            graph = load_graph(args)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"Failed to load graph from {args.input}: {e}",
+                  file=sys.stderr)
+            return 2
+    if args.input is not None:
+        logger.event("graph_loaded", path=args.input,
+                     vertices=graph.num_vertices, max_degree=graph.max_degree)
+    else:
+        logger.event("graph_generated", vertices=graph.num_vertices,
+                     max_degree=graph.max_degree, method=args.gen_method,
+                     seed=args.seed)
+        if args.output_graph:
+            logger.event("graph_saved", path=args.output_graph)
+    k0 = graph.initial_k()
+    logger.event("sweep_start", backend=args.backend, initial_k=k0,
+                 strict_decrement=args.strict_decrement)
     checkpoint = make_checkpoint(args, graph)
     try:
-        result = sweep(args, graph, make_engine(args, graph), checkpoint)
+        if args.backend not in HOST_BACKENDS:
+            logger.event("devices", **(
+                dict(count=torch.cuda.device_count(), platform="gpu",
+                     device_kind=torch.cuda.get_device_name(0))
+                if args.device == "cuda" else
+                dict(count=1, platform="cpu", device_kind="cpu")))
+        with phases.section("host_engine_build"):
+            engine = make_engine(args, graph)
+        # the manifest or the metrics file switches the trajectories on,
+        # and then --superstep-timing the clock, where the engine has one
+        telemetry = bool(args.run_manifest or args.metrics_prom)
+        if args.superstep_timing and telemetry \
+                and hasattr(engine, "record_timing"):
+            engine.record_timing = True
+        engine = ObservedEngine(engine, phases=phases, registry=registry,
+                                record_trajectory=telemetry)
+
+        def on_attempt(res, val):
+            _print_attempt(res, val)
+            logger.attempt(res, val)
+
+        with phases.section("sweep_total"):
+            result = sweep(args, graph, engine, checkpoint,
+                           on_attempt=on_attempt,
+                           on_block=lambda k, a: logger.event(
+                               "attempt_block", k=int(k), attempts=int(a)))
     finally:
         close = getattr(checkpoint, "close", None)  # write-behind: flush
         if close is not None:
             close()
+    phases.log_device_memory()
+    if result.minimal_colors is not None and result.swept_colors is not None \
+            and result.minimal_colors < result.swept_colors:
+        logger.event("post_reduce", from_colors=result.swept_colors,
+                     to_colors=result.minimal_colors,
+                     time_s=round(result.post_reduce_s, 4))
     total_s = time.perf_counter() - t_start
     if result.colors is None:
+        logger.event("sweep_failed", initial_k=k0)
+        write_obs_outputs(args, logger, manifest, phases, registry)
         print("No valid coloring found", file=sys.stderr)
         return 1
-    out_colors = result.colors
-    if args.compat_failed_output and result.attempts \
-            and not result.attempts[-1].success:
-        out_colors = result.attempts[-1].colors  # the reference's quirk
-    graph.save_coloring(args.output_coloring, out_colors)
+    with phases.section("host_serialize"):
+        out_colors = result.colors
+        if args.compat_failed_output and result.attempts \
+                and not result.attempts[-1].success:
+            out_colors = result.attempts[-1].colors  # the reference's quirk
+        graph.save_coloring(args.output_coloring, out_colors)
+    logger.event("sweep_done", minimal_colors=result.minimal_colors,
+                 attempts=len(result.attempts),
+                 supersteps=result.total_supersteps,
+                 wall_time_s=round(total_s, 4))
+    registry.gauge("dgc_minimal_colors",
+                   "final minimal color count").set(result.minimal_colors)
+    registry.gauge("dgc_sweep_wall_seconds",
+                   "wall time of the whole run").set(round(total_s, 4))
+    write_obs_outputs(args, logger, manifest, phases, registry)
     print(f"Minimal number of colors: {result.minimal_colors}")
     print(f"Total time: {total_s:.4f} s")
     return 0

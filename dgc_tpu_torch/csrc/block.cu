@@ -14,6 +14,13 @@
 //                      _default_init (:983) and restore_from_ring (:1031,
 //                      first = False) into both state buffers, a fresh live
 //                      table and a reset control block.
+// Their recording variants (kRecord, B11) carry the block's stacked
+// trajectory buffers int32[A, cap, cols] (compact.py:1770-1772, 1806;
+// layout.BK_TRAJ): the attempt's stage ladder records into one scratch
+// buffer `traj` (K6, compact.cu); K9 closes the attempt's span, copying
+// `traj` into its slot of the stack, and K10 starts the next attempt's
+// buffer, filling `traj` with the -1 of unwritten rows. The stack comes
+// home with the block's last colors row.
 // The JAX program's donated twin has no counterpart: the carry (best row,
 // ring) lives in tensors the engine passes from block to block, updated in
 // place.
@@ -69,13 +76,25 @@ __device__ __forceinline__ bool block_open(const int* blk, int attempts) {
 
 // ---- K9: record the attempt, apply the stopping rule ----------------------
 
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 block_record_kernel(const int* ctrl, const int* state, size_t stride, int v,
                     int* blk, int attempts, int* __restrict__ best_pe,
-                    int k_min, int strict) {
+                    int k_min, int strict, const int* __restrict__ traj,
+                    int* __restrict__ tstack, int traj_words) {
   // K9 writes these slots only in the last block, after every block has
   // taken its ticket: the exit is uniform
   if (!block_open(blk, attempts)) return;
+  if constexpr (kRecord) {
+    // the attempt's span into its slot of the stack (blk[kBlkNAtt] moves
+    // only in the last block, after every block's ticket)
+    int* __restrict__ out =
+        tstack + static_cast<size_t>(blk[kBlkNAtt]) * traj_words;
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < traj_words;
+         i += gridDim.x * kThreads) {
+      out[i] = traj[i];
+    }
+  }
   int status = ctrl[kStatus];
   if (status == kRunning) {  // nothing left to do, or out of steps
     status = ctrl[kPrevActive] == 0 ? kSuccess : kStalled;
@@ -126,6 +145,7 @@ block_record_kernel(const int* ctrl, const int* state, size_t stride, int v,
 
 // ---- K10: start the next attempt --------------------------------------------
 
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 block_start_kernel(int* ctrl, const int* blk, int attempts, int* state,
                    size_t stride, int v, int* __restrict__ live, int nb,
@@ -133,9 +153,16 @@ block_start_kernel(int* ctrl, const int* blk, int attempts, int* state,
                    const int* __restrict__ ring_ba,
                    const int* __restrict__ ring_meta,
                    const int* __restrict__ degrees,
-                   const int* __restrict__ init_ba) {
+                   const int* __restrict__ init_ba, int* __restrict__ traj,
+                   int traj_words) {
   // K10 writes neither blk nor the ring count: every block reads the same
   if (!block_open(blk, attempts)) return;
+  if constexpr (kRecord) {  // the next attempt's buffer: every row unwritten
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < traj_words;
+         i += gridDim.x * kThreads) {
+      traj[i] = -1;
+    }
+  }
   const int k = blk[kBlkK];
   const int cnt = ctrl[kRecCnt];
   int hit = -1;  // the last slot whose (best, mc] bracket holds k wins
@@ -180,8 +207,8 @@ block_start_kernel(int* ctrl, const int* blk, int attempts, int* state,
   }
 }
 
-unsigned grid_for(int words) {
-  long long blocks = (static_cast<long long>(words) + kThreads - 1) / kThreads;
+unsigned grid_for(long long words) {
+  long long blocks = (words + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
 }
@@ -193,37 +220,71 @@ extern "C" {
 // Every entry point returns the launch's cudaError_t (0 = launched).
 
 // ctrl: int32[11]; state: int32[2, stride], stride = V+2; blk:
-// int32[5 + 4 * attempts]; best_pe: int32[stride].
+// int32[5 + 4 * attempts]; best_pe: int32[stride]. The recording variant
+// (kRecord) when traj is not null: traj int32[traj_words] (one attempt's
+// buffer), tstack int32[attempts, traj_words].
 int dgc_block_record(const void* ctrl, const void* state, int stride,
                      void* blk, int attempts, void* best_pe, int k_min,
-                     int strict, void* stream) {
-  if (stride < 2 || attempts < 1) {
+                     int strict, const void* traj, void* tstack,
+                     int traj_words, void* stream) {
+  if (stride < 2 || attempts < 1 ||
+      (traj != nullptr && (tstack == nullptr || traj_words < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  block_record_kernel<<<grid_for(stride), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ctrl), static_cast<const int*>(state),
-      static_cast<size_t>(stride), stride - 2, static_cast<int*>(blk),
-      attempts, static_cast<int*>(best_pe), k_min, strict);
+  const auto* c = static_cast<const int*>(ctrl);
+  const auto* s = static_cast<const int*>(state);
+  const auto words = static_cast<size_t>(stride);
+  auto* b = static_cast<int*>(blk);
+  auto* best = static_cast<int*>(best_pe);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (traj == nullptr) {
+    block_record_kernel<false><<<grid_for(stride), kThreads, 0, st>>>(
+        c, s, words, stride - 2, b, attempts, best, k_min, strict, nullptr,
+        nullptr, 0);
+  } else {
+    const long long work = stride > traj_words ? stride : traj_words;
+    block_record_kernel<true><<<grid_for(work), kThreads, 0, st>>>(
+        c, s, words, stride - 2, b, attempts, best, k_min, strict,
+        static_cast<const int*>(traj), static_cast<int*>(tstack),
+        traj_words);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // live: int32[5, nb]; ring_pe: int32[4, stride]; ring_ba: int32[4, nb];
-// ring_meta: int32[4, 5]; degrees: int32[V]; init_ba: int32[nb].
+// ring_meta: int32[4, 5]; degrees: int32[V]; init_ba: int32[nb]. The
+// recording variant (kRecord) when traj is not null: traj
+// int32[traj_words], the next attempt's buffer.
 int dgc_block_start(void* ctrl, const void* blk, int attempts, void* state,
                     int stride, void* live, int nb, const void* ring_pe,
                     const void* ring_ba, const void* ring_meta,
-                    const void* degrees, const void* init_ba, void* stream) {
-  if (stride < 2 || attempts < 1 || nb < 1) {
+                    const void* degrees, const void* init_ba, void* traj,
+                    int traj_words, void* stream) {
+  if (stride < 2 || attempts < 1 || nb < 1 ||
+      (traj != nullptr && traj_words < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  block_start_kernel<<<grid_for(stride), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(ctrl), static_cast<const int*>(blk), attempts,
-      static_cast<int*>(state), static_cast<size_t>(stride), stride - 2,
-      static_cast<int*>(live), nb, static_cast<const int*>(ring_pe),
-      static_cast<const int*>(ring_ba), static_cast<const int*>(ring_meta),
-      static_cast<const int*>(degrees), static_cast<const int*>(init_ba));
+  auto* c = static_cast<int*>(ctrl);
+  const auto* b = static_cast<const int*>(blk);
+  auto* s = static_cast<int*>(state);
+  const auto words = static_cast<size_t>(stride);
+  auto* lv = static_cast<int*>(live);
+  const auto* rp = static_cast<const int*>(ring_pe);
+  const auto* rb = static_cast<const int*>(ring_ba);
+  const auto* rm = static_cast<const int*>(ring_meta);
+  const auto* deg = static_cast<const int*>(degrees);
+  const auto* iba = static_cast<const int*>(init_ba);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (traj == nullptr) {
+    block_start_kernel<false><<<grid_for(stride), kThreads, 0, st>>>(
+        c, b, attempts, s, words, stride - 2, lv, nb, rp, rb, rm, deg, iba,
+        nullptr, 0);
+  } else {
+    const long long work = stride > traj_words ? stride : traj_words;
+    block_start_kernel<true><<<grid_for(work), kThreads, 0, st>>>(
+        c, b, attempts, s, words, stride - 2, lv, nb, rp, rb, rm, deg, iba,
+        static_cast<int*>(traj), traj_words);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,23 @@
 //                            region's staged live counts and prune tiers
 //                            unless the step failed).
 //
+// Their recording variants (B11: dgc_tpu/obs/kernel.py:95 make_trajstep as
+// called at compact.py:1063, with the unconf columns of :257 _unconf_max
+// and dgc_tpu/ops/segmented_gather.py:203) are template instances with
+// kRecord set; without it they compile to the kernels above:
+//   K5 with kRecord also takes, over the rows it evaluates that were active
+//   before the step, the max count of unconfirmed real neighbors, into its
+//   column of the unconf vector `umax` (the flat region's column; the hub
+//   kernels fill the hub buckets' columns, hub.cu).
+//   K6 with kRecord writes the superstep's trajectory row in its last
+//   block, from the counters it folds, before the fold clears them and
+//   before the commit or the flip: the active count, the fail flag, mc,
+//   the gather calls (a constant and one per bucket with weight and live
+//   rows), max(umax), the timestamp (kTiming: %globaltimer, traj.cuh;
+//   else -1), the bucket tail (the hub buckets' staged counts, then the
+//   flat region's total) and the unconf tail `umax`, which it then clears.
+//   The row is dropped past the buffer's cap.
+//
 // State. Two int32[V+2] buffers (packed words): slot V holds -1 (the pad
 // sentinel) and slot V+1 holds 0 (the dummy row of unused slots), in both
 // buffers for good. A control block int32[11] (CTRL_* in compact.py) holds
@@ -55,6 +72,7 @@
 #include <cstdint>
 
 #include "rule.cuh"
+#include "traj.cuh"
 
 namespace {
 
@@ -223,13 +241,14 @@ stage_rows_kernel(const int* __restrict__ flat_ext, int w_flat, int n,
 
 // ---- K5: one superstep over a whole plan ---------------------------------
 
-template <int PB>
+template <int PB, bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
                            const int* __restrict__ seg,
                            const int* __restrict__ desc, int nseg, int rows,
                            const int* __restrict__ gidx, int row_base,
-                           int dummy, int k, int thresh, int max_steps) {
+                           int dummy, int k, int thresh, int max_steps,
+                           int* umax, int ucol) {
   // the predicate reads slots this kernel never writes: uniform exit
   if (!stage_live(ctrl, thresh, max_steps)) return;
   __shared__ int s_desc[kMaxSegs * kDescCols];
@@ -242,6 +261,7 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
   bool fail = false;
   bool active = false;
   int mc = -1;
+  int unconf = 0;  // kRecord: the row's unconfirmed real neighbors
   if (r < rows) {
     int s = 0;
     while (s + 1 < nseg && s_desc[(s + 1) * kDescCols] <= r) ++s;
@@ -253,14 +273,20 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
       const int planes = d[3];
       const int* __restrict__ row =
           seg + d[4] + static_cast<size_t>(r - d[0]) * width;
+      const int me = src[g];
       const dgc::RowResult res =
-          dgc::row_rule<PB>(src, row, width, planes, k, src[g]);
+          dgc::row_rule<PB>(src, row, width, planes, k, me);
       dst[g] = res.next;
       const long long window = 32LL * planes;
       const bool fail_valid = window >= width + 1LL || k <= window;
       fail = res.fail && fail_valid;
       active = res.active;
       mc = res.mc;
+      if constexpr (kRecord) {
+        // the pad sentinel is V = dummy - 1; rows inactive before the
+        // step count 0
+        if (!is_confirmed(me)) unconf = row_unconf(src, row, width, dummy - 1);
+      }
     }
   }
 
@@ -268,7 +294,12 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
   const int nactive = __syncthreads_count(active);
   const int wmax = __reduce_max_sync(0xFFFFFFFFu, mc);
   __shared__ int warp_max[kThreads / 32];
+  __shared__ int warp_unconf[kThreads / 32];
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = wmax;
+  if constexpr (kRecord) {
+    const int wun = __reduce_max_sync(0xFFFFFFFFu, unconf);
+    if ((threadIdx.x & 31) == 0) warp_unconf[threadIdx.x >> 5] = wun;
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     int bmax = warp_max[0];
@@ -277,6 +308,12 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
     if (nfail) atomicAdd(ctrl + kFail, nfail);
     if (nactive) atomicAdd(ctrl + kActive, nactive);
     if (bmax >= 0) atomicMax(ctrl + kMc, bmax);
+    if constexpr (kRecord) {
+      int bun = 0;
+#pragma unroll
+      for (int i = 0; i < kThreads / 32; ++i) bun = max(bun, warp_unconf[i]);
+      if (bun > 0) atomicMax(umax + ucol, bun);
+    }
   }
 }
 
@@ -292,12 +329,15 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
 // control block before it counts itself done, so none sees the last
 // block's writes.
 
+template <bool kRecord, bool kTiming>
 __global__ void __launch_bounds__(kThreads)
 stage_finish_kernel(int* ctrl, const int* state, size_t stride,
                     int* __restrict__ ring_pe, int* __restrict__ ring_ba,
                     int* __restrict__ ring_meta, int* __restrict__ live,
                     int nh, int nb, int words, int thresh, int max_steps,
-                    int stall_window, int record) {
+                    int stall_window, int record, int* __restrict__ traj,
+                    int cap, int cols, int* __restrict__ umax,
+                    const int* __restrict__ gc_w, int gc_const, int nt) {
   if (!stage_live(ctrl, thresh, max_steps)) return;
   const int fail = ctrl[kFail];
   const int mc = ctrl[kMc];
@@ -321,6 +361,38 @@ stage_finish_kernel(int* ctrl, const int* state, size_t stride,
   }
   __syncthreads();
   if (!s_last || threadIdx.x != 0) return;
+
+  if constexpr (kRecord) {
+    // the row of the step just finished, from the pre-commit live table
+    const int step = ctrl[kStep];
+    if (step >= 0 && step < cap) {
+      int* row = traj + static_cast<size_t>(step) * cols;
+      const int active = ctrl[kActive];
+      int gcalls = gc_const;
+      int unconf = 0;
+      int hub_active = 0;
+      for (int i = 0; i < nt; ++i) {
+        if (gc_w[i] != 0 && live[kLiveBa * nb + i] > 0) ++gcalls;
+        unconf = max(unconf, umax[i]);
+        int a = active - hub_active;  // the flat region's total (i == nh)
+        if (i < nh) {
+          a = live[kLiveBaNext * nb + i];
+          hub_active += a;
+        }
+        row[kTrajCols + i] = a;
+        row[kTrajCols + nt + i] = umax[i];
+      }
+      row[kColActive] = active;
+      row[kColFail] = fail > 0 ? 1 : 0;
+      row[kColMc] = mc;
+      row[kColGatherCalls] = gcalls;
+      row[kColMaxUnconf] = unconf;
+      int ts = -1;
+      if constexpr (kTiming) ts = globaltimer_us();
+      row[kColTsUs] = ts;
+    }
+    for (int i = 0; i < nt; ++i) umax[i] = 0;
+  }
 
   if (push) {
     int* meta = ring_meta + slot * kMetaCols;
@@ -350,15 +422,51 @@ stage_finish_kernel(int* ctrl, const int* state, size_t stride,
   ctrl[kDone] = 0;
 }
 
-template <int PB>
+template <int PB, bool kRecord>
 void launch_segmented(int* ctrl, int* state, int stride, const int* seg,
                       const int* desc, int nseg, int rows, const int* gidx,
                       int row_base, int dummy, int k, int thresh,
-                      int max_steps, cudaStream_t stream) {
+                      int max_steps, int* umax, int ucol,
+                      cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
-  segmented_superstep_kernel<PB><<<blocks, kThreads, 0, stream>>>(
+  segmented_superstep_kernel<PB, kRecord><<<blocks, kThreads, 0, stream>>>(
       ctrl, state, static_cast<size_t>(stride), seg, desc, nseg, rows, gidx,
-      row_base, dummy, k, thresh, max_steps);
+      row_base, dummy, k, thresh, max_steps, umax, ucol);
+}
+
+// K5 at the plane count that holds max_planes
+template <bool kRecord>
+void dispatch_segmented(int* c, int* s, int stride, const int* t,
+                        const int* d, int nseg, int rows, int max_planes,
+                        const int* g, int row_base, int dummy, int k,
+                        int thresh, int max_steps, int* umax, int ucol,
+                        cudaStream_t st) {
+  if (max_planes <= 1) {
+    launch_segmented<1, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                 dummy, k, thresh, max_steps, umax, ucol, st);
+  } else if (max_planes <= 2) {
+    launch_segmented<2, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                 dummy, k, thresh, max_steps, umax, ucol, st);
+  } else if (max_planes <= 4) {
+    launch_segmented<4, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                 dummy, k, thresh, max_steps, umax, ucol, st);
+  } else if (max_planes <= 8) {
+    launch_segmented<8, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                 dummy, k, thresh, max_steps, umax, ucol, st);
+  } else if (max_planes <= 16) {
+    launch_segmented<16, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                  dummy, k, thresh, max_steps, umax, ucol, st);
+  } else {
+    launch_segmented<32, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
+                                  dummy, k, thresh, max_steps, umax, ucol, st);
+  }
+}
+
+unsigned finish_blocks(int stride, int record) {
+  if (record == 0) return 1;
+  const int per_block = kThreads * 4;
+  unsigned blocks = static_cast<unsigned>((stride + per_block - 1) / per_block);
+  return blocks > 528 ? 528 : blocks;  // 4 per SM; the copy strides the rest
 }
 
 }  // namespace
@@ -404,68 +512,81 @@ int dgc_stage_rows(const void* flat_ext, int w_flat, int n, const void* idx,
 }
 
 // seg: the plan's flat table; desc: int32[nseg, 5]; gidx: int32[rows] state
-// indices, or null for rows row_base + r; dummy: the dummy slot (V+1).
+// indices, or null for rows row_base + r; dummy: the dummy slot (V+1);
+// umax: int32[>= ucol + 1], the unconf vector of the recording variant
+// (kRecord), or null for the plain K5.
 int dgc_segmented_superstep(void* ctrl, void* state, int stride,
                             const void* seg, const void* desc, int nseg,
                             int rows, int max_planes, const void* gidx,
                             int row_base, int dummy, int k, int thresh,
-                            int max_steps, void* stream) {
-  if (rows <= 0 || nseg <= 0 || nseg > kMaxSegs || max_planes <= 0) {
+                            int max_steps, void* umax, int ucol,
+                            void* stream) {
+  if (rows <= 0 || nseg <= 0 || nseg > kMaxSegs || max_planes <= 0 ||
+      ucol < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* c = static_cast<int*>(ctrl);
   auto* s = static_cast<int*>(state);
-  const auto* t = static_cast<const int*>(seg);
+  const auto* sg = static_cast<const int*>(seg);
   const auto* d = static_cast<const int*>(desc);
-  const auto* g = static_cast<const int*>(gidx);
+  const auto* gi = static_cast<const int*>(gidx);
   auto st = static_cast<cudaStream_t>(stream);
-  if (max_planes <= 1) {
-    launch_segmented<1>(c, s, stride, t, d, nseg, rows, g, row_base, dummy, k,
-                        thresh, max_steps, st);
-  } else if (max_planes <= 2) {
-    launch_segmented<2>(c, s, stride, t, d, nseg, rows, g, row_base, dummy, k,
-                        thresh, max_steps, st);
-  } else if (max_planes <= 4) {
-    launch_segmented<4>(c, s, stride, t, d, nseg, rows, g, row_base, dummy, k,
-                        thresh, max_steps, st);
-  } else if (max_planes <= 8) {
-    launch_segmented<8>(c, s, stride, t, d, nseg, rows, g, row_base, dummy, k,
-                        thresh, max_steps, st);
-  } else if (max_planes <= 16) {
-    launch_segmented<16>(c, s, stride, t, d, nseg, rows, g, row_base, dummy,
-                         k, thresh, max_steps, st);
+  if (umax == nullptr) {
+    dispatch_segmented<false>(c, s, stride, sg, d, nseg, rows, max_planes, gi,
+                              row_base, dummy, k, thresh, max_steps, nullptr,
+                              0, st);
   } else {
-    launch_segmented<32>(c, s, stride, t, d, nseg, rows, g, row_base, dummy,
-                         k, thresh, max_steps, st);
+    dispatch_segmented<true>(c, s, stride, sg, d, nseg, rows, max_planes, gi,
+                             row_base, dummy, k, thresh, max_steps,
+                             static_cast<int*>(umax), ucol, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // ring_pe: int32[4, words], ring_ba: int32[4, nb] and ring_meta:
 // int32[4, 5], or null when record is 0 (one block then); words = stride =
-// V+2; live: int32[5, nb], nb = nh or nh + 1.
+// V+2; live: int32[5, nb], nb = nh or nh + 1. The recording variant
+// (kRecord, kTiming = timing) when traj is not null: traj int32[cap, cols],
+// cols = 6 + 2 * nt; umax and gc_w int32[nt], nt = nh or nh + 1 (nt <= nb).
 int dgc_stage_finish(void* ctrl, const void* state, int stride, void* ring_pe,
                      void* ring_ba, void* ring_meta, void* live, int nh,
                      int nb, int thresh, int max_steps, int stall_window,
-                     int record, void* stream) {
+                     int record, void* traj, int cap, int cols, void* umax,
+                     const void* gc_w, int gc_const, int nt, int timing,
+                     void* stream) {
   if ((record != 0 && (ring_pe == nullptr || ring_ba == nullptr ||
                        ring_meta == nullptr)) ||
-      live == nullptr || nh < 0 || nb < nh || nb > nh + 1) {
+      live == nullptr || nh < 0 || nb < nh || nb > nh + 1 ||
+      (traj != nullptr &&
+       (umax == nullptr || gc_w == nullptr || cap < 1 || nt < nh ||
+        nt > nb || cols != kTrajCols + 2 * nt))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  unsigned blocks = 1;
-  if (record != 0) {
-    const int per_block = kThreads * 4;
-    blocks = static_cast<unsigned>((stride + per_block - 1) / per_block);
-    if (blocks > 528) blocks = 528;  // 4 per SM; the copy strides the rest
+  auto* c = static_cast<int*>(ctrl);
+  const auto* pe = static_cast<const int*>(state);
+  auto* rp = static_cast<int*>(ring_pe);
+  auto* rb = static_cast<int*>(ring_ba);
+  auto* rm = static_cast<int*>(ring_meta);
+  auto* lv = static_cast<int*>(live);
+  auto* tr = static_cast<int*>(traj);
+  auto* um = static_cast<int*>(umax);
+  const auto* gw = static_cast<const int*>(gc_w);
+  const unsigned blocks = finish_blocks(stride, record);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto words = static_cast<size_t>(stride);
+  if (traj == nullptr) {
+    stage_finish_kernel<false, false><<<blocks, kThreads, 0, st>>>(
+        c, pe, words, rp, rb, rm, lv, nh, nb, stride, thresh, max_steps,
+        stall_window, record, nullptr, 0, 0, nullptr, nullptr, 0, 0);
+  } else if (timing != 0) {
+    stage_finish_kernel<true, true><<<blocks, kThreads, 0, st>>>(
+        c, pe, words, rp, rb, rm, lv, nh, nb, stride, thresh, max_steps,
+        stall_window, record, tr, cap, cols, um, gw, gc_const, nt);
+  } else {
+    stage_finish_kernel<true, false><<<blocks, kThreads, 0, st>>>(
+        c, pe, words, rp, rb, rm, lv, nh, nb, stride, thresh, max_steps,
+        stall_window, record, tr, cap, cols, um, gw, gc_const, nt);
   }
-  stage_finish_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(ctrl), static_cast<const int*>(state),
-      static_cast<size_t>(stride), static_cast<int*>(ring_pe),
-      static_cast<int*>(ring_ba), static_cast<int*>(ring_meta),
-      static_cast<int*>(live), nh, nb, stride, thresh, max_steps,
-      stall_window, record);
   return static_cast<int>(cudaGetLastError());
 }
 

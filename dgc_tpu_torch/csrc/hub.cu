@@ -21,6 +21,16 @@
 //                      (:646-663) and the shrink copy (:629-631); the
 //                      fail, active and mc counts into the control block
 //                      and the bucket's active count into the live table.
+//                      Its recording variant (kRecord, B11: the unconf
+//                      telemetry of compact.py:257 _unconf_max as every
+//                      branch computes it, :274-284, :574-604, :715-795)
+//                      also takes, over the rows a branch evaluates that
+//                      were active before the step, the max count of
+//                      unconfirmed real neighbors among the entries the
+//                      branch reads (the table row, or the pruned row's
+//                      captured list), into the bucket's column of the
+//                      unconf vector `umax`; K6 writes it into the
+//                      trajectory row (compact.cu).
 //
 // Why the copy. Every branch but full updates only some rows of a bucket,
 // and the state buffers flip after each superstep, so K7 copies the whole
@@ -54,6 +64,7 @@
 #include <cstdint>
 
 #include "rule.cuh"
+#include "traj.cuh"
 
 namespace {
 
@@ -198,13 +209,13 @@ hub_slots_kernel(const int* ctrl, int* state, size_t stride,
 
 // ---- K8: the branches' rows ----------------------------------------------
 
-template <int PB>
+template <int PB, bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 hub_superstep_kernel(int* ctrl, int* state, size_t stride,
                      const int* __restrict__ table,
                      const long long* __restrict__ desc, int* live, int nb,
                      int* __restrict__ pool, int v, int k, int thresh,
-                     int max_steps) {
+                     int max_steps, int* umax) {
   if (!stage_live(ctrl, thresh, max_steps)) return;
   const int bi = blockIdx.y;
   const int branch = live[kLiveBranch * nb + bi];
@@ -289,7 +300,18 @@ hub_superstep_kernel(int* ctrl, int* state, size_t stride,
   bool fail = false;
   bool active = false;
   int mc = -1;
+  int unconf = 0;  // kRecord: the row's unconfirmed real neighbors (lane 0)
   const int me = r >= 0 ? src[row0 + r] : 0;
+  if constexpr (kRecord) {
+    if (r >= 0 && is_active(me)) {  // uniform over the warp
+      int cnt = 0;
+      for (int j = lane; j < width; j += 32) {
+        const int nbr = row[j] & kNbrMask;
+        if (nbr < v && !is_confirmed(src[nbr])) ++cnt;
+      }
+      unconf = static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, cnt));
+    }
+  }
   // a confirmed row changes nothing and counts nothing; a rebase slot is
   // evaluated all the same, for its capture
   if (r >= 0 && (is_active(me) || comb_out != nullptr)) {
@@ -331,10 +353,12 @@ hub_superstep_kernel(int* ctrl, int* state, size_t stride,
   __shared__ int s_fail[kWarps];
   __shared__ int s_active[kWarps];
   __shared__ int s_mc[kWarps];
+  __shared__ int s_unconf[kWarps];
   if (lane == 0) {
     s_fail[warp] = fail;
     s_active[warp] = active;
     s_mc[warp] = mc;
+    if constexpr (kRecord) s_unconf[warp] = unconf;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -353,17 +377,63 @@ hub_superstep_kernel(int* ctrl, int* state, size_t stride,
       atomicAdd(live + kLiveBaNext * nb + bi, nactive);
     }
     if (bmax >= 0) atomicMax(ctrl + kMc, bmax);
+    if constexpr (kRecord) {
+      int bun = 0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) bun = max(bun, s_unconf[i]);
+      if (bun > 0) atomicMax(umax + bi, bun);
+    }
   }
 }
 
-template <int PB>
+template <int PB, bool kRecord>
 void launch_hub(dim3 grid, cudaStream_t stream, int* ctrl, int* state,
                 int stride, const int* table, const long long* desc,
                 int* live, int nb, int* pool, int k, int thresh,
-                int max_steps) {
-  hub_superstep_kernel<PB><<<grid, kThreads, 0, stream>>>(
+                int max_steps, int* umax) {
+  hub_superstep_kernel<PB, kRecord><<<grid, kThreads, 0, stream>>>(
       ctrl, state, static_cast<size_t>(stride), table, desc, live, nb, pool,
-      stride - 2, k, thresh, max_steps);
+      stride - 2, k, thresh, max_steps, umax);
+}
+
+// K8 at the plane count that holds max_planes
+template <bool kRecord>
+int dispatch_hub(void* ctrl, void* state, int stride, const void* table,
+                 const void* desc, int nh, void* live, int nb, void* pool,
+                 int max_rows, int max_planes, int k, int thresh,
+                 int max_steps, int* umax, void* stream) {
+  if (nh <= 0 || nh > 65535 || nb < nh || max_rows <= 0 || max_planes <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((max_rows + kWarps - 1) / kWarps),
+                  static_cast<unsigned>(nh));
+  auto* c = static_cast<int*>(ctrl);
+  auto* s = static_cast<int*>(state);
+  const auto* t = static_cast<const int*>(table);
+  const auto* dd = static_cast<const long long*>(desc);
+  auto* l = static_cast<int*>(live);
+  auto* p = static_cast<int*>(pool);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (max_planes <= 1) {
+    launch_hub<1, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
+                           max_steps, umax);
+  } else if (max_planes <= 2) {
+    launch_hub<2, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
+                           max_steps, umax);
+  } else if (max_planes <= 4) {
+    launch_hub<4, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
+                           max_steps, umax);
+  } else if (max_planes <= 8) {
+    launch_hub<8, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
+                           max_steps, umax);
+  } else if (max_planes <= 16) {
+    launch_hub<16, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k,
+                            thresh, max_steps, umax);
+  } else {
+    launch_hub<32, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k,
+                            thresh, max_steps, umax);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -388,43 +458,21 @@ int dgc_hub_slots(const void* ctrl, void* state, int stride, const void* desc,
 }
 
 // table: the hub buckets' tables (int32, at each descriptor's offset);
-// max_rows: the most rows of a bucket; max_planes: the widest window.
+// max_rows: the most rows of a bucket; max_planes: the widest window;
+// umax: int32[>= nh], the unconf vector of the recording variant (kRecord),
+// or null for the plain K8.
 int dgc_hub_superstep(void* ctrl, void* state, int stride, const void* table,
                       const void* desc, int nh, void* live, int nb,
                       void* pool, int max_rows, int max_planes, int k,
-                      int thresh, int max_steps, void* stream) {
-  if (nh <= 0 || nh > 65535 || nb < nh || max_rows <= 0 || max_planes <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                      int thresh, int max_steps, void* umax, void* stream) {
+  if (umax == nullptr) {
+    return dispatch_hub<false>(ctrl, state, stride, table, desc, nh, live, nb,
+                               pool, max_rows, max_planes, k, thresh,
+                               max_steps, nullptr, stream);
   }
-  const dim3 grid(static_cast<unsigned>((max_rows + kWarps - 1) / kWarps),
-                  static_cast<unsigned>(nh));
-  auto* c = static_cast<int*>(ctrl);
-  auto* s = static_cast<int*>(state);
-  const auto* t = static_cast<const int*>(table);
-  const auto* dd = static_cast<const long long*>(desc);
-  auto* l = static_cast<int*>(live);
-  auto* p = static_cast<int*>(pool);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (max_planes <= 1) {
-    launch_hub<1>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                  max_steps);
-  } else if (max_planes <= 2) {
-    launch_hub<2>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                  max_steps);
-  } else if (max_planes <= 4) {
-    launch_hub<4>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                  max_steps);
-  } else if (max_planes <= 8) {
-    launch_hub<8>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                  max_steps);
-  } else if (max_planes <= 16) {
-    launch_hub<16>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                   max_steps);
-  } else {
-    launch_hub<32>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                   max_steps);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch_hub<true>(ctrl, state, stride, table, desc, nh, live, nb,
+                            pool, max_rows, max_planes, k, thresh, max_steps,
+                            static_cast<int*>(umax), stream);
 }
 
 }  // extern "C"

@@ -13,6 +13,12 @@
 //                         of dgc_tpu/engine/superstep.py:82 _attempt_kernel
 //                         and dgc_tpu/engine/bucketed.py:273
 //                         _attempt_kernel_bucketed (status_step, :193).
+//                         Its recording variant (kRecord, B11) also writes
+//                         the superstep's trajectory row, as those loops'
+//                         trajstep calls do (superstep.py:118,
+//                         bucketed.py:310): the active count, the fail
+//                         flag, the gather calls the host passes (the
+//                         bucket count, -1 for ELL), -1 elsewhere.
 //
 // State. Two int32[V+1] buffers of packed words (color*2 + fresh, -1 for
 // uncolored); slot V of both holds -1 for good, so the pad sentinel needs
@@ -42,6 +48,7 @@
 #include <cstdint>
 
 #include "rule.cuh"
+#include "traj.cuh"
 
 namespace {
 
@@ -96,10 +103,26 @@ superstep_rows_kernel(int* ctrl, int* state, size_t stride,
 }
 
 // One thread: fold this superstep's counters into the loop carry
-// (dgc::finish_step: the status order, both stall rules, the flip).
+// (dgc::finish_step: the status order, both stall rules, the flip). With
+// kRecord, first write the step's row of `traj` (int32[cap, cols]) from the
+// counters, before the fold clears them; a step past cap is dropped.
+template <bool kRecord>
 __global__ void superstep_finish_kernel(int* ctrl, int max_steps,
-                                        int stall_window) {
+                                        int stall_window, int* traj, int cap,
+                                        int cols, int gcalls) {
   if (ctrl[kStatus] != kRunning) return;
+  if constexpr (kRecord) {
+    const int step = ctrl[kStep];
+    if (step >= 0 && step < cap) {
+      int* row = traj + static_cast<size_t>(step) * cols;
+      row[kColActive] = ctrl[kActive];
+      row[kColFail] = ctrl[kFail] > 0 ? 1 : 0;
+      row[kColMc] = -1;
+      row[kColGatherCalls] = gcalls;
+      row[kColMaxUnconf] = -1;
+      row[kColTsUs] = -1;
+    }
+  }
   finish_step(ctrl, max_steps, stall_window);
 }
 
@@ -145,10 +168,24 @@ int dgc_superstep_rows(void* ctrl, void* state, const void* table, int row0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// traj: int32[cap, cols], cols >= 6, for the recording variant (kRecord),
+// or null for the plain K2.
 int dgc_superstep_finish(void* ctrl, int max_steps, int stall_window,
+                         void* traj, int cap, int cols, int gcalls,
                          void* stream) {
-  superstep_finish_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int*>(ctrl), max_steps, stall_window);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* c = static_cast<int*>(ctrl);
+  if (traj == nullptr) {
+    superstep_finish_kernel<false><<<1, 1, 0, st>>>(c, max_steps,
+                                                    stall_window, nullptr, 0,
+                                                    0, -1);
+  } else if (cap < 1 || cols < kTrajCols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    superstep_finish_kernel<true><<<1, 1, 0, st>>>(
+        c, max_steps, stall_window, static_cast<int*>(traj), cap, cols,
+        gcalls);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,9 @@ class AttemptResult:
     colors: np.ndarray       # int32[V]; valid coloring iff status == SUCCESS
     supersteps: int          # BSP rounds executed
     k: int                   # the color budget attempted
+    # the per-superstep trajectory (obs.kernel.SuperstepTrajectory), set
+    # only when the engine ran with record_trajectory on
+    trajectory: object | None = None
 
     @property
     def success(self) -> bool:

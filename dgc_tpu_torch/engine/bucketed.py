@@ -18,6 +18,12 @@ cannot be built; the two give the same tables. The status rule
 (``status_step``) lives with the loop control in ``kernels.superstep``,
 beside the kernel that applies it on the card.
 
+With ``record_trajectory`` on, K2's recording variant writes each
+superstep's row of the attempt's trajectory buffer (``obs.kernel``: the
+active count, the fail flag and the gather calls, one per bucket, as the
+JAX engine records them); the buffer comes home with the colors row in
+one copy, and a widened retry starts a fresh one.
+
 Round-1 specialization (as in the JAX engine): the first superstep's
 outcome is known without a gather — isolated vertices confirm color 0,
 everything else speculatively takes color 0 — so the initial state *is*
@@ -43,6 +49,8 @@ from dgc_tpu_torch.kernels.superstep import (
     run_supersteps,
 )
 from dgc_tpu_torch.models.arrays import GraphArrays, csr_to_ell
+from dgc_tpu_torch.obs.kernel import (decode_trajectory, read_home,
+                                      traj_cap_for, traj_empty)
 from dgc_tpu_torch.ops.bitmask import num_planes_for
 from dgc_tpu_torch.ops.speculative import BEATS_BIT, beats_rule, encode_combined
 
@@ -209,6 +217,8 @@ class BucketedELLEngine:
         self.degrees = torch.from_numpy(np.array(degrees, np.int32)).to(self.device)
         self.max_steps = max_steps if max_steps is not None else 2 * v + 4
         self.host_syncs = 0
+        # in-kernel telemetry switch (K2's recording variant)
+        self.record_trajectory = False
 
     def _maybe_widen_windows(self) -> bool:
         """After a STALLED attempt: if any bucket's window is capped below its
@@ -246,10 +256,14 @@ class BucketedELLEngine:
             parts = [(r0, cb, p, fail_valid(cb.shape[1], p, k))
                      for r0, cb, p in zip(self.row0, self.combined_buckets,
                                           self.planes)]
+            traj = (traj_empty(traj_cap_for(self.max_steps),
+                               device=self.device)
+                    if self.record_trajectory else None)
             while True:  # chunked superstep loop, one host sync per chunk
                 c = run_supersteps(ctrl, state, parts, k,
                                    max_steps=INT32_MAX,
-                                   stall_window=STALL_WINDOW)
+                                   stall_window=STALL_WINDOW, traj=traj,
+                                   gcalls=len(parts))
                 self.host_syncs += 1
                 status = AttemptStatus(c[CTRL_STATUS])
                 steps = c[CTRL_STEP]
@@ -260,6 +274,13 @@ class BucketedELLEngine:
             if status == AttemptStatus.STALLED and self._maybe_widen_windows():
                 continue
             break
-        packed = state[c[CTRL_CUR], :v].cpu().numpy()
+        row = state[c[CTRL_CUR], :v]
+        if traj is None:
+            packed = row.cpu().numpy()
+        else:
+            packed, traj_h = read_home(row, traj)
         self.host_syncs += 1
-        return self._finish(packed, status, steps, int(k))
+        res = self._finish(packed, status, steps, int(k))
+        if traj is not None:
+            res.trajectory = decode_trajectory(traj_h, steps)
+        return res

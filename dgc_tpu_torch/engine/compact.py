@@ -43,6 +43,15 @@ stopping rule on the card (``kernels.block``): every attempt records into
 and resumes from one ring carried across attempts and blocks, K9 records
 each attempt where it ends and K10 starts the next, and the host reads
 one small buffer per attempt instead of the colors row.
+
+With ``record_trajectory`` on, the recording variants of K5, K8 and K6
+(and of K9 and K10 in a block) run instead (``obs.kernel``): K5 and K8
+take each bucket's max unconfirmed-neighbor count into the unconf vector,
+K6 writes the superstep's trajectory row (and its clock when
+``record_timing`` is on). An attempt's buffer comes home with its colors
+row in one copy, a block's stack with the block's last row; a
+prefix-resumed confirm records only its rows after the resume, so its
+``first_step`` is the resume step, as in ``dgc_tpu``.
 """
 
 from __future__ import annotations
@@ -63,6 +72,9 @@ from dgc_tpu_torch.kernels import block as kb
 from dgc_tpu_torch.kernels import compact as kc
 from dgc_tpu_torch.kernels import hub as kh
 from dgc_tpu_torch.models.arrays import GraphArrays
+from dgc_tpu_torch.obs.kernel import (decode_block_trajectories,
+                                      decode_trajectory, read_home,
+                                      traj_cap_for, traj_empty)
 from dgc_tpu_torch.ops.bitmask import num_planes_for
 from dgc_tpu_torch.ops.segmented_gather import plan_from_parts, plan_from_ranges
 
@@ -393,6 +405,24 @@ class CompactFrontierEngine(BucketedELLEngine):
         self._build_full_plan()
         self.resumed_from_step = None  # the last sweep's confirm (None: scratch)
         self.d2h_bytes = 0  # bytes copied home (with host_syncs)
+        # in-kernel telemetry switches: the recording kernels write each
+        # superstep's trajectory row; record_timing adds the clock column
+        # (no-op without record_trajectory)
+        self.record_trajectory = False
+        self.record_timing = False
+        # the gather-call count of a superstep (the trajectory's col 3):
+        # a constant plus one per live weighted bucket — every conditioned
+        # hub bucket; the flat region counts once in the full-table phase
+        # and while it has live rows in a compaction stage
+        uncond = [bi < len(self.hub_uncond) and bool(self.hub_uncond[bi])
+                  for bi in range(hub)]
+        cond_w = [0 if u else 1 for u in uncond]
+        self._gc = {
+            full: (torch.tensor(cond_w + ([0 if full else 1] if has_flat
+                                          else []), dtype=torch.int32,
+                                device=self.device),
+                   int(any(uncond)) + int(full and has_flat))
+            for full in (True, False)}
 
     def _build_full_plan(self) -> None:
         """The full-table phase's plan (every flat bucket at its window) and
@@ -443,29 +473,60 @@ class CompactFrontierEngine(BucketedELLEngine):
         self.d2h_bytes += t.numel() * t.element_size()
         return t.cpu().numpy()
 
+    def _read_with(self, t: torch.Tensor, traj: torch.Tensor | None):
+        """``t`` copied home with the trajectory buffer ``traj`` (or None)
+        in the same copy: ``(t, traj)`` as numpy arrays."""
+        if traj is None:
+            return self._read(t), None
+        self.host_syncs += 1
+        self.d2h_bytes += (t.numel() + traj.numel()) * t.element_size()
+        return tuple(read_home(t, traj))
+
+    def _telemetry(self):
+        """A fresh ``kernels.compact.Telemetry`` for one attempt (the
+        full-table phase's gather-call weights), or None when not
+        recording."""
+        if not self.record_trajectory:
+            return None
+        nt = len(self.init_bucket_active)
+        gc_w, gc_const = self._gc[True]
+        return kc.Telemetry(
+            traj_empty(traj_cap_for(self.max_steps), nt, unconf_b=True,
+                       device=self.device),
+            torch.zeros(nt, dtype=torch.int32, device=self.device),
+            gc_w, gc_const, bool(self.record_timing))
+
     def _run(self, k: int, start=None, ring=None):
         """One k-attempt through the stage ladder from ``start`` (a
         ``(state, ctrl, ba)`` triple; fresh when None), pushing into
-        ``ring`` when given. Returns ``(state, c, status)``, ``c`` the final
-        control block as a list."""
+        ``ring`` when given, recording its trajectory when the engine
+        does. Returns ``(state, c, status, tel)``, ``c`` the final control
+        block as a list, ``tel`` the ``Telemetry`` or None."""
         state, ctrl, ba = self._fresh() if start is None else start
         live = kc.new_live(ba)  # the prune state is fresh in every run
+        tel = self._telemetry()
         c = self._ladder(k, state, ctrl, live, ring,
-                        self._read(ctrl).tolist())
-        return state, c, AttemptStatus(kb.final_status(c))
+                         self._read(ctrl).tolist(), tel)
+        return state, c, AttemptStatus(kb.final_status(c)), tel
 
-    def _ladder(self, k: int, state, ctrl, live, ring, c: list) -> list:
+    def _ladder(self, k: int, state, ctrl, live, ring, c: list,
+                tel=None) -> list:
         """Drive the stage ladder of one k-attempt whose control block
-        reads ``c``, pushing into ``ring`` when given; returns the control
-        block read at the attempt's last chunk."""
+        reads ``c``, pushing into ``ring`` when given and recording into
+        ``tel`` (a ``kernels.compact.Telemetry``) when given; returns the
+        control block read at the attempt's last chunk."""
         record = ring is not None
         v = self.num_vertices
         hub = self.hub_buckets
+        umax = None if tel is None else tel.umax
         for si, (scale, thresh) in enumerate(self.stages):
             if c[kc.CTRL_STATUS] != _RUNNING:
                 break
             if not kc.stage_live(c, thresh, self.max_steps):
                 continue  # the frontier is already below this stage's exit
+            gc_w, gc_const = self._gc[scale is None]
+            stage_tel = None if tel is None else tel._replace(
+                gc_w=gc_w, gc_const=gc_const)
             flat = None
             if self._full_plan is not None and scale is None:
                 plan, desc, seg = self._full_plan
@@ -483,32 +544,42 @@ class CompactFrontierEngine(BucketedELLEngine):
                         seg, plan, desc, gidx = flat
                         kc.segmented_superstep(
                             ctrl, state, seg, plan, desc, k, thresh,
-                            self.max_steps, gidx=gidx, row_base=self.flat_row0)
+                            self.max_steps, gidx=gidx, row_base=self.flat_row0,
+                            umax=umax, ucol=hub)
                     if hub:
                         kh.hub_slots(ctrl, state, live, self._hub_plan,
                                      self._hub_pool, thresh, self.max_steps)
                         kh.hub_superstep(ctrl, state, self.seg_flat, live,
                                          self._hub_plan, self._hub_pool, k,
-                                         thresh, self.max_steps)
+                                         thresh, self.max_steps, umax=umax)
                     kc.stage_finish(ctrl, state, ring, live, hub, thresh,
-                                    self.max_steps, STALL_WINDOW, record)
+                                    self.max_steps, STALL_WINDOW, record,
+                                    tel=stage_tel)
                 c = self._read(ctrl).tolist()
         return c
 
-    def _packed(self, state, c) -> np.ndarray:
-        return self._read(state[c[kc.CTRL_CUR], : self.num_vertices])
+    def _result(self, state, c, status, tel, k: int) -> AttemptResult:
+        """The attempt's result: its colors row, and its trajectory in the
+        same copy when it recorded one."""
+        packed, traj_h = self._read_with(
+            state[c[kc.CTRL_CUR], : self.num_vertices],
+            None if tel is None else tel.traj)
+        res = self._finish(packed, status, c[kc.CTRL_STEP], int(k))
+        if traj_h is not None:
+            res.trajectory = decode_trajectory(traj_h, res.supersteps,
+                                               unconf_b=True)
+        return res
 
     def attempt(self, k: int) -> AttemptResult:
         if k < 1:
             return self._finish(np.full(self.num_vertices, -1, np.int32),
                                 AttemptStatus.FAILURE, 0, k)
         while True:  # window-cap retry loop (STALLED + capped windows)
-            state, c, status = self._run(k)
+            state, c, status, tel = self._run(k)
             if status == AttemptStatus.STALLED and self._maybe_widen_windows():
                 continue
             break
-        return self._finish(self._packed(state, c), status,
-                            c[kc.CTRL_STEP], int(k))
+        return self._result(state, c, status, tel, k)
 
     def _resume_point(self, ring, c, k: int):
         """The ring entry whose ``(best, mc]`` bracket contains ``k``, as a
@@ -541,13 +612,12 @@ class CompactFrontierEngine(BucketedELLEngine):
         while True:  # window-cap retry loop (STALLED + capped windows)
             ring = kc.new_ring(v, max(len(self.init_bucket_active), 1),
                                self.device)
-            state, c, status1 = self._run(k0, ring=ring)
+            state, c, status1, tel = self._run(k0, ring=ring)
             if status1 == AttemptStatus.STALLED and self._maybe_widen_windows():
                 continue
             break
-        packed1 = self._packed(state, c)
-        first = self._finish(packed1, status1, c[kc.CTRL_STEP], int(k0))
-        used = int(np.where(packed1 >= 0, packed1 >> 1, -1).max(initial=-1)) + 1
+        first = self._result(state, c, status1, tel, k0)
+        used = first.colors_used
         k2 = used - 1
         status2, second = AttemptStatus.FAILURE, None
         if status1 == AttemptStatus.SUCCESS and k2 >= 1:
@@ -555,9 +625,7 @@ class CompactFrontierEngine(BucketedELLEngine):
             status2 = second[2]
 
         def finish_second(k: int) -> AttemptResult:
-            state2, c2, st2 = second
-            return self._finish(self._packed(state2, c2), st2,
-                                c2[kc.CTRL_STEP], k)
+            return self._result(*second, k)
 
         return finish_sweep_pair(first, used, status2, finish_second, v,
                                  self.attempt)
@@ -608,21 +676,29 @@ class CompactFrontierEngine(BucketedELLEngine):
             carry = self._fresh_block_carry()
         best_pe, ring, rec = carry
         strict = bool(strict_decrement)
-        buf, ctrl, blk = kb.new_block(k, max(1, int(attempts)), rec)
+        a = max(1, int(attempts))
+        buf, ctrl, blk = kb.new_block(k, a, rec)
         state = torch.empty((2, v + 2), dtype=torch.int32, device=self.device)
         live = torch.empty((kc.LIVE_ROWS, self._init_ba.shape[0]),
                            dtype=torch.int32, device=self.device)
+        # recording: each attempt's ladder writes into tel.traj, K9 copies
+        # it into the attempt's slot of the stack, K10 empties it
+        tel = self._telemetry()
+        traj = None if tel is None else tel.traj
+        tstack = None if tel is None else torch.full(
+            (a, *traj.shape), -1, dtype=torch.int32, device=self.device)
 
         def start_next() -> list:
             kb.block_start(ctrl, blk, state, live, ring, self.degrees,
-                           self._init_ba)
+                           self._init_ba, traj=traj)
             return self._read(buf).tolist()
 
         b = start_next()
         while kb.block_open(b[kc.CTRL_LEN:]):
             self._ladder(b[kc.CTRL_LEN + kb.BLK_K], state, ctrl, live, ring,
-                         b[: kc.CTRL_LEN])
-            kb.block_record(ctrl, state, blk, best_pe, k_min, strict)
+                         b[: kc.CTRL_LEN], tel)
+            kb.block_record(ctrl, state, blk, best_pe, k_min, strict,
+                            traj=traj, tstack=tstack)
             b = start_next()
         c, rows = b[: kc.CTRL_LEN], kb.attempt_rows(b[kc.CTRL_LEN:])
         k_next = b[kc.CTRL_LEN + kb.BLK_K]
@@ -634,16 +710,20 @@ class CompactFrontierEngine(BucketedELLEngine):
             AttemptStatus(r[kb.BKC_STATUS]), None, r[kb.BKC_STEPS],
             r[kb.BKC_K], used=r[kb.BKC_USED])
             for r in (rows[:-1] if stalled_tail else rows)]
+        stack_h = None
         if results and not stalled_tail:
             # the final attempt's colors always come home: a failing row is
             # the --compat-failed-output row, a sweep-ending success the
             # result row; intermediate successes stay scalar-only
-            results[-1].colors = self._decode_colors(self._packed(state, c))
+            packed, stack_h = self._read_with(state[c[kc.CTRL_CUR], :v],
+                                              tstack)
+            results[-1].colors = self._decode_colors(packed)
         best_colors = None
         carry_out = (best_pe, ring, buf[kc.CTRL_REC_CNT: kc.CTRL_REC_BEST + 1])
         if stalled_tail:
             # the best row dies with the carry: bring it home first
-            best_colors = self._decode_colors(self._read(best_pe[:v]))
+            best_row, stack_h = self._read_with(best_pe[:v], tstack)
+            best_colors = self._decode_colors(best_row)
             k_st = rows[-1][kb.BKC_K]
             res_st = self.attempt(k_st)  # owns the widen-and-retry loop
             results.append(res_st)
@@ -655,4 +735,10 @@ class CompactFrontierEngine(BucketedELLEngine):
             carry_out = None
         elif want_best or done:
             best_colors = self._decode_colors(self._read(best_pe[:v]))
+        if stack_h is not None:
+            n_dec = len(rows) - int(stalled_tail)
+            for res, t in zip(results, decode_block_trajectories(
+                    stack_h, [r[kb.BKC_STEPS] for r in rows], n_dec,
+                    unconf_b=True)):
+                res.trajectory = t
         return BlockOutcome(results, k_next, done, carry_out, best_colors)

@@ -32,7 +32,7 @@ import torch
 
 from dgc_tpu_torch.kernels.compact import compact_idx
 from dgc_tpu_torch.ops.bitmask import forbidden_planes
-from dgc_tpu_torch.ops.segmented_gather import fail_gate
+from dgc_tpu_torch.ops.segmented_gather import fail_gate, unconf_counts
 from dgc_tpu_torch.ops.speculative import (apply_update_mc, decode_combined,
                                            neighbor_stats,
                                            speculative_update_mc)
@@ -283,6 +283,49 @@ def run_branch(branch: int, pe, pk_b, cb, p_b: int, k, v: int, ps=None,
     r = bucket_update_shrink(pe, pk_b, ps[1:4], p_b, k, w, v, cfg[2], idx)
     return r[:4] + ((torch.tensor(2, dtype=torch.int32),) + tuple(ps[1:4])
                     + r[4],)
+
+
+def unconf_max(pe, v: int, comb, words) -> int:
+    """The max count of unconfirmed real neighbors among the entries
+    ``comb`` (int32[R, W]) of the rows whose words before the step are
+    ``words`` (int32[R]), over the active rows (0 for none): the unconf
+    telemetry of ``_unconf_max``."""
+    _, _, np_ = _gather(pe, v, comb)
+    cnt = unconf_counts(comb, np_, v).sum(dim=1)
+    live = torch.where(_active(words), cnt, 0)
+    return int(live.max()) if live.numel() else 0
+
+
+def branch_unconf(branch: int, pe, pk_b, cb, v: int, ps=None,
+                  cfg: tuple | None = None, idx=None) -> int:
+    """``unconf_max`` over what ``branch`` evaluates, before it runs: the
+    whole bucket (``full``), its slot rows (``compact``/``rebase``, slot
+    list ``idx``), or the captured slots against their captured neighbor
+    lists (``pruned``/``pruned2``, and ``shrink`` on tier 1's slots
+    ``sel = idx``); 0 for ``skip``."""
+    if branch == BRANCH_SKIP:
+        return 0
+    if branch == BRANCH_FULL:
+        return unconf_max(pe, v, cb, pk_b)
+    if branch in (BRANCH_COMPACT, BRANCH_REBASE):
+        if idx is None:
+            pad = cfg[0] if cfg is not None else hub_pad_for(cb.shape[0])
+            idx = compact_idx(_active(pk_b), pad, cb.shape[0])
+        real, words = _slot_words(pk_b, idx)
+        return unconf_max(pe, v, cb[torch.where(real, idx, 0).to(torch.int64)],
+                          words)
+    if branch in (BRANCH_PRUNED, BRANCH_PRUNED2):
+        slots, comb = (ps[1], ps[2]) if branch == BRANCH_PRUNED \
+            else (ps[4], ps[5])
+        return unconf_max(pe, v, comb, _slot_words(pk_b, slots)[1])
+    slots1, comb1 = ps[1], ps[2]
+    if idx is None:
+        idx = compact_idx(_active(_slot_words(pk_b, slots1)[1]), cfg[2],
+                          slots1.shape[0])
+    real = idx < slots1.shape[0]
+    safe = torch.where(real, idx, 0).to(torch.int64)
+    slots = torch.where(real, slots1[safe], pk_b.shape[0])
+    return unconf_max(pe, v, comb1[safe], _slot_words(pk_b, slots)[1])
 
 
 def hub_dispatch(pe, ba, pk_b, cb, p_b: int, k, v: int, ps=None,

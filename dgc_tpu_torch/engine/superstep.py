@@ -11,6 +11,11 @@ The JAX engine recomputes the loop-invariant priority mask ``pre_beats``
 inside every attempt; here it is packed once, at build, into bit 30 of
 the neighbor table (the bucketed engine's combined layout), so both
 engines share one kernel. The entries are the same ``beats_rule`` values.
+
+With ``record_trajectory`` on, K2's recording variant writes each
+superstep's row of the attempt's trajectory buffer (``obs.kernel``: the
+active count and fail flag, as the JAX engine records them), and the
+buffer comes home with the colors row in one copy.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from dgc_tpu_torch.kernels.superstep import (
     run_supersteps,
 )
 from dgc_tpu_torch.models.arrays import GraphArrays
+from dgc_tpu_torch.obs.kernel import (decode_trajectory, read_home,
+                                      traj_cap_for, traj_empty)
 from dgc_tpu_torch.ops.bitmask import num_planes_for
 from dgc_tpu_torch.ops.speculative import BEATS_BIT, beats_rule
 
@@ -74,6 +81,9 @@ class ELLEngine:
         self.table = ell_combined_table(torch.from_numpy(nbrs).to(self.device),
                                         self.degrees)
         self.host_syncs = 0
+        # in-kernel telemetry switch: K2's recording variant writes each
+        # superstep's row of a trajectory buffer that rides the carry
+        self.record_trajectory = False
 
     def attempt(self, k: int) -> AttemptResult:
         v = self.num_vertices
@@ -86,15 +96,21 @@ class ELLEngine:
         state = new_state(packed0)
         ctrl = new_ctrl(step=0, prev_active=v + 1, device=self.device)
         parts = [(0, self.table, self.num_planes, True)]
+        traj = (traj_empty(traj_cap_for(self.max_steps), device=self.device)
+                if self.record_trajectory else None)
         while True:
             c = run_supersteps(ctrl, state, parts, k_eff,
                                max_steps=self.max_steps,
-                               stall_window=INT32_MAX)
+                               stall_window=INT32_MAX, traj=traj)
             self.host_syncs += 1
             if c[CTRL_STATUS] != AttemptStatus.RUNNING:
                 break
-        packed = state[c[CTRL_CUR], :v].cpu().numpy()
+        row = state[c[CTRL_CUR], :v]
+        packed, traj_h = read_home(row, traj) if traj is not None \
+            else (row.cpu().numpy(), None)
         self.host_syncs += 1
         colors = np.where(packed >= 0, packed >> 1, -1).astype(np.int32)
-        return AttemptResult(AttemptStatus(c[CTRL_STATUS]), colors,
-                             c[CTRL_STEP], int(k))
+        return AttemptResult(
+            AttemptStatus(c[CTRL_STATUS]), colors, c[CTRL_STEP], int(k),
+            trajectory=(None if traj_h is None
+                        else decode_trajectory(traj_h, c[CTRL_STEP])))

@@ -18,6 +18,12 @@ attempt's stage ladder as ``attempt`` does, and where an attempt ends
   ``CTRL_REC_BEST``) pass through, so every attempt records into the same
   ring and a later one resumes from it.
 
+Their recording variants (B11) carry the block's stacked trajectory
+buffers ``tstack`` (int32[A, cap, cols], ``layout.BK_TRAJ``): each attempt
+records into one scratch buffer ``traj`` (K6's recording variant); K9
+copies it into the attempt's slot of the stack and K10 fills it with −1
+for the next attempt.
+
 The block record ``blk`` is int32[BLK_HEAD + A·BK_ATT_COLS]: the count of
 attempts recorded, the next budget, the stop flag, K9's two cross-block
 scratch slots (the running max color, −1 between launches, and its block
@@ -28,7 +34,8 @@ with one copy.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
-``launch_counts`` counts launches per kernel: a wrapper adds one where it
+``launch_counts`` counts launches per kernel (``rec_launch_counts`` those
+of the recording variants): a wrapper adds one where it
 launches and nowhere else.
 """
 
@@ -65,11 +72,14 @@ _STALLED = int(AttemptStatus.STALLED)
 SOURCE = "block.cu"
 
 launch_counts = {"block_record": 0, "block_start": 0}
+# the recording variants' launches (B11), apart from the kernels above
+rec_launch_counts = {"block_record_rec": 0, "block_start_rec": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, rec_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def new_block(k: int, attempts: int, rec: torch.Tensor):
@@ -115,11 +125,16 @@ def final_status(c: list) -> int:
 
 def block_record_reference(ctrl: torch.Tensor, state: torch.Tensor,
                            blk: torch.Tensor, best_pe: torch.Tensor,
-                           k_min: int, strict: bool) -> None:
-    """K9's plain version: ``_block_kernel_body``'s epilogue."""
+                           k_min: int, strict: bool,
+                           traj: torch.Tensor | None = None,
+                           tstack: torch.Tensor | None = None) -> None:
+    """K9's plain version: ``_block_kernel_body``'s epilogue, the
+    attempt's trajectory into its slot of ``tstack`` when given."""
     b = blk.tolist()
     if not block_open(b):
         return
+    if traj is not None:
+        tstack[b[BLK_N_ATT]] = traj
     c = ctrl.tolist()
     v = state.shape[1] - 2
     pe = state[c[CTRL_CUR]]
@@ -141,14 +156,16 @@ def block_record_reference(ctrl: torch.Tensor, state: torch.Tensor,
 
 def block_start_reference(ctrl: torch.Tensor, blk: torch.Tensor,
                           state: torch.Tensor, live: torch.Tensor, ring,
-                          degrees: torch.Tensor,
-                          init_ba: torch.Tensor) -> None:
+                          degrees: torch.Tensor, init_ba: torch.Tensor,
+                          traj: torch.Tensor | None = None) -> None:
     """K10's plain version: ``_default_init`` and ``restore_from_ring``
     (``first=False``) into the state buffers, the live table and the
-    control block."""
+    control block; ``traj`` (when given) emptied."""
     b = blk.tolist()
     if not block_open(b):
         return
+    if traj is not None:
+        traj.fill_(-1)
     k = b[BLK_K]
     c = ctrl.tolist()
     ring_pe, ring_ba, ring_meta = ring
@@ -182,10 +199,11 @@ def _library():
     lib = load(SOURCE)
     if not getattr(lib, "_dgc_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dgc_block_record.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, vp]
+        lib.dgc_block_record.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, vp,
+                                         vp, ci, vp]
         lib.dgc_block_record.restype = ci
         lib.dgc_block_start.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp,
-                                        vp, vp, vp]
+                                        vp, vp, vp, ci, vp]
         lib.dgc_block_start.restype = ci
         lib._dgc_bound = True
     return lib
@@ -202,38 +220,60 @@ def _check_block(ctrl, state, blk, device) -> None:
         raise ValueError(f"blk must be [{BLK_HEAD} + A·{BK_ATT_COLS}], A >= 1")
 
 
+def _check_traj(traj, tstack, attempts: int, device) -> None:
+    _check_int32("traj", traj, device, 2)
+    if tstack is not None:
+        _check_int32("tstack", tstack, device, 3)
+        if tuple(tstack.shape) != (attempts, *traj.shape):
+            raise ValueError(f"tstack must be [{attempts}, "
+                             f"{traj.shape[0]}, {traj.shape[1]}]")
+
+
 def block_record(ctrl: torch.Tensor, state: torch.Tensor, blk: torch.Tensor,
-                 best_pe: torch.Tensor, k_min: int, strict: bool) -> None:
+                 best_pe: torch.Tensor, k_min: int, strict: bool,
+                 traj: torch.Tensor | None = None,
+                 tstack: torch.Tensor | None = None) -> None:
     """K9: record the attempt that just ended into ``blk`` and apply the
     stopping rule; ``best_pe`` (int32[V+2]) takes the state on a success.
-    A no-op when the block is done or full. Runs on the current stream."""
+    Its recording variant when ``traj`` (int32[cap, cols]) and ``tstack``
+    (int32[A, cap, cols]) are given. A no-op when the block is done or
+    full. Runs on the current stream."""
     device = state.device
     if device.type == "cpu":
-        return block_record_reference(ctrl, state, blk, best_pe, k_min, strict)
+        return block_record_reference(
+            ctrl, state, blk, best_pe, k_min, strict, traj=traj,
+            tstack=tstack)
     _check_cuda("block_record", device)
     _check_block(ctrl, state, blk, device)
     _check_int32("best_pe", best_pe, device, 1)
     if best_pe.shape[0] != state.shape[1]:
         raise ValueError("best_pe must be [V+2]")
+    name, counts, rec = "block_record", launch_counts, (None, None, 0)
+    if traj is not None:
+        _check_traj(traj, tstack, block_attempts(blk), device)
+        name, counts = "block_record_rec", rec_launch_counts
+        rec = (traj.data_ptr(), tstack.data_ptr(), int(traj.numel()))
     _raise_on(_library().dgc_block_record(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
         blk.data_ptr(), block_attempts(blk), best_pe.data_ptr(),
         max(-(1 << 31), min(int(k_min), (1 << 31) - 1)), int(bool(strict)),
-        _stream(device)), "block_record")
-    launch_counts["block_record"] += 1
+        *rec, _stream(device)), name)
+    counts[name] += 1
 
 
 def block_start(ctrl: torch.Tensor, blk: torch.Tensor, state: torch.Tensor,
                 live: torch.Tensor, ring, degrees: torch.Tensor,
-                init_ba: torch.Tensor) -> None:
+                init_ba: torch.Tensor,
+                traj: torch.Tensor | None = None) -> None:
     """K10: start the block's next attempt at ``blk``'s budget from the
     ring (``new_ring``'s triple) or fresh (``degrees`` int32[V], the live
-    counts ``init_ba`` int32[nb]). A no-op when the block is done or full.
+    counts ``init_ba`` int32[nb]); its recording variant, which also
+    empties ``traj``, when given. A no-op when the block is done or full.
     Runs on the current stream."""
     device = state.device
     if device.type == "cpu":
-        return block_start_reference(ctrl, blk, state, live, ring, degrees,
-                                     init_ba)
+        return block_start_reference(
+            ctrl, blk, state, live, ring, degrees, init_ba, traj=traj)
     _check_cuda("block_start", device)
     _check_block(ctrl, state, blk, device)
     ring_pe, ring_ba, ring_meta = ring
@@ -248,10 +288,14 @@ def block_start(ctrl: torch.Tensor, blk: torch.Tensor, state: torch.Tensor,
             or degrees.shape[0] != words - 2 or init_ba.shape[0] != nb:
         raise ValueError("live must be [5, nb], the ring [4, V+2], [4, nb] "
                          "and [4, 5], degrees [V] and init_ba [nb]")
+    name, counts, rec = "block_start", launch_counts, (None, 0)
+    if traj is not None:
+        _check_traj(traj, None, block_attempts(blk), device)
+        name, counts = "block_start_rec", rec_launch_counts
+        rec = (traj.data_ptr(), int(traj.numel()))
     _raise_on(_library().dgc_block_start(
         ctrl.data_ptr(), blk.data_ptr(), block_attempts(blk),
         state.data_ptr(), int(words), live.data_ptr(), int(nb),
         ring_pe.data_ptr(), ring_ba.data_ptr(), ring_meta.data_ptr(),
-        degrees.data_ptr(), init_ba.data_ptr(), _stream(device)),
-        "block_start")
-    launch_counts["block_start"] += 1
+        degrees.data_ptr(), init_ba.data_ptr(), *rec, _stream(device)), name)
+    counts[name] += 1

@@ -15,6 +15,19 @@ plain PyTorch versions, and the control-block and ring layout they share.
   commit of the hub region's staged live counts and prune tiers, and the
   flip, the last two unless the step failed.
 
+Recording variants (B11, ``obs.kernel``), launched when a wrapper is
+given the telemetry it fills:
+
+- ``segmented_superstep`` with ``umax`` also takes the max count of
+  unconfirmed real neighbors over the rows it evaluates that were active
+  before the step, into ``umax[ucol]`` (the flat region's column of the
+  unconf vector; ``kernels.hub`` fills the hub buckets' columns);
+- ``stage_finish`` with a ``Telemetry`` also writes the superstep's
+  trajectory row from the counters it folds, before it clears them: the
+  active count, fail flag, ``mc``, the gather calls, max(``umax``), the
+  timestamp (when ``timing``; −1 else), the bucket tail and the unconf
+  tail, and clears ``umax``.
+
 K5-K8 run a superstep only while the stage is live (``stage_live``): the
 attempt RUNNING, its carried active count above the stage threshold and
 its step below ``max_steps``; else they return at once, so a chunk of
@@ -27,13 +40,15 @@ branch the hub kernels (``kernels.hub``) took this superstep.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
-``launch_counts`` counts launches per kernel: a wrapper adds one where it
+``launch_counts`` counts launches per kernel (``rec_launch_counts`` those
+of the recording variants): a wrapper adds one where it
 launches and nowhere else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,8 +56,12 @@ from dgc_tpu_torch.engine.base import AttemptStatus
 from dgc_tpu_torch.kernels.superstep import (  # the first eight slots
     CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL, CTRL_MC, CTRL_PREV_ACTIVE, CTRL_STALL,
     CTRL_STATUS, CTRL_STEP, INT32_MAX, _check_int32, _stream, finish_step)
+from dgc_tpu_torch.layout import TRAJ_COLS
+from dgc_tpu_torch.obs.devclock import kernel_clock_us
+from dgc_tpu_torch.obs.kernel import trajstep
 from dgc_tpu_torch.ops.segmented_gather import (plan_max_planes, plan_rows,
-                                                plan_size, segmented_update)
+                                                plan_size, plan_unconf_max,
+                                                segmented_update)
 
 # the control block is kernels.superstep's eight slots (kStatus ... kMc)
 # and three more (kRecCnt, kRecBest, kDone): the ring's count and best
@@ -61,11 +80,28 @@ SOURCE = "compact.cu"
 
 launch_counts = {"compact_slots": 0, "stage_rows": 0,
                  "segmented_superstep": 0, "stage_finish": 0}
+# the recording variants' launches (B11), apart from the kernels above
+rec_launch_counts = {"segmented_superstep_rec": 0, "stage_finish_rec": 0}
+
+
+class Telemetry(NamedTuple):
+    """What K6's recording variant fills and reads: the attempt's
+    trajectory buffer, the unconf vector the superstep kernels fill (K6
+    clears it after each row), and the gather-call count of the superstep:
+    ``gc_const`` plus one for each bucket of nonzero weight ``gc_w`` with
+    live rows before the step."""
+
+    traj: torch.Tensor  # int32[cap, 6 + 2·nt]
+    umax: torch.Tensor  # int32[nt]: hub buckets, then the flat region
+    gc_w: torch.Tensor  # int32[nt]
+    gc_const: int
+    timing: bool        # col 5: the clock (else −1)
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, rec_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def new_ctrl(step: int, prev_active: int, device, stall: int = 0) -> torch.Tensor:
@@ -161,9 +197,12 @@ def segmented_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
                                   seg: torch.Tensor, plan: tuple, k: int,
                                   thresh: int, max_steps: int,
                                   gidx: torch.Tensor | None = None,
-                                  row_base: int = 0) -> None:
+                                  row_base: int = 0,
+                                  umax: torch.Tensor | None = None,
+                                  ucol: int = 0) -> None:
     """K5's plain version: ``ops.segmented_gather.segmented_update`` over
-    the state buffer ``cur``, written into the other one."""
+    the state buffer ``cur``, written into the other one; with ``umax``,
+    ``plan_unconf_max`` into ``umax[ucol]``."""
     if not stage_live(ctrl.tolist(), thresh, max_steps):
         return
     cur = int(ctrl[CTRL_CUR])
@@ -172,6 +211,9 @@ def segmented_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
         rows = slice(row_base, row_base + plan_rows(plan))
     else:
         rows = gidx.to(torch.int64)
+    if umax is not None:
+        u = plan_unconf_max(src, seg, plan, src[rows], state.shape[1] - 2)
+        umax[ucol] = max(int(umax[ucol]), u)
     new, fail, act, mc = segmented_update(src, seg, plan, src[rows], k)
     dst[rows] = new  # duplicate slots are the dummy row: same word
     ctrl[CTRL_FAIL] += fail
@@ -182,14 +224,25 @@ def segmented_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
 def stage_finish_reference(ctrl: torch.Tensor, state: torch.Tensor,
                            ring, live: torch.Tensor, hub_buckets: int,
                            thresh: int, max_steps: int, stall_window: int,
-                           record: bool) -> None:
-    """K6's plain version: ``_make_recstep`` and ``_superstep_epilogue``."""
+                           record: bool, tel: Telemetry | None = None) -> None:
+    """K6's plain version: ``_make_recstep`` and ``_superstep_epilogue``,
+    with the trajectory row (``trajstep``) first when ``tel`` is given."""
     c = ctrl.tolist()
     if not stage_live(c, thresh, max_steps):
         return
     step, prev, stall, cur, fail, mc, cnt, best = (
         c[i] for i in (CTRL_STEP, CTRL_PREV_ACTIVE, CTRL_STALL, CTRL_CUR,
                        CTRL_FAIL, CTRL_MC, CTRL_REC_CNT, CTRL_REC_BEST))
+    if tel is not None:
+        nt, nh = tel.umax.shape[0], hub_buckets
+        ba, nxt = live[LIVE_BA].tolist(), live[LIVE_BA_NEXT].tolist()
+        gcalls = tel.gc_const + sum(1 for w, a in zip(tel.gc_w.tolist(), ba)
+                                    if w != 0 and a > 0)
+        tail = nxt[:nh] + ([c[CTRL_ACTIVE] - sum(nxt[:nh])] if nt > nh else [])
+        trajstep(tel.traj, step, c[CTRL_ACTIVE], fail > 0, mc, gcalls, tail,
+                 tel.umax.tolist(),
+                 kernel_clock_us(state.device) if tel.timing else -1)
+        tel.umax.zero_()
     if record and fail == 0 and mc > best:
         slot = cnt % REC_SLOTS
         ring[0][slot] = state[cur]
@@ -224,10 +277,12 @@ def _library():
                                        vp, vp, vp]
         lib.dgc_stage_rows.restype = ci
         lib.dgc_segmented_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
-                                                vp, ci, ci, ci, ci, ci, vp]
+                                                vp, ci, ci, ci, ci, ci, vp, ci,
+                                                vp]
         lib.dgc_segmented_superstep.restype = ci
         lib.dgc_stage_finish.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
-                                         ci, ci, ci, ci, vp]
+                                         ci, ci, ci, ci, vp, ci, ci, vp, vp,
+                                         ci, ci, ci, vp]
         lib.dgc_stage_finish.restype = ci
         lib._dgc_bound = True
     return lib
@@ -317,14 +372,17 @@ def segmented_superstep(ctrl: torch.Tensor, state: torch.Tensor,
                         seg: torch.Tensor, plan: tuple, desc, k: int,
                         thresh: int, max_steps: int,
                         gidx: torch.Tensor | None = None,
-                        row_base: int = 0) -> None:
+                        row_base: int = 0, umax: torch.Tensor | None = None,
+                        ucol: int = 0) -> None:
     """K5 over ``plan`` (device view ``desc``): rows from the slot list
-    ``gidx``, or rows ``row_base + r``. Runs on the current stream, does
+    ``gidx``, or rows ``row_base + r``; its recording variant into
+    ``umax[ucol]`` when ``umax`` is given. Runs on the current stream, does
     not synchronize."""
     device = state.device
     if device.type == "cpu":
-        return segmented_superstep_reference(ctrl, state, seg, plan, k,
-                                             thresh, max_steps, gidx, row_base)
+        return segmented_superstep_reference(
+            ctrl, state, seg, plan, k, thresh, max_steps, gidx, row_base,
+            umax=umax, ucol=ucol)
     _check_cuda("segmented_superstep", device)
     _check_state(ctrl, state, device)
     _check_int32("seg", seg, device, 1)
@@ -343,27 +401,38 @@ def segmented_superstep(ctrl: torch.Tensor, state: torch.Tensor,
             raise ValueError(f"gidx holds {gidx.shape[0]} slots, the plan {rows}")
     elif not (0 <= row_base and row_base + rows <= v):
         raise ValueError(f"rows [{row_base}, {row_base + rows}) outside [0, {v})")
+    if umax is not None:
+        _check_int32("umax", umax, device, 1)
+        if not 0 <= ucol < umax.shape[0]:
+            raise ValueError(f"ucol {ucol} outside umax[{umax.shape[0]}]")
     if rows == 0:
         return
+    name, counts = (("segmented_superstep", launch_counts) if umax is None
+                    else ("segmented_superstep_rec", rec_launch_counts))
     _raise_on(_library().dgc_segmented_superstep(
-        ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]), seg.data_ptr(),
-        desc.data_ptr(), len(plan), int(rows), int(plan_max_planes(plan)),
+        ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
+        seg.data_ptr(), desc.data_ptr(), len(plan), int(rows),
+        int(plan_max_planes(plan)),
         None if gidx is None else gidx.data_ptr(), int(row_base), v + 1,
         _clamp_k(k), int(thresh), int(min(max_steps, INT32_MAX)),
-        _stream(device)), "segmented_superstep")
-    launch_counts["segmented_superstep"] += 1
+        None if umax is None else umax.data_ptr(), int(ucol),
+        _stream(device)), name)
+    counts[name] += 1
 
 
 def stage_finish(ctrl: torch.Tensor, state: torch.Tensor, ring,
                  live: torch.Tensor, hub_buckets: int, thresh: int,
-                 max_steps: int, stall_window: int, record: bool) -> None:
+                 max_steps: int, stall_window: int, record: bool,
+                 tel: Telemetry | None = None) -> None:
     """K6; ``ring`` is ``new_ring``'s triple, or None when not recording;
-    ``live`` the live table of ``hub_buckets`` hub buckets (``new_live``).
-    Runs on the current stream."""
+    ``live`` the live table of ``hub_buckets`` hub buckets (``new_live``);
+    its recording variant when ``tel`` is given. Runs on the current
+    stream."""
     device = state.device
     if device.type == "cpu":
-        return stage_finish_reference(ctrl, state, ring, live, hub_buckets,
-                                      thresh, max_steps, stall_window, record)
+        return stage_finish_reference(
+            ctrl, state, ring, live, hub_buckets, thresh, max_steps,
+            stall_window, record, tel=tel)
     _check_cuda("stage_finish", device)
     _check_state(ctrl, state, device)
     _check_int32("live", live, device, 2)
@@ -381,11 +450,27 @@ def stage_finish(ctrl: torch.Tensor, state: torch.Tensor, ring,
                 tuple(ring_ba.shape) != (REC_SLOTS, nb) or \
                 tuple(ring_meta.shape) != (REC_SLOTS, META_COLS):
             raise ValueError("ring must be [4, V+2], [4, nb] and [4, 5]")
+    name, counts = "stage_finish", launch_counts
+    rec = (None, 0, 0, None, None, 0, 0, 0)
+    if tel is not None:
+        name, counts = "stage_finish_rec", rec_launch_counts
+        nt = tel.umax.shape[0]
+        for n, t, ndim in (("traj", tel.traj, 2), ("umax", tel.umax, 1),
+                           ("gc_w", tel.gc_w, 1)):
+            _check_int32(n, t, device, ndim)
+        if not hub_buckets <= nt <= nb or tel.gc_w.shape[0] != nt or \
+                tel.traj.shape[1] != TRAJ_COLS + 2 * nt or tel.traj.shape[0] < 1:
+            raise ValueError(f"traj must be [cap, {TRAJ_COLS} + 2·nt], umax "
+                             f"and gc_w [nt], {hub_buckets} <= nt <= {nb}")
+        rec = (tel.traj.data_ptr(), int(tel.traj.shape[0]),
+               int(tel.traj.shape[1]), tel.umax.data_ptr(),
+               tel.gc_w.data_ptr(), int(tel.gc_const), int(nt),
+               int(bool(tel.timing)))
     _raise_on(_library().dgc_stage_finish(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
         *(None if t is None else t.data_ptr()
           for t in (ring_pe, ring_ba, ring_meta)),
         live.data_ptr(), int(hub_buckets), int(nb), int(thresh),
         int(min(max_steps, INT32_MAX)), int(min(stall_window, INT32_MAX)),
-        int(bool(record)), _stream(device)), "stage_finish")
-    launch_counts["stage_finish"] += 1
+        int(bool(record)), *rec, _stream(device)), name)
+    counts[name] += 1

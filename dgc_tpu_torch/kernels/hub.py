@@ -15,6 +15,12 @@ and ``_hub_dispatch``) is two launches over every hub bucket at once:
   into the control block and the bucket's active count into the live
   table's staged row; the rebase and shrink captures into the pool.
 
+Given the unconf vector ``umax`` (B11 telemetry), ``hub_superstep``
+launches K8's recording variant, which also takes each bucket's max count
+of unconfirmed real neighbors over the rows its branch evaluates that
+were active before the step (``engine.hub.branch_unconf``) into
+``umax[bucket]``; K6 writes the vector into the trajectory row.
+
 The live table is ``kernels.compact.new_live``'s; K6 commits its staged
 rows. A **hub plan** (``hub_plan``) describes the buckets: an int64
 descriptor row each (``D_*``) and offsets into one int32 **pool** that
@@ -24,7 +30,8 @@ same at ``P2``), each rebuilt when the windows widen.
 
 For tensors on the CPU each wrapper runs its plain version, built on
 ``engine.hub``; for tensors on a card it launches its kernel or raises —
-it never falls back. ``launch_counts`` counts launches per kernel.
+it never falls back. ``launch_counts`` counts launches per kernel,
+``rec_launch_counts`` those of the recording variant.
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from typing import NamedTuple
 import torch
 
 from dgc_tpu_torch.engine.hub import (BRANCH_COMPACT, BRANCH_REBASE,
-                                      BRANCH_SHRINK, BRANCH_SKIP, hub_branch,
-                                      hub_pad_for, run_branch)
+                                      BRANCH_SHRINK, BRANCH_SKIP,
+                                      branch_unconf, hub_branch, hub_pad_for,
+                                      run_branch)
 from dgc_tpu_torch.kernels.compact import (CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL,
                                            CTRL_MC, LIVE_BA, LIVE_BA_NEXT,
                                            LIVE_BRANCH, LIVE_ROWS, LIVE_TIER,
@@ -141,11 +149,14 @@ def new_pool(plan: HubPlan, device) -> torch.Tensor:
 
 
 launch_counts = {"hub_slots": 0, "hub_superstep": 0}
+# the recording variant's launches (B11), apart from the kernels above
+rec_launch_counts = {"hub_superstep_rec": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, rec_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -199,9 +210,11 @@ def _prune_views(b, live_tier: int, pool) -> tuple | None:
 
 
 def hub_superstep_reference(ctrl, state, table, live, plan: HubPlan, pool,
-                            k: int, thresh: int, max_steps: int) -> None:
+                            k: int, thresh: int, max_steps: int,
+                            umax=None) -> None:
     """K8's plain version: ``engine.hub.run_branch`` per bucket on the
-    branch and slot lists K7 left."""
+    branch and slot lists K7 left; with ``umax``, ``branch_unconf`` into
+    each bucket's column first."""
     if not stage_live(ctrl.tolist(), thresh, max_steps):
         return
     cur = int(ctrl[CTRL_CUR])
@@ -218,9 +231,12 @@ def hub_superstep_reference(ctrl, state, table, live, plan: HubPlan, pool,
             idx = pool[b.slots: b.slots + b.pad]
         elif branch == BRANCH_SHRINK:
             idx = pool[b.sel: b.sel + b.p2]
+        pk_b = src[b.row0: b.row0 + b.rows]
+        if umax is not None:
+            umax[bi] = max(int(umax[bi]), branch_unconf(
+                branch, src, pk_b, cb, v, ps, b.cfg, idx))
         new_b, fail, act, mc, ps2 = run_branch(
-            branch, src, src[b.row0: b.row0 + b.rows], cb, b.planes, k, v,
-            ps, b.cfg, idx)
+            branch, src, pk_b, cb, b.planes, k, v, ps, b.cfg, idx)
         dst[b.row0: b.row0 + b.rows] = new_b
         ctrl[CTRL_FAIL] += fail
         ctrl[CTRL_ACTIVE] += act
@@ -248,7 +264,7 @@ def _library():
                                       vp]
         lib.dgc_hub_slots.restype = ci
         lib.dgc_hub_superstep.argtypes = [vp, vp, ci, vp, vp, ci, vp, ci, vp,
-                                          ci, ci, ci, ci, ci, vp]
+                                          ci, ci, ci, ci, ci, vp, vp]
         lib.dgc_hub_superstep.restype = ci
         lib._dgc_bound = True
     return lib
@@ -291,25 +307,35 @@ def hub_slots(ctrl, state, live, plan: HubPlan, pool, thresh: int,
 
 
 def hub_superstep(ctrl, state, table, live, plan: HubPlan, pool, k: int,
-                  thresh: int, max_steps: int) -> None:
+                  thresh: int, max_steps: int, umax=None) -> None:
     """K8 over every bucket of ``plan``, tables in ``table`` (int32, at
-    each bucket's offset). Runs on the current stream."""
+    each bucket's offset); its recording variant into ``umax`` (int32[nb
+    >= the plan's buckets]) when given. Runs on the current stream."""
     device = state.device
     if device.type == "cpu":
-        return hub_superstep_reference(ctrl, state, table, live, plan, pool,
-                                       k, thresh, max_steps)
+        return hub_superstep_reference(
+            ctrl, state, table, live, plan, pool, k, thresh, max_steps,
+            umax=umax)
     _check_cuda("hub_superstep", device)
     _check_hub(ctrl, state, live, plan, pool, device)
     _check_int32("table", table, device, 1)
+    if umax is not None:
+        _check_int32("umax", umax, device, 1)
+        if umax.shape[0] < len(plan.buckets):
+            raise ValueError(f"umax holds {umax.shape[0]} columns, the plan "
+                             f"{len(plan.buckets)} buckets")
     if not plan.buckets:
         return
     last = plan.buckets[-1]
     if table.shape[0] < last.cb + last.rows * last.width:
         raise ValueError("the hub table is shorter than the plan's buckets")
+    name, counts = (("hub_superstep", launch_counts) if umax is None
+                    else ("hub_superstep_rec", rec_launch_counts))
     _raise_on(_library().dgc_hub_superstep(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
         table.data_ptr(), plan.desc.data_ptr(), len(plan.buckets),
         live.data_ptr(), int(live.shape[1]), pool.data_ptr(),
         int(plan.max_rows), int(plan.max_planes), _clamp_k(k), int(thresh),
-        int(min(max_steps, INT32_MAX)), _stream(device)), "hub_superstep")
-    launch_counts["hub_superstep"] += 1
+        int(min(max_steps, INT32_MAX)),
+        None if umax is None else umax.data_ptr(), _stream(device)), name)
+    counts[name] += 1

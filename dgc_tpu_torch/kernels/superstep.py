@@ -8,7 +8,9 @@ PyTorch versions, and the chunked superstep loop both engines run.
   the control block.
 - ``superstep_finish`` (K2) folds those counters into the attempt's loop
   carry (status, step, stall rounds) and flips ``cur`` unless the step
-  failed.
+  failed. Given a trajectory buffer it launches its recording variant,
+  which first writes the step's row (``obs.kernel``): the active count,
+  the fail flag and the gather calls it is passed, −1 elsewhere.
 
 For tensors on the CPU each wrapper runs its plain version
 (``*_reference``, built on ``ops.speculative``); for tensors on a card it
@@ -16,7 +18,8 @@ launches its kernel or raises — it never falls back. The plain versions
 take tensors on any device, so a test on the card can hold a kernel
 against them on the same inputs.
 
-``launch_counts`` counts launches per kernel: a wrapper adds one where it
+``launch_counts`` counts launches per kernel (``rec_launch_counts`` those
+of the recording variants): a wrapper adds one where it
 launches, and nowhere else (the CPU path and the plain versions do not
 count), so a run can show that it went through the kernels.
 """
@@ -28,6 +31,8 @@ import ctypes
 import torch
 
 from dgc_tpu_torch.engine.base import AttemptStatus
+from dgc_tpu_torch.layout import TRAJ_COLS
+from dgc_tpu_torch.obs.kernel import trajstep
 from dgc_tpu_torch.ops.speculative import decode_combined, speculative_update_mc
 
 # control block slots (the kernel's kStatus ... kMc)
@@ -41,11 +46,14 @@ _RUNNING = int(AttemptStatus.RUNNING)
 SOURCE = "superstep.cu"
 
 launch_counts = {"superstep_rows": 0, "superstep_finish": 0}
+# the recording variant's launches (B11), apart from the kernels above
+rec_launch_counts = {"superstep_finish_rec": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, rec_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def new_ctrl(step: int, prev_active: int, device) -> torch.Tensor:
@@ -115,11 +123,17 @@ def finish_step(c: list, max_steps: int, stall_window: int) -> list[int]:
 
 
 def superstep_finish_reference(ctrl: torch.Tensor, max_steps: int,
-                               stall_window: int) -> None:
-    """K2's plain version: ``finish_step`` on a RUNNING attempt."""
+                               stall_window: int,
+                               traj: torch.Tensor | None = None,
+                               gcalls: int = -1) -> None:
+    """K2's plain version: ``finish_step`` on a RUNNING attempt, after the
+    row write (``obs.kernel.trajstep``) when ``traj`` is given."""
     c = ctrl.tolist()
     if c[CTRL_STATUS] != _RUNNING:
         return
+    if traj is not None:
+        trajstep(traj, c[CTRL_STEP], c[CTRL_ACTIVE], c[CTRL_FAIL] > 0,
+                 gcalls=gcalls)
     ctrl.copy_(torch.tensor(finish_step(c, max_steps, stall_window),
                             dtype=torch.int32))
 
@@ -135,7 +149,7 @@ def _library():
         lib.dgc_superstep_rows.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            ci, vp]
         lib.dgc_superstep_rows.restype = ci
-        lib.dgc_superstep_finish.argtypes = [vp, ci, ci, vp]
+        lib.dgc_superstep_finish.argtypes = [vp, ci, ci, vp, ci, ci, ci, vp]
         lib.dgc_superstep_finish.restype = ci
         lib._dgc_bound = True
     return lib
@@ -192,34 +206,51 @@ def superstep_rows(ctrl: torch.Tensor, state: torch.Tensor, table: torch.Tensor,
 
 
 def superstep_finish(ctrl: torch.Tensor, max_steps: int,
-                     stall_window: int) -> None:
-    """K2; see the module docstring. Runs on the current stream."""
+                     stall_window: int, traj: torch.Tensor | None = None,
+                     gcalls: int = -1) -> None:
+    """K2, or its recording variant into ``traj`` (int32[cap, cols], cols
+    >= 6) when given; see the module docstring. Runs on the current
+    stream."""
     device = ctrl.device
     if device.type == "cpu":
-        return superstep_finish_reference(ctrl, max_steps, stall_window)
+        return superstep_finish_reference(ctrl, max_steps, stall_window,
+                                          traj=traj, gcalls=gcalls)
     if device.type != "cuda":
         raise ValueError(f"superstep_finish: unsupported device {device}")
     _check_int32("ctrl", ctrl, device, 1)
     if ctrl.shape[0] != CTRL_LEN:
         raise ValueError(f"ctrl must be [{CTRL_LEN}]")
+    name, counts, ptr, cap, cols = ("superstep_finish", launch_counts, None,
+                                    0, 0)
+    if traj is not None:
+        _check_int32("traj", traj, device, 2)
+        if traj.shape[1] < TRAJ_COLS or traj.shape[0] < 1:
+            raise ValueError(f"traj must be [cap >= 1, cols >= {TRAJ_COLS}]")
+        name, counts, ptr = ("superstep_finish_rec", rec_launch_counts,
+                             traj.data_ptr())
+        cap, cols = int(traj.shape[0]), int(traj.shape[1])
     rc = _library().dgc_superstep_finish(
         ctrl.data_ptr(), int(min(max_steps, INT32_MAX)),
-        int(min(stall_window, INT32_MAX)), _stream(device))
+        int(min(stall_window, INT32_MAX)), ptr, cap, cols, int(gcalls),
+        _stream(device))
     if rc != 0:
-        raise RuntimeError(f"superstep_finish launch failed: CUDA error {rc}")
-    launch_counts["superstep_finish"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    counts[name] += 1
 
 
 def run_supersteps(ctrl: torch.Tensor, state: torch.Tensor, parts, k: int,
-                   max_steps: int, stall_window: int) -> list[int]:
+                   max_steps: int, stall_window: int,
+                   traj: torch.Tensor | None = None,
+                   gcalls: int = -1) -> list[int]:
     """Enqueue ``CHUNK_STEPS`` supersteps — K1 for every ``(row0, table,
-    planes, fail_valid)`` part, then K2 — and read the control block back:
-    the one host sync of the chunk. Steps enqueued after the attempt left
-    RUNNING return at once on the card (and are skipped on the CPU)."""
+    planes, fail_valid)`` part, then K2 (recording into ``traj`` when
+    given) — and read the control block back: the one host sync of the
+    chunk. Steps enqueued after the attempt left RUNNING return at once on
+    the card (and are skipped on the CPU)."""
     for _ in range(CHUNK_STEPS):
         for row0, table, planes, fail_valid in parts:
             superstep_rows(ctrl, state, table, row0, planes, k, fail_valid)
-        superstep_finish(ctrl, max_steps, stall_window)
+        superstep_finish(ctrl, max_steps, stall_window, traj, gcalls)
         if ctrl.device.type == "cpu" and int(ctrl[CTRL_STATUS]) != _RUNNING:
             break
     return ctrl.tolist()

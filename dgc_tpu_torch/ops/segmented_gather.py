@@ -142,6 +142,31 @@ def _pad_planes(planes_arr: torch.Tensor, p: int) -> torch.Tensor:
     return torch.cat([planes_arr, pad], dim=-1)
 
 
+def unconf_counts(comb: torch.Tensor, np_: torch.Tensor, v: int):
+    """Per-entry unconfirmed-neighbor flags (int32) of combined-table
+    entries ``comb`` whose gathered states are ``np_``: the entry is real
+    (its id below the pad sentinel ``v``) and its state is not confirmed."""
+    nb, _ = decode_combined(comb)
+    return ((nb < v) & ~((np_ >= 0) & ((np_ & 1) == 0))).to(torch.int32)
+
+
+def plan_unconf_max(pe_src: torch.Tensor, seg_comb: torch.Tensor,
+                    plan: tuple, pk_rows: torch.Tensor, v: int) -> int:
+    """The max count of unconfirmed neighbors over the plan's active rows
+    (inactive rows count 0), for the telemetry columns: port of
+    ``dgc_tpu.ops.segmented_gather.plan_unconf_max``."""
+    np_flat, _ = segmented_gather(pe_src, seg_comb)
+    flags = unconf_counts(seg_comb, np_flat, v)
+    act = (pk_rows < 0) | ((pk_rows & 1) == 1)
+    out = 0
+    for s in plan:
+        cnt = flags[s.flat0: s.flat0 + s.rows * s.width].reshape(
+            s.rows, s.width).sum(dim=1)
+        live = torch.where(act[s.row0: s.row0 + s.rows], cnt, 0)
+        out = max(out, int(live.max()) if s.rows else 0)
+    return out
+
+
 def segmented_update(pe_src: torch.Tensor, seg_comb: torch.Tensor,
                      plan: tuple, pk_rows: torch.Tensor, k):
     """One whole-plan superstep: one gather, then the rule over the rows.

@@ -121,16 +121,16 @@ def test_blocked_forced_ladder_and_hub_knobs(monkeypatch):
     seen = {"hits": 0, "ring_ba": 0, "tiers": 0}
     start, finish = kb.block_start_reference, kc.stage_finish
 
-    def spy_start(ctrl, blk, state, live, ring, degrees, init_ba):
+    def spy_start(ctrl, blk, state, live, ring, degrees, init_ba, **kw):
         b, c, meta = blk.tolist(), ctrl.tolist(), ring[2].tolist()
         seen["hits"] += kb.block_open(b) and any(
             j < c[kc.CTRL_REC_CNT] and m[1] < b[kb.BLK_K] <= m[2]
             for j, m in enumerate(meta))
         seen["ring_ba"] = max(seen["ring_ba"], int(ring[1].max()))
-        start(ctrl, blk, state, live, ring, degrees, init_ba)
+        start(ctrl, blk, state, live, ring, degrees, init_ba, **kw)
 
-    def spy_finish(ctrl, state, ring, live, *args):
-        finish(ctrl, state, ring, live, *args)
+    def spy_finish(ctrl, state, ring, live, *args, **kw):
+        finish(ctrl, state, ring, live, *args, **kw)
         seen["tiers"] = max(seen["tiers"], int(live[kc.LIVE_TIER].max()))
 
     monkeypatch.setattr(kb, "block_start_reference", spy_start)

@@ -1,5 +1,6 @@
 """The port (``dgc_tpu_torch``) and ``chip_smoke.py`` import neither JAX
-nor anything of ``dgc_tpu``.
+nor anything of ``dgc_tpu``; the host modules the port copies verbatim
+are byte-equal to their originals.
 
 The import check runs in a subprocess: this test process already holds
 ``jax`` (``tests/conftest.py`` imports it).
@@ -72,3 +73,13 @@ def test_source_names_no_jax_or_dgc_tpu(path):
               and isinstance(node.args[0], ast.Constant)):
             named.add(str(node.args[0].value).split(".")[0])
     assert not named & FORBIDDEN, named & FORBIDDEN
+
+
+# the port's verbatim copies of dgc_tpu's JAX-free host modules
+VERBATIM = ("obs/events.py", "obs/schema.py", "obs/manifest.py",
+            "obs/instrument.py")
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copies_equal_their_originals(rel):
+    assert (PORT / rel).read_bytes() == (ROOT / "dgc_tpu" / rel).read_bytes()

@@ -1,5 +1,6 @@
 """Hub layouts shared by ``tests/test_torch_hub_engine.py``,
-``tests/test_torch_hub_layouts.py`` and ``tests/test_torch_hub_uniform.py``:
+``tests/test_torch_hub_layouts.py``, ``tests/test_torch_hub_uniform.py``
+and ``tests/test_torch_telemetry_hub*.py``:
 each graph and its knobs, the JAX engine's results (run once per module),
 the same calls on the port, and the checks the three files share.
 
@@ -158,3 +159,32 @@ def check_find(name: str, strict: bool) -> None:
     k0 = strict_k0(name) if strict else jax_calls(name)[0]
     assert find_rows(port_engine(name), k0, strict, jax=False) \
         == find_rows(jax_engine(name), k0, strict, jax=True)
+
+
+def check_telemetry(name: str, attempt: bool = False) -> list:
+    """The fused sweep at k0 (and, with ``attempt``, one attempt at the
+    JAX result's colors less one) with telemetry on: results and
+    trajectories equal JAX's; the port's results equal telemetry off.
+    Returns the port's trajectories."""
+    ref_e, ours_e = jax_engine(name), port_engine(name)
+    ref_e.record_trajectory = ours_e.record_trajectory = True
+    k0 = graph(name).max_degree + 1
+    ref, ours = list(ref_e.sweep(k0)), list(ours_e.sweep(k0))
+    assert ours_e.resumed_from_step is not None
+    if attempt:
+        used = ref[0].colors_used
+        ref.append(ref_e.attempt(used - 1))
+        ours.append(ours_e.attempt(used - 1))
+    plain = port_engine(name)
+    off = list(plain.sweep(k0)) + (
+        [plain.attempt(ref[0].colors_used - 1)] if attempt else [])
+    for r, o, f in zip(ref, ours, off):
+        assert row(o) == row(r) == row(f)
+        assert o.trajectory.to_dict() == r.trajectory.to_dict()
+        assert f.trajectory is None
+        t = o.trajectory
+        assert t.first_step + len(t) == o.supersteps
+        assert (t.max_unconf == t.max_unconf_bucket.max(axis=1)).all()
+        assert t.bucket_active.shape[1] == len(ours_e.init_bucket_active)
+        assert (t.bucket_active.sum(axis=1) == t.active).all()
+    return [o.trajectory for o in ours]
