@@ -36,7 +36,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on and off; K9 closing an attempt's span into a stack and K10
    starting the next. Every column is exact but the timestamp, which
    must be −1 where the plain version's is and a masked clock reading
-   where it is not.
+   where it is not. The serve tier's K16 (lane reset), K14 (lane
+   compaction), K13 (batched superstep) and K15 (lane finish) on seeded
+   random lanes: 1, 3 and 8 lanes of widths 8, 64 and 1,023 (1 to 32
+   planes), lanes in every phase, dead and reset lanes, random rungs and
+   slot lists, forced staged rungs, timing off and on; every buffer is
+   compared after every launch, the clock slots by the same rule.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -58,7 +63,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    knobs), sweeps with the card's clock and blocked runs at 4, and
    ``ell-bucketed`` and ``ell`` attempts: every result and trajectory
    equals the CPU's but for ``step_us``, which must be −1 first and
-   non-negative after; telemetry off gives the same results.
+   non-negative after; telemetry off gives the same results. The serve
+   tier's ``batched_sweep`` and ``batched_slice`` on a v8192w32 uniform
+   batch and a v2048w1023 RMAT batch, each with a forced 3-rung ladder:
+   the sweep, slices of 2 and a lane seated mid-ladder must equal the
+   same calls on the CPU in every carry slot, the slices the sweep, and
+   the seated lane its graph's own sweep.
 3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
@@ -110,6 +120,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``oracle`` and ``reference-sim`` run on the same graphs; and
    ``python -m dgc_tpu_torch`` with the RMAT flags on the card writes the
    coloring JSON its ``--device cpu`` run (a child process) wrote.
+   Then the serve tier: ``python -m dgc_tpu_torch serve``'s
+   ``serve_main`` on a stream of 44 requests (32 uniform 20k-vertex
+   graphs, class v32768w32; 8 uniform 100k-vertex native draws, class
+   v131072w32; 4 RMAT 20k-vertex graphs past the widest class, served
+   by the single-graph fallback on ``ell-compact``), continuous and sync
+   at ``--batch-max`` 8 and 32, and continuous at 32 with
+   ``--kernel-timing --log-json --run-manifest --metrics-prom``: every
+   request's status, colors, attempt tuples, ``batched`` and
+   ``shape_class`` must equal the single-graph ``find_minimal_coloring``
+   on the card (the sequential loop, timed beside), with no fallback
+   rung or retry and K13-K16 launched (zeroed just before each run, read
+   just after); then K13-K16 held against their plain versions and
+   profiled over one 32-lane sweep of the serving class.
 4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
    degree 16) from k = 465, about 450 attempts, and its jump sweep,
    blocked on the card at 2 and 4 a block against the CPU sequential
@@ -127,6 +150,7 @@ of ``dgc_tpu``.
 from __future__ import annotations
 
 import argparse
+import filecmp
 import hashlib
 import json
 import subprocess
@@ -2000,31 +2024,51 @@ _KERNEL_NAMES = {"compact_slots": "compact_slots_kernel",
                  "dense_resolve": "dense_resolve_kernel"}
 
 
-def _profiled(fn, launches: dict, min_share: float = 1.0) -> dict:
-    """``fn()`` under ``torch.profiler``: per kernel of ``_KERNEL_NAMES``
-    the device time summed over its launches and their count. The profile
-    is taken again (five times at most: a long window now and then drops
-    a few launch records) until it holds ``launches`` of each (at least
-    ``min_share`` of them, where a caller takes the mean over the records
-    the profiler kept)."""
+# a profiler window sometimes drops its first kernel records (up to ~25
+# in the serve windows): each window opens with this many fill launches
+# on a scratch tensor, which the readings then leave out
+PROFILE_PAD = 64
+
+
+def _profiled(fn, launches: dict, min_share: float = 1.0, names=None,
+              prepare=None) -> dict:
+    """``fn()`` under ``torch.profiler``: per kernel of ``names`` (name:
+    a substring of its device events' names; default ``_KERNEL_NAMES``)
+    the device time summed over its launches, their count and each
+    launch's time in order (ms). The window opens with ``PROFILE_PAD``
+    fills, left out of every reading; a name "" sums every other device
+    event. The profile is taken again (five times at most: a long window
+    now and then drops a few launch records) until it holds ``launches``
+    of each (at least ``min_share`` of them, where a caller takes the
+    mean over the records the profiler kept). ``prepare()``, where
+    given, runs before each window, outside it, and its result is
+    ``fn``'s argument."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = _KERNEL_NAMES if names is None else names
+    pad = torch.empty(1, device="cuda")
     for _ in range(6):
+        arg = () if prepare is None else (prepare(),)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(PROFILE_PAD):
+                pad.fill_(0)
+            fn(*arg)
             torch.cuda.synchronize()
         device = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "FillFunctor" not in e.name]
         sums = {}
-        for name, kname in _KERNEL_NAMES.items():
-            ev = [e for e in device if kname in e.name]
-            sums[name] = (sum(e.time_range.elapsed_us() for e in ev) / 1e3,
-                          len(ev))
+        for name, kname in names.items():
+            ev = sorted((e for e in device if kname in e.name),
+                        key=lambda e: e.time_range.start)
+            each = [e.time_range.elapsed_us() / 1e3 for e in ev]
+            sums[name] = (sum(each), len(ev), each)
         if all(min_share * c <= sums[n][1] <= c for n, c in launches.items()):
             return sums
-    raise SmokeFailure(f"the profiled sweep showed {sums}, the held one "
+    raise SmokeFailure(f"the profiled run showed "
+                       f"{ {n: sums[n][:2] for n in sums} }, the held one "
                        f"launched {launches}")
 
 
@@ -2091,12 +2135,12 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
            "sweep_bound_ms": sum(sweep_bytes.values()) / HBM_BYTES_PER_S * 1e3,
            "attempt_bound_ms":
                sum(attempt_bytes.values()) / HBM_BYTES_PER_S * 1e3,
-           "sweep_device_ms_by_kernel": {n: t for n, (t, _) in prof.items()},
+           "sweep_device_ms_by_kernel": {n: t for n, (t, *_) in prof.items()},
            "plain_ms_by_kernel": {n: held.plain_s[n] * 1e3 / held.calls[n]
                                   for n in held.real if held.calls[n]},
            # per launch over the same sweep, telemetry off and on
-           "per_launch_ms": {n: t / c for n, (t, c) in prof.items() if c},
-           "per_launch_rec_ms": {n: t / c for n, (t, c) in prof_rec.items()
+           "per_launch_ms": {n: t / c for n, (t, c, _) in prof.items() if c},
+           "per_launch_rec_ms": {n: t / c for n, (t, c, _) in prof_rec.items()
                                  if c},
            "plain_rec_ms_by_kernel": {
                n: held_rec.plain_s[n] * 1e3 / held_rec.calls[n]
@@ -2106,7 +2150,7 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
            "max_abs_err_rec": held_rec.err}
     if engine.hub_buckets:
         for name, key in (("hub_slots", "k7"), ("hub_superstep", "k8")):
-            t, n = prof[name]
+            t, n, _each = prof[name]
             out.update({f"{key}_ms": t / n, f"{key}_plain_ms":
                         held.plain_s[name] * 1e3 / n,
                         f"{key}_bound_ms": sweep_bytes[name] / n
@@ -3036,6 +3080,941 @@ def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
     return records
 
 
+# ---- the serve tier (B12): K13-K16 ------------------------------------------
+
+# (lanes, width, rows) of the random serve cases: 1 to 32 planes
+SERVE_KERNEL_CASES = ((1, 8, 3000), (3, 64, 1200), (8, 1023, 300),
+                      (3, 8, 3000), (8, 64, 1200), (1, 1023, 300))
+SERVE_ROUNDS = 8
+
+
+def _serve_ladder(v: int) -> tuple:
+    """A 3-rung ladder valid for ``v`` rows (pads pow2(v/2), pow2(v/8))."""
+    return ((None, v // 2), (v // 2, v // 8), (v // 8, 0))
+
+
+def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device):
+    """Seeded random lanes: inputs and a carry with lanes in every phase,
+    dead ones, random rungs and slot lists (forced staged rungs with
+    ``staged``), budgets and ``max_steps`` that end attempts; the reset
+    flags raised at random. Returns (Lanes for the kernels, Lanes for the
+    plain versions) with equal contents."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.ops.bitmask import num_planes_for
+    from dgc_tpu_torch.serve.batched import resolve_stages
+
+    stages, _pads, a0 = resolve_stages(_serve_ladder(v), v)
+    n = len(stages)
+    comb = _combined(rng, (b, v, w), v, sentinel_rate=0.3)
+    degrees = rng.integers(0, w + 1, size=(b, v))
+    degrees[rng.random((b, v)) < 0.2] = 0
+    k = rng.integers(1, w + 2, size=b)
+    step = rng.integers(1, 40, size=b)
+    max_steps = rng.integers(2, 2 * v + 4, size=b)
+    clamp = rng.random(b) < 0.25
+    max_steps[clamp] = step[clamp] + 1 + rng.integers(0, 3, size=int(clamp.sum()))
+    idx = np.full((b, a0), v)
+    for lane in range(b):
+        m = int(rng.integers(0, min(a0, v) + 1))
+        idx[lane, :m] = np.sort(rng.choice(v, size=m, replace=False))
+    colors = min(w + 4, 32 * num_planes_for(w + 1))
+    words = lambda: np.stack([_packed_words(rng, v, colors, 0.4)
+                              for _ in range(b)])
+    carry = [rng.choice([0, 1, 2, 3], size=b, p=[0.4, 0.3, 0.2, 0.1]), k,
+             words(), step, rng.integers(0, v + 2, size=b),
+             rng.integers(0, 70, size=b), words(),
+             rng.integers(0, 50, size=b), rng.integers(0, 4, size=b),
+             rng.integers(0, w + 2, size=b), words(),
+             rng.integers(0, 50, size=b), rng.integers(0, 4, size=b),
+             rng.integers(0, 10_000, size=b),
+             np.where(rng.random(b) < 0.5, 0, rng.integers(1, 1 << 30, size=b)),
+             rng.integers(1 if staged else 0, n, size=b),
+             rng.integers(0, v + 1, size=b), rng.integers(0, n, size=b), idx,
+             (rng.random(b) < 0.15).astype(np.int64)]
+    reset = (rng.random(b) < 0.3).astype(np.int64)
+
+    def lanes():
+        t = lambda x: torch.tensor(np.asarray(x, np.int32), device=device)
+        return ks.new_lanes([t(c) for c in carry], t(comb), t(degrees), t(k),
+                            t(max_steps), t(reset),
+                            ks.ladder_ctrl(stages, device),
+                            planes=num_planes_for(w + 1), stall_window=64,
+                            budget=SERVE_ROUNDS)
+    return lanes(), lanes()
+
+
+def _serve_diff(kern, plain, clock: tuple, before) -> int:
+    """Max abs difference of every buffer of two Lanes; the carry slots in
+    ``clock`` (those the step's clock reading feeds: T_PREV in K16, T_US
+    and T_PREV in K15 under timing) by rule: equal where the plain
+    version's did not move (from ``before``), else the kernel's moved too,
+    T_PREV to one masked reading for all lanes, T_US forward. Then the
+    plain Lanes adopt the kernel's clock slots, so the next step compares
+    like with like."""
+    from dgc_tpu_torch.layout import CARRY_LEN, T_PREV, T_US, US_MASK
+
+    worst = 0
+    for j in range(CARRY_LEN):
+        if j in clock:
+            continue
+        worst = max(worst, _diff(kern.carry[j], plain.carry[j]))
+    for name in ("nxt", "scratch", "ctrl"):
+        worst = max(worst, _diff(getattr(kern, name), getattr(plain, name)))
+    for j in clock:
+        k_, p_, b_ = kern.carry[j], plain.carry[j], before[j]
+        moved = p_ != b_
+        check(torch.equal(moved, k_ != b_) and torch.equal(
+            k_[~moved], p_[~moved]), f"clock slot {j}: kernel {k_.tolist()}, "
+            f"plain {p_.tolist()}, before {b_.tolist()}")
+        if j == T_PREV and bool(moved.any()):
+            seen = k_[moved].unique()
+            check(len(seen) == 1 and 0 <= int(seen[0]) <= US_MASK,
+                  f"T_PREV readings {seen.tolist()}")
+        if j == T_US:
+            check(bool((k_[moved] >= b_[moved]).all()), "T_US went back")
+        plain.carry[j].copy_(k_)
+    return worst
+
+
+def phase_serve_kernels(device) -> int:
+    """K13-K16 against their plain versions on the card, on seeded random
+    lanes (``_serve_lanes``): K16 on the random reset flags, then
+    ``SERVE_ROUNDS`` rounds of K14, K13 and K15, every buffer compared
+    after every launch, timing off and on. Returns the max abs error."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import T_PREV, T_US
+
+    worst = 0
+    rexecs, compacted = set(), 0
+    rng = np.random.default_rng(41)
+    steps = ((ks.lane_compact, ks.lane_compact_reference, False),
+             (ks.lane_superstep, ks.lane_superstep_reference, False),
+             (ks.lane_finish, ks.lane_finish_reference, True))
+    for b, w, v in SERVE_KERNEL_CASES:
+        for staged in (False, True):
+            for timing in (False, True):
+                kern, plain = _serve_lanes(rng, b, w, v, staged, device)
+                before = [c.clone() for c in plain.carry]
+                ks.lane_reset(kern, timing)
+                ks.lane_reset_reference(plain, timing)
+                worst = max(worst, _serve_diff(
+                    kern, plain, (T_PREV,) if timing else (), before))
+                for _ in range(SERVE_ROUNDS):
+                    rexecs.add(int(plain.ctrl[ks.CTRL_REXEC]))
+                    for launch, reference, timed in steps:
+                        before = [c.clone() for c in plain.carry]
+                        idx_before = plain.carry[18].clone()
+                        args = (timing,) if timed else ()
+                        launch(kern, *args)
+                        reference(plain, *args)
+                        if launch is ks.lane_compact and not torch.equal(
+                                idx_before, plain.carry[18]):
+                            compacted += 1
+                        worst = max(worst, _serve_diff(
+                            kern, plain, (T_US, T_PREV) if timing
+                            and launch is ks.lane_finish else (), before))
+                torch.cuda.synchronize()
+    check(worst == 0, f"serve kernels differ from their plain versions by "
+          f"{worst}")
+    check({0, 1, 2} <= rexecs and compacted > 0,
+          f"the serve cases ran rungs {sorted(rexecs)}, {compacted} rebuilds")
+    return worst
+
+
+def _serve_batches():
+    """The phase-2 classes: a v8192w32 uniform batch with a forced 3-rung
+    ladder and a v2048w1023 RMAT batch with one, each with a dummy lane,
+    and a graph to seat mid-ladder."""
+    from dgc_tpu_torch.models.generators import (generate_random_graph_fast,
+                                                 generate_rmat_graph)
+    from dgc_tpu_torch.serve.shape_classes import (ShapeClass, dummy_member,
+                                                   pad_member)
+
+    out = []
+    for name, cls, graphs, new in (
+            ("v8192w32 uniform", ShapeClass(8192, 32),
+             [generate_random_graph_fast(n, avg_degree=16, seed=s,
+                                         max_degree=32)
+              for n, s in ((8000, 1), (6500, 2), (7900, 3))],
+             generate_random_graph_fast(7000, avg_degree=12, seed=4,
+                                        max_degree=32)),
+            ("v2048w1023 rmat", ShapeClass(2048, 1023),
+             [generate_rmat_graph(2000, avg_degree=16, seed=s)
+              for s in (1, 2)],
+             generate_rmat_graph(1800, avg_degree=12, seed=3))):
+        members = [pad_member(g, cls) for g in graphs] + [dummy_member(cls)]
+        inputs = (np.stack([m.comb for m in members]),
+                  np.stack([m.degrees for m in members]),
+                  np.array([m.k0 for m in members], np.int32),
+                  np.array([m.max_steps for m in members], np.int32))
+        out.append((name, cls, inputs, pad_member(new, cls),
+                    _serve_ladder(cls.v_pad)))
+    return out
+
+
+def _serve_runs(device, cls, inputs, new_m, stages) -> dict:
+    """On ``device``: the unsliced sweep, the sweep in slices of 2, and a
+    run that seats ``new_m`` in lane 0 once it left rung 0 (slices of 1,
+    then of 2); host copies of every carry slot."""
+    from dgc_tpu_torch.layout import CARRY_PHASE, CARRY_RUNG
+    from dgc_tpu_torch.serve.batched import (batched_slice, batched_sweep,
+                                             idle_carry, stage_idx_width,
+                                             to_host)
+
+    b = inputs[1].shape[0]
+
+    def run(inputs, carry, reset, steps, until):
+        for _ in range(5000):
+            carry = batched_slice(*inputs, reset, carry, planes=cls.planes,
+                                  slice_steps=steps, stages=stages,
+                                  device=device)
+            reset = np.zeros(b, np.int32)
+            if until(carry):
+                return carry
+        raise SmokeFailure("a serve slice loop did not converge")
+
+    done = lambda c: bool((to_host(c[CARRY_PHASE]) >= 2).all())
+    sweep = [to_host(o) for o in batched_sweep(*inputs, planes=cls.planes,
+                                               stages=stages, device=device)]
+    idle = idle_carry(b, cls.v_pad, stage_idx_width(stages))
+    sliced = run(inputs, idle, np.ones(b, np.int32), 2, done)
+    climbed = run(inputs, idle, np.ones(b, np.int32), 1,
+                  lambda c: int(to_host(c[CARRY_RUNG])[0]) > 0)
+    swapped = tuple(np.array(x) for x in inputs)
+    swapped[0][0], swapped[1][0] = new_m.comb, new_m.degrees
+    swapped[2][0], swapped[3][0] = new_m.k0, new_m.max_steps
+    reset = np.zeros(b, np.int32)
+    reset[0] = 1
+    seated = run(swapped, climbed, reset, 2, done)
+    new = [to_host(o) for o in batched_sweep(
+        new_m.comb[None], new_m.degrees[None], np.array([new_m.k0], np.int32),
+        np.array([new_m.max_steps], np.int32), planes=cls.planes,
+        stages=stages, device=device)]
+    return {"sweep": sweep, "sliced": [to_host(c) for c in sliced],
+            "seated": [to_host(c) for c in seated], "new": new}
+
+
+def phase_serve_engines(device) -> list[dict]:
+    """The port's ``batched_sweep`` / ``batched_slice`` on the card
+    against the same calls with ``device="cpu"``: every carry slot
+    byte-equal (the sweep, slices of 2, a lane seated mid-ladder), the
+    sliced sweep equal to the unsliced one, the seated lane equal to its
+    graph's own sweep and its co-residents to theirs."""
+    from dgc_tpu_torch.layout import N_OUT, OUT0
+
+    rows = []
+    for name, cls, inputs, new_m, stages in _serve_batches():
+        t = time.perf_counter()
+        card = _serve_runs(device, cls, inputs, new_m, stages)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = _serve_runs("cpu", cls, inputs, new_m, stages)
+        cpu_s = time.perf_counter() - t
+        for key in card:
+            for j, (a, c) in enumerate(zip(card[key], cpu[key])):
+                check(np.array_equal(a, c), f"{name}: {key} slot {j} differs "
+                      f"between the card and the CPU")
+        for j in range(N_OUT):
+            check(np.array_equal(card["sliced"][OUT0 + j], card["sweep"][j]),
+                  f"{name}: slices of 2 differ from the sweep in slot {j}")
+            check(np.array_equal(card["seated"][OUT0 + j][0],
+                                 card["new"][j][0]),
+                  f"{name}: the lane seated mid-ladder differs in slot {j}")
+            check(np.array_equal(card["seated"][OUT0 + j][1:],
+                                 card["sweep"][j][1:]),
+                  f"{name}: a co-resident lane differs in slot {j}")
+        rows.append({"case": name, "lanes": int(inputs[1].shape[0]),
+                     "supersteps": card["sweep"][1].tolist(),
+                     "confirm_supersteps": card["sweep"][5].tolist(),
+                     "card_s": card_s, "cpu_s": cpu_s})
+    return rows
+
+
+# ---- the serve tier's main path: a request stream through serve_main ---------
+
+# the serving class of dgc_tpu's bench.py --serve-throughput (20k-vertex
+# uniform graphs), the staged ladder's deeper rungs (100k vertices, native
+# draws) and RMAT graphs past the widest class (the single-graph fallback)
+SERVE_STREAM = (
+    [{"id": f"u{s}", "node_count": 20000, "max_degree": 32, "seed": s}
+     for s in range(32)]
+    + [{"id": f"w{s}", "node_count": 100000, "max_degree": 32, "seed": s}
+       for s in range(100, 108)]
+    + [{"id": f"r{s}", "node_count": 20000, "max_degree": 32, "seed": s,
+        "gen_method": "rmat"} for s in range(200, 204)])
+SERVE_RUNS = (  # (name, flags, the telemetry files)
+    ("continuous, batch 8", ["--batch-max", "8"], False),
+    ("sync, batch 8", ["--batch-max", "8", "--serve-mode", "sync"], False),
+    ("continuous, batch 32", ["--batch-max", "32"], False),
+    ("sync, batch 32", ["--batch-max", "32", "--serve-mode", "sync"], False),
+    ("continuous, batch 32, timing", ["--batch-max", "32", "--kernel-timing"],
+     True),
+)
+
+
+class _ServeProbe:
+    """One ``serve_main`` run, instrumented: the front end it builds,
+    each request's attempt tuples, and the copies home from the card
+    (``carry_home``: one host sync each)."""
+
+    def __enter__(self):
+        from dgc_tpu_torch.serve import engine as se
+        from dgc_tpu_torch.serve import queue as sq
+
+        self.fronts, self.attempts, self.homes = [], {}, 0
+        self._saved = (sq.ServeFrontEnd.start, sq.ServeFrontEnd._serve_one,
+                       se.carry_home)
+        start, serve_one, home = self._saved
+        probe = self
+
+        def start_(front):
+            probe.fronts.append(front)
+            return start(front)
+
+        def serve_one_(front, req):
+            res = serve_one(front, req)
+            probe.attempts[str(req.request_id)] = list(res.attempts)
+            return res
+
+        def home_(slots):
+            if isinstance(slots[0], torch.Tensor) and slots[0].is_cuda:
+                probe.homes += 1
+            return home(slots)
+
+        sq.ServeFrontEnd.start = start_
+        sq.ServeFrontEnd._serve_one = serve_one_
+        se.carry_home = home_
+        return self
+
+    def __exit__(self, *exc):
+        from dgc_tpu_torch.serve import engine as se
+        from dgc_tpu_torch.serve import queue as sq
+
+        (sq.ServeFrontEnd.start, sq.ServeFrontEnd._serve_one,
+         se.carry_home) = self._saved
+
+
+def _serve_reference(out_dir: Path, device: str) -> dict:
+    """The stream's graphs, drawn as ``serve_main`` draws them, and the
+    sequential single-graph loop over them (``dgc_tpu``'s bench.py
+    baseline): ``find_minimal_coloring(CompactFrontierEngine(g))`` on the
+    card with validation and the post-pass, each coloring saved in the
+    coloring schema."""
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_reducer, make_validator)
+    from dgc_tpu_torch.serve.cli import _load_request_graph
+
+    ref_dir = out_dir / "serve_reference"
+    ref_dir.mkdir()
+    t = time.perf_counter()
+    graphs = {doc["id"]: _load_request_graph(doc) for doc in SERVE_STREAM}
+    gen_s = time.perf_counter() - t
+    results = {}
+    t = time.perf_counter()
+    for rid, g in graphs.items():
+        attempts = []
+        res = find_minimal_coloring(
+            CompactFrontierEngine(g.arrays, device=device),
+            initial_k=g.max_degree + 1, validate=make_validator(g.arrays),
+            on_attempt=lambda r, v, a=attempts: a.append(
+                (int(r.k), r.status.name, int(r.supersteps))),
+            post_reduce=make_reducer(g.arrays))
+        check(res.colors is not None, f"{rid}: no single-graph coloring")
+        path = ref_dir / f"{rid}.json"
+        g.save_coloring(path, res.colors)
+        results[rid] = {"minimal_colors": res.minimal_colors,
+                        "attempts": attempts, "coloring": path,
+                        "colors": res.colors}
+    torch.cuda.synchronize()
+    return {"graphs": graphs, "results": results, "gen_s": gen_s,
+            "sequential_s": time.perf_counter() - t}
+
+
+def _serve_events(path: Path) -> list:
+    from dgc_tpu_torch.obs.schema import validate_record
+
+    records = [json.loads(x) for x in path.read_text().splitlines()]
+    for r in records:
+        problems = validate_record(r)
+        check(not problems, f"serve event {r} fails the schema: {problems}")
+    return records
+
+
+def _recycled_ids(events: list) -> list:
+    """The request id of each ``lane_recycled`` event, in order: the
+    trace id (``req-<id>``) of the lane span that ends with it."""
+    ids = []
+    for e in events:
+        if e["event"] == "span" and e["name"] == "lane" and e["ph"] == "E":
+            ids.append(e["trace"][len("req-"):])
+    return ids
+
+
+def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
+    """``serve_main`` (``python -m dgc_tpu_torch serve``) on the 44-request
+    stream, five ways: every request's status, minimal colors,
+    ``batched``, ``shape_class``, coloring bytes and attempt tuples equal
+    to the single-graph loop's on the card (so equal across the runs); no
+    fallback or retry; health not degraded; K13-K16 launched (counts
+    zeroed just before each run, read just after); the RMAT requests
+    unbatched on ``ell-compact``. Then ``measure_serve``."""
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.kernels import superstep as kss
+    from dgc_tpu_torch.serve.batched import _DISPATCH_OVERHEAD_S, _ENTRIES_PER_S
+    from dgc_tpu_torch.serve.cli import serve_main
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER
+
+    req = out_dir / "serve_requests.jsonl"
+    req.write_text("".join(json.dumps(d) + "\n" for d in SERVE_STREAM))
+    ref = _serve_reference(out_dir, device)
+    classes = {rid: DEFAULT_LADDER.class_for(g.num_vertices, g.max_degree)
+               for rid, g in ref["graphs"].items()}
+    check(all((classes[rid] is None) == rid.startswith("r") for rid in
+              classes), f"the stream's classes: "
+          f"{ {r: c and c.name for r, c in classes.items()} }")
+    n = len(SERVE_STREAM)
+    emit({"phase": "serve_reference", "requests": n,
+          "classes": sorted({c.name for c in classes.values() if c}),
+          "rmat_max_degree": [g.max_degree for rid, g in ref["graphs"].items()
+                              if classes[rid] is None],
+          "gen_s": ref["gen_s"], "sequential_s": ref["sequential_s"],
+          "sequential_graphs_per_s": n / ref["sequential_s"],
+          "sequential_with_gen_graphs_per_s":
+              n / (ref["sequential_s"] + ref["gen_s"]), "card": card})
+    runs = {}
+    for i, (name, flags, telemetry) in enumerate(SERVE_RUNS):
+        d = out_dir / f"serve_run{i}"
+        d.mkdir()
+        files = (["--log-json", str(d / "run.jsonl"), "--run-manifest",
+                  str(d / "manifest.json"), "--metrics-prom",
+                  str(d / "metrics.prom")] if telemetry else [])
+        argv = ["--requests", str(req), "--results", str(d / "results.jsonl"),
+                "--output-colorings", str(d / "colorings"), "--device", device,
+                *flags, *files]
+        for m in (ks, kc, kh, kss):
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        with _ServeProbe() as probe:
+            t = time.perf_counter()
+            rc = serve_main(argv)
+            wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = dict(ks.launch_counts)
+        timing_launches = dict(ks.timing_launch_counts)
+        fallback_launches = {**kc.launch_counts, **kh.launch_counts,
+                             **kss.launch_counts}
+        check(rc == 0, f"serve {name}: rc {rc}")
+        front = probe.fronts[0]
+        sst, st = front.scheduler.stats_snapshot(), front.stats_snapshot()
+        results = {str(r["id"]): r for r in (json.loads(x) for x in (
+            d / "results.jsonl").read_text().splitlines())}
+        check(sorted(results) == sorted(classes), f"serve {name}: results "
+              f"for {sorted(results)}")
+        for rid, r in results.items():
+            want, cls = ref["results"][rid], classes[rid]
+            check(r["status"] == "ok" and r["minimal_colors"] ==
+                  want["minimal_colors"], f"serve {name} {rid}: {r} vs "
+                  f"{want['minimal_colors']}")
+            check(r["batched"] == (cls is not None) and r["shape_class"] ==
+                  (cls.name if cls else None), f"serve {name} {rid}: {r}")
+            check(filecmp.cmp(r["coloring"], want["coloring"], shallow=False),
+                  f"serve {name} {rid}: the coloring differs from the "
+                  f"single-graph run's")
+            check(probe.attempts[rid] == want["attempts"],
+                  f"serve {name} {rid}: attempts {probe.attempts[rid]} vs "
+                  f"{want['attempts']}")
+        health = front.health()
+        metrics = front.registry.to_dict()
+        unbatched = sum(c_ is None for c_ in classes.values())
+        check(not health["degraded"] and st["fallbacks"] == unbatched,
+              f"serve {name}: health {health}, {st['fallbacks']} fallbacks")
+        check(not any(k.startswith(("dgc_fallbacks_total",
+                                    "dgc_retries_total")) for k in metrics),
+              f"serve {name}: a fallback or retry fired")
+        check(all(v > 0 for v in launches.values()),
+              f"serve {name}: a serve kernel never launched: {launches}")
+        check(all(v > 0 for k, v in fallback_launches.items()
+                  if k in kc.launch_counts), f"serve {name}: the fallback "
+              f"did not run ell-compact on the card: {fallback_launches}")
+        check(bool(timing_launches["lane_finish"]) == ("--kernel-timing" in
+                                                       flags),
+              f"serve {name}: timing launches {timing_launches}")
+        slices = sst["slices"]
+        rec = {"phase": "serve_main", "run": name, "argv": flags,
+               "wall_s": wall, "graphs_per_s": n / wall,
+               "sequential_graphs_per_s": n / ref["sequential_s"],
+               "slices": slices, "batches": sst["batches"],
+               "recycles": sst["recycles"], "max_live": sst["max_live"],
+               "launches": launches, "timing_launches": timing_launches,
+               "fallback_launches": fallback_launches,
+               "launches_per_slice": ({k: v / slices for k, v in
+                                       launches.items()} if slices else None),
+               "host_syncs": probe.homes,
+               "host_syncs_per_slice": probe.homes / slices if slices else None,
+               "h2d_mb": sst["h2d_bytes"] / 1e6,
+               "d2h_mb": sst["d2h_bytes"] / 1e6,
+               "compile_hits": sst["compile_hits"],
+               "compile_misses": sst["compile_misses"],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()
+               - base_bytes, "card": card}
+        if telemetry:
+            events = _serve_events(d / "run.jsonl")
+            kinds = {e["event"] for e in events}
+            check({"serve_start", "serve_slice", "lane_recycled",
+                   "serve_request", "serve_summary"} <= kinds
+                  and not kinds & {"fallback", "retry"},
+                  f"serve {name}: events {sorted(kinds)}")
+            manifest = json.loads((d / "manifest.json").read_text())
+            check(manifest["serve"]["summary"]["completed"] == n,
+                  f"serve {name}: the manifest's serve summary")
+            check("dgc_serve_slices_total" in (d / "metrics.prom").read_text(),
+                  f"serve {name}: the metrics file")
+            timed = [e for e in events if e["event"] == "serve_slice"
+                     and "sstep_ms" in e]
+            recycled = [e for e in events if e["event"] == "lane_recycled"]
+            check(bool(timed) and bool(recycled)
+                  and all("device_us" in e for e in recycled),
+                  f"serve {name}: the slices carry no timing")
+            # a lane's in-kernel µs over the supersteps of its pair (the
+            # sweep call it served: the request's first two attempts)
+            steps = {rid: sum(a[2] for a in att[:2])
+                     for rid, att in probe.attempts.items()}
+            per_step = [e["device_us"] / steps[r] for e, r in zip(
+                recycled, _recycled_ids(events)) if steps.get(r)]
+            rec["slice_overhead_ms_median"] = float(np.median(
+                [e["overhead_ms"] for e in timed]))
+            rec["slice_sstep_ms_median"] = float(np.median(
+                [e["sstep_ms"] for e in timed]))
+            rec["timed_slices"] = len(timed)
+            rec["lane_device_us_median"] = float(np.median(
+                [e["device_us"] for e in recycled]))
+            rec["superstep_us_median"] = (float(np.median(per_step))
+                                          if per_step else None)
+            rec["recals"] = [e for e in events
+                             if e["event"] == "slice_recalibrated"]
+            rec["auto_slice_steps_gpu"] = {
+                "dispatch_overhead_ms": _DISPATCH_OVERHEAD_S["gpu"] * 1e3,
+                "entries_per_s": _ENTRIES_PER_S["gpu"]}
+        emit(rec)
+        runs[name] = rec
+    fronts = _serve_front_runs(card, ref, classes, device)
+    meas = measure_serve(card, [g for rid, g in ref["graphs"].items()
+                                if rid.startswith("u")], device)
+    return {"runs": runs, "fronts": fronts, "measure": meas}
+
+
+# bench.py's serve-throughput measurement (dgc_tpu's bench.py:184-240):
+# the graphs drawn once, then all submitted at once to a front end
+SERVE_FRONT_RUNS = (("continuous", 8), ("sync", 8), ("continuous", 32),
+                    ("sync", 32))
+
+
+def _serve_front_runs(card: str, ref: dict, classes: dict,
+                      device: str) -> dict:
+    """The stream's graphs, drawn once (``_serve_reference``), submitted
+    at once to a ``ServeFrontEnd`` of ``workers = batch_max`` (as
+    bench.py), in each of ``SERVE_FRONT_RUNS``: every result equal to the
+    single-graph loop's (colors, attempts, ``batched``, ``shape_class``);
+    graphs/s beside the sequential loop's over the same graphs, lanes
+    live at once, slices, launches and host syncs a slice, bytes moved."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.queue import ServeFrontEnd
+
+    n = len(ref["graphs"])
+    out = {}
+    for mode, b in SERVE_FRONT_RUNS:
+        ks.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        with _ServeProbe() as probe:
+            front = ServeFrontEnd(batch_max=b, workers=b, mode=mode,
+                                  queue_depth=max(64, 2 * n),
+                                  device=device).start()
+            t = time.perf_counter()
+            tickets = [front.submit(g.arrays, request_id=rid)
+                       for rid, g in ref["graphs"].items()]
+            results = {str(x.request.request_id): x.result(timeout=900)
+                       for x in tickets}
+            wall = time.perf_counter() - t
+            front.shutdown()
+        torch.cuda.synchronize()
+        name = f"front end, {mode}, batch {b}"
+        for rid, res in results.items():
+            want, cls = ref["results"][rid], classes[rid]
+            check(res.ok and res.minimal_colors == want["minimal_colors"]
+                  and list(res.attempts) == want["attempts"]
+                  and np.array_equal(res.colors, want["colors"])
+                  and res.batched == (cls is not None)
+                  and res.shape_class == (cls.name if cls else None),
+                  f"{name} {rid}: {res.status} {res.minimal_colors} "
+                  f"{res.attempts} vs {want['minimal_colors']} "
+                  f"{want['attempts']}")
+        check(not front.health()["degraded"], f"{name}: degraded")
+        launches = dict(ks.launch_counts)
+        check(all(v > 0 for v in launches.values()),
+              f"{name}: a serve kernel never launched: {launches}")
+        sst = front.scheduler.stats_snapshot()
+        slices = sst["slices"]
+        rec = {"phase": "serve_front", "run": name, "wall_s": wall,
+               "graphs_per_s": n / wall,
+               "sequential_graphs_per_s": n / ref["sequential_s"],
+               "speedup": ref["sequential_s"] / wall,
+               "slices": slices, "batches": sst["batches"],
+               "max_live": sst["max_live"], "recycles": sst["recycles"],
+               "launches": launches,
+               "launches_per_slice": ({k: v / slices for k, v in
+                                       launches.items()} if slices else None),
+               "host_syncs": probe.homes,
+               "host_syncs_per_slice": probe.homes / slices if slices else None,
+               "h2d_mb": sst["h2d_bytes"] / 1e6,
+               "d2h_mb": sst["d2h_bytes"] / 1e6,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()
+               - base_bytes, "card": card}
+        emit(rec)
+        out[name] = rec
+    return out
+
+
+def _serve_lanes_of(inputs, cls, stages, device, budget: int):
+    """Lanes for a fresh sweep of ``inputs`` (every lane flagged)."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_IDX, CARRY_LEN, CARRY_P1, CARRY_P2
+    from dgc_tpu_torch.serve.batched import _ladder_ctrl, resolve_stages
+
+    b, v = inputs[1].shape
+    _st, _pads, a0 = resolve_stages(stages, v)
+    carry = [torch.empty((b, a0) if j == CARRY_IDX else
+                         (b, v) if j in (2, CARRY_P1, CARRY_P2) else (b,),
+                         dtype=torch.int32, device=device)
+             for j in range(CARRY_LEN)]
+    t = lambda x: x.to(device).clone()
+    return ks.new_lanes(carry, t(inputs[0]), t(inputs[1]), t(inputs[2]),
+                        t(inputs[3]), torch.ones(b, dtype=torch.int32,
+                                                 device=device),
+                        _ladder_ctrl(resolve_stages(stages, v)[0], device),
+                        planes=cls.planes, stall_window=64, budget=budget)
+
+
+def _serve_bytes(L, kind: str, before: dict) -> int:
+    """The bytes one launch must move (each input read once, each output
+    written once), from the lanes' state before it (``before``: host
+    copies of ctrl, phase, reset, idx, idx_rung, degrees) and after it."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.batched import to_host
+
+    b, v, a0 = L.b, L.v, L.a0
+    ctrl, phase = before["ctrl"], before["phase"]
+    live = phase < 2
+    pad = ctrl[ks.CTRL_PAD0 + ctrl[ks.CTRL_REXEC]]
+    scalars = 4 * 20 * b
+    if kind == "lane_reset":
+        # _fresh_lanes: a flagged lane's degrees read, its packed, p1, p2
+        # and slot list written; the others' scalars only
+        return int((before["reset"] != 0).sum()) * (4 * v + a0) * 4 + scalars
+    if kind == "lane_compact":
+        need = live & (before["idx_rung"] < ctrl[ks.CTRL_REXEC]) & (pad > 0)
+        return int(need.sum()) * (v + a0) * 4 + 4 * b
+    rows = []  # each live lane's evaluated rows
+    for lane in np.flatnonzero(live):
+        if pad == 0:
+            rows.append(np.arange(v))
+        else:
+            sl = before["idx"][lane, :pad]
+            rows.append(sl[sl < v])
+    if kind == "lane_superstep":
+        deg = before["degrees"]
+        return sum((int(deg[lane, r].sum()) + len(r) + v + (pad or 0)) * 4
+                   for lane, r in zip(np.flatnonzero(live), rows)) + scalars
+    # lane_finish: a lane that ended its attempt (step back to 1) writes
+    # its result row and re-inits both buffers
+    fin = live & (to_host(L.carry[3]) == 1)
+    total = scalars
+    for lane, r in zip(np.flatnonzero(live), rows):
+        total += (5 * v if fin[lane] else
+                  2 * v if pad == 0 else (pad + 2 * len(r))) * 4
+    return total
+
+
+_SERVE_KERNELS = ("lane_reset", "lane_compact", "lane_superstep",
+                  "lane_finish")
+_SERVE_NAMES = {name: f"{name}_kernel" for name in _SERVE_KERNELS}
+
+
+def _serve_state(L) -> dict:
+    from dgc_tpu_torch.serve.batched import to_host
+
+    return {"ctrl": L.ctrl.tolist(), "phase": to_host(L.carry[0]).copy(),
+            "reset": to_host(L.reset).copy(),
+            "idx": to_host(L.carry[18]).copy(),
+            "idx_rung": to_host(L.carry[17]).copy(),
+            "degrees": to_host(L.degrees).copy()}
+
+
+def _serve_sweep(L, staged: bool, timing: bool) -> None:
+    """K16, then rounds of K14?/K13/K15 until no lane runs (one read of
+    the live word a round: no launch after the last live superstep)."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    ks.lane_reset(L, timing)
+    while int(L.ctrl[ks.CTRL_LIVE]):
+        if staged:
+            ks.lane_compact(L)
+        ks.lane_superstep(L)
+        ks.lane_finish(L, timing)
+
+
+def _held_serve_sweep(inputs, cls, stages, device, timing: bool) -> dict:
+    """One sweep of ``inputs`` with every launch held against its plain
+    version on the card (``_serve_diff``: every buffer exact, the clock
+    slots of the kTiming instances by rule), the plain version timed
+    (``plain_s``) and the bytes each launch must move counted from the
+    state before it (``bytes``); ``library_ms``: ``torch.nonzero`` on
+    the active rows of the lanes K14 rebuilds first."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import T_PREV, T_US
+
+    pairs = {"lane_reset": (ks.lane_reset, ks.lane_reset_reference),
+             "lane_compact": (ks.lane_compact, ks.lane_compact_reference),
+             "lane_superstep": (ks.lane_superstep,
+                                ks.lane_superstep_reference),
+             "lane_finish": (ks.lane_finish, ks.lane_finish_reference)}
+    clocks = {"lane_reset": (T_PREV,), "lane_finish": (T_US, T_PREV)}
+    kern = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX)
+    plain = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX)
+    out = {"worst": 0, "rounds": 0, "library_ms": None,
+           "bytes": {k: [] for k in _SERVE_KERNELS},
+           "plain_s": {k: [] for k in _SERVE_KERNELS}}
+
+    def held(name):
+        before = _serve_state(plain)
+        launch, reference = pairs[name]
+        args = (timing,) if name in clocks else ()
+        clock = clocks.get(name, ()) if timing else ()
+        carry_before = [c.clone() for c in plain.carry]
+        if name == "lane_compact" and out["library_ms"] is None:
+            s_ = before["ctrl"][ks.CTRL_REXEC]
+            need = ((before["phase"] < 2) & (before["idx_rung"] < s_)
+                    & (before["ctrl"][ks.CTRL_PAD0 + s_] > 0))
+            if need.any():
+                pk = kern.carry[2][torch.from_numpy(need).to(device)]
+                act = (pk < 0) | ((pk & 1) == 1)
+                out["library_ms"] = _cuda_ms(lambda: torch.nonzero(act), 20)
+        launch(kern, *args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reference(plain, *args)
+        torch.cuda.synchronize()
+        out["plain_s"][name].append(time.perf_counter() - t)
+        out["bytes"][name].append(_serve_bytes(plain, name, before))
+        out["worst"] = max(out["worst"], _serve_diff(kern, plain, clock,
+                                                     carry_before))
+
+    held("lane_reset")
+    while int(plain.ctrl[ks.CTRL_LIVE]):
+        for name in (["lane_compact"] if stages is not None else []) + [
+                "lane_superstep", "lane_finish"]:
+            held(name)
+        out["rounds"] += 1
+    return out
+
+
+def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
+    """K13-K16 at the serving class's shapes: the 32 uniform 20k requests
+    padded into their class (v32768w32, the auto ladder), one lane each.
+    (1) Held sweeps (``_held_serve_sweep``), timing off and on: every
+    launch held against its plain version on the card (``plain_ms``),
+    the bytes it must move (``bound_ms``). (2) The same sweeps under
+    ``torch.profiler``: each kernel's device time a launch (``ms``), the
+    kTiming instances' from the timing sweep. (3) Slices as the scheduler
+    runs them (``_serve_slices``): host wall against device busy. (4)
+    ``torch.nonzero`` on the active rows of the lanes K14 rebuilt first
+    (``library_ms``)."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
+                                                   pad_member,
+                                                   stage_schedule_for)
+
+    cls = DEFAULT_LADDER.class_for(max(g.num_vertices for g in graphs),
+                                   max(g.max_degree for g in graphs))
+    stages = stage_schedule_for(cls, "auto")
+    members = [pad_member(g.arrays, cls) for g in graphs]
+    inputs = tuple(torch.from_numpy(np.stack(x)).to(device) for x in (
+        [m.comb for m in members], [m.degrees for m in members],
+        [np.int32(m.k0) for m in members],
+        [np.int32(m.max_steps) for m in members]))
+    staged = stages is not None
+    held = {t: _held_serve_sweep(inputs, cls, stages, device, t)
+            for t in (False, True)}
+    worst = max(h["worst"] for h in held.values())
+    rounds = held[False]["rounds"]
+    check(worst == 0 and held[True]["rounds"] == rounds,
+          f"the held serve sweeps differ from the plain versions by {worst} "
+          f"(rounds {rounds}, timing {held[True]['rounds']})")
+
+    want = {"lane_reset": 1, "lane_compact": rounds if staged else 0,
+            "lane_superstep": rounds, "lane_finish": rounds}
+    prof = {t: _profiled(
+        lambda L, t=t: _serve_sweep(L, staged, t), want, _DEVICE_MS_KEPT,
+        _SERVE_NAMES, prepare=lambda: _serve_lanes_of(
+            inputs, cls, stages, device, ks.INT32_MAX)) for t in (False, True)}
+    slices = _serve_slices(inputs, cls, stages, device)
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    rec = {"phase": "serve_measure", "class": cls.name, "lanes": len(members),
+           "stages": [list(s) for s in stages] if stages else None,
+           "rounds": rounds, "max_abs_err": worst, "slices": slices,
+           "card": card}
+    for name in _SERVE_KERNELS:
+        nbytes = held[False]["bytes"][name]
+        if not nbytes:
+            continue
+        t_off, n_off, each = prof[False][name]
+        rec[name] = {
+            "held_launches": len(nbytes),
+            "ms": t_off / n_off if n_off else None,
+            "first_ms": each[0] if each else None,
+            "max_ms": max(each) if each else None,
+            "first_bound_ms": nbytes[0] / HBM_BYTES_PER_S * 1e3,
+            # the launches that moved more than the per-lane flags (K14:
+            # the rebuilds), where the profile kept every launch
+            "working_ms": (mean([t_ for t_, b_ in zip(each, nbytes)
+                                 if b_ > 4 * len(members)])
+                           if len(each) == len(nbytes) else None),
+            "working_bound_ms": mean([b_ for b_ in nbytes
+                                      if b_ > 4 * len(members)] or [0])
+            / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": mean(held[False]["plain_s"][name]) * 1e3,
+            "bound_ms": mean(nbytes) / HBM_BYTES_PER_S * 1e3,
+            "bytes_per_launch": mean(nbytes),
+            "library_ms": (held[False]["library_ms"]
+                           if name == "lane_compact" else None)}
+        if name in ("lane_reset", "lane_finish"):
+            t_on, n_on, _each = prof[True][name]
+            nbytes_on = held[True]["bytes"][name]
+            rec[name].update({
+                "timing_ms": t_on / n_on if n_on else None,
+                "timing_plain_ms": mean(held[True]["plain_s"][name]) * 1e3,
+                "timing_bound_ms": mean(nbytes_on) / HBM_BYTES_PER_S * 1e3,
+                "timing_held_launches": len(nbytes_on)})
+    emit(rec)
+    return rec
+
+
+def _serve_slices(inputs, cls, stages, device, n: int = 2) -> list:
+    """The first ``n`` slices of ``inputs`` as the scheduler runs them,
+    each under ``torch.profiler`` (``_profiled``): the first makes the
+    lanes from an idle carry (``slice_lanes``), each later one writes the
+    scheduling vectors into the kept lanes; then ``run_slice`` at the
+    priced slice size and the one read of the scheduling scalars. Host
+    wall against device busy. A window is taken again from the same
+    state; one that kept ``_DEVICE_MS_KEPT`` of the launches is taken,
+    its busy time a lower bound (``kept`` says how many)."""
+    from dgc_tpu_torch.serve.batched import (auto_slice_steps, carry_home,
+                                             idle_carry, is_staged,
+                                             run_slice, slice_lanes,
+                                             stage_idx_width)
+
+    b = inputs[1].shape[0]
+    steps = auto_slice_steps(cls.entries(), b, "gpu")
+    staged = is_staged(stages)
+    want = {"lane_reset": 1, "lane_compact": steps if staged else 0,
+            "lane_superstep": steps, "lane_finish": steps}
+    launches = sum(want.values())
+    k0, max_steps = (x.cpu().numpy() for x in inputs[2:4])
+    state = {}
+    out = []
+    for i in range(n):
+        reset = np.full(b, 1 if i == 0 else 0, np.int32)
+        saved = (None if i == 0 else
+                 [t.clone() for t in state["L"].carry + [state["L"].nxt]])
+
+        def prepare():
+            if saved is not None:  # the slice's start, in the same tensors
+                for t, s_ in zip(state["L"].carry + [state["L"].nxt], saved):
+                    t.copy_(s_)
+            torch.cuda.synchronize()
+
+        def one_slice(_arg, i=i, reset=reset):
+            t = time.perf_counter()
+            host = torch.from_numpy(np.stack([k0, max_steps, reset]))
+            if i == 0:
+                vecs = host.to(device, copy=True)
+                L = slice_lanes(inputs[0], inputs[1], vecs[0], vecs[1],
+                                vecs[2], idle_carry(b, cls.v_pad,
+                                                    stage_idx_width(stages)),
+                                planes=cls.planes, stages=stages,
+                                device=device)
+            else:
+                L = state["L"]
+                state["vecs"].copy_(host)
+                vecs = state["vecs"]
+            nxt = run_slice(L, slice_steps=steps, staged=staged)
+            home = carry_home([nxt[0], nxt[3], nxt[15]])
+            state.update(L=L, vecs=vecs, home=home,
+                         wall=time.perf_counter() - t)
+
+        prof = _profiled(one_slice, want, _DEVICE_MS_KEPT,
+                         dict(_SERVE_NAMES, busy=""), prepare=prepare)
+        kept = sum(prof[k][1] for k in want)
+        home, wall = state["home"], state["wall"]
+        busy = prof["busy"][0]
+        out.append({"slice": i, "slice_steps": steps, "launches": launches,
+                    "kept": kept,
+                    "wall_ms": wall * 1e3, "busy_ms": busy,
+                    "idle_share": 1 - busy / (wall * 1e3),
+                    "phases": sorted(set(home[0].tolist())),
+                    "steps_max": int(home[1].max()),
+                    "rungs": sorted(set(home[2].tolist()))})
+    return out
+
+
+def serve_kernels_line(serve: dict, serve_err: int) -> list[dict]:
+    """K13-K16 on the serve replay's main path: launches from the default
+    run (continuous, batch 8; the other runs' beside), times from
+    ``measure_serve`` at the serving class's shapes; the kTiming instances
+    of K15 and K16 with the timing run's launches and their own times,
+    plain times and bounds from the timing sweep."""
+    runs, meas = serve["runs"], serve["measure"]
+    main = runs["continuous, batch 8"]
+    timed = runs["continuous, batch 32, timing"]
+    err = max(serve_err, meas["max_abs_err"])
+    source = "dgc_tpu_torch/csrc/serve.cu"
+    replaces = {"lane_superstep": "dgc_tpu/serve/batched.py:282",
+                "lane_compact": "dgc_tpu/serve/batched.py:268",
+                "lane_finish": "dgc_tpu/serve/batched.py:363",
+                "lane_reset": "dgc_tpu/serve/batched.py:202"}
+    out = []
+    for name in ("lane_superstep", "lane_compact", "lane_finish",
+                 "lane_reset"):
+        m = meas[name]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces[name],
+                    "launches": main["launches"][name],
+                    "launches_other": {r: v["launches"][name]
+                                       for r, v in runs.items()
+                                       if v is not main},
+                    "max_abs_err": err, "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": "bytes", "library_ms": m["library_ms"]})
+    for name in ("lane_finish", "lane_reset"):
+        m = meas[name]
+        out.append({"name": f"{name}_timing", "route": "cuda",
+                    "source": source,
+                    "replaces": ("dgc_tpu/serve/batched.py:414"
+                                 if name == "lane_finish" else
+                                 "dgc_tpu/serve/batched.py:512"),
+                    "launches": timed["timing_launches"][name],
+                    "max_abs_err": err, "ms": m["timing_ms"],
+                    "plain_ms": m["timing_plain_ms"],
+                    "bound_ms": m["timing_bound_ms"],
+                    "bound_by": "bytes", "library_ms": None,
+                    "off_ms": m["ms"]})
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -3071,9 +4050,10 @@ def main(argv: list[str] | None = None) -> int:
         block_err = phase_block_kernels("cuda")
         dense_err = phase_dense_kernels("cuda")
         tel_err = phase_telemetry_kernels("cuda")
+        serve_err = phase_serve_kernels("cuda")
         emit({"phase": "kernels_vs_plain",
               "max_abs_err": max(kernel_err, compact_err, hub_err, block_err,
-                                 dense_err, tel_err),
+                                 dense_err, tel_err, serve_err),
               "seconds": time.perf_counter() - t})
 
         t = time.perf_counter()
@@ -3083,6 +4063,10 @@ def main(argv: list[str] | None = None) -> int:
         t = time.perf_counter()
         rows = phase_telemetry_engines("cuda")
         emit({"phase": "telemetry_engines_vs_cpu", "runs": rows,
+              "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        rows = phase_serve_engines("cuda")
+        emit({"phase": "serve_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
 
         main_runs, blocked = phase_main_path(
@@ -3095,6 +4079,9 @@ def main(argv: list[str] | None = None) -> int:
         telemetry = phase_telemetry_main(card, out_dir)
         dense_runs = phase_dense_main(card, out_dir, dense_cpu.result())
         t = time.perf_counter()
+        serve = phase_serve_main(card, out_dir)
+        emit({"phase": "serve_main_done", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
         rows = phase_block_engines("cuda", reference.result())
         emit({"phase": "block_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
@@ -3103,7 +4090,8 @@ def main(argv: list[str] | None = None) -> int:
                                   compact_err, hub_err, block_err)
           + dense_kernels_line(dense_runs, dense_err)
           + telemetry_kernels_line(main_runs, rmat_runs, blocked, telemetry,
-                                   tel_err)})
+                                   tel_err)
+          + serve_kernels_line(serve, serve_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,6 +11,7 @@ an explicit ``device`` and defaults to ``cuda``.
 Ported so far: the minimal-k sweep (sequential, fused and blocked, with
 checkpoints) on the ``ell``, ``ell-bucketed``, ``ell-compact`` and
 ``dense`` engines, the host backends ``oracle`` and ``reference-sim``,
-and the native host paths (``native/``: the C++ generators, relabel,
-table build and post-pass walks). ROADMAP lists the rest.
+the native host paths (``native/``: the C++ generators, relabel, table
+build and post-pass walks), and the batched serve tier (``serve/``, the
+``serve`` subcommand). ROADMAP lists the rest.
 """

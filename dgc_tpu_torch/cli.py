@@ -34,6 +34,9 @@ windows and flight recorder, and the resilience flags (ROADMAP).
         [--log-json run.jsonl --run-manifest run.json \\
          --metrics-prom run.prom --superstep-timing]
 
+``python -m dgc_tpu_torch serve --requests load.jsonl ...`` is the batched
+serve tier's request replay (``serve.cli``).
+
 Exit codes: 0 success, 1 no valid coloring, 2 usage or load error (a
 missing card for ``--device cuda`` included).
 """
@@ -272,6 +275,13 @@ def write_obs_outputs(args, logger, manifest, phases, registry) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
+    # the serve subcommand (dgc_tpu_torch.serve.cli), dispatched before
+    # the sweep parser as in dgc_tpu.cli
+    raw = sys.argv[1:] if argv is None else argv
+    if raw and raw[0] == "serve":
+        from dgc_tpu_torch.serve.cli import serve_main
+
+        return serve_main(list(raw[1:]))
     t_start = time.perf_counter()
     args = build_parser().parse_args(argv)
     if args.input is None and (args.node_count is None or args.max_degree is None):

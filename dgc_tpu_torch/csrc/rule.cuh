@@ -1,8 +1,9 @@
 // What the superstep kernels share: the speculative rule for one row, on
-// one thread (row_rule: K1 in superstep.cu, K5 in compact.cu) or on a whole
-// warp with seeded planes (warp_row_rule: K8 in hub.cu); the loop-control
-// fold of one superstep (finish_step: K2 and K6); the stage predicate
-// (stage_live: K5-K8); and the hub region's live table (K6-K8).
+// one thread (row_rule: K1 in superstep.cu, K5 in compact.cu, K13 in
+// serve.cu) or on a whole warp with seeded planes (warp_row_rule: K8 in
+// hub.cu); the loop-control fold of one superstep (finish_step: K2 and
+// K6); the stage predicate (stage_live: K5-K8); and the hub region's live
+// table (K6-K8).
 //
 // The rule is the port of dgc_tpu/ops/speculative.py:40 neighbor_stats and
 // :67 apply_update_mc over dgc_tpu/ops/bitmask.py:28 plane_masks, :37
@@ -104,13 +105,18 @@ __device__ __forceinline__ RowResult finish_rule(int me, bool clash,
 
 // One neighbor entry `e` into the planes of group `base`: its color's bit
 // into `fa` (and into `fo` when confirmed); a fresh neighbor of my color
-// that beats me is a clash (read in group 0 only).
-template <int PB>
+// that beats me is a clash (read in group 0 only). With kLim, a neighbor id
+// at or past `lim` is the pad sentinel of a state buffer that has no pad
+// slot (the serve carry's lanes) and reads as uncolored.
+template <int PB, bool kLim = false>
 __device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
                                              int e, int base, int mycol,
                                              uint32_t (&fa)[PB],
                                              uint32_t (&fo)[PB],
-                                             bool& clash) {
+                                             bool& clash, int lim = 0) {
+  if constexpr (kLim) {
+    if ((e & kNbrMask) >= lim) return;
+  }
   const int word = src[e & kNbrMask];
   if (word < 0) return;  // uncolored neighbor or pad sentinel
   const int c = word >> 1;
@@ -132,12 +138,12 @@ __device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
 // The rule for a row whose packed word is `me`, over the `width` entries
 // at `row`, with a window of `planes` planes, on one thread. PB planes are
 // held in registers at a time; a wider window is scanned in groups of PB,
-// re-reading the row for each group.
-template <int PB>
+// re-reading the row for each group. kLim/lim as add_neighbor.
+template <int PB, bool kLim = false>
 __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
                                               const int* __restrict__ row,
                                               int width, int planes, int k,
-                                              int me) {
+                                              int me, int lim = 0) {
   const int mycol = me >> 1;  // arithmetic: -1 stays -1
   bool clash = false;
   bool found = false;     // a color under k is free of every neighbor
@@ -154,7 +160,7 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
       fo[p] = 0u;
     }
     for (int j = 0; j < width; ++j) {
-      add_neighbor<PB>(src, row[j], base, mycol, fa, fo, clash);
+      add_neighbor<PB, kLim>(src, row[j], base, mycol, fa, fo, clash, lim);
     }
     fold_planes<PB>(fa, fo, base, planes, k, found, cand, old_free);
   }

@@ -298,6 +298,36 @@ def _check_stage_ladder(stages: tuple, v: int) -> None:
         bound = thresh
 
 
+def serve_stage_rungs(v: int) -> tuple:
+    """Default stage ladder of the batched serve kernels (port of
+    ``dgc_tpu.engine.compact.serve_stage_rungs``): denser at the top than
+    ``default_stages``, because a serve stage superstep gathers its
+    compacted rows from the class table every superstep (a rung's volume
+    is ``pad × W`` against the full table's ``V × W``) and compaction is a
+    stage-entry event. The same full-table floor (v ≤ 2^14)."""
+    if v <= 1 << 14:
+        return ((None, 0),)
+    return ((None, v // 2), (v // 2, v // 4), (v // 4, v // 16),
+            (v // 16, v // 64), (v // 64, v // 256), (v // 256, 0))
+
+
+def class_stage_schedule(v_pad: int, w_pad: int, *,
+                         stages: tuple | None = None) -> dict:
+    """Stage schedule of a batched-serve shape class (port of
+    ``dgc_tpu.engine.compact.class_stage_schedule``): ``derive_schedule``
+    on one flat bucket of ``v_pad`` rows × ``w_pad`` columns, so the serve
+    ladder and the single-graph ladder share one validity rule. Returns
+    ``dict(stages, pads)``; ``pads[s]`` is stage ``s``'s compaction pad
+    (``pow2(scale)``), None for a full-table stage."""
+    sched = derive_schedule((v_pad,), (w_pad,), v_pad, w_pad,
+                            stages=(serve_stage_rungs(v_pad)
+                                    if stages is None else stages),
+                            flat_cap=max(int(w_pad), DEFAULT_FLAT_CAP))
+    st = sched["stages"]
+    pads = tuple(None if s is None else pow2_ceil(s) for s, _ in st)
+    return dict(stages=st, pads=pads)
+
+
 class CompactFrontierEngine(BucketedELLEngine):
     """Staged frontier-compacted engine (single device), any bucket layout.
 

@@ -1,0 +1,472 @@
+"""Wrappers of the serve tier's batched kernels (``csrc/serve.cu``), their
+plain PyTorch versions, and the buffers they share.
+
+A batch of B lanes (graphs of one shape class, ``serve.shape_classes``)
+runs one batched superstep at a time over the reference's 20-slot carry
+(``layout.CARRY_*``, one lane-leading int32 tensor per slot):
+
+- ``lane_reset`` (K16): the slice entry: re-init the flagged lanes from
+  their inputs (``dgc_tpu.serve.batched._fresh_lanes``) and their back
+  buffer rows, the timing seed, the counters and the control block's
+  routing.
+- ``lane_compact`` (K14): at a staged rung, rebuild the slot list of each
+  live lane whose list was built at a shallower rung (``_rebuild_idx``).
+- ``lane_superstep`` (K13): the rule over every row (rung 0) or over the
+  rung's slots of each live lane, into ``nxt``; each lane's fail and
+  active counts.
+- ``lane_finish`` (K15): the transition and freeze of every lane, the
+  adopt or revert of the step, the result slots, and the next superstep's
+  routing; with ``timing`` it reads the clock once (``obs.devclock``).
+
+Every kernel reads the control block's live word first and does nothing
+when it is 0 (no lane running, or the slice's steps spent), so a slice is
+enqueued without a host sync (``serve.batched``).
+
+For tensors on the CPU each wrapper runs its plain version; for tensors on
+a card it launches its kernel or raises — it never falls back.
+``launch_counts`` counts launches per kernel (``timing_launch_counts`` the
+clock-reading instances among them): a wrapper adds one where it launches
+and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import torch
+
+from dgc_tpu_torch.engine.base import AttemptStatus
+from dgc_tpu_torch.kernels.compact import compact_idx
+from dgc_tpu_torch.kernels.superstep import _check_int32, _stream
+from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_IDX_RUNG, CARRY_K,
+                                  CARRY_LEN, CARRY_NC, CARRY_P1, CARRY_P2,
+                                  CARRY_PACKED, CARRY_PHASE,
+                                  CARRY_PREV_ACTIVE, CARRY_RUNG, CARRY_S1,
+                                  CARRY_S2, CARRY_SPEC, CARRY_ST1, CARRY_ST2,
+                                  CARRY_STALL, CARRY_STEP, CARRY_USED, T_PREV,
+                                  T_US, US_MASK)
+from dgc_tpu_torch.obs.devclock import kernel_clock_us
+from dgc_tpu_torch.ops.speculative import decode_combined, speculative_update_mc
+
+# the control block (kRexec ... kPad0 in csrc/serve.cu): the executed rung,
+# the live word, the slice's step count and budget, K15's block ticket,
+# then the ladder: the stage count, 8 thresholds, 8 pads (0 = full table)
+CTRL_REXEC, CTRL_LIVE, CTRL_STEPS, CTRL_BUDGET, CTRL_TICKET, \
+    CTRL_NSTAGES = range(6)
+MAX_STAGES = 8
+CTRL_THRESH0 = 6
+CTRL_PAD0 = CTRL_THRESH0 + MAX_STAGES
+CTRL_LEN = CTRL_PAD0 + MAX_STAGES
+# the per-lane counters, int32[3, B]
+SCR_FAIL, SCR_ACTIVE, SCR_MAXC = range(3)
+INT32_MAX = (1 << 31) - 1
+
+_RUNNING = int(AttemptStatus.RUNNING)
+_SUCCESS = int(AttemptStatus.SUCCESS)
+_FAILURE = int(AttemptStatus.FAILURE)
+_STALLED = int(AttemptStatus.STALLED)
+
+SOURCE = "serve.cu"
+
+launch_counts = {"lane_superstep": 0, "lane_compact": 0, "lane_finish": 0,
+                 "lane_reset": 0}
+# the clock-reading (kTiming) instances among the launches above
+timing_launch_counts = {"lane_finish": 0, "lane_reset": 0}
+
+
+def reset_launch_counts() -> None:
+    for counts in (launch_counts, timing_launch_counts):
+        for name in counts:
+            counts[name] = 0
+
+
+def ladder_ctrl(stages: tuple, device) -> torch.Tensor:
+    """A control block holding the ladder ``stages`` (``((scale | None,
+    thresh), ...)``, validated by the caller): the stage count, the
+    thresholds and each stage's pad (``pow2(scale)``, 0 for the full
+    table); the routing words are K16's to write."""
+    if not 1 <= len(stages) <= MAX_STAGES:
+        raise ValueError(f"a serve ladder has 1 to {MAX_STAGES} stages, "
+                         f"got {len(stages)}")
+    ctrl = [0] * CTRL_LEN
+    ctrl[CTRL_NSTAGES] = len(stages)
+    for s, (scale, thresh) in enumerate(stages):
+        ctrl[CTRL_THRESH0 + s] = int(thresh)
+        ctrl[CTRL_PAD0 + s] = (0 if scale is None
+                               else 1 << max(0, (int(scale) - 1).bit_length()))
+    return torch.tensor(ctrl, dtype=torch.int32, device=device)
+
+
+class _LaneArgs(ctypes.Structure):
+    """``LaneArgs`` of ``csrc/serve.cu``, passed to every launch."""
+
+    _fields_ = [("slot", ctypes.c_void_p * CARRY_LEN),
+                ("comb", ctypes.c_void_p), ("degrees", ctypes.c_void_p),
+                ("k0", ctypes.c_void_p), ("max_steps", ctypes.c_void_p),
+                ("reset", ctypes.c_void_p), ("nxt", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("ctrl", ctypes.c_void_p),
+                ("b", ctypes.c_int), ("v", ctypes.c_int), ("w", ctypes.c_int),
+                ("a0", ctypes.c_int), ("planes", ctypes.c_int),
+                ("stall_window", ctypes.c_int), ("budget", ctypes.c_int)]
+
+
+@dataclass
+class Lanes:
+    """One batch's buffers on one device: the carry (updated in place),
+    the inputs (``comb`` int32[B, V, W], ``degrees`` int32[B, V], ``k0``,
+    ``max_steps``, ``reset`` int32[B]), the back buffer ``nxt`` int32[B,
+    V], equal to the carry's ``packed`` between supersteps, the counters
+    ``scratch`` int32[3, B] and the control block; the class window's
+    plane count, the stall window and the slice's step budget
+    (``INT32_MAX`` for a whole sweep). A caller may keep them from slice
+    to slice, writing new inputs into their tensors (``serve.engine``):
+    the launch arguments are built once."""
+
+    carry: list
+    comb: torch.Tensor
+    degrees: torch.Tensor
+    k0: torch.Tensor
+    max_steps: torch.Tensor
+    reset: torch.Tensor
+    nxt: torch.Tensor
+    scratch: torch.Tensor
+    ctrl: torch.Tensor
+    planes: int
+    stall_window: int
+    budget: int
+    _args: object = field(default=None, repr=False)
+
+    @property
+    def b(self) -> int:
+        return self.degrees.shape[0]
+
+    @property
+    def v(self) -> int:
+        return self.degrees.shape[1]
+
+    @property
+    def a0(self) -> int:
+        return self.carry[CARRY_IDX].shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.degrees.device
+
+    def set_budget(self, budget: int) -> None:
+        """The step budget of the next slice (K16 reads it)."""
+        self.budget = int(min(budget, INT32_MAX))
+        if self._args is not None:
+            self._args.budget = self.budget
+
+
+def new_lanes(carry, comb, degrees, k0, max_steps, reset, ctrl, *,
+              planes: int, stall_window: int, budget: int) -> Lanes:
+    """The ``Lanes`` of a batch: ``nxt`` a copy of the carry's
+    ``packed``, ``scratch`` allocated (K16 fills it), ``ctrl`` a fresh
+    control block of the class's ladder (``ladder_ctrl``)."""
+    b, _v = degrees.shape
+    device = degrees.device
+    return Lanes(carry=list(carry), comb=comb, degrees=degrees, k0=k0,
+                 max_steps=max_steps, reset=reset,
+                 nxt=carry[CARRY_PACKED].clone(),
+                 scratch=torch.empty((3, b), dtype=torch.int32, device=device),
+                 ctrl=ctrl, planes=int(planes),
+                 stall_window=int(min(stall_window, INT32_MAX)),
+                 budget=int(min(budget, INT32_MAX)))
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def _desired(ctrl: list, prev_active: torch.Tensor) -> torch.Tensor:
+    """Each lane's deepest stage whose threshold covers its previous
+    active count (``dgc_tpu.serve.batched:316-319``)."""
+    desired = torch.zeros_like(prev_active)
+    for s in range(1, ctrl[CTRL_NSTAGES]):
+        desired = torch.where(prev_active <= ctrl[CTRL_THRESH0 + s - 1], s,
+                              desired)
+    return desired
+
+
+def _route(L: Lanes, ctrl: list) -> tuple[int, bool]:
+    """``(executed rung, any lane live)`` of the next superstep: the min
+    over live lanes of max(rung, desired rung), the last stage if none."""
+    c = L.carry
+    live = c[CARRY_PHASE] < 2
+    rung_now = torch.maximum(c[CARRY_RUNG], _desired(ctrl, c[CARRY_PREV_ACTIVE]))
+    if not bool(live.any()):
+        return ctrl[CTRL_NSTAGES] - 1, False
+    return int(rung_now[live].min()), True
+
+
+def lane_reset_reference(L: Lanes, timing: bool) -> None:
+    """K16's plain version: ``_fresh_lanes`` for the flagged lanes and
+    their ``nxt`` rows, the timing seed, the counters cleared and the
+    control block's routing."""
+    c, v = L.carry, L.v
+    fresh = L.reset != 0
+    wide = fresh[:, None]
+    pk0 = (L.degrees != 0).to(torch.int32)
+    c[CARRY_PACKED].copy_(torch.where(wide, pk0, c[CARRY_PACKED]))
+    L.nxt.copy_(torch.where(wide, pk0, L.nxt))
+    c[CARRY_P1].copy_(torch.where(wide, 0, c[CARRY_P1]))
+    c[CARRY_P2].copy_(torch.where(wide, 0, c[CARRY_P2]))
+    c[CARRY_IDX].copy_(torch.where(wide, v, c[CARRY_IDX]))
+    scalars = {CARRY_PHASE: 0, CARRY_K: L.k0, CARRY_STEP: 1,
+               CARRY_PREV_ACTIVE: v + 1, CARRY_STALL: 0, CARRY_S1: 0,
+               CARRY_ST1: 0, CARRY_USED: 0, CARRY_S2: 0, CARRY_ST2: _FAILURE,
+               T_US: 0, T_PREV: 0, CARRY_RUNG: 0, CARRY_NC: 0,
+               CARRY_IDX_RUNG: 0, CARRY_SPEC: 0}
+    for j, value in scalars.items():
+        c[j].copy_(torch.where(fresh, value, c[j]))
+    if timing:
+        ts0 = kernel_clock_us(L.device)
+        seed = (c[CARRY_PHASE] < 2) & (c[T_PREV] == 0)
+        c[T_PREV].copy_(torch.where(seed, ts0, c[T_PREV]))
+    L.scratch[SCR_FAIL] = 0
+    L.scratch[SCR_ACTIVE] = 0
+    L.scratch[SCR_MAXC] = -1
+    ctrl = L.ctrl.tolist()
+    rexec, any_live = _route(L, ctrl)
+    L.ctrl[CTRL_REXEC] = rexec
+    L.ctrl[CTRL_LIVE] = int(any_live and L.budget > 0)
+    L.ctrl[CTRL_STEPS] = 0
+    L.ctrl[CTRL_BUDGET] = L.budget
+    L.ctrl[CTRL_TICKET] = 0
+
+
+def lane_compact_reference(L: Lanes) -> None:
+    """K14's plain version: ``compact_idx`` of each rebuilding lane's
+    active rows into its slot list, the dummy ``V`` past them."""
+    ctrl = L.ctrl.tolist()
+    if not ctrl[CTRL_LIVE]:
+        return
+    s = ctrl[CTRL_REXEC]
+    pad = ctrl[CTRL_PAD0 + s]
+    if pad == 0:
+        return
+    c, v = L.carry, L.v
+    need = (c[CARRY_PHASE] < 2) & (c[CARRY_IDX_RUNG] < s)
+    for b in torch.nonzero(need).flatten().tolist():
+        pk = c[CARRY_PACKED][b]
+        c[CARRY_IDX][b].fill_(v)
+        c[CARRY_IDX][b, :pad] = compact_idx((pk < 0) | ((pk & 1) == 1), pad, v)
+        c[CARRY_IDX_RUNG][b] = s
+
+
+def lane_superstep_reference(L: Lanes) -> None:
+    """K13's plain version: ``speculative_update_mc`` over each live
+    lane's rows (rung 0) or its rung's real slots, into ``nxt``; the fail
+    and active counts into ``scratch``."""
+    ctrl = L.ctrl.tolist()
+    if not ctrl[CTRL_LIVE]:
+        return
+    pad = ctrl[CTRL_PAD0 + ctrl[CTRL_REXEC]]
+    c, v = L.carry, L.v
+    sentinel = torch.full((1,), -1, dtype=torch.int32, device=L.device)
+    for b in torch.nonzero(c[CARRY_PHASE] < 2).flatten().tolist():
+        pk = c[CARRY_PACKED][b]
+        if pad == 0:
+            rows = torch.arange(v, device=L.device)
+        else:
+            slots = c[CARRY_IDX][b, :pad].to(torch.int64)
+            rows = slots[slots < v]  # dummy slots are inert
+        nbr, beats = decode_combined(L.comb[b][rows])
+        gathered = torch.cat([pk, sentinel])[nbr.to(torch.int64)]
+        new, fail, active, _mc = speculative_update_mc(
+            pk[rows], gathered, beats, int(c[CARRY_K][b]), L.planes)
+        L.nxt[b, rows] = new
+        L.scratch[SCR_FAIL, b] += fail.sum().to(torch.int32)
+        L.scratch[SCR_ACTIVE, b] += active.sum().to(torch.int32)
+
+
+def lane_finish_reference(L: Lanes, timing: bool) -> None:
+    """K15's plain version: ``_superstep_body``'s transition and freeze
+    (``dgc_tpu.serve.batched:363-466``) over the counters K13 left, the
+    step adopted or reverted in ``packed`` and ``nxt``, the next routing."""
+    ctrl = L.ctrl.tolist()
+    if not ctrl[CTRL_LIVE]:
+        return
+    c, v = L.carry, L.v
+    fail_n, active = L.scratch[SCR_FAIL].clone(), L.scratch[SCR_ACTIVE].clone()
+    live = c[CARRY_PHASE] < 2
+    any_fail = fail_n > 0
+    stall_new = torch.where(active < c[CARRY_PREV_ACTIVE], 0, c[CARRY_STALL] + 1)
+    status_new = torch.where(
+        any_fail, _FAILURE, torch.where(
+            active == 0, _SUCCESS,
+            torch.where(stall_new >= L.stall_window, _STALLED, _RUNNING)))
+    step_new = c[CARRY_STEP] + 1
+    fin = (status_new != _RUNNING) | (step_new >= L.max_steps)
+    first = c[CARRY_PHASE] == 0
+    store1, store2 = fin & first & live, fin & ~first & live
+    rung_now = torch.maximum(c[CARRY_RUNG], _desired(ctrl, c[CARRY_PREV_ACTIVE]))
+
+    # the wide part: each live lane's step state, adopted or reverted
+    new_pk = torch.where(any_fail[:, None], c[CARRY_PACKED], L.nxt)
+    colors = torch.where(new_pk >= 0, new_pk >> 1, -1)
+    maxc = torch.cat([colors, torch.full_like(colors[:, :1], -1)], 1).amax(1)
+    pk0 = (L.degrees != 0).to(torch.int32)
+    c[CARRY_P1].copy_(torch.where(store1[:, None], new_pk, c[CARRY_P1]))
+    c[CARRY_P2].copy_(torch.where(store2[:, None], new_pk, c[CARRY_P2]))
+    state = torch.where((fin & live)[:, None], pk0,
+                        torch.where(live[:, None], new_pk, c[CARRY_PACKED]))
+    c[CARRY_PACKED].copy_(state)
+    L.nxt.copy_(state)
+
+    # the scalars of live lanes; dead lanes keep theirs
+    used = torch.where(store1, maxc + 1, c[CARRY_USED])
+    status_fin = torch.where((status_new == _RUNNING) & fin, _STALLED,
+                             status_new)
+    k2 = used - 1
+    run2 = fin & first & (status_fin == _SUCCESS) & (k2 >= 1) \
+        & (c[CARRY_SPEC] == 0)
+    new = {
+        CARRY_PHASE: torch.where(fin, torch.where(run2, 1, 2), c[CARRY_PHASE]),
+        CARRY_K: torch.where(run2, k2, c[CARRY_K]),
+        CARRY_STEP: torch.where(fin, 1, step_new),
+        CARRY_PREV_ACTIVE: torch.where(fin, v + 1, active),
+        CARRY_STALL: torch.where(fin, 0, stall_new),
+        CARRY_S1: torch.where(store1, step_new, c[CARRY_S1]),
+        CARRY_ST1: torch.where(store1, status_fin, c[CARRY_ST1]),
+        CARRY_USED: used,
+        CARRY_S2: torch.where(store2, step_new, c[CARRY_S2]),
+        CARRY_ST2: torch.where(store2, status_fin, c[CARRY_ST2]),
+        CARRY_RUNG: torch.where(fin, 0, rung_now),
+        CARRY_NC: active,
+        CARRY_IDX_RUNG: torch.where(fin, 0, c[CARRY_IDX_RUNG]),
+    }
+    if timing:
+        ts = kernel_clock_us(L.device)
+        prev = c[T_PREV]
+        new[T_US] = torch.where(prev > 0, c[T_US] + ((ts - prev) & US_MASK),
+                                c[T_US])
+        new[T_PREV] = torch.full_like(prev, ts)
+    for j, value in new.items():
+        c[j].copy_(torch.where(live, value.to(torch.int32), c[j]))
+    L.scratch[SCR_FAIL] = 0
+    L.scratch[SCR_ACTIVE] = 0
+    L.scratch[SCR_MAXC] = -1
+    rexec, any_live = _route(L, ctrl)
+    steps = ctrl[CTRL_STEPS] + 1
+    L.ctrl[CTRL_STEPS] = steps
+    L.ctrl[CTRL_REXEC] = rexec
+    L.ctrl[CTRL_LIVE] = int(any_live and steps < ctrl[CTRL_BUDGET])
+    L.ctrl[CTRL_TICKET] = 0
+
+
+# ---- kernel launches --------------------------------------------------------
+
+def _library():
+    from dgc_tpu_torch.kernels.build import load
+
+    lib = load(SOURCE)
+    if not getattr(lib, "_dgc_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for name, timed in (("dgc_lane_reset", True),
+                            ("dgc_lane_compact", False),
+                            ("dgc_lane_superstep", False),
+                            ("dgc_lane_finish", True)):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, ci, vp] if timed else [vp, vp]
+            fn.restype = ci
+        lib.dgc_lane_args_size.restype = ci
+        if lib.dgc_lane_args_size() != ctypes.sizeof(_LaneArgs):
+            raise RuntimeError("csrc/serve.cu's LaneArgs and _LaneArgs differ")
+        lib._dgc_bound = True
+    return lib
+
+
+def _args(L: Lanes) -> _LaneArgs:
+    """The launch arguments of ``L``, checked and built once."""
+    if L._args is not None:
+        return L._args
+    device = L.device
+    if device.type != "cuda":
+        raise ValueError(f"serve kernels: unsupported device {device}")
+    b, v = L.b, L.v
+    if len(L.carry) != CARRY_LEN:
+        raise ValueError(f"the carry has {CARRY_LEN} slots, got {len(L.carry)}")
+    for j, t in enumerate(L.carry):
+        wide = j in (CARRY_PACKED, CARRY_P1, CARRY_P2, CARRY_IDX)
+        _check_int32(f"carry[{j}]", t, device, 2 if wide else 1)
+        if t.shape[0] != b or (wide and j != CARRY_IDX and t.shape[1] != v):
+            raise ValueError(f"carry[{j}] has shape {tuple(t.shape)} for "
+                             f"{b} lanes of {v} rows")
+    for name, t, shape in (("comb", L.comb, (b, v, L.comb.shape[-1])),
+                           ("degrees", L.degrees, (b, v)),
+                           ("k0", L.k0, (b,)), ("max_steps", L.max_steps, (b,)),
+                           ("reset", L.reset, (b,)), ("nxt", L.nxt, (b, v)),
+                           ("scratch", L.scratch, (3, b)),
+                           ("ctrl", L.ctrl, (CTRL_LEN,))):
+        _check_int32(name, t, device, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if not 1 <= L.planes <= 32 or 32 * L.planes < L.comb.shape[-1] + 1:
+        raise ValueError(f"planes={L.planes} does not cover width "
+                         f"{L.comb.shape[-1]}")
+    if b > 65535 or v >= 1 << 30:
+        raise ValueError(f"{b} lanes of {v} rows: too many")
+    args = _LaneArgs()
+    for j, t in enumerate(L.carry):
+        args.slot[j] = t.data_ptr()
+    for name in ("comb", "degrees", "k0", "max_steps", "reset", "nxt",
+                 "scratch", "ctrl"):
+        setattr(args, name, getattr(L, name).data_ptr())
+    args.b, args.v, args.w, args.a0 = b, v, int(L.comb.shape[-1]), L.a0
+    args.planes, args.stall_window, args.budget = (L.planes, L.stall_window,
+                                                   L.budget)
+    L._args = args
+    return args
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def lane_reset(L: Lanes, timing: bool = False) -> None:
+    """K16 (its kTiming instance with ``timing``). Runs on the current
+    stream."""
+    if L.device.type == "cpu":
+        return lane_reset_reference(L, timing)
+    args = _args(L)
+    _raise_on(_library().dgc_lane_reset(ctypes.byref(args), int(bool(timing)),
+                                        _stream(L.device)), "lane_reset")
+    launch_counts["lane_reset"] += 1
+    if timing:
+        timing_launch_counts["lane_reset"] += 1
+
+
+def lane_compact(L: Lanes) -> None:
+    """K14. Runs on the current stream."""
+    if L.device.type == "cpu":
+        return lane_compact_reference(L)
+    args = _args(L)
+    _raise_on(_library().dgc_lane_compact(ctypes.byref(args),
+                                          _stream(L.device)), "lane_compact")
+    launch_counts["lane_compact"] += 1
+
+
+def lane_superstep(L: Lanes) -> None:
+    """K13. Runs on the current stream."""
+    if L.device.type == "cpu":
+        return lane_superstep_reference(L)
+    args = _args(L)
+    _raise_on(_library().dgc_lane_superstep(ctypes.byref(args),
+                                            _stream(L.device)),
+              "lane_superstep")
+    launch_counts["lane_superstep"] += 1
+
+
+def lane_finish(L: Lanes, timing: bool = False) -> None:
+    """K15 (its kTiming instance with ``timing``). Runs on the current
+    stream."""
+    if L.device.type == "cpu":
+        return lane_finish_reference(L, timing)
+    args = _args(L)
+    _raise_on(_library().dgc_lane_finish(ctypes.byref(args), int(bool(timing)),
+                                         _stream(L.device)), "lane_finish")
+    launch_counts["lane_finish"] += 1
+    if timing:
+        timing_launch_counts["lane_finish"] += 1

@@ -1,7 +1,46 @@
-"""The port's copy of the layout constants of ``dgc_tpu.layout`` that the
-in-kernel telemetry needs: the trajectory row's columns, the fill of an
-unwritten row, the clock mask, and the attempt block's trajectory slot.
-``tests/test_torch_telemetry.py`` holds each equal to the original."""
+"""The port's copy of the layout constants of ``dgc_tpu.layout`` that it
+needs: the serve tier's per-lane carry (its slots, the result span and the
+slots a slice may bring home), the in-kernel telemetry's trajectory row
+columns, the fill of an unwritten row, the clock mask, and the attempt
+block's trajectory slot. ``tests/test_torch_telemetry.py`` and
+``tests/test_torch_import.py`` hold each equal to the original."""
+
+# -- serve slice carry (serve.batched, one tensor per slot, lane-leading) --
+#
+# (phase, k, packed, step, prev_active, stall,   -- live sweep state
+#  p1, s1, st1, used, p2, s2, st2,               -- jump-pair result slots
+#  t_us, t_prev,                                 -- in-kernel timing slots
+#  rung, nc, idx_rung, idx,                      -- frontier-ladder stage state
+#  spec)                                         -- speculation tag
+CARRY_PHASE = 0        # 0 first attempt, 1 confirm, >=2 done/idle
+CARRY_K = 1            # live color budget
+CARRY_PACKED = 2       # packed per-vertex color/freshness state
+CARRY_STEP = 3         # superstep counter within the attempt
+CARRY_PREV_ACTIVE = 4  # previous superstep's active count (stall window)
+CARRY_STALL = 5        # stall counter
+CARRY_P1 = 6           # result slot 1: packed colors
+CARRY_S1 = 7           # result slot 1: supersteps
+CARRY_ST1 = 8          # result slot 1: status
+CARRY_USED = 9         # colors used by attempt 1 (confirm budget source)
+CARRY_P2 = 10          # result slot 2: packed colors
+CARRY_S2 = 11          # result slot 2: supersteps
+CARRY_ST2 = 12         # result slot 2: status
+T_US = 13              # accumulated live superstep wall-µs (timing mode)
+T_PREV = 14            # last in-kernel clock sample (timing mode)
+CARRY_RUNG = 15        # compaction-stage ladder rung the lane has reached
+CARRY_NC = 16          # lane's live frontier after its last superstep
+CARRY_IDX_RUNG = 17    # rung the lane's compacted slot list was built at
+CARRY_IDX = 18         # compacted slot list (int32[A0]; dummy = V_pad)
+CARRY_SPEC = 19        # speculation tag (0 here: the port runs no speculation)
+CARRY_LEN = 20
+
+OUT0 = 6               # first result slot (== CARRY_P1)
+N_OUT = 7              # result slots p1..st2
+
+# the carry slots a slice may bring home when the carry stays on the card:
+# the phase/rung/nc scheduling scalars, the timing slot, and the result
+# span [OUT0, OUT0+N_OUT)
+D2H_SLOTS = (0, 13, 15, 16, 6, 7, 8, 9, 10, 11, 12)
 
 # -- trajectory buffer row (obs.kernel, one column per metric) ------------
 COL_ACTIVE = 0         # global active count after the superstep

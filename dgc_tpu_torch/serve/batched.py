@@ -1,0 +1,363 @@
+"""Batched fused jump-mode sweep — B graphs per dispatch (port of
+``dgc_tpu.serve.batched``).
+
+One shape class's batch runs as a loop of batched supersteps over
+lane-leading carry tensors (the reference's 20 slots, ``layout.CARRY_*``):
+each lane's phase, budget k, live attempt state and both result slots.
+Every lane advances through its own supersteps, phase transitions and
+``max_steps`` clamp; a finished lane is frozen. The whole jump-mode sweep
+— attempt(k0), then the confirm at (colors used − 1) — is one loop.
+
+The superstep runs in four hand-written CUDA kernels (``kernels.serve``,
+``csrc/serve.cu``): K16 ``lane_reset`` at the slice entry (re-init of the
+flagged lanes, the timing seed), then per superstep K14 ``lane_compact``
+(the stage-entry recompaction; staged ladders only), K13
+``lane_superstep`` (the rule at the executed rung) and K15 ``lane_finish``
+(the transition, the freeze, the routing of the next superstep). The
+executed rung is the min over the live lanes' rungs, as the reference:
+exact for every lane, because a wider pad covers a deeper lane's frontier.
+The routing lives in a control block on the card, so the host enqueues a
+slice's supersteps back to back with no sync: the kernels do nothing once
+no lane runs or the slice's steps are spent.
+
+- ``batched_sweep`` (sync mode, ``batched_sweep_kernel``): every lane
+  re-initialized, then supersteps in chunks of ``SWEEP_CHUNK`` with one
+  host read of the live word between chunks, until every lane is done;
+  returns the seven result slots.
+- ``batched_slice`` (continuous mode, ``batched_slice_kernel``): at most
+  ``slice_steps`` supersteps from the given carry after re-initializing
+  the lanes flagged in ``reset``; returns the carry. It is
+  ``run_slice`` over ``slice_lanes``; the scheduler keeps the lanes of a
+  pool and calls ``run_slice`` each slice. Slicing is
+  result-invariant: the same superstep sequence is applied to each lane
+  however the budget partitions it. With ``timing`` each live lane's
+  superstep wall-µs accumulate in ``T_US`` (the card's clock, one reading
+  per batched superstep; the host clock on the CPU); the other slots are
+  byte-identical timing on or off.
+
+The carry is updated in place when its tensors are on the device already
+(numpy arrays are copied there first); the JAX kernels are functional.
+The port runs no speculation: the ``spec`` slot stays 0.
+
+Bit identity with the single-graph engines (``CompactFrontierEngine
+.sweep``) is the reference's argument (``dgc_tpu/serve/batched.py``
+docstring): priorities invariant under the relabeling, windows covering
+every width, inert padding, the same rule and status transition.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from dgc_tpu_torch.device import resolve_device
+from dgc_tpu_torch.engine.base import AttemptResult, AttemptStatus
+from dgc_tpu_torch.engine.compact import _check_stage_ladder
+from dgc_tpu_torch.kernels import serve as ks
+from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_LEN, CARRY_P1, CARRY_P2,
+                                  CARRY_PACKED, N_OUT, OUT0)
+
+_FAILURE = AttemptStatus.FAILURE
+
+DEFAULT_STALL_WINDOW = 64  # the engines' shared defensive exit
+SWEEP_CHUNK = 16           # supersteps enqueued per host read (sync mode)
+
+
+def resolve_stages(stages, v: int):
+    """Validated ``(stages, pads, a0)`` of a ladder (``None``: the
+    full-table-only schedule); the single-graph engine's
+    ``_check_stage_ladder`` rule, opening with a full-table stage. ``a0``
+    is the carried slot-list width: the widest pad, 1 without one."""
+    if stages is None:
+        stages = ((None, 0),)
+    else:
+        stages = tuple((None if s is None else int(s), int(t))
+                       for s, t in stages)
+    _check_stage_ladder(stages, v)
+    if stages[0][0] is not None:
+        raise ValueError(
+            f"serve stage ladder must open with a full-table stage "
+            f"(scale None), got {stages!r}")
+    if len(stages) > ks.MAX_STAGES:
+        raise ValueError(f"serve stage ladder has {len(stages)} stages, at "
+                         f"most {ks.MAX_STAGES}")
+    pads = tuple(None if s is None else
+                 1 << max(0, (int(s) - 1).bit_length()) for s, _ in stages)
+    a0 = max((p for p in pads if p is not None), default=1)
+    return stages, pads, a0
+
+
+def stage_idx_width(stages) -> int:
+    """The carried compacted-slot-list width (``CARRY_IDX``) a ladder
+    implies — the host-side twin of ``resolve_stages``' ``a0``, used by
+    the scheduler/tests to size ``idle_carry``."""
+    if stages is None:
+        return 1
+    return max((1 << max(0, (int(s) - 1).bit_length())
+                for s, _ in stages if s is not None), default=1)
+
+
+_LADDERS: dict = {}
+
+
+def _ladder_ctrl(stages: tuple, device: torch.device) -> torch.Tensor:
+    """A fresh control block of the ladder on ``device``: a copy on the
+    card of one uploaded once per (ladder, device)."""
+    key = (stages, str(device))
+    base = _LADDERS.get(key)
+    if base is None:
+        base = _LADDERS[key] = ks.ladder_ctrl(stages, device)
+    return base.clone()
+
+
+def _device_of(device, *xs) -> torch.device:
+    if device is None:
+        device = next((x.device for x in xs if isinstance(x, torch.Tensor)),
+                      "cuda")
+    return resolve_device(device)
+
+
+def _on(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor on ``device``: numpy arrays are
+    copied, tensors already there are used as they are."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).contiguous()
+    return torch.tensor(np.ascontiguousarray(x, dtype=np.int32),
+                        device=device)
+
+
+def _rounds(L: ks.Lanes, n: int, staged: bool, timing: bool) -> None:
+    """Enqueue ``n`` batched supersteps (on the CPU: until the live word
+    drops)."""
+    cpu = L.device.type == "cpu"
+    for _ in range(n):
+        if cpu and not int(L.ctrl[ks.CTRL_LIVE]):
+            return
+        if staged:
+            ks.lane_compact(L)
+        ks.lane_superstep(L)
+        ks.lane_finish(L, timing)
+
+
+def batched_sweep(comb, degrees, k0, max_steps, planes: int,
+                  stall_window: int = DEFAULT_STALL_WINDOW, stages=None,
+                  device=None):
+    """The batch-synchronous class sweep: ``comb int32[B, V_pad, W_pad]``,
+    ``degrees int32[B, V_pad]``, per-graph ``k0``/``max_steps`` int32[B]
+    (numpy or tensors). Every lane runs its whole jump-mode pair; returns
+    the result slots ``(p1, s1, st1, used, p2, s2, st2)`` as tensors on
+    the device, when the last lane finishes. ``stages``: the ladder (or
+    None, the full table). ``device``: the inputs' (default ``cuda``)."""
+    device = _device_of(device, degrees, comb)
+    degrees = _on(degrees, device)
+    b, v = degrees.shape
+    stages, _pads, a0 = resolve_stages(stages, v)
+    carry = [torch.empty((b, a0) if j == CARRY_IDX else
+                         (b, v) if j in (CARRY_PACKED, CARRY_P1, CARRY_P2)
+                         else (b,), dtype=torch.int32, device=device)
+             for j in range(CARRY_LEN)]
+    L = ks.new_lanes(carry, _on(comb, device), degrees, _on(k0, device),
+                     _on(max_steps, device),
+                     torch.ones(b, dtype=torch.int32, device=device),
+                     _ladder_ctrl(stages, device), planes=planes,
+                     stall_window=stall_window, budget=ks.INT32_MAX)
+    staged = is_staged(stages)
+    ks.lane_reset(L)
+    while int(L.ctrl[ks.CTRL_LIVE]):  # one host read per chunk
+        _rounds(L, SWEEP_CHUNK, staged, False)
+    return tuple(L.carry[OUT0:OUT0 + N_OUT])
+
+
+def is_staged(stages) -> bool:
+    """Whether a ladder (``None``: the full table) has a staged rung."""
+    return stages is not None and any(s is not None for s, _ in stages)
+
+
+def slice_lanes(comb, degrees, k0, max_steps, reset, carry, *, planes: int,
+                stall_window: int = DEFAULT_STALL_WINDOW, stages=None,
+                device=None) -> ks.Lanes:
+    """The lanes of a continuous batch for :func:`run_slice`: the inputs
+    and the ``CARRY_LEN`` carry slots on the device (numpy arrays copied
+    there, tensors already there used as they are), the back buffer a copy
+    of ``packed``. The scheduler's pool keeps them from slice to slice and
+    writes each slice's inputs into their tensors; they are made again
+    only when the pool is resized."""
+    if len(carry) != CARRY_LEN:
+        raise ValueError(f"the carry has {CARRY_LEN} slots, got {len(carry)}")
+    device = _device_of(device, degrees, comb, *carry)
+    degrees = _on(degrees, device)
+    stages, _pads, a0 = resolve_stages(stages, degrees.shape[1])
+    if carry[CARRY_IDX].shape[1] != a0:
+        raise ValueError(f"the carry's slot list is {carry[CARRY_IDX].shape[1]}"
+                         f" wide, the ladder's {a0}")
+    return ks.new_lanes([_on(c, device) for c in carry], _on(comb, device),
+                        degrees, _on(k0, device), _on(max_steps, device),
+                        _on(reset, device), _ladder_ctrl(stages, device),
+                        planes=planes, stall_window=stall_window, budget=1)
+
+
+def run_slice(L: ks.Lanes, *, slice_steps: int, staged: bool,
+              timing: bool = False) -> tuple:
+    """One slice of ``L``: K16 (the lanes flagged in ``L.reset``
+    re-initialized), then at most ``slice_steps`` batched supersteps of
+    every live lane, enqueued without a host sync. Returns the carry, the
+    tensors of ``L`` advanced in place. ``staged``: the ladder has a
+    staged rung (:func:`is_staged`)."""
+    if int(slice_steps) < 1:
+        raise ValueError(f"slice_steps must be >= 1, got {slice_steps}")
+    L.set_budget(int(slice_steps))
+    ks.lane_reset(L, timing)
+    _rounds(L, int(slice_steps), staged, timing)
+    return tuple(L.carry)
+
+
+def batched_slice(comb, degrees, k0, max_steps, reset, carry, *,
+                  planes: int, slice_steps: int,
+                  stall_window: int = DEFAULT_STALL_WINDOW,
+                  timing: bool = False, stages=None, device=None):
+    """The continuous-batching class slice: re-init the lanes flagged in
+    ``reset int32[B]`` from their inputs, then at most ``slice_steps``
+    batched supersteps of every live lane, enqueued without a host sync.
+    ``carry`` is the ``CARRY_LEN`` slots, lane-leading (numpy or tensors);
+    returns the advanced carry as tensors on the device (the same tensors
+    when they were there already). The host reads ``carry[CARRY_PHASE] >=
+    2`` as the done mask. ``timing``: module docstring."""
+    if int(slice_steps) < 1:
+        raise ValueError(f"slice_steps must be >= 1, got {slice_steps}")
+    L = slice_lanes(comb, degrees, k0, max_steps, reset, carry,
+                    planes=planes, stall_window=stall_window, stages=stages,
+                    device=device)
+    return run_slice(L, slice_steps=slice_steps, staged=is_staged(stages),
+                     timing=timing)
+
+
+def to_host(x) -> np.ndarray:
+    """A carry slot (or any array) as a numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def carry_home(slots) -> tuple:
+    """Host copies (numpy) of carry slots: slots on a card come home in
+    one copy, the one host sync of the read."""
+    if not isinstance(slots[0], torch.Tensor):
+        return tuple(np.asarray(s) for s in slots)
+    flat = torch.cat([s.reshape(-1) for s in slots]).cpu().numpy()
+    out, at = [], 0
+    for s in slots:
+        out.append(flat[at:at + s.numel()].reshape(tuple(s.shape)))
+        at += s.numel()
+    return tuple(out)
+
+
+def idle_carry(b_pad: int, v_pad: int, a_pad: int = 1):
+    """Host-side all-idle lane carry (phase 2, inert): the continuous
+    pool's starting state and the shape every resize pads with. Plain
+    numpy — the kernel's first invocation uploads it. ``a_pad`` is the
+    class ladder's carried slot-list width (:func:`stage_idx_width`; 1
+    for full-table-only kernels)."""
+    pk = np.zeros((b_pad, v_pad), np.int32)
+    z = np.zeros(b_pad, np.int32)
+    return (np.full(b_pad, 2, np.int32), np.ones(b_pad, np.int32),
+            pk.copy(), z.copy(), z.copy(), z.copy(),
+            pk.copy(), z.copy(), z.copy(), z.copy(),
+            pk.copy(), z.copy(), np.full(b_pad, int(_FAILURE), np.int32),
+            z.copy(), z.copy(),
+            z.copy(), z.copy(),
+            z.copy(), np.full((b_pad, a_pad), v_pad, np.int32),
+            z.copy())
+
+
+def lane_outputs(carry, lane: int):
+    """Extract one done lane's ``(p1, s1, st1, used, p2, s2, st2)`` —
+    the sweep-result convention ``finish_pair`` consumes — from a
+    host-materialized carry (numpy tuple) or one on the device (only this
+    lane's two result rows and five scalars come home)."""
+    p1, s1, st1, used, p2, s2, st2 = (to_host(carry[j][lane])
+                                      for j in range(OUT0, OUT0 + N_OUT))
+    return p1, int(s1), int(st1), int(used), p2, int(s2), int(st2)
+
+
+def carry_nbytes(carry) -> int:
+    """Total byte size of a carry tuple (transfer accounting; every slot
+    is int32, and the shape touches no device data)."""
+    return int(sum(int(np.prod(a.shape)) * 4 for a in carry))
+
+
+# -- slice-size policy ----------------------------------------------------
+
+# Per-dispatch overhead vs per-superstep compute, by backend: the slice
+# size S trades them (``dgc_tpu.serve.batched``'s constants, kept as they
+# are: the "gpu" pair is the JAX package's guess, not a measurement on the
+# H100 — PERF.md records the measured split).
+_DISPATCH_OVERHEAD_S = {"tpu": 65e-3, "gpu": 10e-3, "cpu": 0.6e-3}
+_ENTRIES_PER_S = {"tpu": 1.0e10, "gpu": 5e9, "cpu": 1.5e8}
+
+
+def priced_slice_steps(overhead_s: float, superstep_s: float, *,
+                       overhead_frac: float = 0.125, lo: int = 4,
+                       hi: int = 64) -> int:
+    """The slice-size pricing rule itself: the smallest S keeping the
+    per-dispatch overhead ≤ ``overhead_frac`` of slice compute, clamped
+    to [lo, hi]. ``auto_slice_steps`` feeds it the static per-backend
+    model; the scheduler's timing-column recalibration
+    (``serve.engine.BatchScheduler``) feeds it MEASURED overhead and
+    post-ladder-median superstep seconds instead."""
+    s = math.ceil(overhead_s / (overhead_frac * max(superstep_s, 1e-9)))
+    return int(min(hi, max(lo, s)))
+
+
+def auto_slice_steps(entries: int, b_pad: int, platform: str | None = None,
+                     *, overhead_frac: float = 0.125, lo: int = 4,
+                     hi: int = 64) -> int:
+    """Priced slice size for a pool of ``b_pad`` lanes of a class with
+    ``entries`` gathered table entries per lane-superstep
+    (``ShapeClass.entries()``); ``platform`` "gpu" or "cpu" (default: the
+    card when there is one)."""
+    plat = platform or ("gpu" if torch.cuda.is_available() else "cpu")
+    overhead = _DISPATCH_OVERHEAD_S.get(plat, 1e-3)
+    rate = _ENTRIES_PER_S.get(plat, 5e8)
+    superstep_s = max(b_pad * entries / rate, 1e-9)
+    return priced_slice_steps(overhead, superstep_s,
+                              overhead_frac=overhead_frac, lo=lo, hi=hi)
+
+
+def finish_pair(member, p1, s1, st1, used, p2, s2, st2, attempt_fallback):
+    """Host epilogue for one member — mirrors the single-graph
+    ``CompactFrontierEngine.sweep`` + ``engine.base.finish_sweep_pair``
+    contract exactly: no confirm after a non-success first attempt,
+    ``k2 < 1`` fabricates the trivial empty-budget FAILURE, a STALLED
+    confirm falls back to ``attempt_fallback(k2)`` (the single-graph
+    attempt owns the widen-and-retry loop; unreachable for covering
+    windows short of a genuine stall).
+
+    Colors are already in original vertex ids (no relabeling); rows past
+    the real V are padding and trimmed here."""
+    from dgc_tpu_torch.engine.base import finish_sweep_pair
+
+    v = member.num_vertices
+
+    def _finish(packed, status, steps, k) -> AttemptResult:
+        packed = to_host(packed)[:v]
+        colors = np.where(packed >= 0, packed >> 1, -1).astype(np.int32)
+        return AttemptResult(AttemptStatus(int(status)), colors,
+                             int(steps), int(k))
+
+    first = _finish(p1, st1, s1, member.k0)
+    return finish_sweep_pair(
+        first, int(used), int(st2),
+        lambda k2: _finish(p2, st2, s2, k2),
+        v, attempt_fallback,
+    )
+
+
+def finish_attempt(member, p1, s1, st1, k: int) -> AttemptResult:
+    """Host epilogue for one attempt-only lane: decode the first-attempt
+    result slots exactly as :func:`finish_pair` decodes slot 1."""
+    v = member.num_vertices
+    packed = to_host(p1)[:v]
+    colors = np.where(packed >= 0, packed >> 1, -1).astype(np.int32)
+    return AttemptResult(AttemptStatus(int(st1)), colors, int(s1), int(k))

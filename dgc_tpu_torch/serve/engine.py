@@ -1,0 +1,1102 @@
+"""Batch scheduler: lane recycling, affinity batching, first-use caches
+(port of ``dgc_tpu.serve.engine``, single device).
+
+The front-end (``serve.queue``) runs one ``find_minimal_coloring`` per
+request on a worker thread — the exact jump-mode driver the CLI uses, so
+attempt sequences, validation and the recolor post-pass are the
+single-graph semantics by construction. Each worker's engine is a
+:class:`BatchMemberEngine` proxy whose ``sweep(k)`` does not dispatch: it
+enqueues the (member, k) call with the :class:`BatchScheduler` and blocks.
+
+Two dispatch modes:
+
+- ``mode="continuous"`` (default) — **lane recycling**: each shape class
+  owns a :class:`_LanePool` of at most ``batch_max`` lanes. The dispatcher
+  runs one slice (``serve.batched.run_slice`` over the pool's lanes: at
+  most ``slice_steps`` batched supersteps on the card), reads the per-lane
+  phase/rung/nc back, swaps every done lane's result out and a queued
+  request in (``reset`` flag; the slice re-inits the lane from its
+  inputs), and re-enters. The pool's width adapts to demand (power-of-two
+  pads up to ``batch_max``). ``slice_steps=None`` prices the slice size
+  per (class, pool width) (``serve.batched.auto_slice_steps``).
+- ``mode="sync"`` — batch-complete dispatch (one whole jump-mode pair per
+  batch, ``serve.batched.batched_sweep``), the A/B baseline.
+
+The carry is the **host mirror** mode of the reference: between slices it
+stays on the card as the tensors the kernels return; the input stacks are
+uploaded when a swap changed them; the phase/rung/nc scheduling scalars
+(and ``T_US`` under timing) come home every slice in one copy, and the
+whole carry only on a slice where some lane finished. ``h2d``/``d2h``
+count those bytes in the ``serve_slice`` events.
+
+**Affinity batching** rides both modes: pending calls carry a predicted
+sweep-depth bucket (the bit length of the budget ``k``), and the scheduler
+co-schedules calls of the same bucket so lanes finish together. A
+starvation guard falls back to FIFO for any call older than ``50 ×
+window_s``.
+
+The reference's "compile cache" hit/miss counts become the first use of a
+``(class, b_pad[, slice_steps])`` key here (PyTorch compiles nothing per
+shape; the kernels are built once), so the event fields keep their
+schema; :meth:`BatchScheduler.warm_class` runs each pad of a class once
+before serving.
+
+Not ported (the reference's other planes): the lane mesh, the
+device-health model, speculation and the device-resident carry.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from dgc_tpu_torch.device import resolve_device
+from dgc_tpu_torch.engine.base import AttemptResult, empty_budget_failure
+from dgc_tpu_torch.layout import (CARRY_LEN, CARRY_NC, CARRY_PHASE,
+                                  CARRY_RUNG, T_US)
+from dgc_tpu_torch.obs.trace import NULL_TRACER
+from dgc_tpu_torch.resilience.faults import fault_point
+from dgc_tpu_torch.resilience.supervisor import STRUCTURED_ABORT_RC
+from dgc_tpu_torch.serve.batched import (DEFAULT_STALL_WINDOW,
+                                         auto_slice_steps, batched_sweep,
+                                         carry_home, carry_nbytes,
+                                         finish_pair, idle_carry, is_staged,
+                                         lane_outputs, priced_slice_steps,
+                                         run_slice, slice_lanes,
+                                         stage_idx_width)
+from dgc_tpu_torch.serve.shape_classes import (dummy_member, pad_ladder,
+                                               padding_waste,
+                                               stage_schedule_for)
+
+# FIFO takes over affinity ordering for calls older than this many
+# batching windows — affinity may reorder, never starve
+_STARVE_WINDOWS = 50.0
+# a call whose lane aborts this many times is quarantined (the
+# poison-request policy)
+MAX_LANE_ABORTS = 3
+# full slices at the deepest rung before the measured slice size is priced
+RECAL_MIN_SLICES = 8
+
+
+class ServeError(RuntimeError):
+    """A request the serving path cannot complete (engine error after
+    fallback, scheduler shut down mid-call)."""
+
+
+class PoisonedRequest(ServeError):
+    """Quarantine verdict: this request's lane aborted
+    ``MAX_LANE_ABORTS`` times, so it is structured-failed with rc
+    context. Deliberately NOT the generic :class:`ServeError` the
+    front end retries on the single-graph fallback."""
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def depth_bucket(k: int) -> int:
+    """Predicted-sweep-depth affinity key for a budget-``k`` sweep call:
+    the bit length of ``k``."""
+    return max(1, int(k)).bit_length()
+
+
+def priority_window(window_s: float, priority: int) -> float:
+    """Effective micro-batching window when the highest-priority pending
+    call has tier ``priority``: ``window / 2^priority``; priority 0 keeps
+    the configured window."""
+    if priority <= 0:
+        return window_s
+    return window_s / (1 << min(int(priority), 6))
+
+
+class _SweepCall:
+    __slots__ = ("member", "k", "depth", "priority", "done", "result",
+                 "error", "t_enqueue", "span", "lane_span", "device_us",
+                 "aborts")
+
+    def __init__(self, member, k, span=None, priority=0):
+        self.member = member
+        self.k = int(k)
+        self.depth = depth_bucket(k)
+        self.priority = max(0, int(priority))
+        self.done = threading.Event()
+        self.result = None
+        self.error = None
+        self.t_enqueue = time.perf_counter()
+        # lane aborts survived so far; at MAX_LANE_ABORTS the call is
+        # quarantined (dispatcher-owned, like lane state)
+        self.aborts = 0
+        # request-scoped tracing (obs.trace): the sweep span begun at
+        # enqueue; the lane span the dispatcher opens when it seats the call
+        self.span = span
+        self.lane_span = None
+        self.device_us = None      # in-kernel superstep µs (timing mode)
+
+
+class _LanePool:   # owned by the dispatcher thread
+    """One shape class's host-side lane state (continuous mode): the
+    host mirror of the inputs (mutated only when a lane is swapped), the
+    carry (numpy until its first slice, then the tensors the kernels
+    return), the kernels' lanes (``serve.batched.slice_lanes``, kept from
+    slice to slice: the inputs on the card are written into their
+    tensors), and the per-lane call bookkeeping. ``h2d``/``d2h`` count the
+    host↔device bytes the pool moves."""
+
+    __slots__ = ("cls", "b_pad", "comb", "degrees", "k0", "max_steps",
+                 "reset", "carry", "calls", "t_fill", "slices_in",
+                 "t_seen", "_dev_inputs", "_dev_vecs", "_dirty", "_dummy",
+                 "h2d", "d2h", "a_pad", "device", "lanes")
+
+    def __init__(self, cls, b_pad: int, dummy, device, a_pad: int = 1):
+        self.cls = cls
+        self._dummy = dummy
+        self.device = device
+        self.a_pad = int(a_pad)   # the class ladder's CARRY_IDX width
+        self.b_pad = 0
+        self.calls = []
+        self.t_fill = []
+        self.slices_in = []
+        self.h2d = 0
+        self.d2h = 0
+        self._resize(self._pad(b_pad))
+
+    @staticmethod
+    def _pad(n: int) -> int:
+        """The pool width that seats ``n`` lanes: the power-of-two pad."""
+        return _pow2_ceil(max(int(n), 1))
+
+    def _resize(self, b_pad: int) -> None:
+        """(Re)allocate at ``b_pad`` lanes, compacting live lanes into the
+        low indices (lane identity is per-slice; the call list follows the
+        carry rows). A carry on the card comes home for it, and the input
+        stacks re-upload (resizes are pad-boundary rare)."""
+        keep = [i for i, c in enumerate(self.calls) if c is not None]
+        assert len(keep) <= b_pad, "resize would drop live lanes"
+        cls, dummy = self.cls, self._dummy
+        comb = np.repeat(dummy.comb[None], b_pad, axis=0)
+        degrees = np.zeros((b_pad, cls.v_pad), np.int32)
+        k0 = np.ones(b_pad, np.int32)
+        max_steps = np.full(b_pad, dummy.max_steps, np.int32)
+        reset = np.zeros(b_pad, np.int32)
+        carry = idle_carry(b_pad, cls.v_pad, self.a_pad)
+        old_carry = None
+        if keep:
+            if not isinstance(self.carry[0], np.ndarray):
+                self.d2h += carry_nbytes(self.carry)
+            old_carry = carry_home(self.carry)
+        calls = [None] * b_pad
+        t_fill = [0.0] * b_pad
+        slices_in = [0] * b_pad
+        t_seen = np.zeros(b_pad, np.int64)
+        for new_i, old_i in enumerate(keep):
+            comb[new_i] = self.comb[old_i]
+            degrees[new_i] = self.degrees[old_i]
+            k0[new_i] = self.k0[old_i]
+            max_steps[new_i] = self.max_steps[old_i]
+            reset[new_i] = self.reset[old_i]
+            for j in range(CARRY_LEN):
+                carry[j][new_i] = old_carry[j][old_i]
+            calls[new_i] = self.calls[old_i]
+            t_fill[new_i] = self.t_fill[old_i]
+            slices_in[new_i] = self.slices_in[old_i]
+            t_seen[new_i] = self.t_seen[old_i]
+        self.b_pad = b_pad
+        self.comb, self.degrees = comb, degrees
+        self.k0, self.max_steps, self.reset = k0, max_steps, reset
+        self.carry = carry
+        self.calls, self.t_fill, self.slices_in = calls, t_fill, slices_in
+        self.t_seen = t_seen
+        self._dev_inputs = None
+        self._dev_vecs = None
+        self.lanes = None
+        self._dirty = []
+
+    @property
+    def live(self) -> int:
+        return sum(1 for c in self.calls if c is not None)
+
+    def live_depths(self) -> list:
+        return [c.depth for c in self.calls if c is not None]
+
+    def reserve(self, n: int) -> None:
+        """Grow ONCE to fit ``n`` more seats (a resize reallocates the
+        host arrays and forces a full re-upload)."""
+        need = self.live + n
+        if need > self.b_pad:
+            self._resize(self._pad(need))
+
+    def fill(self, call: _SweepCall) -> int:
+        """Seat ``call`` in the first free lane (growing the pool if every
+        lane is taken); the slice re-inits the lane from these inputs
+        (``reset``)."""
+        try:
+            lane = self.calls.index(None)
+        except ValueError:
+            self._resize(self.b_pad * 2)
+            lane = self.calls.index(None)
+        m = call.member
+        self.comb[lane] = m.comb
+        self.degrees[lane] = m.degrees
+        self.k0[lane] = call.k
+        self.max_steps[lane] = m.max_steps
+        self.reset[lane] = 1
+        self.calls[lane] = call
+        self.t_fill[lane] = time.perf_counter()
+        self.slices_in[lane] = 0
+        self.t_seen[lane] = 0   # reset re-zeroes the lane's timing slot
+        self._dirty.append(lane)
+        return lane
+
+    def dev_inputs(self):
+        """The (comb, degrees) copies on the card, re-uploaded only on
+        slices where a swap (or resize) changed the host mirror; after
+        the first, into the same tensors."""
+        if self._dev_inputs is None:
+            self._dev_inputs = tuple(
+                torch.from_numpy(a).to(self.device, copy=True)
+                for a in (self.comb, self.degrees))
+        elif self._dirty:
+            for dev, a in zip(self._dev_inputs, (self.comb, self.degrees)):
+                dev.copy_(torch.from_numpy(a))
+        else:
+            return self._dev_inputs
+        self.h2d += self.comb.nbytes + self.degrees.nbytes
+        self._dirty = []
+        return self._dev_inputs
+
+    def dev_vecs(self):
+        """The scheduling vectors (k0, max_steps, reset) on the card, one
+        int32[3, b_pad] tensor written every slice (one copy)."""
+        host = torch.from_numpy(np.stack([self.k0, self.max_steps,
+                                          self.reset]))
+        if self._dev_vecs is None:
+            self._dev_vecs = host.to(self.device, copy=True)
+        else:
+            self._dev_vecs.copy_(host)
+        self.h2d += self.k0.nbytes + self.max_steps.nbytes + self.reset.nbytes
+        return self._dev_vecs
+
+    def rearm(self, carry) -> None:
+        """Post-slice bookkeeping: adopt the advanced carry and lower
+        every reset flag."""
+        self.carry = carry
+        self.reset[:] = 0
+
+    def maybe_shrink(self) -> None:
+        """Shrink to the live set's power-of-two pad as soon as a pad
+        boundary is crossed (the caller skips this while the class still
+        has queued work)."""
+        target = self._pad(max(self.live, 1))
+        if target < self.b_pad:
+            self._resize(target)
+
+
+class BatchScheduler:
+    """Groups concurrent sweep calls by shape class; dispatches them as
+    recycled lane slices (continuous mode) or whole-pair batches (sync
+    mode) — see the module docstring.
+
+    ``window_s`` is the micro-batching window: a class with pending calls
+    but no live lanes waits up to the window for more of the same class
+    (or ``batch_max``) before first dispatch. ``on_batch(record)``
+    observes every sync dispatch and ``on_event(kind, record)`` every
+    continuous slice / lane swap. ``device``: where the kernels run
+    (default the card)."""
+
+    def __init__(self, *, batch_max: int = 8, window_s: float = 0.002,
+                 mode: str = "continuous", slice_steps: int | None = None,
+                 affinity: bool = True, timing: bool = False,
+                 stages="auto",
+                 on_batch=None, on_event=None, tracer=None,
+                 device="cuda"):
+        if batch_max < 1:
+            raise ValueError(f"batch_max must be >= 1, got {batch_max}")
+        if mode not in ("continuous", "sync"):
+            raise ValueError(f"mode must be continuous|sync, got {mode!r}")
+        if slice_steps is not None and int(slice_steps) < 1:
+            raise ValueError(
+                f"slice_steps must be >= 1 or None (auto), got {slice_steps}")
+        if not (stages in ("auto", "off") or isinstance(stages, tuple)):
+            raise ValueError(
+                f"stages must be 'auto', 'off', or a stage ladder tuple, "
+                f"got {stages!r}")
+        self.device = resolve_device(device)
+        self.platform = "gpu" if self.device.type == "cuda" else "cpu"
+        self.batch_max = int(batch_max)
+        self.window_s = float(window_s)
+        self.mode = mode
+        self.slice_steps = None if slice_steps is None else int(slice_steps)
+        self.affinity = bool(affinity)
+        # staged frontier ladder: "auto" derives each class's ladder
+        # (engine.compact.class_stage_schedule), "off" runs the full
+        # table, an explicit ladder applies to every class
+        self.stages = stages
+        # in-kernel timing (obs.devclock): splits slice wall time into
+        # superstep compute vs dispatch overhead and, with slice_steps
+        # auto, re-prices the slice size ONCE per class from the measured
+        # split after RECAL_MIN_SLICES full slices at the deepest rung
+        self.timing = bool(timing)
+        self.on_batch = on_batch
+        self.on_event = on_event
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        # the Condition wraps an RLock, so guarded sections nest freely
+        self._lock = threading.Condition()
+        self._pending: dict = {}   # class -> [_SweepCall]; guarded-by: _lock
+        self._kernels: dict = {}   # first-use key -> fn; guarded-by: _lock
+        self._dummies: dict = {}   # class -> ServeMember; guarded-by: _lock
+        self._class_stages: dict = {}  # class -> stages|None; guarded-by: _lock
+        self._pools: dict = {}     # class -> _LanePool; guarded-by: dispatcher
+        self._timing_acc: dict = {}  # cls -> window dict; guarded-by: dispatcher
+        self._recal: dict = {}     # cls -> slice_steps; guarded-by: _lock
+        self._stop = False         # guarded-by: _lock
+        self._thread = None        # guarded-by: owner
+        self.stats = {"batches": 0, "sweeps": 0, "compile_hits": 0,
+                      "compile_misses": 0, "slices": 0, "recycles": 0,
+                      "max_live": 0, "recals": 0,
+                      "h2d_bytes": 0, "d2h_bytes": 0,
+                      "rebuilds": 0, "quarantined": 0}   # guarded-by: _lock
+
+    # -- lifecycle ------------------------------------------------------
+    def start(self) -> "BatchScheduler":
+        if self._thread is None:
+            target = (self._loop_continuous if self.mode == "continuous"
+                      else self._loop_sync)
+            self._thread = threading.Thread(target=target, daemon=True,
+                                            name="dgc-serve-batcher")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stop = True
+            self._lock.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        # calls stranded by shutdown fail loudly — pending AND in-lane
+        # (the dispatcher has exited; pools are safe to touch)
+        with self._lock:
+            stranded = [c for calls in self._pending.values() for c in calls]
+            self._pending.clear()
+        for pool in self._pools.values():
+            stranded.extend(c for c in pool.calls if c is not None)
+        self._pools.clear()
+        for call in stranded:
+            if call.lane_span is not None:
+                call.lane_span.end({"error": "scheduler stopped"})
+            call.error = ServeError("batch scheduler stopped")
+            call.done.set()
+
+    # -- submission (worker threads) ------------------------------------
+    def sweep(self, member, k: int, priority: int = 0):
+        """Blocking batched sweep: returns the raw per-member outputs
+        ``(p1, s1, st1, used, p2, s2, st2)`` (host arrays and ints). The
+        sweep span brackets enqueue through delivery; the dispatcher opens
+        a child ``lane`` span per seating."""
+        span = self.tracer.begin("sweep", attrs={"k": int(k),
+                                                 "cls": member.cls.name})
+        call = _SweepCall(member, k, span=span, priority=priority)
+        try:
+            with self._lock:
+                if self._stop:
+                    raise ServeError("batch scheduler stopped")
+                self._pending.setdefault(member.cls, []).append(call)
+                self._lock.notify_all()
+            call.done.wait()
+            if call.error is not None:
+                raise call.error
+        except BaseException as e:
+            span.end({"error": f"{type(e).__name__}: {e}"})
+            raise
+        span.end({"device_us": call.device_us}
+                 if call.device_us is not None else None)
+        return call.result
+
+    # -- warmup ---------------------------------------------------------
+    def warm_class(self, cls) -> dict:
+        """Run a class's kernels once at every power-of-two pad the pool
+        can visit (up to ``batch_max``) on all-dummy lanes, so the first
+        use of each lands here (on the card: the kernels' build and load)
+        instead of in first-batch latency. Returns ``{"kernels",
+        "stage_bodies", "seconds"}``."""
+        with self._lock:
+            dummy = self._dummies.get(cls)
+            if dummy is None:
+                dummy = self._dummies[cls] = dummy_member(cls)
+        t0 = time.perf_counter()
+        warmed = 0
+        for b in pad_ladder(self.batch_max):
+            comb = np.repeat(dummy.comb[None], b, axis=0)
+            degrees = np.zeros((b, cls.v_pad), np.int32)
+            k0 = np.ones(b, np.int32)
+            max_steps = np.full(b, dummy.max_steps, np.int32)
+            if self.mode == "continuous":
+                kernel, _ = self._slice_kernel_for(cls, b)
+                carry = kernel(self._lanes_for(
+                    cls, comb, degrees, k0, max_steps, np.ones(b, np.int32),
+                    idle_carry(b, cls.v_pad,
+                               stage_idx_width(self.stages_for(cls)))))
+                carry_home(carry[CARRY_PHASE:CARRY_PHASE + 1])
+            else:
+                kernel, _ = self._kernel_for(cls, b)
+                carry_home(kernel(comb, degrees, k0, max_steps))
+            warmed += 1
+        stages = self.stages_for(cls)
+        return {"kernels": warmed,
+                "stage_bodies": len(stages) if stages else 1,
+                "seconds": time.perf_counter() - t0}
+
+    # -- affinity -------------------------------------------------------
+    def _affinity_order(self, calls: list, live_depths: list) -> list:
+        """Order a class's pending calls for seating: priority tier first,
+        then same-depth-bucket calls together (nearest the live lanes'
+        median bucket first in continuous mode; largest group first when
+        the pool is empty), FIFO within a bucket, and strict FIFO for
+        anything waiting past the starvation guard."""
+        if not self.affinity or len(calls) <= 1:
+            return list(calls)
+        now = time.perf_counter()
+        guard = _STARVE_WINDOWS * max(self.window_s, 1e-3)
+        starving = [c for c in calls if now - c.t_enqueue > guard]
+        if starving:
+            return sorted(calls, key=lambda c: c.t_enqueue)
+        if live_depths:
+            target = sorted(live_depths)[len(live_depths) // 2]
+            key = lambda c: (-c.priority, abs(c.depth - target), c.depth,
+                             c.t_enqueue)
+        else:
+            groups: dict = {}
+            for c in calls:
+                groups[c.depth] = groups.get(c.depth, 0) + 1
+            key = lambda c: (-c.priority, -groups[c.depth], c.depth,
+                             c.t_enqueue)
+        return sorted(calls, key=key)
+
+    def stats_snapshot(self) -> dict:
+        """Locked copy of the live counters."""
+        with self._lock:
+            return dict(self.stats)
+
+    # -- stage-ladder resolution ----------------------------------------
+    def stages_for(self, cls):
+        """The staged-frontier-ladder schedule of ``cls`` (None = the full
+        table): an explicit ladder / "off" override, else the
+        engine-derived default (``shape_classes.stage_schedule_for``).
+        Cached per class; part of every kernel key."""
+        if self.stages == "off":
+            return None
+        if isinstance(self.stages, tuple):
+            return stage_schedule_for(cls, self.stages)
+        with self._lock:
+            if cls in self._class_stages:
+                return self._class_stages[cls]
+        st = stage_schedule_for(cls, "auto")
+        with self._lock:
+            self._class_stages[cls] = st
+        return st
+
+    # -- first-use caches -----------------------------------------------
+    def _kernel_for(self, cls, b_pad: int):
+        stages = self.stages_for(cls)
+        key = ("sync", cls.v_pad, cls.w_pad, cls.planes, b_pad, stages)
+        with self._lock:
+            hit = key in self._kernels
+            if not hit:
+                self._kernels[key] = lambda *a: batched_sweep(
+                    *a, planes=cls.planes, stall_window=DEFAULT_STALL_WINDOW,
+                    stages=stages, device=self.device)
+                self.stats["compile_misses"] += 1
+            else:
+                self.stats["compile_hits"] += 1
+            return self._kernels[key], hit
+
+    def _slice_kernel_for(self, cls, b_pad: int):
+        s = self.resolved_slice_steps(cls, b_pad)
+        stages = self.stages_for(cls)
+        key = ("slice", cls.v_pad, cls.w_pad, cls.planes, b_pad, s,
+               self.timing, stages)
+        with self._lock:
+            hit = key in self._kernels
+            if not hit:
+                self._kernels[key] = lambda lanes: run_slice(
+                    lanes, slice_steps=s, staged=is_staged(stages),
+                    timing=self.timing)
+                self.stats["compile_misses"] += 1
+            else:
+                self.stats["compile_hits"] += 1
+            return self._kernels[key], hit
+
+    def _lanes_for(self, cls, comb, degrees, k0, max_steps, reset, carry):
+        """The kernels' lanes of a pool of ``cls`` (``slice_lanes``)."""
+        return slice_lanes(comb, degrees, k0, max_steps, reset, carry,
+                           planes=cls.planes,
+                           stall_window=DEFAULT_STALL_WINDOW,
+                           stages=self.stages_for(cls), device=self.device)
+
+    def resolved_slice_steps(self, cls, b_pad: int) -> int:
+        if self.slice_steps is not None:
+            return self.slice_steps
+        with self._lock:
+            recal = self._recal.get(cls)
+        if recal is not None:
+            return recal
+        return auto_slice_steps(cls.entries(), b_pad, self.platform)
+
+    def _timing_sample(self, cls, overhead_s: float, iter_s: float,
+                       rung: int = 0) -> None:
+        """One full slice's measured (dispatch overhead, per-superstep
+        seconds) at ladder rung ``rung``; after ``RECAL_MIN_SLICES``
+        samples at the deepest rung seen, the class's slice size is
+        re-priced ONCE from the MEDIAN of that window (slice_steps auto
+        only). The window restarts whenever a deeper rung appears and
+        shallower late samples are skipped."""
+        acc = self._timing_acc.setdefault(
+            cls, {"rung": -1, "ovh": [], "it": []})
+        if rung > acc["rung"]:
+            acc["rung"] = rung
+            acc["ovh"] = []
+            acc["it"] = []
+        elif rung < acc["rung"]:
+            return   # a recycled lane dragged the pool back up-ladder
+        acc["ovh"].append(overhead_s)
+        acc["it"].append(iter_s)
+        n = len(acc["it"])
+        with self._lock:
+            done = (self.slice_steps is not None or cls in self._recal
+                    or n < RECAL_MIN_SLICES)
+        if done:
+            return
+        import statistics
+
+        overhead = statistics.median(acc["ovh"])
+        iter_med = statistics.median(acc["it"])
+        s_new = priced_slice_steps(overhead, iter_med)
+        s_old = auto_slice_steps(cls.entries(),
+                                 self._pools[cls].b_pad
+                                 if cls in self._pools else 1, self.platform)
+        with self._lock:
+            self._recal[cls] = s_new
+        if s_new != s_old:
+            with self._lock:
+                self.stats["recals"] += 1
+            if self.on_event is not None:
+                self.on_event("slice_recalibrated", {
+                    "shape_class": cls.name, "from_steps": int(s_old),
+                    "to_steps": int(s_new),
+                    "overhead_ms": round(overhead * 1e3, 3),
+                    "sstep_ms": round(iter_med * 1e3, 3),
+                    "samples": int(n), "rung": int(acc["rung"]),
+                })
+
+    # -- fault plane: quarantine and rebuild -------------------------------
+    def _quarantine(self, call, error) -> None:
+        """Poison-request policy: structured-fail one call with rc
+        context after its lane abort budget is spent."""
+        if call.lane_span is not None:
+            call.lane_span.end({"error": "quarantined"})
+            call.lane_span = None
+        call.error = PoisonedRequest(
+            f"request quarantined after {call.aborts} lane aborts "
+            f"(rc {STRUCTURED_ABORT_RC}): {type(error).__name__}: {error}")
+        call.done.set()
+        with self._lock:
+            self.stats["quarantined"] += 1
+
+    def _evacuate_pool(self, cls, error):
+        """Tear one class's pool down and requeue its live calls at the
+        queue head (a deterministic re-run from their inputs), each
+        charged one lane abort and quarantined past its budget. Returns
+        ``(survivors, poisoned, aborts_max)``."""
+        pool = self._pools.pop(cls, None)
+        survivors, poisoned = [], []
+        aborts_max = 0
+        for call in (pool.calls if pool is not None else []):
+            if call is None:
+                continue
+            call.aborts += 1
+            aborts_max = max(aborts_max, call.aborts)
+            if call.lane_span is not None:
+                call.lane_span.end({"error": f"lane aborted: {error}"})
+                call.lane_span = None
+            (poisoned if call.aborts >= MAX_LANE_ABORTS
+             else survivors).append(call)
+        for call in poisoned:
+            call.error = PoisonedRequest(
+                f"request quarantined after {call.aborts} lane aborts "
+                f"(rc {STRUCTURED_ABORT_RC}): "
+                f"{type(error).__name__}: {error}")
+            call.done.set()
+        with self._lock:
+            if survivors:
+                self._pending.setdefault(cls, [])[:0] = survivors
+            self.stats["quarantined"] += len(poisoned)
+            self._lock.notify_all()
+        return survivors, poisoned, aborts_max
+
+    def _recover_class(self, cls, error) -> None:
+        """Dispatch failure recovery: tear the class's pool down,
+        quarantine calls past their abort budget, reseat the survivors,
+        emit ``lane_rebuild``."""
+        survivors, poisoned, aborts_max = self._evacuate_pool(cls, error)
+        with self._lock:
+            self.stats["rebuilds"] += 1
+        if self.on_event is not None:
+            self.on_event("lane_rebuild", {
+                "shape_class": cls.name,
+                "reason": "abort",
+                "reseated": len(survivors),
+                "quarantined": len(poisoned),
+                "aborts_max": int(aborts_max),
+                "error": f"{type(error).__name__}: {error}"[:300],
+            })
+
+    # =====================================================================
+    # continuous mode: lane recycling
+    # =====================================================================
+    def _wait_for_work(self):
+        """Block until there is something to do. Returns False on stop.
+        When a class has pending calls but no live lanes yet, honor the
+        batching window (coalesce the first fill)."""
+        with self._lock:
+            while (not self._stop and not self._pending
+                   and not any(p.live for p in self._pools.values())):
+                self._lock.wait()
+            if self._stop:
+                return False
+            if (self.window_s > 0 and self._pending
+                    and not any(p.live for p in self._pools.values())):
+                cls = max(self._pending, key=lambda c: max(
+                    x.priority for x in self._pending[c]))
+                window = priority_window(
+                    self.window_s,
+                    max(x.priority for x in self._pending[cls]))
+                if len(self._pending[cls]) < self.batch_max:
+                    deadline = time.perf_counter() + window
+                    while (not self._stop
+                           and len(self._pending.get(cls) or [])
+                           < self.batch_max):
+                        left = deadline - time.perf_counter()
+                        if left <= 0:
+                            break
+                        self._lock.wait(timeout=left)
+            return not self._stop
+
+    def _pop_pending(self, cls, free: int, live_depths: list) -> list:
+        with self._lock:
+            calls = self._pending.get(cls)
+            if not calls:
+                return []
+            ordered = self._affinity_order(calls, live_depths)
+            take = ordered[:free]
+            rest = [c for c in calls if c not in take]
+            if rest:
+                self._pending[cls] = rest
+            else:
+                self._pending.pop(cls, None)
+            return take
+
+    def _loop_continuous(self) -> None:
+        while True:
+            if not self._wait_for_work():
+                return
+            with self._lock:
+                classes = set(self._pending)
+            classes.update(c for c, p in self._pools.items() if p.live)
+            # deterministic service order (sets hash-order otherwise)
+            for cls in sorted(classes, key=lambda c: c.name):
+                with self._lock:
+                    if self._stop:
+                        return
+                try:
+                    self._service_class(cls)
+                except Exception as e:
+                    # dispatch abort: rebuild instead of failing the whole
+                    # batch — survivors reseat, poisoned calls
+                    # structured-fail
+                    self._recover_class(cls, e)
+
+    def _service_class(self, cls) -> None:
+        """One slice of one class's pool: seat queued calls in free lanes,
+        run the slice, deliver every done lane, shrink a draining pool."""
+        pool = self._pools.get(cls)
+        if pool is None:
+            with self._lock:
+                dummy = self._dummies.get(cls)
+                if dummy is None:
+                    dummy = self._dummies[cls] = dummy_member(cls)
+            pool = self._pools[cls] = _LanePool(
+                cls, 1, dummy, self.device,
+                a_pad=stage_idx_width(self.stages_for(cls)))
+
+        free = self.batch_max - pool.live
+        admitted = 0
+        if free > 0:
+            take = self._pop_pending(cls, free, pool.live_depths())
+            if take:
+                pool.reserve(len(take))   # ONE resize for the whole wave
+            for call in take:
+                try:
+                    fault_point("lane_seat", shape_class=cls.name)
+                except Exception as e:
+                    # a seat fault costs THIS call one abort (quarantine
+                    # past the budget, back of the queue otherwise)
+                    call.aborts += 1
+                    if call.aborts >= MAX_LANE_ABORTS:
+                        self._quarantine(call, e)
+                    else:
+                        with self._lock:
+                            self._pending.setdefault(cls, []).append(call)
+                            self._lock.notify_all()
+                    continue
+                lane = pool.fill(call)
+                call.lane_span = self.tracer.begin(
+                    "lane", parent=call.span,
+                    attrs={"lane": int(lane), "b_pad": int(pool.b_pad)})
+                admitted += 1
+        live = pool.live
+        if live == 0:
+            self._pools.pop(cls, None)
+            return
+        # shrink a draining tail — but not while queued work is about to
+        # refill the freed lanes (shrink→grow thrash re-uploads tables)
+        with self._lock:
+            has_pending = bool(self._pending.get(cls))
+        if not has_pending:
+            pool.maybe_shrink()
+
+        kernel, cache_hit = self._slice_kernel_for(cls, pool.b_pad)
+        slice_steps = self.resolved_slice_steps(cls, pool.b_pad)
+        slice_span = self.tracer.begin(
+            "slice", trace="sched",
+            attrs={"cls": cls.name, "live": int(live),
+                   "b_pad": int(pool.b_pad)})
+        t0 = time.perf_counter()
+
+        try:
+            fault_point("serve_dispatch", shape_class=cls.name)
+            comb_dev, degrees_dev = pool.dev_inputs()
+            # the scheduling vectors go up every slice (one copy), the
+            # carry once (its first slice after a resize, with the lanes;
+            # then the lanes' tensors advance in place)
+            vecs = pool.dev_vecs()
+            if pool.lanes is None:
+                pool.h2d += carry_nbytes(pool.carry)
+                pool.lanes = self._lanes_for(cls, comb_dev, degrees_dev,
+                                             vecs[0], vecs[1], vecs[2],
+                                             pool.carry)
+            carry = kernel(pool.lanes)
+            # the per-lane scheduling scalars — the ONLY unconditional
+            # device→host transfer per slice, one copy: the slice's sync
+            slots = [CARRY_PHASE, CARRY_RUNG, CARRY_NC] + (
+                [T_US] if self.timing else [])
+            home = carry_home([carry[j] for j in slots])
+        except BaseException as e:
+            # every opened span must end (the validate_runlog contract)
+            slice_span.end({"error": f"{type(e).__name__}: {e}"})
+            raise
+        phase, rung, nc = home[0], home[1], home[2]
+        pool.d2h += 3 * phase.nbytes
+        device_s = time.perf_counter() - t0
+        pool.rearm(carry)
+        for i in range(pool.b_pad):
+            pool.slices_in[i] += 1
+
+        # in-kernel timing split (the T_US carry slot): per-lane
+        # accumulated superstep µs; the per-slice in-kernel wall is the
+        # max lane delta, overhead = host wall − in-kernel wall
+        sstep_s = overhead_s = None
+        t_acc = None
+        if self.timing:
+            t_acc = home[3].astype(np.int64)
+            pool.d2h += phase.nbytes
+            deltas = t_acc - pool.t_seen
+            live_mask = np.array([c is not None for c in pool.calls])
+            sstep_s = (float(deltas[live_mask].max()) / 1e6
+                       if live_mask.any() else 0.0)
+            overhead_s = max(0.0, device_s - sstep_s)
+            pool.t_seen = t_acc.copy()
+
+        done_lanes = [i for i in range(pool.b_pad)
+                      if pool.calls[i] is not None and phase[i] >= 2]
+        if done_lanes:
+            # the host mirror: the whole carry comes home, one copy
+            out_src = carry_home(carry)
+            pool.d2h += carry_nbytes(out_src)
+            now = time.perf_counter()
+            for lane in done_lanes:
+                call = pool.calls[lane]
+                call.result = lane_outputs(out_src, lane)
+                if t_acc is not None:
+                    call.device_us = int(t_acc[lane])
+                if call.lane_span is not None:
+                    call.lane_span.end(
+                        {"slices": int(pool.slices_in[lane]),
+                         "device_us": call.device_us})
+                call.done.set()
+                pool.calls[lane] = None
+                with self._lock:
+                    self.stats["sweeps"] += 1
+                    self.stats["recycles"] += 1
+                if self.on_event is not None:
+                    rec = {
+                        "shape_class": cls.name, "lane": int(lane),
+                        "k": call.k, "depth_bucket": call.depth,
+                        "slices": int(pool.slices_in[lane]),
+                        "queue_ms": round(
+                            (pool.t_fill[lane] - call.t_enqueue) * 1e3, 3),
+                        "service_ms": round(
+                            (now - pool.t_fill[lane]) * 1e3, 3),
+                    }
+                    if call.device_us is not None:
+                        rec["device_us"] = call.device_us
+                    self.on_event("lane_recycled", rec)
+
+        # stage-occupancy telemetry from the rung/nc carry slots
+        live_idx = [i for i in range(pool.b_pad)
+                    if pool.calls[i] is not None]
+        stages = self.stages_for(cls)
+        stage_pads = ([cls.v_pad if s is None else _pow2_ceil(s)
+                       for s, _ in stages] if stages else [cls.v_pad])
+        rung_min = rung_max = 0
+        frontier = slot_total = 0
+        if live_idx:
+            rungs = [int(rung[i]) for i in live_idx]
+            rung_min, rung_max = min(rungs), max(rungs)
+            frontier = int(sum(int(nc[i]) for i in live_idx))
+            slot_total = sum(stage_pads[min(r, len(stage_pads) - 1)]
+                             for r in rungs)
+
+        h2d, d2h = pool.h2d, pool.d2h
+        pool.h2d = pool.d2h = 0
+        with self._lock:
+            self.stats["batches"] += 1
+            self.stats["slices"] += 1
+            self.stats["max_live"] = max(self.stats["max_live"], live)
+            self.stats["h2d_bytes"] += h2d
+            self.stats["d2h_bytes"] += d2h
+        slice_span.end({"done": len(done_lanes), "admitted": int(admitted)})
+        if self.on_event is not None:
+            rec = {
+                "shape_class": cls.name, "live": int(live),
+                "b_pad": int(pool.b_pad),
+                "occupancy": round(live / pool.b_pad, 4),
+                "done": len(done_lanes), "admitted": int(admitted),
+                "slice_steps": int(slice_steps),
+                "compile_cache": "hit" if cache_hit else "miss",
+                "device_ms": round(device_s * 1e3, 3),
+                "stage_min": int(rung_min), "stage_max": int(rung_max),
+                "frontier": int(frontier),
+                "stage_occupancy": (round(frontier / slot_total, 4)
+                                    if slot_total else 0.0),
+                "h2d_bytes": int(h2d), "d2h_bytes": int(d2h),
+            }
+            if sstep_s is not None:
+                rec["sstep_ms"] = round(sstep_s * 1e3, 3)
+                rec["overhead_ms"] = round(overhead_s * 1e3, 3)
+            self.on_event("serve_slice", rec)
+        # recalibration samples: full slices only (no lane finished
+        # early), tagged with the slice's minimum live rung
+        if (self.timing and cache_hit and not done_lanes and live > 0
+                and sstep_s is not None and sstep_s > 0):
+            self._timing_sample(cls, overhead_s, sstep_s / slice_steps,
+                                rung=rung_min)
+        if pool.live == 0:
+            self._pools.pop(cls, None)
+
+    # =====================================================================
+    # sync mode: the batch-complete dispatch (the A/B baseline)
+    # =====================================================================
+    def _take_batch(self):
+        """Wait for work, honor the batching window, pop one class's
+        batch (the largest same-depth affinity group when enabled).
+        Returns (cls, calls) or None on stop."""
+        with self._lock:
+            while not self._stop and not self._pending:
+                self._lock.wait()
+            if self._stop or not self._pending:
+                return None
+            cls = max(self._pending, key=lambda c: max(
+                x.priority for x in self._pending[c]))
+            window = priority_window(
+                self.window_s, max(x.priority for x in self._pending[cls]))
+            if self.window_s > 0 and len(self._pending[cls]) < self.batch_max:
+                deadline = time.perf_counter() + window
+                while (not self._stop
+                       and len(self._pending.get(cls) or []) < self.batch_max):
+                    left = deadline - time.perf_counter()
+                    if left <= 0:
+                        break
+                    self._lock.wait(timeout=left)
+                if self._stop:
+                    return None
+                if cls not in self._pending:   # drained by a concurrent pop
+                    return self._take_batch()
+            ordered = self._affinity_order(self._pending[cls], [])
+            calls = ordered[: self.batch_max]
+            rest = [c for c in self._pending[cls] if c not in calls]
+            if rest:
+                self._pending[cls] = rest
+            else:
+                del self._pending[cls]
+            return cls, calls
+
+    def _loop_sync(self) -> None:
+        while True:
+            got = self._take_batch()
+            if got is None:
+                with self._lock:
+                    if self._stop:
+                        return
+                continue
+            cls, calls = got
+            try:
+                self._dispatch(cls, calls)
+            except Exception as e:
+                # the continuous loop's quarantine policy: each batch
+                # member pays one abort; survivors requeue at the head
+                survivors = []
+                aborts_max = 0
+                for call in calls:
+                    call.aborts += 1
+                    aborts_max = max(aborts_max, call.aborts)
+                    if call.aborts >= MAX_LANE_ABORTS:
+                        self._quarantine(call, e)
+                    else:
+                        survivors.append(call)
+                with self._lock:
+                    if survivors:
+                        self._pending.setdefault(cls, [])[:0] = survivors
+                    self.stats["rebuilds"] += 1
+                    self._lock.notify_all()
+                if self.on_event is not None:
+                    self.on_event("lane_rebuild", {
+                        "shape_class": cls.name,
+                        "reason": "abort",
+                        "reseated": len(survivors),
+                        "quarantined": len(calls) - len(survivors),
+                        "aborts_max": int(aborts_max),
+                        "error": f"{type(e).__name__}: {e}"[:300],
+                    })
+
+    def _dispatch(self, cls, calls) -> None:
+        b = len(calls)
+        b_pad = min(_pow2_ceil(b), self.batch_max)
+        if b_pad < b:   # batch_max not a power of two: pad up past it
+            b_pad = _pow2_ceil(b)
+        members = [c.member for c in calls]
+        fill = b_pad - b
+        if fill:
+            with self._lock:
+                dummy = self._dummies.get(cls)
+                if dummy is None:
+                    dummy = self._dummies[cls] = dummy_member(cls)
+            members = members + [dummy] * fill
+        comb = np.stack([m.comb for m in members])
+        degrees = np.stack([m.degrees for m in members])
+        k0 = np.array([c.k for c in calls] + [1] * fill, np.int32)
+        max_steps = np.array([m.max_steps for m in members], np.int32)
+
+        kernel, cache_hit = self._kernel_for(cls, b_pad)
+        batch_span = self.tracer.begin(
+            "batch", trace="sched",
+            attrs={"cls": cls.name, "batch": int(b), "b_pad": int(b_pad)})
+        t0 = time.perf_counter()
+
+        try:
+            fault_point("serve_dispatch", shape_class=cls.name)
+            # one transfer home for the epilogues
+            p1, s1, st1, used, p2, s2, st2 = carry_home(
+                kernel(comb, degrees, k0, max_steps))
+        except BaseException as e:
+            batch_span.end({"error": f"{type(e).__name__}: {e}"})
+            raise
+        device_s = time.perf_counter() - t0
+        batch_span.end()
+
+        queue_ms_max = max(
+            (t0 - c.t_enqueue) * 1e3 for c in calls)
+        with self._lock:
+            self.stats["batches"] += 1
+            self.stats["sweeps"] += b
+            self.stats["max_live"] = max(self.stats["max_live"], b)
+        if self.on_batch is not None:
+            # straggler waste: the fraction of dispatched real-lane
+            # supersteps spent re-running already-finished lanes while the
+            # slowest member swept on (0.0 for b == 1)
+            steps = (s1[:b].astype(np.int64) + s2[:b].astype(np.int64))
+            smax = int(steps.max()) if b else 0
+            waste = (round(1.0 - float(steps.mean()) / smax, 4)
+                     if smax > 0 else 0.0)
+            depths = {c.depth for c in calls}
+            stages = self.stages_for(cls)
+            self.on_batch({
+                "shape_class": cls.name, "batch": b, "b_pad": int(b_pad),
+                "occupancy": round(b / b_pad, 4),
+                "padding_waste": padding_waste([c.member for c in calls],
+                                               cls, b_pad),
+                "straggler_waste": waste,
+                "depth_buckets": len(depths),
+                "compile_cache": "hit" if cache_hit else "miss",
+                "device_ms": round(device_s * 1e3, 3),
+                "queue_ms_max": round(queue_ms_max, 3),
+                "stage_bodies": len(stages) if stages else 1,
+            })
+        for i, call in enumerate(calls):
+            call.result = (p1[i], s1[i], st1[i], int(used[i]),
+                           p2[i], s2[i], int(st2[i]))
+            call.done.set()
+
+
+class BatchMemberEngine:
+    """Per-request engine proxy: the ``sweep``/``attempt`` protocol over
+    the batch scheduler, so ``find_minimal_coloring`` drives the batched
+    path exactly like any fused engine."""
+
+    def __init__(self, member, scheduler: BatchScheduler,
+                 priority: int = 0):
+        self.member = member
+        self.scheduler = scheduler
+        self.priority = max(0, int(priority))
+        self._fallback = None
+
+    # the STALLED-confirm fallback owns the widen-and-retry loop; with
+    # covering class windows it is reachable only on a genuine stall
+    def _fallback_engine(self):
+        if self._fallback is None:
+            from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+
+            self._fallback = CompactFrontierEngine(
+                self.member.arrays, device=self.scheduler.device)
+        return self._fallback
+
+    def attempt(self, k: int) -> AttemptResult:
+        v = self.member.num_vertices
+        if k < 1:
+            return empty_budget_failure(v, k)
+        return self._fallback_engine().attempt(k)
+
+    def sweep(self, k0: int):
+        if k0 < 1:
+            return self.attempt(k0), None
+        out = self.scheduler.sweep(self.member, k0,
+                                   priority=self.priority)
+        member = _KMember(self.member, k0)
+        return finish_pair(member, *out, self.attempt)
+
+
+class _KMember:
+    """View of a member at a non-default budget (``finish_pair`` reads
+    ``k0``/``num_vertices`` only)."""
+
+    __slots__ = ("member", "k0")
+
+    def __init__(self, member, k0: int):
+        self.member = member
+        self.k0 = int(k0)
+
+    @property
+    def num_vertices(self) -> int:
+        return self.member.num_vertices

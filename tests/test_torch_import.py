@@ -77,9 +77,50 @@ def test_source_names_no_jax_or_dgc_tpu(path):
 
 # the port's verbatim copies of dgc_tpu's JAX-free host modules
 VERBATIM = ("obs/events.py", "obs/schema.py", "obs/manifest.py",
-            "obs/instrument.py")
+            "obs/instrument.py", "obs/trace.py")
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copies_equal_their_originals(rel):
     assert (PORT / rel).read_bytes() == (ROOT / "dgc_tpu" / rel).read_bytes()
+
+
+# the port's copies that differ from their original by the package name
+# alone: ``dgc_tpu_torch`` where the original imports ``dgc_tpu`` (the
+# checkpoint module of faults.py, the driver of supervisor.py, the engine,
+# models and ops of shape_classes.py); no other difference
+RENAMED = ("resilience/faults.py", "resilience/retry.py",
+           "resilience/supervisor.py", "serve/shape_classes.py")
+
+
+@pytest.mark.parametrize("rel", RENAMED)
+def test_renamed_copies_equal_their_originals(rel):
+    copy = (PORT / rel).read_text()
+    original = (ROOT / "dgc_tpu" / rel).read_text()
+    assert "dgc_tpu_torch" not in original
+    assert "dgc_tpu_torch" in copy
+    assert copy.replace("dgc_tpu_torch", "dgc_tpu") == original
+
+
+def _literals(path: Path) -> dict:
+    tree = ast.parse(path.read_text())
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name)}
+
+
+SERVE_LAYOUT = ("CARRY_PHASE", "CARRY_K", "CARRY_PACKED", "CARRY_STEP",
+                "CARRY_PREV_ACTIVE", "CARRY_STALL", "CARRY_P1", "CARRY_S1",
+                "CARRY_ST1", "CARRY_USED", "CARRY_P2", "CARRY_S2",
+                "CARRY_ST2", "T_US", "T_PREV", "CARRY_RUNG", "CARRY_NC",
+                "CARRY_IDX_RUNG", "CARRY_IDX", "CARRY_SPEC", "CARRY_LEN",
+                "OUT0", "N_OUT", "D2H_SLOTS")
+
+
+def test_serve_carry_layout_equals_the_original():
+    port = _literals(PORT / "layout.py")
+    original = _literals(ROOT / "dgc_tpu" / "layout.py")
+    for name in SERVE_LAYOUT:
+        assert port[name] == original[name], name
+    # every slot named once, in order
+    assert sorted(port[n] for n in SERVE_LAYOUT[:20]) == list(range(20))
