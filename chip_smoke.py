@@ -40,8 +40,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    compaction), K13 (batched superstep) and K15 (lane finish) on seeded
    random lanes: 1, 3 and 8 lanes of widths 8, 64 and 1,023 (1 to 32
    planes), lanes in every phase, dead and reset lanes, random rungs and
-   slot lists, forced staged rungs, timing off and on; every buffer is
-   compared after every launch, the clock slots by the same rule.
+   slot lists, forced staged rungs, timing off and on, with and without
+   random spec and cancel vectors (K16 must kill a lane and spare a
+   cancelled reset one); every buffer is compared after every launch, the
+   clock slots by the same rule. The device-resident carry's K17 (lane
+   seat), K18 (carry permute) and K19 (inputs resize) on seeded random
+   stacks and carries of classes v2048w8, v2048w1023 and v32768w32 at 1,
+   2, 8 and 32 lanes: seats of one lane and of every lane (one twice),
+   permutes keeping no, some and all lanes in random order at the same
+   width, ×2 and ÷4, resizes ×2 and ÷4 with sources past the old width.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -68,7 +75,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch and a v2048w1023 RMAT batch, each with a forced 3-rung ladder:
    the sweep, slices of 2 and a lane seated mid-ladder must equal the
    same calls on the CPU in every carry slot, the slices the sweep, and
-   the seated lane its graph's own sweep.
+   the seated lane its graph's own sweep. The scheduler with
+   ``device_carry=True`` on 41 v2048w16 graphs arriving 1, 7 and 33 at a
+   time (the pool grows 1 → 8 → 32 and shrinks; K17-K19 must launch)
+   against its CPU run, graph by graph, each slice's d2h the scheduling
+   scalars and the finished lanes' result rows; and a depth-3 strict
+   ``SpeculativeMinimalKEngine`` sweep of a 20k graph on a 4-lane
+   device-carry pool with three jump requests of its class arriving
+   mid-window: every result equal to its sequential run on the card, some
+   speculative lane preempted.
 3. The main paths at full size: the CLI's calls (``cli.load_graph``,
    ``cli.make_engine``, ``cli.sweep``, ``Graph.save_coloring``) on a
    1M-vertex uniform graph of average degree 16 (``--max-degree 32
@@ -132,7 +147,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the card (the sequential loop, timed beside), with no fallback
    rung or retry and K13-K16 launched (zeroed just before each run, read
    just after); then K13-K16 held against their plain versions and
-   profiled over one 32-lane sweep of the serving class.
+   profiled over one 32-lane sweep of the serving class (and an armed
+   sweep, half its lanes spec-tagged). A sixth replay (continuous, batch
+   8) and two drawn-once runs (continuous, batch 8 and 32) run with
+   ``--device-carry``: equal to the same loop, K17-K19 launched there and
+   nowhere else. Then speculative minimal-k on a 500,000-vertex uniform
+   native draw (class v524288w32) from k0 = 33, strict, four ways: the
+   plain ``ell-compact`` CLI, the serve pool's sequential arm
+   (``ServeSequentialMinimalKEngine``), ``--speculate-k 3`` and
+   ``--speculate-k auto``: the coloring JSON and attempt tuples equal
+   across them, the speculative arms launching K13-K17 and the armed
+   K15/K16; and K17-K19 held and timed at the serving class
+   (``measure_carry``).
 4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
    degree 16) from k = 465, about 450 attempts, and its jump sweep,
    blocked on the card at 2 and 4 a block against the CPU sequential
@@ -3086,6 +3112,10 @@ def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
 SERVE_KERNEL_CASES = ((1, 8, 3000), (3, 64, 1200), (8, 1023, 300),
                       (3, 8, 3000), (8, 64, 1200), (1, 1023, 300))
 SERVE_ROUNDS = 8
+# armed lanes of the 500k strict chain's class (lanes, width, rows:
+# v524288w32, 67 MB a lane) at the width of its --speculate-k 3 pool,
+# unstaged with timing off and staged with timing on
+SERVE_SPEC_WIDE = (4, 32, 524288)
 
 
 def _serve_ladder(v: int) -> tuple:
@@ -3093,12 +3123,15 @@ def _serve_ladder(v: int) -> tuple:
     return ((None, v // 2), (v // 2, v // 8), (v // 8, 0))
 
 
-def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device):
+def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device,
+                 armed: bool = False):
     """Seeded random lanes: inputs and a carry with lanes in every phase,
     dead ones, random rungs and slot lists (forced staged rungs with
     ``staged``), budgets and ``max_steps`` that end attempts; the reset
-    flags raised at random. Returns (Lanes for the kernels, Lanes for the
-    plain versions) with equal contents."""
+    flags raised at random; with ``armed``, spec tags in half the carry's
+    lanes and random spec and cancel vectors (cancels on reset, dead and
+    spec-free lanes among them). Returns (Lanes for the kernels, Lanes for
+    the plain versions) with equal contents."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.ops.bitmask import num_planes_for
     from dgc_tpu_torch.serve.batched import resolve_stages
@@ -3130,16 +3163,21 @@ def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device):
              np.where(rng.random(b) < 0.5, 0, rng.integers(1, 1 << 30, size=b)),
              rng.integers(1 if staged else 0, n, size=b),
              rng.integers(0, v + 1, size=b), rng.integers(0, n, size=b), idx,
-             (rng.random(b) < 0.15).astype(np.int64)]
+             (rng.random(b) < (0.5 if armed else 0.15)).astype(np.int64)]
     reset = (rng.random(b) < 0.3).astype(np.int64)
+    spec = (rng.random(b) < 0.5).astype(np.int64)
+    cancel = (rng.random(b) < 0.5).astype(np.int64)
 
     def lanes():
         t = lambda x: torch.tensor(np.asarray(x, np.int32), device=device)
-        return ks.new_lanes([t(c) for c in carry], t(comb), t(degrees), t(k),
-                            t(max_steps), t(reset),
-                            ks.ladder_ctrl(stages, device),
-                            planes=num_planes_for(w + 1), stall_window=64,
-                            budget=SERVE_ROUNDS)
+        L = ks.new_lanes([t(c) for c in carry], t(comb), t(degrees), t(k),
+                         t(max_steps), t(reset),
+                         ks.ladder_ctrl(stages, device),
+                         planes=num_planes_for(w + 1), stall_window=64,
+                         budget=SERVE_ROUNDS)
+        if armed:
+            L.arm_spec(t(spec), t(cancel))
+        return L
     return lanes(), lanes()
 
 
@@ -3180,44 +3218,145 @@ def phase_serve_kernels(device) -> int:
     """K13-K16 against their plain versions on the card, on seeded random
     lanes (``_serve_lanes``): K16 on the random reset flags, then
     ``SERVE_ROUNDS`` rounds of K14, K13 and K15, every buffer compared
-    after every launch, timing off and on. Returns the max abs error."""
+    after every launch, timing off and on, unarmed and armed with random
+    spec and cancel vectors (K16 must kill some lane and leave a reset
+    lane it was told to cancel alive); then the armed lanes of
+    ``SERVE_SPEC_WIDE``. Returns the max abs error."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import T_PREV, T_US
 
     worst = 0
     rexecs, compacted = set(), 0
+    killed = spared = 0
     rng = np.random.default_rng(41)
     steps = ((ks.lane_compact, ks.lane_compact_reference, False),
              (ks.lane_superstep, ks.lane_superstep_reference, False),
              (ks.lane_finish, ks.lane_finish_reference, True))
-    for b, w, v in SERVE_KERNEL_CASES:
-        for staged in (False, True):
-            for timing in (False, True):
-                kern, plain = _serve_lanes(rng, b, w, v, staged, device)
+    cases = [(b, w, v, s_, t_, a_) for b, w, v in SERVE_KERNEL_CASES
+             for s_ in (False, True) for t_ in (False, True)
+             for a_ in (False, True)]
+    cases += [(*SERVE_SPEC_WIDE, s_, s_, True) for s_ in (False, True)]
+    for b, w, v, staged, timing, armed in cases:
+        kern, plain = _serve_lanes(rng, b, w, v, staged, device, armed)
+        before = [c.clone() for c in plain.carry]
+        ks.lane_reset(kern, timing)
+        ks.lane_reset_reference(plain, timing)
+        if armed:
+            alive = before[0] < 2
+            fresh = plain.reset != 0
+            killed += int((alive & (plain.carry[0] == 2)).sum())
+            spared += int((fresh & (plain.cancel != 0)
+                           & (plain.spec != 0)).sum())
+        worst = max(worst, _serve_diff(
+            kern, plain, (T_PREV,) if timing else (), before))
+        for _ in range(SERVE_ROUNDS):
+            rexecs.add(int(plain.ctrl[ks.CTRL_REXEC]))
+            for launch, reference, timed in steps:
                 before = [c.clone() for c in plain.carry]
-                ks.lane_reset(kern, timing)
-                ks.lane_reset_reference(plain, timing)
+                idx_before = plain.carry[18].clone()
+                args = (timing,) if timed else ()
+                launch(kern, *args)
+                reference(plain, *args)
+                if launch is ks.lane_compact and not torch.equal(
+                        idx_before, plain.carry[18]):
+                    compacted += 1
                 worst = max(worst, _serve_diff(
-                    kern, plain, (T_PREV,) if timing else (), before))
-                for _ in range(SERVE_ROUNDS):
-                    rexecs.add(int(plain.ctrl[ks.CTRL_REXEC]))
-                    for launch, reference, timed in steps:
-                        before = [c.clone() for c in plain.carry]
-                        idx_before = plain.carry[18].clone()
-                        args = (timing,) if timed else ()
-                        launch(kern, *args)
-                        reference(plain, *args)
-                        if launch is ks.lane_compact and not torch.equal(
-                                idx_before, plain.carry[18]):
-                            compacted += 1
-                        worst = max(worst, _serve_diff(
-                            kern, plain, (T_US, T_PREV) if timing
-                            and launch is ks.lane_finish else (), before))
-                torch.cuda.synchronize()
+                    kern, plain, (T_US, T_PREV) if timing
+                    and launch is ks.lane_finish else (), before))
+        torch.cuda.synchronize()
     check(worst == 0, f"serve kernels differ from their plain versions by "
           f"{worst}")
     check({0, 1, 2} <= rexecs and compacted > 0,
           f"the serve cases ran rungs {sorted(rexecs)}, {compacted} rebuilds")
+    check(killed > 0 and spared > 0, f"the armed serve cases killed "
+          f"{killed} lanes and spared {spared} cancelled reset lanes")
+    return worst
+
+
+# ---- the device-resident carry (B12f): K17-K19 ------------------------------
+
+# (rows, width, lane counts) of the random carry cases: a small class,
+# the widest window, the serving class (32 lanes of 4.2 MB), the replay's
+# 100k requests (v131072w32), and the 500k strict chain's class
+# (v524288w32, 67 MB a lane) at the widths its pools visit: 1 to 4 lanes
+# for --speculate-k 3 and the sequential arm, 16 for auto (depth 8)
+CARRY_CLASSES = ((2048, 8, (1, 2, 8, 32)), (2048, 1023, (1, 2, 8, 32)),
+                 (32768, 32, (1, 2, 8, 32)), (131072, 32, (1, 2, 4, 8)),
+                 (524288, 32, (1, 2, 4, 16)))
+
+
+def phase_carry_kernels(device) -> int:
+    """K17-K19 against their plain versions on the card, every output
+    exact, on seeded random stacks and carries of ``CARRY_CLASSES`` at
+    their lane counts: K17 seating one lane and every lane (in random
+    order, one of them twice); K18 keeping no, some and all lanes, ``src``
+    and ``dst`` in random order, at the same width, grown ×2 and shrunk
+    ÷4; K19 at ×2 and ÷4 with sources past the old width (the dummy);
+    from one lane, K18 and K19 also grow to 4 lanes and to the class's
+    widest pool (a pool's first wave). Returns the max abs error."""
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.layout import CARRY_LEN
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(43)
+    rng = np.random.default_rng(43)
+
+    def rand(shape):
+        return torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=gen,
+                             dtype=torch.int32, device=device)
+
+    worst, cases = 0, 0
+    for v, w, widths in CARRY_CLASSES:
+        a0 = v // 4
+        for b in widths:
+            first = {4, widths[-1]} if b == 1 else set()
+            stacks = [rand((b, v, w)), rand((b, v)), rand((b,)), rand((b,)),
+                      rand((b,))]
+            for lanes in ([int(rng.integers(b))],
+                          [int(x) for x in rng.permutation(b)]
+                          + [int(rng.integers(b))]):
+                n = len(lanes)
+                s_comb, s_degrees = rand((n, v, w)), rand((n, v))
+                s_k0 = rng.integers(1, 1 << 20, n).tolist()
+                s_ms = rng.integers(1, 1 << 20, n).tolist()
+                kern = [t.clone() for t in stacks]
+                plain = [t.clone() for t in stacks]
+                kcar.lane_seat(*kern, lanes, s_comb, s_degrees, s_k0, s_ms)
+                kcar.lane_seat_reference(*plain, lanes, s_comb, s_degrees,
+                                         s_k0, s_ms)
+                worst = max([worst] + [_diff(x, y) for x, y in
+                                       zip(kern, plain)])
+                cases += 1
+            carry = [rand((b, a0) if j == 18 else
+                          (b, v) if j in (2, 6, 10) else (b,))
+                     for j in range(CARRY_LEN)]
+            for b_new in sorted({b, 2 * b, max(1, b // 4)} | first):
+                room = min(b, b_new)
+                for n_keep in sorted({0, max(1, room // 2), room}):
+                    src = [int(x) for x in rng.choice(b, n_keep,
+                                                      replace=False)]
+                    dst = [int(x) for x in rng.choice(b_new, n_keep,
+                                                      replace=False)]
+                    got = kcar.carry_permute(carry, src, dst, b_new)
+                    want = kcar.carry_permute_reference(carry, src, dst,
+                                                        b_new)
+                    worst = max([worst] + [_diff(x, y) for x, y in
+                                           zip(got, want)])
+                    cases += 1
+            dummy = rand((v, w))
+            for b_new in sorted({2 * b, max(1, b // 4)} | first):
+                src = [int(x) for x in rng.integers(0, b + 3, b_new)]
+                got = kcar.inputs_resize(*stacks[:4], src, dummy, 1, 777)
+                want = kcar.inputs_resize_reference(*stacks[:4], src, dummy,
+                                                    1, 777)
+                worst = max([worst] + [_diff(x, y) for x, y in
+                                       zip(got, want)])
+                cases += 1
+            torch.cuda.synchronize()
+    check(worst == 0, f"the carry kernels differ from their plain versions "
+          f"by {worst} over {cases} cases")
+    check(all(v_ > 0 for v_ in kcar.launch_counts.values()),
+          f"a carry kernel never launched: {kcar.launch_counts}")
     return worst
 
 
@@ -3349,15 +3488,18 @@ SERVE_RUNS = (  # (name, flags, the telemetry files)
     ("sync, batch 32", ["--batch-max", "32", "--serve-mode", "sync"], False),
     ("continuous, batch 32, timing", ["--batch-max", "32", "--kernel-timing"],
      True),
+    ("continuous, batch 8, device carry", ["--batch-max", "8",
+                                           "--device-carry"], False),
 )
 
 
 class _ServeProbe:
     """One ``serve_main`` run, instrumented: the front end it builds,
     each request's attempt tuples, and the copies home from the card
-    (``carry_home``: one host sync each)."""
+    (``carry_home``, also under ``lanes_home``: one host sync each)."""
 
     def __enter__(self):
+        from dgc_tpu_torch.serve import batched as sb
         from dgc_tpu_torch.serve import engine as se
         from dgc_tpu_torch.serve import queue as sq
 
@@ -3383,15 +3525,17 @@ class _ServeProbe:
 
         sq.ServeFrontEnd.start = start_
         sq.ServeFrontEnd._serve_one = serve_one_
-        se.carry_home = home_
+        se.carry_home = sb.carry_home = home_
         return self
 
     def __exit__(self, *exc):
+        from dgc_tpu_torch.serve import batched as sb
         from dgc_tpu_torch.serve import engine as se
         from dgc_tpu_torch.serve import queue as sq
 
         (sq.ServeFrontEnd.start, sq.ServeFrontEnd._serve_one,
          se.carry_home) = self._saved
+        sb.carry_home = self._saved[2]
 
 
 def _serve_reference(out_dir: Path, device: str) -> dict:
@@ -3459,6 +3603,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
     fallback or retry; health not degraded; K13-K16 launched (counts
     zeroed just before each run, read just after); the RMAT requests
     unbatched on ``ell-compact``. Then ``measure_serve``."""
+    from dgc_tpu_torch.kernels import carry as kcar
     from dgc_tpu_torch.kernels import compact as kc
     from dgc_tpu_torch.kernels import hub as kh
     from dgc_tpu_torch.kernels import serve as ks
@@ -3494,7 +3639,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
         argv = ["--requests", str(req), "--results", str(d / "results.jsonl"),
                 "--output-colorings", str(d / "colorings"), "--device", device,
                 *flags, *files]
-        for m in (ks, kc, kh, kss):
+        for m in (ks, kc, kh, kss, kcar):
             m.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
@@ -3504,6 +3649,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
             wall = time.perf_counter() - t
         torch.cuda.synchronize()
         launches = dict(ks.launch_counts)
+        carry_launches = dict(kcar.launch_counts)
         timing_launches = dict(ks.timing_launch_counts)
         fallback_launches = {**kc.launch_counts, **kh.launch_counts,
                              **kss.launch_counts}
@@ -3543,6 +3689,9 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
         check(bool(timing_launches["lane_finish"]) == ("--kernel-timing" in
                                                        flags),
               f"serve {name}: timing launches {timing_launches}")
+        check(all((v > 0) == ("--device-carry" in flags)
+                  for v in carry_launches.values()),
+              f"serve {name}: carry launches {carry_launches}")
         slices = sst["slices"]
         rec = {"phase": "serve_main", "run": name, "argv": flags,
                "wall_s": wall, "graphs_per_s": n / wall,
@@ -3550,6 +3699,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
                "slices": slices, "batches": sst["batches"],
                "recycles": sst["recycles"], "max_live": sst["max_live"],
                "launches": launches, "timing_launches": timing_launches,
+               "carry_launches": carry_launches,
                "fallback_launches": fallback_launches,
                "launches_per_slice": ({k: v / slices for k, v in
                                        launches.items()} if slices else None),
@@ -3609,8 +3759,9 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
 
 # bench.py's serve-throughput measurement (dgc_tpu's bench.py:184-240):
 # the graphs drawn once, then all submitted at once to a front end
-SERVE_FRONT_RUNS = (("continuous", 8), ("sync", 8), ("continuous", 32),
-                    ("sync", 32))
+SERVE_FRONT_RUNS = (("continuous", 8, False), ("sync", 8, False),
+                    ("continuous", 32, False), ("sync", 32, False),
+                    ("continuous", 8, True), ("continuous", 32, True))
 
 
 def _serve_front_runs(card: str, ref: dict, classes: dict,
@@ -3621,19 +3772,21 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
     single-graph loop's (colors, attempts, ``batched``, ``shape_class``);
     graphs/s beside the sequential loop's over the same graphs, lanes
     live at once, slices, launches and host syncs a slice, bytes moved."""
+    from dgc_tpu_torch.kernels import carry as kcar
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.serve.queue import ServeFrontEnd
 
     n = len(ref["graphs"])
     out = {}
-    for mode, b in SERVE_FRONT_RUNS:
+    for mode, b, carry in SERVE_FRONT_RUNS:
         ks.reset_launch_counts()
+        kcar.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         base_bytes = torch.cuda.memory_allocated()
         with _ServeProbe() as probe:
             front = ServeFrontEnd(batch_max=b, workers=b, mode=mode,
                                   queue_depth=max(64, 2 * n),
-                                  device=device).start()
+                                  device_carry=carry, device=device).start()
             t = time.perf_counter()
             tickets = [front.submit(g.arrays, request_id=rid)
                        for rid, g in ref["graphs"].items()]
@@ -3642,7 +3795,8 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
             wall = time.perf_counter() - t
             front.shutdown()
         torch.cuda.synchronize()
-        name = f"front end, {mode}, batch {b}"
+        name = f"front end, {mode}, batch {b}" + (", device carry" if carry
+                                                  else "")
         for rid, res in results.items():
             want, cls = ref["results"][rid], classes[rid]
             check(res.ok and res.minimal_colors == want["minimal_colors"]
@@ -3657,6 +3811,9 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
         launches = dict(ks.launch_counts)
         check(all(v > 0 for v in launches.values()),
               f"{name}: a serve kernel never launched: {launches}")
+        carry_launches = dict(kcar.launch_counts)
+        check(all((v > 0) == carry for v in carry_launches.values()),
+              f"{name}: carry launches {carry_launches}")
         sst = front.scheduler.stats_snapshot()
         slices = sst["slices"]
         rec = {"phase": "serve_front", "run": name, "wall_s": wall,
@@ -3665,7 +3822,7 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
                "speedup": ref["sequential_s"] / wall,
                "slices": slices, "batches": sst["batches"],
                "max_live": sst["max_live"], "recycles": sst["recycles"],
-               "launches": launches,
+               "launches": launches, "carry_launches": carry_launches,
                "launches_per_slice": ({k: v / slices for k, v in
                                        launches.items()} if slices else None),
                "host_syncs": probe.homes,
@@ -3679,8 +3836,12 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
     return out
 
 
-def _serve_lanes_of(inputs, cls, stages, device, budget: int):
-    """Lanes for a fresh sweep of ``inputs`` (every lane flagged)."""
+def _serve_lanes_of(inputs, cls, stages, device, budget: int,
+                    armed: bool = False):
+    """Lanes for a fresh sweep of ``inputs`` (every lane flagged); with
+    ``armed``, the speculation vectors: every other lane spec-tagged (an
+    attempt-only lane), every cancel bit set (a flagged lane is never
+    killed)."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import CARRY_IDX, CARRY_LEN, CARRY_P1, CARRY_P2
     from dgc_tpu_torch.serve.batched import _ladder_ctrl, resolve_stages
@@ -3692,11 +3853,15 @@ def _serve_lanes_of(inputs, cls, stages, device, budget: int):
                          dtype=torch.int32, device=device)
              for j in range(CARRY_LEN)]
     t = lambda x: x.to(device).clone()
-    return ks.new_lanes(carry, t(inputs[0]), t(inputs[1]), t(inputs[2]),
-                        t(inputs[3]), torch.ones(b, dtype=torch.int32,
-                                                 device=device),
-                        _ladder_ctrl(resolve_stages(stages, v)[0], device),
-                        planes=cls.planes, stall_window=64, budget=budget)
+    L = ks.new_lanes(carry, t(inputs[0]), t(inputs[1]), t(inputs[2]),
+                     t(inputs[3]), torch.ones(b, dtype=torch.int32,
+                                              device=device),
+                     _ladder_ctrl(resolve_stages(stages, v)[0], device),
+                     planes=cls.planes, stall_window=64, budget=budget)
+    if armed:
+        L.arm_spec(torch.arange(b, dtype=torch.int32, device=device) % 2,
+                   torch.ones(b, dtype=torch.int32, device=device))
+    return L
 
 
 def _serve_bytes(L, kind: str, before: dict) -> int:
@@ -3713,8 +3878,10 @@ def _serve_bytes(L, kind: str, before: dict) -> int:
     scalars = 4 * 20 * b
     if kind == "lane_reset":
         # _fresh_lanes: a flagged lane's degrees read, its packed, p1, p2
-        # and slot list written; the others' scalars only
-        return int((before["reset"] != 0).sum()) * (4 * v + a0) * 4 + scalars
+        # and slot list written; the others' scalars only; the spec and
+        # cancel vectors read when armed
+        return (int((before["reset"] != 0).sum()) * (4 * v + a0) * 4 + scalars
+                + (8 * b if L.armed else 0))
     if kind == "lane_compact":
         need = live & (before["idx_rung"] < ctrl[ks.CTRL_REXEC]) & (pad > 0)
         return int(need.sum()) * (v + a0) * 4 + 4 * b
@@ -3767,7 +3934,8 @@ def _serve_sweep(L, staged: bool, timing: bool) -> None:
         ks.lane_finish(L, timing)
 
 
-def _held_serve_sweep(inputs, cls, stages, device, timing: bool) -> dict:
+def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
+                      armed: bool = False) -> dict:
     """One sweep of ``inputs`` with every launch held against its plain
     version on the card (``_serve_diff``: every buffer exact, the clock
     slots of the kTiming instances by rule), the plain version timed
@@ -3783,8 +3951,8 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool) -> dict:
                                 ks.lane_superstep_reference),
              "lane_finish": (ks.lane_finish, ks.lane_finish_reference)}
     clocks = {"lane_reset": (T_PREV,), "lane_finish": (T_US, T_PREV)}
-    kern = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX)
-    plain = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX)
+    kern = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX, armed)
+    plain = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX, armed)
     out = {"worst": 0, "rounds": 0, "library_ms": None,
            "bytes": {k: [] for k in _SERVE_KERNELS},
            "plain_s": {k: [] for k in _SERVE_KERNELS}}
@@ -3849,6 +4017,8 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
     staged = stages is not None
     held = {t: _held_serve_sweep(inputs, cls, stages, device, t)
             for t in (False, True)}
+    held["spec"] = _held_serve_sweep(inputs, cls, stages, device, False,
+                                     armed=True)
     worst = max(h["worst"] for h in held.values())
     rounds = held[False]["rounds"]
     check(worst == 0 and held[True]["rounds"] == rounds,
@@ -3861,6 +4031,13 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
         lambda L, t=t: _serve_sweep(L, staged, t), want, _DEVICE_MS_KEPT,
         _SERVE_NAMES, prepare=lambda: _serve_lanes_of(
             inputs, cls, stages, device, ks.INT32_MAX)) for t in (False, True)}
+    spec_rounds = held["spec"]["rounds"]
+    prof["spec"] = _profiled(
+        lambda L: _serve_sweep(L, staged, False),
+        {"lane_reset": 1, "lane_compact": spec_rounds if staged else 0,
+         "lane_superstep": spec_rounds, "lane_finish": spec_rounds},
+        _DEVICE_MS_KEPT, _SERVE_NAMES, prepare=lambda: _serve_lanes_of(
+            inputs, cls, stages, device, ks.INT32_MAX, armed=True))
     slices = _serve_slices(inputs, cls, stages, device)
     mean = lambda xs: sum(xs) / len(xs) if xs else None
     rec = {"phase": "serve_measure", "class": cls.name, "lanes": len(members),
@@ -3899,6 +4076,14 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
                 "timing_plain_ms": mean(held[True]["plain_s"][name]) * 1e3,
                 "timing_bound_ms": mean(nbytes_on) / HBM_BYTES_PER_S * 1e3,
                 "timing_held_launches": len(nbytes_on)})
+            t_sp, n_sp, _each = prof["spec"][name]
+            nbytes_sp = held["spec"]["bytes"][name]
+            rec[name].update({
+                "spec_ms": t_sp / n_sp if n_sp else None,
+                "spec_plain_ms": mean(held["spec"]["plain_s"][name]) * 1e3,
+                "spec_bound_ms": mean(nbytes_sp) / HBM_BYTES_PER_S * 1e3,
+                "spec_held_launches": len(nbytes_sp)})
+    rec["spec_rounds"] = spec_rounds
     emit(rec)
     return rec
 
@@ -4015,6 +4200,557 @@ def serve_kernels_line(serve: dict, serve_err: int) -> list[dict]:
     return out
 
 
+# ---- phase 2: the device carry and speculation against the CPU --------------
+
+def _carry_stream():
+    """The device-carry scheduler's stream: 41 uniform graphs of class
+    v2048w16, the first (the largest) alone, then 7, then 33, so the pool
+    grows 1 → 8 → 32 with live lanes kept and shrinks as it drains."""
+    from dgc_tpu_torch.models.generators import generate_random_graph_fast
+
+    sizes = [2000] + [1900 - 20 * i for i in range(40)]
+    graphs = [generate_random_graph_fast(n, avg_degree=10, seed=700 + i,
+                                         max_degree=16)
+              for i, n in enumerate(sizes)]
+    return graphs, (1, 8, 41)
+
+
+def _scheduled(device, graphs, waves, **kw) -> tuple:
+    """``graphs`` through a continuous ``BatchScheduler`` on ``device``
+    (``kw`` its options), each a jump sweep on its own thread, the waves
+    (cumulative counts) each started once the ones before it were live in
+    the pool together (``max_live``). Returns (attempt tuples and colors of each graph,
+    the scheduler's stats, its serve_slice events)."""
+    import threading
+
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_reducer, make_validator)
+    from dgc_tpu_torch.serve.engine import BatchMemberEngine, BatchScheduler
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER, pad_member
+
+    events = []
+    sched = BatchScheduler(device=device, window_s=0.0, on_event=lambda k_, r:
+                           events.append((k_, r)), **kw).start()
+    out = {}
+
+    def run(i, g):
+        cls = DEFAULT_LADDER.class_for(g.num_vertices, g.max_degree)
+        attempts = []
+        res = find_minimal_coloring(
+            BatchMemberEngine(pad_member(g, cls), sched),
+            initial_k=g.max_degree + 1, validate=make_validator(g),
+            on_attempt=lambda r, v: attempts.append(
+                (int(r.k), r.status.name, int(r.supersteps))),
+            post_reduce=make_reducer(g))
+        out[i] = (attempts, res.colors)
+
+    threads = [threading.Thread(target=run, args=(i, g))
+               for i, g in enumerate(graphs)]
+    try:
+        start = 0
+        for end in waves:
+            deadline = time.perf_counter() + 30
+            while (start and sched.stats_snapshot()["max_live"] < start
+                   and time.perf_counter() < deadline):
+                time.sleep(0.0005)
+            for t in threads[start:end]:
+                t.start()
+            start = end
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        sched.stop()
+    check(len(out) == len(graphs), f"{len(out)} of {len(graphs)} sweeps "
+          f"came back")
+    return out, sched.stats_snapshot(), [r for k_, r in events
+                                         if k_ == "serve_slice"]
+
+
+def phase_carry_engines(device) -> dict:
+    """The scheduler with ``device_carry=True`` on the card against its
+    ``device="cpu"`` run on ``_carry_stream`` (32 lanes at most, slices of
+    2): every graph's attempt tuples and colors equal; the card's pool
+    visits widths 1, 8 and 32 and shrinks, K17-K19 launch (counts zeroed
+    just before the card's run), and each slice's d2h is the scheduling
+    scalars and the finished lanes' result rows."""
+    from dgc_tpu_torch.kernels import carry as kcar
+
+    graphs, waves = _carry_stream()
+    kw = dict(batch_max=32, slice_steps=2, device_carry=True)
+    kcar.reset_launch_counts()
+    t = time.perf_counter()
+    card, stats, slices = _scheduled(device, graphs, waves, **kw)
+    card_s = time.perf_counter() - t
+    launches = dict(kcar.launch_counts)
+    t = time.perf_counter()
+    cpu, _stats, _slices = _scheduled("cpu", graphs, waves, **kw)
+    cpu_s = time.perf_counter() - t
+    for i in card:
+        check(card[i][0] == cpu[i][0] and np.array_equal(card[i][1],
+                                                          cpu[i][1]),
+              f"device carry: graph {i} differs between the card and the "
+              f"CPU: {card[i][0]} vs {cpu[i][0]}")
+    widths = [r["b_pad"] for r in slices]
+    check({1, 8, 32} <= set(widths) and any(
+        b_ < a_ for a_, b_ in zip(widths, widths[1:])),
+        f"device carry: the pool's widths {sorted(set(widths))}")
+    check(all(v_ > 0 for v_ in launches.values()),
+          f"device carry: a carry kernel never launched: {launches}")
+    check(all(r["d2h_bytes"] == (3 * r["b_pad"] + r["done"] * (2 * 2048 + 5))
+              * 4 for r in slices), "device carry: a slice's d2h bytes")
+    rec = {"phase": "carry_engines", "graphs": len(graphs),
+           "widths": sorted(set(widths)), "slices": stats["slices"],
+           "launches": launches, "h2d_mb": stats["h2d_bytes"] / 1e6,
+           "d2h_mb": stats["d2h_bytes"] / 1e6, "card_s": card_s,
+           "cpu_s": cpu_s}
+    emit(rec)
+    return rec
+
+
+SPEC_V = 20000  # the speculation engines' graphs
+
+
+def phase_speculate_engines(device) -> dict:
+    """A strict ``SpeculativeMinimalKEngine`` sweep at depth 3 of a 20k
+    uniform graph (class v32768w32) on a 4-lane device-carry pool of the
+    card in slices of one superstep, with five jump-mode requests of the
+    same class (padded beforehand) submitted from the dispatcher's third
+    ``spec_seated`` event, which waits until all five are queued: the
+    slice entry after it finds more real calls than free lanes beside the
+    window's unclaimed lanes, so real requests preempt speculative lanes
+    whatever the threads' timing. The strict chain's attempts and colors
+    equal the sequential strict run's (``CompactFrontierEngine``, on the
+    card), each request's its own single-graph run's."""
+    import threading
+
+    from dgc_tpu_torch.engine.compact import CompactFrontierEngine
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_reducer, make_validator)
+    from dgc_tpu_torch.models.generators import generate_random_graph_fast
+    from dgc_tpu_torch.serve.engine import BatchMemberEngine, BatchScheduler
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER, pad_member
+    from dgc_tpu_torch.serve.speculate import SpeculativeMinimalKEngine
+
+    graphs = [generate_random_graph_fast(SPEC_V - 500 * i, avg_degree=16,
+                                         seed=800 + i, max_degree=32)
+              for i in range(6)]
+
+    def sweep(engine, g, strict):
+        attempts = []
+        res = find_minimal_coloring(
+            engine, initial_k=g.max_degree + 1, strict_decrement=strict,
+            validate=make_validator(g),
+            on_attempt=lambda r, v: attempts.append(
+                (int(r.k), r.status.name, int(r.supersteps))),
+            post_reduce=make_reducer(g))
+        return attempts, res.colors
+
+    want = [sweep(CompactFrontierEngine(g, device=device), g, i == 0)
+            for i, g in enumerate(graphs)]
+    cls = DEFAULT_LADDER.class_for(graphs[0].num_vertices,
+                                   graphs[0].max_degree)
+    members = [pad_member(g, cls) for g in graphs]
+    got = {}
+
+    def jump(i):
+        got[i] = sweep(BatchMemberEngine(members[i], sched), graphs[i],
+                       False)
+
+    jumps = [threading.Thread(target=jump, args=(i,))
+             for i in range(1, len(graphs))]
+    seats = []
+
+    def queued() -> int:
+        with sched._lock:
+            return sum(1 for c in sched._pending.get(cls, ())
+                       if not c.attempt_only)
+
+    def on_event(kind, rec):
+        # on the dispatcher's thread, between the window's seats and its
+        # slice: the third seat starts the jump requests and holds the
+        # dispatcher until they are queued
+        if kind != "spec_seated" or len(seats) >= 3:
+            return
+        seats.append(rec["k"])
+        if len(seats) < 3:
+            return
+        for th in jumps:
+            th.start()
+        deadline = time.perf_counter() + 120
+        while queued() < len(jumps) and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+
+    sched = BatchScheduler(batch_max=4, window_s=0.0, slice_steps=1,
+                           device=device, device_carry=True,
+                           on_event=on_event).start()
+    try:
+        spec = SpeculativeMinimalKEngine(members[0], sched, depth=3)
+
+        def strict():
+            try:
+                got[0] = sweep(spec, graphs[0], True)
+            finally:
+                spec.close()
+
+        chain = threading.Thread(target=strict)
+        chain.start()
+        chain.join(timeout=600)
+        for th in jumps:
+            if th.ident is not None:   # started by the third seat
+                th.join(timeout=600)
+        stats = sched.stats_snapshot()
+    finally:
+        sched.stop()
+    for i, (attempts, colors) in enumerate(want):
+        check(i in got and got[i][0] == attempts
+              and np.array_equal(got[i][1], colors),
+              f"speculation: graph {i} differs from its sequential run: "
+              f"{got.get(i, (None,))[0]} vs {attempts}")
+    check(stats["spec_preempted"] > 0 and stats["spec_wins"] > 0,
+          f"speculation: no preemption or no claim: {stats}")
+    rec = {"phase": "speculate_engines", "strict_attempts": len(want[0][0]),
+           **{k_: v_ for k_, v_ in stats.items() if k_.startswith("spec_")},
+           "claims": spec.spec_stats}
+    emit(rec)
+    return rec
+
+
+
+# ---- phase 3: speculative minimal-k at 500k ---------------------------------
+
+# a 500,000-vertex uniform native draw (class v524288w32, 67 MB a lane),
+# strict from k0 = 33
+SPEC_ARGS = ["--node-count", "500000", "--max-degree", "32", "--gen-method",
+             "fast", "--seed", "0", "--strict-decrement"]
+SPEC_ARMS = (  # (name, the CLI's extra flags; None: the serve pool's
+               # sequential arm, driven below)
+    ("plain strict, ell-compact", []),
+    ("serve pool, sequential", None),
+    ("speculate-k 3", ["--speculate-k", "3"]),
+    ("speculate-k auto", ["--speculate-k", "auto"]),
+)
+
+
+class _SpecProbe:
+    """One run's speculative engines' ``spec_stats`` (at ``close``), its
+    schedulers' stats (at ``stop``) and the wall of each of the CLI's
+    ``find_minimal_coloring`` calls (the sweep: attempts, validation,
+    post-pass)."""
+
+    def __enter__(self):
+        from dgc_tpu_torch import cli
+        from dgc_tpu_torch.serve import engine as se
+        from dgc_tpu_torch.serve import speculate as sp
+
+        self.spec, self.sched, self.sweeps = [], [], []
+        self._saved = (sp.SpeculativeMinimalKEngine.close,
+                       se.BatchScheduler.stop, cli.find_minimal_coloring)
+        close, stop, find = self._saved
+        probe = self
+
+        def find_(*a, **kw):
+            t = time.perf_counter()
+            res = find(*a, **kw)
+            probe.sweeps.append(time.perf_counter() - t)
+            return res
+
+        def close_(engine):
+            close(engine)
+            probe.spec.append(dict(engine.spec_stats))
+
+        def stop_(sched):
+            probe.sched.append(sched.stats_snapshot())
+            return stop(sched)
+
+        sp.SpeculativeMinimalKEngine.close = close_
+        se.BatchScheduler.stop = stop_
+        cli.find_minimal_coloring = find_
+        return self
+
+    def __exit__(self, *exc):
+        from dgc_tpu_torch import cli
+        from dgc_tpu_torch.serve import engine as se
+        from dgc_tpu_torch.serve import speculate as sp
+
+        (sp.SpeculativeMinimalKEngine.close, se.BatchScheduler.stop,
+         cli.find_minimal_coloring) = self._saved
+
+
+def _serve_sequential_arm(path: Path, depth: int, device: str) -> tuple:
+    """The speculation A/B's sequential arm: the strict chain through a
+    pool of the same width as the window's (``depth + 1`` lanes, the carry
+    on the card), one ``single_attempt`` a budget
+    (``ServeSequentialMinimalKEngine``), the CLI's validation and
+    post-pass; the coloring saved to ``path``. Returns (attempt tuples,
+    sweep seconds, scheduler stats)."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.engine.minimal_k import (find_minimal_coloring,
+                                                make_reducer, make_validator)
+    from dgc_tpu_torch.serve.engine import BatchScheduler
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER, pad_member
+    from dgc_tpu_torch.serve.speculate import ServeSequentialMinimalKEngine
+
+    args = cli.build_parser().parse_args(SPEC_ARGS + ["--output-coloring",
+                                                      str(path)])
+    graph = cli.load_graph(args)
+    cls = DEFAULT_LADDER.class_for(graph.num_vertices, graph.max_degree)
+    sched = BatchScheduler(batch_max=depth + 1, device=device,
+                           device_carry=True).start()
+    attempts = []
+    try:
+        engine = ServeSequentialMinimalKEngine(pad_member(graph.arrays, cls),
+                                               sched)
+        t = time.perf_counter()
+        res = find_minimal_coloring(
+            engine, initial_k=graph.initial_k(), strict_decrement=True,
+            validate=make_validator(graph.arrays),
+            on_attempt=lambda r, v: attempts.append(
+                (int(r.k), r.status.name, int(r.supersteps))),
+            post_reduce=make_reducer(graph.arrays))
+        sweep_s = time.perf_counter() - t
+    finally:
+        sched.stop()
+    graph.save_coloring(path, res.colors)
+    return attempts, sweep_s, sched.stats_snapshot()
+
+
+def phase_speculate_main(card: str, out_dir: Path,
+                         device: str = "cuda") -> dict:
+    """The strict chain of the 500k draw four ways (``SPEC_ARMS``): the
+    plain ``--strict-decrement`` on ``ell-compact`` (``cli.main``), the
+    serve pool's sequential arm, and ``cli.main`` with ``--speculate-k 3``
+    and ``auto``. The coloring JSON and every attempt tuple equal across
+    the arms; per arm the sweep's wall (``find_minimal_coloring``), the
+    engine's claims, ready claims and misses, the scheduler's speculation
+    counters and the launches of K13-K19 (counts zeroed just before each
+    arm, read just after; the speculative arms must launch K13-K17 and
+    the armed instances of K15/K16)."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.kernels import serve as ks
+
+    runs = {}
+    for i, (name, flags) in enumerate(SPEC_ARMS):
+        d = out_dir / f"spec_arm{i}"
+        d.mkdir()
+        path = d / "coloring.json"
+        for m in (ks, kcar):
+            m.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        with _SpecProbe() as probe:
+            t = time.perf_counter()
+            if flags is None:
+                attempts, sweep_s, stats = _serve_sequential_arm(path, 3,
+                                                                 device)
+                rc = 0
+            else:
+                rc = cli.main(SPEC_ARGS + flags + ["--device", device,
+                    "--output-coloring", str(path), "--log-json",
+                    str(d / "run.jsonl")])
+                events = [json.loads(x) for x in
+                          (d / "run.jsonl").read_text().splitlines()]
+                attempts = [(e["k"], e["status"], e["supersteps"])
+                            for e in events if e["event"] == "attempt"]
+                check(len(probe.sweeps) == 1, f"speculation {name}: "
+                      f"{len(probe.sweeps)} sweeps")
+                sweep_s = probe.sweeps[0]
+                stats = probe.sched[-1] if probe.sched else None
+            wall = time.perf_counter() - t
+        torch.cuda.synchronize()
+        check(rc == 0, f"speculation {name}: rc {rc}")
+        launches = {**ks.launch_counts, **kcar.launch_counts}
+        spec_launches = dict(ks.spec_launch_counts)
+        rec = {"phase": "speculate_main", "run": name,
+               "argv": flags, "attempts": len(attempts),
+               "sweep_s": sweep_s, "wall_s": wall, "launches": launches,
+               "spec_launches": spec_launches,
+               "engine": probe.spec[-1] if probe.spec else None,
+               "scheduler": ({k_: v_ for k_, v_ in stats.items()
+                              if k_.startswith(("spec_", "h2d", "d2h",
+                                                "slices"))}
+                             if stats else None),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()
+               - base_bytes, "card": card}
+        if runs:
+            first = next(iter(runs.values()))
+            check(attempts == first["_attempts"], f"speculation {name}: "
+                  f"attempts {attempts} vs {first['_attempts']}")
+            check(filecmp.cmp(path, first["_path"], shallow=False),
+                  f"speculation {name}: the coloring differs")
+        if flags:
+            check(all(launches[k_] > 0 for k_ in (
+                "lane_superstep", "lane_compact", "lane_finish",
+                "lane_reset", "lane_seat")) and all(
+                v_ > 0 for v_ in spec_launches.values()),
+                f"speculation {name}: launches {launches}, {spec_launches}")
+        emit(rec)
+        rec.update(_attempts=attempts, _path=path)
+        runs[name] = rec
+    for rec in runs.values():
+        rec.pop("_attempts")
+        rec.pop("_path")
+    return runs
+
+
+# ---- phase 3: K17-K19 and the armed K15/K16 at the serving class ------------
+
+def _kernel_ms(fn, kname: str, reps: int = 10) -> float:
+    """Device time of one launch of the kernel named ``kname``: ``reps``
+    calls of ``fn`` in one ``_profiled`` window (its fill launches first:
+    a bare window of a few µs launches can lose every record), the mean
+    over the records kept."""
+    total, n, _each = _profiled(lambda: [fn() for _ in range(reps)],
+                                {"k": reps}, _DEVICE_MS_KEPT,
+                                {"k": kname})["k"]
+    return total / n
+
+
+def measure_carry(card: str, device: str = "cuda") -> dict:
+    """K17-K19 at the serving class's shapes (v32768w32, its auto ladder's
+    slot-list width): K17 seating a wave of 32 lanes into a 32-lane pool,
+    K18 and K19 growing a pool 8 → 32 with 8 lanes kept (the drawn-once
+    batch-32 run's ramp). Each held exact against its plain version;
+    ``ms`` from ``torch.profiler``, ``plain_ms`` the plain version's host
+    wall on the card, ``bound_ms`` its bytes (each input read once, each
+    output written once) over 3.35 TB/s, ``library_ms`` the PyTorch calls
+    that do the same (``index_copy_`` on the two stacks; 20 indexed
+    copies; ``torch.cat`` + ``index_select``), on CUDA events. ``ms``
+    from ``_kernel_ms``."""
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.layout import CARRY_LEN
+    from dgc_tpu_torch.serve.batched import stage_idx_width
+    from dgc_tpu_torch.serve.shape_classes import (ShapeClass,
+                                                   stage_schedule_for)
+
+    cls = ShapeClass(32768, 32)
+    v, w = cls.v_pad, cls.w_pad
+    a0 = stage_idx_width(stage_schedule_for(cls, "auto"))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(47)
+
+    def rand(shape):
+        return torch.randint(0, 1 << 30, shape, generator=gen,
+                             dtype=torch.int32, device=device)
+
+    b, n = 32, 32
+    stacks = [rand((b, v, w)), rand((b, v)), rand((b,)), rand((b,)),
+              torch.zeros(b, dtype=torch.int32, device=device)]
+    lanes = [int(x) for x in np.random.default_rng(47).permutation(b)]
+    s_comb, s_degrees = rand((n, v, w)), rand((n, v))
+    s_k0, s_ms = list(range(1, n + 1)), [2 * v + 4] * n
+    plain = [t.clone() for t in stacks]
+    kcar.lane_seat(*stacks, lanes, s_comb, s_degrees, s_k0, s_ms)
+    kcar.lane_seat_reference(*plain, lanes, s_comb, s_degrees, s_k0, s_ms)
+    worst = max(_diff(x, y) for x, y in zip(stacks, plain))
+    idx = torch.tensor(lanes, dtype=torch.int64, device=device)
+    row = (v * w + v + 3) * 4
+    seat = {
+        "ms": _kernel_ms(lambda: kcar.lane_seat(*stacks, lanes, s_comb,
+                                                s_degrees, s_k0, s_ms),
+                         "lane_seat_kernel"),
+        "plain_ms": _host_ms(lambda: kcar.lane_seat_reference(
+            *plain, lanes, s_comb, s_degrees, s_k0, s_ms), 3),
+        "bound_ms": 2 * n * row / HBM_BYTES_PER_S * 1e3,
+        "library_ms": _cuda_ms(lambda: (
+            stacks[0].index_copy_(0, idx, s_comb),
+            stacks[1].index_copy_(0, idx, s_degrees)), 10),
+        "shape": f"{n} seats into {b} lanes of {cls.name}"}
+
+    b_old, keep = 8, list(range(8))
+    old = [rand((b_old, a0) if j == 18 else
+                (b_old, v) if j in (2, 6, 10) else (b_old,))
+           for j in range(CARRY_LEN)]
+    got = kcar.carry_permute(old, keep, keep, b)
+    worst = max([worst] + [_diff(x, y) for x, y in zip(
+        got, kcar.carry_permute_reference(old, keep, keep, b))])
+    carry_row = (3 * v + a0 + 16) * 4
+    src_t = torch.tensor(keep, dtype=torch.int64, device=device)
+    out = [torch.empty_like(t_) for t_ in got]
+
+    def indexed():
+        for o, x in zip(out, old):
+            o[src_t] = x[src_t]
+
+    permute = {
+        "ms": _kernel_ms(lambda: kcar.carry_permute(old, keep, keep, b),
+                         "carry_permute_kernel"),
+        "plain_ms": _host_ms(lambda: kcar.carry_permute_reference(
+            old, keep, keep, b), 3),
+        "bound_ms": (len(keep) + b) * carry_row / HBM_BYTES_PER_S * 1e3,
+        "library_ms": _cuda_ms(indexed, 10),
+        "shape": f"{b_old} -> {b} lanes of {cls.name}, {len(keep)} kept"}
+
+    small = [t[:b_old].contiguous() for t in stacks]
+    dummy = rand((v, w))
+    src = keep + [b_old] * (b - b_old)
+    got = kcar.inputs_resize(*small[:4], src, dummy, 1, 2 * v + 4)
+    worst = max([worst] + [_diff(x, y) for x, y in zip(
+        got, kcar.inputs_resize_reference(*small[:4], src, dummy, 1,
+                                          2 * v + 4))])
+    src_l = torch.tensor(src, dtype=torch.int64, device=device)
+    resize = {
+        "ms": _kernel_ms(lambda: kcar.inputs_resize(
+            *small[:4], src, dummy, 1, 2 * v + 4), "inputs_resize_kernel"),
+        "plain_ms": _host_ms(lambda: kcar.inputs_resize_reference(
+            *small[:4], src, dummy, 1, 2 * v + 4), 3),
+        "bound_ms": ((b + len(keep) + 1) * (v * w + v) * 4 + 16 * b)
+        / HBM_BYTES_PER_S * 1e3,
+        "library_ms": _cuda_ms(lambda: (
+            torch.cat([small[0], dummy[None]]).index_select(0, src_l),
+            torch.cat([small[1], torch.zeros_like(small[1][:1])]
+                      ).index_select(0, src_l)), 10),
+        "shape": f"{b_old} -> {b} lanes of {cls.name}, {len(keep)} kept"}
+    check(worst == 0, f"the carry kernels at the serving class differ from "
+          f"their plain versions by {worst}")
+    rec = {"phase": "carry_measure", "class": cls.name, "a0": a0,
+           "max_abs_err": worst, "lane_seat": seat, "carry_permute": permute,
+           "inputs_resize": resize, "card": card}
+    emit(rec)
+    return rec
+
+
+def carry_kernels_line(serve: dict, spec: dict, carry: dict,
+                       carry_err: int, serve_err: int) -> list[dict]:
+    """K17-K19 on the device-carry replay's main path (continuous, batch 8;
+    the drawn-once device-carry runs' launches beside), times at the
+    serving class (``measure_carry``); the armed instances of K15/K16 with
+    the ``--speculate-k 3`` arm's launches and the armed held sweep's
+    times (``measure_serve``)."""
+    main = serve["runs"]["continuous, batch 8, device carry"]
+    fronts = {r: v["carry_launches"] for r, v in serve["fronts"].items()
+              if "device carry" in r}
+    err = max(carry_err, carry["max_abs_err"])
+    replaces = {"lane_seat": "dgc_tpu/serve/batched.py:635",
+                "carry_permute": "dgc_tpu/serve/batched.py:653",
+                "inputs_resize": "dgc_tpu/serve/batched.py:679"}
+    out = []
+    for name in ("lane_seat", "carry_permute", "inputs_resize"):
+        m = carry[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "dgc_tpu_torch/csrc/carry.cu",
+                    "replaces": replaces[name],
+                    "launches": main["carry_launches"][name],
+                    "launches_other": {r: v[name] for r, v in fronts.items()},
+                    "max_abs_err": err, "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": "bytes", "library_ms": m["library_ms"],
+                    "shape": m["shape"]})
+    meas = serve["measure"]
+    arm = spec["speculate-k 3"]
+    for name, line in (("lane_finish", "dgc_tpu/serve/batched.py:409"),
+                       ("lane_reset", "dgc_tpu/serve/batched.py:498")):
+        m = meas[name]
+        out.append({"name": f"{name}_spec", "route": "cuda",
+                    "source": "dgc_tpu_torch/csrc/serve.cu", "replaces": line,
+                    "launches": arm["spec_launches"][name],
+                    "max_abs_err": max(serve_err, meas["max_abs_err"]),
+                    "ms": m["spec_ms"], "plain_ms": m["spec_plain_ms"],
+                    "bound_ms": m["spec_bound_ms"], "bound_by": "bytes",
+                    "library_ms": None, "off_ms": m["ms"]})
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -4051,9 +4787,10 @@ def main(argv: list[str] | None = None) -> int:
         dense_err = phase_dense_kernels("cuda")
         tel_err = phase_telemetry_kernels("cuda")
         serve_err = phase_serve_kernels("cuda")
+        carry_err = phase_carry_kernels("cuda")
         emit({"phase": "kernels_vs_plain",
               "max_abs_err": max(kernel_err, compact_err, hub_err, block_err,
-                                 dense_err, tel_err, serve_err),
+                                 dense_err, tel_err, serve_err, carry_err),
               "seconds": time.perf_counter() - t})
 
         t = time.perf_counter()
@@ -4067,6 +4804,11 @@ def main(argv: list[str] | None = None) -> int:
         t = time.perf_counter()
         rows = phase_serve_engines("cuda")
         emit({"phase": "serve_engines_vs_cpu", "runs": rows,
+              "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        phase_carry_engines("cuda")
+        phase_speculate_engines("cuda")
+        emit({"phase": "carry_speculate_engines_vs_cpu",
               "seconds": time.perf_counter() - t})
 
         main_runs, blocked = phase_main_path(
@@ -4082,6 +4824,11 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serve_main(card, out_dir)
         emit({"phase": "serve_main_done", "seconds": time.perf_counter() - t})
         t = time.perf_counter()
+        spec = phase_speculate_main(card, out_dir)
+        carry = measure_carry(card)
+        emit({"phase": "speculate_main_done",
+              "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
         rows = phase_block_engines("cuda", reference.result())
         emit({"phase": "block_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
@@ -4091,7 +4838,8 @@ def main(argv: list[str] | None = None) -> int:
           + dense_kernels_line(dense_runs, dense_err)
           + telemetry_kernels_line(main_runs, rmat_runs, blocked, telemetry,
                                    tel_err)
-          + serve_kernels_line(serve, serve_err)})
+          + serve_kernels_line(serve, serve_err)
+          + carry_kernels_line(serve, spec, carry, carry_err, serve_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

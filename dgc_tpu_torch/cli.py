@@ -25,14 +25,25 @@ in-kernel trajectories on (the recording kernels; one ``trajectory``
 event per attempt); ``--superstep-timing`` then adds each superstep's
 timestamp (``step_us``), on ``ell-compact`` only: it is the card's
 ``%globaltimer`` (the host clock with ``--device cpu``), not the JAX
-package's host clock, so only its differences mean anything. Not ported:
-the sharded backends, ``--speculate-k``, tuned configs, the profiler
-windows and flight recorder, and the resilience flags (ROADMAP).
+package's host clock, so only its differences mean anything.
+
+``--speculate-k DEPTH|auto`` routes the sweep through a one-request serve
+pool (``serve.speculate.SpeculativeMinimalKEngine`` over the batched serve
+kernels, the carry resident on the device): with ``--strict-decrement`` the budgets ``k-1 … k-DEPTH`` run as
+spec-tagged lanes beside the attempt the driver consumes, with the same
+attempts and colors as without it; ``auto`` prices the depth off the
+starting budget (``utils.schedule_model.speculation_auto_cap``). A graph
+beyond the serve shape ladder takes the normal path, and on this route
+``--checkpoint-dir`` is ignored and ``--attempts-per-dispatch`` is 1, each
+with a note on stderr, as ``dgc_tpu.cli``. Not ported: the sharded
+backends, tuned configs, the profiler windows and flight recorder, and the
+resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
         --output-coloring colors.json [--backend ell-compact] [--device cpu] \\
         [--log-json run.jsonl --run-manifest run.json \\
-         --metrics-prom run.prom --superstep-timing]
+         --metrics-prom run.prom --superstep-timing] \\
+        [--strict-decrement --speculate-k 3]
 
 ``python -m dgc_tpu_torch serve --requests load.jsonl ...`` is the batched
 serve tier's request replay (``serve.cli``).
@@ -100,6 +111,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict-decrement", action="store_true",
                    help="decrement k one-by-one like the reference instead "
                         "of jumping to colors_used-1")
+    p.add_argument("--speculate-k", type=str, default=None,
+                   metavar="DEPTH|auto",
+                   help="speculative minimal-k: route the sweep through a "
+                        "one-request serve pool that keeps the next DEPTH "
+                        "budgets' attempts running in sibling lanes while "
+                        "the driver consumes the current one (the same "
+                        "results); 'auto' prices the depth off the starting "
+                        "budget. The win needs --strict-decrement; the "
+                        "sweep runs on the serve kernels, so --backend "
+                        "applies only to the speculation-free path")
     p.add_argument("--no-reduce-colors", action="store_true",
                    help="disable the top-class recolor post-pass "
                         "(ops.reduce_colors)")
@@ -156,6 +177,32 @@ def parse_attempts_per_dispatch(value: str | None) -> int | str:
         raise ValueError(f"--attempts-per-dispatch must be a positive integer "
                          f"or 'auto', got {value!r}")
     return a
+
+
+def parse_speculate_k(value: str | None) -> int | str | None:
+    """``--speculate-k``: None when unset, a positive int, or ``"auto"``;
+    anything else raises ``ValueError`` with the JAX CLI's message."""
+    if value is None or value == "auto":
+        return value
+    try:
+        depth = int(value)
+    except ValueError:
+        depth = 0
+    if depth < 1:
+        raise ValueError(f"--speculate-k must be a positive integer or "
+                         f"'auto', got {value!r}")
+    return depth
+
+
+def speculation_depth(args, graph: Graph) -> int | None:
+    """The speculative window's depth the arguments ask for on ``graph``
+    (None: no speculation)."""
+    depth = parse_speculate_k(getattr(args, "speculate_k", None))
+    if depth == "auto":
+        from dgc_tpu_torch.utils.schedule_model import speculation_auto_cap
+
+        return speculation_auto_cap(graph.initial_k())
+    return depth
 
 
 def attempts_per_dispatch(args, graph: Graph) -> int:
@@ -263,6 +310,53 @@ def sweep(args, graph: Graph, engine, checkpoint=None, on_attempt=None,
     )
 
 
+def speculative_sweep(args, graph: Graph, depth: int, on_attempt, logger,
+                      phases) -> MinimalColoringResult | None:
+    """The sweep through a one-request serve pool with the speculative
+    minimal-k driver (``serve.speculate``): sibling lanes of the batched
+    serve kernels run the next ``depth`` budgets' attempts while the driver
+    consumes the current one. None when the graph is beyond the serve
+    shape ladder (the caller then takes the normal path)."""
+    from dgc_tpu_torch.serve.engine import BatchScheduler
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER, pad_member
+    from dgc_tpu_torch.serve.speculate import SpeculativeMinimalKEngine
+
+    cls = DEFAULT_LADDER.class_for(graph.num_vertices, graph.max_degree)
+    if cls is None:
+        print("# --speculate-k: graph beyond the serve shape ladder; "
+              "running the speculation-free path", file=sys.stderr)
+        return None
+    if not args.strict_decrement:
+        print("# --speculate-k: jump mode fuses find+confirm (nothing "
+              "to speculate); add --strict-decrement for the "
+              "parallel-window win", file=sys.stderr)
+    if args.checkpoint_dir:
+        print("# --speculate-k: checkpointing does not apply to the "
+              "serve-pool route; running without", file=sys.stderr)
+    with phases.section("host_engine_build"):
+        # one lane for the driver's own claims and `depth` sibling lanes;
+        # the carry stays on the device, so a reseat uploads one lane's
+        # table, not the pool's
+        sched = BatchScheduler(
+            batch_max=depth + 1, mode="continuous", device=args.device,
+            device_carry=True,
+            on_event=lambda kind, rec: logger.event(kind, **rec))
+        sched.start()
+        engine = SpeculativeMinimalKEngine(pad_member(graph.arrays, cls),
+                                           sched, depth=depth)
+    try:
+        with phases.section("sweep_total"):
+            return find_minimal_coloring(
+                engine, initial_k=graph.initial_k(),
+                strict_decrement=args.strict_decrement,
+                validate=make_validator(graph.arrays), on_attempt=on_attempt,
+                post_reduce=(None if args.no_reduce_colors
+                             else make_reducer(graph.arrays)))
+    finally:
+        engine.close()
+        sched.stop()
+
+
 def write_obs_outputs(args, logger, manifest, phases, registry) -> None:
     """Write the manifest and the metrics files the arguments name."""
     if args.run_manifest:
@@ -290,9 +384,17 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     try:
         parse_attempts_per_dispatch(args.attempts_per_dispatch)
+        parse_speculate_k(args.speculate_k)
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
+    if args.speculate_k is not None and \
+            parse_attempts_per_dispatch(args.attempts_per_dispatch) != 1:
+        # the speculative engine has no attempt block
+        print("# --attempts-per-dispatch ignored with --speculate-k: the "
+              "speculation pool dispatches attempts individually",
+              file=sys.stderr)
+        args.attempts_per_dispatch = None
     try:
         resolve_device(args.device)
     except RuntimeError as e:  # a card asked for where there is none
@@ -305,6 +407,39 @@ def main(argv: list[str] | None = None) -> int:
         return _run(args, logger, t_start)
     finally:
         logger.close()
+
+
+def _engine_sweep(args, graph: Graph, on_attempt, logger, phases,
+                  registry) -> MinimalColoringResult:
+    """The sweep on the engine ``--backend`` names, with the checkpoint and
+    the telemetry the arguments ask for."""
+    checkpoint = make_checkpoint(args, graph)
+    try:
+        if args.backend not in HOST_BACKENDS:
+            logger.event("devices", **(
+                dict(count=torch.cuda.device_count(), platform="gpu",
+                     device_kind=torch.cuda.get_device_name(0))
+                if args.device == "cuda" else
+                dict(count=1, platform="cpu", device_kind="cpu")))
+        with phases.section("host_engine_build"):
+            engine = make_engine(args, graph)
+        # the manifest or the metrics file switches the trajectories on,
+        # and then --superstep-timing the clock, where the engine has one
+        telemetry = bool(args.run_manifest or args.metrics_prom)
+        if args.superstep_timing and telemetry \
+                and hasattr(engine, "record_timing"):
+            engine.record_timing = True
+        engine = ObservedEngine(engine, phases=phases, registry=registry,
+                                record_trajectory=telemetry)
+        with phases.section("sweep_total"):
+            return sweep(args, graph, engine, checkpoint,
+                         on_attempt=on_attempt,
+                         on_block=lambda k, a: logger.event(
+                             "attempt_block", k=int(k), attempts=int(a)))
+    finally:
+        close = getattr(checkpoint, "close", None)  # write-behind: flush
+        if close is not None:
+            close()
 
 
 def _run(args, logger, t_start: float) -> int:
@@ -331,38 +466,18 @@ def _run(args, logger, t_start: float) -> int:
     k0 = graph.initial_k()
     logger.event("sweep_start", backend=args.backend, initial_k=k0,
                  strict_decrement=args.strict_decrement)
-    checkpoint = make_checkpoint(args, graph)
-    try:
-        if args.backend not in HOST_BACKENDS:
-            logger.event("devices", **(
-                dict(count=torch.cuda.device_count(), platform="gpu",
-                     device_kind=torch.cuda.get_device_name(0))
-                if args.device == "cuda" else
-                dict(count=1, platform="cpu", device_kind="cpu")))
-        with phases.section("host_engine_build"):
-            engine = make_engine(args, graph)
-        # the manifest or the metrics file switches the trajectories on,
-        # and then --superstep-timing the clock, where the engine has one
-        telemetry = bool(args.run_manifest or args.metrics_prom)
-        if args.superstep_timing and telemetry \
-                and hasattr(engine, "record_timing"):
-            engine.record_timing = True
-        engine = ObservedEngine(engine, phases=phases, registry=registry,
-                                record_trajectory=telemetry)
 
-        def on_attempt(res, val):
-            _print_attempt(res, val)
-            logger.attempt(res, val)
+    def on_attempt(res, val):
+        _print_attempt(res, val)
+        logger.attempt(res, val)
 
-        with phases.section("sweep_total"):
-            result = sweep(args, graph, engine, checkpoint,
-                           on_attempt=on_attempt,
-                           on_block=lambda k, a: logger.event(
-                               "attempt_block", k=int(k), attempts=int(a)))
-    finally:
-        close = getattr(checkpoint, "close", None)  # write-behind: flush
-        if close is not None:
-            close()
+    depth = speculation_depth(args, graph)
+    result = (None if depth is None else
+              speculative_sweep(args, graph, depth, on_attempt, logger,
+                                phases))
+    if result is None:
+        result = _engine_sweep(args, graph, on_attempt, logger, phases,
+                               registry)
     phases.log_device_memory()
     if result.minimal_colors is not None and result.swept_colors is not None \
             and result.minimal_colors < result.swept_colors:

@@ -24,9 +24,12 @@
 //                        of the next superstep. Its kTiming instance reads
 //                        the card's clock once per batched superstep
 //                        (:414-423; traj.cuh globaltimer_us).
-//   K16 lane_reset     — B12d, :202 _fresh_lanes and :487-522 (the slice
-//                        entry: the re-init of flagged lanes, the timing
-//                        seed), and the slice's control block.
+//   K16 lane_reset     — B12d, :202 _fresh_lanes and :487-528 (the slice
+//                        entry: the re-init of flagged lanes; with the
+//                        speculation plane's optional spec/cancel vectors,
+//                        the spec tag seated on a flagged lane and a
+//                        cancelled spec-tagged lane killed, :498-511; the
+//                        timing seed), and the slice's control block.
 // The while-loops of :539 batched_sweep_kernel and :556
 // batched_slice_kernel (B12e) are host loops over these launches
 // (serve/batched.py): one K16, then rounds of K14 (staged ladders only),
@@ -126,6 +129,8 @@ struct LaneArgs {
   int* nxt;               // int32[B, V]
   int* scratch;           // int32[3, B]
   int* ctrl;              // int32[kPad0 + kMaxStages]
+  const int* spec;        // int32[B] or null: the tag a flagged lane gets
+  const int* cancel;      // int32[B] or null: kill a spec-tagged lane
   int b;
   int v;
   int w;
@@ -237,6 +242,19 @@ __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
       a.slot[kCNc][l] = 0;
       a.slot[kCIdxRung][l] = 0;
       a.slot[kCSpec][l] = 0;
+    }
+    if (a.spec != nullptr || a.cancel != nullptr) {
+      // the speculation plane, after the re-init and before the timing
+      // seed and the routing fold: a flagged lane is seated with its tag
+      // and is never killed (reset beats cancel); a cancelled spec-tagged
+      // lane is done before any superstep runs
+      const bool fresh = a.reset[l] != 0;
+      const int tag = fresh ? (a.spec != nullptr ? a.spec[l] : 0)
+                            : a.slot[kCSpec][l];
+      a.slot[kCSpec][l] = tag;
+      if (!fresh && tag != 0 && a.cancel != nullptr && a.cancel[l] != 0) {
+        a.slot[kCPhase][l] = 2;
+      }
     }
     const int phase = a.slot[kCPhase][l];
     // a lane without a sample is attributed from the slice boundary
@@ -400,6 +418,7 @@ __device__ void finish_lanes(const LaneArgs& a) {
     const int status =
         t.status == dgc::kRunning && t.fin ? dgc::kStalled : t.status;
     const int k2 = used - 1;
+    // an attempt-only (spec-tagged) lane never runs the confirm (:409-412)
     const bool run2 = t.fin && t.first && status == dgc::kSuccess && k2 >= 1 &&
                       a.slot[kCSpec][l] == 0;
     if constexpr (kTiming) {

@@ -7,16 +7,20 @@ runs one batched superstep at a time over the reference's 20-slot carry
 
 - ``lane_reset`` (K16): the slice entry: re-init the flagged lanes from
   their inputs (``dgc_tpu.serve.batched._fresh_lanes``) and their back
-  buffer rows, the timing seed, the counters and the control block's
-  routing.
+  buffer rows; with the speculation plane's optional ``spec``/``cancel``
+  vectors (``Lanes.arm_spec``), seat a flagged lane's spec tag and kill a
+  cancelled spec-tagged lane that was not flagged (``_slice_kernel``'s
+  speculation branch); the timing seed, the counters and the control
+  block's routing.
 - ``lane_compact`` (K14): at a staged rung, rebuild the slot list of each
   live lane whose list was built at a shallower rung (``_rebuild_idx``).
 - ``lane_superstep`` (K13): the rule over every row (rung 0) or over the
   rung's slots of each live lane, into ``nxt``; each lane's fail and
   active counts.
 - ``lane_finish`` (K15): the transition and freeze of every lane, the
-  adopt or revert of the step, the result slots, and the next superstep's
-  routing; with ``timing`` it reads the clock once (``obs.devclock``).
+  adopt or revert of the step, the result slots (a spec-tagged lane runs
+  no confirm), and the next superstep's routing; with ``timing`` it reads
+  the clock once (``obs.devclock``).
 
 Every kernel reads the control block's live word first and does nothing
 when it is 0 (no lane running, or the slice's steps spent), so a slice is
@@ -25,8 +29,9 @@ enqueued without a host sync (``serve.batched``).
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
 ``launch_counts`` counts launches per kernel (``timing_launch_counts`` the
-clock-reading instances among them): a wrapper adds one where it launches
-and nowhere else.
+clock-reading instances among them, ``spec_launch_counts`` the launches of
+K15/K16 on lanes armed with the speculation vectors): a wrapper adds one
+where it launches and nowhere else.
 """
 
 from __future__ import annotations
@@ -73,10 +78,12 @@ launch_counts = {"lane_superstep": 0, "lane_compact": 0, "lane_finish": 0,
                  "lane_reset": 0}
 # the clock-reading (kTiming) instances among the launches above
 timing_launch_counts = {"lane_finish": 0, "lane_reset": 0}
+# the launches above on lanes armed with the spec/cancel vectors
+spec_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, timing_launch_counts):
+    for counts in (launch_counts, timing_launch_counts, spec_launch_counts):
         for name in counts:
             counts[name] = 0
 
@@ -106,6 +113,7 @@ class _LaneArgs(ctypes.Structure):
                 ("k0", ctypes.c_void_p), ("max_steps", ctypes.c_void_p),
                 ("reset", ctypes.c_void_p), ("nxt", ctypes.c_void_p),
                 ("scratch", ctypes.c_void_p), ("ctrl", ctypes.c_void_p),
+                ("spec", ctypes.c_void_p), ("cancel", ctypes.c_void_p),
                 ("b", ctypes.c_int), ("v", ctypes.c_int), ("w", ctypes.c_int),
                 ("a0", ctypes.c_int), ("planes", ctypes.c_int),
                 ("stall_window", ctypes.c_int), ("budget", ctypes.c_int)]
@@ -119,9 +127,11 @@ class Lanes:
     V], equal to the carry's ``packed`` between supersteps, the counters
     ``scratch`` int32[3, B] and the control block; the class window's
     plane count, the stall window and the slice's step budget
-    (``INT32_MAX`` for a whole sweep). A caller may keep them from slice
-    to slice, writing new inputs into their tensors (``serve.engine``):
-    the launch arguments are built once."""
+    (``INT32_MAX`` for a whole sweep); the speculation plane's optional
+    ``spec``/``cancel`` int32[B] vectors (``arm_spec``; None: the plain
+    slice). A caller may keep them from slice to slice, writing new
+    inputs into their tensors (``serve.engine``): the launch arguments
+    are built once."""
 
     carry: list
     comb: torch.Tensor
@@ -135,6 +145,8 @@ class Lanes:
     planes: int
     stall_window: int
     budget: int
+    spec: torch.Tensor | None = None
+    cancel: torch.Tensor | None = None
     _args: object = field(default=None, repr=False)
 
     @property
@@ -152,6 +164,20 @@ class Lanes:
     @property
     def device(self) -> torch.device:
         return self.degrees.device
+
+    @property
+    def armed(self) -> bool:
+        """Whether the lanes carry the speculation vectors."""
+        return self.spec is not None or self.cancel is not None
+
+    def arm_spec(self, spec: torch.Tensor | None,
+                 cancel: torch.Tensor | None) -> None:
+        """Give K16 the speculation vectors (int32[B] tensors on the lanes'
+        device, either None); the next launches read their contents."""
+        self.spec, self.cancel = spec, cancel
+        if self._args is not None:
+            self._args.spec = 0 if spec is None else spec.data_ptr()
+            self._args.cancel = 0 if cancel is None else cancel.data_ptr()
 
     def set_budget(self, budget: int) -> None:
         """The step budget of the next slice (K16 reads it)."""
@@ -219,6 +245,16 @@ def lane_reset_reference(L: Lanes, timing: bool) -> None:
                CARRY_IDX_RUNG: 0, CARRY_SPEC: 0}
     for j, value in scalars.items():
         c[j].copy_(torch.where(fresh, value, c[j]))
+    if L.armed:
+        # the speculation plane (``_slice_kernel``): the tag seated on a
+        # flagged lane, a cancelled spec-tagged lane killed unless flagged
+        zeros = torch.zeros_like(L.k0)
+        spec_in = zeros if L.spec is None else L.spec
+        cancel_in = zeros if L.cancel is None else L.cancel
+        spec_slot = torch.where(fresh, spec_in, c[CARRY_SPEC])
+        killed = (cancel_in != 0) & (spec_slot != 0) & ~fresh
+        c[CARRY_PHASE].copy_(torch.where(killed, 2, c[CARRY_PHASE]))
+        c[CARRY_SPEC].copy_(spec_slot)
     if timing:
         ts0 = kernel_clock_us(L.device)
         seed = (c[CARRY_PHASE] < 2) & (c[T_PREV] == 0)
@@ -402,6 +438,13 @@ def _args(L: Lanes) -> _LaneArgs:
         _check_int32(name, t, device, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for name in ("spec", "cancel"):
+        t = getattr(L, name)
+        if t is not None:
+            _check_int32(name, t, device, 1)
+            if tuple(t.shape) != (b,):
+                raise ValueError(f"{name} must be ({b},), got "
+                                 f"{tuple(t.shape)}")
     if not 1 <= L.planes <= 32 or 32 * L.planes < L.comb.shape[-1] + 1:
         raise ValueError(f"planes={L.planes} does not cover width "
                          f"{L.comb.shape[-1]}")
@@ -413,6 +456,8 @@ def _args(L: Lanes) -> _LaneArgs:
     for name in ("comb", "degrees", "k0", "max_steps", "reset", "nxt",
                  "scratch", "ctrl"):
         setattr(args, name, getattr(L, name).data_ptr())
+    args.spec = 0 if L.spec is None else L.spec.data_ptr()
+    args.cancel = 0 if L.cancel is None else L.cancel.data_ptr()
     args.b, args.v, args.w, args.a0 = b, v, int(L.comb.shape[-1]), L.a0
     args.planes, args.stall_window, args.budget = (L.planes, L.stall_window,
                                                    L.budget)
@@ -425,17 +470,23 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _count(name: str, L: Lanes, timing: bool) -> None:
+    launch_counts[name] += 1
+    if timing:
+        timing_launch_counts[name] += 1
+    if L.armed:
+        spec_launch_counts[name] += 1
+
+
 def lane_reset(L: Lanes, timing: bool = False) -> None:
-    """K16 (its kTiming instance with ``timing``). Runs on the current
-    stream."""
+    """K16 (its kTiming instance with ``timing``; it reads ``L.spec`` and
+    ``L.cancel`` when the lanes are armed). Runs on the current stream."""
     if L.device.type == "cpu":
         return lane_reset_reference(L, timing)
     args = _args(L)
     _raise_on(_library().dgc_lane_reset(ctypes.byref(args), int(bool(timing)),
                                         _stream(L.device)), "lane_reset")
-    launch_counts["lane_reset"] += 1
-    if timing:
-        timing_launch_counts["lane_reset"] += 1
+    _count("lane_reset", L, timing)
 
 
 def lane_compact(L: Lanes) -> None:
@@ -467,6 +518,4 @@ def lane_finish(L: Lanes, timing: bool = False) -> None:
     args = _args(L)
     _raise_on(_library().dgc_lane_finish(ctypes.byref(args), int(bool(timing)),
                                          _stream(L.device)), "lane_finish")
-    launch_counts["lane_finish"] += 1
-    if timing:
-        timing_launch_counts["lane_finish"] += 1
+    _count("lane_finish", L, timing)

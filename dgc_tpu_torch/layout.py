@@ -31,7 +31,7 @@ CARRY_RUNG = 15        # compaction-stage ladder rung the lane has reached
 CARRY_NC = 16          # lane's live frontier after its last superstep
 CARRY_IDX_RUNG = 17    # rung the lane's compacted slot list was built at
 CARRY_IDX = 18         # compacted slot list (int32[A0]; dummy = V_pad)
-CARRY_SPEC = 19        # speculation tag (0 here: the port runs no speculation)
+CARRY_SPEC = 19        # speculation tag (1: an attempt-only lane, no confirm)
 CARRY_LEN = 20
 
 OUT0 = 6               # first result slot (== CARRY_P1)

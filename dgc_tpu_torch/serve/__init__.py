@@ -9,18 +9,23 @@ time on the card.
   over the four serve kernels (``kernels.serve``, ``csrc/serve.cu``), as
   one batch-complete sweep (sync mode) or bounded superstep slices whose
   carry stays on the card (continuous mode), with the staged frontier
-  ladder;
+  ladder, the speculation plane's spec/cancel vectors, and the
+  device-resident carry's seat, permute and resize (``kernels.carry``,
+  ``csrc/carry.cu``);
 - :mod:`~dgc_tpu_torch.serve.engine` — the sweep scheduler: lane
-  recycling, affinity batching, the sync baseline, class warmup;
+  recycling, affinity batching, the sync baseline, class warmup, the
+  host-mirror and device-resident carries, the speculation plane;
+- :mod:`~dgc_tpu_torch.serve.speculate` — speculative minimal-k: the
+  strict chain's next budgets in sibling lanes (``dgc_tpu``'s file,
+  verbatim but for the package name);
 - :mod:`~dgc_tpu_torch.serve.queue` — the micro-batching front-end
   (bounded queue, workers, latency, health fed by the resilience
   supervisor's rung state);
 - :mod:`~dgc_tpu_torch.serve.cli` — ``python -m dgc_tpu_torch serve``,
   the request-replay CLI.
 
-Not ported yet (ROADMAP): the device-resident carry, speculation, the
-network front door, the result cache, the fleet, the journal and the
-lane mesh.
+Not ported yet (ROADMAP): the network front door, the result cache, the
+fleet, the journal and the lane mesh.
 """
 
 from dgc_tpu_torch.serve.shape_classes import (  # noqa: F401

@@ -33,11 +33,24 @@ no lane runs or the slice's steps are spent.
   however the budget partitions it. With ``timing`` each live lane's
   superstep wall-µs accumulate in ``T_US`` (the card's clock, one reading
   per batched superstep; the host clock on the CPU); the other slots are
-  byte-identical timing on or off.
+  byte-identical timing on or off. The speculation plane's optional
+  ``spec``/``cancel`` int32[B] vectors (``batched_slice_kernel``'s) arm
+  K16: a flagged lane is seated with its spec tag (an attempt-only lane:
+  K15 runs no confirm for it), and a spec-tagged lane that is cancelled
+  and not flagged is killed (phase 2) before any superstep of the slice;
+  without them (None) the slice is the plain one.
 
 The carry is updated in place when its tensors are on the device already
-(numpy arrays are copied there first); the JAX kernels are functional.
-The port runs no speculation: the ``spec`` slot stays 0.
+(numpy arrays are copied there first); the JAX kernels are functional, so
+``batched_slice_kernel_donated`` needs no kernel of its own here.
+
+The device-resident carry (``--device-carry``, B12f) moves lanes on the
+card: ``seat_lanes`` (K17, a wave of seats; each seat's table row goes up
+once), ``permute_carry`` (K18, a pool resize's carry move into a fresh
+idle carry built on the card) and ``resize_inputs`` (K19, the input
+stacks at a new width, the class dummy in the new rows) over
+``kernels.carry``; ``lanes_home`` brings only done lanes' result slots
+home.
 
 Bit identity with the single-graph engines (``CompactFrontierEngine
 .sweep``) is the reference's argument (``dgc_tpu/serve/batched.py``
@@ -55,6 +68,7 @@ import torch
 from dgc_tpu_torch.device import resolve_device
 from dgc_tpu_torch.engine.base import AttemptResult, AttemptStatus
 from dgc_tpu_torch.engine.compact import _check_stage_ladder
+from dgc_tpu_torch.kernels import carry as kcar
 from dgc_tpu_torch.kernels import serve as ks
 from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_LEN, CARRY_P1, CARRY_P2,
                                   CARRY_PACKED, N_OUT, OUT0)
@@ -177,13 +191,14 @@ def is_staged(stages) -> bool:
 
 def slice_lanes(comb, degrees, k0, max_steps, reset, carry, *, planes: int,
                 stall_window: int = DEFAULT_STALL_WINDOW, stages=None,
-                device=None) -> ks.Lanes:
+                device=None, spec=None, cancel=None) -> ks.Lanes:
     """The lanes of a continuous batch for :func:`run_slice`: the inputs
     and the ``CARRY_LEN`` carry slots on the device (numpy arrays copied
     there, tensors already there used as they are), the back buffer a copy
-    of ``packed``. The scheduler's pool keeps them from slice to slice and
-    writes each slice's inputs into their tensors; they are made again
-    only when the pool is resized."""
+    of ``packed``; ``spec``/``cancel`` (int32[B], either None) arm the
+    speculation plane (``Lanes.arm_spec``). The scheduler's pool keeps
+    them from slice to slice and writes each slice's inputs into their
+    tensors; they are made again only when the pool is resized."""
     if len(carry) != CARRY_LEN:
         raise ValueError(f"the carry has {CARRY_LEN} slots, got {len(carry)}")
     device = _device_of(device, degrees, comb, *carry)
@@ -192,10 +207,14 @@ def slice_lanes(comb, degrees, k0, max_steps, reset, carry, *, planes: int,
     if carry[CARRY_IDX].shape[1] != a0:
         raise ValueError(f"the carry's slot list is {carry[CARRY_IDX].shape[1]}"
                          f" wide, the ladder's {a0}")
-    return ks.new_lanes([_on(c, device) for c in carry], _on(comb, device),
-                        degrees, _on(k0, device), _on(max_steps, device),
-                        _on(reset, device), _ladder_ctrl(stages, device),
-                        planes=planes, stall_window=stall_window, budget=1)
+    L = ks.new_lanes([_on(c, device) for c in carry], _on(comb, device),
+                     degrees, _on(k0, device), _on(max_steps, device),
+                     _on(reset, device), _ladder_ctrl(stages, device),
+                     planes=planes, stall_window=stall_window, budget=1)
+    if spec is not None or cancel is not None:
+        L.arm_spec(None if spec is None else _on(spec, device),
+                   None if cancel is None else _on(cancel, device))
+    return L
 
 
 def run_slice(L: ks.Lanes, *, slice_steps: int, staged: bool,
@@ -213,8 +232,8 @@ def run_slice(L: ks.Lanes, *, slice_steps: int, staged: bool,
     return tuple(L.carry)
 
 
-def batched_slice(comb, degrees, k0, max_steps, reset, carry, *,
-                  planes: int, slice_steps: int,
+def batched_slice(comb, degrees, k0, max_steps, reset, carry, spec=None,
+                  cancel=None, *, planes: int, slice_steps: int,
                   stall_window: int = DEFAULT_STALL_WINDOW,
                   timing: bool = False, stages=None, device=None):
     """The continuous-batching class slice: re-init the lanes flagged in
@@ -223,12 +242,13 @@ def batched_slice(comb, degrees, k0, max_steps, reset, carry, *,
     ``carry`` is the ``CARRY_LEN`` slots, lane-leading (numpy or tensors);
     returns the advanced carry as tensors on the device (the same tensors
     when they were there already). The host reads ``carry[CARRY_PHASE] >=
-    2`` as the done mask. ``timing``: module docstring."""
+    2`` as the done mask. ``timing``, ``spec`` and ``cancel``: module
+    docstring."""
     if int(slice_steps) < 1:
         raise ValueError(f"slice_steps must be >= 1, got {slice_steps}")
     L = slice_lanes(comb, degrees, k0, max_steps, reset, carry,
                     planes=planes, stall_window=stall_window, stages=stages,
-                    device=device)
+                    device=device, spec=spec, cancel=cancel)
     return run_slice(L, slice_steps=slice_steps, staged=is_staged(stages),
                      timing=timing)
 
@@ -254,21 +274,15 @@ def carry_home(slots) -> tuple:
 
 
 def idle_carry(b_pad: int, v_pad: int, a_pad: int = 1):
-    """Host-side all-idle lane carry (phase 2, inert): the continuous
-    pool's starting state and the shape every resize pads with. Plain
-    numpy — the kernel's first invocation uploads it. ``a_pad`` is the
-    class ladder's carried slot-list width (:func:`stage_idx_width`; 1
-    for full-table-only kernels)."""
-    pk = np.zeros((b_pad, v_pad), np.int32)
-    z = np.zeros(b_pad, np.int32)
-    return (np.full(b_pad, 2, np.int32), np.ones(b_pad, np.int32),
-            pk.copy(), z.copy(), z.copy(), z.copy(),
-            pk.copy(), z.copy(), z.copy(), z.copy(),
-            pk.copy(), z.copy(), np.full(b_pad, int(_FAILURE), np.int32),
-            z.copy(), z.copy(),
-            z.copy(), z.copy(),
-            z.copy(), np.full((b_pad, a_pad), v_pad, np.int32),
-            z.copy())
+    """Host-side all-idle lane carry (phase 2, inert; each slot filled with
+    ``kernels.carry.idle_values``, the values K18 gives a row it does not
+    fill): the host-mirror pool's starting state and the shape every
+    resize pads with. Plain numpy — the kernel's first invocation uploads
+    it. ``a_pad`` is the class ladder's carried slot-list width
+    (:func:`stage_idx_width`; 1 for full-table-only kernels)."""
+    idle = kcar.idle_values(v_pad)
+    return tuple(np.full(kcar.slot_shape(j, b_pad, v_pad, a_pad), idle[j],
+                         np.int32) for j in range(CARRY_LEN))
 
 
 def lane_outputs(carry, lane: int):
@@ -279,6 +293,60 @@ def lane_outputs(carry, lane: int):
     p1, s1, st1, used, p2, s2, st2 = (to_host(carry[j][lane])
                                       for j in range(OUT0, OUT0 + N_OUT))
     return p1, int(s1), int(st1), int(used), p2, int(s2), int(st2)
+
+
+def lanes_home(carry, lanes) -> list:
+    """``lane_outputs`` of each of ``lanes`` from a carry on the device:
+    only their result slots (two rows and five scalars a lane) come home,
+    in one copy."""
+    idx = torch.tensor([int(x) for x in lanes], dtype=torch.int64,
+                       device=carry[OUT0].device)
+    rows = carry_home([carry[j].index_select(0, idx)
+                       for j in range(OUT0, OUT0 + N_OUT)])
+    return [lane_outputs((None,) * OUT0 + tuple(rows), i)
+            for i in range(len(lanes))]
+
+
+def seat_lanes(stacks, seats) -> int:
+    """K17 over a wave of ``seats`` ``(lane, comb int32[V, W], degrees
+    int32[V], k0, max_steps)`` (numpy rows) into ``stacks`` (the resident
+    ``comb, degrees, k0, max_steps, reset`` tensors), in seat order: each
+    seat's rows go up once into a staging buffer on the stacks' device.
+    Returns the bytes uploaded."""
+    if not seats:
+        return 0
+    comb, degrees = stacks[0], stacks[1]
+    device = degrees.device
+    n = len(seats)
+    s_comb = torch.empty((n,) + tuple(comb.shape[1:]), dtype=torch.int32,
+                         device=device)
+    s_degrees = torch.empty((n, degrees.shape[1]), dtype=torch.int32,
+                            device=device)
+    for i, (_lane, m_comb, m_degrees, _k, _ms) in enumerate(seats):
+        s_comb[i].copy_(torch.from_numpy(np.ascontiguousarray(m_comb,
+                                                              np.int32)))
+        s_degrees[i].copy_(torch.from_numpy(np.ascontiguousarray(m_degrees,
+                                                                 np.int32)))
+    kcar.lane_seat(*stacks, [s[0] for s in seats], s_comb, s_degrees,
+                   [s[3] for s in seats], [s[4] for s in seats])
+    return int(s_comb.numel() + s_degrees.numel() + 3 * n) * 4
+
+
+def permute_carry(carry, keep, b_new: int) -> list:
+    """K18: the carry of a pool resized to ``b_new`` lanes, the kept lanes'
+    rows (old lanes ``keep``) in rows ``0..len(keep)-1``, the others idle
+    (``idle_carry``'s values), built on the carry's device."""
+    return kcar.carry_permute(carry, list(keep), list(range(len(keep))),
+                              b_new)
+
+
+def resize_inputs(stacks, src, dummy_comb, dummy_max_steps: int) -> tuple:
+    """K19: the input stacks ``(comb, degrees, k0, max_steps, reset)`` at
+    ``len(src)`` lanes, row ``i`` old lane ``src[i]`` or (past the old
+    width) the class dummy: ``dummy_comb`` on the stacks' device, zero
+    degrees, ``k0`` 1, ``dummy_max_steps``; reset all 0."""
+    return kcar.inputs_resize(*stacks[:4], list(src), dummy_comb, 1,
+                              int(dummy_max_steps))
 
 
 def carry_nbytes(carry) -> int:

@@ -15,14 +15,19 @@ sync`` keeps the batch-complete baseline), ``--slice-steps`` sizes the
 recycling slice (default: priced against dispatch overhead),
 ``--warm-classes`` runs the named shape classes' pads before the replay
 clock starts, and ``--kernel-timing`` switches the slices' clock on (the
-card's ``%globaltimer``). ``--log-json`` / ``--run-manifest`` /
-``--metrics-prom`` land the ``serve_*`` events in the schemas the sweep
-CLI uses. ``--device cpu`` runs the plain PyTorch versions of the kernels.
+card's ``%globaltimer``). ``--device-carry`` keeps each lane pool's carry
+and input stacks on the card (seats through K17, resizes through K18 and
+K19, only done lanes' results home); ``--speculate-k DEPTH|auto`` serves
+each batched request through the speculative minimal-k engine
+(``serve.speculate``: jump-mode requests run the fused pair unchanged).
+``--log-json`` / ``--run-manifest`` / ``--metrics-prom`` land the
+``serve_*`` events in the schemas the sweep CLI uses. ``--device cpu``
+runs the plain PyTorch versions of the kernels.
 
 The other flags of ``dgc_tpu.serve.cli`` (network mode, the result cache,
-the fleet, speculation, the device-resident carry, the lane mesh, fault
-injection, tuned configs, the flight recorder, profiler and time series)
-are not ported yet: each is refused with exit code 2.
+the fleet, the lane mesh, fault injection, tuned configs, the flight
+recorder, profiler and time series) are not ported yet: each is refused
+with exit code 2.
 
 Exit codes: 0 every request ok, 1 some request failed or was bad, 2 usage
 or load error (a missing card for ``--device cuda`` included).
@@ -50,7 +55,7 @@ UNPORTED_FLAGS = (
     "--brownout", "--brownout-sustain", "--brownout-clear",
     "--fleet-replica", "--fleet-incarnation", "--fleet-recover",
     "--inject-faults", "--dispatch-timeout", "--max-lane-aborts",
-    "--speculate-k", "--device-carry", "--mesh-devices", "--auto-tune",
+    "--mesh-devices", "--auto-tune",
     "--tuned-cache-dir", "--metrics-port", "--flightrec-capacity",
     "--flightrec-dir", "--profile-logdir", "--no-trace",
     "--timeseries-interval", "--timeseries-capacity", "--timeseries-jsonl",
@@ -77,6 +82,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-max", type=int, default=8,
                    help="max graphs per batched dispatch / lane pool "
                         "(default 8)")
+    p.add_argument("--speculate-k", type=str, default=None,
+                   metavar="DEPTH|auto",
+                   help="speculative minimal-k (serve.speculate): keep a "
+                        "window of DEPTH attempts at budgets below the live "
+                        "one seated in otherwise idle lanes, below real "
+                        "traffic (killed at slice boundaries when real "
+                        "requests need the lanes); 'auto' prices the depth "
+                        "off the free-lane count. Engages on strict-"
+                        "decrement sweeps; jump-mode requests run the fused "
+                        "pair unchanged. Unset: the speculation-free path")
     p.add_argument("--serve-mode", choices=["continuous", "sync"],
                    default="continuous",
                    help="continuous (default): lane recycling — finished "
@@ -94,6 +109,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="staged frontier ladder in the batched kernels: "
                         "auto (default) derives each shape class's ladder; "
                         "off runs the full table (the A/B arm)")
+    p.add_argument("--device-carry", action="store_true",
+                   help="device-resident lane carry (continuous mode): the "
+                        "carry and the input stacks stay on the card, a "
+                        "seat scatters one lane's row, a resize moves the "
+                        "kept lanes there, and only done lanes' results "
+                        "come home")
     p.add_argument("--warm-classes", type=str, default=None,
                    metavar="CLS1,CLS2,...",
                    help="run these shape classes' kernels at every batch "
@@ -193,6 +214,15 @@ def serve_main(argv: list[str] | None = None) -> int:
             print(f"--slice-steps must be an integer or 'auto', got "
                   f"{args.slice_steps!r}", file=sys.stderr)
             return 2
+    if args.speculate_k is not None and args.speculate_k != "auto":
+        try:
+            args.speculate_k = int(args.speculate_k)
+            if args.speculate_k < 1:
+                raise ValueError
+        except ValueError:
+            print(f"--speculate-k must be a positive integer or 'auto', "
+                  f"got {args.speculate_k!r}", file=sys.stderr)
+            return 2
 
     # the event stream goes to --log-json only, as the port's sweep CLI
     logger = RunLogger(jsonl_path=args.log_json, echo=False)
@@ -222,7 +252,8 @@ def _replay(args, requests, logger, registry, manifest) -> int:
             slice_steps=(None if args.slice_steps == "auto"
                          else args.slice_steps),
             affinity=not args.no_affinity,
-            stages=args.serve_stages, timing=args.kernel_timing,
+            stages=args.serve_stages, device_carry=args.device_carry,
+            speculate_k=args.speculate_k, timing=args.kernel_timing,
             validate=not args.no_validate,
             post_reduce=not args.no_reduce_colors,
             logger=logger, registry=registry, device=args.device,
@@ -294,6 +325,11 @@ def _replay(args, requests, logger, registry, manifest) -> int:
         summary_kw["latency_ms"] = latency
     if sst.get("recals"):
         summary_kw["recals"] = sst["recals"]
+    if sst.get("spec_seated") or sst.get("spec_cancelled"):
+        # the speculation plane's totals, only when an attempt speculated
+        for key in ("spec_seated", "spec_wins", "spec_cancelled",
+                    "spec_preempted", "spec_wasted_steps"):
+            summary_kw[key] = sst[key]
     logger.event("serve_summary", requests=len(requests), completed=done,
                  failed=st["failed"],
                  rejected=st["rejected"],

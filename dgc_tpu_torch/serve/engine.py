@@ -22,12 +22,26 @@ Two dispatch modes:
 - ``mode="sync"`` — batch-complete dispatch (one whole jump-mode pair per
   batch, ``serve.batched.batched_sweep``), the A/B baseline.
 
-The carry is the **host mirror** mode of the reference: between slices it
+Two carry modes. The **host mirror** (default): between slices the carry
 stays on the card as the tensors the kernels return; the input stacks are
-uploaded when a swap changed them; the phase/rung/nc scheduling scalars
-(and ``T_US`` under timing) come home every slice in one copy, and the
-whole carry only on a slice where some lane finished. ``h2d``/``d2h``
-count those bytes in the ``serve_slice`` events.
+uploaded when a swap changed them; the whole carry comes home on a slice
+where some lane finished, and for a resize. The **device-resident carry**
+(``device_carry=True``, ``--device-carry``, B12f): the carry and the
+input stacks live on the card only; a seat uploads one lane's row and
+K17 scatters it, a resize moves the kept lanes on the card (K18, K19),
+and only the delivered lanes' result slots come home. Either way the
+phase/rung/nc scheduling scalars (and ``T_US`` under timing) come home
+every slice in one copy. ``h2d``/``d2h`` count the bytes either mode
+moves, in the ``serve_slice`` events.
+
+**The speculation plane** (``single_attempt``, ``speculate``,
+``speculate_many``, ``claim_speculative``, ``cancel_speculative``;
+``serve.speculate``): attempt-only calls carry K16's spec tag (K15 runs
+no confirm for them); speculative calls seat only into lanes no real
+call wants, after the real wave, and are killed at a slice entry through
+K16's cancel vector when cancelled, or preempted (lowest k first) when
+real calls need their lanes. The vectors go up only once speculation was
+used.
 
 **Affinity batching** rides both modes: pending calls carry a predicted
 sweep-depth bucket (the bit length of the budget ``k``), and the scheduler
@@ -41,8 +55,8 @@ shape; the kernels are built once), so the event fields keep their
 schema; :meth:`BatchScheduler.warm_class` runs each pad of a class once
 before serving.
 
-Not ported (the reference's other planes): the lane mesh, the
-device-health model, speculation and the device-resident carry.
+Not ported (the reference's other planes): the lane mesh and the
+device-health model.
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ import torch
 
 from dgc_tpu_torch.device import resolve_device
 from dgc_tpu_torch.engine.base import AttemptResult, empty_budget_failure
+from dgc_tpu_torch.kernels import carry as kcar
 from dgc_tpu_torch.layout import (CARRY_LEN, CARRY_NC, CARRY_PHASE,
                                   CARRY_RUNG, T_US)
 from dgc_tpu_torch.obs.trace import NULL_TRACER
@@ -64,8 +79,10 @@ from dgc_tpu_torch.serve.batched import (DEFAULT_STALL_WINDOW,
                                          auto_slice_steps, batched_sweep,
                                          carry_home, carry_nbytes,
                                          finish_pair, idle_carry, is_staged,
-                                         lane_outputs, priced_slice_steps,
-                                         run_slice, slice_lanes,
+                                         lane_outputs, lanes_home,
+                                         permute_carry, priced_slice_steps,
+                                         resize_inputs, run_slice,
+                                         seat_lanes, slice_lanes,
                                          stage_idx_width)
 from dgc_tpu_torch.serve.shape_classes import (dummy_member, pad_ladder,
                                                padding_waste,
@@ -79,6 +96,13 @@ _STARVE_WINDOWS = 50.0
 MAX_LANE_ABORTS = 3
 # full slices at the deepest rung before the measured slice size is priced
 RECAL_MIN_SLICES = 8
+# a class whose last speculative submit or seat is this recent is
+# "spec-hot": its pool is kept (no pop at live == 0, no shrink), so the
+# next window generation reuses the lanes instead of rebuilding them
+_SPEC_IDLE_S = 0.05
+# a freshly seated wave of unclaimed speculation only waits up to this
+# long for the rest of the window's submits before it slices
+_SPEC_COALESCE_S = 500e-6
 
 
 class ServeError(RuntimeError):
@@ -115,9 +139,11 @@ def priority_window(window_s: float, priority: int) -> float:
 class _SweepCall:
     __slots__ = ("member", "k", "depth", "priority", "done", "result",
                  "error", "t_enqueue", "span", "lane_span", "device_us",
-                 "aborts")
+                 "aborts", "attempt_only", "speculative", "cancelled",
+                 "claimed", "cancel_reason")
 
-    def __init__(self, member, k, span=None, priority=0):
+    def __init__(self, member, k, span=None, priority=0,
+                 attempt_only=False, speculative=False):
         self.member = member
         self.k = int(k)
         self.depth = depth_bucket(k)
@@ -134,26 +160,55 @@ class _SweepCall:
         self.span = span
         self.lane_span = None
         self.device_us = None      # in-kernel superstep µs (timing mode)
+        # the speculation plane: an attempt_only lane carries K16's spec
+        # tag (no fused confirm, cancellable at slice entries); a
+        # speculative call also seats below every real pending call and
+        # may be cancelled or preempted before delivery. cancelled,
+        # claimed and cancel_reason are checked and set under the
+        # scheduler's _lock, where the claim/cancel/preempt races resolve
+        self.attempt_only = bool(attempt_only)
+        self.speculative = bool(speculative)
+        self.cancelled = False       # guarded-by: scheduler._lock
+        self.claimed = False         # guarded-by: scheduler._lock
+        self.cancel_reason = None    # guarded-by: scheduler._lock
 
 
 class _LanePool:   # owned by the dispatcher thread
-    """One shape class's host-side lane state (continuous mode): the
-    host mirror of the inputs (mutated only when a lane is swapped), the
-    carry (numpy until its first slice, then the tensors the kernels
-    return), the kernels' lanes (``serve.batched.slice_lanes``, kept from
-    slice to slice: the inputs on the card are written into their
-    tensors), and the per-lane call bookkeeping. ``h2d``/``d2h`` count the
-    host↔device bytes the pool moves."""
+    """One shape class's lane state (continuous mode): the host's copies
+    of the small scheduling vectors, the carry (numpy until its first
+    slice, then tensors on the device), the kernels' lanes
+    (``serve.batched.slice_lanes``, kept from slice to slice: the inputs
+    on the device are written into their tensors), and the per-lane call
+    bookkeeping. ``h2d``/``d2h`` count the host↔device bytes the pool
+    moves.
+
+    Two carry modes:
+
+    - **host mirror** (default): the host keeps the input stacks and
+      re-uploads them on a slice where a swap changed them; a resize
+      brings the carry home and re-uploads it.
+    - **device-resident** (``device_carry=True``, ``--device-carry``): the
+      carry and the input stacks live on the device only (no host stack).
+      A seat is one lane's row going up once and K17 scattering it
+      (``seat_lanes``); a resize moves the kept lanes' carry rows into a
+      fresh idle carry built there (K18, ``permute_carry``) and the input
+      stacks (K19, ``resize_inputs``; ``dummy_dev``, the class dummy's
+      table row on the device, is uploaded by the first pool of the class
+      and passed to the next); seats pending at a resize are seated again
+      after it."""
 
     __slots__ = ("cls", "b_pad", "comb", "degrees", "k0", "max_steps",
                  "reset", "carry", "calls", "t_fill", "slices_in",
                  "t_seen", "_dev_inputs", "_dev_vecs", "_dirty", "_dummy",
-                 "h2d", "d2h", "a_pad", "device", "lanes")
+                 "h2d", "d2h", "a_pad", "device", "lanes", "device_carry",
+                 "_stacks", "_dummy_dev", "_spec_dev")
 
-    def __init__(self, cls, b_pad: int, dummy, device, a_pad: int = 1):
+    def __init__(self, cls, b_pad: int, dummy, device, a_pad: int = 1,
+                 device_carry: bool = False, dummy_dev=None):
         self.cls = cls
         self._dummy = dummy
         self.device = device
+        self.device_carry = bool(device_carry)
         self.a_pad = int(a_pad)   # the class ladder's CARRY_IDX width
         self.b_pad = 0
         self.calls = []
@@ -161,6 +216,11 @@ class _LanePool:   # owned by the dispatcher thread
         self.slices_in = []
         self.h2d = 0
         self.d2h = 0
+        self.carry = None
+        self._stacks = None       # device carry: comb, degrees, k0, ms, reset
+        self._dummy_dev = dummy_dev   # device carry: the dummy's table row
+        self._spec_dev = None     # the spec/cancel vectors, int32[2, b_pad]
+        self._dirty = []
         self._resize(self._pad(b_pad))
 
     @staticmethod
@@ -171,48 +231,81 @@ class _LanePool:   # owned by the dispatcher thread
     def _resize(self, b_pad: int) -> None:
         """(Re)allocate at ``b_pad`` lanes, compacting live lanes into the
         low indices (lane identity is per-slice; the call list follows the
-        carry rows). A carry on the card comes home for it, and the input
-        stacks re-upload (resizes are pad-boundary rare)."""
+        carry rows). Host mirror: a carry on the device comes home for it
+        and the input stacks re-upload. Device carry: K18 and K19 move the
+        kept lanes on the device, and the seats still pending are
+        re-seated by K17 before the next slice."""
         keep = [i for i, c in enumerate(self.calls) if c is not None]
         assert len(keep) <= b_pad, "resize would drop live lanes"
         cls, dummy = self.cls, self._dummy
-        comb = np.repeat(dummy.comb[None], b_pad, axis=0)
-        degrees = np.zeros((b_pad, cls.v_pad), np.int32)
+        old_b = self.b_pad
         k0 = np.ones(b_pad, np.int32)
         max_steps = np.full(b_pad, dummy.max_steps, np.int32)
         reset = np.zeros(b_pad, np.int32)
-        carry = idle_carry(b_pad, cls.v_pad, self.a_pad)
-        old_carry = None
-        if keep:
-            if not isinstance(self.carry[0], np.ndarray):
-                self.d2h += carry_nbytes(self.carry)
-            old_carry = carry_home(self.carry)
         calls = [None] * b_pad
         t_fill = [0.0] * b_pad
         slices_in = [0] * b_pad
         t_seen = np.zeros(b_pad, np.int64)
         for new_i, old_i in enumerate(keep):
-            comb[new_i] = self.comb[old_i]
-            degrees[new_i] = self.degrees[old_i]
             k0[new_i] = self.k0[old_i]
             max_steps[new_i] = self.max_steps[old_i]
             reset[new_i] = self.reset[old_i]
-            for j in range(CARRY_LEN):
-                carry[j][new_i] = old_carry[j][old_i]
             calls[new_i] = self.calls[old_i]
             t_fill[new_i] = self.t_fill[old_i]
             slices_in[new_i] = self.slices_in[old_i]
             t_seen[new_i] = self.t_seen[old_i]
+        if self.device_carry:
+            self._resize_on_device(keep, old_b, b_pad)
+            self.comb = self.degrees = None
+            self._dirty = [keep.index(lane) for lane in self._dirty
+                           if lane in keep]
+        else:
+            self._resize_host(keep, b_pad)
+            self._dirty = []
         self.b_pad = b_pad
-        self.comb, self.degrees = comb, degrees
         self.k0, self.max_steps, self.reset = k0, max_steps, reset
-        self.carry = carry
         self.calls, self.t_fill, self.slices_in = calls, t_fill, slices_in
         self.t_seen = t_seen
         self._dev_inputs = None
         self._dev_vecs = None
-        self.lanes = None
-        self._dirty = []
+        self.lanes = None   # new lanes: ``nxt`` a copy of the moved packed
+
+    def _resize_host(self, keep: list, b_pad: int) -> None:
+        cls, dummy = self.cls, self._dummy
+        comb = np.repeat(dummy.comb[None], b_pad, axis=0)
+        degrees = np.zeros((b_pad, cls.v_pad), np.int32)
+        carry = idle_carry(b_pad, cls.v_pad, self.a_pad)
+        if keep:
+            if not isinstance(self.carry[0], np.ndarray):
+                self.d2h += carry_nbytes(self.carry)
+            old_carry = carry_home(self.carry)
+            for new_i, old_i in enumerate(keep):
+                comb[new_i] = self.comb[old_i]
+                degrees[new_i] = self.degrees[old_i]
+                for j in range(CARRY_LEN):
+                    carry[j][new_i] = old_carry[j][old_i]
+        self.comb, self.degrees, self.carry = comb, degrees, carry
+
+    def _resize_on_device(self, keep: list, old_b: int, b_pad: int) -> None:
+        cls, device = self.cls, self.device
+        if self._dummy_dev is None:
+            self._dummy_dev = torch.from_numpy(self._dummy.comb).to(
+                device, copy=True)
+            self.h2d += self._dummy.comb.nbytes
+        if self._stacks is None:   # the first allocation: from no lanes
+            w = self._dummy.comb.shape[-1]
+            self._stacks = tuple(torch.empty(shape, dtype=torch.int32,
+                                             device=device) for shape in (
+                (0, cls.v_pad, w), (0, cls.v_pad), (0,), (0,), (0,)))
+            self.carry = [torch.empty(kcar.slot_shape(j, 0, cls.v_pad,
+                                                      self.a_pad),
+                                      dtype=torch.int32, device=device)
+                          for j in range(CARRY_LEN)]
+        src = keep + [old_b] * (b_pad - len(keep))   # past old_b: the dummy
+        self._stacks = resize_inputs(self._stacks, src, self._dummy_dev,
+                                     self._dummy.max_steps)
+        self.carry = permute_carry(self.carry, keep, b_pad)
+        self.h2d += 2 * b_pad * 4   # K19's source list and K18's row map
 
     @property
     def live(self) -> int:
@@ -222,24 +315,26 @@ class _LanePool:   # owned by the dispatcher thread
         return [c.depth for c in self.calls if c is not None]
 
     def reserve(self, n: int) -> None:
-        """Grow ONCE to fit ``n`` more seats (a resize reallocates the
-        host arrays and forces a full re-upload)."""
+        """Grow ONCE to fit ``n`` more seats."""
         need = self.live + n
         if need > self.b_pad:
             self._resize(self._pad(need))
 
     def fill(self, call: _SweepCall) -> int:
         """Seat ``call`` in the first free lane (growing the pool if every
-        lane is taken); the slice re-inits the lane from these inputs
-        (``reset``)."""
+        lane is taken); the slice re-inits the lane from its inputs
+        (``reset``), written into the host mirror here or, with the
+        device carry, scattered by K17 before the slice
+        (:meth:`dev_state`)."""
         try:
             lane = self.calls.index(None)
         except ValueError:
             self._resize(self.b_pad * 2)
             lane = self.calls.index(None)
         m = call.member
-        self.comb[lane] = m.comb
-        self.degrees[lane] = m.degrees
+        if not self.device_carry:
+            self.comb[lane] = m.comb
+            self.degrees[lane] = m.degrees
         self.k0[lane] = call.k
         self.max_steps[lane] = m.max_steps
         self.reset[lane] = 1
@@ -251,9 +346,9 @@ class _LanePool:   # owned by the dispatcher thread
         return lane
 
     def dev_inputs(self):
-        """The (comb, degrees) copies on the card, re-uploaded only on
-        slices where a swap (or resize) changed the host mirror; after
-        the first, into the same tensors."""
+        """Host mirror: the (comb, degrees) copies on the device,
+        re-uploaded only on slices where a swap (or resize) changed the
+        host mirror; after the first, into the same tensors."""
         if self._dev_inputs is None:
             self._dev_inputs = tuple(
                 torch.from_numpy(a).to(self.device, copy=True)
@@ -268,8 +363,8 @@ class _LanePool:   # owned by the dispatcher thread
         return self._dev_inputs
 
     def dev_vecs(self):
-        """The scheduling vectors (k0, max_steps, reset) on the card, one
-        int32[3, b_pad] tensor written every slice (one copy)."""
+        """Host mirror: the scheduling vectors (k0, max_steps, reset) on
+        the device, one int32[3, b_pad] tensor written every slice."""
         host = torch.from_numpy(np.stack([self.k0, self.max_steps,
                                           self.reset]))
         if self._dev_vecs is None:
@@ -279,11 +374,36 @@ class _LanePool:   # owned by the dispatcher thread
         self.h2d += self.k0.nbytes + self.max_steps.nbytes + self.reset.nbytes
         return self._dev_vecs
 
+    def dev_state(self):
+        """Device carry: the resident ``(comb, degrees, k0, max_steps,
+        reset)``, the lanes seated since the last slice scattered in by
+        one K17 launch (each seat's rows go up once)."""
+        if self._dirty:
+            seats = [(lane, self.calls[lane].member.comb,
+                      self.calls[lane].member.degrees, int(self.k0[lane]),
+                      int(self.max_steps[lane])) for lane in self._dirty]
+            self.h2d += seat_lanes(self._stacks, seats)
+            self._dirty = []
+        return self._stacks
+
+    def arm(self, spec: np.ndarray, cancel: np.ndarray) -> None:
+        """The slice's speculation vectors into the lanes' spec/cancel
+        tensors (one copy up)."""
+        host = torch.from_numpy(np.stack([spec, cancel]))
+        if self._spec_dev is None or self._spec_dev.shape[1] != self.b_pad:
+            self._spec_dev = host.to(self.device, copy=True)
+        else:
+            self._spec_dev.copy_(host)
+        self.lanes.arm_spec(self._spec_dev[0], self._spec_dev[1])
+        self.h2d += spec.nbytes + cancel.nbytes
+
     def rearm(self, carry) -> None:
-        """Post-slice bookkeeping: adopt the advanced carry and lower
-        every reset flag."""
+        """Post-slice bookkeeping: adopt the advanced carry and lower every
+        reset flag (the device carry's on the device: no transfer)."""
         self.carry = carry
         self.reset[:] = 0
+        if self.device_carry:
+            self._stacks[4].zero_()
 
     def maybe_shrink(self) -> None:
         """Shrink to the live set's power-of-two pad as soon as a pad
@@ -304,12 +424,13 @@ class BatchScheduler:
     (or ``batch_max``) before first dispatch. ``on_batch(record)``
     observes every sync dispatch and ``on_event(kind, record)`` every
     continuous slice / lane swap. ``device``: where the kernels run
-    (default the card)."""
+    (default the card). ``device_carry``: the device-resident carry
+    (continuous mode; :class:`_LanePool`)."""
 
     def __init__(self, *, batch_max: int = 8, window_s: float = 0.002,
                  mode: str = "continuous", slice_steps: int | None = None,
                  affinity: bool = True, timing: bool = False,
-                 stages="auto",
+                 stages="auto", device_carry: bool = False,
                  on_batch=None, on_event=None, tracer=None,
                  device="cuda"):
         if batch_max < 1:
@@ -334,6 +455,9 @@ class BatchScheduler:
         # (engine.compact.class_stage_schedule), "off" runs the full
         # table, an explicit ladder applies to every class
         self.stages = stages
+        # the device-resident carry (continuous mode): seats through K17,
+        # resizes through K18/K19, only done lanes' result slots home
+        self.device_carry = bool(device_carry)
         # in-kernel timing (obs.devclock): splits slice wall time into
         # superstep compute vs dispatch overhead and, with slice_steps
         # auto, re-prices the slice size ONCE per class from the measured
@@ -345,10 +469,22 @@ class BatchScheduler:
         # the Condition wraps an RLock, so guarded sections nest freely
         self._lock = threading.Condition()
         self._pending: dict = {}   # class -> [_SweepCall]; guarded-by: _lock
+        # the speculation plane: pending speculative calls, seated only
+        # into capacity left after every real pending call; _spec_used
+        # flips once, at the first speculative or attempt-only call, and
+        # from then on the slices carry the spec/cancel vectors (all-zero
+        # vectors change nothing, so running lanes stay exact across it)
+        self._spec_pending: dict = {}  # class -> [_SweepCall]; guarded-by: _lock
+        self._spec_used = False        # guarded-by: _lock (sticky)
+        # the last speculative submit or seat of each class (_spec_hot)
+        self._spec_last: dict = {}     # class -> perf_counter s; guarded-by: _lock
         self._kernels: dict = {}   # first-use key -> fn; guarded-by: _lock
         self._dummies: dict = {}   # class -> ServeMember; guarded-by: _lock
         self._class_stages: dict = {}  # class -> stages|None; guarded-by: _lock
         self._pools: dict = {}     # class -> _LanePool; guarded-by: dispatcher
+        # device carry: each class's dummy table row on the device, kept
+        # across the class's pools
+        self._dummy_rows: dict = {}   # class -> tensor; guarded-by: dispatcher
         self._timing_acc: dict = {}  # cls -> window dict; guarded-by: dispatcher
         self._recal: dict = {}     # cls -> slice_steps; guarded-by: _lock
         self._stop = False         # guarded-by: _lock
@@ -357,7 +493,13 @@ class BatchScheduler:
                       "compile_misses": 0, "slices": 0, "recycles": 0,
                       "max_live": 0, "recals": 0,
                       "h2d_bytes": 0, "d2h_bytes": 0,
-                      "rebuilds": 0, "quarantined": 0}   # guarded-by: _lock
+                      "rebuilds": 0, "quarantined": 0,
+                      # the speculation plane: seated, cancelled and
+                      # preempted speculative attempts, claims, and the
+                      # supersteps killed lanes burned
+                      "spec_seated": 0, "spec_cancelled": 0,
+                      "spec_preempted": 0, "spec_wins": 0,
+                      "spec_wasted_steps": 0}   # guarded-by: _lock
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "BatchScheduler":
@@ -381,6 +523,9 @@ class BatchScheduler:
         with self._lock:
             stranded = [c for calls in self._pending.values() for c in calls]
             self._pending.clear()
+            stranded.extend(c for calls in self._spec_pending.values()
+                            for c in calls)
+            self._spec_pending.clear()
         for pool in self._pools.values():
             stranded.extend(c for c in pool.calls if c is not None)
         self._pools.clear()
@@ -398,12 +543,22 @@ class BatchScheduler:
         a child ``lane`` span per seating."""
         span = self.tracer.begin("sweep", attrs={"k": int(k),
                                                  "cls": member.cls.name})
-        call = _SweepCall(member, k, span=span, priority=priority)
+        return self._submit(_SweepCall(member, k, span=span,
+                                       priority=priority))
+
+    def _submit(self, call: _SweepCall, spec_used: bool = False):
+        """Queue a real call, block until it is delivered and return its
+        raw outputs; its span ends with the device time or the error.
+        ``spec_used`` marks the speculation plane used (the spec tag must
+        then reach the kernels)."""
+        span = call.span
         try:
             with self._lock:
                 if self._stop:
                     raise ServeError("batch scheduler stopped")
-                self._pending.setdefault(member.cls, []).append(call)
+                if spec_used:
+                    self._spec_used = True
+                self._pending.setdefault(call.member.cls, []).append(call)
                 self._lock.notify_all()
             call.done.wait()
             if call.error is not None:
@@ -414,6 +569,142 @@ class BatchScheduler:
         span.end({"device_us": call.device_us}
                  if call.device_us is not None else None)
         return call.result
+
+    # -- speculation plane ------------------------------------------------
+    # The outer k-loop's attempts at different budgets are independent, so
+    # a minimal-k driver (serve.speculate.SpeculativeMinimalKEngine) seats
+    # a window of candidate budgets into lanes the real traffic is not
+    # using and claims each exactly when the sequential schedule would
+    # have run it: the stopping rule and every byte of output are the
+    # sequential driver's, because each attempt is deterministic in
+    # (member, k) and claims happen in the sequential order. Losers are
+    # killed at slice entries through K16's cancel vector; real pending
+    # calls preempt unclaimed speculative lanes (lowest k first).
+
+    def single_attempt(self, member, k: int, priority: int = 0):
+        """Blocking batched single attempt (no fused confirm): returns the
+        raw per-member outputs, of which only the attempt-1 slots ``(p1,
+        s1, st1)`` mean anything. Continuous mode runs it as an
+        attempt-only lane (the spec tag skips the confirm); sync mode runs
+        the full pair and the caller discards the confirm."""
+        span = self.tracer.begin("attempt", attrs={"k": int(k),
+                                                   "cls": member.cls.name})
+        return self._submit(_SweepCall(
+            member, k, span=span, priority=priority,
+            attempt_only=(self.mode == "continuous")), spec_used=True)
+
+    def speculate(self, member, k: int, priority: int = 0):
+        """Enqueue one speculative attempt-only call (non-blocking): the
+        handle for :meth:`claim_speculative` / :meth:`cancel_speculative`,
+        or None where speculation cannot help (sync mode, ``k`` below 1,
+        the scheduler stopping). It seats only into capacity no real
+        pending call wants."""
+        if self.mode != "continuous" or k < 1:
+            return None
+        call = _SweepCall(member, k, priority=priority,
+                          attempt_only=True, speculative=True)
+        with self._lock:
+            if self._stop:
+                return None
+            self._spec_used = True
+            self._spec_pending.setdefault(member.cls, []).append(call)
+            self._spec_last[member.cls] = time.perf_counter()
+            self._lock.notify_all()
+        return call
+
+    def speculate_many(self, member, ks, priority: int = 0):
+        """Enqueue a whole speculative window at once (one lock hold, one
+        wakeup): one handle per budget, None where :meth:`speculate` would
+        return None."""
+        if self.mode != "continuous":
+            return [None for _ in ks]
+        calls = [
+            _SweepCall(member, k, priority=priority,
+                       attempt_only=True, speculative=True)
+            if k >= 1 else None
+            for k in ks
+        ]
+        with self._lock:
+            if self._stop:
+                return [None for _ in ks]
+            live = [c for c in calls if c is not None]
+            if live:
+                self._spec_used = True
+                self._spec_pending.setdefault(member.cls, []).extend(live)
+                self._spec_last[member.cls] = time.perf_counter()
+                self._lock.notify_all()
+        return calls
+
+    def _spec_hot(self, cls) -> bool:
+        """Speculative activity on this class within the keep-warm
+        horizon? A lock-free read of one float (a stale read costs one
+        extra pool rebuild or one extra warm pool)."""
+        return (time.perf_counter()
+                - self._spec_last.get(cls, float("-inf")) < _SPEC_IDLE_S)
+
+    def claim_speculative(self, call):
+        """Adopt a speculative call as the driver's real next attempt:
+        block until its result lands and return the raw outputs (as
+        :meth:`single_attempt`), or None when it was cancelled or
+        preempted before the claim (the caller then runs the attempt for
+        real). A claimed call still waiting to seat moves to the head of
+        the real queue."""
+        with self._lock:
+            if call.cancelled:
+                return None
+            call.claimed = True
+            ready = call.done.is_set()
+            lst = self._spec_pending.get(call.member.cls)
+            if lst is not None and call in lst:
+                lst.remove(call)
+                if not lst:
+                    self._spec_pending.pop(call.member.cls, None)
+                self._pending.setdefault(call.member.cls, [])[:0] = [call]
+                self._lock.notify_all()
+        call.done.wait()
+        if call.error is not None:
+            raise call.error
+        with self._lock:
+            self.stats["spec_wins"] += 1
+        if self.on_event is not None:
+            self.on_event("spec_win", {
+                "shape_class": call.member.cls.name, "k": call.k,
+                "ready": bool(ready),
+            })
+        return call.result
+
+    def cancel_speculative(self, call, reason: str = "superseded") -> None:
+        """Cancel a speculative call the driver will never claim: dropped
+        from the speculative queue at once, killed at its lane's next
+        slice entry when seated (its lane freed), or its parked result
+        dropped when delivered. Claimed or cancelled calls are left
+        alone."""
+        if call is None:
+            return
+        with self._lock:
+            if call.cancelled or call.claimed:
+                return
+            call.cancelled = True
+            call.cancel_reason = reason
+            self.stats["spec_cancelled"] += 1
+            where = "lane"
+            lst = self._spec_pending.get(call.member.cls)
+            if lst is not None and call in lst:
+                lst.remove(call)
+                if not lst:
+                    self._spec_pending.pop(call.member.cls, None)
+                where = "queue"
+            elif call.done.is_set():
+                where = "done"
+                # the whole attempt ran for nothing: charge its steps
+                self.stats["spec_wasted_steps"] += int(call.result[1])
+        if self.on_event is not None and where != "lane":
+            # a seated call's spec_cancelled comes from the dispatcher at
+            # kill time (with its wasted supersteps)
+            self.on_event("spec_cancelled", {
+                "shape_class": call.member.cls.name, "k": call.k,
+                "reason": reason, "where": where,
+            })
 
     # -- warmup ---------------------------------------------------------
     def warm_class(self, cls) -> dict:
@@ -616,6 +907,24 @@ class BatchScheduler:
         for call in (pool.calls if pool is not None else []):
             if call is None:
                 continue
+            if call.speculative and not call.claimed:
+                # unclaimed speculation is dropped with the pool (no abort
+                # charge, no requeue: its claim sees it cancelled and runs
+                # the attempt for real); a claimed one is the driver's
+                # next attempt and is requeued as any call
+                with self._lock:
+                    if not call.cancelled:
+                        call.cancelled = True
+                        call.cancel_reason = "evacuated"
+                        self.stats["spec_cancelled"] += 1
+                    reason = call.cancel_reason
+                call.done.set()
+                if self.on_event is not None:
+                    self.on_event("spec_cancelled", {
+                        "shape_class": cls.name, "k": call.k,
+                        "reason": reason, "where": "lane",
+                    })
+                continue
             call.aborts += 1
             aborts_max = max(aborts_max, call.aborts)
             if call.lane_span is not None:
@@ -662,6 +971,7 @@ class BatchScheduler:
         batching window (coalesce the first fill)."""
         with self._lock:
             while (not self._stop and not self._pending
+                   and not self._spec_pending
                    and not any(p.live for p in self._pools.values())):
                 self._lock.wait()
             if self._stop:
@@ -703,7 +1013,7 @@ class BatchScheduler:
             if not self._wait_for_work():
                 return
             with self._lock:
-                classes = set(self._pending)
+                classes = set(self._pending) | set(self._spec_pending)
             classes.update(c for c, p in self._pools.items() if p.live)
             # deterministic service order (sets hash-order otherwise)
             for cls in sorted(classes, key=lambda c: c.name):
@@ -719,8 +1029,10 @@ class BatchScheduler:
                     self._recover_class(cls, e)
 
     def _service_class(self, cls) -> None:
-        """One slice of one class's pool: seat queued calls in free lanes,
-        run the slice, deliver every done lane, shrink a draining pool."""
+        """One slice of one class's pool: preempt unclaimed speculation for
+        real calls, seat queued calls in free lanes (then speculative ones
+        in what is left), run the slice, deliver every done lane (free a
+        killed speculative one), shrink a draining pool."""
         pool = self._pools.get(cls)
         if pool is None:
             with self._lock:
@@ -729,9 +1041,56 @@ class BatchScheduler:
                     dummy = self._dummies[cls] = dummy_member(cls)
             pool = self._pools[cls] = _LanePool(
                 cls, 1, dummy, self.device,
-                a_pad=stage_idx_width(self.stages_for(cls)))
+                a_pad=stage_idx_width(self.stages_for(cls)),
+                device_carry=self.device_carry,
+                dummy_dev=self._dummy_rows.get(cls))
+            if self.device_carry:
+                self._dummy_rows[cls] = pool._dummy_dev
 
         free = self.batch_max - pool.live
+        spec_evicted: list = []
+        evict_b_pad = pool.b_pad
+        with self._lock:
+            spec_used = self._spec_used
+            n_real = len(self._pending.get(cls) or [])
+        if spec_used and n_real > free:
+            # real traffic preempts speculation: cancel unclaimed
+            # speculative lanes (lowest k first) and hand their lanes to
+            # the real wave this slice (a reseat's reset beats the cancel
+            # bit in K16, so a reseated lane re-inits cleanly)
+            need = n_real - free
+            cand = sorted((int(pool.k0[i]), i)
+                          for i in range(pool.b_pad)
+                          if pool.calls[i] is not None
+                          and pool.calls[i].speculative)
+            steps_now = self.resolved_slice_steps(cls, pool.b_pad)
+            victims = []
+            with self._lock:
+                for _k, i in cand:
+                    if len(victims) >= need:
+                        break
+                    c = pool.calls[i]
+                    if c.claimed or c.cancelled:
+                        continue
+                    c.cancelled = True
+                    c.cancel_reason = "preempted"
+                    victims.append(i)
+                self.stats["spec_cancelled"] += len(victims)
+                self.stats["spec_preempted"] += len(victims)
+                self.stats["spec_wasted_steps"] += sum(
+                    pool.slices_in[i] * steps_now for i in victims)
+            for i in victims:
+                c = pool.calls[i]
+                if self.on_event is not None:
+                    self.on_event("spec_cancelled", {
+                        "shape_class": cls.name, "k": c.k,
+                        "reason": "preempted", "where": "lane",
+                        "wasted_steps": int(pool.slices_in[i] * steps_now),
+                    })
+                c.done.set()
+                pool.calls[i] = None
+                spec_evicted.append(i)
+            free = self.batch_max - pool.live
         admitted = 0
         if free > 0:
             take = self._pop_pending(cls, free, pool.live_depths())
@@ -756,19 +1115,94 @@ class BatchScheduler:
                     "lane", parent=call.span,
                     attrs={"lane": int(lane), "b_pad": int(pool.b_pad)})
                 admitted += 1
+        # speculation: capacity no real call wanted seats pending
+        # speculative attempts, strictly after the real wave
+        spec_admitted = 0
+
+        def _seat_spec_wave() -> int:
+            with self._lock:
+                sl = self._spec_pending.get(cls) or []
+                room = self.batch_max - pool.live
+                spec_take, rest = sl[:room], sl[room:]
+                if rest:
+                    self._spec_pending[cls] = rest
+                elif cls in self._spec_pending:
+                    del self._spec_pending[cls]
+                if spec_take:
+                    self._spec_last[cls] = time.perf_counter()
+            for call in spec_take:
+                lane = pool.fill(call)
+                with self._lock:
+                    self.stats["spec_seated"] += 1
+                if self.on_event is not None:
+                    self.on_event("spec_seated", {
+                        "shape_class": cls.name, "lane": int(lane),
+                        "k": call.k})
+            return len(spec_take)
+
+        if spec_used and pool.live < self.batch_max:
+            spec_admitted += _seat_spec_wave()
+        if (spec_admitted and admitted == 0 and pool.live < self.batch_max
+                and all(c is None or (c.speculative and not c.claimed)
+                        for c in pool.calls)):
+            # a wave of unclaimed speculation only: wait a hair for the
+            # rest of the window's submits (one a claim), re-armed by each
+            # arrival, but not for a claim, a real call or shutdown
+            deadline = time.perf_counter() + _SPEC_COALESCE_S
+            while pool.live < self.batch_max:
+                if any(c is not None and c.claimed for c in pool.calls):
+                    break
+                with self._lock:
+                    if self._stop or self._pending.get(cls):
+                        break
+                    if not self._spec_pending.get(cls):
+                        left = deadline - time.perf_counter()
+                        if left <= 0:
+                            break
+                        self._lock.wait(timeout=left)
+                        continue
+                spec_admitted += _seat_spec_wave()
+                deadline = time.perf_counter() + _SPEC_COALESCE_S
         live = pool.live
         if live == 0:
-            self._pools.pop(cls, None)
+            # a spec-hot pool stays warm between window generations (a
+            # rebuild per generation otherwise); speculation never used:
+            # popped as before
+            if not self._spec_hot(cls):
+                self._pools.pop(cls, None)
             return
         # shrink a draining tail — but not while queued work is about to
-        # refill the freed lanes (shrink→grow thrash re-uploads tables)
+        # refill the freed lanes, nor mid speculative sweep
         with self._lock:
-            has_pending = bool(self._pending.get(cls))
-        if not has_pending:
+            has_pending = bool(self._pending.get(cls)) or bool(
+                self._spec_pending.get(cls))
+        if not has_pending and not self._spec_hot(cls):
             pool.maybe_shrink()
 
         kernel, cache_hit = self._slice_kernel_for(cls, pool.b_pad)
         slice_steps = self.resolved_slice_steps(cls, pool.b_pad)
+        # the speculation vectors (the per-lane spec tag of attempt-only
+        # calls, the cancel mask K16 kills at the slice entry): only once
+        # speculation was ever used, else the slice is the plain one
+        spec_vec = cancel_vec = None
+        if spec_used:
+            spec_vec = np.zeros(pool.b_pad, np.int32)
+            cancel_vec = np.zeros(pool.b_pad, np.int32)
+            with self._lock:
+                for i, c in enumerate(pool.calls):
+                    if c is None:
+                        continue
+                    if c.attempt_only:
+                        spec_vec[i] = 1
+                    if c.speculative and c.cancelled:
+                        cancel_vec[i] = 1
+            for i in spec_evicted:
+                # a preempted lane no real call reseated still carries the
+                # spec tag: the cancel bit retires it (a resize while
+                # seating compacted such lanes away already)
+                if pool.b_pad == evict_b_pad and pool.calls[i] is None:
+                    spec_vec[i] = 1
+                    cancel_vec[i] = 1
         slice_span = self.tracer.begin(
             "slice", trace="sched",
             attrs={"cls": cls.name, "live": int(live),
@@ -777,16 +1211,25 @@ class BatchScheduler:
 
         try:
             fault_point("serve_dispatch", shape_class=cls.name)
-            comb_dev, degrees_dev = pool.dev_inputs()
-            # the scheduling vectors go up every slice (one copy), the
-            # carry once (its first slice after a resize, with the lanes;
-            # then the lanes' tensors advance in place)
-            vecs = pool.dev_vecs()
-            if pool.lanes is None:
-                pool.h2d += carry_nbytes(pool.carry)
-                pool.lanes = self._lanes_for(cls, comb_dev, degrees_dev,
-                                             vecs[0], vecs[1], vecs[2],
-                                             pool.carry)
+            if self.device_carry:
+                # the carry and the stacks stay on the device: this
+                # slice's seats go up a row each (K17), nothing else
+                stacks = pool.dev_state()
+                if pool.lanes is None:
+                    pool.lanes = self._lanes_for(cls, *stacks, pool.carry)
+            else:
+                comb_dev, degrees_dev = pool.dev_inputs()
+                # the scheduling vectors go up every slice (one copy), the
+                # carry once (its first slice after a resize, with the
+                # lanes; then the lanes' tensors advance in place)
+                vecs = pool.dev_vecs()
+                if pool.lanes is None:
+                    pool.h2d += carry_nbytes(pool.carry)
+                    pool.lanes = self._lanes_for(cls, comb_dev, degrees_dev,
+                                                 vecs[0], vecs[1], vecs[2],
+                                                 pool.carry)
+            if spec_vec is not None:
+                pool.arm(spec_vec, cancel_vec)
             carry = kernel(pool.lanes)
             # the per-lane scheduling scalars — the ONLY unconditional
             # device→host transfer per slice, one copy: the slice's sync
@@ -821,14 +1264,45 @@ class BatchScheduler:
 
         done_lanes = [i for i in range(pool.b_pad)
                       if pool.calls[i] is not None and phase[i] >= 2]
+        spec_killed = 0
         if done_lanes:
-            # the host mirror: the whole carry comes home, one copy
-            out_src = carry_home(carry)
-            pool.d2h += carry_nbytes(out_src)
+            with self._lock:
+                dropped = {i for i in done_lanes
+                           if pool.calls[i].speculative
+                           and pool.calls[i].cancelled}
+            delivered = [i for i in done_lanes if i not in dropped]
+            if self.device_carry:
+                # only the delivered lanes' result slots come home
+                outs = (dict(zip(delivered, lanes_home(carry, delivered)))
+                        if delivered else {})
+                pool.d2h += len(delivered) * (2 * cls.v_pad + 5) * 4
+            else:
+                # the host mirror: the whole carry comes home, one copy
+                out_src = carry_home(carry)
+                pool.d2h += carry_nbytes(out_src)
+                outs = {i: lane_outputs(out_src, i) for i in delivered}
             now = time.perf_counter()
             for lane in done_lanes:
                 call = pool.calls[lane]
-                call.result = lane_outputs(out_src, lane)
+                if lane in dropped:
+                    # a cancelled speculative lane killed at this slice's
+                    # entry (or done after its cancel): free the lane,
+                    # deliver nothing, charge its supersteps as wasted
+                    wasted = int(pool.slices_in[lane]) * int(slice_steps)
+                    with self._lock:
+                        self.stats["spec_wasted_steps"] += wasted
+                        reason = call.cancel_reason or "superseded"
+                    call.done.set()
+                    pool.calls[lane] = None
+                    spec_killed += 1
+                    if self.on_event is not None:
+                        self.on_event("spec_cancelled", {
+                            "shape_class": cls.name, "k": call.k,
+                            "reason": reason, "where": "lane",
+                            "wasted_steps": wasted,
+                        })
+                    continue
+                call.result = outs[lane]
                 if t_acc is not None:
                     call.device_us = int(t_acc[lane])
                 if call.lane_span is not None:
@@ -896,6 +1370,14 @@ class BatchScheduler:
             if sstep_s is not None:
                 rec["sstep_ms"] = round(sstep_s * 1e3, 3)
                 rec["overhead_ms"] = round(overhead_s * 1e3, 3)
+            if spec_used:
+                # the speculation plane's cost side: live speculative
+                # lanes, this slice's seats, the lanes K16 just killed
+                rec["spec_live"] = int(sum(
+                    1 for c in pool.calls
+                    if c is not None and c.speculative))
+                rec["spec_admitted"] = int(spec_admitted)
+                rec["spec_killed"] = int(spec_killed)
             self.on_event("serve_slice", rec)
         # recalibration samples: full slices only (no lane finished
         # early), tagged with the slice's minimum live rung
@@ -903,7 +1385,7 @@ class BatchScheduler:
                 and sstep_s is not None and sstep_s > 0):
             self._timing_sample(cls, overhead_s, sstep_s / slice_steps,
                                 rung=rung_min)
-        if pool.live == 0:
+        if pool.live == 0 and not self._spec_hot(cls):
             self._pools.pop(cls, None)
 
     # =====================================================================

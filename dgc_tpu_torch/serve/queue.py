@@ -20,8 +20,14 @@ request and batch lands in the obs event stream (``serve_request`` /
 ``serve_batch`` / ``serve_health``), the metrics registry, and the
 manifest's ``serve`` slot.
 
-Not ported: speculation (``speculate_k``), tuned configs (``auto_tune``,
-``tuned_cache``), the lane mesh and the device-resident carry.
+``device_carry`` keeps each lane pool's carry and input stacks on the card
+(``serve.engine._LanePool``); ``speculate_k`` (a depth or ``"auto"``)
+serves each batched request through a
+:class:`~dgc_tpu_torch.serve.speculate.SpeculativeMinimalKEngine` (jump
+mode delegates to the fused pair unchanged; the attempt path speculates).
+
+Not ported: tuned configs (``auto_tune``, ``tuned_cache``) and the lane
+mesh.
 """
 
 from __future__ import annotations
@@ -145,7 +151,8 @@ class ServeFrontEnd:
     bounds in-flight requests (default ``batch_max`` so one full batch can
     always form). ``validate``/``post_reduce`` default on — the CLI
     driver's semantics. ``stages`` ("auto"/"off"/explicit ladder)
-    configures the batched kernels' staged frontier ladder. ``device``:
+    configures the batched kernels' staged frontier ladder;
+    ``device_carry`` and ``speculate_k``: module docstring. ``device``:
     where the kernels and the fallback engines run (default the card).
     ``fallback_factories(arrays) -> [(name, factory), ...]`` overrides the
     fallback ladder (tests inject failing rungs to exercise the health
@@ -156,8 +163,10 @@ class ServeFrontEnd:
                  queue_depth: int = 64, workers: int | None = None,
                  mode: str = "continuous", slice_steps: int | None = None,
                  affinity: bool = True, stages="auto",
+                 device_carry: bool = False,
                  timing: bool = False,
                  validate: bool = True, post_reduce: bool = True,
+                 speculate_k=None,
                  fallback_factories=None,
                  logger=None, registry: MetricsRegistry | None = None,
                  device="cuda"):
@@ -166,6 +175,16 @@ class ServeFrontEnd:
         self.device = resolve_device(device)
         self.ladder = ladder
         self.batch_max = int(batch_max)
+        # speculative minimal-k (serve.speculate) for batched requests;
+        # "auto" prices the window depth off the free-lane count
+        if speculate_k == "auto":
+            from dgc_tpu_torch.serve.speculate import auto_depth
+
+            speculate_k = auto_depth(self.batch_max)
+        if speculate_k is not None and int(speculate_k) < 1:
+            raise ValueError(
+                f"speculate_k must be >= 1 or 'auto', got {speculate_k}")
+        self.speculate_k = int(speculate_k) if speculate_k else None
         self.queue_depth = int(queue_depth)
         self.workers = int(workers) if workers is not None else self.batch_max
         self.validate = validate
@@ -186,6 +205,7 @@ class ServeFrontEnd:
                                         mode=mode, slice_steps=slice_steps,
                                         affinity=affinity, timing=timing,
                                         stages=stages,
+                                        device_carry=device_carry,
                                         on_batch=self._on_batch,
                                         on_event=self._on_sched_event,
                                         tracer=self.tracer,
@@ -246,6 +266,9 @@ class ServeFrontEnd:
                                  name=f"dgc-serve-worker-{i}")
             t.start()
             self._threads.append(t)
+        # speculate_k appears only when armed
+        spec_kw = ({"speculate_k": self.speculate_k} if self.speculate_k
+                   else {})
         self._event("serve_start", batch_max=self.batch_max,
                     window_ms=round(self.scheduler.window_s * 1e3, 3),
                     queue_depth=self.queue_depth, workers=self.workers,
@@ -256,8 +279,8 @@ class ServeFrontEnd:
                     stages=(self.scheduler.stages
                             if isinstance(self.scheduler.stages, str)
                             else "custom"),
-                    device_carry=False,
-                    tracing=self.tracer.enabled)
+                    device_carry=self.scheduler.device_carry,
+                    tracing=self.tracer.enabled, **spec_kw)
         return self
 
     def warm(self, class_names: list) -> dict:
@@ -531,12 +554,27 @@ class ServeFrontEnd:
         if batched:
             try:
                 member = pad_member(arrays, cls)
-                engine = BatchMemberEngine(member, self.scheduler,
-                                           priority=req.priority)
-                result = find_minimal_coloring(
-                    engine, initial_k=engine.member.k0,
-                    validate=validate, on_attempt=on_attempt,
-                    post_reduce=post_reduce)
+                spec = None
+                if self.speculate_k:
+                    # jump-mode requests delegate to the fused pair; close()
+                    # frees whatever window the sweep left
+                    from dgc_tpu_torch.serve.speculate import \
+                        SpeculativeMinimalKEngine
+
+                    spec = engine = SpeculativeMinimalKEngine(
+                        member, self.scheduler, depth=self.speculate_k,
+                        priority=req.priority)
+                else:
+                    engine = BatchMemberEngine(member, self.scheduler,
+                                               priority=req.priority)
+                try:
+                    result = find_minimal_coloring(
+                        engine, initial_k=engine.member.k0,
+                        validate=validate, on_attempt=on_attempt,
+                        post_reduce=post_reduce)
+                finally:
+                    if spec is not None:
+                        spec.close()
             except PoisonedRequest:
                 # quarantine is terminal: the request structured-fails
                 # instead of migrating to the fallback ladder

@@ -88,9 +88,11 @@ def test_verbatim_copies_equal_their_originals(rel):
 # the port's copies that differ from their original by the package name
 # alone: ``dgc_tpu_torch`` where the original imports ``dgc_tpu`` (the
 # checkpoint module of faults.py, the driver of supervisor.py, the engine,
-# models and ops of shape_classes.py); no other difference
+# models and ops of shape_classes.py, the scheduler, batched epilogue and
+# pricing model of speculate.py); no other difference
 RENAMED = ("resilience/faults.py", "resilience/retry.py",
-           "resilience/supervisor.py", "serve/shape_classes.py")
+           "resilience/supervisor.py", "serve/shape_classes.py",
+           "serve/speculate.py")
 
 
 @pytest.mark.parametrize("rel", RENAMED)
@@ -124,3 +126,25 @@ def test_serve_carry_layout_equals_the_original():
         assert port[name] == original[name], name
     # every slot named once, in order
     assert sorted(port[n] for n in SERVE_LAYOUT[:20]) == list(range(20))
+
+
+# functions the port copies verbatim into a module of its own
+VERBATIM_FUNCTIONS = (
+    ("utils/schedule_model.py", "strict_survival_curve"),
+    ("utils/schedule_model.py", "speculation_auto_cap"),
+)
+
+
+def _function_source(path: Path, name: str) -> str:
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{path} has no function {name}")
+
+
+@pytest.mark.parametrize("rel,name", VERBATIM_FUNCTIONS,
+                         ids=[n for _r, n in VERBATIM_FUNCTIONS])
+def test_verbatim_functions_equal_their_originals(rel, name):
+    assert _function_source(PORT / rel, name) == \
+        _function_source(ROOT / "dgc_tpu" / rel, name)

@@ -1,9 +1,10 @@
 """``python -m dgc_tpu_torch serve --requests ... --device cpu`` against
 ``python -m dgc_tpu.cli serve`` on the same request file: per request the
 status, minimal color count, ``batched``, ``shape_class`` and the coloring
-file's bytes are equal, in continuous and sync mode. A bad request file,
-a flag the port does not have yet and ``--device cuda`` without a card
-each exit with code 2.
+file's bytes are equal, in continuous and sync mode; ``--device-carry``
+and ``--speculate-k 2`` give the port's own results without them. A bad
+request file, a flag the port does not have yet, a bad ``--speculate-k``
+and ``--device cuda`` without a card each exit with code 2.
 """
 
 import filecmp
@@ -77,6 +78,59 @@ def test_serve_cli_equals_dgc_tpu(request_file, tmp_path, mode):
     assert "dgc_serve_requests_total" in (tmp_path / "metrics.prom").read_text()
 
 
+def _port(request_file, d, name: str, flags) -> dict:
+    r = _run("dgc_tpu_torch", ["--requests", str(request_file),
+                               "--results", str(d / f"{name}.jsonl"),
+                               "--output-colorings", str(d / name),
+                               "--log-json", str(d / f"{name}.log"),
+                               "--batch-max", "2", "--window-ms", "20",
+                               "--device", "cpu", *flags])
+    assert r.returncode == 0, r.stderr[-2000:]
+    return _results(d / f"{name}.jsonl")
+
+
+@pytest.fixture(scope="module")
+def plain_port(request_file, tmp_path_factory):
+    """The port's continuous run without the two flags."""
+    return _port(request_file, tmp_path_factory.mktemp("plain"), "plain", [])
+
+
+@pytest.mark.parametrize("flags", (["--device-carry"], ["--speculate-k", "2"],
+                                   ["--device-carry", "--speculate-k",
+                                    "auto"]),
+                         ids=("device_carry", "speculate", "both"))
+def test_serve_cli_device_carry_and_speculation(request_file, plain_port,
+                                                tmp_path, flags):
+    """The flags run with rc 0 and every request equals the run without
+    them. Serve requests are jump-mode sweeps (the fused pair), where
+    speculation is inert: ``--speculate-k`` seats no speculative lane
+    here, so the speculate cases show that the flag parses, reaches
+    ``serve_start`` and changes no result. The speculation plane itself
+    is tested in ``test_torch_speculate.py``."""
+    out = {"plain": plain_port, "flags": _port(request_file, tmp_path,
+                                               "flags", flags)}
+    assert sorted(out["plain"]) == sorted(out["flags"])
+    for rid, got in out["flags"].items():
+        want = out["plain"][rid]
+        for key in ("status", "minimal_colors", "batched", "shape_class"):
+            assert got[key] == want[key], (rid, key)
+        assert filecmp.cmp(got["coloring"], want["coloring"], shallow=False)
+    events = [json.loads(x) for x in
+              (tmp_path / "flags.log").read_text().splitlines()]
+    start = next(e for e in events if e["event"] == "serve_start")
+    assert start["device_carry"] == ("--device-carry" in flags)
+    assert ("speculate_k" in start) == ("--speculate-k" in flags)
+    kinds = {e["event"] for e in events}
+    assert "serve_slice" in kinds and "spec_seated" not in kinds
+
+
+def test_serve_cli_bad_speculate_k(request_file):
+    r = _run("dgc_tpu_torch", ["--requests", str(request_file), "--device",
+                               "cpu", "--speculate-k", "none"])
+    assert r.returncode == 2
+    assert "--speculate-k must be a positive integer" in r.stderr
+
+
 def test_serve_cli_bad_request_file(tmp_path):
     bad = tmp_path / "bad.jsonl"
     bad.write_text("{not json\n")
@@ -88,9 +142,9 @@ def test_serve_cli_bad_request_file(tmp_path):
     assert r.returncode == 2
 
 
-@pytest.mark.parametrize("flag", (["--listen", "8080"], ["--device-carry"],
-                                  ["--speculate-k=2"], ["--mesh-devices",
-                                                        "auto"]))
+@pytest.mark.parametrize("flag", (["--listen", "8080"], ["--result-cache"],
+                                  ["--inject-faults", "x"], ["--mesh-devices",
+                                                             "auto"]))
 def test_serve_cli_refuses_unported_flags(request_file, flag):
     r = _run("dgc_tpu_torch", ["--requests", str(request_file), "--device",
                                "cpu", *flag])
