@@ -112,11 +112,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    variants are held and timed beside them on the same inputs (K2 on the
    bucketed shapes, K5 and K6 on the full-table superstep, K9 and K10 on
    the held block) and over one more held and one more profiled sweep
-   with telemetry on (K5, K6, K8). Then the telemetry runs: ``cli.main``
+   with telemetry on (K5, K6, K8). Then the sharded engines through the
+   CLI's calls at world size 1 under NCCL: ``sharded`` and
+   ``sharded-bucketed`` on the 1M uniform draw, ``sharded-bucketed`` on
+   the 1M RMAT draw; the launch counts, zeroed just before each sweep and
+   read just after, must show every kernel of the path (K20-K22; K21,
+   K22 and K5/K7/K8 over the bucket slices), and the coloring JSON and
+   the attempts must be the ``ell`` (``ell-bucketed``) run's on the same
+   draw; K20-K22 timed there with the collectives of a superstep. One
+   sweep of each engine as shard 3 of 4 of the 1M tables (the other
+   shards' words fixed) holds every K20-K22, K5, K7 and K8 launch against
+   its plain version (the RMAT slices at three knob sets: every hub
+   branch, K21's recording variant), and K21/K22 run on 200 random
+   control blocks, carries, rings and live tables. A ``sharded-bucketed``
+   telemetry run launches K21's recording variant alone, with the same
+   coloring. Then ``python -m dgc_tpu_torch`` at two ranks on cuda:0
+   (gloo; children started as ``torchrun`` starts them), 100k vertices,
+   both backends: each rank's coloring JSON equal to the world-size-1
+   run's. Then the telemetry runs: ``cli.main``
    with ``--log-json --run-manifest --metrics-prom --superstep-timing``
    on 1M uniform jump, 1M RMAT jump, 1M uniform strict at
    ``--attempts-per-dispatch 4`` and 1M uniform ``ell-bucketed``, each
-   against the same run with ``--log-json`` alone: the launch counts,
+   against one run with ``--log-json`` alone: the launch counts,
    zeroed just before each run and read just after, must show the
    recording kernels of the path and not the ones they replace (and the
    reverse with telemetry off); the coloring JSON and the attempts must
@@ -166,7 +183,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the strict chain killed at a block boundary and resumed from its
    checkpoint on the card must equal the uninterrupted one.
 
-Output: one JSON line per phase and per phase-3 run, the card's name and
+Output: one JSON line per phase and per phase-3 run, the script's total
+seconds (``{"phase": "total"}``), the card's name and
 power limit as ``nvidia-smi`` gives them, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
 CUDA device is present or the port is missing. Imports no JAX and nothing
@@ -2570,6 +2588,9 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
         graph.save_coloring(args.output_coloring, result.colors)
         check(np.array_equal(graph.load_coloring(args.output_coloring),
                              result.colors), f"{backend}: coloring JSON")
+        # kept for the sharded engines' runs on the same draw
+        graph.save_coloring(str(out_dir / f"coloring-{args.gen_method}-"
+                                          f"{backend}.json"), result.colors)
         best = [r for r in timed.results if r.success][-1]
         swept[backend] = (_attempt_rows(result), best.colors)
         sweep_s = result.wall_time_s - result.post_reduce_s
@@ -2731,9 +2752,9 @@ def _check_telemetry_files(name: str, d: Path, timing: bool) -> dict:
                 if k in trajs[0]}}
 
 
-# telemetry off and on alternate, three runs a side, so that a drift over
-# the phase falls on both sides alike
-TELEMETRY_ORDER = (False, True, True, False, False, True)
+# one run a side: off, then on (each run holds its recording kernels'
+# launches and results against the other; the timings are one sample)
+TELEMETRY_ORDER = (False, True)
 
 
 def _spread(off: list[float], on: list[float]) -> dict:
@@ -4751,6 +4772,612 @@ def carry_kernels_line(serve: dict, spec: dict, carry: dict,
     return out
 
 
+# ---- the sharded engines (B13a-f) --------------------------------------------
+
+# the shard the kernels are held at: shard 3 of a 4-way mesh of the 1M
+# tables, so that global ids and slice rows past 0 run on the card
+HELD_SHARD = (4, 3)
+# the sharded-bucketed knobs the held sweeps run: the defaults, every slice
+# conditioned at its pad, and prune configs (tier 2 included) on every slice
+SHARD_KNOBS = {"default": {}, "padded": dict(uncond_entries=0),
+               "forced": dict(uncond_entries=0, prune_u_min=8,
+                              prune_p2_min=8)}
+# the two-rank run on one card: gloo, both ranks on cuda:0
+SHARD_RANKS_ARGS = ["--node-count", "100000", "--max-degree", "32",
+                    "--gen-method", "fast", "--seed", "0"]
+
+
+class _ShardStub:
+    """Shard ``rank`` of a mesh of ``size`` (``parallel.mesh.VertexMesh``'s
+    surface) whose other shards hold fixed words ``rest``: the all-gather
+    writes this shard's block over them, the reductions are this shard's
+    own, ``fetch_global`` the whole vector. Lets one card drive shard 3 of
+    4 of the 1M tables through the engines' own loop."""
+
+    def __init__(self, size: int, rank: int, device):
+        from dgc_tpu_torch.parallel.mesh import VertexMesh
+
+        self._mesh = VertexMesh(size, rank, torch.device(device))
+        self.size, self.rank, self.device = size, rank, self._mesh.device
+        self.shape = self._mesh.shape
+        self.rest = None
+
+    def block(self, n: int) -> slice:
+        return self._mesh.block(n)
+
+    def all_gather(self, out, local) -> None:
+        out.copy_(self.rest)
+        out[self.block(out.shape[0])] = local
+
+    def all_reduce(self, t, op: str) -> None:
+        pass
+
+    def fetch_global(self, local) -> np.ndarray:
+        full = self.rest.clone()
+        full[self.block(full.shape[0])] = local
+        return full.cpu().numpy()
+
+
+def _rest_words(rng, deg: np.ndarray, device) -> torch.Tensor:
+    """The other shards' words: degree 0 confirms 0, the rest mostly
+    confirmed below min(Δ, 40) + 1, 5% fresh and 5% uncolored."""
+    col = rng.integers(0, np.minimum(deg, 40) + 1)
+    r = rng.random(len(deg))
+    words = np.where(r < 0.05, -1, np.where(r < 0.1, col * 2 + 1, col * 2))
+    return torch.from_numpy(np.where(deg == 0, 0, words).astype(np.int32)
+                            ).to(device)
+
+
+def _clone(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(t) for t in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _diff_any(a, b) -> int:
+    if isinstance(a, (tuple, list)):
+        return max((_diff_any(x, y) for x, y in zip(a, b)), default=0)
+    return _diff(a, b) if isinstance(a, torch.Tensor) else 0
+
+
+class _HeldShardKernels:
+    """Within the block, every launch the sharded engines make through
+    K20-K22, K5, K7 and K8 first runs the plain version on clones of what
+    the kernel writes, then the kernel; the two must agree exactly
+    (``err``). ``calls`` counts them by kernel, ``branches`` the hub
+    branches K7 chose."""
+
+    def __init__(self):
+        self.err = 0
+        self.calls = {}
+        self.branches = set()
+
+    def __enter__(self):
+        from dgc_tpu_torch.kernels import compact as kc
+        from dgc_tpu_torch.kernels import hub as kh
+        from dgc_tpu_torch.kernels import shard as ks
+
+        self._saved = []
+
+        def wrap(mod, name, plain, writes):
+            real = getattr(mod, name)
+
+            def held(*args, **kw):
+                args = list(args)
+                clones = [(_clone(a) if i in writes else a)
+                          for i, a in enumerate(args)]
+                kw_c = {k: (_clone(v) if k in ("umax", "traj") else v)
+                        for k, v in kw.items()}
+                plain(*clones, **kw_c)
+                real(*args, **kw)
+                self.err = max([self.err] + [
+                    _diff_any(args[i], clones[i]) for i in writes
+                    if i < len(args)] + [_diff_any(kw[k], kw_c[k])
+                                         for k in kw_c if k in ("umax",
+                                                                "traj")])
+                self.calls[name] = self.calls.get(name, 0) + 1
+                if name == "hub_slots":
+                    self.branches.update(
+                        args[2][kc.LIVE_BRANCH, : len(args[3].buckets)]
+                        .tolist())
+
+            self._saved.append((mod, name, real))
+            setattr(mod, name, held)
+
+        def k5_plain(c, s, seg, plan, desc, k, th, ms, **kw):
+            kc.segmented_superstep_reference(c, s, seg, plan, k, th, ms, **kw)
+
+        wrap(ks, "shard_superstep", ks.shard_superstep_reference, (0, 1))
+        wrap(ks, "shard_finish", ks.shard_finish_reference, (0, 1, 3, 5, 10))
+        wrap(ks, "shard_pair", ks.shard_pair_reference, (0, 1, 2, 6))
+        wrap(kc, "segmented_superstep", k5_plain, (0, 1))
+        wrap(kh, "hub_slots", kh.hub_slots_reference, (0, 1, 2, 4))
+        wrap(kh, "hub_superstep", kh.hub_superstep_reference, (0, 1, 3, 5))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+        return False
+
+
+def _held_sweep(engine, k0: int, record: bool) -> dict:
+    """One sweep of ``engine`` (on a ``_ShardStub``) with every kernel held
+    against its plain version; with ``record``, telemetry on."""
+    engine.record_trajectory = record
+    with _HeldShardKernels() as held:
+        first, second = engine.sweep(k0)
+        torch.cuda.synchronize()
+    engine.record_trajectory = False
+    check(held.err == 0, f"a shard kernel disagrees with its plain version "
+                         f"at shard {HELD_SHARD[1]} of {HELD_SHARD[0]}: max "
+                         f"abs err {held.err} ({held.calls})")
+    return {"calls": held.calls, "branches": sorted(held.branches),
+            "first": (first.k, int(first.status), first.supersteps),
+            "second": None if second is None else (
+                second.k, int(second.status), second.supersteps),
+            "resumed_from_step": engine.resumed_from_step}
+
+
+def _shard_edge_cases(device) -> int:
+    """K21 and K22 on seeded random control blocks, carries, rings and live
+    tables: failing and ending steps, pushes and no pushes, the trajectory
+    row, a launch after the attempt ended; the pair in every status, with
+    brackets that hold k2 in no, one or several ring slots. Returns the
+    max abs error (0)."""
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import shard as ks
+    from dgc_tpu_torch.obs.kernel import traj_empty
+
+    rng = np.random.default_rng(23)
+    err = 0
+    for case in range(200):
+        vl = int(rng.choice([1, 37, 1000, 100_000]))
+        nh = int(rng.integers(0, 4))
+        nb = max(nh, 1)
+        live = None
+        if nh:
+            live = torch.from_numpy(rng.integers(
+                0, 50, size=(kc.LIVE_ROWS, nb)).astype(np.int32)).to(device)
+        ring = (torch.from_numpy(rng.integers(-1, 80, size=(4, vl))
+                                 .astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(0, 50, size=(4, nb))
+                                 .astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(-1, 60, size=(4, 5))
+                                 .astype(np.int32)).to(device))
+        packed = torch.from_numpy(rng.integers(-1, 80, size=vl)
+                                  .astype(np.int32)).to(device)
+        back = torch.from_numpy(rng.integers(-1, 80, size=vl)
+                                .astype(np.int32)).to(device)
+        c = [int(rng.choice([0, 0, 0, 1, 2, 3])), int(rng.integers(0, 100)),
+             int(rng.integers(0, 500)), int(rng.integers(0, 70)), 0,
+             int(rng.choice([0, 0, 3])), int(rng.choice([0, 1, 200, 600])),
+             int(rng.integers(-1, 60)), int(rng.integers(-1, 9)),
+             int(rng.integers(-1, 40)), 0, int(rng.integers(0, 9)),
+             int(rng.integers(-1, 60)), int(rng.integers(1, 60)),
+             int(rng.choice([0, 0, 1, 2])), 0, 0, 0, -1]
+        ctrl = torch.tensor(c, dtype=torch.int32, device=device)
+        max_steps = int(rng.choice([ks.INT32_MAX, int(rng.integers(1, 110))]))
+        window = int(rng.choice([64, int(rng.integers(1, 70))]))
+        gc_const = int(rng.choice([-1, 0, 1]))
+        traj = None if case % 3 else traj_empty(int(rng.integers(1, 120)),
+                                                device=device)
+        record = bool(case % 2)
+        args = [ctrl, packed, back, ring, record, live, nh, gc_const,
+                max_steps, window, traj]
+        plain = _clone(args)
+        plain[2] = back
+        ks.shard_finish(*args)
+        ks.shard_finish_reference(*plain)
+        err = max(err, _diff_any([ctrl, packed, ring, live, traj],
+                                 [plain[0], plain[1], plain[3], plain[5],
+                                  plain[10]]))
+        # the pair step, from the same inputs
+        ctrl = torch.tensor(c, dtype=torch.int32, device=device)
+        p1 = torch.zeros_like(packed)
+        deg = torch.from_numpy(rng.integers(0, 3, size=vl).astype(np.int32)
+                               ).to(device)
+        init_ba = None if live is None else torch.from_numpy(
+            rng.integers(0, 50, size=nb).astype(np.int32)).to(device)
+        args = [ctrl, packed, p1, deg, int(rng.choice([-1, 1])), ring, live,
+                nh, init_ba, int(rng.integers(0, 2)), int(rng.integers(1, 999)),
+                gc_const]
+        plain = _clone(args)
+        ks.shard_pair(*args)
+        ks.shard_pair_reference(*plain)
+        err = max(err, _diff_any([ctrl, packed, p1, live],
+                                 [plain[0], plain[1], plain[2], plain[6]]))
+    torch.cuda.synchronize()
+    check(err == 0, f"K21/K22 disagree with their plain versions on random "
+                    f"inputs: max abs err {err}")
+    return err
+
+
+def phase_shard_kernels(device, graphs: dict) -> dict:
+    """K20-K22 and the sharded-bucketed engine's K5, K7 and K8 held against
+    their plain versions: one sweep of each engine as shard 3 of 4 of the
+    1M tables (``_ShardStub``: the other shards' words fixed), the flat
+    engine on the uniform draw, the bucketed one on the uniform draw at
+    its defaults and on the RMAT draw at each of ``SHARD_KNOBS`` (the RMAT
+    forced knobs with telemetry on: K21's recording variant); then
+    ``_shard_edge_cases``. Returns the calls by kernel and the RMAT
+    branches."""
+    from dgc_tpu_torch.engine.sharded import ShardedELLEngine
+    from dgc_tpu_torch.engine.sharded_bucketed import ShardedBucketedEngine
+    from dgc_tpu_torch.engine.hub import BRANCH_NAMES
+
+    rng = np.random.default_rng(7)
+    size, rank = HELD_SHARD
+    runs = []
+    cases = [("sharded", "fast", {}), ("sharded-bucketed", "fast", {})] + [
+        ("sharded-bucketed", "rmat", kw) for kw in SHARD_KNOBS.values()]
+    for backend, gen, kw in cases:
+        mesh = _ShardStub(size, rank, device)
+        arrays = graphs[gen]
+        if backend == "sharded":
+            engine = ShardedELLEngine(arrays, mesh=mesh, device=device)
+            deg = engine.deg_g[:-1].cpu().numpy()
+        else:
+            engine = ShardedBucketedEngine(arrays, mesh=mesh, device=device,
+                                           **kw)
+            deg = np.asarray(engine.layout.deg_final)
+        mesh.rest = _rest_words(rng, deg, device)
+        record = gen == "rmat" and kw is SHARD_KNOBS["forced"]
+        k0 = int(arrays.max_degree) + 1
+        rec = _held_sweep(engine, k0, record)
+        rec.update(backend=backend, gen=gen, knobs=kw, telemetry=record,
+                   hub_buckets=len(getattr(engine, "cond_idx", ())))
+        runs.append(rec)
+        del engine
+    need = {"sharded": ("shard_superstep", "shard_finish", "shard_pair")}
+    for r in runs:
+        names = need.get(r["backend"], ("shard_finish", "shard_pair"))
+        check(all(r["calls"].get(n, 0) > 0 for n in names),
+              f"{r['backend']} {r['gen']}: held calls {r['calls']}")
+    taken = {BRANCH_NAMES[b] for r in runs if r["gen"] == "rmat"
+             for b in r["branches"]}
+    check(taken == set(BRANCH_NAMES), f"the RMAT shard took {taken}")
+    check(any(r["calls"].get("segmented_superstep") for r in runs)
+          and any(r["calls"].get("hub_superstep") for r in runs),
+          "no held sweep ran K5 and K8")
+    err = _shard_edge_cases(device)
+    return {"runs": runs, "branches": sorted(taken), "max_abs_err": err}
+
+
+
+def _shard_timing(engine, k: int) -> dict:
+    """K20 (the flat engine), K21 and K22 timed on this rank at the
+    engine's shapes (world size 1): the first superstep's gathered state;
+    K21 folding that superstep with a ring push, without and with the
+    trajectory row; K22 at the end of phase 0 resuming from a ring entry;
+    and the collectives of one superstep. Beside each, its plain version's
+    time and its bound (bytes over the H100's 3.35 TB/s)."""
+    from dgc_tpu_torch.engine.fused import shard_rec_empty
+    from dgc_tpu_torch.kernels import shard as ks
+    from dgc_tpu_torch.obs.kernel import traj_cap_for, traj_empty
+
+    mesh, dev = engine.mesh, engine.packed_l.device
+    vl = engine.packed_l.shape[0]
+    v = engine.state.shape[1] - 2
+    gathered = engine.state[0, :v]
+    ctrl0 = engine._start(k)
+    mesh.all_gather(gathered, engine.packed_l)
+    ctrl = ctrl0.clone()
+
+    def collectives():
+        mesh.all_gather(gathered, engine.packed_l)
+        mesh.all_reduce(ctrl[ks.SUM_SLOTS], "sum")
+        mesh.all_reduce(ctrl[ks.MAX_SLOTS], "max")
+
+    out = {"collectives_ms": _cuda_ms(collectives, reps=50),
+           "collectives_host_ms": _host_ms(collectives, reps=50),
+           "collective_bytes": 4 * v + 4 * 5}
+    live0 = None if engine.live is None else engine.live.clone()
+
+    def reset(c):
+        ctrl.copy_(c)
+        if live0 is not None:
+            engine.live.copy_(live0)
+
+    if hasattr(engine, "nbrs"):
+        window = 32 * engine.num_planes
+        fv = window >= engine.max_degree + 1 or k <= window
+
+        def k20(fn=ks.shard_superstep):
+            reset(ctrl0)
+            fn(ctrl, engine.state, engine.nbrs, engine.deg_g, engine.row_off,
+               engine.num_planes, k, fv)
+
+        out["k20_ms"] = _device_ms(k20, 20, "shard_superstep_kernel")
+        out["k20_plain_ms"] = _host_ms(
+            lambda: k20(ks.shard_superstep_reference), reps=3)
+        # the rule needs the shard's real neighbour entries (the table's
+        # padding is not work, as for K1), the gathered state and degrees
+        # read, the shard's words written; the padded table's bytes are
+        # kept beside it
+        real = int((engine.nbrs != v).sum())
+        k20_bytes = real * 4 + 2 * v * 4 + vl * 4
+        out.update(k20_bytes=k20_bytes, k20_real_entries=real,
+                   k20_table_bytes=engine.nbrs.numel() * 4,
+                   k20_bound_ms=k20_bytes / HBM_BYTES_PER_S * 1e3)
+    # K21 folding the first superstep, its words pushed into the ring
+    reset(ctrl0)
+    engine._superstep(ctrl, k)
+    step1 = ctrl.clone()
+    nb = 1 if engine.live is None else engine.live.shape[1]
+    ring = shard_rec_empty(vl, nb, dev)
+    packed0 = engine.packed_l.clone()
+    traj = traj_empty(traj_cap_for(engine.max_steps), device=dev)
+    check(int(step1[ks.CTRL_FAIL]) == 0 and int(step1[ks.CTRL_MC]) >= 0,
+          f"the first superstep does not push: {step1.tolist()}")
+
+    def k21(fn=ks.shard_finish, rec=None):
+        reset(step1)
+        engine.packed_l.copy_(packed0)
+        fn(ctrl, engine.packed_l, engine.back, ring, True, engine.live,
+           engine.nh, engine.gc_const, engine.max_steps, 64, rec)
+
+    out["k21_ms"] = _device_ms(k21, 20, "shard_finish_kernel")
+    out["k21_plain_ms"] = _host_ms(lambda: k21(ks.shard_finish_reference),
+                                   reps=5)
+    out["k21_rec_ms"] = _device_ms(lambda: k21(rec=traj), 20,
+                                   "shard_finish_kernel")
+    out["k21_rec_plain_ms"] = _host_ms(
+        lambda: k21(ks.shard_finish_reference, traj), reps=5)
+    # the carry and the back rows read, the carry and the ring slot written
+    k21_bytes = 4 * vl * 4
+    out.update(k21_bytes=k21_bytes,
+               k21_bound_ms=k21_bytes / HBM_BYTES_PER_S * 1e3,
+               k21_rec_bound_ms=(k21_bytes + 6 * 4) / HBM_BYTES_PER_S * 1e3)
+    # K22 at phase 0's end: SUCCESS with 21 colors, slot 0 brackets k2
+    end = ctrl0.clone()
+    end[ks.CTRL_STATUS] = 1
+    end[ks.SC_MAXC] = 20
+    end[ks.SC_REC_CNT] = 1
+    ring[2][0] = torch.tensor([3, -1, 1 << 30, 0, v], dtype=torch.int32)
+    p1 = torch.empty_like(engine.packed_l)
+
+    def k22(fn=ks.shard_pair):
+        reset(end)
+        engine.packed_l.copy_(packed0)
+        fn(ctrl, engine.packed_l, p1, engine.deg_l, engine.init_word, ring,
+           engine.live, engine.nh, engine.init_ba, engine.init_step,
+           engine.init_prev, engine.gc_const)
+
+    out["k22_ms"] = _device_ms(k22, 20, "shard_pair_kernel")
+    out["k22_plain_ms"] = _host_ms(lambda: k22(ks.shard_pair_reference),
+                                   reps=5)
+    # the carry and the ring slot read, the result slot and carry written
+    k22_bytes = 4 * vl * 4
+    out.update(k22_bytes=k22_bytes,
+               k22_bound_ms=k22_bytes / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def _shard_kernels(*mods) -> dict:
+    return {n: c for m in mods for counts in (m.launch_counts,
+                                             m.rec_launch_counts)
+            for n, c in counts.items()}
+
+
+# the two ranks on one card: the CLI as torchrun starts it; the group
+# picks gloo by itself, since the ranks outnumber the cards (NCCL refuses
+# two ranks on one device), and the script prints which backend it got
+_RANK_SCRIPT = """
+import sys
+import torch.distributed as dist
+from dgc_tpu_torch import cli
+for backend in ("sharded", "sharded-bucketed"):
+    rc = cli.main(sys.argv[2:] + ["--backend", backend, "--output-coloring",
+                                  f"{sys.argv[1]}/{backend}.json"])
+    if rc != 0:
+        raise SystemExit(rc)
+print("group backend:", dist.get_backend())
+"""
+
+
+def _shard_ranks_run(out_dir: Path) -> dict:
+    """``SHARD_RANKS_ARGS`` through the CLI at two gloo ranks, both on
+    cuda:0 (children started as ``torchrun`` starts them), each backend's
+    coloring JSON equal, rank by rank, to the world-size-1 run's under
+    NCCL (in this process, while the children run)."""
+    import os
+    import socket
+
+    from dgc_tpu_torch import cli
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t = time.perf_counter()
+    for rank in range(2):
+        d = out_dir / f"ranks-{rank}"
+        d.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                   LOCAL_WORLD_SIZE="2", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_SCRIPT, str(d), *SHARD_RANKS_ARGS],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    one = out_dir / "ranks-world1"
+    one.mkdir(parents=True, exist_ok=True)
+    for backend in ("sharded", "sharded-bucketed"):
+        check(cli.main(SHARD_RANKS_ARGS + [
+            "--backend", backend, "--output-coloring",
+            str(one / f"{backend}.json")]) == 0, f"{backend}: world size 1")
+    outs = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise SmokeFailure("the two-rank run did not end in 600 s")
+        outs.append((p.returncode, so, se))
+    wall = time.perf_counter() - t
+    for rank, (rc, so, se) in enumerate(outs):
+        check(rc == 0, f"rank {rank} of the gloo run exited {rc}: "
+                       f"{se.strip().splitlines()[-3:]}")
+        check("group backend: gloo" in so.splitlines(),
+              f"rank {rank} did not run on gloo: {so.splitlines()[-1:]}")
+        for backend in ("sharded", "sharded-bucketed"):
+            check(filecmp.cmp(out_dir / f"ranks-{rank}" / f"{backend}.json",
+                              one / f"{backend}.json", shallow=False),
+                  f"rank {rank}'s {backend} coloring differs from the "
+                  f"world-size-1 run's")
+    return {"phase": "sharded_two_ranks", "graph": " ".join(SHARD_RANKS_ARGS),
+            "backend": "gloo on cuda:0", "wall_s": wall,
+            "attempt_lines": [line for line in outs[0][1].splitlines()
+                              if line.startswith("attempt:")]}
+
+
+def phase_sharded_main(card: str, out_dir: Path, main_runs: dict,
+                       rmat_runs: dict) -> dict:
+    """The sharded engines through the CLI's calls at world size 1 under
+    NCCL: ``sharded`` and ``sharded-bucketed`` on the 1M uniform draw,
+    ``sharded-bucketed`` on the 1M RMAT draw. The launch counts are zeroed
+    just before each sweep and read just after, and each must launch every
+    kernel of its path; the coloring JSON must be byte for byte the
+    ``ell`` (``ell-bucketed``) run's on the same draw, and so must the
+    attempts. Then each engine's kernels timed (``_shard_timing``), the
+    held sweeps at shard 3 of 4 (``phase_shard_kernels``), a telemetry run
+    (``--run-manifest``: K21's recording variant) and the two-rank gloo run
+    (``_shard_ranks_run``)."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+    from dgc_tpu_torch.kernels import shard as ks
+
+    runs, graphs = {}, {}
+    for argv, backends, refs in ((MAIN_ARGS, ("sharded", "sharded-bucketed"),
+                                  main_runs),
+                                 (RMAT_ARGS, ("sharded-bucketed",),
+                                  rmat_runs)):
+        args = cli.build_parser().parse_args(
+            argv + ["--output-coloring", str(out_dir / "coloring.json")])
+        t = time.perf_counter()
+        graph = cli.load_graph(args)
+        gen_s = time.perf_counter() - t
+        check(graph_sha256(graph.arrays) == DRAW_SHA256[args.gen_method],
+              f"the {args.gen_method} draw is not the pinned one")
+        graphs[args.gen_method] = graph.arrays
+        for backend in backends:
+            args.backend = backend
+            t = time.perf_counter()
+            engine = cli.make_engine(args, graph)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            torch.cuda.reset_peak_memory_stats()
+            for mod in (ks, kc, kh):
+                mod.reset_launch_counts()
+            timed = _TimedSweepEngine(engine)
+            result = cli.sweep(args, graph, timed)
+            torch.cuda.synchronize()
+            launches = _shard_kernels(ks, kc, kh)
+            ref_name = "ell" if backend == "sharded" else "ell-bucketed"
+            ref = refs[ref_name]
+            path = out_dir / f"coloring-{args.gen_method}-{backend}.json"
+            graph.save_coloring(str(path), result.colors)
+            check(filecmp.cmp(path, out_dir / f"coloring-{args.gen_method}-"
+                                              f"{ref_name}.json",
+                              shallow=False),
+                  f"{backend} on {args.gen_method}: the coloring JSON "
+                  f"differs from {ref_name}'s")
+            attempts = [[a.k, a.status.name, a.supersteps, a.colors_used]
+                        for a in result.attempts]
+            check(attempts == [list(a) for a in ref["attempts"]],
+                  f"{backend}: attempts {attempts}, {ref_name} "
+                  f"{ref['attempts']}")
+            need = ["shard_finish", "shard_pair"] + (
+                ["shard_superstep"] if backend == "sharded" else
+                (["segmented_superstep"] if engine.uncond_idx else [])
+                + (["hub_slots", "hub_superstep"] if engine.cond_idx
+                   else []))
+            check(all(launches[n] > 0 for n in need),
+                  f"{backend}: the sweep skipped a kernel of its path: "
+                  f"{launches}")
+            rec = {"phase": "sharded_main", "backend": backend,
+                   "graph": " ".join(argv), "gen_s": gen_s,
+                   "engine_build_s": build_s,
+                   "sweep_s": result.wall_time_s - result.post_reduce_s,
+                   "attempt_s": timed.seconds,
+                   "supersteps": result.total_supersteps,
+                   "attempts": attempts, "launches": launches,
+                   "colors_after_post_pass": result.minimal_colors,
+                   "ell_sweep_s": ref["sweep_s"],
+                   "confirm_resumed_from_step": engine.resumed_from_step,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "card": card}
+            if backend == "sharded-bucketed":
+                rec.update(
+                    uncond_slices=len(engine.uncond_idx),
+                    conditioned_slices=len(engine.cond_idx),
+                    pads=list(engine.pads),
+                    prune_cfg=[None if c is None else list(c)
+                               for c in engine.prune_cfg])
+            rec.update(_shard_timing(engine, graph.initial_k()))
+            emit(rec)
+            runs[f"{backend} {args.gen_method}"] = rec
+            del engine, timed
+    t = time.perf_counter()
+    held = phase_shard_kernels("cuda", graphs)
+    emit({"phase": "shard_kernels_vs_plain", **held,
+          "seconds": time.perf_counter() - t})
+    # telemetry on: K21's recording variant, the coloring unchanged
+    d = out_dir / "sharded-telemetry"
+    d.mkdir(parents=True, exist_ok=True)
+    for mod in (ks, kc, kh):
+        mod.reset_launch_counts()
+    rc = cli.main(MAIN_ARGS + ["--backend", "sharded-bucketed",
+                               "--output-coloring", str(d / "colors.json"),
+                               "--log-json", str(d / "run.jsonl"),
+                               "--run-manifest", str(d / "manifest.json"),
+                               "--metrics-prom", str(d / "metrics.prom")])
+    torch.cuda.synchronize()
+    tel = _shard_kernels(ks, kc, kh)
+    check(rc == 0 and tel["shard_finish_rec"] > 0
+          and tel["shard_finish"] == 0, f"telemetry run: rc {rc}, {tel}")
+    check(filecmp.cmp(d / "colors.json",
+                      out_dir / "coloring-fast-sharded-bucketed.json",
+                      shallow=False), "telemetry on changed the coloring")
+    files = _check_telemetry_files("sharded-bucketed", d, False)
+    ranks = _shard_ranks_run(out_dir)
+    emit(ranks)
+    return {"runs": runs, "held": held, "telemetry_launches": tel,
+            "telemetry": files, "ranks": ranks}
+
+
+def shard_kernels_line(sharded: dict) -> list[dict]:
+    """K20-K22 (and K21's recording variant): launches on the 1M uniform
+    ``sharded`` sweep (the ``sharded-bucketed`` sweeps' beside), time,
+    plain time and bound at that path's shapes."""
+    flat = sharded["runs"]["sharded fast"]
+    src = "dgc_tpu_torch/csrc/shard.cu"
+    err = sharded["held"]["max_abs_err"]
+
+    def others(name):
+        return {k: r["launches"][name] for k, r in sharded["runs"].items()
+                if k != "sharded fast"}
+
+    def entry(name, key, replaces, launches=None, bound_key=None):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": (flat["launches"][name] if launches is None
+                             else launches),
+                "launches_other": others(name), "max_abs_err": err,
+                "ms": flat[f"{key}_ms"], "plain_ms": flat[f"{key}_plain_ms"],
+                "bound_ms": flat[bound_key or f"{key}_bound_ms"],
+                "bound_by": "bytes", "library_ms": None}
+
+    return [entry("shard_superstep", "k20", "dgc_tpu/engine/sharded.py:64"),
+            entry("shard_finish", "k21", "dgc_tpu/engine/fused.py:127"),
+            entry("shard_pair", "k22", "dgc_tpu/engine/fused.py:157"),
+            entry("shard_finish_rec", "k21_rec", "dgc_tpu/obs/kernel.py:95",
+                  launches=sharded["telemetry_launches"]["shard_finish_rec"])]
+
+
 def main(argv: list[str] | None = None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -4763,7 +5390,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: the port is missing ({e})", file=sys.stderr)
         return 1
     card = card_line()
-    t = time.perf_counter()
+    t_total = t = time.perf_counter()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
         list(pool.map(build.build, sources))
@@ -4818,6 +5445,10 @@ def main(argv: list[str] | None = None) -> int:
             card, out_dir, RMAT_ARGS, ("ell-compact", "ell-bucketed"),
             ((False, 1), (False, 4)))
         blocked += blocked_rmat
+        t = time.perf_counter()
+        sharded = phase_sharded_main(card, out_dir, main_runs, rmat_runs)
+        emit({"phase": "sharded_main_done",
+              "seconds": time.perf_counter() - t})
         telemetry = phase_telemetry_main(card, out_dir)
         dense_runs = phase_dense_main(card, out_dir, dense_cpu.result())
         t = time.perf_counter()
@@ -4832,14 +5463,23 @@ def main(argv: list[str] | None = None) -> int:
         rows = phase_block_engines("cuda", reference.result())
         emit({"phase": "block_engines_vs_cpu", "runs": rows,
               "seconds": time.perf_counter() - t})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_total})
     print(card)
-    emit({"kernels": kernels_line(main_runs, rmat_runs, blocked, kernel_err,
-                                  compact_err, hub_err, block_err)
+    line = kernels_line(main_runs, rmat_runs, blocked, kernel_err,
+                        compact_err, hub_err, block_err)
+    for entry in line:  # the sharded-bucketed sweeps' launches of K5, K7, K8
+        if entry["name"] in ("segmented_superstep", "hub_slots",
+                             "hub_superstep"):
+            entry["launches_sharded"] = {
+                k: r["launches"][entry["name"]]
+                for k, r in sharded["runs"].items()}
+    emit({"kernels": line
           + dense_kernels_line(dense_runs, dense_err)
           + telemetry_kernels_line(main_runs, rmat_runs, blocked, telemetry,
                                    tel_err)
           + serve_kernels_line(serve, serve_err)
-          + carry_kernels_line(serve, spec, carry, carry_err, serve_err)})
+          + carry_kernels_line(serve, spec, carry, carry_err, serve_err)
+          + shard_kernels_line(sharded)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -35,12 +35,21 @@ attempts and colors as without it; ``auto`` prices the depth off the
 starting budget (``utils.schedule_model.speculation_auto_cap``). A graph
 beyond the serve shape ladder takes the normal path, and on this route
 ``--checkpoint-dir`` is ignored and ``--attempts-per-dispatch`` is 1, each
-with a note on stderr, as ``dgc_tpu.cli``. Not ported: the sharded
-backends, tuned configs, the profiler windows and flight recorder, and the
+with a note on stderr, as ``dgc_tpu.cli``.
+
+``--backend sharded`` and ``sharded-bucketed`` (``--shards N``, default:
+every rank) run the vertex-sharded all-gather engines over
+``torch.distributed``: a plain run is a one-rank mesh, and under
+``torchrun`` every rank runs the whole CLI as one shard of the mesh (NCCL
+on the card, gloo with ``--device cpu``), writing the same outputs as
+every process of ``dgc_tpu.cli`` does. Not ported: ``--backend
+sharded-ring`` and ``--reshard-on-loss`` (refused with rc 2 and a note),
+tuned configs, the profiler windows and flight recorder, and the other
 resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
         --output-coloring colors.json [--backend ell-compact] [--device cpu] \\
+        [--backend sharded-bucketed --shards 2] \\
         [--log-json run.jsonl --run-manifest run.json \\
          --metrics-prom run.prom --superstep-timing] \\
         [--strict-decrement --speculate-k 3]
@@ -68,8 +77,12 @@ from dgc_tpu_torch.models.graph import Graph
 from dgc_tpu_torch.obs import (MetricsRegistry, ObservedEngine,
                                PhaseCollector, RunLogger, RunManifest)
 
-BACKENDS = ("ell-compact", "ell-bucketed", "ell", "dense", "reference-sim",
-            "oracle")
+BACKENDS = ("ell-compact", "ell-bucketed", "ell", "dense", "sharded",
+            "sharded-bucketed", "reference-sim", "oracle")
+# the multi-device backends (one rank of the process group per device)
+SHARDED_BACKENDS = ("sharded", "sharded-bucketed")
+# dgc_tpu.cli's backends and flags this CLI names but refuses (ROADMAP)
+UNPORTED_BACKENDS = ("sharded-ring",)
 # the host backends are the reference's semantics: their count is the
 # parity target, so the post-pass never touches it
 HOST_BACKENDS = ("reference-sim", "oracle")
@@ -102,9 +115,16 @@ def build_parser() -> argparse.ArgumentParser:
                    default="reference",
                    help="random generator: reference semantics, vectorized "
                         "large-V, or RMAT")
-    p.add_argument("--backend", choices=list(BACKENDS), default="ell-compact",
+    p.add_argument("--backend", choices=list(BACKENDS + UNPORTED_BACKENDS),
+                   default="ell-compact",
                    help="coloring engine (default: ell-compact, the staged "
-                        "frontier-compacted engine)")
+                        "frontier-compacted engine; sharded-ring is not "
+                        "ported yet)")
+    p.add_argument("--shards", type=int, default=None,
+                   help="sharded backends: number of devices, one rank each "
+                        "(default: every rank of the process group)")
+    p.add_argument("--reshard-on-loss", action="store_true",
+                   help="not ported yet (dgc_tpu.cli's re-shard rung)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the engine runs (default: cuda; cpu runs the "
                         "plain PyTorch versions of the kernels)")
@@ -265,6 +285,17 @@ def make_engine(args, graph: Graph):
         from dgc_tpu_torch.engine.oracle import OracleEngine
 
         return OracleEngine(graph.arrays)
+    if args.backend == "sharded":
+        from dgc_tpu_torch.engine.sharded import ShardedELLEngine
+
+        return ShardedELLEngine(graph.arrays, num_shards=args.shards,
+                                device=args.device)
+    if args.backend == "sharded-bucketed":
+        from dgc_tpu_torch.engine.sharded_bucketed import \
+            ShardedBucketedEngine
+
+        return ShardedBucketedEngine(graph.arrays, num_shards=args.shards,
+                                     device=args.device)
     if args.backend == "ell":
         from dgc_tpu_torch.engine.superstep import ELLEngine
 
@@ -377,7 +408,14 @@ def main(argv: list[str] | None = None) -> int:
 
         return serve_main(list(raw[1:]))
     t_start = time.perf_counter()
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    refused = ("--reshard-on-loss" if args.reshard_on_loss else
+               f"--backend {args.backend}"
+               if args.backend in UNPORTED_BACKENDS else None)
+    if refused:  # exits 2 with the note, as argparse refuses a flag
+        parser.error(f"{refused}: not yet ported to dgc_tpu_torch "
+                     f"(see ROADMAP.md)")
     if args.input is None and (args.node_count is None or args.max_degree is None):
         print("Either --input or both --node-count and --max-degree are required",
               file=sys.stderr)
@@ -415,6 +453,14 @@ def _engine_sweep(args, graph: Graph, on_attempt, logger, phases,
     the telemetry the arguments ask for."""
     checkpoint = make_checkpoint(args, graph)
     try:
+        if args.backend in SHARDED_BACKENDS:
+            # the process group before any device work: no-op in a plain
+            # run, every rank of the launcher's group under torchrun
+            from dgc_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                          process_info)
+
+            multi = initialize_multihost(args.device)
+            logger.event("distributed", multi_process=multi, **process_info())
         if args.backend not in HOST_BACKENDS:
             logger.event("devices", **(
                 dict(count=torch.cuda.device_count(), platform="gpu",

@@ -14,9 +14,13 @@ import torch
 from dgc_tpu_torch.engine.bucketed import MAX_WINDOW_PLANES, BucketedELLEngine
 from dgc_tpu_torch.engine.compact import CompactFrontierEngine
 from dgc_tpu_torch.engine.dense_engine import DenseEngine
+from dgc_tpu_torch.engine.sharded import ShardedELLEngine
+from dgc_tpu_torch.engine.sharded_bucketed import (ShardedBucketedEngine,
+                                                   ShardedBucketLayout)
 from dgc_tpu_torch.engine.superstep import ELLEngine
 from dgc_tpu_torch.kernels.dense import padded_size
 from dgc_tpu_torch.models.arrays import GraphArrays
+from dgc_tpu_torch.parallel.mesh import make_mesh
 
 
 def graph_from_numpy(indptr, indices) -> GraphArrays:
@@ -105,4 +109,46 @@ def dense_from_jax(adj, degrees, kmax: int, max_steps: int,
     deg[:v] = np.asarray(degrees)
     eng = DenseEngine.__new__(DenseEngine)
     eng._setup(dense, deg, v, int(kmax), int(max_steps), dev)
+    return eng
+
+
+def sharded_engine_from_tables(nbrs, degrees, num_vertices: int,
+                               max_steps: int, max_window_planes: int = 32,
+                               mesh=None, device="cuda") -> ShardedELLEngine:
+    """``ShardedELLEngine.nbrs`` (the whole padded table, sentinel the
+    padded V), ``.deg_g`` (the padded degrees), ``.v_true`` and
+    ``.max_steps`` → the port's ``ShardedELLEngine`` over the same table,
+    on ``mesh`` (default: ``make_mesh(device=device)``). The padded V must
+    be a multiple of the mesh size."""
+    eng = ShardedELLEngine.__new__(ShardedELLEngine)
+    eng.mesh = mesh if mesh is not None else make_mesh(device=device)
+    degrees = np.asarray(degrees, np.int32)
+    if len(degrees) % eng.mesh.size:
+        raise ValueError(f"{len(degrees)} rows do not split over "
+                         f"{eng.mesh.size} ranks")
+    eng._setup(np.asarray(nbrs, np.int32), degrees, int(num_vertices),
+               int(max_steps), max_window_planes)
+    return eng
+
+
+def sharded_bucketed_engine_from_tables(
+        orig_of_final, deg_final, tables, slice_sizes, v_final: int,
+        pads, prune_cfg, max_steps: int,
+        max_window_planes: int = MAX_WINDOW_PLANES, mesh=None,
+        device="cuda") -> ShardedBucketedEngine:
+    """``ShardedBucketedEngine.layout`` (its ``orig_of_final``,
+    ``deg_final``, ``tables``, ``slice_sizes`` and ``v_final``), ``.pads``,
+    ``.prune_cfg`` and ``.max_steps`` → the port's
+    ``ShardedBucketedEngine`` over the same tables, on ``mesh`` (default:
+    ``make_mesh(device=device)``), which must have as many ranks as the
+    layout has shards."""
+    lay = ShardedBucketLayout(
+        orig_of_final=np.asarray(orig_of_final),
+        deg_final=np.asarray(deg_final, np.int32),
+        tables=[np.asarray(t, np.int32) for t in tables],
+        slice_sizes=[int(x) for x in slice_sizes], v_final=int(v_final))
+    eng = ShardedBucketedEngine.__new__(ShardedBucketedEngine)
+    eng.mesh = mesh if mesh is not None else make_mesh(device=device)
+    eng._setup(lay, tuple(pads), tuple(prune_cfg), max_window_planes,
+               int(max_steps))
     return eng

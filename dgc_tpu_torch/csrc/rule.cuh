@@ -1,6 +1,6 @@
 // What the superstep kernels share: the speculative rule for one row, on
 // one thread (row_rule: K1 in superstep.cu, K5 in compact.cu, K13 in
-// serve.cu) or on a whole warp with seeded planes (warp_row_rule: K8 in
+// serve.cu, K20 in shard.cu) or on a whole warp with seeded planes (warp_row_rule: K8 in
 // hub.cu); the loop-control fold of one superstep (finish_step: K2 and
 // K6); the stage predicate (stage_live: K5-K8); and the hub region's live
 // table (K6-K8).
@@ -103,17 +103,30 @@ __device__ __forceinline__ RowResult finish_rule(int me, bool clash,
   return r;
 }
 
+// The priority of a row whose table holds plain neighbor ids (kPrio): the
+// degrees `deg` (-1 at the pad sentinel's slot) and the row's own degree
+// and id. A neighbor beats the row when its degree is larger, or equal
+// with a smaller id (dgc_tpu/ops/speculative.py beats_rule).
+struct Prio {
+  const int* deg = nullptr;
+  int my_deg = 0;
+  int my_id = 0;
+};
+
 // One neighbor entry `e` into the planes of group `base`: its color's bit
 // into `fa` (and into `fo` when confirmed); a fresh neighbor of my color
 // that beats me is a clash (read in group 0 only). With kLim, a neighbor id
 // at or past `lim` is the pad sentinel of a state buffer that has no pad
-// slot (the serve carry's lanes) and reads as uncolored.
-template <int PB, bool kLim = false>
+// slot (the serve carry's lanes) and reads as uncolored. With kPrio, `e`
+// is a plain id and whether it beats me is read from `prio` instead of
+// bit 30, and only where the clash test needs it.
+template <int PB, bool kLim = false, bool kPrio = false>
 __device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
                                              int e, int base, int mycol,
                                              uint32_t (&fa)[PB],
                                              uint32_t (&fo)[PB],
-                                             bool& clash, int lim = 0) {
+                                             bool& clash, int lim = 0,
+                                             const Prio& prio = Prio{}) {
   if constexpr (kLim) {
     if ((e & kNbrMask) >= lim) return;
   }
@@ -121,8 +134,15 @@ __device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
   if (word < 0) return;  // uncolored neighbor or pad sentinel
   const int c = word >> 1;
   const bool fresh = (word & 1) != 0;
-  if (base == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) {
-    clash = true;
+  if (base == 0 && fresh && c == mycol) {
+    bool beats;
+    if constexpr (kPrio) {
+      const int nd = prio.deg[e];
+      beats = nd > prio.my_deg || (nd == prio.my_deg && e < prio.my_id);
+    } else {
+      beats = (e >> kBeatsBit) != 0;
+    }
+    if (beats) clash = true;
   }
   const int w = (c >> 5) - base;
   const uint32_t bit = 1u << (c & 31);
@@ -138,12 +158,15 @@ __device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
 // The rule for a row whose packed word is `me`, over the `width` entries
 // at `row`, with a window of `planes` planes, on one thread. PB planes are
 // held in registers at a time; a wider window is scanned in groups of PB,
-// re-reading the row for each group. kLim/lim as add_neighbor.
-template <int PB, bool kLim = false>
+// re-reading the row for each group. kLim/lim and kPrio/prio as
+// add_neighbor: with kPrio the neighbors' words come from `src`, the
+// gathered state, whatever buffer the row's own word `me` came from.
+template <int PB, bool kLim = false, bool kPrio = false>
 __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
                                               const int* __restrict__ row,
                                               int width, int planes, int k,
-                                              int me, int lim = 0) {
+                                              int me, int lim = 0,
+                                              const Prio& prio = Prio{}) {
   const int mycol = me >> 1;  // arithmetic: -1 stays -1
   bool clash = false;
   bool found = false;     // a color under k is free of every neighbor
@@ -160,7 +183,8 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
       fo[p] = 0u;
     }
     for (int j = 0; j < width; ++j) {
-      add_neighbor<PB, kLim>(src, row[j], base, mycol, fa, fo, clash, lim);
+      add_neighbor<PB, kLim, kPrio>(src, row[j], base, mycol, fa, fo, clash,
+                                    lim, prio);
     }
     fold_planes<PB>(fa, fo, base, planes, k, found, cand, old_free);
   }

@@ -84,17 +84,17 @@ def hub_prune_cfg(rows: int, width: int, u_min: int = 128,
 
 
 def hub_branch(ba: int, tier: int, rows: int, cfg: tuple | None,
-               uncond: bool = False) -> int:
+               uncond: bool = False, pad: int | None = None) -> int:
     """The branch ``_hub_dispatch`` takes for a bucket of ``rows`` rows
     with live count ``ba`` and prune tier ``tier`` under ``cfg`` (None:
-    the ``hub_pad_for`` ladder; ``(P, U)`` or ``(P, U, P2)``). A pad that
-    covers the bucket never takes ``full``."""
+    the pad ladder, at ``pad`` or ``hub_pad_for(rows)``; ``(P, U)`` or
+    ``(P, U, P2)``). A pad that covers the bucket never takes ``full``."""
     if uncond:
         return BRANCH_FULL
     if ba == 0:
         return BRANCH_SKIP
     if cfg is None:
-        pad = hub_pad_for(rows)
+        pad = hub_pad_for(rows) if pad is None else pad
         return BRANCH_COMPACT if 0 < pad and ba <= pad else BRANCH_FULL
     pad = cfg[0]
     if len(cfg) == 3:

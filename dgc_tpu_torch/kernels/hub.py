@@ -103,9 +103,11 @@ class HubPlan(NamedTuple):
 
 
 def hub_plan(row0s, sizes, widths, planes, hub_prune, hub_uncond,
-             device) -> HubPlan:
+             device, pads=None) -> HubPlan:
     """The plan of hub buckets ``0 .. len(sizes)-1``: their tables lie
-    one after another from offset 0 of the hub table, in bucket order."""
+    one after another from offset 0 of the hub table, in bucket order. A
+    bucket without a prune config compacts at ``pads[bi]`` when given (the
+    sharded slices' ``shard_pad_for``), else at ``hub_pad_for``."""
     out = []
     pool = cb = 0
 
@@ -120,7 +122,8 @@ def hub_plan(row0s, sizes, widths, planes, hub_prune, hub_uncond,
                                    else None)
         kind = (KIND_UNCOND if uncond else
                 KIND_PAD if cfg is None else KIND_PRUNE)
-        pad = hub_pad_for(vb) if kind == KIND_PAD else (cfg[0] if cfg else 0)
+        pad = ((hub_pad_for(vb) if pads is None else int(pads[bi]))
+               if kind == KIND_PAD else (cfg[0] if cfg else 0))
         u = cfg[1] if cfg else 0
         p2 = cfg[2] if cfg and len(cfg) == 3 else 0
         regions = dict.fromkeys(("slots", "sel", "slots1", "comb1", "conf1",
@@ -175,7 +178,7 @@ def hub_slots_reference(ctrl, state, live, plan: HubPlan, pool, thresh: int,
     for bi, b in enumerate(plan.buckets):
         tier = int(live[LIVE_TIER, bi])
         branch = hub_branch(int(live[LIVE_BA, bi]), tier, b.rows, b.cfg,
-                            b.uncond)
+                            b.uncond, pad=b.pad)
         rows = src[b.row0: b.row0 + b.rows]
         dst[b.row0: b.row0 + b.rows] = rows
         live[LIVE_BRANCH, bi] = branch

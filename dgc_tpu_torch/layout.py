@@ -1,9 +1,10 @@
 """The port's copy of the layout constants of ``dgc_tpu.layout`` that it
 needs: the serve tier's per-lane carry (its slots, the result span and the
 slots a slice may bring home), the in-kernel telemetry's trajectory row
-columns, the fill of an unwritten row, the clock mask, and the attempt
-block's trajectory slot. ``tests/test_torch_telemetry.py`` and
-``tests/test_torch_import.py`` hold each equal to the original."""
+columns, the fill of an unwritten row, the clock mask, the attempt
+block's trajectory slot, and the sharded flat pipeline's carry.
+``tests/test_torch_telemetry.py`` and ``tests/test_torch_import.py`` hold
+each equal to the original."""
 
 # -- serve slice carry (serve.batched, one tensor per slot, lane-leading) --
 #
@@ -61,3 +62,24 @@ US_MASK = 0x7FFFFFFF
 # the attempt block's stacked per-attempt trajectory buffers
 # int32[A, cap, C] (dgc_tpu.layout's block-output slot of the same name)
 BK_TRAJ = 11
+
+# -- sharded flat-pipeline carry (dgc_tpu.engine.sharded `_flat_pipeline`) --
+#
+# (packed_l, step, status, prev_active, stall,   -- live sweep state
+#  rec...,                                       -- prefix-resume ring (5)
+#  traj)                                         -- trajectory buffer
+# These ids are the reference's carry layout, kept for parity: no port code
+# indexes a tuple by them. The port's shard loop (engine.fused) keeps the
+# same state on each rank in other places: the carry tensor ``packed_l``,
+# the scalars in its control block (kernels.shard's ``SC_*`` slots), the
+# ring in shard_rec_empty's triple with its count and best candidate in
+# the control block, the trajectory in its own buffer.
+SH_PACKED = 0
+SH_STEP = 1
+SH_STATUS = 2
+SH_PREV_ACTIVE = 3
+SH_STALL = 4
+SH_REC0 = 5            # first prefix-resume ring slot
+SH_N_REC = 5           # ring slots (engine.fused.shard_rec_empty layout)
+SH_TRAJ = 10           # trajectory buffer rides last
+SH_CARRY_LEN = 11

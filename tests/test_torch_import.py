@@ -128,17 +128,34 @@ def test_serve_carry_layout_equals_the_original():
     assert sorted(port[n] for n in SERVE_LAYOUT[:20]) == list(range(20))
 
 
-# functions the port copies verbatim into a module of its own
+SHARD_LAYOUT = ("SH_PACKED", "SH_STEP", "SH_STATUS", "SH_PREV_ACTIVE",
+                "SH_STALL", "SH_REC0", "SH_N_REC", "SH_TRAJ", "SH_CARRY_LEN")
+
+
+def test_sharded_carry_layout_equals_the_original():
+    port = _literals(PORT / "layout.py")
+    original = _literals(ROOT / "dgc_tpu" / "layout.py")
+    for name in SHARD_LAYOUT:
+        assert port[name] == original[name], name
+
+
+# functions (and classes) the port copies verbatim into a module of its own
 VERBATIM_FUNCTIONS = (
     ("utils/schedule_model.py", "strict_survival_curve"),
     ("utils/schedule_model.py", "speculation_auto_cap"),
+    ("engine/sharded_bucketed.py", "ShardedBucketLayout"),
+    ("engine/sharded_bucketed.py", "build_sharded_buckets"),
+    ("engine/sharded_bucketed.py", "shard_prune_cfg"),
+    ("engine/sharded_bucketed.py", "shard_pad_for"),
+    ("parallel/mesh.py", "pad_to_multiple"),
 )
 
 
 def _function_source(path: Path, name: str) -> str:
     text = path.read_text()
     for node in ast.parse(text).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
+                and node.name == name:
             return ast.get_source_segment(text, node)
     raise AssertionError(f"{path} has no function {name}")
 
