@@ -129,7 +129,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    coloring. Then ``python -m dgc_tpu_torch`` at two ranks on cuda:0
    (gloo; children started as ``torchrun`` starts them), 100k vertices,
    both backends: each rank's coloring JSON equal to the world-size-1
-   run's. Then the telemetry runs: ``cli.main``
+   run's. Then the ring-halo engine, ``sharded-ring``, through the CLI's
+   calls at world size 1 under NCCL: the flat rotation tables on the 1M
+   uniform draw, the bucketed ones on the 1M RMAT draw; the launch counts
+   must show K23, K25, K21 and K22 (and K24 on RMAT), and the coloring
+   JSON and the attempts must be ``ell``'s (``ell-bucketed``'s); K23-K25
+   timed there. Two supersteps from seeded words as shard 3 of 4 of each
+   draw's rotation tables (the other shards' words fixed), at a one-plane
+   window and the engine's, at the main path's budget and at 12, hold
+   every K23, K24, K25 and K21 launch against its plain version, and
+   K23-K25 run on 120 random blocks, tables (flat and row lists with
+   padding rows) and accumulators. A ``sharded-ring`` telemetry run
+   launches K21's recording variant alone, with the same coloring. Then
+   three gloo ranks on cuda:0 (the only run where the ring sends: its
+   rotations staged through host buffers), 100k vertices, ``sharded`` and
+   ``sharded-ring``: each rank's coloring JSON equal to the world-size-1
+   run's, each rank's peak memory and a rotation's host time recorded.
+   Then the telemetry runs: ``cli.main``
    with ``--log-json --run-manifest --metrics-prom --superstep-timing``
    on 1M uniform jump, 1M RMAT jump, 1M uniform strict at
    ``--attempts-per-dispatch 4`` and 1M uniform ``ell-bucketed``, each
@@ -4842,10 +4858,10 @@ def _diff_any(a, b) -> int:
 
 class _HeldShardKernels:
     """Within the block, every launch the sharded engines make through
-    K20-K22, K5, K7 and K8 first runs the plain version on clones of what
-    the kernel writes, then the kernel; the two must agree exactly
-    (``err``). ``calls`` counts them by kernel, ``branches`` the hub
-    branches K7 chose."""
+    K20-K22, K5, K7 and K8 (and the ring engine through K23-K25) first
+    runs the plain version on clones of what the kernel writes, then the
+    kernel; the two must agree exactly (``err``). ``calls`` counts them by
+    kernel, ``branches`` the hub branches K7 chose."""
 
     def __init__(self):
         self.err = 0
@@ -4855,6 +4871,7 @@ class _HeldShardKernels:
     def __enter__(self):
         from dgc_tpu_torch.kernels import compact as kc
         from dgc_tpu_torch.kernels import hub as kh
+        from dgc_tpu_torch.kernels import ring as kr
         from dgc_tpu_torch.kernels import shard as ks
 
         self._saved = []
@@ -4875,7 +4892,9 @@ class _HeldShardKernels:
                     if i < len(args)] + [_diff_any(kw[k], kw_c[k])
                                          for k in kw_c if k in ("umax",
                                                                 "traj")])
-                self.calls[name] = self.calls.get(name, 0) + 1
+                # K23 and K24 share a wrapper: count them by kernel
+                key = name + ("_wide" if kw.get("wide") else "")
+                self.calls[key] = self.calls.get(key, 0) + 1
                 if name == "hub_slots":
                     self.branches.update(
                         args[2][kc.LIVE_BRANCH, : len(args[3].buckets)]
@@ -4893,6 +4912,8 @@ class _HeldShardKernels:
         wrap(kc, "segmented_superstep", k5_plain, (0, 1))
         wrap(kh, "hub_slots", kh.hub_slots_reference, (0, 1, 2, 4))
         wrap(kh, "hub_superstep", kh.hub_superstep_reference, (0, 1, 3, 5))
+        wrap(kr, "ring_stats", kr.ring_stats_reference, (5,))
+        wrap(kr, "ring_apply", kr.ring_apply_reference, (0, 2, 3))
         return self
 
     def __exit__(self, *exc):
@@ -5250,7 +5271,7 @@ def phase_sharded_main(card: str, out_dir: Path, main_runs: dict,
     from dgc_tpu_torch.kernels import hub as kh
     from dgc_tpu_torch.kernels import shard as ks
 
-    runs, graphs = {}, {}
+    runs, graphs, loaded = {}, {}, {}
     for argv, backends, refs in ((MAIN_ARGS, ("sharded", "sharded-bucketed"),
                                   main_runs),
                                  (RMAT_ARGS, ("sharded-bucketed",),
@@ -5263,6 +5284,7 @@ def phase_sharded_main(card: str, out_dir: Path, main_runs: dict,
         check(graph_sha256(graph.arrays) == DRAW_SHA256[args.gen_method],
               f"the {args.gen_method} draw is not the pinned one")
         graphs[args.gen_method] = graph.arrays
+        loaded[args.gen_method] = graph
         for backend in backends:
             args.backend = backend
             t = time.perf_counter()
@@ -5346,7 +5368,7 @@ def phase_sharded_main(card: str, out_dir: Path, main_runs: dict,
     ranks = _shard_ranks_run(out_dir)
     emit(ranks)
     return {"runs": runs, "held": held, "telemetry_launches": tel,
-            "telemetry": files, "ranks": ranks}
+            "telemetry": files, "ranks": ranks, "graphs": loaded}
 
 
 def shard_kernels_line(sharded: dict) -> list[dict]:
@@ -5376,6 +5398,518 @@ def shard_kernels_line(sharded: dict) -> list[dict]:
             entry("shard_pair", "k22", "dgc_tpu/engine/fused.py:157"),
             entry("shard_finish_rec", "k21_rec", "dgc_tpu/obs/kernel.py:95",
                   launches=sharded["telemetry_launches"]["shard_finish_rec"])]
+
+
+# ---- the ring-halo engine (B13g: K23-K25) -----------------------------------
+
+# the three-rank run on one card: gloo, every rank on cuda:0, both the
+# all-gather and the ring engine (argv: the output directory, V, the CLI's
+# arguments)
+RING_RANKS = 3
+_RING_RANK_SCRIPT = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+from dgc_tpu_torch import cli
+from dgc_tpu_torch.parallel.mesh import make_mesh
+mem = {}
+for backend in ("sharded", "sharded-ring"):
+    torch.cuda.reset_peak_memory_stats()
+    rc = cli.main(sys.argv[3:] + ["--backend", backend, "--output-coloring",
+                                  f"{sys.argv[1]}/{backend}.json"])
+    if rc != 0:
+        raise SystemExit(rc)
+    mem[backend] = torch.cuda.max_memory_allocated()
+# one rotation of a rank's block of the same graph, timed on the host
+mesh = make_mesh()
+vl = -(-int(sys.argv[2]) // mesh.size)
+a = torch.zeros(vl, dtype=torch.int32, device=mesh.device)
+b = torch.empty_like(a)
+mesh.rotate(b, a)
+torch.cuda.synchronize()
+t = time.perf_counter()
+for _ in range(20):
+    mesh.rotate(b, a)
+torch.cuda.synchronize()
+print(json.dumps({"backend": dist.get_backend(), "staged": mesh.staged,
+                  "max_memory_allocated": mem,
+                  "rotate_ms": (time.perf_counter() - t) * 1e3 / 20}))
+"""
+
+
+class _RingStub(_ShardStub):
+    """Shard ``rank`` of a ring of ``size`` whose other shards hold fixed
+    words ``rest`` (global, int32[V]): the k-th rotation of a superstep
+    receives shard ``(rank − k) mod size``'s block, the reductions are
+    this shard's own. Lets one card drive shard 3 of 4 of the 1M rotation
+    tables through the ring engine's own superstep."""
+
+    def __init__(self, size: int, rank: int, device):
+        super().__init__(size, rank, device)
+        self._rot = 0
+
+    def rotate(self, dst, src) -> None:
+        self._rot = self._rot % (self.size - 1) + 1
+        o = (self.rank - self._rot) % self.size
+        vl = dst.shape[0]
+        dst.copy_(self.rest[o * vl: (o + 1) * vl])
+
+
+def _ring_bytes(engine, ctrl, block, launches, planes: int) -> int:
+    """The bytes K23/K24 must move over ``launches`` on this state: each
+    launch's real table entries, the block words they name (at most one a
+    real entry, at most the block), the packed word of each real row, and
+    the accumulator words its stats make nonzero, read and written (the
+    clash flag written only where set): counted from each launch's own
+    stats, by its plain version into zeroed accumulators."""
+    from dgc_tpu_torch.kernels import ring as kr
+
+    vl = engine.packed_l.shape[0]
+    own = kr.new_acc(planes, vl, block.device)
+    total = 0
+    for rows, table in launches:
+        real = int(((table & ((1 << 30) - 1)) != vl).sum())
+        nrows = vl if rows is None else int((rows < vl).sum())
+        own.zero_()
+        kr.ring_stats_reference(ctrl, block, engine.packed_l, table, rows,
+                                own, planes)
+        words = int((own[: 2 * planes] != 0).sum())
+        clash = int(own[2 * planes].sum())
+        total += 4 * real + 4 * min(real, vl + 1) + 4 * nrows \
+            + 8 * words + 4 * clash
+    return total
+
+
+def _ring_held_steps(engine, k: int, planes: int, words: np.ndarray,
+                     steps: int = 2) -> dict:
+    """``steps`` supersteps of ``engine`` (on a ``_RingStub`` or its own
+    mesh) from the ``words`` at a window of ``planes`` planes and budget ``k``,
+    every K23, K24, K25 and K21 launch held against its plain version."""
+    from dgc_tpu_torch.engine.fused import shard_superstep_epilogue
+    from dgc_tpu_torch.kernels import shard as ks
+
+    engine.num_planes = planes
+    ctrl = engine._start(k)
+    engine.packed_l.copy_(torch.from_numpy(words).to(engine.packed_l.device))
+    with _HeldShardKernels() as held:
+        for _ in range(steps):
+            engine._superstep(ctrl, k)
+            shard_superstep_epilogue(engine, ctrl, None)
+        torch.cuda.synchronize()
+    check(held.err == 0, f"a ring kernel disagrees with its plain version "
+                         f"at shard {engine.mesh.rank} of {engine.mesh.size}"
+                         f", {planes} planes, k={k}: max abs err {held.err} "
+                         f"({held.calls})")
+    check(int(ctrl[ks.CTRL_STEP]) > 0, f"no superstep ran: {ctrl.tolist()}")
+    return {"planes": planes, "k": k, "calls": held.calls,
+            "ctrl": ctrl.tolist()[:8]}
+
+
+def _ring_edge_cases(device) -> int:
+    """K23, K24 and K25 on seeded random blocks, tables and accumulators
+    that already hold bits: flat tables and bucket row lists with padding
+    rows, sentinel entries, 1 to 40 planes, budgets from 1 past the
+    window, fresh, confirmed and uncolored words, gated and counted fail,
+    a launch after the attempt ended. Returns the max abs error (0)."""
+    from dgc_tpu_torch.kernels import ring as kr
+    from dgc_tpu_torch.kernels import shard as ks
+
+    rng = np.random.default_rng(31)
+    err = 0
+    for case in range(120):
+        vl = int(rng.choice([1, 5, 300, 4000]))
+        planes = int(rng.choice([1, 2, 3, 5, 17, 32, 33, 40]))
+        k = int(rng.choice([1, 7, 31, 32, 33, 32 * planes, 32 * planes + 9]))
+        max_color = int(rng.choice([4, 40, 32 * planes + 40]))
+        block = _packed_words(rng, vl + 1, max_color, 0.5)
+        block[vl] = -1
+        packed = _packed_words(rng, vl, max_color, 0.5)
+        if case % 2:
+            rows = None
+            nrows = vl
+        else:
+            keep = rng.permutation(vl)[: int(rng.integers(1, vl + 1))]
+            rows = np.concatenate([keep, np.full(int(rng.integers(0, 4)), vl)])
+            rows = rng.permutation(rows).astype(np.int32)
+            nrows = len(rows)
+        width = int(rng.choice([1, 3, 32, 300, 1500]))
+        table = _combined(rng, (nrows, width), vl)
+        acc = rng.integers(-(1 << 31), 1 << 31, size=(2 * planes + 1, vl))
+        acc[2 * planes] = rng.integers(0, 2, size=vl)
+        c = [int(rng.choice([0, 0, 0, 1])), 3, 900, 2, 0,
+             int(rng.integers(0, 5)), int(rng.integers(0, 50)),
+             int(rng.integers(-1, 60))]
+        ctrl = torch.tensor(c + [-1] * (ks.SC_LEN - 8), dtype=torch.int32,
+                            device=device)
+
+        def t(x):
+            return torch.from_numpy(np.asarray(x, np.int32)).to(device)
+
+        blk, pk, tb = t(block), t(packed), t(table)
+        rw = None if rows is None else t(rows)
+        for wide in (False, True):
+            a1, a2 = t(acc), t(acc)
+            kr.ring_stats(ctrl, blk, pk, tb, rw, a1, planes, wide=wide)
+            kr.ring_stats_reference(ctrl, blk, pk, tb, rw, a2, planes)
+            err = max(err, _diff(a1, a2))
+        back = t(rng.integers(-1, 80, size=vl))
+        fv = bool(rng.integers(0, 2))
+        args = [ctrl, pk, a1, back, planes, k, fv]
+        plain = _clone(args)
+        kr.ring_apply(*args)
+        kr.ring_apply_reference(*plain)
+        err = max(err, _diff_any([ctrl, a1, back],
+                                 [plain[0], plain[2], plain[3]]))
+    torch.cuda.synchronize()
+    check(err == 0, f"K23-K25 disagree with their plain versions on random "
+                    f"inputs: max abs err {err}")
+    return err
+
+
+def _ring_world1_held(engine, k: int, bucketed: bool) -> dict:
+    """Two supersteps of the main path's own engine (world size 1: one
+    rotation over the whole flat table, or every RMAT bucket with K24 on
+    the hub rows) with every K23, K24, K25 and K21 launch held against its
+    plain version: from the carry ``_ring_timing`` left, and from seeded
+    words with colors over the whole window."""
+    rng = np.random.default_rng(23)
+    planes = engine.num_planes
+    vl = engine.packed_l.shape[0]
+    words = {"carry": engine.packed_l.cpu().numpy(),
+             "seeded": _packed_words(rng, vl, min(engine.max_degree,
+                                                  32 * planes) + 1, 0.3)}
+    steps = {name: _ring_held_steps(engine, k, planes, w)
+             for name, w in words.items()}
+    need = ["ring_stats", "ring_apply", "shard_finish"] + (
+        ["ring_stats_wide"] if bucketed else [])
+    for name, st in steps.items():
+        check(all(st["calls"].get(n, 0) > 0 for n in need),
+              f"world size 1, {name} words: held calls {st['calls']}")
+    return steps
+
+
+def phase_ring_kernels(device, graphs: dict) -> dict:
+    """K23, K24 and K25 held against their plain versions as shard 3 of 4
+    of the 1M rotation tables (``_RingStub``: the other shards' words
+    fixed): the flat layout of the uniform draw and the bucketed layout of
+    the RMAT draw (K24 on every bucket wider than ``WIDE_WIDTH``, in every
+    rotation), two supersteps from seeded words at a one-plane window and
+    at the engine's, each at the main path's budget and at 12; then
+    ``_ring_edge_cases``. Returns the calls by kernel."""
+    from dgc_tpu_torch.engine.ring import RingHaloEngine
+    from dgc_tpu_torch.kernels import ring as kr
+
+    rng = np.random.default_rng(19)
+    size, rank = HELD_SHARD
+    runs = []
+    for gen, bucketed in (("fast", False), ("rmat", True)):
+        mesh = _RingStub(size, rank, device)
+        arrays = graphs[gen]
+        engine = RingHaloEngine(arrays, mesh=mesh, device=device)
+        check(engine.bucket_tables == bucketed,
+              f"{gen}: bucket_tables {engine.bucket_tables}")
+        vl = engine.packed_l.shape[0]
+        deg = np.zeros(vl * size, np.int32)
+        deg[: arrays.num_vertices] = arrays.degrees
+        mesh.rest = _rest_words(rng, deg, device)
+        wide = [sum(1 for _, t in launches if t.shape[1] > kr.WIDE_WIDTH)
+                for launches in engine.rot]
+        k0 = engine._budget(int(arrays.max_degree) + 1)
+        steps = []
+        for planes in (1, engine.num_planes):
+            for k in (k0, 12):
+                words = _packed_words(rng, vl, min(int(arrays.max_degree),
+                                                   40) + 1, 0.3)
+                steps.append(_ring_held_steps(engine, k, planes, words))
+        calls = {}
+        for s in steps:
+            for name, n in s["calls"].items():
+                calls[name] = calls.get(name, 0) + n
+        need = ["ring_stats", "ring_apply", "shard_finish"] + (
+            ["ring_stats_wide"] if bucketed else [])
+        check(all(calls.get(n, 0) > 0 for n in need),
+              f"{gen}: held calls {calls}")
+        if bucketed:
+            check(all(wide), f"rmat: rotations without a K24 bucket {wide}")
+        runs.append({"gen": gen, "bucketed": bucketed, "calls": calls,
+                     "k24_buckets_per_rotation": wide, "steps": steps})
+        del engine
+    err = _ring_edge_cases(device)
+    return {"runs": runs, "max_abs_err": err}
+
+
+def _ring_timing(engine, k: int, steps: int = 3) -> dict:
+    """K23, K24 and K25 timed on this rank at the engine's shapes (world
+    size 1) on mid-attempt words: the carry after ``steps`` supersteps of
+    the attempt at budget ``k`` (fresh, confirmed and uncolored words;
+    the attempt still running), through every launch of rotation 0 (K23's
+    and K24's summed a superstep), then K25 from the accumulators they
+    leave. Beside each, its plain version's time and its bound (bytes over
+    the H100's 3.35 TB/s, ``_ring_bytes``; K25's reads each row's word and
+    accumulators and writes its new word)."""
+    from dgc_tpu_torch.engine.base import AttemptStatus
+    from dgc_tpu_torch.engine.fused import shard_superstep_epilogue
+    from dgc_tpu_torch.kernels import ring as kr
+    from dgc_tpu_torch.kernels import shard as ks
+
+    vl = engine.packed_l.shape[0]
+    planes = engine.num_planes
+    ctrl0 = engine._start(k)
+    for _ in range(steps):
+        engine._superstep(ctrl0, k)
+        shard_superstep_epilogue(engine, ctrl0, None)
+    c = ctrl0.tolist()
+    check(c[ks.CTRL_STATUS] == int(AttemptStatus.RUNNING)
+          and c[ks.CTRL_STEP] == steps,
+          f"the timed attempt is not running after {steps} supersteps: {c}")
+    ctrl = ctrl0.clone()
+    block = engine.blocks[0]
+    block[:vl].copy_(engine.packed_l)
+    window = 32 * planes
+    fv = window >= engine.max_degree + 1 or k <= window
+    words = engine.packed_l
+    out = {"planes": planes, "timed_after_supersteps": steps,
+           "words": {"uncolored": int((words < 0).sum()),
+                     "fresh": int(((words >= 0) & (words & 1 == 1)).sum()),
+                     "confirmed": int(((words >= 0)
+                                       & (words & 1 == 0)).sum())},
+           "launches_per_superstep": {}}
+    for name, wide in (("k23", False), ("k24", True)):
+        launches = [(r, t) for r, t in engine.rot[0]
+                    if (t.shape[1] > kr.WIDE_WIDTH) == wide]
+        if not launches:
+            continue
+
+        def stats(f=kr.ring_stats, launches=launches, wide=wide):
+            for rows, table in launches:
+                f(ctrl0, block, engine.packed_l, table, rows, engine.acc,
+                  planes, wide=wide)
+
+        kname = {"k23": "ring_stats_kernel",
+                 "k24": "ring_stats_wide_kernel"}[name]
+        out[f"{name}_ms"] = _device_ms(stats, 10, kname,
+                                       per_call=len(launches))
+        out[f"{name}_plain_ms"] = _host_ms(
+            lambda f=kr.ring_stats_reference: stats(f), reps=2)
+        b = _ring_bytes(engine, ctrl0, block, launches, planes)
+        out.update({f"{name}_bytes": b,
+                    f"{name}_bound_ms": b / HBM_BYTES_PER_S * 1e3})
+        out["launches_per_superstep"][name] = len(launches)
+    acc = engine.acc.clone()  # what the stats leave for K25
+
+    def k25(fn=kr.ring_apply):
+        ctrl.copy_(ctrl0)
+        engine.acc.copy_(acc)
+        fn(ctrl, engine.packed_l, engine.acc, engine.back, planes, k, fv)
+
+    out["k25_ms"] = _device_ms(k25, 20, "ring_apply_kernel")
+    out["k25_plain_ms"] = _host_ms(lambda: k25(kr.ring_apply_reference),
+                                   reps=3)
+    k25_bytes = 4 * vl * (2 + 2 * planes + 1)
+    out.update(k25_bytes=k25_bytes,
+               k25_bound_ms=k25_bytes / HBM_BYTES_PER_S * 1e3)
+    engine.acc.zero_()
+    return out
+
+
+def _ring_ranks_run(out_dir: Path) -> dict:
+    """``SHARD_RANKS_ARGS`` through the CLI at three gloo ranks, all on
+    cuda:0 (children started as ``torchrun`` starts them), ``sharded`` and
+    ``sharded-ring``: each rank's coloring JSON equal to the world-size-1
+    run's under NCCL (``sharded``'s from ``_shard_ranks_run``,
+    ``sharded-ring``'s here), each rank's peak memory a backend, and one
+    rotation's host time. At world size 1 a ring sends nothing, so this
+    is the only run where the card's tensors go through
+    ``VertexMesh.rotate`` (the staged route: gloo's point-to-point takes
+    no card tensor)."""
+    import os
+    import socket
+
+    from dgc_tpu_torch import cli
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    v = int(SHARD_RANKS_ARGS[SHARD_RANKS_ARGS.index("--node-count") + 1])
+    procs = []
+    t = time.perf_counter()
+    for rank in range(RING_RANKS):
+        d = out_dir / f"ring-ranks-{rank}"
+        d.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE=str(RING_RANKS), MASTER_ADDR="127.0.0.1",
+                   LOCAL_WORLD_SIZE=str(RING_RANKS), MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RING_RANK_SCRIPT, str(d), str(v),
+             *SHARD_RANKS_ARGS],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    one = out_dir / "ranks-world1"
+    check(cli.main(SHARD_RANKS_ARGS + [
+        "--backend", "sharded-ring", "--output-coloring",
+        str(one / "sharded-ring.json")]) == 0, "sharded-ring: world size 1")
+    check(filecmp.cmp(one / "sharded-ring.json", one / "sharded.json",
+                      shallow=False),
+          "sharded-ring's world-size-1 coloring differs from sharded's")
+    outs = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise SmokeFailure("the three-rank run did not end in 600 s")
+        outs.append((p.returncode, so, se))
+    wall = time.perf_counter() - t
+    per_rank = []
+    for rank, (rc, so, se) in enumerate(outs):
+        check(rc == 0, f"rank {rank} of the three-rank run exited {rc}: "
+                       f"{se.strip().splitlines()[-3:]}")
+        info = json.loads(so.strip().splitlines()[-1])
+        check(info["backend"] == "gloo" and info["staged"],
+              f"rank {rank}: {info}")
+        for backend in ("sharded", "sharded-ring"):
+            check(filecmp.cmp(out_dir / f"ring-ranks-{rank}" /
+                              f"{backend}.json", one / f"{backend}.json",
+                              shallow=False),
+                  f"rank {rank}'s {backend} coloring differs from the "
+                  f"world-size-1 run's")
+        per_rank.append(info)
+    return {"phase": "ring_three_ranks", "graph": " ".join(SHARD_RANKS_ARGS),
+            "backend": "gloo on cuda:0 (staged rotations)", "wall_s": wall,
+            "ranks": per_rank,
+            "attempt_lines": [line for line in outs[0][1].splitlines()
+                              if line.startswith("attempt:")]}
+
+
+def phase_ring_main(card: str, out_dir: Path, main_runs: dict,
+                    rmat_runs: dict, graphs: dict) -> dict:
+    """``sharded-ring`` through the CLI's calls at world size 1 under
+    NCCL: the flat layout on the 1M uniform draw, the bucketed one on the
+    1M RMAT draw (``graphs``: the two draws, ``cli.load_graph``'s, by
+    ``--gen-method``). The launch counts are zeroed just before each sweep and
+    read just after, and each must launch every kernel of its path (K23,
+    K25, K21, K22; K24 on RMAT); the coloring JSON and the attempts must
+    be ``ell``'s (``ell-bucketed``'s) on the same draw. Then K23-K25 timed
+    (``_ring_timing``), two supersteps of the same engine with every
+    launch held (``_ring_world1_held``), the held supersteps at shard 3 of 4
+    (``phase_ring_kernels``), a telemetry run (``--run-manifest``: K21's
+    recording variant) and the three-rank gloo run (``_ring_ranks_run``).
+    At world size 1 a ring sends nothing (one rotation, no call), so the
+    three-rank run is the only place the card's tensors go through
+    ``VertexMesh.rotate``."""
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import ring as kr
+    from dgc_tpu_torch.kernels import shard as ks
+
+    runs = {}
+    for argv, bucketed, ref_name in ((MAIN_ARGS, False, "ell"),
+                                     (RMAT_ARGS, True, "ell-bucketed")):
+        args = cli.build_parser().parse_args(
+            argv + ["--output-coloring", str(out_dir / "coloring.json"),
+                    "--backend", "sharded-ring"])
+        graph = graphs[args.gen_method]  # phase_sharded_main's draw
+        t = time.perf_counter()
+        engine = cli.make_engine(args, graph)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        check(engine.bucket_tables == bucketed,
+              f"{args.gen_method}: bucket_tables {engine.bucket_tables}")
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (ks, kr):
+            mod.reset_launch_counts()
+        timed = _TimedSweepEngine(engine)
+        result = cli.sweep(args, graph, timed)
+        torch.cuda.synchronize()
+        launches = _shard_kernels(ks) | dict(kr.launch_counts)
+        ref = (main_runs if args.gen_method == "fast" else rmat_runs)[ref_name]
+        path = out_dir / f"coloring-{args.gen_method}-sharded-ring.json"
+        graph.save_coloring(str(path), result.colors)
+        check(filecmp.cmp(path, out_dir / f"coloring-{args.gen_method}-"
+                                          f"{ref_name}.json", shallow=False),
+              f"sharded-ring on {args.gen_method}: the coloring JSON "
+              f"differs from {ref_name}'s")
+        attempts = [[a.k, a.status.name, a.supersteps, a.colors_used]
+                    for a in result.attempts]
+        check(attempts == [list(a) for a in ref["attempts"]],
+              f"sharded-ring: attempts {attempts}, {ref_name} "
+              f"{ref['attempts']}")
+        need = ["ring_stats", "ring_apply", "shard_finish", "shard_pair"] + (
+            ["ring_stats_wide"] if bucketed else [])
+        check(all(launches[n] > 0 for n in need),
+              f"sharded-ring {args.gen_method}: the sweep skipped a kernel "
+              f"of its path: {launches}")
+        rec = {"phase": "ring_main", "backend": "sharded-ring",
+               "graph": " ".join(argv), "bucket_tables": bucketed,
+               "engine_build_s": build_s,
+               "sweep_s": result.wall_time_s - result.post_reduce_s,
+               "attempt_s": timed.seconds,
+               "supersteps": result.total_supersteps,
+               "attempts": attempts, "launches": launches,
+               "colors_after_post_pass": result.minimal_colors,
+               "ell_sweep_s": ref["sweep_s"],
+               "confirm_resumed_from_step": engine.resumed_from_step,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "card": card}
+        k0 = engine._budget(graph.initial_k())
+        rec.update(_ring_timing(engine, k0))
+        rec["held"] = _ring_world1_held(engine, k0, bucketed)
+        emit(rec)
+        runs[args.gen_method] = rec
+        del engine, timed
+    t = time.perf_counter()
+    held = phase_ring_kernels("cuda", {g: graph.arrays
+                                       for g, graph in graphs.items()})
+    emit({"phase": "ring_kernels_vs_plain", **held,
+          "seconds": time.perf_counter() - t})
+    # telemetry on: K21's recording variant, the coloring unchanged
+    d = out_dir / "ring-telemetry"
+    d.mkdir(parents=True, exist_ok=True)
+    for mod in (ks, kr):
+        mod.reset_launch_counts()
+    rc = cli.main(MAIN_ARGS + ["--backend", "sharded-ring",
+                               "--output-coloring", str(d / "colors.json"),
+                               "--log-json", str(d / "run.jsonl"),
+                               "--run-manifest", str(d / "manifest.json"),
+                               "--metrics-prom", str(d / "metrics.prom")])
+    torch.cuda.synchronize()
+    tel = _shard_kernels(ks) | dict(kr.launch_counts)
+    check(rc == 0 and tel["shard_finish_rec"] > 0
+          and tel["shard_finish"] == 0 and tel["ring_stats"] > 0
+          and tel["ring_apply"] > 0, f"telemetry run: rc {rc}, {tel}")
+    check(filecmp.cmp(d / "colors.json",
+                      out_dir / "coloring-fast-sharded-ring.json",
+                      shallow=False), "telemetry on changed the coloring")
+    files = _check_telemetry_files("sharded-ring", d, False)
+    ranks = _ring_ranks_run(out_dir)
+    emit(ranks)
+    return {"runs": runs, "held": held, "telemetry_launches": tel,
+            "telemetry": files, "ranks": ranks}
+
+
+def ring_kernels_line(ring: dict) -> list[dict]:
+    """K23-K25: launches on the 1M uniform ``sharded-ring`` sweep (K24 on
+    the 1M RMAT one; the other run's beside), time, plain time and bound
+    at that path's shapes."""
+    src = "dgc_tpu_torch/csrc/ring.cu"
+    err = ring["held"]["max_abs_err"]
+
+    def entry(name, key, gen, replaces):
+        run = ring["runs"][gen]
+        other = ring["runs"]["rmat" if gen == "fast" else "fast"]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": run["launches"][name],
+                "launches_other": {"rmat" if gen == "fast" else "fast":
+                                   other["launches"][name]},
+                "max_abs_err": err, "ms": run[f"{key}_ms"],
+                "plain_ms": run[f"{key}_plain_ms"],
+                "bound_ms": run[f"{key}_bound_ms"], "bound_by": "bytes",
+                "library_ms": None}
+
+    return [entry("ring_stats", "k23", "fast", "dgc_tpu/engine/ring.py:303"),
+            entry("ring_stats_wide", "k24", "rmat",
+                  "dgc_tpu/engine/ring.py:355"),
+            entry("ring_apply", "k25", "fast", "dgc_tpu/engine/ring.py:310")]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -5449,6 +5983,10 @@ def main(argv: list[str] | None = None) -> int:
         sharded = phase_sharded_main(card, out_dir, main_runs, rmat_runs)
         emit({"phase": "sharded_main_done",
               "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        ring = phase_ring_main(card, out_dir, main_runs, rmat_runs,
+                               sharded.pop("graphs"))
+        emit({"phase": "ring_main_done", "seconds": time.perf_counter() - t})
         telemetry = phase_telemetry_main(card, out_dir)
         dense_runs = phase_dense_main(card, out_dir, dense_cpu.result())
         t = time.perf_counter()
@@ -5479,7 +6017,8 @@ def main(argv: list[str] | None = None) -> int:
                                    tel_err)
           + serve_kernels_line(serve, serve_err)
           + carry_kernels_line(serve, spec, carry, carry_err, serve_err)
-          + shard_kernels_line(sharded)})
+          + shard_kernels_line(sharded)
+          + ring_kernels_line(ring)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

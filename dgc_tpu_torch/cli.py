@@ -39,17 +39,18 @@ with a note on stderr, as ``dgc_tpu.cli``.
 
 ``--backend sharded`` and ``sharded-bucketed`` (``--shards N``, default:
 every rank) run the vertex-sharded all-gather engines over
-``torch.distributed``: a plain run is a one-rank mesh, and under
-``torchrun`` every rank runs the whole CLI as one shard of the mesh (NCCL
-on the card, gloo with ``--device cpu``), writing the same outputs as
-every process of ``dgc_tpu.cli`` does. Not ported: ``--backend
-sharded-ring`` and ``--reshard-on-loss`` (refused with rc 2 and a note),
-tuned configs, the profiler windows and flight recorder, and the other
-resilience flags (ROADMAP).
+``torch.distributed``, and ``--backend sharded-ring`` the ring-halo engine
+(the blocks passed around the ranks by point-to-point, O(V/n) state a
+rank): a plain run is a one-rank mesh, and under ``torchrun`` every rank
+runs the whole CLI as one shard of the mesh (NCCL on the card, gloo with
+``--device cpu``), writing the same outputs as every process of
+``dgc_tpu.cli`` does. Not ported: ``--reshard-on-loss`` (refused with rc 2
+and a note), tuned configs, the profiler windows and flight recorder, and
+the other resilience flags (ROADMAP).
 
     python -m dgc_tpu_torch --node-count 1000 --max-degree 10 --seed 42 \\
         --output-coloring colors.json [--backend ell-compact] [--device cpu] \\
-        [--backend sharded-bucketed --shards 2] \\
+        [--backend sharded-bucketed|sharded-ring --shards 2] \\
         [--log-json run.jsonl --run-manifest run.json \\
          --metrics-prom run.prom --superstep-timing] \\
         [--strict-decrement --speculate-k 3]
@@ -78,11 +79,9 @@ from dgc_tpu_torch.obs import (MetricsRegistry, ObservedEngine,
                                PhaseCollector, RunLogger, RunManifest)
 
 BACKENDS = ("ell-compact", "ell-bucketed", "ell", "dense", "sharded",
-            "sharded-bucketed", "reference-sim", "oracle")
+            "sharded-bucketed", "sharded-ring", "reference-sim", "oracle")
 # the multi-device backends (one rank of the process group per device)
-SHARDED_BACKENDS = ("sharded", "sharded-bucketed")
-# dgc_tpu.cli's backends and flags this CLI names but refuses (ROADMAP)
-UNPORTED_BACKENDS = ("sharded-ring",)
+SHARDED_BACKENDS = ("sharded", "sharded-bucketed", "sharded-ring")
 # the host backends are the reference's semantics: their count is the
 # parity target, so the post-pass never touches it
 HOST_BACKENDS = ("reference-sim", "oracle")
@@ -115,11 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="reference",
                    help="random generator: reference semantics, vectorized "
                         "large-V, or RMAT")
-    p.add_argument("--backend", choices=list(BACKENDS + UNPORTED_BACKENDS),
+    p.add_argument("--backend", choices=list(BACKENDS),
                    default="ell-compact",
                    help="coloring engine (default: ell-compact, the staged "
-                        "frontier-compacted engine; sharded-ring is not "
-                        "ported yet)")
+                        "frontier-compacted engine)")
     p.add_argument("--shards", type=int, default=None,
                    help="sharded backends: number of devices, one rank each "
                         "(default: every rank of the process group)")
@@ -296,6 +294,11 @@ def make_engine(args, graph: Graph):
 
         return ShardedBucketedEngine(graph.arrays, num_shards=args.shards,
                                      device=args.device)
+    if args.backend == "sharded-ring":
+        from dgc_tpu_torch.engine.ring import RingHaloEngine
+
+        return RingHaloEngine(graph.arrays, num_shards=args.shards,
+                              device=args.device)
     if args.backend == "ell":
         from dgc_tpu_torch.engine.superstep import ELLEngine
 
@@ -410,12 +413,9 @@ def main(argv: list[str] | None = None) -> int:
     t_start = time.perf_counter()
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = ("--reshard-on-loss" if args.reshard_on_loss else
-               f"--backend {args.backend}"
-               if args.backend in UNPORTED_BACKENDS else None)
-    if refused:  # exits 2 with the note, as argparse refuses a flag
-        parser.error(f"{refused}: not yet ported to dgc_tpu_torch "
-                     f"(see ROADMAP.md)")
+    if args.reshard_on_loss:  # exits 2 with the note, as argparse refuses
+        parser.error("--reshard-on-loss: not yet ported to dgc_tpu_torch "
+                     "(see ROADMAP.md)")
     if args.input is None and (args.node_count is None or args.max_degree is None):
         print("Either --input or both --node-count and --max-degree are required",
               file=sys.stderr)

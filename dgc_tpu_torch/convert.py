@@ -14,12 +14,14 @@ import torch
 from dgc_tpu_torch.engine.bucketed import MAX_WINDOW_PLANES, BucketedELLEngine
 from dgc_tpu_torch.engine.compact import CompactFrontierEngine
 from dgc_tpu_torch.engine.dense_engine import DenseEngine
+from dgc_tpu_torch.engine.ring import RingHaloEngine
 from dgc_tpu_torch.engine.sharded import ShardedELLEngine
 from dgc_tpu_torch.engine.sharded_bucketed import (ShardedBucketedEngine,
                                                    ShardedBucketLayout)
 from dgc_tpu_torch.engine.superstep import ELLEngine
 from dgc_tpu_torch.kernels.dense import padded_size
 from dgc_tpu_torch.models.arrays import GraphArrays
+from dgc_tpu_torch.ops.speculative import encode_combined
 from dgc_tpu_torch.parallel.mesh import make_mesh
 
 
@@ -151,4 +153,39 @@ def sharded_bucketed_engine_from_tables(
     eng.mesh = mesh if mesh is not None else make_mesh(device=device)
     eng._setup(lay, tuple(pads), tuple(prune_cfg), max_window_planes,
                int(max_steps))
+    return eng
+
+
+def ring_engine_from_tables(degrees, num_vertices: int, max_steps: int,
+                            tables=None, beats=None, rot_buckets=None,
+                            max_window_planes: int = 32, mesh=None,
+                            device="cuda") -> RingHaloEngine:
+    """``RingHaloEngine.deg_l`` (the padded degrees, whole), ``.v_true``
+    and ``.max_steps``, with its flat ``.tables`` and ``.beats`` (one
+    [V, W_r] table and mask a rotation) or its bucketed ``.rot_buckets``
+    (a list a rotation of ``(rows [n, P], combined [n, P, W])``) → the
+    port's ``RingHaloEngine`` over the same tables, on ``mesh`` (default:
+    ``make_mesh(device=device)``), which must have as many ranks as the
+    tables have rotations (the tables depend on the shard count)."""
+    eng = RingHaloEngine.__new__(RingHaloEngine)
+    eng.mesh = mesh if mesh is not None else make_mesh(device=device)
+    n, s = eng.mesh.size, eng.mesh.rank
+    degrees = np.asarray(degrees, np.int32)
+    bucketed = rot_buckets is not None
+    rotations = len(rot_buckets) if bucketed else len(tables)
+    if rotations != n or len(degrees) % n:
+        raise ValueError(f"tables of {rotations} rotations over "
+                         f"{len(degrees)} rows do not fit {n} ranks")
+    vl = len(degrees) // n
+    blk = slice(s * vl, (s + 1) * vl)
+    if bucketed:
+        rot = [[(np.asarray(rows)[s], np.asarray(comb)[s])
+                for rows, comb in bl] for bl in rot_buckets]
+    else:
+        rot = [[(None, encode_combined(np.asarray(t, np.int32)[blk],
+                                       np.asarray(b, bool)[blk]))]
+               for t, b in zip(tables, beats)]
+    eng._setup(rot, degrees[blk], int(num_vertices), len(degrees),
+               int(degrees.max()) if len(degrees) else 0, bucketed,
+               int(max_steps), max_window_planes)
     return eng

@@ -6,10 +6,13 @@ a ``while_loop`` of all-gather, per-shard rule, psum/pmax and epilogue.
 Here the host drives the same loop on every rank, ``SHARD_CHUNK``
 supersteps between reads of the replicated control block, each superstep
 
-1. the all-gather of every shard's carry into buffer 0 of the state
-   (``mesh.all_gather``);
+1. the engine's exchange (``engine._exchange``): for the all-gather
+   engines the all-gather of every shard's carry into buffer 0 of the
+   state (``mesh.all_gather``); the ring engine's rotations run inside its
+   superstep instead;
 2. the engine's rule kernels on its rows (``engine._superstep``: K20, or
-   K5/K7/K8 over the bucket slices), counters into the control block;
+   K5/K7/K8 over the bucket slices, or the ring's K23/K24 per rotation and
+   K25), counters into the control block;
 3. one ``all_reduce(SUM)`` over [fail, active] and one ``all_reduce(MAX)``
    over [mc, gc, maxc] (``shard_superstep_epilogue``);
 4. K21 (``kernels.shard.shard_finish``): ring push, carry, status.
@@ -18,9 +21,10 @@ Every decision (the loop's end, the ring push, the pair's confirm) reads
 reduced values, so every rank enqueues the same collectives in the same
 order and the per-shard ring slices assemble a consistent global state.
 
-An engine of this loop (``engine.sharded``, ``engine.sharded_bucketed``)
-provides ``mesh``, ``state`` (``kernels.shard.new_shard_state``),
-``packed_l`` and ``back`` (its carry and its rows of buffer 1), ``p1``
+An engine of this loop (``engine.sharded``, ``engine.sharded_bucketed``,
+``engine.ring``) provides ``mesh``, ``packed_l`` and ``back`` (its carry
+and its new words; for the all-gather engines ``back`` is its rows of
+buffer 1 of ``state``, ``kernels.shard.new_shard_state``), ``p1``
 (phase 0's result slot), ``deg_l``, ``live``/``nh``/``init_ba`` (the live
 table of its conditioned buckets, or None/0/None), ``gc_const``,
 ``init_word``/``init_step``/``init_prev`` (its scratch start),
@@ -93,11 +97,10 @@ def run_pipeline(engine, k: int, ctrl, ring=None, traj=None) -> list:
     when given; returns the control block read at the end. On the card the
     supersteps go in chunks of ``SHARD_CHUNK`` (those past the end change
     nothing); on the CPU the loop stops at the end."""
-    gathered = engine.state[0, : engine.state.shape[1] - 2]
     on_cpu = ctrl.device.type == "cpu"
     while True:
         for _ in range(SHARD_CHUNK):
-            engine.mesh.all_gather(gathered, engine.packed_l)
+            engine._exchange()
             engine._superstep(ctrl, k)
             shard_superstep_epilogue(engine, ctrl, ring, traj)
             if on_cpu and int(ctrl[CTRL_STATUS]) != _RUNNING:
@@ -147,6 +150,12 @@ class ShardEngine:
 
     record_trajectory = False
     resumed_from_step = None
+
+    def _exchange(self) -> None:
+        """The superstep's exchange before the rule kernels: every shard's
+        carry all-gathered into buffer 0 of ``state``."""
+        self.mesh.all_gather(self.state[0, : self.state.shape[1] - 2],
+                             self.packed_l)
 
     def _traj(self):
         if not self.record_trajectory:

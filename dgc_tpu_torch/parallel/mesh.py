@@ -4,7 +4,8 @@ A mesh is the process group of ``torch.distributed``: each rank is one
 device of the 1-D vertex mesh and owns the contiguous block
 ``[rank·V/n, (rank+1)·V/n)`` of a vertex axis padded to a multiple of
 ``n``. Exchange is the group's collectives on device tensors: NCCL for
-tensors on a card, gloo for tensors on the CPU (``group_backend``). With no
+tensors on a card, gloo for tensors on the CPU (``group_backend``), and
+the ring's point-to-point rotation (``VertexMesh.rotate``). With no
 group initialized (no launcher), ``make_mesh`` initializes a one-rank group
 itself over an in-memory store, so a plain run of a sharded engine needs
 no launcher; ``parallel.multihost`` initializes a group of many ranks from
@@ -73,13 +74,17 @@ def local_device(device="cuda") -> torch.device:
 class VertexMesh:
     """The 1-D vertex mesh of the default process group, seen from this
     rank: its ``size`` (the mesh's devices), ``rank`` (this shard) and
-    ``device`` (where its tensors live)."""
+    ``device`` (where its tensors live). ``staged``: the group is gloo and
+    the tensors are on a card, so ``rotate`` goes through host buffers."""
 
-    def __init__(self, size: int, rank: int, device: torch.device):
+    def __init__(self, size: int, rank: int, device: torch.device,
+                 staged: bool = False):
         self.size = size
         self.rank = rank
         self.device = device
+        self.staged = staged
         self.shape = {VERTEX_AXIS: size}
+        self._host = None  # rotate's pinned send and receive buffers
 
     def block(self, n: int) -> slice:
         """This rank's rows of a vertex axis of ``n`` rows (a multiple of
@@ -95,6 +100,32 @@ class VertexMesh:
         """``t`` reduced in place over the ranks (``op``: sum or max)."""
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX}[op])
+
+    def rotate(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """One step of the ring (``dgc_tpu``'s ``ppermute`` to ``i + 1``):
+        ``src`` goes to rank ``(rank + 1) % n`` and ``dst`` receives rank
+        ``(rank − 1) % n``'s, by ``torch.distributed.batch_isend_irecv``;
+        at n = 1 there is nothing to send and no call is made. On NCCL the
+        transfer is ordered on the card's stream and the host does not
+        wait. gloo's point-to-point does not take card tensors (a send of
+        one never completes), so on the ``staged`` route (a gloo group,
+        tensors on a card: several ranks sharing one card) the words go
+        through pinned host buffers and the host waits for them."""
+        if self.size == 1:
+            return
+        send, recv = src, dst
+        if self.staged:
+            if self._host is None or self._host.shape[1] != src.shape[0]:
+                self._host = torch.empty((2, src.shape[0]), dtype=src.dtype,
+                                         pin_memory=True)
+            send, recv = self._host
+            send.copy_(src)  # waits for the card's work up to here
+        ops = [dist.P2POp(dist.isend, send, (self.rank + 1) % self.size),
+               dist.P2POp(dist.irecv, recv, (self.rank - 1) % self.size)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if self.staged:
+            dst.copy_(recv)
 
     def fetch_global(self, local: torch.Tensor) -> np.ndarray:
         """The vertex-sharded tensor whose block on this rank is ``local``,
@@ -133,7 +164,8 @@ def make_mesh(num_devices: int | None = None, device="cuda") -> VertexMesh:
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
         init_group(store=dist.HashStore(), rank=0, world_size=1)
-    mesh = VertexMesh(size, dist.get_rank(), dev)
+    mesh = VertexMesh(size, dist.get_rank(), dev, staged=dev.type == "cuda"
+                      and "nccl" not in str(dist.get_backend()))
     # one collective on the mesh's device, so that the backend's lazy
     # set-up (NCCL's communicator) falls in the engine's build and not in
     # its first superstep

@@ -174,9 +174,9 @@ def test_cli_exit_codes(tmp_path, capsys):
         '[{"id": 0, "neighbors": [0], "color": -1}]')  # a self loop
     assert tcli.main(["--input", str(tmp_path / "g.json"), "--device", "cpu",
                       "--output-coloring", str(tmp_path / "x.json")]) == 2
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["--output-coloring", out, "--backend", "sharded-ring"])
-    assert e.value.code == 2
+    assert tcli.build_parser().parse_args(
+        ["--output-coloring", out, "--backend", "sharded-ring"]
+    ).backend == "sharded-ring"
     assert tcli.build_parser().parse_args(
         ["--output-coloring", out]).backend == "ell-compact"
     assert tcli.build_parser().parse_args(

@@ -148,6 +148,8 @@ VERBATIM_FUNCTIONS = (
     ("engine/sharded_bucketed.py", "shard_prune_cfg"),
     ("engine/sharded_bucketed.py", "shard_pad_for"),
     ("parallel/mesh.py", "pad_to_multiple"),
+    ("engine/ring.py", "build_rotation_tables"),
+    ("engine/ring.py", "flat_rotation_entries"),
 )
 
 
@@ -165,3 +167,20 @@ def _function_source(path: Path, name: str) -> str:
 def test_verbatim_functions_equal_their_originals(rel, name):
     assert _function_source(PORT / rel, name) == \
         _function_source(ROOT / "dgc_tpu" / rel, name)
+
+
+# functions the port copies with the package name alone changed
+# (``dgc_tpu_torch`` where the original imports from ``dgc_tpu``)
+RENAMED_FUNCTIONS = (
+    ("engine/ring.py", "build_bucketed_rotation_tables"),
+)
+
+
+@pytest.mark.parametrize("rel,name", RENAMED_FUNCTIONS,
+                         ids=[n for _r, n in RENAMED_FUNCTIONS])
+def test_renamed_functions_equal_their_originals(rel, name):
+    copy = _function_source(PORT / rel, name)
+    original = _function_source(ROOT / "dgc_tpu" / rel, name)
+    assert "dgc_tpu_torch" not in original
+    assert "dgc_tpu_torch" in copy
+    assert copy.replace("dgc_tpu_torch", "dgc_tpu") == original

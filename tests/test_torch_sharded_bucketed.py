@@ -282,7 +282,8 @@ def test_cli_equals_jax_cli(ranks, tmp_path, capsys):
         assert re.findall(r"Minimal number of colors: \d+", out) == count
 
 
-@pytest.mark.parametrize("argv", [["--backend", "sharded-ring"],
+@pytest.mark.parametrize("argv", [["--backend", "sharded-ring",
+                                   "--reshard-on-loss"],
                                   ["--backend", "sharded-bucketed",
                                    "--reshard-on-loss"]])
 def test_cli_refuses_the_unported(tmp_path, capsys, argv):

@@ -11,7 +11,10 @@ sends one case to every rank and returns their results in rank order:
 - ``{"kind": "engine", "backend": ..., "graph": path of an .npz with
   indptr and indices, "kw": engine kwargs, "calls": [["attempt", k] |
   ["sweep", k0], ...]}`` → per call, ``(status, supersteps, k, colors)``
-  (a sweep: the pair, the second None when no confirm ran);
+  (a sweep: the pair, the second None when no confirm ran); with
+  ``"trajectory": true`` each result also ends in its trajectory's
+  columns, and with ``"tensor_rows": true`` the list ends in the longest
+  axis of any tensor the engine holds;
 - ``{"kind": "cli", "argv": [...]}`` → ``(rc, stdout, stderr)`` of
   ``dgc_tpu_torch.cli.main``, every ``{rank}`` in the argv replaced by the
   rank (each rank its own output paths); an exception ends it with rc 1
@@ -118,18 +121,48 @@ def _engine_case(case: dict):
     arrays = graph_from_numpy(g["indptr"], g["indices"])
     if case["backend"] == "sharded":
         from dgc_tpu_torch.engine.sharded import ShardedELLEngine as Engine
+    elif case["backend"] == "sharded-ring":
+        from dgc_tpu_torch.engine.ring import RingHaloEngine as Engine
     else:
         from dgc_tpu_torch.engine.sharded_bucketed import \
             ShardedBucketedEngine as Engine
     eng = Engine(arrays, device="cpu", **case.get("kw", {}))
+    eng.record_trajectory = bool(case.get("trajectory"))
     out = []
     for name, k in case["calls"]:
         if name == "attempt":
-            out.append(_result(eng.attempt(k)))
+            res = eng.attempt(k)
+            out.append(_result(res) + _traj(res))
         else:
-            first, second = eng.sweep(k)
-            out.append((_result(first), _result(second)))
+            pair = eng.sweep(k)
+            out.append(tuple(None if r is None else _result(r) + _traj(r)
+                             for r in pair))
+    if case.get("tensor_rows"):  # the longest axis of any engine tensor
+        out.append(max(max(t.shape, default=1) for t in _tensors(eng)))
     return out
+
+
+def _traj(res) -> tuple:
+    """The trajectory's columns, when one was recorded."""
+    t = res.trajectory
+    if t is None:
+        return ()
+    return ((t.first_step, t.truncated)
+            + tuple(getattr(t, c) for c in ("active", "fail", "mc",
+                                             "gather_calls", "max_unconf")),)
+
+
+def _tensors(obj):
+    """Every tensor an engine holds, in attributes and nested tuples."""
+    import torch
+
+    stack = list(vars(obj).values())
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            stack.extend(x)
 
 
 def _cli_case(case: dict, rank: int):
