@@ -1,6 +1,8 @@
 """Drive the PyTorch port (``dgc_tpu_torch``) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # one card: every phase below
+    python3 chip_smoke.py --mesh-cards    # two cards or more: the lane
+                                          # mesh across them alone (5.)
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -49,6 +51,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    2, 8 and 32 lanes: seats of one lane and of every lane (one twice),
    permutes keeping no, some and all lanes in random order at the same
    width, ×2 and ÷4, resizes ×2 and ÷4 with sources past the old width.
+   The lane mesh's kernels (B12g): the partial K16/K15 and K26 on meshes
+   of 2, 4 and 8 slots on cuda:0 (lanes of widths 8 and 64, staged or
+   not, the clock and the speculation vectors on in some, the last shard
+   all dead lanes), every shard's buffers compared after every launch;
+   the sharded seat (K17 a shard), permute and resize (the mesh K18/K19)
+   growing, keeping and shrinking, kept lanes crossing shards, against
+   the same twins on CPU slots.
 2. Engines vs the CPU: ``ell-compact``, ``ell-bucketed`` and ``ell`` on a
    20k-vertex uniform graph (and ``ell-compact`` at ``flat_cap=4``: the
    hub ladder's ``compact`` branch), ``ell-compact`` on a 20k RMAT graph
@@ -191,13 +200,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--speculate-k auto``: the coloring JSON and attempt tuples equal
    across them, the speculative arms launching K13-K17 and the armed
    K15/K16; and K17-K19 held and timed at the serving class
-   (``measure_carry``).
+   (``measure_carry``). Then the lane mesh (``phase_mesh_main``): the
+   drawn-once stream through the front end over 2 and 4 lane slots on
+   cuda:0 (``lane_mesh_over``), continuous with and without the device
+   carry, sync at 2, beside the unsharded run: every request equal to the
+   single-graph loop's, K26 and the partial K15/K16 launched on every
+   mesh run, the mesh K18/K19 on the device-carry ones; a device loss at
+   4 slots (the ``mesh`` fault point) degrading to 2, and a restore to 4;
+   at the serving class (``measure_mesh``) the 8 uniform 20k requests of
+   a batch swept over 4 slots of 2 lanes (in the main path's priced
+   slices, the clock off and on, and in slices of 7 that the budget cuts)
+   and over 2 slots of 4 (whole, as sync mode runs it), every partial K16/K15, K13, K14 and K26 launch held
+   exact against its plain version, each K26 on the partial words its
+   shards just wrote; K26 and the mesh K18/K19 timed there.
 4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
    degree 16) from k = 465, about 450 attempts, and its jump sweep,
    blocked on the card at 2 and 4 a block against the CPU sequential
    runs (computed in a child process on one core while phases 1-3 run);
    the strict chain killed at a block boundary and resumed from its
    checkpoint on the card must equal the uninterrupted one.
+5. Only with ``--mesh-cards`` (and then alone): the lane mesh with one
+   slot on each card of the host (``phase_mesh_cards``): peer access,
+   K26 reaching the other cards' control blocks, the events ordering each
+   round and each resize's gathers. The held sweeps of phase 3 with shard
+   i on card i mod the count, then the drawn-once stream over every card
+   (continuous with and without the device carry, and sync) beside the
+   unsharded run, every request equal to the single-graph loop's.
 
 Output: one JSON line per phase and per phase-3 run, the script's total
 seconds (``{"phase": "total"}``), the card's name and
@@ -264,11 +292,16 @@ def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
+def card_lines() -> str:
+    """Every card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def card_line() -> str:
+    return card_lines().splitlines()[0]
 
 
 # ---- phase 1: kernels vs plain ----------------------------------------------
@@ -3392,7 +3425,7 @@ def phase_carry_kernels(device) -> int:
             torch.cuda.synchronize()
     check(worst == 0, f"the carry kernels differ from their plain versions "
           f"by {worst} over {cases} cases")
-    check(all(v_ > 0 for v_ in kcar.launch_counts.values()),
+    check(all(kcar.launch_counts[k_] > 0 for k_ in _CARRY_KERNELS),
           f"a carry kernel never launched: {kcar.launch_counts}")
     return worst
 
@@ -3685,8 +3718,8 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
             rc = serve_main(argv)
             wall = time.perf_counter() - t
         torch.cuda.synchronize()
-        launches = dict(ks.launch_counts)
-        carry_launches = dict(kcar.launch_counts)
+        launches = {k_: ks.launch_counts[k_] for k_ in _SERVE_KERNELS}
+        carry_launches = {k_: kcar.launch_counts[k_] for k_ in _CARRY_KERNELS}
         timing_launches = dict(ks.timing_launch_counts)
         fallback_launches = {**kc.launch_counts, **kh.launch_counts,
                              **kss.launch_counts}
@@ -3791,7 +3824,8 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
     fronts = _serve_front_runs(card, ref, classes, device)
     meas = measure_serve(card, [g for rid, g in ref["graphs"].items()
                                 if rid.startswith("u")], device)
-    return {"runs": runs, "fronts": fronts, "measure": meas}
+    return {"runs": runs, "fronts": fronts, "measure": meas, "ref": ref,
+            "classes": classes}
 
 
 # bench.py's serve-throughput measurement (dgc_tpu's bench.py:184-240):
@@ -3845,10 +3879,10 @@ def _serve_front_runs(card: str, ref: dict, classes: dict,
                   f"{res.attempts} vs {want['minimal_colors']} "
                   f"{want['attempts']}")
         check(not front.health()["degraded"], f"{name}: degraded")
-        launches = dict(ks.launch_counts)
+        launches = {k_: ks.launch_counts[k_] for k_ in _SERVE_KERNELS}
         check(all(v > 0 for v in launches.values()),
               f"{name}: a serve kernel never launched: {launches}")
-        carry_launches = dict(kcar.launch_counts)
+        carry_launches = {k_: kcar.launch_counts[k_] for k_ in _CARRY_KERNELS}
         check(all((v > 0) == carry for v in carry_launches.values()),
               f"{name}: carry launches {carry_launches}")
         sst = front.scheduler.stats_snapshot()
@@ -3945,6 +3979,8 @@ def _serve_bytes(L, kind: str, before: dict) -> int:
 
 _SERVE_KERNELS = ("lane_reset", "lane_compact", "lane_superstep",
                   "lane_finish")
+# the unsharded pool's K17-K19 (the lane mesh's instances apart)
+_CARRY_KERNELS = ("lane_seat", "carry_permute", "inputs_resize")
 _SERVE_NAMES = {name: f"{name}_kernel" for name in _SERVE_KERNELS}
 
 
@@ -4318,7 +4354,7 @@ def phase_carry_engines(device) -> dict:
     t = time.perf_counter()
     card, stats, slices = _scheduled(device, graphs, waves, **kw)
     card_s = time.perf_counter() - t
-    launches = dict(kcar.launch_counts)
+    launches = {k_: kcar.launch_counts[k_] for k_ in _CARRY_KERNELS}
     t = time.perf_counter()
     cpu, _stats, _slices = _scheduled("cpu", graphs, waves, **kw)
     cpu_s = time.perf_counter() - t
@@ -5912,9 +5948,690 @@ def ring_kernels_line(ring: dict) -> list[dict]:
             entry("ring_apply", "k25", "fast", "dgc_tpu/engine/ring.py:310")]
 
 
+# ---- the lane-sharded serve tier (B12g): K26, the partial K15/K16, the mesh
+# instances of K18/K19 ------------------------------------------------------
+
+# shard counts of the held mesh cases; lanes a shard, width, rows
+MESH_SHARDS = (2, 4, 8)
+MESH_LANES = ((4, 8, 3000), (2, 64, 1200))
+
+
+def _mesh_of(n: int, device):
+    from dgc_tpu_torch.serve.batched import lane_mesh_over
+
+    return lane_mesh_over([torch.device(device)] * n)
+
+
+def _mesh_serve_case(rng, n: int, b: int, w: int, v: int, staged: bool,
+                     timing: bool, armed: bool, device) -> int:
+    """n shards of ``_serve_lanes``' random lanes as a lane mesh, the last
+    shard's lanes all dead and unflagged (its fold adds the identities):
+    the partial K16 on each shard, K26, then ``SERVE_ROUNDS`` rounds of
+    each shard's K14 (staged), K13 and partial K15 and K26, every shard's
+    buffers held against the plain versions after every launch (the clock
+    slots by ``_serve_diff``'s rule). Returns the max abs error."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_PHASE, T_PREV, T_US
+
+    pairs = [_serve_lanes(rng, b, w, v, staged, device, armed)
+             for _ in range(n)]
+    for L in pairs[-1]:
+        L.carry[CARRY_PHASE].fill_(2)
+        L.reset.zero_()
+    kern = ks.new_mesh_lanes([k for k, _p in pairs])
+    plain = ks.new_mesh_lanes([p for _k, p in pairs])
+    worst = 0
+
+    def fold():
+        nonlocal worst
+        before = [[c.clone() for c in L.carry] for L in plain.shards]
+        ks.lane_mesh_fold(kern)
+        ks.lane_mesh_fold_reference([L.ctrl for L in plain.shards])
+        for k_, p_, b_ in zip(kern.shards, plain.shards, before):
+            worst = max(worst, _serve_diff(k_, p_, (), b_))
+        check(all(torch.equal(L.ctrl, kern.ctrl) for L in kern.shards),
+              "K26 left the shards' control blocks unequal")
+
+    for (k_, p_) in pairs:
+        before = [c.clone() for c in p_.carry]
+        ks.lane_reset(k_, timing, partial=True)
+        ks.lane_reset_reference(p_, timing, partial=True)
+        worst = max(worst, _serve_diff(k_, p_, (T_PREV,) if timing else (),
+                                       before))
+    fold()
+    steps = ((ks.lane_compact, ks.lane_compact_reference, False),
+             (ks.lane_superstep, ks.lane_superstep_reference, False),
+             (ks.lane_finish, ks.lane_finish_reference, True))
+    for _ in range(SERVE_ROUNDS):
+        for k_, p_ in pairs:
+            for launch, reference, last in steps:
+                if launch is ks.lane_compact and not staged:
+                    continue
+                before = [c.clone() for c in p_.carry]
+                args = (timing, True) if last else ()
+                launch(k_, *args)
+                reference(p_, *args)
+                worst = max(worst, _serve_diff(
+                    k_, p_, (T_US, T_PREV) if timing and last else (),
+                    before))
+        fold()
+    torch.cuda.synchronize()
+    return worst
+
+
+def _mesh_carry_case(rng, n: int, per_old: int, per_new: int, v: int,
+                     w: int, a0: int, device) -> int:
+    """The sharded seat, permute and resize twins on a mesh of ``n`` slots
+    on the card against the same twins on ``n`` CPU slots (the plain
+    versions): a seat wave over several shards (a lane twice), kept lanes
+    in random order crossing shards, sources past the old width. Returns
+    the max abs error."""
+    from dgc_tpu_torch.layout import CARRY_LEN
+    from dgc_tpu_torch.serve import batched as sb
+
+    card, host = _mesh_of(n, device), _mesh_of(n, "cpu")
+    b_old, b_new = n * per_old, n * per_new
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))
+    carry = [rng.integers(-5, 1 << 20, size=(b_old, a0) if j == 18 else
+                          (b_old, v) if j in (2, 6, 10) else (b_old,))
+             for j in range(CARRY_LEN)]
+    stacks = [rng.integers(0, 1 << 30, size=(b_old, v, w)),
+              rng.integers(0, w + 1, size=(b_old, v)),
+              rng.integers(1, w + 2, size=b_old),
+              rng.integers(4, 4000, size=b_old), np.zeros(b_old)]
+
+    def shards(arrays, mesh):
+        return [[t(a[i * per_old:(i + 1) * per_old]).to(d) for a in arrays]
+                for i, d in enumerate(mesh.devices)]
+
+    def whole(parts):
+        return [torch.cat([p[j].cpu() for p in parts])
+                for j in range(len(parts[0]))]
+
+    keep = int(rng.integers(0, min(b_old, b_new) + 1))
+    src = [int(x) for x in rng.permutation(b_old)[:keep]]
+    dst = list(range(keep))
+    got = sb.permute_carry_kernel_sharded(card, shards(carry, card), src, dst,
+                                          b_new)
+    want = sb.permute_carry_kernel_sharded(host, shards(carry, host), src,
+                                           dst, b_new)
+    worst = max(_diff(x.cpu(), y) for x, y in zip(whole(got), whole(want)))
+    dummy = rng.integers(0, 1 << 30, size=(v, w))
+    rsrc = src + [b_old] * (b_new - keep)
+    got = sb.resize_inputs_kernel_sharded(card, shards(stacks, card), rsrc,
+                                          t(dummy).to(device), 777)
+    want = sb.resize_inputs_kernel_sharded(host, shards(stacks, host), rsrc,
+                                           t(dummy), 777)
+    worst = max([worst] + [_diff(x.cpu(), y)
+                           for x, y in zip(whole(got), whole(want))])
+    lanes = [int(x) for x in rng.choice(b_old, size=min(b_old, 5),
+                                        replace=False)]
+    lanes.append(lanes[0])   # a lane seated twice: the last seat wins
+    seats = [(lane, rng.integers(0, 1 << 30, size=(v, w)).astype(np.int32),
+              rng.integers(0, w + 1, size=v).astype(np.int32),
+              int(rng.integers(1, w + 2)), int(rng.integers(4, 4000)))
+             for lane in lanes]
+    on_card, on_host = shards(stacks, card), shards(stacks, host)
+    sb.seat_lane_kernel_sharded(card, on_card, seats)
+    sb.seat_lane_kernel_sharded(host, on_host, seats)
+    worst = max([worst] + [_diff(x.cpu(), y) for x, y in
+                           zip(whole(on_card), whole(on_host))])
+    torch.cuda.synchronize()
+    return worst
+
+
+def phase_mesh_kernels(device) -> int:
+    """The lane mesh's kernels against their plain versions on the card,
+    exact: the partial K16/K15 and K26 on meshes of ``MESH_SHARDS`` slots
+    of ``MESH_LANES`` (staged and not, timing and the speculation vectors
+    on in some), each with a shard of dead lanes; the sharded seat (K17 a
+    shard), permute and resize (the mesh K18/K19) on random carries and
+    stacks growing, keeping and shrinking, lanes crossing shards. Returns
+    the max abs error."""
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.kernels import serve as ks
+
+    rng = np.random.default_rng(53)
+    worst = 0
+    ks.reset_launch_counts()
+    kcar.reset_launch_counts()
+    for n in MESH_SHARDS:
+        for b, w, v in MESH_LANES:
+            for staged, timing, armed in ((False, False, False),
+                                          (True, False, True),
+                                          (True, True, False)):
+                worst = max(worst, _mesh_serve_case(
+                    rng, n, b, w, v, staged, timing, armed, device))
+        for per_old, per_new in ((2, 2), (1, 4), (4, 1)):
+            worst = max(worst, _mesh_carry_case(rng, n, per_old, per_new,
+                                                2048, 8, 8, device))
+    check(worst == 0, f"the lane mesh's kernels differ from their plain "
+          f"versions by {worst}")
+    folds = ks.launch_counts["lane_mesh_fold"]
+    partial = dict(ks.partial_launch_counts)
+    check(folds > 0 and all(v_ > 0 for v_ in partial.values())
+          and kcar.launch_counts["carry_permute_mesh"] > 0
+          and kcar.launch_counts["inputs_resize_mesh"] > 0,
+          f"a mesh kernel never launched: K26 {folds}, partial {partial}, "
+          f"carry {kcar.launch_counts}")
+    emit({"phase": "mesh_kernels", "max_abs_err": worst, "k26": folds,
+          "partial": partial, "carry": dict(kcar.launch_counts)})
+    return worst
+
+
+def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
+                     slice_steps: int | None) -> dict:
+    """One sweep of ``inputs`` over lane slots on ``devices`` (one a slot,
+    repeats allowed), launched
+    as the mesh path launches it (``mesh_reset``, ``mesh_superstep``):
+    each shard's partial K16, K26, then until the folded live word drops
+    each shard's K14 (staged), K13 and partial K15, then K26. Whole, as
+    sync mode runs it, or (``slice_steps``) as continuous mode does: a
+    slice of at most that many supersteps, then the next from where it
+    stopped (reset flags down) until no lane is live. Every launch
+    is held against its plain version on a twin mesh: each shard's buffers
+    after each K13-K16 (the clock slots by ``_serve_diff``'s rule), every
+    shard's control block after each K26, which folds the partial words
+    the shards' K15/K16 have just written. ``changed`` counts the K26
+    launches whose fold moved a word of some shard's control block (a K26
+    that wrote nothing fails on those)."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_PHASE, T_PREV, T_US
+
+    n = len(devices)
+    per = inputs[1].shape[0] // n
+    ks.enable_peer_access(devices)
+
+    def mesh():
+        return ks.new_mesh_lanes([_serve_lanes_of(
+            tuple(x[i * per:(i + 1) * per] for x in inputs), cls, stages,
+            d, ks.INT32_MAX) for i, d in enumerate(devices)])
+
+    def sync():  # K26 on shard 0's card writes the other cards' words
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    kern, plain = mesh(), mesh()
+    out = {"worst": 0, "rounds": 0, "changed": 0, "kern": kern,
+           "plain": plain, "held": dict.fromkeys(_SERVE_KERNELS + (
+               "lane_mesh_fold",), 0)}
+    clocks = {"lane_reset": (T_PREV,), "lane_finish": (T_US, T_PREV)}
+
+    def shard(i, launch, reference):
+        k_, p_ = kern.shards[i], plain.shards[i]
+        name = launch.__name__
+        args = (timing, True) if name in clocks else ()
+        before = [c.clone() for c in p_.carry]
+        with ks.current_card(k_.device):
+            launch(k_, *args)
+            reference(p_, *args)
+        out["worst"] = max(out["worst"], _serve_diff(
+            k_, p_, clocks.get(name, ()) if timing else (), before))
+        out["held"][name] += 1
+
+    def fold():
+        partials = [L.ctrl.clone() for L in plain.shards]
+        sync()
+        with ks.current_card(kern.device):
+            ks.lane_mesh_fold(kern)
+        ks.lane_mesh_fold_reference([L.ctrl for L in plain.shards])
+        sync()
+        out["changed"] += any(not torch.equal(a, L.ctrl)
+                              for a, L in zip(partials, plain.shards))
+        out["worst"] = max([out["worst"]] + [
+            _diff(k_.ctrl, p_.ctrl)
+            for k_, p_ in zip(kern.shards, plain.shards)])
+        out["held"]["lane_mesh_fold"] += 1
+
+    out["slices"] = 0
+    while True:
+        if slice_steps is not None:
+            kern.set_budget(slice_steps)
+            plain.set_budget(slice_steps)
+        for i in range(n):
+            shard(i, ks.lane_reset, ks.lane_reset_reference)
+        fold()
+        while int(plain.ctrl[ks.CTRL_LIVE]):
+            for i in range(n):
+                if stages is not None:
+                    shard(i, ks.lane_compact, ks.lane_compact_reference)
+                shard(i, ks.lane_superstep, ks.lane_superstep_reference)
+                shard(i, ks.lane_finish, ks.lane_finish_reference)
+            fold()
+            out["rounds"] += 1
+        out["slices"] += 1
+        if slice_steps is None or not any(
+                bool((L.carry[CARRY_PHASE] < 2).any()) for L in plain.shards):
+            break
+        for L in kern.shards + plain.shards:
+            L.reset.zero_()
+    sync()
+    return out
+
+
+# the held mesh sweeps at the serving class: (slots, timing, slice size:
+# "priced" as continuous mode prices it at batch 8 (longer than a sweep),
+# a number (the budget cuts the sweep: slices resume it), or None (whole,
+# as sync mode runs it))
+MESH_HELD = ((4, False, "priced"), (4, False, 7), (4, True, "priced"),
+             (2, False, None))
+
+
+def _held_mesh_sweeps(graphs: list, devices_of) -> tuple:
+    """``_held_mesh_sweep`` at the serving class, once for each of
+    ``MESH_HELD`` (``devices_of(slots)``: the slots' devices): the first
+    8 uniform 20k requests (the main path's batch) padded into their class
+    (v32768w32, the auto ladder). Checks every launch exact, some K26
+    moving a word in each sweep, a sweep resumed across slices, and every
+    K15 of the sweeps the partial instance. Returns (class, stages, lanes, slice size, the sweeps)."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.batched import auto_slice_steps
+    from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
+                                                   pad_member,
+                                                   stage_schedule_for)
+
+    b = 8
+    graphs = graphs[:b]
+    cls = DEFAULT_LADDER.class_for(max(g.num_vertices for g in graphs),
+                                   max(g.max_degree for g in graphs))
+    stages = stage_schedule_for(cls, "auto")
+    members = [pad_member(g.arrays, cls) for g in graphs]
+    inputs = tuple(torch.from_numpy(np.stack(x)) for x in (
+        [m.comb for m in members], [m.degrees for m in members],
+        [np.int32(m.k0) for m in members],
+        [np.int32(m.max_steps) for m in members]))
+    partial0 = dict(ks.partial_launch_counts)
+    held = {}
+    steps = auto_slice_steps(cls.entries(), b, "gpu")
+    for slots, timing, size in MESH_HELD:
+        size = steps if size == "priced" else size
+        h = _held_mesh_sweep(inputs, cls, stages, devices_of(slots), timing,
+                             size)
+        held[f"{slots} slots" + (", timing" if timing else "")
+             + (f", slices of {size}" if size else ", whole")] = h
+    worst = max(h["worst"] for h in held.values())
+    partial = {k_: ks.partial_launch_counts[k_] - partial0[k_]
+               for k_ in partial0}
+    check(worst == 0 and all(h["changed"] > 0 for h in held.values())
+          and any(h["slices"] > 1 for h in held.values())
+          and partial["lane_finish"] == sum(h["held"]["lane_finish"]
+                                            for h in held.values()),
+          f"the held mesh sweeps at {cls.name}: error {worst}, folds that "
+          f"moved a word {[h['changed'] for h in held.values()]}, partial "
+          f"launches {partial}")
+    return cls, stages, b, steps, held
+
+
+def _held_record(held: dict) -> dict:
+    return {k_: {"rounds": h["rounds"], "slices": h["slices"],
+                 "launches": h["held"],
+                 "folds_that_moved_a_word": h["changed"]}
+            for k_, h in held.items()}
+
+
+def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
+    """The lane mesh's kernels at the serving class's shapes: the first
+    8 uniform 20k requests (the main path's batch) padded into their class
+    (v32768w32, the auto ladder). (1) Held sweeps (``_held_mesh_sweep``,
+    ``MESH_HELD``) over 4 slots of 2 lanes and over 2 slots of 4:
+    every partial K16/K15, K13, K14 and K26 launch exact against its plain
+    version; some K26 must move a word. (2) K26 timed on the 4-slot
+    mesh's folded control blocks. (3) The mesh K18/K19 growing a 4-slot
+    pool 8 → 32 lanes, all 8 kept (the batch-32 ramp: new shard 0 gathers
+    a lane from every old shard), on random words, held exact. ``ms``
+    device time from ``torch.profiler`` (one launch: K26, or K18/K19 into
+    new shard 0), ``plain_ms`` the plain version's host wall on the card,
+    ``bound_ms`` the launch's bytes (each input word read once, each
+    output word written once) over 3.35 TB/s, ``library_ms`` PyTorch
+    calls doing the same where there are (K18/K19: the old shards
+    concatenated, then an indexed copy per slot or stack; K26: none)."""
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_LEN
+    from dgc_tpu_torch.serve.batched import stage_idx_width
+
+    cls, stages, b, steps, held = _held_mesh_sweeps(
+        graphs, lambda slots: [torch.device(device)] * slots)
+    worst = max(h["worst"] for h in held.values())
+    v, w = cls.v_pad, cls.w_pad
+    a0 = stage_idx_width(stages)
+    n = 4
+    M, P = (held[f"4 slots, slices of {steps}"][k_]
+            for k_ in ("kern", "plain"))
+    fold = {"ms": _kernel_ms(lambda: ks.lane_mesh_fold(M),
+                             "lane_mesh_fold_kernel"),
+            "plain_ms": _host_ms(lambda: ks.lane_mesh_fold_reference(
+                [L.ctrl for L in P.shards]), 3),
+            # the n partials (rung, live), steps and budget read once; four
+            # words written into each control block
+            "bound_ms": (2 * n + 2 + 4 * n) * 4 / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None, "shape": f"{n} shards"}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(59)
+
+    def rand(shape):
+        return torch.randint(0, 1 << 30, shape, generator=gen,
+                             dtype=torch.int32, device=device)
+
+    per_old, per_new = b // n, 32 // n
+    olds = [[rand((per_old, a0) if j == 18 else
+                  (per_old, v) if j in (2, 6, 10) else (per_old,))
+             for j in range(CARRY_LEN)] for _ in range(n)]
+    rows = [(i // per_old, i % per_old) for i in range(b)] + \
+        [(-1, -1)] * (per_new - b)
+    got = kcar.carry_permute_mesh(olds, rows, per_new, device)
+    worst = max([worst] + [_diff(x, y) for x, y in zip(
+        got, kcar.carry_permute_mesh_reference(olds, rows, per_new, device))])
+    idx = torch.arange(b, dtype=torch.int64, device=device)
+    out = [torch.empty_like(t_) for t_ in got]
+
+    def indexed():
+        for j, o in enumerate(out):
+            o[:b] = torch.cat([old[j] for old in olds]).index_select(0, idx)
+
+    carry_row = (3 * v + a0 + 16) * 4
+    permute = {
+        "ms": _kernel_ms(lambda: kcar.carry_permute_mesh(olds, rows, per_new,
+                                                         device),
+                         "carry_permute_mesh_kernel"),
+        "plain_ms": _host_ms(lambda: kcar.carry_permute_mesh_reference(
+            olds, rows, per_new, device), 3),
+        "bound_ms": (b + per_new) * carry_row / HBM_BYTES_PER_S * 1e3,
+        "library_ms": _cuda_ms(indexed, 10),
+        "shape": f"{n} shards, {b} -> 32 lanes of {cls.name}: new shard 0 "
+                 f"({per_new} lanes, {b} kept from {n} old shards)"}
+
+    stacks = [[rand((per_old, v, w)), rand((per_old, v)), rand((per_old,)),
+               rand((per_old,))] for _ in range(n)]
+    dummy = rand((v, w))
+    got = kcar.inputs_resize_mesh(stacks, rows, dummy, 1, 2 * v + 4, device)
+    worst = max([worst] + [_diff(x, y) for x, y in zip(
+        got, kcar.inputs_resize_mesh_reference(stacks, rows, dummy, 1,
+                                               2 * v + 4, device))])
+    src_l = torch.tensor(list(range(b)) + [b] * (per_new - b),
+                         dtype=torch.int64, device=device)
+    resize = {
+        "ms": _kernel_ms(lambda: kcar.inputs_resize_mesh(
+            stacks, rows, dummy, 1, 2 * v + 4, device),
+            "inputs_resize_mesh_kernel"),
+        "plain_ms": _host_ms(lambda: kcar.inputs_resize_mesh_reference(
+            stacks, rows, dummy, 1, 2 * v + 4, device), 3),
+        # the kept rows read (no dummy row lands in shard 0), every row
+        # written: table rows, degrees, k0, max_steps (and reset written)
+        "bound_ms": ((b + per_new) * (v * w + v) * 4
+                     + (2 * b + 3 * per_new) * 4) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": _cuda_ms(lambda: (
+            torch.cat([s_[0] for s_ in stacks] + [dummy[None]]
+                      ).index_select(0, src_l),
+            torch.cat([s_[1] for s_ in stacks]
+                      + [torch.zeros_like(stacks[0][1][:1])]
+                      ).index_select(0, src_l)), 10),
+        "shape": permute["shape"]}
+    check(worst == 0, f"the mesh kernels at the serving class differ from "
+          f"their plain versions by {worst}")
+    rec = {"phase": "mesh_measure", "class": cls.name, "a0": a0,
+           "max_abs_err": worst,
+           "held": _held_record(held), "lane_mesh_fold": fold,
+           "carry_permute_mesh": permute, "inputs_resize_mesh": resize,
+           "card": card}
+    emit(rec)
+    return rec
+
+
+# the mesh runs of the drawn-once stream: (name, mesh slots on cuda:0 or
+# None, mode, device carry); the unsharded run first and last
+MESH_RUNS = (
+    ("unsharded, continuous", None, "continuous", False),
+    ("mesh 2, continuous", 2, "continuous", False),
+    ("mesh 4, continuous", 4, "continuous", False),
+    ("mesh 2, continuous, device carry", 2, "continuous", True),
+    ("mesh 4, continuous, device carry", 4, "continuous", True),
+    ("mesh 2, sync", 2, "sync", False),
+    ("unsharded, continuous, again", None, "continuous", False),
+)
+MESH_MAIN = "mesh 4, continuous, device carry"
+
+
+def _mesh_front(ref: dict, classes: dict, name: str, n, mode: str,
+                carry: bool, device: str, ids=None, before=None) -> tuple:
+    """The drawn-once stream (or its requests ``ids``) through a
+    ``ServeFrontEnd`` at batch 8 over ``n`` lane slots on cuda:0, or one
+    slot on each device of a list ``n`` (None: unsharded); every result
+    equal to the single-graph loop's. ``before`` runs on the started front
+    end first. Returns (record, front end)."""
+    from dgc_tpu_torch.kernels import carry as kcar
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.batched import lane_mesh_over
+    from dgc_tpu_torch.serve.queue import ServeFrontEnd
+
+    ids = list(ref["graphs"]) if ids is None else ids
+    mesh = (None if n is None else lane_mesh_over(n) if isinstance(n, list)
+            else _mesh_of(n, device))
+    n = None if mesh is None else mesh.n
+    ks.reset_launch_counts()
+    kcar.reset_launch_counts()
+    front = ServeFrontEnd(batch_max=8, workers=8, mode=mode,
+                          queue_depth=max(64, 2 * len(ids)),
+                          device_carry=carry, device=device,
+                          mesh_devices=mesh).start()
+    try:
+        if before is not None:
+            before(front)
+        t = time.perf_counter()
+        tickets = [front.submit(ref["graphs"][rid].arrays, request_id=rid)
+                   for rid in ids]
+        results = {str(x.request.request_id): x.result(timeout=900)
+                   for x in tickets}
+        wall = time.perf_counter() - t
+    finally:
+        front.shutdown()
+    for d in ([device] if mesh is None else set(mesh.devices)):
+        torch.cuda.synchronize(d)
+    for rid, res in results.items():
+        want, cls = ref["results"][rid], classes[rid]
+        check(res.ok and res.minimal_colors == want["minimal_colors"]
+              and list(res.attempts) == want["attempts"]
+              and np.array_equal(res.colors, want["colors"])
+              and res.batched == (cls is not None)
+              and res.shape_class == (cls.name if cls else None),
+              f"{name} {rid}: {res.status} {res.minimal_colors} "
+              f"{res.attempts} vs {want['minimal_colors']} "
+              f"{want['attempts']}")
+    launches = dict(ks.launch_counts)
+    carry_launches = dict(kcar.launch_counts)
+    sst = front.scheduler.stats_snapshot()
+    supersteps = launches["lane_superstep"] / (n or 1)
+    check(all(launches[k_] > 0 for k_ in _SERVE_KERNELS)
+          and (launches["lane_mesh_fold"] > 0) == (n is not None),
+          f"{name}: launches {launches}")
+    if n is not None:
+        # every superstep: n × (K13, K15) and one K26 (K14 on staged rungs)
+        check(ks.partial_launch_counts["lane_finish"]
+              == launches["lane_finish"], f"{name}: an unsharded K15 ran "
+              f"{ks.partial_launch_counts}")
+    mesh_carry = ("carry_permute_mesh", "inputs_resize_mesh")
+    check(all((carry_launches[k_] > 0) == (carry and n is not None)
+              for k_ in mesh_carry)
+          and (carry_launches["lane_seat"] > 0) == carry,
+          f"{name}: carry launches {carry_launches}")
+    rec = {"phase": "mesh_main", "run": name, "mesh": n,
+           "devices": None if mesh is None else [str(d) for d in
+                                                  mesh.devices],
+           "mode": mode,
+           "device_carry": carry, "requests": len(ids), "wall_s": wall,
+           "graphs_per_s": len(ids) / wall, "slices": sst["slices"],
+           "batches": sst["batches"], "launches": launches,
+           "partial_launches": dict(ks.partial_launch_counts),
+           "carry_launches": carry_launches,
+           "launches_per_superstep": (sum(launches[k_] for k_ in (
+               "lane_superstep", "lane_finish", "lane_compact",
+               "lane_mesh_fold")) / supersteps if supersteps else None),
+           "mesh_snapshot": front.scheduler.mesh_snapshot(),
+           "mesh_health": front.scheduler.mesh_health(),
+           "h2d_mb": sst["h2d_bytes"] / 1e6, "d2h_mb": sst["d2h_bytes"] / 1e6}
+    return rec, front
+
+
+def phase_mesh_main(card: str, serve: dict, device: str = "cuda") -> dict:
+    """``serve_main``'s stream, drawn once (``phase_serve_main``'s
+    ``_serve_reference``), through the front end over 2 and 4 lane slots
+    on cuda:0 (``lane_mesh_over``), continuous with the host mirror and
+    the device carry, sync at 2, beside the unsharded run in the same
+    call: every request equal to the single-graph loop's (so to the
+    unsharded run's); K26 and the partial K15/K16 launched on every mesh
+    run, the mesh K18/K19 on the device-carry ones. Then the failure-
+    domain plane at 4 slots: ``mesh@3=device_loss:1`` degrades to 2
+    (every request still equal), then ``mark_healthy`` and
+    ``request_restore`` bring 4 back and the 20k requests run again. One
+    card: the slots share cuda:0, so this measures what the mesh costs,
+    not a gain. First ``--mesh-devices`` above the card count must exit 2;
+    last ``measure_mesh``."""
+    from dgc_tpu_torch.resilience import faults
+    from dgc_tpu_torch.resilience.faults import FaultSchedule
+    from dgc_tpu_torch.serve.cli import serve_main
+
+    # more slots than the host has cards: a usage error, as in dgc_tpu
+    with tempfile.TemporaryDirectory() as tmp:
+        one = Path(tmp) / "one.jsonl"
+        one.write_text(json.dumps(SERVE_STREAM[0]) + "\n")
+        rc = serve_main(["--requests", str(one), "--mesh-devices",
+                         str(2 * torch.cuda.device_count())])
+    check(rc == 2, f"--mesh-devices above the card count: rc {rc}")
+    ref, classes = serve["ref"], serve["classes"]
+    runs = {}
+    for name, n, mode, carry in MESH_RUNS:
+        rec, _front = _mesh_front(ref, classes, name, n, mode, carry, device)
+        rec["card"] = card
+        emit(rec)
+        runs[name] = rec
+    plane = faults.FaultPlane(FaultSchedule.parse("mesh@3=device_loss:1"))
+    with faults.injected(plane):
+        rec, front = _mesh_front(ref, classes, "mesh 4, degrade", 4,
+                                 "continuous", True, device)
+    sched = front.scheduler
+    stats = sched.stats_snapshot()
+    check(bool(plane.fired_snapshot()) and sched.mesh_devices == 2
+          and stats["mesh_degrades"] == 1,
+          f"mesh degrade: {sched.mesh_health()}, {stats['mesh_degrades']}")
+    rec.update(mesh_degrades=stats["mesh_degrades"],
+               lanes_evacuated=stats["lanes_evacuated"], card=card)
+    emit(rec)
+    runs["mesh 4, degrade"] = rec
+
+    def degrade_then_restore(front_):
+        s_ = front_.scheduler
+        with faults.injected(faults.FaultPlane(
+                FaultSchedule.parse("mesh@1=device_loss:1"))):
+            first = front_.submit(ref["graphs"]["u0"].arrays,
+                                  request_id="u0").result(timeout=900)
+        check(first.ok and s_.mesh_devices == 2, f"mesh restore: the "
+              f"degrade left {s_.mesh_devices} slots")
+        s_.device_health.mark_healthy(1)
+        s_.request_restore()
+        deadline = time.time() + 60
+        while s_.mesh_devices != 4 and time.time() < deadline:
+            time.sleep(0.01)
+        check(s_.mesh_devices == 4, f"mesh restore: {s_.mesh_health()}")
+
+    ids = [rid for rid in ref["graphs"] if rid.startswith("u")]
+    rec, front = _mesh_front(ref, classes, "mesh 4, restore", 4,
+                             "continuous", True, device, ids=ids,
+                             before=degrade_then_restore)
+    stats = front.scheduler.stats_snapshot()
+    check(stats["mesh_restores"] == 1 and front.scheduler.mesh_devices == 4
+          and not front.health()["mesh"]["degraded"],
+          f"mesh restore: {front.scheduler.mesh_health()}")
+    rec.update(mesh_restores=stats["mesh_restores"], card=card)
+    emit(rec)
+    runs["mesh 4, restore"] = rec
+    return {"runs": runs, "measure": measure_mesh(
+        card, [g for rid, g in ref["graphs"].items() if rid.startswith("u")],
+        device)}
+
+
+# the multi-card runs (``--mesh-cards``): (name, one slot a card or None,
+# mode, device carry)
+MESH_CARD_RUNS = (
+    ("unsharded, continuous", None, "continuous", False),
+    ("every card, continuous", True, "continuous", False),
+    ("every card, continuous, device carry", True, "continuous", True),
+    ("every card, sync", True, "sync", False),
+)
+
+
+def phase_mesh_cards(card: str, out_dir: Path) -> dict:
+    """The lane mesh with one slot on each card of the host (peer access,
+    K26 on cuda:0 reading and writing the other cards' control blocks, the
+    events that order each round and each resize's gathers across cards):
+    the held mesh sweeps at the serving class with shard i on card i mod
+    the count, then the drawn-once stream through the front end over
+    every card, continuous with the host mirror and with the device
+    carry, and sync, beside the unsharded run on cuda:0: every request
+    equal to the single-graph loop's on cuda:0."""
+    from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER
+
+    count = torch.cuda.device_count()
+    check(count >= 2, f"--mesh-cards needs two cards or more, has {count}")
+    cards = [torch.device("cuda", i) for i in range(count)]
+    ref = _serve_reference(out_dir, "cuda")
+    classes = {rid: DEFAULT_LADDER.class_for(g.num_vertices, g.max_degree)
+               for rid, g in ref["graphs"].items()}
+    _cls, _stages, _b, _steps, held = _held_mesh_sweeps(
+        [g for rid, g in ref["graphs"].items() if rid.startswith("u")],
+        lambda slots: [cards[i % count] for i in range(slots)])
+    emit({"phase": "mesh_cards_held", "cards": count,
+          "held": _held_record(held), "card": card})
+    runs = {}
+    for name, spread, mode, carry in MESH_CARD_RUNS:
+        rec, _front = _mesh_front(ref, classes, name,
+                                  cards if spread else None, mode, carry,
+                                  "cuda")
+        rec["card"] = card
+        emit(rec)
+        runs[name] = rec
+    return runs
+
+
+def mesh_kernels_line(mesh: dict, mesh_err: int) -> list[dict]:
+    """K26 and the mesh instances of K18/K19 on the lane mesh's main path
+    (``MESH_MAIN``: 4 slots, continuous, batch 8, the device carry; the
+    other mesh runs' launches beside), times at the serving class
+    (``measure_mesh``); K26's entry carries the partial K15/K16 launches
+    of that run."""
+    main = mesh["runs"][MESH_MAIN]
+    meas = mesh["measure"]
+    err = max(mesh_err, meas["max_abs_err"])
+    rows = (("lane_mesh_fold", "dgc_tpu_torch/csrc/serve.cu",
+             "dgc_tpu/serve/batched.py:821", main["launches"]),
+            ("carry_permute_mesh", "dgc_tpu_torch/csrc/carry.cu",
+             "dgc_tpu/serve/batched.py:892", main["carry_launches"]),
+            ("inputs_resize_mesh", "dgc_tpu_torch/csrc/carry.cu",
+             "dgc_tpu/serve/batched.py:901", main["carry_launches"]))
+    out = []
+    for name, source, replaces, launches in rows:
+        m = meas[name]
+        key = "launches" if name == "lane_mesh_fold" else "carry_launches"
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "launches_other": {r: v[key][name]
+                                    for r, v in mesh["runs"].items()
+                                    if v is not main and v["mesh"]},
+                 "max_abs_err": err, "ms": m["ms"],
+                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                 "bound_by": "bytes", "library_ms": m["library_ms"],
+                 "shape": m["shape"]}
+        if name == "lane_mesh_fold":
+            entry["partial_launches"] = main["partial_launches"]
+        out.append(entry)
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mesh-cards", action="store_true",
+                        help="run only the lane mesh across every card "
+                             "(two or more)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -5931,6 +6648,15 @@ def main(argv: list[str] | None = None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "nvcc": {k: v.strip().splitlines()[-8:]
                    for k, v in build.build_log.items()}})
+    if args.mesh_cards:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_mesh_cards(card, Path(tmp))
+        emit({"phase": "total", "seconds": time.perf_counter() - t_total})
+        print(card_lines())
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # the long chain's and the dense CLI's CPU references run in children
     # beside the card
@@ -5949,9 +6675,11 @@ def main(argv: list[str] | None = None) -> int:
         tel_err = phase_telemetry_kernels("cuda")
         serve_err = phase_serve_kernels("cuda")
         carry_err = phase_carry_kernels("cuda")
+        mesh_err = phase_mesh_kernels("cuda")
         emit({"phase": "kernels_vs_plain",
               "max_abs_err": max(kernel_err, compact_err, hub_err, block_err,
-                                 dense_err, tel_err, serve_err, carry_err),
+                                 dense_err, tel_err, serve_err, carry_err,
+                                 mesh_err),
               "seconds": time.perf_counter() - t})
 
         t = time.perf_counter()
@@ -5993,6 +6721,9 @@ def main(argv: list[str] | None = None) -> int:
         serve = phase_serve_main(card, out_dir)
         emit({"phase": "serve_main_done", "seconds": time.perf_counter() - t})
         t = time.perf_counter()
+        mesh = phase_mesh_main(card, serve)
+        emit({"phase": "mesh_main_done", "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
         spec = phase_speculate_main(card, out_dir)
         carry = measure_carry(card)
         emit({"phase": "speculate_main_done",
@@ -6018,7 +6749,8 @@ def main(argv: list[str] | None = None) -> int:
           + serve_kernels_line(serve, serve_err)
           + carry_kernels_line(serve, spec, carry, carry_err, serve_err)
           + shard_kernels_line(sharded)
-          + ring_kernels_line(ring)})
+          + ring_kernels_line(ring)
+          + mesh_kernels_line(mesh, mesh_err)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -189,3 +189,24 @@ def ring_engine_from_tables(degrees, num_vertices: int, max_steps: int,
                int(degrees.max()) if len(degrees) else 0, bucketed,
                int(max_steps), max_window_planes)
     return eng
+
+
+def lane_shards_from_carry(carry, n: int, device="cpu") -> list:
+    """A whole lane-leading carry or input stack (numpy, e.g. the JAX
+    package's ``[B, ...]`` arrays as ``np.asarray``) as the port's lane
+    mesh holds it: n per-shard lists of int32 tensors on ``device``, shard
+    ``i`` lanes ``i * B / n .. (i + 1) * B / n``. ``carry`` is a sequence
+    of arrays (the carry's slots, or ``(comb, degrees, k0, max_steps)``)."""
+    from dgc_tpu_torch.serve.batched import LaneMesh, split_lanes
+
+    mesh = LaneMesh([device] * n)
+    slots = [split_lanes(np.asarray(a), mesh) for a in carry]
+    return [[slots[j][i] for j in range(len(carry))] for i in range(n)]
+
+
+def carry_from_lane_shards(shards) -> tuple:
+    """The inverse of :func:`lane_shards_from_carry`: n per-shard
+    sequences of arrays or tensors as whole numpy arrays, shard by shard."""
+    from dgc_tpu_torch.serve.batched import sharded_home
+
+    return sharded_home([tuple(sh) for sh in shards])

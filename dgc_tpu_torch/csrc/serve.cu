@@ -35,6 +35,33 @@
 // (serve/batched.py): one K16, then rounds of K14 (staged ladders only),
 // K13 and K15, launched back to back.
 //
+// The lane mesh (B12g, :821-901 the `_sharded` twins: the lane axis split
+// over n shards, each holding its contiguous block of lanes with a
+// control block of its own). The reference's cross-lane values are full
+// reductions that the SPMD partitioner turns into all-reductions: the
+// executed rung (min over live lanes) and the live predicate. Here:
+//   K15/K16 partial instances (kPartial) — the last block's fold writes
+//                        the shard's partial into its own control block:
+//                        the min executed rung over its live lanes
+//                        (identity nstages - 1: a shard of dead lanes adds
+//                        nothing), whether any of its lanes is live (the
+//                        budget not applied), and the step count. The
+//                        ticket stays per launch.
+//   K26 lane_mesh_fold — one small launch after every shard's K15 (and
+//                        after every shard's K16): the min of the partial
+//                        rungs, live = any(shard live) && steps < budget,
+//                        the step count and a zeroed ticket, written into
+//                        every shard's control block through a table of
+//                        their pointers. Every shard's next K14/K13 reads
+//                        those words first, exactly as the unsharded slice
+//                        does, so the host still enqueues a whole slice
+//                        without a sync. On folded words K26 is a fixed
+//                        point (min of equal rungs, any of zeros), so a
+//                        round past the live word changes nothing.
+// Shards on other cards are read and written through peer access
+// (dgc_enable_peer_access); the host orders the launches across streams
+// with events (kernels/serve.py MeshLanes).
+//
 // State. The carry is the reference's 20 slots (dgc_tpu_torch/layout.py),
 // one lane-leading tensor each; the packed state of lane b is row b of
 // slot 2, int32[B, V] with no pad slot: a neighbor id >= V reads as
@@ -107,6 +134,8 @@ constexpr int kThresh0 = 6;
 constexpr int kMaxStages = 8;
 constexpr int kPad0 = kThresh0 + kMaxStages;
 
+constexpr int kMaxShards = 64;  // K26's pointer table
+
 // the per-lane counters (SCR_* in kernels/serve.py)
 constexpr int kScrFail = 0;
 constexpr int kScrActive = 1;
@@ -138,6 +167,12 @@ struct LaneArgs {
   int planes;
   int stall_window;
   int budget;
+};
+
+// K26's arguments, by value: each shard's control block.
+struct FoldArgs {
+  int* ctrl[kMaxShards];
+  int n;
 };
 
 // The deepest stage whose entry threshold covers the lane's previous
@@ -195,7 +230,7 @@ __device__ __forceinline__ void route(const int* ctrl, int rung,
 
 // ---- K16: slice entry ---------------------------------------------------
 
-template <bool kTiming>
+template <bool kTiming, bool kPartial>
 __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
   const int b = blockIdx.y;
   const int r = blockIdx.x * kThreads + threadIdx.x;
@@ -269,7 +304,8 @@ __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
   __syncthreads();
   if (threadIdx.x == 0) {
     a.ctrl[kRexec] = s_min;
-    a.ctrl[kLive] = s_any != 0 && a.budget > 0;
+    // a shard's partial: any lane live (K26 applies the budget)
+    a.ctrl[kLive] = s_any != 0 && (kPartial || a.budget > 0);
     a.ctrl[kSteps] = 0;
     a.ctrl[kBudget] = a.budget;
     a.ctrl[kTicket] = 0;
@@ -391,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) lane_superstep_kernel(LaneArgs a) {
 
 // The last block of K15: every live lane's scalars, the counters cleared,
 // the next superstep's routing and the live word.
-template <bool kTiming>
+template <bool kTiming, bool kPartial>
 __device__ void finish_lanes(const LaneArgs& a) {
   __shared__ int s_ts;
   __shared__ int s_min;
@@ -458,7 +494,8 @@ __device__ void finish_lanes(const LaneArgs& a) {
     const int steps = a.ctrl[kSteps] + 1;
     a.ctrl[kSteps] = steps;
     a.ctrl[kRexec] = s_min;
-    a.ctrl[kLive] = s_any != 0 && steps < a.ctrl[kBudget];
+    // a shard's partial: any lane live (K26 applies the budget)
+    a.ctrl[kLive] = s_any != 0 && (kPartial || steps < a.ctrl[kBudget]);
     a.ctrl[kTicket] = 0;
   }
 }
@@ -468,7 +505,7 @@ __device__ void finish_lanes(const LaneArgs& a) {
 // step's state (the pre-step one if the step failed), its max color, the
 // re-init of both buffers. Else the step is adopted (packed <- nxt) or
 // reverted (nxt <- packed). Then a ticket; the last block folds.
-template <bool kTiming>
+template <bool kTiming, bool kPartial>
 __global__ void __launch_bounds__(kThreads) lane_finish_kernel(LaneArgs a) {
   if (a.ctrl[kLive] == 0) return;
   const int b = blockIdx.y;
@@ -548,7 +585,32 @@ __global__ void __launch_bounds__(kThreads) lane_finish_kernel(LaneArgs a) {
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  finish_lanes<kTiming>(a);
+  finish_lanes<kTiming, kPartial>(a);
+}
+
+// ---- K26: the lane mesh's fold ------------------------------------------
+//
+// One warp: lane i < n reads shard i's partial, the warp reduces, then
+// every lane writes the folded words into its shards' control blocks.
+
+__global__ void __launch_bounds__(32) lane_mesh_fold_kernel(FoldArgs a) {
+  int rung = INT_MAX;
+  int any = 0;
+  for (int i = threadIdx.x; i < a.n; i += 32) {
+    rung = min(rung, load_volatile(a.ctrl[i] + kRexec));
+    any |= load_volatile(a.ctrl[i] + kLive) != 0;
+  }
+  rung = __reduce_min_sync(0xFFFFFFFFu, rung);
+  any = __reduce_or_sync(0xFFFFFFFFu, any);
+  const int steps = load_volatile(a.ctrl[0] + kSteps);
+  const int live = any != 0 && steps < load_volatile(a.ctrl[0] + kBudget);
+  __syncwarp();
+  for (int i = threadIdx.x; i < a.n; i += 32) {
+    a.ctrl[i][kRexec] = rung;
+    a.ctrl[i][kLive] = live;
+    a.ctrl[i][kSteps] = steps;
+    a.ctrl[i][kTicket] = 0;
+  }
 }
 
 int span_of(const LaneArgs* a) { return a->v > a->a0 ? a->v : a->a0; }
@@ -564,6 +626,7 @@ void launch_superstep(const LaneArgs* a, cudaStream_t st) {
   lane_superstep_kernel<PB><<<grid, kThreads, 0, st>>>(*a);
 }
 
+
 }  // namespace
 
 extern "C" {
@@ -571,15 +634,21 @@ extern "C" {
 // Each returns the launch's cudaError_t (0 = launched); `a` is read on the
 // host before the call returns.
 
-int dgc_lane_reset(const void* args, int timing, void* stream) {
+// K16 and K15 take the instance from `timing` (kTiming) and `partial`
+// (kPartial: a shard of the lane mesh, K26 folds next).
+int dgc_lane_reset(const void* args, int timing, int partial, void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((span_of(a) + kThreads - 1) / kThreads, a->b);
-  if (timing) {
-    lane_reset_kernel<true><<<grid, kThreads, 0, st>>>(*a);
+  if (timing && partial) {
+    lane_reset_kernel<true, true><<<grid, kThreads, 0, st>>>(*a);
+  } else if (timing) {
+    lane_reset_kernel<true, false><<<grid, kThreads, 0, st>>>(*a);
+  } else if (partial) {
+    lane_reset_kernel<false, true><<<grid, kThreads, 0, st>>>(*a);
   } else {
-    lane_reset_kernel<false><<<grid, kThreads, 0, st>>>(*a);
+    lane_reset_kernel<false, false><<<grid, kThreads, 0, st>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -612,19 +681,53 @@ int dgc_lane_superstep(const void* args, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int dgc_lane_finish(const void* args, int timing, void* stream) {
+int dgc_lane_finish(const void* args, int timing, int partial, void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((span_of(a) + kFinishChunk - 1) / kFinishChunk, a->b);
-  if (timing) {
-    lane_finish_kernel<true><<<grid, kThreads, 0, st>>>(*a);
+  if (timing && partial) {
+    lane_finish_kernel<true, true><<<grid, kThreads, 0, st>>>(*a);
+  } else if (timing) {
+    lane_finish_kernel<true, false><<<grid, kThreads, 0, st>>>(*a);
+  } else if (partial) {
+    lane_finish_kernel<false, true><<<grid, kThreads, 0, st>>>(*a);
   } else {
-    lane_finish_kernel<false><<<grid, kThreads, 0, st>>>(*a);
+    lane_finish_kernel<false, false><<<grid, kThreads, 0, st>>>(*a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// K26 over the `n` control blocks `ctrl` (a host array of n device
+// pointers, copied into the launch's arguments).
+int dgc_lane_mesh_fold(void* const* ctrl, int n, void* stream) {
+  if (n < 1 || n > kMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs a{};
+  for (int i = 0; i < n; ++i) a.ctrl[i] = static_cast<int*>(ctrl[i]);
+  a.n = n;
+  lane_mesh_fold_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Let `device` read and write `peer`'s memory (a lane mesh over several
+// cards); 0 also when it already could.
+int dgc_enable_peer_access(int device, int peer) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceEnablePeerAccess(peer, 0);
+    if (e == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();  // clear it: access is what was asked for
+      e = cudaSuccess;
+    }
+  }
+  const cudaError_t r = cudaSetDevice(prev);
+  return static_cast<int>(e != cudaSuccess ? e : r);
+}
+
 int dgc_lane_args_size() { return static_cast<int>(sizeof(LaneArgs)); }
+int dgc_max_shards() { return kMaxShards; }
 
 }  // extern "C"

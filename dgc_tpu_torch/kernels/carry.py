@@ -17,6 +17,15 @@ With ``--device-carry`` a pool's carry and input stacks stay on the card
   ``src[i]``, or the class dummy where ``src[i]`` is past the old width;
   the reset flags all 0 (``resize_inputs_kernel``).
 
+Their lane-mesh instances (the lane axis split over shards, each shard's
+carry and stacks its own tensors; ``serve.batched``'s sharded section):
+
+- ``carry_permute_mesh`` (K18's mesh instance): one new shard's fresh
+  carry, each kept row gathered from its old shard (a row may cross
+  shards), through a device table of the old shards' slot pointers;
+- ``inputs_resize_mesh`` (K19's mesh instance): one new shard's stacks,
+  likewise, the dummy past the old lanes.
+
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
 ``launch_counts`` counts launches per kernel: a wrapper adds one where it
@@ -30,14 +39,16 @@ import ctypes
 import torch
 
 from dgc_tpu_torch.engine.base import AttemptStatus
-from dgc_tpu_torch.kernels.superstep import _check_int32, _stream
+from dgc_tpu_torch.kernels.superstep import (_check_int32, _stream,
+                                             indexed_device)
 from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_K, CARRY_LEN, CARRY_P1,
                                   CARRY_P2, CARRY_PACKED, CARRY_PHASE,
                                   CARRY_ST2)
 
 SOURCE = "carry.cu"
 
-launch_counts = {"lane_seat": 0, "carry_permute": 0, "inputs_resize": 0}
+launch_counts = {"lane_seat": 0, "carry_permute": 0, "inputs_resize": 0,
+                 "carry_permute_mesh": 0, "inputs_resize_mesh": 0}
 
 WIDE = (CARRY_PACKED, CARRY_P1, CARRY_P2)  # int32[B, V] slots
 
@@ -125,6 +136,47 @@ def inputs_resize_reference(comb, degrees, k0, max_steps, src, dummy_comb,
     return out
 
 
+def carry_permute_mesh_reference(olds, rows, b_new: int, device) -> list:
+    """K18's mesh instance, plain: a fresh idle carry of ``b_new`` lanes
+    on ``device``, row ``i`` old shard ``rows[i][0]``'s lane
+    ``rows[i][1]`` (shard -1: idle)."""
+    v, a0 = olds[0][CARRY_PACKED].shape[1], olds[0][CARRY_IDX].shape[1]
+    idle = idle_values(v)
+    out = [torch.full(slot_shape(j, b_new, v, a0), idle[j],
+                      dtype=torch.int32, device=device)
+           for j in range(CARRY_LEN)]
+    for i, (shard, lane) in enumerate(rows):
+        if shard >= 0:
+            for j in range(CARRY_LEN):
+                out[j][i] = olds[shard][j][lane].to(device)
+    return out
+
+
+def inputs_resize_mesh_reference(olds, src, dummy_comb, dummy_k0: int,
+                                 dummy_max_steps: int, device) -> tuple:
+    """K19's mesh instance, plain: new stacks of ``len(src)`` lanes on
+    ``device``, row ``i`` old shard ``src[i][0]``'s lane ``src[i][1]``
+    (shard -1: the dummy); reset all 0."""
+    comb0, degrees0 = olds[0][0], olds[0][1]
+    b_new = len(src)
+    out = (torch.empty((b_new,) + tuple(comb0.shape[1:]), dtype=torch.int32,
+                       device=device),
+           torch.empty((b_new, degrees0.shape[1]), dtype=torch.int32,
+                       device=device),
+           torch.empty(b_new, dtype=torch.int32, device=device),
+           torch.empty(b_new, dtype=torch.int32, device=device),
+           torch.zeros(b_new, dtype=torch.int32, device=device))
+    for i, (shard, lane) in enumerate(src):
+        if shard >= 0:
+            for o, t in zip(out[:4], olds[shard][:4]):
+                o[i] = t[lane].to(device)
+        else:
+            out[0][i] = dummy_comb.to(device)
+            out[1][i] = 0
+            out[2][i], out[3][i] = int(dummy_k0), int(dummy_max_steps)
+    return out
+
+
 # ---- kernel launches --------------------------------------------------------
 
 class _SeatArgs(ctypes.Structure):
@@ -158,19 +210,41 @@ class _ResizeArgs(ctypes.Structure):
                 ("v", ctypes.c_int)]
 
 
+class _PermuteMeshArgs(ctypes.Structure):
+    _fields_ = [("old", ctypes.c_void_p), ("out", ctypes.c_void_p * CARRY_LEN),
+                ("rows", ctypes.c_void_p), ("idle", ctypes.c_int * CARRY_LEN),
+                ("n_old", ctypes.c_int), ("b_new", ctypes.c_int),
+                ("v", ctypes.c_int), ("a0", ctypes.c_int)]
+
+
+class _ResizeMeshArgs(ctypes.Structure):
+    _fields_ = [("old", ctypes.c_void_p), ("out_comb", ctypes.c_void_p),
+                ("out_degrees", ctypes.c_void_p),
+                ("out_k0", ctypes.c_void_p),
+                ("out_max_steps", ctypes.c_void_p),
+                ("out_reset", ctypes.c_void_p), ("src", ctypes.c_void_p),
+                ("dummy_comb", ctypes.c_void_p), ("row", ctypes.c_longlong),
+                ("dummy_k0", ctypes.c_int), ("dummy_max_steps", ctypes.c_int),
+                ("n_old", ctypes.c_int), ("b_new", ctypes.c_int),
+                ("v", ctypes.c_int)]
+
+
 def _library():
     from dgc_tpu_torch.kernels.build import load
 
     lib = load(SOURCE)
     if not getattr(lib, "_dgc_bound", False):
         for name in ("dgc_lane_seat", "dgc_carry_permute",
-                     "dgc_inputs_resize"):
+                     "dgc_inputs_resize", "dgc_carry_permute_mesh",
+                     "dgc_inputs_resize_mesh"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name, cls in (("dgc_seat_args_size", _SeatArgs),
                           ("dgc_permute_args_size", _PermuteArgs),
-                          ("dgc_resize_args_size", _ResizeArgs)):
+                          ("dgc_resize_args_size", _ResizeArgs),
+                          ("dgc_permute_mesh_args_size", _PermuteMeshArgs),
+                          ("dgc_resize_mesh_args_size", _ResizeMeshArgs)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             if fn() != ctypes.sizeof(cls):
@@ -320,4 +394,117 @@ def inputs_resize(comb, degrees, k0, max_steps, src, dummy_comb,
     _raise_on(_library().dgc_inputs_resize(ctypes.byref(args),
                                            _stream(device)), "inputs_resize")
     launch_counts["inputs_resize"] += 1
+    return out
+
+
+def _table(rows, device) -> torch.Tensor:
+    """The old shards' pointers as an int64 table on ``device``."""
+    return torch.tensor(rows, dtype=torch.int64, device=device)
+
+
+def _row_map(rows, device) -> torch.Tensor:
+    """``(shard, lane)`` pairs as the int32[2, B_new] map the kernels read."""
+    return _map([r[0] for r in rows] + [r[1] for r in rows], device)
+
+
+def _check_rows(rows, n_old: int, b_olds: list, name: str) -> None:
+    for shard, lane in rows:
+        if shard >= 0 and not (shard < n_old and 0 <= lane < b_olds[shard]):
+            raise ValueError(f"{name}: row ({shard}, {lane}) outside the old "
+                             f"shards {b_olds}")
+
+
+def carry_permute_mesh(olds, rows, b_new: int, device) -> list:
+    """K18's mesh instance: a fresh carry of ``b_new`` lanes (new tensors on
+    ``device``, one new shard), row ``i`` old shard ``rows[i][0]``'s lane
+    ``rows[i][1]`` (host ints; shard -1: the idle lane's values). ``olds``
+    is every old shard's carry. Runs on the device's current stream."""
+    device = indexed_device(device)
+    if len(rows) != b_new:
+        raise ValueError(f"carry_permute_mesh: {len(rows)} rows for {b_new} "
+                         f"lanes")
+    if any(len(c) != CARRY_LEN for c in olds):
+        raise ValueError(f"each old shard's carry has {CARRY_LEN} slots")
+    _check_rows(rows, len(olds), [c[CARRY_PACKED].shape[0] for c in olds],
+                "carry_permute_mesh")
+    if device.type == "cpu":
+        return carry_permute_mesh_reference(olds, rows, b_new, device)
+    _cuda(device, "carry_permute_mesh")
+    v, a0 = olds[0][CARRY_PACKED].shape[1], olds[0][CARRY_IDX].shape[1]
+    for s, old in enumerate(olds):
+        b_old = old[CARRY_PACKED].shape[0]
+        for j, t in enumerate(old):
+            shape = slot_shape(j, b_old, v, a0)
+            _check_int32(f"shard {s} carry[{j}]", t, t.device, len(shape))
+            if t.device.type != "cuda" or tuple(t.shape) != shape:
+                raise ValueError(f"shard {s} carry[{j}] must be {shape} on a "
+                                 f"card, got {tuple(t.shape)} on {t.device}")
+    out = [torch.empty(slot_shape(j, b_new, v, a0), dtype=torch.int32,
+                       device=device) for j in range(CARRY_LEN)]
+    table = _table([[t.data_ptr() for t in old] for old in olds], device)
+    rows_t = _row_map(rows, device)
+    args = _PermuteMeshArgs()
+    args.old = table.data_ptr()
+    for j in range(CARRY_LEN):
+        args.out[j] = out[j].data_ptr()
+    args.rows = rows_t.data_ptr()
+    for j, x in enumerate(idle_values(v)):
+        args.idle[j] = x
+    args.n_old, args.b_new, args.v, args.a0 = len(olds), b_new, v, a0
+    _raise_on(_library().dgc_carry_permute_mesh(ctypes.byref(args),
+                                                _stream(device)),
+              "carry_permute_mesh")
+    launch_counts["carry_permute_mesh"] += 1
+    return out
+
+
+def inputs_resize_mesh(olds, src, dummy_comb, dummy_k0: int,
+                       dummy_max_steps: int, device) -> tuple:
+    """K19's mesh instance: new stacks ``(comb, degrees, k0, max_steps,
+    reset)`` of ``len(src)`` lanes (new tensors on ``device``, one new
+    shard), row ``i`` old shard ``src[i][0]``'s lane ``src[i][1]`` (host
+    ints) or, for shard -1, the dummy (``dummy_comb`` int32[V, W] on
+    ``device``, zero degrees, ``dummy_k0``, ``dummy_max_steps``); reset all
+    0. ``olds`` is every old shard's ``(comb, degrees, k0, max_steps)``.
+    Runs on the device's current stream."""
+    device = indexed_device(device)
+    b_new = len(src)
+    if b_new < 1:
+        raise ValueError("inputs_resize_mesh: no lanes")
+    _check_rows(src, len(olds), [o[1].shape[0] for o in olds],
+                "inputs_resize_mesh")
+    if device.type == "cpu":
+        return inputs_resize_mesh_reference(olds, src, dummy_comb, dummy_k0,
+                                            dummy_max_steps, device)
+    _cuda(device, "inputs_resize_mesh")
+    v, w = olds[0][1].shape[1], olds[0][0].shape[-1]
+    for s, old in enumerate(olds):
+        b_old = old[1].shape[0]
+        for name, t, shape in (("comb", old[0], (b_old, v, w)),
+                               ("degrees", old[1], (b_old, v)),
+                               ("k0", old[2], (b_old,)),
+                               ("max_steps", old[3], (b_old,))):
+            _check_int32(f"shard {s} {name}", t, t.device, len(shape))
+            if t.device.type != "cuda" or tuple(t.shape) != shape:
+                raise ValueError(f"shard {s} {name} must be {shape} on a "
+                                 f"card, got {tuple(t.shape)} on {t.device}")
+    _check_int32("dummy_comb", dummy_comb, device, 2)
+    if tuple(dummy_comb.shape) != (v, w):
+        raise ValueError(f"dummy_comb must be {(v, w)}, got "
+                         f"{tuple(dummy_comb.shape)}")
+    out = (torch.empty((b_new, v, w), dtype=torch.int32, device=device),
+           torch.empty((b_new, v), dtype=torch.int32, device=device),
+           torch.empty(b_new, dtype=torch.int32, device=device),
+           torch.empty(b_new, dtype=torch.int32, device=device),
+           torch.empty(b_new, dtype=torch.int32, device=device))
+    table = _table([[t.data_ptr() for t in old[:4]] for old in olds], device)
+    src_t = _row_map(src, device)
+    args = _ResizeMeshArgs(table.data_ptr(), *(t.data_ptr() for t in out),
+                           src_t.data_ptr(), dummy_comb.data_ptr(), v * w,
+                           int(dummy_k0), int(dummy_max_steps), len(olds),
+                           b_new, v)
+    _raise_on(_library().dgc_inputs_resize_mesh(ctypes.byref(args),
+                                                _stream(device)),
+              "inputs_resize_mesh")
+    launch_counts["inputs_resize_mesh"] += 1
     return out

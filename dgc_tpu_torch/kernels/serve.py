@@ -26,16 +26,28 @@ Every kernel reads the control block's live word first and does nothing
 when it is 0 (no lane running, or the slice's steps spent), so a slice is
 enqueued without a host sync (``serve.batched``).
 
+The lane mesh (``MeshLanes``: the lane axis split over n shards, each a
+``Lanes`` with a control block of its own, ``serve.batched``'s sharded
+section): K16 and K15 run per shard as their partial instances
+(``partial=True``: the shard's min rung, whether any of its lanes is live,
+the step count, into its own control block), and after each round of them
+K26 ``lane_mesh_fold`` writes the folded routing (the min rung, any live
+and steps within the budget) into every shard's control block.
+``mesh_reset`` and ``mesh_superstep`` are the host loops; across cards the
+launches are ordered by events, never a host sync.
+
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
 ``launch_counts`` counts launches per kernel (``timing_launch_counts`` the
 clock-reading instances among them, ``spec_launch_counts`` the launches of
-K15/K16 on lanes armed with the speculation vectors): a wrapper adds one
+K15/K16 on lanes armed with the speculation vectors,
+``partial_launch_counts`` their partial instances): a wrapper adds one
 where it launches and nowhere else.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass, field
 
@@ -75,15 +87,18 @@ _STALLED = int(AttemptStatus.STALLED)
 SOURCE = "serve.cu"
 
 launch_counts = {"lane_superstep": 0, "lane_compact": 0, "lane_finish": 0,
-                 "lane_reset": 0}
+                 "lane_reset": 0, "lane_mesh_fold": 0}
 # the clock-reading (kTiming) instances among the launches above
 timing_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 # the launches above on lanes armed with the spec/cancel vectors
 spec_launch_counts = {"lane_finish": 0, "lane_reset": 0}
+# the partial (lane-mesh shard) instances among the launches above
+partial_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, timing_launch_counts, spec_launch_counts):
+    for counts in (launch_counts, timing_launch_counts, spec_launch_counts,
+                   partial_launch_counts):
         for name in counts:
             counts[name] = 0
 
@@ -225,10 +240,11 @@ def _route(L: Lanes, ctrl: list) -> tuple[int, bool]:
     return int(rung_now[live].min()), True
 
 
-def lane_reset_reference(L: Lanes, timing: bool) -> None:
+def lane_reset_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
     """K16's plain version: ``_fresh_lanes`` for the flagged lanes and
     their ``nxt`` rows, the timing seed, the counters cleared and the
-    control block's routing."""
+    control block's routing (``partial``: the shard's, the budget left to
+    the fold)."""
     c, v = L.carry, L.v
     fresh = L.reset != 0
     wide = fresh[:, None]
@@ -265,7 +281,7 @@ def lane_reset_reference(L: Lanes, timing: bool) -> None:
     ctrl = L.ctrl.tolist()
     rexec, any_live = _route(L, ctrl)
     L.ctrl[CTRL_REXEC] = rexec
-    L.ctrl[CTRL_LIVE] = int(any_live and L.budget > 0)
+    L.ctrl[CTRL_LIVE] = int(any_live and (partial or L.budget > 0))
     L.ctrl[CTRL_STEPS] = 0
     L.ctrl[CTRL_BUDGET] = L.budget
     L.ctrl[CTRL_TICKET] = 0
@@ -316,10 +332,11 @@ def lane_superstep_reference(L: Lanes) -> None:
         L.scratch[SCR_ACTIVE, b] += active.sum().to(torch.int32)
 
 
-def lane_finish_reference(L: Lanes, timing: bool) -> None:
+def lane_finish_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
     """K15's plain version: ``_superstep_body``'s transition and freeze
     (``dgc_tpu.serve.batched:363-466``) over the counters K13 left, the
-    step adopted or reverted in ``packed`` and ``nxt``, the next routing."""
+    step adopted or reverted in ``packed`` and ``nxt``, the next routing
+    (``partial``: the shard's, the budget left to the fold)."""
     ctrl = L.ctrl.tolist()
     if not ctrl[CTRL_LIVE]:
         return
@@ -387,8 +404,21 @@ def lane_finish_reference(L: Lanes, timing: bool) -> None:
     steps = ctrl[CTRL_STEPS] + 1
     L.ctrl[CTRL_STEPS] = steps
     L.ctrl[CTRL_REXEC] = rexec
-    L.ctrl[CTRL_LIVE] = int(any_live and steps < ctrl[CTRL_BUDGET])
+    L.ctrl[CTRL_LIVE] = int(any_live and (partial or steps < ctrl[CTRL_BUDGET]))
     L.ctrl[CTRL_TICKET] = 0
+
+
+def lane_mesh_fold_reference(ctrls: list) -> None:
+    """K26's plain version: the shards' partials folded (min rung, any
+    live within the budget) into every control block."""
+    rung = min(int(c[CTRL_REXEC]) for c in ctrls)
+    steps, budget = int(ctrls[0][CTRL_STEPS]), int(ctrls[0][CTRL_BUDGET])
+    live = int(any(int(c[CTRL_LIVE]) for c in ctrls) and steps < budget)
+    for c in ctrls:
+        c[CTRL_REXEC] = rung
+        c[CTRL_LIVE] = live
+        c[CTRL_STEPS] = steps
+        c[CTRL_TICKET] = 0
 
 
 # ---- kernel launches --------------------------------------------------------
@@ -404,8 +434,13 @@ def _library():
                             ("dgc_lane_superstep", False),
                             ("dgc_lane_finish", True)):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, ci, vp] if timed else [vp, vp]
+            fn.argtypes = [vp, ci, ci, vp] if timed else [vp, vp]
             fn.restype = ci
+        lib.dgc_lane_mesh_fold.argtypes = [ctypes.POINTER(vp), ci, vp]
+        lib.dgc_lane_mesh_fold.restype = ci
+        lib.dgc_enable_peer_access.argtypes = [ci, ci]
+        lib.dgc_enable_peer_access.restype = ci
+        lib.dgc_max_shards.restype = ci
         lib.dgc_lane_args_size.restype = ci
         if lib.dgc_lane_args_size() != ctypes.sizeof(_LaneArgs):
             raise RuntimeError("csrc/serve.cu's LaneArgs and _LaneArgs differ")
@@ -470,23 +505,28 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _count(name: str, L: Lanes, timing: bool) -> None:
+def _count(name: str, L: Lanes, timing: bool, partial: bool) -> None:
     launch_counts[name] += 1
     if timing:
         timing_launch_counts[name] += 1
     if L.armed:
         spec_launch_counts[name] += 1
+    if partial:
+        partial_launch_counts[name] += 1
 
 
-def lane_reset(L: Lanes, timing: bool = False) -> None:
-    """K16 (its kTiming instance with ``timing``; it reads ``L.spec`` and
-    ``L.cancel`` when the lanes are armed). Runs on the current stream."""
+def lane_reset(L: Lanes, timing: bool = False, partial: bool = False) -> None:
+    """K16 (its kTiming instance with ``timing``, its partial instance
+    with ``partial``: a shard of a lane mesh, K26 folds next; it reads
+    ``L.spec`` and ``L.cancel`` when the lanes are armed). Runs on the
+    current stream."""
     if L.device.type == "cpu":
-        return lane_reset_reference(L, timing)
+        return lane_reset_reference(L, timing, partial)
     args = _args(L)
-    _raise_on(_library().dgc_lane_reset(ctypes.byref(args), int(bool(timing)),
-                                        _stream(L.device)), "lane_reset")
-    _count("lane_reset", L, timing)
+    rc = _library().dgc_lane_reset(ctypes.byref(args), int(bool(timing)),
+                                   int(bool(partial)), _stream(L.device))
+    _raise_on(rc, "lane_reset")
+    _count("lane_reset", L, timing, partial)
 
 
 def lane_compact(L: Lanes) -> None:
@@ -510,12 +550,165 @@ def lane_superstep(L: Lanes) -> None:
     launch_counts["lane_superstep"] += 1
 
 
-def lane_finish(L: Lanes, timing: bool = False) -> None:
-    """K15 (its kTiming instance with ``timing``). Runs on the current
-    stream."""
+def lane_finish(L: Lanes, timing: bool = False, partial: bool = False) -> None:
+    """K15 (its kTiming instance with ``timing``, its partial instance
+    with ``partial``, as ``lane_reset``). Runs on the current stream."""
     if L.device.type == "cpu":
-        return lane_finish_reference(L, timing)
+        return lane_finish_reference(L, timing, partial)
     args = _args(L)
-    _raise_on(_library().dgc_lane_finish(ctypes.byref(args), int(bool(timing)),
-                                         _stream(L.device)), "lane_finish")
-    _count("lane_finish", L, timing)
+    rc = _library().dgc_lane_finish(ctypes.byref(args), int(bool(timing)),
+                                    int(bool(partial)), _stream(L.device))
+    _raise_on(rc, "lane_finish")
+    _count("lane_finish", L, timing, partial)
+
+
+# ---- the lane mesh ------------------------------------------------------------
+
+def enable_peer_access(devices) -> None:
+    """Let every card of ``devices`` (``torch.device``s, repeats allowed)
+    read and write every other's memory, as K26 and the mesh instances of
+    K18/K19 do; raises when a pair cannot (no quiet slower route)."""
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    if len(cards) < 2:
+        return
+    lib = _library()
+    for a in cards:
+        for b in cards:
+            if a == b:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise ValueError(f"lane mesh: cuda:{a} cannot reach cuda:{b} "
+                                 f"(no peer access)")
+            _raise_on(lib.dgc_enable_peer_access(a, b), "enable_peer_access")
+
+
+@dataclass
+class MeshLanes:
+    """The lanes of a lane-sharded batch: ``shards[i]`` holds lanes
+    ``i * per .. (i + 1) * per`` (``per`` each, on its own device, with a
+    control block of its own). The fold (K26) runs on the first shard's
+    device and stream; with shards on several devices each round is
+    ordered by events."""
+
+    shards: list
+    _ptrs: object = field(default=None, repr=False)
+
+    @property
+    def n(self) -> int:
+        return len(self.shards)
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0].device
+
+    @property
+    def ctrl(self) -> torch.Tensor:
+        """The folded control block (every shard holds the same words)."""
+        return self.shards[0].ctrl
+
+    @property
+    def carry(self) -> list:
+        """Each shard's carry, in shard order."""
+        return [L.carry for L in self.shards]
+
+    @property
+    def spread(self) -> bool:
+        """Whether the shards sit on more than one device."""
+        return len({str(L.device) for L in self.shards}) > 1
+
+    def set_budget(self, budget: int) -> None:
+        for L in self.shards:
+            L.set_budget(budget)
+
+
+def new_mesh_lanes(shards: list) -> MeshLanes:
+    """A ``MeshLanes`` over per-shard ``Lanes`` of equal widths."""
+    if not shards:
+        raise ValueError("a lane mesh has at least one shard")
+    if len({(L.b, L.v, L.a0) for L in shards}) != 1:
+        raise ValueError("the shards of a lane mesh must have equal widths")
+    return MeshLanes(shards=list(shards))
+
+
+def _fold_ptrs(M: MeshLanes):
+    if M._ptrs is None:
+        if M.n > _library().dgc_max_shards():
+            raise ValueError(f"lane_mesh_fold: {M.n} shards, at most "
+                             f"{_library().dgc_max_shards()}")
+        for L in M.shards:
+            if L.device.type != "cuda":
+                raise ValueError(f"lane_mesh_fold: unsupported device "
+                                 f"{L.device}")
+            _check_int32("ctrl", L.ctrl, L.device, 1)
+        M._ptrs = (ctypes.c_void_p * M.n)(*(L.ctrl.data_ptr()
+                                              for L in M.shards))
+    return M._ptrs
+
+
+def lane_mesh_fold(M: MeshLanes) -> None:
+    """K26: the shards' partials folded into every shard's control block.
+    Runs on the first shard's current stream."""
+    if M.device.type == "cpu":
+        return lane_mesh_fold_reference([L.ctrl for L in M.shards])
+    ptrs = _fold_ptrs(M)
+    _raise_on(_library().dgc_lane_mesh_fold(ptrs, M.n, _stream(M.device)),
+              "lane_mesh_fold")
+    launch_counts["lane_mesh_fold"] += 1
+
+
+def current_card(device):
+    """A context in which the CUDA runtime's current device is ``device``
+    (a launch goes to a stream of the current device, so a lane mesh over
+    several cards launches each shard's kernels on its own card); nothing
+    to do on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _join(M: MeshLanes) -> None:
+    """Shards on other devices: the fold's stream waits for each shard's
+    last launch."""
+    if M.device.type == "cuda" and M.spread:
+        home = torch.cuda.current_stream(M.device)
+        for L in M.shards[1:]:
+            if L.device != M.device:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(L.device))
+                home.wait_event(ev)
+
+
+def _fork(M: MeshLanes) -> None:
+    """Shards on other devices: each shard's stream waits for the fold."""
+    if M.device.type == "cuda" and M.spread:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(M.device))
+        for L in M.shards[1:]:
+            if L.device != M.device:
+                torch.cuda.current_stream(L.device).wait_event(ev)
+
+
+def mesh_reset(M: MeshLanes, timing: bool = False) -> None:
+    """The mesh's slice entry: each shard's partial K16, then K26."""
+    for L in M.shards:
+        with current_card(L.device):
+            lane_reset(L, timing, partial=True)
+    _join(M)
+    with current_card(M.device):
+        lane_mesh_fold(M)
+    _fork(M)
+
+
+def mesh_superstep(M: MeshLanes, staged: bool, timing: bool = False) -> None:
+    """One batched superstep of the mesh: each shard's K14 (staged
+    ladders), K13 and partial K15, then K26."""
+    for L in M.shards:
+        with current_card(L.device):
+            if staged:
+                lane_compact(L)
+            lane_superstep(L)
+            lane_finish(L, timing, partial=True)
+    _join(M)
+    with current_card(M.device):
+        lane_mesh_fold(M)
+    _fork(M)

@@ -170,6 +170,14 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def indexed_device(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def superstep_rows(ctrl: torch.Tensor, state: torch.Tensor, table: torch.Tensor,
                    row0: int, planes: int, k: int, fail_valid: bool) -> None:
     """K1 over table rows ``[row0, row0 + table.shape[0])``; see the module

@@ -1,6 +1,6 @@
 """The port's copy of the layout constants of ``dgc_tpu.layout`` that it
 needs: the serve tier's per-lane carry (its slots, the result span and the
-slots a slice may bring home), the in-kernel telemetry's trajectory row
+slots a slice may bring home) and its lane mesh's axis, the in-kernel telemetry's trajectory row
 columns, the fill of an unwritten row, the clock mask, the attempt
 block's trajectory slot, and the sharded flat pipeline's carry.
 ``tests/test_torch_telemetry.py`` and ``tests/test_torch_import.py`` hold
@@ -42,6 +42,15 @@ N_OUT = 7              # result slots p1..st2
 # the phase/rung/nc scheduling scalars, the timing slot, and the result
 # span [OUT0, OUT0+N_OUT)
 D2H_SLOTS = (0, 13, 15, 16, 6, 7, 8, 9, 10, 11, 12)
+
+# -- serve lane-mesh sharding (serve.batched sharded section) --------------
+#
+# The lane-sharded serve tier splits every batch-leading buffer (the carry
+# slots above, the input stacks, the scheduling and speculation vectors)
+# over a one-axis mesh of shard slots, axis LANES_AXIS, in contiguous
+# blocks; the executed rung and the live word stay global (K26 folds them).
+LANES_AXIS = 0         # the axis every serve buffer shards on
+MESH_AXIS = "lanes"    # the serve mesh's single axis name
 
 # -- trajectory buffer row (obs.kernel, one column per metric) ------------
 COL_ACTIVE = 0         # global active count after the superstep

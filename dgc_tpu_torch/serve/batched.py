@@ -52,6 +52,24 @@ stacks at a new width, the class dummy in the new rows) over
 ``kernels.carry``; ``lanes_home`` brings only done lanes' result slots
 home.
 
+**The lane mesh** (``--mesh-devices``, B12g; the reference's sharded
+section): a :class:`LaneMesh` is an ordered list of n shard slots, each a
+``torch.device`` (repeats allowed: several slots on one card), and lane
+``i`` of a ``B``-lane pool lives on shard ``i // (B / n)``, the reference's
+``NamedSharding(P("lanes"))`` blocks. Each shard holds its own ``Lanes``
+(carry rows, inputs, ``nxt``, counters, control block). The reference's
+cross-lane values are full reductions (the executed rung, the live
+predicate), which its SPMD partitioner turns into all-reductions; here
+each shard runs the partial instances of K16/K15 and K26
+``lane_mesh_fold`` writes the folded routing into every shard's control
+block (``kernels.serve.mesh_reset`` / ``mesh_superstep``), so a lane's
+values are byte-identical to the unsharded run's. The six ``_sharded``
+twins (``batched_sweep_kernel_sharded``, ``batched_slice_kernel_sharded``
+and its ``_donated`` form, ``seat_lane_kernel_sharded``,
+``permute_carry_kernel_sharded``, ``resize_inputs_kernel_sharded``) take
+whole ``[B, ...]`` inputs (numpy or tensors, split on upload) or per-shard
+lists; a sharded carry is a list of n per-shard carries.
+
 Bit identity with the single-graph engines (``CompactFrontierEngine
 .sweep``) is the reference's argument (``dgc_tpu/serve/batched.py``
 docstring): priorities invariant under the relabeling, windows covering
@@ -70,8 +88,9 @@ from dgc_tpu_torch.engine.base import AttemptResult, AttemptStatus
 from dgc_tpu_torch.engine.compact import _check_stage_ladder
 from dgc_tpu_torch.kernels import carry as kcar
 from dgc_tpu_torch.kernels import serve as ks
+from dgc_tpu_torch.kernels.superstep import indexed_device
 from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_LEN, CARRY_P1, CARRY_P2,
-                                  CARRY_PACKED, N_OUT, OUT0)
+                                  CARRY_PACKED, MESH_AXIS, N_OUT, OUT0)
 
 _FAILURE = AttemptStatus.FAILURE
 
@@ -353,6 +372,406 @@ def carry_nbytes(carry) -> int:
     """Total byte size of a carry tuple (transfer accounting; every slot
     is int32, and the shape touches no device data)."""
     return int(sum(int(np.prod(a.shape)) * 4 for a in carry))
+
+
+# -- the lane mesh (B12g) -------------------------------------------------
+
+# A host without a card has no device count of its own: it gets 8 lane
+# slots, the counterpart of the 8 host devices the JAX package's tests
+# force, so ``--mesh-devices 8`` and ``auto`` run on the CPU and 16 exceeds.
+CPU_LANE_SLOTS = 8
+
+
+class LaneMesh:
+    """A one-axis lane mesh (axis ``layout.MESH_AXIS``): an ordered list of
+    n shard slots, each a ``torch.device``; a device may repeat (several
+    slots on one card share its stream, and launch order is the order).
+    Slots on several cards must reach each other (peer access, enabled
+    here); the mesh refuses otherwise."""
+
+    def __init__(self, devices):
+        devs = tuple(indexed_device(d) for d in devices)
+        if not devs:
+            raise ValueError("a lane mesh needs at least one device")
+        if len({d.type for d in devs}) != 1:
+            raise ValueError(f"a lane mesh lies on one kind of device, got "
+                             f"{[str(d) for d in devs]}")
+        ks.enable_peer_access(devs)
+        self.devices = devs
+        self.axis_names = (MESH_AXIS,)
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The first slot's device (where K26 runs)."""
+        return self.devices[0]
+
+    def per(self, b: int) -> int:
+        """The lanes a shard holds in a ``b``-lane pool."""
+        if b % self.n:
+            raise ValueError(f"{b} lanes do not shard evenly over {self.n}")
+        return b // self.n
+
+    def __repr__(self) -> str:
+        return f"LaneMesh({[str(d) for d in self.devices]})"
+
+
+def mesh_device_count(devices="auto", device="cuda") -> int:
+    """Resolve a ``--mesh-devices`` value to a lane-mesh size on ``device``'s
+    kind (the card count; ``CPU_LANE_SLOTS`` without a card): ``auto`` (or
+    None) is the largest power of two not above the count; an explicit N
+    must be a power of two (lane pads are powers of two and must shard
+    evenly) and not above the count. 1 means no mesh (the unsharded
+    path)."""
+    dev = resolve_device(device)
+    n_avail = (torch.cuda.device_count() if dev.type == "cuda"
+               else CPU_LANE_SLOTS)
+    if devices in ("auto", None):
+        return 1 << max(0, n_avail.bit_length() - 1)
+    n = int(devices)
+    if n < 1 or (n & (n - 1)) != 0:
+        raise ValueError(
+            f"mesh devices must be a power of two (lane pads are pow2 "
+            f"and must shard evenly), got {devices!r}")
+    if n > n_avail:
+        raise ValueError(
+            f"mesh devices {n} exceeds the {n_avail} local device(s)")
+    return n
+
+
+def lane_mesh(devices="auto", device="cuda") -> LaneMesh:
+    """The lane mesh over the first :func:`mesh_device_count` cards (or as
+    many CPU lane slots)."""
+    n = mesh_device_count(devices, device)
+    if resolve_device(device).type == "cuda":
+        return LaneMesh([torch.device("cuda", i) for i in range(n)])
+    return LaneMesh([torch.device("cpu")] * n)
+
+
+def lane_mesh_over(devices) -> LaneMesh:
+    """A lane mesh over an explicit device list (repeats allowed: the
+    failure-domain plane's survivor meshes, several slots on one card). Its
+    length must be a power of two >= 2 (one survivor takes the unsharded
+    path instead)."""
+    devices = list(devices)
+    n = len(devices)
+    if n < 2 or (n & (n - 1)) != 0:
+        raise ValueError(
+            f"lane_mesh_over needs a power-of-two device list >= 2 "
+            f"(got {n}); a single survivor takes the unsharded path")
+    return LaneMesh(devices)
+
+
+def _is_sharded(x) -> bool:
+    """A per-shard list (not a whole array, and for a carry not a list of
+    slots)."""
+    return isinstance(x, (list, tuple)) and len(x) > 0 and isinstance(
+        x[0], (list, tuple))
+
+
+def split_lanes(x, mesh: LaneMesh) -> list:
+    """A whole lane-leading array (numpy or tensor) as n contiguous
+    per-shard int32 tensors on the shards' devices."""
+    b = x.shape[0]
+    per = mesh.per(b)
+    return [_on(x[i * per:(i + 1) * per], d)
+            for i, d in enumerate(mesh.devices)]
+
+
+def _stack_shards(x, mesh: LaneMesh) -> list:
+    """Per-shard tensors of a stack given whole or as a per-shard list."""
+    if isinstance(x, (list, tuple)):
+        if len(x) != mesh.n:
+            raise ValueError(f"{len(x)} shards for a mesh of {mesh.n}")
+        return [_on(t, d) for t, d in zip(x, mesh.devices)]
+    return split_lanes(x, mesh)
+
+
+def carry_shards(carry, mesh: LaneMesh) -> list:
+    """A carry given whole (``CARRY_LEN`` lane-leading slots) or sharded
+    (n per-shard carries) as n per-shard lists of tensors (tensors already
+    on their shard's device are used as they are)."""
+    if _is_sharded(carry):
+        if len(carry) != mesh.n:
+            raise ValueError(f"{len(carry)} carry shards for a mesh of "
+                             f"{mesh.n}")
+        return [[_on(t, d) for t in c] for c, d in zip(carry, mesh.devices)]
+    if len(carry) != CARRY_LEN:
+        raise ValueError(f"the carry has {CARRY_LEN} slots, got {len(carry)}")
+    slots = [split_lanes(t, mesh) for t in carry]
+    return [[slots[j][i] for j in range(CARRY_LEN)] for i in range(mesh.n)]
+
+
+def sharded_home(shards) -> tuple:
+    """Whole host copies (numpy) of the slots of n per-shard tuples, the
+    shards' rows in order; one copy home per device."""
+    n_slots = len(shards[0])
+    by_device: dict = {}
+    for i, sh in enumerate(shards):
+        dev = str(sh[0].device) if isinstance(sh[0], torch.Tensor) else "np"
+        by_device.setdefault(dev, []).append(i)
+    homes = [None] * len(shards)
+    for idx in by_device.values():
+        flat = carry_home([t for i in idx for t in shards[i]])
+        for k, i in enumerate(idx):
+            homes[i] = flat[k * n_slots:(k + 1) * n_slots]
+    return tuple(np.concatenate([h[j] for h in homes])
+                 for j in range(n_slots))
+
+
+def lanes_home_sharded(shards, lanes, per: int) -> list:
+    """``lanes_home`` of each of ``lanes`` (global lane ids) from a
+    sharded carry: each shard's delivered lanes' result slots, one copy a
+    shard."""
+    out = {}
+    for s, sh in enumerate(shards):
+        mine = [lane for lane in lanes if lane // per == s]
+        if mine:
+            out.update(zip(mine, lanes_home(sh, [lane - s * per
+                                                 for lane in mine])))
+    return [out[lane] for lane in lanes]
+
+
+def mesh_lanes(mesh: LaneMesh, comb, degrees, k0, max_steps, reset, carry, *,
+               planes: int, stall_window: int = DEFAULT_STALL_WINDOW,
+               stages=None, spec=None, cancel=None) -> ks.MeshLanes:
+    """``slice_lanes`` per shard: each shard's block of the inputs and the
+    carry (whole or per-shard) on its device."""
+    parts = [_stack_shards(x, mesh) for x in (comb, degrees, k0, max_steps,
+                                               reset)]
+    vecs = [None if v is None else _stack_shards(v, mesh)
+            for v in (spec, cancel)]
+    shards = carry_shards(carry, mesh)
+    return ks.new_mesh_lanes([
+        slice_lanes(*(x[i] for x in parts), shards[i], planes=planes,
+                    stall_window=stall_window, stages=stages,
+                    device=mesh.devices[i],
+                    spec=None if vecs[0] is None else vecs[0][i],
+                    cancel=None if vecs[1] is None else vecs[1][i])
+        for i in range(mesh.n)])
+
+
+def _mesh_rounds(M: ks.MeshLanes, n: int, staged: bool, timing: bool) -> None:
+    """Enqueue ``n`` mesh supersteps (on the CPU: until the live word
+    drops)."""
+    cpu = M.device.type == "cpu"
+    for _ in range(n):
+        if cpu and not int(M.ctrl[ks.CTRL_LIVE]):
+            return
+        ks.mesh_superstep(M, staged, timing)
+
+
+def run_mesh_slice(M: ks.MeshLanes, *, slice_steps: int, staged: bool,
+                   timing: bool = False) -> list:
+    """``run_slice`` over a lane mesh: every shard's partial K16 and K26,
+    then at most ``slice_steps`` mesh supersteps, enqueued without a host
+    sync. Returns the sharded carry, advanced in place."""
+    if int(slice_steps) < 1:
+        raise ValueError(f"slice_steps must be >= 1, got {slice_steps}")
+    M.set_budget(int(slice_steps))
+    ks.mesh_reset(M, timing)
+    _mesh_rounds(M, int(slice_steps), staged, timing)
+    return [tuple(c) for c in M.carry]
+
+
+def batched_sweep_kernel_sharded(mesh: LaneMesh, comb, degrees, k0,
+                                 max_steps, planes: int,
+                                 stall_window: int = DEFAULT_STALL_WINDOW,
+                                 stages=None) -> list:
+    """:func:`batched_sweep` with the lanes split over ``mesh`` (sync
+    mode's sharded dispatch; ``B`` a multiple of the mesh size): returns
+    each shard's result slots ``(p1, s1, st1, used, p2, s2, st2)``
+    (:func:`sharded_home` brings them home whole)."""
+    degrees = _stack_shards(degrees, mesh)
+    per, v = degrees[0].shape
+    stages, _pads, a0 = resolve_stages(stages, v)
+    parts = [_stack_shards(x, mesh) for x in (comb, k0, max_steps)]
+    shards = []
+    for i, d in enumerate(mesh.devices):
+        carry = [torch.empty(kcar.slot_shape(j, per, v, a0),
+                             dtype=torch.int32, device=d)
+                 for j in range(CARRY_LEN)]
+        shards.append(ks.new_lanes(
+            carry, parts[0][i], degrees[i], parts[1][i], parts[2][i],
+            torch.ones(per, dtype=torch.int32, device=d),
+            _ladder_ctrl(stages, d), planes=planes,
+            stall_window=stall_window, budget=ks.INT32_MAX))
+    M = ks.new_mesh_lanes(shards)
+    staged = is_staged(stages)
+    ks.mesh_reset(M)
+    while int(M.ctrl[ks.CTRL_LIVE]):  # one host read per chunk
+        _mesh_rounds(M, SWEEP_CHUNK, staged, False)
+    return [tuple(L.carry[OUT0:OUT0 + N_OUT]) for L in M.shards]
+
+
+def _spec_vectors(spec, cancel, b: int):
+    """The sharded slice's speculation vectors: an omitted one becomes an
+    all-zero int32[b] vector, the no-op tags (no lane tagged, none
+    cancelled), so such a slice equals the plain one byte for byte."""
+    if spec is None:
+        spec = np.zeros(b, np.int32)
+    if cancel is None:
+        cancel = np.zeros(b, np.int32)
+    return spec, cancel
+
+
+def _sharded_slice(mesh, comb, degrees, k0, max_steps, reset, carry, spec,
+                   cancel, donate: bool, *, planes, slice_steps,
+                   stall_window, timing, stages) -> list:
+    b = sum(t.shape[0] for t in degrees) if isinstance(
+        degrees, (list, tuple)) else degrees.shape[0]
+    spec, cancel = _spec_vectors(spec, cancel, b)
+    if not donate:
+        carry = [[t.clone() for t in c] for c in carry_shards(carry, mesh)]
+    M = mesh_lanes(mesh, comb, degrees, k0, max_steps, reset, carry,
+                   planes=planes, stall_window=stall_window, stages=stages,
+                   spec=spec, cancel=cancel)
+    return run_mesh_slice(M, slice_steps=slice_steps,
+                          staged=is_staged(stages), timing=timing)
+
+
+def batched_slice_kernel_sharded(mesh: LaneMesh, comb, degrees, k0,
+                                 max_steps, reset, carry, spec=None,
+                                 cancel=None, *, planes: int,
+                                 slice_steps: int,
+                                 stall_window: int = DEFAULT_STALL_WINDOW,
+                                 timing: bool = False, stages=None) -> list:
+    """:func:`batched_slice` over a lane mesh (continuous mode's sharded
+    dispatch): the inputs whole or per shard, ``carry`` whole or sharded
+    (left as it was: the slice runs on a copy); omitted spec/cancel
+    vectors are the all-zero no-op tags. Returns the sharded carry."""
+    return _sharded_slice(mesh, comb, degrees, k0, max_steps, reset, carry,
+                          spec, cancel, False, planes=planes,
+                          slice_steps=slice_steps, stall_window=stall_window,
+                          timing=timing, stages=stages)
+
+
+def batched_slice_kernel_sharded_donated(mesh: LaneMesh, comb, degrees, k0,
+                                         max_steps, reset, carry, spec=None,
+                                         cancel=None, *, planes: int,
+                                         slice_steps: int,
+                                         stall_window: int =
+                                         DEFAULT_STALL_WINDOW,
+                                         timing: bool = False,
+                                         stages=None) -> list:
+    """:func:`batched_slice_kernel_sharded` advancing a sharded carry on
+    its devices in place (the device-resident carry's dispatch); returns
+    it."""
+    return _sharded_slice(mesh, comb, degrees, k0, max_steps, reset, carry,
+                          spec, cancel, True, planes=planes,
+                          slice_steps=slice_steps, stall_window=stall_window,
+                          timing=timing, stages=stages)
+
+
+def seat_lane_kernel_sharded(mesh: LaneMesh, stacks, seats) -> int:
+    """K17 over sharded stacks (n per-shard ``(comb, degrees, k0,
+    max_steps, reset)``): a wave of ``seats`` ``(lane, comb, degrees, k0,
+    max_steps)`` (global lanes, numpy rows) split by owning shard, one K17
+    launch on each shard that has seats (a lane seated twice keeps its
+    last seat). Returns the bytes uploaded."""
+    if len(stacks) != mesh.n:
+        raise ValueError(f"{len(stacks)} stack shards for a mesh of {mesh.n}")
+    per = stacks[0][1].shape[0]
+    by_shard: dict = {}
+    for lane, *rest in seats:
+        lane = int(lane)
+        if not 0 <= lane < per * mesh.n:
+            raise ValueError(f"seat lane {lane} outside 0..{per * mesh.n - 1}")
+        by_shard.setdefault(lane // per, []).append((lane % per, *rest))
+    total = 0
+    for s, wave in sorted(by_shard.items()):
+        with ks.current_card(mesh.devices[s]):
+            total += seat_lanes(stacks[s], wave)
+    return total
+
+
+def permute_carry_kernel_sharded(mesh: LaneMesh, carry, src, dst,
+                                 b_new: int) -> list:
+    """K18's mesh instance, once a new shard: the sharded carry of a pool
+    resized to ``b_new`` lanes, global row ``dst[i]`` old global lane
+    ``src[i]`` (host ints; a kept lane may cross shards), every other row
+    idle. Returns n new per-shard carries (``carry`` is left as it is)."""
+    if len(src) != len(dst) or len(set(int(d) for d in dst)) != len(dst):
+        raise ValueError("permute_carry_kernel_sharded: src and dst must pair "
+                         "up and dst must be distinct")
+    if len(carry) != mesh.n:
+        raise ValueError(f"{len(carry)} carry shards for a mesh of {mesh.n}")
+    per_old = carry[0][CARRY_PACKED].shape[0]
+    per_new = mesh.per(b_new)
+    rows = [[(-1, -1)] * per_new for _ in range(mesh.n)]
+    for a, d in zip(src, dst):
+        a, d = int(a), int(d)
+        if not (0 <= a < per_old * mesh.n and 0 <= d < b_new):
+            raise ValueError(f"permute_carry_kernel_sharded: {a} -> {d} out "
+                             f"of range ({per_old * mesh.n} -> {b_new} lanes)")
+        rows[d // per_new][d % per_new] = (a // per_old, a % per_old)
+    return _gathers(mesh, [c[CARRY_PACKED].device for c in carry],
+                    lambda s, dev: kcar.carry_permute_mesh(
+                        carry, rows[s], per_new, dev))
+
+
+def resize_inputs_kernel_sharded(mesh: LaneMesh, stacks, src, dummy_comb,
+                                 dummy_max_steps: int) -> list:
+    """K19's mesh instance, once a new shard: sharded stacks of ``len(src)``
+    lanes, global row ``i`` old global lane ``src[i]`` (a row may cross
+    shards) or, past the old width, the class dummy (``dummy_comb``, copied
+    to each shard's device, zero degrees, ``k0`` 1,
+    ``dummy_max_steps``); reset all 0. Returns n per-shard ``(comb,
+    degrees, k0, max_steps, reset)``."""
+    if len(stacks) != mesh.n:
+        raise ValueError(f"{len(stacks)} stack shards for a mesh of {mesh.n}")
+    per_old = stacks[0][1].shape[0]
+    b_old = per_old * mesh.n
+    per_new = mesh.per(len(src))
+    def gather(s, dev):
+        rows = []
+        for a in src[s * per_new:(s + 1) * per_new]:
+            a = int(a)
+            rows.append((a // per_old, a % per_old) if 0 <= a < b_old
+                        else (-1, -1))
+        return kcar.inputs_resize_mesh(
+            [st[:4] for st in stacks], rows, _on(dummy_comb, dev), 1,
+            int(dummy_max_steps), dev)
+
+    return _gathers(mesh, [st[1].device for st in stacks], gather)
+
+
+def _gathers(mesh: LaneMesh, old_devices: list, gather) -> list:
+    """``gather(s, device)`` for each new shard ``s``, on its device's
+    current stream. A gather reads every old shard, so on a mesh over
+    several cards it is ordered by events: each gather waits for the old
+    shards' cards (their last writes), and each old shard's card waits for
+    every gather, so memory the caller frees after the resize is not
+    reused on its card while another card still reads it. On one card the
+    stream's order is enough."""
+    cards = {d for d in list(old_devices) + list(mesh.devices)
+             if d.type == "cuda"}
+    spread = len(cards) > 1
+    olds = sorted({d for d in old_devices if d.type == "cuda"}, key=str)
+    ready = {}
+    if spread:
+        for d in olds:
+            ready[d] = torch.cuda.Event()
+            ready[d].record(torch.cuda.current_stream(d))
+    out = []
+    for s, dev in enumerate(mesh.devices):
+        with ks.current_card(dev):
+            if spread:
+                stream = torch.cuda.current_stream(dev)
+                for d, ev in ready.items():
+                    if d != dev:
+                        stream.wait_event(ev)
+            out.append(gather(s, dev))
+            if spread:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                for d in olds:
+                    if d != dev:
+                        torch.cuda.current_stream(d).wait_event(done)
+    return out
 
 
 # -- slice-size policy ----------------------------------------------------

@@ -20,14 +20,17 @@ and input stacks on the card (seats through K17, resizes through K18 and
 K19, only done lanes' results home); ``--speculate-k DEPTH|auto`` serves
 each batched request through the speculative minimal-k engine
 (``serve.speculate``: jump-mode requests run the fused pair unchanged).
-``--log-json`` / ``--run-manifest`` / ``--metrics-prom`` land the
+``--mesh-devices N|auto`` splits each lane pool over a lane mesh of N
+shard slots (cards; 8 slots on a host without one: ``serve.batched``), the
+same results as without it. ``--log-json`` / ``--run-manifest`` /
+``--metrics-prom`` land the
 ``serve_*`` events in the schemas the sweep CLI uses. ``--device cpu``
 runs the plain PyTorch versions of the kernels.
 
-The other flags of ``dgc_tpu.serve.cli`` (network mode, the result cache,
-the fleet, the lane mesh, fault injection, tuned configs, the flight
-recorder, profiler and time series) are not ported yet: each is refused
-with exit code 2.
+The other flags of ``dgc_tpu.serve.cli`` (network mode and its health
+probe, the result cache, the fleet, fault injection, tuned configs, the
+flight recorder, profiler and time series) are not ported yet: each is
+refused with exit code 2.
 
 Exit codes: 0 every request ok, 1 some request failed or was bad, 2 usage
 or load error (a missing card for ``--device cuda`` included).
@@ -55,7 +58,7 @@ UNPORTED_FLAGS = (
     "--brownout", "--brownout-sustain", "--brownout-clear",
     "--fleet-replica", "--fleet-incarnation", "--fleet-recover",
     "--inject-faults", "--dispatch-timeout", "--max-lane-aborts",
-    "--mesh-devices", "--auto-tune",
+    "--auto-tune",
     "--tuned-cache-dir", "--metrics-port", "--flightrec-capacity",
     "--flightrec-dir", "--profile-logdir", "--no-trace",
     "--timeseries-interval", "--timeseries-capacity", "--timeseries-jsonl",
@@ -115,6 +118,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                         "seat scatters one lane's row, a resize moves the "
                         "kept lanes there, and only done lanes' results "
                         "come home")
+    p.add_argument("--mesh-devices", type=str, default=None,
+                   metavar="N|auto",
+                   help="split each lane pool over a lane mesh of N shard "
+                        "slots (a power of two, at most the cards present; "
+                        "8 slots with --device cpu), or 'auto' for the "
+                        "largest such N; unset: the unsharded path")
     p.add_argument("--warm-classes", type=str, default=None,
                    metavar="CLS1,CLS2,...",
                    help="run these shape classes' kernels at every batch "
@@ -214,6 +223,13 @@ def serve_main(argv: list[str] | None = None) -> int:
             print(f"--slice-steps must be an integer or 'auto', got "
                   f"{args.slice_steps!r}", file=sys.stderr)
             return 2
+    if args.mesh_devices is not None and args.mesh_devices != "auto":
+        try:
+            args.mesh_devices = int(args.mesh_devices)
+        except ValueError:
+            print(f"--mesh-devices must be 'auto' or an integer, got "
+                  f"{args.mesh_devices!r}", file=sys.stderr)
+            return 2
     if args.speculate_k is not None and args.speculate_k != "auto":
         try:
             args.speculate_k = int(args.speculate_k)
@@ -253,13 +269,17 @@ def _replay(args, requests, logger, registry, manifest) -> int:
                          else args.slice_steps),
             affinity=not args.no_affinity,
             stages=args.serve_stages, device_carry=args.device_carry,
+            mesh_devices=args.mesh_devices,
             speculate_k=args.speculate_k, timing=args.kernel_timing,
             validate=not args.no_validate,
             post_reduce=not args.no_reduce_colors,
             logger=logger, registry=registry, device=args.device,
         ).start()
     except ValueError as e:
-        print(f"serve: {e}", file=sys.stderr)
+        # a bad --mesh-devices (not a power of two, more than the host
+        # has) is a usage error
+        what = "--mesh-devices" if args.mesh_devices is not None else "serve"
+        print(f"{what}: {e}", file=sys.stderr)
         return 2
 
     # warmup runs (and is reported) outside the serve clock
@@ -325,6 +345,14 @@ def _replay(args, requests, logger, registry, manifest) -> int:
         summary_kw["latency_ms"] = latency
     if sst.get("recals"):
         summary_kw["recals"] = sst["recals"]
+    mesh_snap = front.scheduler.mesh_snapshot()
+    if mesh_snap is not None:
+        summary_kw["mesh_devices"] = mesh_snap["mesh_devices"]
+        summary_kw["device_occupancy"] = mesh_snap["device_occupancy"]
+    if sst.get("mesh_degrades"):
+        # the failure-domain plane's counters, only after a degrade
+        summary_kw["mesh_degrades"] = sst["mesh_degrades"]
+        summary_kw["lanes_evacuated"] = sst.get("lanes_evacuated", 0)
     if sst.get("spec_seated") or sst.get("spec_cancelled"):
         # the speculation plane's totals, only when an attempt speculated
         for key in ("spec_seated", "spec_wins", "spec_cancelled",

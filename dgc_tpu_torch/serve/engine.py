@@ -55,8 +55,28 @@ shape; the kernels are built once), so the event fields keep their
 schema; :meth:`BatchScheduler.warm_class` runs each pad of a class once
 before serving.
 
-Not ported (the reference's other planes): the lane mesh and the
-device-health model.
+**The lane mesh** (``mesh_devices``, ``--mesh-devices``; B12g): every
+pool's lane axis is split over a ``serve.batched.LaneMesh`` of n shard
+slots (lane ``i`` on shard ``i // (b_pad / n)``, each shard its own
+tensors and control block), pool widths floored at n, seats placed in the
+least-loaded shard, and the slices, seats and resizes run through the
+sharded twins (K16/K15 partial per shard, K26 folding the routing; K17 per
+shard with seats; the mesh instances of K18/K19, where kept lanes may
+cross shards). ``serve_slice``/``serve_batch`` events carry
+``mesh_devices`` and the per-shard ``device_occupancy``. A resolved mesh
+of 1 (or none asked for) is the unsharded path, byte for byte.
+
+**The failure-domain plane** (``resilience.domains``): on the mesh, a
+dispatch error classified as a device loss (the ``mesh`` fault point's
+``device_loss:D`` names shard slot D) marks the slot lost, evacuates every
+pool (live calls reseat from their inputs, under the abort accounting)
+and rebuilds the mesh over the largest power-of-two set of survivors with
+a new generation in every cache key; below two survivors the scheduler
+collapses to the unsharded path. ``request_restore`` (after
+``device_health.mark_healthy``; ``resilience.probe.HealthProbe`` makes
+both calls) rebuilds the full mesh at the dispatcher's next quiet point.
+``mesh_degrade``/``mesh_restore`` events and ``mesh_health`` record every
+transition.
 """
 
 from __future__ import annotations
@@ -73,17 +93,26 @@ from dgc_tpu_torch.kernels import carry as kcar
 from dgc_tpu_torch.layout import (CARRY_LEN, CARRY_NC, CARRY_PHASE,
                                   CARRY_RUNG, T_US)
 from dgc_tpu_torch.obs.trace import NULL_TRACER
+from dgc_tpu_torch.resilience.domains import (DeviceHealth, MeshState,
+                                             is_device_loss)
 from dgc_tpu_torch.resilience.faults import fault_point
 from dgc_tpu_torch.resilience.supervisor import STRUCTURED_ABORT_RC
-from dgc_tpu_torch.serve.batched import (DEFAULT_STALL_WINDOW,
+from dgc_tpu_torch.serve.batched import (DEFAULT_STALL_WINDOW, LaneMesh,
                                          auto_slice_steps, batched_sweep,
+                                         batched_sweep_kernel_sharded,
                                          carry_home, carry_nbytes,
                                          finish_pair, idle_carry, is_staged,
+                                         lane_mesh, lane_mesh_over,
                                          lane_outputs, lanes_home,
-                                         permute_carry, priced_slice_steps,
-                                         resize_inputs, run_slice,
-                                         seat_lanes, slice_lanes,
-                                         stage_idx_width)
+                                         lanes_home_sharded, mesh_device_count,
+                                         mesh_lanes, permute_carry,
+                                         permute_carry_kernel_sharded,
+                                         priced_slice_steps, resize_inputs,
+                                         resize_inputs_kernel_sharded,
+                                         run_mesh_slice, run_slice,
+                                         seat_lane_kernel_sharded, seat_lanes,
+                                         sharded_home, slice_lanes,
+                                         split_lanes, stage_idx_width)
 from dgc_tpu_torch.serve.shape_classes import (dummy_member, pad_ladder,
                                                padding_waste,
                                                stage_schedule_for)
@@ -119,6 +148,24 @@ class PoisonedRequest(ServeError):
 
 def _pow2_ceil(n: int) -> int:
     return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _home(carry, mesh, slots=None) -> tuple:
+    """Host copies of a carry's ``slots`` (all by default), whole: one copy
+    home (a sharded carry: the shards' rows in order, one copy a
+    device)."""
+    if mesh is None:
+        return carry_home(carry if slots is None else
+                          [carry[j] for j in slots])
+    return sharded_home(carry if slots is None else
+                        [[c[j] for j in slots] for c in carry])
+
+
+def _nbytes(carry, mesh) -> int:
+    """A carry's byte size, whole or sharded."""
+    if mesh is None:
+        return carry_nbytes(carry)
+    return sum(carry_nbytes(c) for c in carry)
 
 
 def depth_bucket(k: int) -> int:
@@ -195,19 +242,27 @@ class _LanePool:   # owned by the dispatcher thread
       stacks (K19, ``resize_inputs``; ``dummy_dev``, the class dummy's
       table row on the device, is uploaded by the first pool of the class
       and passed to the next); seats pending at a resize are seated again
-      after it."""
+      after it.
+
+    ``mesh`` (a ``serve.batched.LaneMesh``) splits the lane axis over its
+    shards: the pool width stays a multiple of the mesh size, lane ``i``
+    lives on shard ``i // (b_pad / n)``, seats go to the least-loaded
+    shard, and every device-side buffer (inputs, vectors, carry, lanes) is
+    a per-shard list. ``mesh=None`` is the unsharded pool."""
 
     __slots__ = ("cls", "b_pad", "comb", "degrees", "k0", "max_steps",
                  "reset", "carry", "calls", "t_fill", "slices_in",
                  "t_seen", "_dev_inputs", "_dev_vecs", "_dirty", "_dummy",
                  "h2d", "d2h", "a_pad", "device", "lanes", "device_carry",
-                 "_stacks", "_dummy_dev", "_spec_dev")
+                 "_stacks", "_dummy_dev", "_spec_dev", "mesh", "mesh_n")
 
     def __init__(self, cls, b_pad: int, dummy, device, a_pad: int = 1,
-                 device_carry: bool = False, dummy_dev=None):
+                 device_carry: bool = False, dummy_dev=None, mesh=None):
         self.cls = cls
         self._dummy = dummy
-        self.device = device
+        self.mesh = mesh
+        self.mesh_n = mesh.n if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else device
         self.device_carry = bool(device_carry)
         self.a_pad = int(a_pad)   # the class ladder's CARRY_IDX width
         self.b_pad = 0
@@ -223,10 +278,34 @@ class _LanePool:   # owned by the dispatcher thread
         self._dirty = []
         self._resize(self._pad(b_pad))
 
-    @staticmethod
-    def _pad(n: int) -> int:
-        """The pool width that seats ``n`` lanes: the power-of-two pad."""
-        return _pow2_ceil(max(int(n), 1))
+    def _pad(self, n: int) -> int:
+        """The pool width that seats ``n`` lanes: the power-of-two pad,
+        floored at the mesh size (1 without a mesh)."""
+        return max(_pow2_ceil(max(int(n), 1)), self.mesh_n)
+
+    def device_live(self) -> list:
+        """Live-lane count per shard (lane ``i`` on shard ``i // (b_pad /
+        n)``); a pool without a mesh reports one shard."""
+        per = self.b_pad // self.mesh_n
+        counts = [0] * self.mesh_n
+        for i, c in enumerate(self.calls):
+            if c is not None:
+                counts[i // per] += 1
+        return counts
+
+    def _free_lane(self) -> int:
+        """The lane the next seat lands in: the first free lane or, on a
+        mesh, the first free lane of the least-loaded shard (ties: the
+        lowest shard), so live lanes spread across the shards."""
+        if self.mesh is None:
+            return self.calls.index(None)
+        per = self.b_pad // self.mesh_n
+        live = self.device_live()
+        for d in sorted(range(self.mesh_n), key=lambda d: (live[d], d)):
+            for i in range(d * per, (d + 1) * per):
+                if self.calls[i] is None:
+                    return i
+        raise ValueError("no free lane")
 
     def _resize(self, b_pad: int) -> None:
         """(Re)allocate at ``b_pad`` lanes, compacting live lanes into the
@@ -277,8 +356,10 @@ class _LanePool:   # owned by the dispatcher thread
         carry = idle_carry(b_pad, cls.v_pad, self.a_pad)
         if keep:
             if not isinstance(self.carry[0], np.ndarray):
-                self.d2h += carry_nbytes(self.carry)
-            old_carry = carry_home(self.carry)
+                self.d2h += _nbytes(self.carry, self.mesh)
+                old_carry = _home(self.carry, self.mesh)
+            else:
+                old_carry = self.carry
             for new_i, old_i in enumerate(keep):
                 comb[new_i] = self.comb[old_i]
                 degrees[new_i] = self.degrees[old_i]
@@ -287,24 +368,40 @@ class _LanePool:   # owned by the dispatcher thread
         self.comb, self.degrees, self.carry = comb, degrees, carry
 
     def _resize_on_device(self, keep: list, old_b: int, b_pad: int) -> None:
-        cls, device = self.cls, self.device
+        cls, device, mesh = self.cls, self.device, self.mesh
         if self._dummy_dev is None:
             self._dummy_dev = torch.from_numpy(self._dummy.comb).to(
                 device, copy=True)
             self.h2d += self._dummy.comb.nbytes
         if self._stacks is None:   # the first allocation: from no lanes
             w = self._dummy.comb.shape[-1]
-            self._stacks = tuple(torch.empty(shape, dtype=torch.int32,
-                                             device=device) for shape in (
-                (0, cls.v_pad, w), (0, cls.v_pad), (0,), (0,), (0,)))
-            self.carry = [torch.empty(kcar.slot_shape(j, 0, cls.v_pad,
-                                                      self.a_pad),
-                                      dtype=torch.int32, device=device)
-                          for j in range(CARRY_LEN)]
+
+            def empty(d):
+                return (tuple(torch.empty(shape, dtype=torch.int32, device=d)
+                              for shape in ((0, cls.v_pad, w), (0, cls.v_pad),
+                                            (0,), (0,), (0,))),
+                        [torch.empty(kcar.slot_shape(j, 0, cls.v_pad,
+                                                     self.a_pad),
+                                     dtype=torch.int32, device=d)
+                         for j in range(CARRY_LEN)])
+            if mesh is None:
+                self._stacks, self.carry = empty(device)
+            else:
+                parts = [empty(d) for d in mesh.devices]
+                self._stacks = [p[0] for p in parts]
+                self.carry = [p[1] for p in parts]
         src = keep + [old_b] * (b_pad - len(keep))   # past old_b: the dummy
-        self._stacks = resize_inputs(self._stacks, src, self._dummy_dev,
-                                     self._dummy.max_steps)
-        self.carry = permute_carry(self.carry, keep, b_pad)
+        if mesh is None:
+            self._stacks = resize_inputs(self._stacks, src, self._dummy_dev,
+                                         self._dummy.max_steps)
+            self.carry = permute_carry(self.carry, keep, b_pad)
+        else:
+            # kept lanes compact to the front: a lane may cross shards
+            self._stacks = resize_inputs_kernel_sharded(
+                mesh, self._stacks, src, self._dummy_dev,
+                self._dummy.max_steps)
+            self.carry = permute_carry_kernel_sharded(
+                mesh, self.carry, keep, list(range(len(keep))), b_pad)
         self.h2d += 2 * b_pad * 4   # K19's source list and K18's row map
 
     @property
@@ -327,10 +424,10 @@ class _LanePool:   # owned by the dispatcher thread
         device carry, scattered by K17 before the slice
         (:meth:`dev_state`)."""
         try:
-            lane = self.calls.index(None)
+            lane = self._free_lane()
         except ValueError:
             self._resize(self.b_pad * 2)
-            lane = self.calls.index(None)
+            lane = self._free_lane()
         m = call.member
         if not self.device_carry:
             self.comb[lane] = m.comb
@@ -352,10 +449,16 @@ class _LanePool:   # owned by the dispatcher thread
         if self._dev_inputs is None:
             self._dev_inputs = tuple(
                 torch.from_numpy(a).to(self.device, copy=True)
+                if self.mesh is None else split_lanes(a, self.mesh)
                 for a in (self.comb, self.degrees))
         elif self._dirty:
             for dev, a in zip(self._dev_inputs, (self.comb, self.degrees)):
-                dev.copy_(torch.from_numpy(a))
+                if self.mesh is None:
+                    dev.copy_(torch.from_numpy(a))
+                else:
+                    per = self.b_pad // self.mesh_n
+                    for i, t in enumerate(dev):
+                        t.copy_(torch.from_numpy(a[i * per:(i + 1) * per]))
         else:
             return self._dev_inputs
         self.h2d += self.comb.nbytes + self.degrees.nbytes
@@ -364,15 +467,33 @@ class _LanePool:   # owned by the dispatcher thread
 
     def dev_vecs(self):
         """Host mirror: the scheduling vectors (k0, max_steps, reset) on
-        the device, one int32[3, b_pad] tensor written every slice."""
-        host = torch.from_numpy(np.stack([self.k0, self.max_steps,
-                                          self.reset]))
-        if self._dev_vecs is None:
-            self._dev_vecs = host.to(self.device, copy=True)
-        else:
-            self._dev_vecs.copy_(host)
+        the device, one int32[3, b_pad] tensor written every slice (on a
+        mesh one int32[3, b_pad / n] a shard); returns the three."""
+        self._dev_vecs = self._put_rows(
+            np.stack([self.k0, self.max_steps, self.reset]), self._dev_vecs)
         self.h2d += self.k0.nbytes + self.max_steps.nbytes + self.reset.nbytes
-        return self._dev_vecs
+        if self.mesh is None:
+            return tuple(self._dev_vecs)
+        return tuple([t[r] for t in self._dev_vecs] for r in range(3))
+
+    def _put_rows(self, host: np.ndarray, dev):
+        """``host`` (int32[k, b_pad]) into its copy on the device ``dev``,
+        made anew when None or of another width: one tensor, or on a mesh
+        one int32[k, b_pad / n] a shard. Returns the copy."""
+        host = torch.from_numpy(host)
+        if self.mesh is None:
+            if dev is None or dev.shape[1] != self.b_pad:
+                return host.to(self.device, copy=True)
+            dev.copy_(host)
+            return dev
+        per = self.b_pad // self.mesh_n
+        parts = [host[:, i * per:(i + 1) * per] for i in range(self.mesh_n)]
+        if dev is None or dev[0].shape[1] != per:
+            return [x.to(d, copy=True).contiguous()
+                    for x, d in zip(parts, self.mesh.devices)]
+        for t, x in zip(dev, parts):
+            t.copy_(x)
+        return dev
 
     def dev_state(self):
         """Device carry: the resident ``(comb, degrees, k0, max_steps,
@@ -382,19 +503,24 @@ class _LanePool:   # owned by the dispatcher thread
             seats = [(lane, self.calls[lane].member.comb,
                       self.calls[lane].member.degrees, int(self.k0[lane]),
                       int(self.max_steps[lane])) for lane in self._dirty]
-            self.h2d += seat_lanes(self._stacks, seats)
+            if self.mesh is None:
+                self.h2d += seat_lanes(self._stacks, seats)
+            else:   # one K17 a shard with seats in the wave
+                self.h2d += seat_lane_kernel_sharded(self.mesh, self._stacks,
+                                                     seats)
             self._dirty = []
         return self._stacks
 
     def arm(self, spec: np.ndarray, cancel: np.ndarray) -> None:
         """The slice's speculation vectors into the lanes' spec/cancel
         tensors (one copy up)."""
-        host = torch.from_numpy(np.stack([spec, cancel]))
-        if self._spec_dev is None or self._spec_dev.shape[1] != self.b_pad:
-            self._spec_dev = host.to(self.device, copy=True)
+        self._spec_dev = self._put_rows(np.stack([spec, cancel]),
+                                        self._spec_dev)
+        if self.mesh is None:
+            self.lanes.arm_spec(self._spec_dev[0], self._spec_dev[1])
         else:
-            self._spec_dev.copy_(host)
-        self.lanes.arm_spec(self._spec_dev[0], self._spec_dev[1])
+            for L, t in zip(self.lanes.shards, self._spec_dev):
+                L.arm_spec(t[0], t[1])
         self.h2d += spec.nbytes + cancel.nbytes
 
     def rearm(self, carry) -> None:
@@ -403,7 +529,9 @@ class _LanePool:   # owned by the dispatcher thread
         self.carry = carry
         self.reset[:] = 0
         if self.device_carry:
-            self._stacks[4].zero_()
+            for stacks in ([self._stacks] if self.mesh is None
+                           else self._stacks):
+                stacks[4].zero_()
 
     def maybe_shrink(self) -> None:
         """Shrink to the live set's power-of-two pad as soon as a pad
@@ -425,12 +553,17 @@ class BatchScheduler:
     observes every sync dispatch and ``on_event(kind, record)`` every
     continuous slice / lane swap. ``device``: where the kernels run
     (default the card). ``device_carry``: the device-resident carry
-    (continuous mode; :class:`_LanePool`)."""
+    (continuous mode; :class:`_LanePool`). ``mesh_devices``: the lane mesh
+    (module docstring): ``"auto"`` or a count of ``device``'s kind
+    (``serve.batched.mesh_device_count``), or a ``LaneMesh``
+    (``lane_mesh_over``: an explicit slot list, several slots on one card);
+    None, or a resolved size of 1, keeps the unsharded path."""
 
     def __init__(self, *, batch_max: int = 8, window_s: float = 0.002,
                  mode: str = "continuous", slice_steps: int | None = None,
                  affinity: bool = True, timing: bool = False,
                  stages="auto", device_carry: bool = False,
+                 mesh_devices=None,
                  on_batch=None, on_event=None, tracer=None,
                  device="cuda"):
         if batch_max < 1:
@@ -458,6 +591,40 @@ class BatchScheduler:
         # the device-resident carry (continuous mode): seats through K17,
         # resizes through K18/K19, only done lanes' result slots home
         self.device_carry = bool(device_carry)
+        # the lane mesh and its failure-domain plane; mesh and
+        # mesh_devices are reshaped by degrade/restore on the dispatcher
+        # thread only (other threads read them for display). Without a
+        # mesh (None, or a resolved size of 1) all of it stays off: the
+        # unsharded path, its cache keys and its event stream
+        self.mesh = None               # guarded-by: dispatcher
+        self.mesh_devices = 0          # guarded-by: dispatcher
+        self._mesh_all = []            # guarded-by: init
+        self.device_health = None
+        self._mesh_state = None
+        self._mesh_gen = 0             # guarded-by: dispatcher
+        self._restore_requested = False   # guarded-by: _lock
+        if mesh_devices is not None:
+            if isinstance(mesh_devices, LaneMesh):
+                mesh = mesh_devices
+                if mesh.device.type != self.device.type:
+                    raise ValueError(f"the lane mesh lies on {mesh.device}, "
+                                     f"the scheduler on {self.device}")
+            else:
+                n = mesh_device_count(mesh_devices, self.device)
+                mesh = lane_mesh(n, self.device) if n > 1 else None
+            if mesh is not None and mesh.n > 1:
+                self.mesh = mesh
+                self.mesh_devices = mesh.n
+                self._mesh_all = list(mesh.devices)
+                self.device_health = DeviceHealth(mesh.n)
+                self._mesh_state = MeshState(mesh.n)
+        # the configured mesh size (a degrade goes below it, a restore
+        # returns to it); 0 = never sharded
+        self.mesh_devices0 = self.mesh_devices
+        # per-shard live lanes summed over the dispatches, and the lane
+        # slices they were counted over (mesh_snapshot's mean occupancy)
+        self._dev_live_sum = [0] * max(1, self.mesh_devices)  # guarded-by: _lock
+        self._dev_live_n = 0       # guarded-by: _lock
         # in-kernel timing (obs.devclock): splits slice wall time into
         # superstep compute vs dispatch overhead and, with slice_steps
         # auto, re-prices the slice size ONCE per class from the measured
@@ -494,6 +661,10 @@ class BatchScheduler:
                       "max_live": 0, "recals": 0,
                       "h2d_bytes": 0, "d2h_bytes": 0,
                       "rebuilds": 0, "quarantined": 0,
+                      # the failure-domain plane: mesh degrades and
+                      # restores, and the live lanes reseated across them
+                      "mesh_degrades": 0, "mesh_restores": 0,
+                      "lanes_evacuated": 0,
                       # the speculation plane: seated, cancelled and
                       # preempted speculative attempts, claims, and the
                       # supersteps killed lanes burned
@@ -719,7 +890,8 @@ class BatchScheduler:
                 dummy = self._dummies[cls] = dummy_member(cls)
         t0 = time.perf_counter()
         warmed = 0
-        for b in pad_ladder(self.batch_max):
+        for b in pad_ladder(self.batch_max,
+                            min_pad=max(1, self.mesh_devices)):
             comb = np.repeat(dummy.comb[None], b, axis=0)
             degrees = np.zeros((b, cls.v_pad), np.int32)
             k0 = np.ones(b, np.int32)
@@ -730,10 +902,11 @@ class BatchScheduler:
                     cls, comb, degrees, k0, max_steps, np.ones(b, np.int32),
                     idle_carry(b, cls.v_pad,
                                stage_idx_width(self.stages_for(cls)))))
-                carry_home(carry[CARRY_PHASE:CARRY_PHASE + 1])
+                _home(carry, self.mesh, [CARRY_PHASE])
             else:
                 kernel, _ = self._kernel_for(cls, b)
-                carry_home(kernel(comb, degrees, k0, max_steps))
+                out = kernel(comb, degrees, k0, max_steps)
+                _home(out, self.mesh)
             warmed += 1
         stages = self.stages_for(cls)
         return {"kernels": warmed,
@@ -771,6 +944,57 @@ class BatchScheduler:
         with self._lock:
             return dict(self.stats)
 
+    def mesh_snapshot(self) -> dict | None:
+        """The lane mesh's size and each shard's mean live-lane occupancy
+        over every dispatched slice or batch (sliced to the current mesh
+        size), or None without a mesh."""
+        if self.mesh is None:
+            return None
+        with self._lock:
+            n = self._dev_live_n
+            sums = list(self._dev_live_sum[:self.mesh_devices])
+        return {"mesh_devices": self.mesh_devices,
+                "device_occupancy": [round(s / n, 4) if n else 0.0
+                                     for s in sums]}
+
+    def mesh_health(self) -> dict | None:
+        """The failure-domain health document (None when the lane axis was
+        never sharded): configured and surviving shard slots, the degraded
+        flag, each slot's state and the transition counts. Safe from any
+        thread."""
+        if self.device_health is None:
+            return None
+        snap = self.device_health.snapshot()
+        surviving = sum(1 for s in snap["devices"] if s == "healthy")
+        with self._lock:
+            degrades = self.stats["mesh_degrades"]
+            restores = self.stats["mesh_restores"]
+        return {"devices_total": int(self.mesh_devices0),
+                "devices_surviving": int(surviving),
+                "mesh_devices": int(max(1, self.mesh_devices)),
+                "degraded": bool(self.mesh_devices < self.mesh_devices0),
+                "degrades": int(degrades), "restores": int(restores),
+                "devices": snap["devices"]}
+
+    def slot_device(self, slot: int):
+        """The device shard slot ``slot`` of the configured mesh lies on
+        (None out of range or without a mesh): what the restore probe
+        runs its canary on."""
+        return self._mesh_all[slot] if 0 <= slot < len(self._mesh_all) \
+            else None
+
+    def request_restore(self) -> None:
+        """Arm the restore: once every lost slot is marked healthy again
+        (``device_health.mark_healthy``), the dispatcher rebuilds the full
+        mesh at its next quiet point, evacuating live lanes onto it. A
+        request made while slots are still lost is dropped. No-op without
+        a mesh."""
+        if self.device_health is None:
+            return
+        with self._lock:
+            self._restore_requested = True
+            self._lock.notify_all()
+
     # -- stage-ladder resolution ----------------------------------------
     def stages_for(self, cls):
         """The staged-frontier-ladder schedule of ``cls`` (None = the full
@@ -793,12 +1017,24 @@ class BatchScheduler:
     def _kernel_for(self, cls, b_pad: int):
         stages = self.stages_for(cls)
         key = ("sync", cls.v_pad, cls.w_pad, cls.planes, b_pad, stages)
+        mesh = self.mesh
+        if mesh is not None:
+            # the generation tells apart same-size meshes over other
+            # survivor sets across degrades and restores
+            key += ("mesh", self.mesh_devices, self._mesh_gen)
         with self._lock:
             hit = key in self._kernels
             if not hit:
-                self._kernels[key] = lambda *a: batched_sweep(
-                    *a, planes=cls.planes, stall_window=DEFAULT_STALL_WINDOW,
-                    stages=stages, device=self.device)
+                if mesh is not None:
+                    self._kernels[key] = \
+                        lambda *a: batched_sweep_kernel_sharded(
+                            mesh, *a, planes=cls.planes,
+                            stall_window=DEFAULT_STALL_WINDOW, stages=stages)
+                else:
+                    self._kernels[key] = lambda *a: batched_sweep(
+                        *a, planes=cls.planes,
+                        stall_window=DEFAULT_STALL_WINDOW, stages=stages,
+                        device=self.device)
                 self.stats["compile_misses"] += 1
             else:
                 self.stats["compile_hits"] += 1
@@ -809,10 +1045,14 @@ class BatchScheduler:
         stages = self.stages_for(cls)
         key = ("slice", cls.v_pad, cls.w_pad, cls.planes, b_pad, s,
                self.timing, stages)
+        run = run_slice
+        if self.mesh is not None:
+            key += ("mesh", self.mesh_devices, self._mesh_gen)
+            run = run_mesh_slice
         with self._lock:
             hit = key in self._kernels
             if not hit:
-                self._kernels[key] = lambda lanes: run_slice(
+                self._kernels[key] = lambda lanes: run(
                     lanes, slice_steps=s, staged=is_staged(stages),
                     timing=self.timing)
                 self.stats["compile_misses"] += 1
@@ -821,7 +1061,13 @@ class BatchScheduler:
             return self._kernels[key], hit
 
     def _lanes_for(self, cls, comb, degrees, k0, max_steps, reset, carry):
-        """The kernels' lanes of a pool of ``cls`` (``slice_lanes``)."""
+        """The kernels' lanes of a pool of ``cls`` (``slice_lanes``; on the
+        mesh ``mesh_lanes``, the inputs whole or per shard)."""
+        if self.mesh is not None:
+            return mesh_lanes(self.mesh, comb, degrees, k0, max_steps, reset,
+                              carry, planes=cls.planes,
+                              stall_window=DEFAULT_STALL_WINDOW,
+                              stages=self.stages_for(cls))
         return slice_lanes(comb, degrees, k0, max_steps, reset, carry,
                            planes=cls.planes,
                            stall_window=DEFAULT_STALL_WINDOW,
@@ -898,9 +1144,10 @@ class BatchScheduler:
 
     def _evacuate_pool(self, cls, error):
         """Tear one class's pool down and requeue its live calls at the
-        queue head (a deterministic re-run from their inputs), each
-        charged one lane abort and quarantined past its budget. Returns
-        ``(survivors, poisoned, aborts_max)``."""
+        queue head (a deterministic re-run from their inputs). With an
+        ``error`` each is charged one lane abort and quarantined past its
+        budget; ``error=None`` is a voluntary evacuation (a mesh restore):
+        no charge. Returns ``(survivors, poisoned, aborts_max)``."""
         pool = self._pools.pop(cls, None)
         survivors, poisoned = [], []
         aborts_max = 0
@@ -925,13 +1172,16 @@ class BatchScheduler:
                         "reason": reason, "where": "lane",
                     })
                 continue
-            call.aborts += 1
+            if error is not None:
+                call.aborts += 1
             aborts_max = max(aborts_max, call.aborts)
             if call.lane_span is not None:
-                call.lane_span.end({"error": f"lane aborted: {error}"})
+                call.lane_span.end(
+                    {"error": f"lane aborted: {error}"} if error is not None
+                    else {"error": "lane evacuated (mesh reshape)"})
                 call.lane_span = None
-            (poisoned if call.aborts >= MAX_LANE_ABORTS
-             else survivors).append(call)
+            (poisoned if error is not None
+             and call.aborts >= MAX_LANE_ABORTS else survivors).append(call)
         for call in poisoned:
             call.error = PoisonedRequest(
                 f"request quarantined after {call.aborts} lane aborts "
@@ -962,6 +1212,101 @@ class BatchScheduler:
                 "error": f"{type(error).__name__}: {error}"[:300],
             })
 
+    # -- failure-domain plane: mesh degrade and restore -------------------
+    def _degrade_mesh(self, error, sync_batch=None) -> None:
+        """Device-loss recovery: mark the lost slot in the health model,
+        tear every pool down (their buffers span the lost slot), reseat
+        live calls under the abort accounting, and rebuild over the
+        largest power-of-two set of survivors (a new generation in every
+        cache key); below two survivors the unsharded path
+        (``mesh=None``). ``sync_batch=(cls, calls)`` carries sync mode's
+        in-flight batch through the same accounting. Dispatcher thread
+        only."""
+        before = max(1, self.mesh_devices)
+        dev = getattr(error, "device", None)
+        if dev is None or not (0 <= int(dev) < self.mesh_devices0):
+            # an anonymous loss: blame the highest-index survivor (the
+            # degrade shape depends on the survivor count only)
+            surv = self.device_health.surviving()
+            dev = surv[-1] if surv else 0
+        dev = int(dev)
+        self.device_health.mark_lost(dev)
+        reseated = quarantined = 0
+        for cls in sorted(list(self._pools), key=lambda c: c.name):
+            s_, p_, _ = self._evacuate_pool(cls, error)
+            reseated += len(s_)
+            quarantined += len(p_)
+        if sync_batch is not None:
+            cls, calls = sync_batch
+            survivors = []
+            for call in calls:
+                call.aborts += 1
+                if call.aborts >= MAX_LANE_ABORTS:
+                    self._quarantine(call, error)
+                    quarantined += 1
+                else:
+                    survivors.append(call)
+            with self._lock:
+                if survivors:
+                    self._pending.setdefault(cls, [])[:0] = survivors
+                self._lock.notify_all()
+            reseated += len(survivors)
+        plan = self._mesh_state.on_loss(self.device_health.surviving())
+        if len(plan["devices"]) >= 2:
+            self.mesh = lane_mesh_over(
+                [self._mesh_all[i] for i in plan["devices"]])
+            self.mesh_devices = len(plan["devices"])
+        else:
+            self.mesh = None
+            self.mesh_devices = 0
+        self._mesh_gen = plan["generation"]
+        with self._lock:
+            self.stats["mesh_degrades"] += 1
+            self.stats["lanes_evacuated"] += reseated
+        if self.on_event is not None:
+            self.on_event("mesh_degrade", {
+                "devices_before": int(before),
+                "devices_after": int(max(1, self.mesh_devices)),
+                "lost_device": dev,
+                "reseated": int(reseated),
+                "quarantined": int(quarantined),
+                "error": f"{type(error).__name__}: {error}"[:300],
+            })
+
+    def _maybe_restore(self) -> None:
+        """A restore request (``request_restore``): when every slot is
+        healthy again and the mesh is below its configured size, evacuate
+        live lanes (no abort charge) and rebuild the full mesh. Dispatcher
+        thread only."""
+        with self._lock:
+            want = self._restore_requested
+            self._restore_requested = False
+        if not want or self._mesh_state is None:
+            return
+        if self.mesh_devices == self.mesh_devices0:
+            return
+        if self.device_health.lost():
+            return   # still unhealthy: re-request after mark_healthy
+        before = max(1, self.mesh_devices)
+        reseated = 0
+        for cls in sorted(list(self._pools), key=lambda c: c.name):
+            s_, _p, _ = self._evacuate_pool(cls, None)
+            reseated += len(s_)
+        plan = self._mesh_state.on_restore()
+        self.mesh = lane_mesh_over(
+            [self._mesh_all[i] for i in plan["devices"]])
+        self.mesh_devices = len(plan["devices"])
+        self._mesh_gen = plan["generation"]
+        with self._lock:
+            self.stats["mesh_restores"] += 1
+            self.stats["lanes_evacuated"] += reseated
+        if self.on_event is not None:
+            self.on_event("mesh_restore", {
+                "devices_before": int(before),
+                "devices_after": int(self.mesh_devices),
+                "reseated": int(reseated),
+            })
+
     # =====================================================================
     # continuous mode: lane recycling
     # =====================================================================
@@ -972,6 +1317,7 @@ class BatchScheduler:
         with self._lock:
             while (not self._stop and not self._pending
                    and not self._spec_pending
+                   and not self._restore_requested
                    and not any(p.live for p in self._pools.values())):
                 self._lock.wait()
             if self._stop:
@@ -1012,6 +1358,7 @@ class BatchScheduler:
         while True:
             if not self._wait_for_work():
                 return
+            self._maybe_restore()
             with self._lock:
                 classes = set(self._pending) | set(self._spec_pending)
             classes.update(c for c, p in self._pools.items() if p.live)
@@ -1023,10 +1370,15 @@ class BatchScheduler:
                 try:
                     self._service_class(cls)
                 except Exception as e:
-                    # dispatch abort: rebuild instead of failing the whole
-                    # batch — survivors reseat, poisoned calls
-                    # structured-fail
-                    self._recover_class(cls, e)
+                    if self.mesh is not None and is_device_loss(e):
+                        # a shard's device dropped out: re-shard onto the
+                        # survivors (the failure-domain plane)
+                        self._degrade_mesh(e)
+                    else:
+                        # dispatch abort: rebuild instead of failing the
+                        # whole batch — survivors reseat, poisoned calls
+                        # structured-fail
+                        self._recover_class(cls, e)
 
     def _service_class(self, cls) -> None:
         """One slice of one class's pool: preempt unclaimed speculation for
@@ -1043,7 +1395,7 @@ class BatchScheduler:
                 cls, 1, dummy, self.device,
                 a_pad=stage_idx_width(self.stages_for(cls)),
                 device_carry=self.device_carry,
-                dummy_dev=self._dummy_rows.get(cls))
+                dummy_dev=self._dummy_rows.get(cls), mesh=self.mesh)
             if self.device_carry:
                 self._dummy_rows[cls] = pool._dummy_dev
 
@@ -1100,6 +1452,15 @@ class BatchScheduler:
                 try:
                     fault_point("lane_seat", shape_class=cls.name)
                 except Exception as e:
+                    if self.mesh is not None and is_device_loss(e):
+                        # a device died while seating: this call and the
+                        # rest of the wave go back to the queue head, and
+                        # the loop's device-loss handler re-shards
+                        with self._lock:
+                            self._pending.setdefault(cls, [])[:0] = \
+                                take[take.index(call):]
+                            self._lock.notify_all()
+                        raise
                     # a seat fault costs THIS call one abort (quarantine
                     # past the budget, back of the queue otherwise)
                     call.aborts += 1
@@ -1178,6 +1539,9 @@ class BatchScheduler:
                 self._spec_pending.get(cls))
         if not has_pending and not self._spec_hot(cls):
             pool.maybe_shrink()
+        # live lanes per shard at dispatch (after the shrink, so counts and
+        # width describe one pool; before delivery clears done lanes)
+        dev_live = pool.device_live() if pool.mesh is not None else None
 
         kernel, cache_hit = self._slice_kernel_for(cls, pool.b_pad)
         slice_steps = self.resolved_slice_steps(cls, pool.b_pad)
@@ -1211,11 +1575,18 @@ class BatchScheduler:
 
         try:
             fault_point("serve_dispatch", shape_class=cls.name)
+            if pool.mesh is not None:
+                # the sharded dispatch's fault point (mesh@N=device_loss:D
+                # loses shard slot D at the Nth sharded dispatch)
+                fault_point("mesh", shape_class=cls.name,
+                            mesh_devices=self.mesh_devices)
             if self.device_carry:
                 # the carry and the stacks stay on the device: this
                 # slice's seats go up a row each (K17), nothing else
                 stacks = pool.dev_state()
                 if pool.lanes is None:
+                    if pool.mesh is not None:   # per shard, input by input
+                        stacks = [list(x) for x in zip(*stacks)]
                     pool.lanes = self._lanes_for(cls, *stacks, pool.carry)
             else:
                 comb_dev, degrees_dev = pool.dev_inputs()
@@ -1226,8 +1597,7 @@ class BatchScheduler:
                 if pool.lanes is None:
                     pool.h2d += carry_nbytes(pool.carry)
                     pool.lanes = self._lanes_for(cls, comb_dev, degrees_dev,
-                                                 vecs[0], vecs[1], vecs[2],
-                                                 pool.carry)
+                                                 *vecs, pool.carry)
             if spec_vec is not None:
                 pool.arm(spec_vec, cancel_vec)
             carry = kernel(pool.lanes)
@@ -1235,11 +1605,13 @@ class BatchScheduler:
             # device→host transfer per slice, one copy: the slice's sync
             slots = [CARRY_PHASE, CARRY_RUNG, CARRY_NC] + (
                 [T_US] if self.timing else [])
-            home = carry_home([carry[j] for j in slots])
+            home = _home(carry, pool.mesh, slots)
         except BaseException as e:
             # every opened span must end (the validate_runlog contract)
             slice_span.end({"error": f"{type(e).__name__}: {e}"})
             raise
+        if self.device_health is not None:
+            self.device_health.record_ok()
         phase, rung, nc = home[0], home[1], home[2]
         pool.d2h += 3 * phase.nbytes
         device_s = time.perf_counter() - t0
@@ -1273,12 +1645,17 @@ class BatchScheduler:
             delivered = [i for i in done_lanes if i not in dropped]
             if self.device_carry:
                 # only the delivered lanes' result slots come home
-                outs = (dict(zip(delivered, lanes_home(carry, delivered)))
-                        if delivered else {})
+                if not delivered:
+                    outs = {}
+                elif pool.mesh is None:
+                    outs = dict(zip(delivered, lanes_home(carry, delivered)))
+                else:
+                    outs = dict(zip(delivered, lanes_home_sharded(
+                        carry, delivered, pool.b_pad // pool.mesh_n)))
                 pool.d2h += len(delivered) * (2 * cls.v_pad + 5) * 4
             else:
                 # the host mirror: the whole carry comes home, one copy
-                out_src = carry_home(carry)
+                out_src = _home(carry, pool.mesh)
                 pool.d2h += carry_nbytes(out_src)
                 outs = {i: lane_outputs(out_src, i) for i in delivered}
             now = time.perf_counter()
@@ -1351,6 +1728,10 @@ class BatchScheduler:
             self.stats["max_live"] = max(self.stats["max_live"], live)
             self.stats["h2d_bytes"] += h2d
             self.stats["d2h_bytes"] += d2h
+            if dev_live is not None:
+                for d, c in enumerate(dev_live):
+                    self._dev_live_sum[d] += c
+                self._dev_live_n += pool.b_pad // pool.mesh_n
         slice_span.end({"done": len(done_lanes), "admitted": int(admitted)})
         if self.on_event is not None:
             rec = {
@@ -1367,6 +1748,11 @@ class BatchScheduler:
                                     if slot_total else 0.0),
                 "h2d_bytes": int(h2d), "d2h_bytes": int(d2h),
             }
+            if dev_live is not None:
+                per = pool.b_pad // pool.mesh_n
+                rec["mesh_devices"] = int(pool.mesh_n)
+                rec["device_occupancy"] = [round(c / per, 4)
+                                           for c in dev_live]
             if sstep_s is not None:
                 rec["sstep_ms"] = round(sstep_s * 1e3, 3)
                 rec["overhead_ms"] = round(overhead_s * 1e3, 3)
@@ -1396,9 +1782,12 @@ class BatchScheduler:
         batch (the largest same-depth affinity group when enabled).
         Returns (cls, calls) or None on stop."""
         with self._lock:
-            while not self._stop and not self._pending:
+            while (not self._stop and not self._pending
+                   and not self._restore_requested):
                 self._lock.wait()
             if self._stop or not self._pending:
+                # stop, or a restore request with nothing queued: the
+                # loop services the restore and comes back
                 return None
             cls = max(self._pending, key=lambda c: max(
                 x.priority for x in self._pending[c]))
@@ -1427,6 +1816,7 @@ class BatchScheduler:
 
     def _loop_sync(self) -> None:
         while True:
+            self._maybe_restore()
             got = self._take_batch()
             if got is None:
                 with self._lock:
@@ -1437,6 +1827,11 @@ class BatchScheduler:
             try:
                 self._dispatch(cls, calls)
             except Exception as e:
+                if self.mesh is not None and is_device_loss(e):
+                    # the failure-domain plane re-shards onto the
+                    # survivors; the batch rides its accounting
+                    self._degrade_mesh(e, sync_batch=(cls, calls))
+                    continue
                 # the continuous loop's quarantine policy: each batch
                 # member pays one abort; survivors requeue at the head
                 survivors = []
@@ -1468,6 +1863,11 @@ class BatchScheduler:
         b_pad = min(_pow2_ceil(b), self.batch_max)
         if b_pad < b:   # batch_max not a power of two: pad up past it
             b_pad = _pow2_ceil(b)
+        mesh = self.mesh
+        if mesh is not None:
+            # the lanes shard evenly: a power-of-two pad of at least the
+            # mesh size
+            b_pad = max(_pow2_ceil(b), self.mesh_devices)
         members = [c.member for c in calls]
         fill = b_pad - b
         if fill:
@@ -1489,12 +1889,17 @@ class BatchScheduler:
 
         try:
             fault_point("serve_dispatch", shape_class=cls.name)
+            if mesh is not None:
+                fault_point("mesh", shape_class=cls.name,
+                            mesh_devices=self.mesh_devices)
             # one transfer home for the epilogues
-            p1, s1, st1, used, p2, s2, st2 = carry_home(
-                kernel(comb, degrees, k0, max_steps))
+            p1, s1, st1, used, p2, s2, st2 = _home(
+                kernel(comb, degrees, k0, max_steps), mesh)
         except BaseException as e:
             batch_span.end({"error": f"{type(e).__name__}: {e}"})
             raise
+        if self.device_health is not None:
+            self.device_health.record_ok()
         device_s = time.perf_counter() - t0
         batch_span.end()
 
@@ -1504,6 +1909,11 @@ class BatchScheduler:
             self.stats["batches"] += 1
             self.stats["sweeps"] += b
             self.stats["max_live"] = max(self.stats["max_live"], b)
+            if mesh is not None:
+                per = b_pad // self.mesh_devices
+                for d in range(self.mesh_devices):
+                    self._dev_live_sum[d] += max(0, min(per, b - d * per))
+                self._dev_live_n += per
         if self.on_batch is not None:
             # straggler waste: the fraction of dispatched real-lane
             # supersteps spent re-running already-finished lanes while the
@@ -1514,7 +1924,7 @@ class BatchScheduler:
                      if smax > 0 else 0.0)
             depths = {c.depth for c in calls}
             stages = self.stages_for(cls)
-            self.on_batch({
+            rec = {
                 "shape_class": cls.name, "batch": b, "b_pad": int(b_pad),
                 "occupancy": round(b / b_pad, 4),
                 "padding_waste": padding_waste([c.member for c in calls],
@@ -1525,7 +1935,16 @@ class BatchScheduler:
                 "device_ms": round(device_s * 1e3, 3),
                 "queue_ms_max": round(queue_ms_max, 3),
                 "stage_bodies": len(stages) if stages else 1,
-            })
+            }
+            if mesh is not None:
+                # real lanes per shard: sync mode fills lanes 0..b-1, so
+                # shard d holds rows [d * per, (d + 1) * per)
+                per = b_pad // self.mesh_devices
+                rec["mesh_devices"] = int(self.mesh_devices)
+                rec["device_occupancy"] = [
+                    round(max(0, min(per, b - d * per)) / per, 4)
+                    for d in range(self.mesh_devices)]
+            self.on_batch(rec)
         for i, call in enumerate(calls):
             call.result = (p1[i], s1[i], st1[i], int(used[i]),
                            p2[i], s2[i], int(st2[i]))

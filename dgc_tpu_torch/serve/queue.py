@@ -26,8 +26,13 @@ serves each batched request through a
 :class:`~dgc_tpu_torch.serve.speculate.SpeculativeMinimalKEngine` (jump
 mode delegates to the fused pair unchanged; the attempt path speculates).
 
-Not ported: tuned configs (``auto_tune``, ``tuned_cache``) and the lane
-mesh.
+``mesh_devices`` splits every lane pool over a lane mesh
+(``serve.engine``'s mesh mode: a count, ``"auto"`` or a
+``serve.batched.LaneMesh``); its events carry ``mesh_devices`` and
+``device_occupancy``, ``mesh_degrade``/``mesh_restore`` move the metrics,
+and :meth:`ServeFrontEnd.health` gains a ``mesh`` document.
+
+Not ported: tuned configs (``auto_tune``, ``tuned_cache``).
 """
 
 from __future__ import annotations
@@ -152,7 +157,8 @@ class ServeFrontEnd:
     always form). ``validate``/``post_reduce`` default on — the CLI
     driver's semantics. ``stages`` ("auto"/"off"/explicit ladder)
     configures the batched kernels' staged frontier ladder;
-    ``device_carry`` and ``speculate_k``: module docstring. ``device``:
+    ``device_carry``, ``mesh_devices`` and ``speculate_k``: module
+    docstring (a bad ``mesh_devices`` raises ``ValueError``). ``device``:
     where the kernels and the fallback engines run (default the card).
     ``fallback_factories(arrays) -> [(name, factory), ...]`` overrides the
     fallback ladder (tests inject failing rungs to exercise the health
@@ -163,7 +169,7 @@ class ServeFrontEnd:
                  queue_depth: int = 64, workers: int | None = None,
                  mode: str = "continuous", slice_steps: int | None = None,
                  affinity: bool = True, stages="auto",
-                 device_carry: bool = False,
+                 device_carry: bool = False, mesh_devices=None,
                  timing: bool = False,
                  validate: bool = True, post_reduce: bool = True,
                  speculate_k=None,
@@ -209,6 +215,7 @@ class ServeFrontEnd:
                                         on_batch=self._on_batch,
                                         on_event=self._on_sched_event,
                                         tracer=self.tracer,
+                                        mesh_devices=mesh_devices,
                                         device=self.device)
         # the Condition wraps an RLock, so guarded sections nest freely
         self._lock = threading.Condition()
@@ -253,6 +260,24 @@ class ServeFrontEnd:
             self.registry.counter(
                 "dgc_serve_recycles_total", "lane swaps (sweeps completed)",
                 shape_class=record["shape_class"]).inc()
+        elif kind == "mesh_degrade":
+            # the failure-domain plane: a lost slot re-sharded the lane
+            # axis onto the survivors
+            self.registry.counter(
+                "dgc_serve_mesh_degrades_total",
+                "mesh degrades (device loss -> survivor re-shard)").inc()
+            self.registry.gauge(
+                "dgc_serve_mesh_devices",
+                "devices the lane axis currently shards over").set(
+                record["devices_after"])
+        elif kind == "mesh_restore":
+            self.registry.counter(
+                "dgc_serve_mesh_restores_total",
+                "mesh restores back to the full device set").inc()
+            self.registry.gauge(
+                "dgc_serve_mesh_devices",
+                "devices the lane axis currently shards over").set(
+                record["devices_after"])
 
     # -- lifecycle ------------------------------------------------------
     def start(self) -> "ServeFrontEnd":
@@ -266,9 +291,12 @@ class ServeFrontEnd:
                                  name=f"dgc-serve-worker-{i}")
             t.start()
             self._threads.append(t)
-        # speculate_k appears only when armed
-        spec_kw = ({"speculate_k": self.speculate_k} if self.speculate_k
-                   else {})
+        # the mesh size appears only when the lane axis is sharded,
+        # speculate_k only when armed
+        spec_kw = ({"mesh_devices": self.scheduler.mesh_devices}
+                   if self.scheduler.mesh is not None else {})
+        if self.speculate_k:
+            spec_kw["speculate_k"] = self.speculate_k
         self._event("serve_start", batch_max=self.batch_max,
                     window_ms=round(self.scheduler.window_s * 1e3, 3),
                     queue_depth=self.queue_depth, workers=self.workers,
@@ -452,6 +480,11 @@ class ServeFrontEnd:
                 "rung": rung["rung"],
                 "retry_pressure": rung["retry_pressure"],
             }
+        # the failure-domain plane's document, only when the lane axis was
+        # configured sharded (the unsharded health doc stays as it was)
+        mesh = self.scheduler.mesh_health()
+        if mesh is not None:
+            doc["mesh"] = mesh
         if emit:
             self._event("serve_health", **doc)
         if self.registry is not None:

@@ -87,12 +87,13 @@ def test_verbatim_copies_equal_their_originals(rel):
 
 # the port's copies that differ from their original by the package name
 # alone: ``dgc_tpu_torch`` where the original imports ``dgc_tpu`` (the
-# checkpoint module of faults.py, the driver of supervisor.py, the engine,
-# models and ops of shape_classes.py, the scheduler, batched epilogue and
-# pricing model of speculate.py); no other difference
+# checkpoint module of faults.py, the driver of supervisor.py, the
+# classifier of domains.py, the engine, models and ops of
+# shape_classes.py, the scheduler, batched epilogue and pricing model of
+# speculate.py); no other difference
 RENAMED = ("resilience/faults.py", "resilience/retry.py",
-           "resilience/supervisor.py", "serve/shape_classes.py",
-           "serve/speculate.py")
+           "resilience/supervisor.py", "resilience/domains.py",
+           "serve/shape_classes.py", "serve/speculate.py")
 
 
 @pytest.mark.parametrize("rel", RENAMED)
@@ -184,3 +185,22 @@ def test_renamed_functions_equal_their_originals(rel, name):
     assert "dgc_tpu_torch" not in original
     assert "dgc_tpu_torch" in copy
     assert copy.replace("dgc_tpu_torch", "dgc_tpu") == original
+
+
+# functions the port copies with one expression changed: (file, name, the
+# original's text, the port's)
+ADAPTED_FUNCTIONS = (
+    # the default canary runs on the device the scheduler put the slot on
+    # (a lane mesh may repeat a card), not on the host's i-th device
+    ("resilience/probe.py", "HealthProbe", "else canary_probe)           #",
+     "else slot_canary(scheduler))  #"),
+)
+
+
+@pytest.mark.parametrize("rel,name,was,now", ADAPTED_FUNCTIONS,
+                         ids=[a[1] for a in ADAPTED_FUNCTIONS])
+def test_adapted_functions_equal_their_originals(rel, name, was, now):
+    copy = _function_source(PORT / rel, name)
+    original = _function_source(ROOT / "dgc_tpu" / rel, name)
+    assert original.count(was) == 1 and copy.count(now) == 1
+    assert copy.replace(now, was) == original

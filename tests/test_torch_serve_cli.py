@@ -143,8 +143,8 @@ def test_serve_cli_bad_request_file(tmp_path):
 
 
 @pytest.mark.parametrize("flag", (["--listen", "8080"], ["--result-cache"],
-                                  ["--inject-faults", "x"], ["--mesh-devices",
-                                                             "auto"]))
+                                  ["--inject-faults", "x"], ["--replicas",
+                                                             "2"]))
 def test_serve_cli_refuses_unported_flags(request_file, flag):
     r = _run("dgc_tpu_torch", ["--requests", str(request_file), "--device",
                                "cpu", *flag])
