@@ -14,7 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    capped windows; rows full of pad sentinels; either state buffer
    current; an attempt no longer running. The compact engine's kernels:
    K3 (compaction) at densities from none to all and pads below, at and
-   above the active count; K4 (stage rows) over stage layouts with 33-
+   above the active count, at V one below, at and one above a round of
+   2,048 items, with every alignment of the other buffer, more rounds
+   than one wave of blocks, a pad far above the count and row offsets,
+   every launch on one scratch; K4 (stage rows) over stage layouts with 33-
    and 17-plane ranges; K5 (segmented superstep) over those slot lists
    and over row spans with covering and capped windows, at budgets 1 to
    past every window, live and in each way a stage stops; K6 (stage
@@ -25,13 +28,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    The attempt block's K9 (record) and K10 (start) on 240 random blocks:
    every status, open, done and full blocks, rings whose brackets hold
    the budget in no, one or several slots, 1 to 140,000 vertices. The
-   dense engine's K11 (forbidden sets on the tensor cores, first fit) and
+   dense engine's K11 (forbidden colors as a bitmask, first fit) and
    K12 (conflicts, new colors, status) on random adjacencies of 1 to
    5,000 vertices (on and off the 256-vertex tile, isolated rows, hub rows
-   whose first fit lies in a late color tile): colors with no, some and
-   all −1s, either buffer current, budgets from 1 to 2,432 (one-hot
-   widths of 128 and 2,432), failing and stalling steps, an attempt no
-   longer running. The recording variants (B11, in-kernel telemetry):
+   whose first fit lies in a late word of the mask): colors with no, some
+   and all −1s, either buffer current, budgets from 1 to 2,432, failing
+   and stalling steps, an attempt no longer running; and rows whose first
+   free color is 32, 40, 64 (every color below 64 taken) and 2,431 (the
+   last bit of a 2,432-bit mask) at budgets on either side, a row whose
+   neighbors' colors all lie at or past 2,432, and a step with no
+   uncolored row. The recording variants (B11, in-kernel telemetry):
    K2 writing rows into buffers that hold the step or not; K5 and K8
    filling the unconf vector over the cases above (every hub branch); K6
    writing rows from 300 random loop carries and live tables, its clock
@@ -109,7 +115,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the shapes of that path and timed there: K1 and K2 at a first and
    a mid-attempt superstep; K3-K8 at every call of one more ``sweep`` and
    one more ``attempt`` of the compact engine (a test double over their
-   wrappers), K3-K6 timed on the uniform sweep's first stage inputs, K7
+   wrappers), K3-K6 timed on the uniform sweep's first stage inputs (K3
+   replayed 50 times there first, each launch held), K7
    and K8 over the RMAT sweep's launches; the branches each hub bucket
    took are counted. Then ``ell-compact`` again through the CLI's calls
    with ``--attempts-per-dispatch``: on 1M uniform jump and strict
@@ -173,7 +180,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    both kernels must launch, the sweep held call by call against the
    plain versions on the card's tensors must give the same attempts and
    colors, K11 and K12 are timed per superstep over the k0 attempt
-   beside their bounds, plain versions and (K11) ``torch.matmul``;
+   beside their bounds, plain versions and (K11) ``torch.matmul`` (device
+   time, as the kernels');
    ``oracle`` and ``reference-sim`` run on the same graphs; and
    ``python -m dgc_tpu_torch`` with the RMAT flags on the card writes the
    coloring JSON its ``--device cpu`` run (a child process) wrote.
@@ -418,6 +426,46 @@ K5_PARTS = (((40, 300, 900, 2000), (1040, 40, 12, 4), (33, 2, 1, 1)),
             ((40, 300, 900, 2000), (1100, 80, 12, 4), (32, 1, 1, 1)))
 
 
+# K3's edge cases (V, density, pads, (cur, row0) pairs): V one below, at
+# and one above K3's round of 2,048 items (512 threads of four), and V + 2
+# (the buffers' stride) at each residue mod 4, so the other buffer takes
+# 16-, 8- and 4-byte stores; more rounds than one wave of blocks (2 on each
+# of 132 SMs) at 1.5M; a first-stage-like pad far above the count (the
+# 1M draw's 262,144 over a few thousand actives); row offsets that move the
+# first chunk's alignment
+K3_EDGES = (
+    (2047, 0.3, (1, 1000, 2048, 4096), ((0, 0), (1, 0), (1, 1))),
+    (2048, 0.5, (1, 1024, 2048), ((0, 0), (1, 3), (0, 2047))),
+    (2049, 0.3, (700, 2049, 3000), ((0, 0), (1, 2), (0, 2048))),
+    (4098, 1.0, (4098, 4096, 5000), ((1, 0), (0, 5))),
+    (1_500_000, 0.3, (1 << 19, 1 << 21), ((0, 0), (1, 999_999))),
+    (1_000_000, 0.004, (262_144,), ((0, 0), (1, 0), (0, 3), (1, 250_001))),
+)
+
+
+def _k3_cases(kc, rng, device) -> int:
+    """K3 against its plain version over seeded states: 5,000 vertices at
+    densities from none to all and pads below, at and above the count, and
+    ``K3_EDGES``; every launch on one scratch. Returns the max abs
+    difference (idx, both buffers, ctrl)."""
+    scratch = kc.new_slots_scratch(device)
+    err = 0
+    cases = [(5000, density, (1, 64, 1500, 8192), ((0, 0), (1, 0), (1, 37)))
+             for density in (0.0, 0.01, 0.3, 1.0)] + list(K3_EDGES)
+    for v, density, pads, offsets in cases:
+        for pad in pads:
+            for cur, row0 in offsets:
+                state = _compact_state(rng, v, 200, density, device)
+                ctrl = kc.new_ctrl(3, v, device)
+                ctrl[kc.CTRL_CUR] = cur
+                s_p, c_p = state.clone(), ctrl.clone()
+                idx = kc.compact_slots(ctrl, state, row0, pad, scratch)
+                idx_p = kc.compact_slots_reference(c_p, s_p, row0, pad)
+                err = max(err, _diff(idx, idx_p), _diff(state, s_p),
+                          _diff(ctrl, c_p))
+    return err
+
+
 def phase_compact_kernels(device) -> int:
     """K3-K6 vs their plain versions on seeded random cases; returns the
     max abs difference."""
@@ -427,20 +475,7 @@ def phase_compact_kernels(device) -> int:
 
     rng = np.random.default_rng(1)
     v = 5000
-    err = 0
-    # K3: densities from none to all, pads below, at and above the count,
-    # either buffer current, a row offset
-    for density in (0.0, 0.01, 0.3, 1.0):
-        for pad in (1, 64, 1500, 8192):
-            for cur, row0 in ((0, 0), (1, 0), (1, 37)):
-                state = _compact_state(rng, v, 200, density, device)
-                ctrl = kc.new_ctrl(3, v, device)
-                ctrl[kc.CTRL_CUR] = cur
-                s_p, c_p = state.clone(), ctrl.clone()
-                idx = kc.compact_slots(ctrl, state, row0, pad)
-                idx_p = kc.compact_slots_reference(c_p, s_p, row0, pad)
-                err = max(err, _diff(idx, idx_p), _diff(state, s_p),
-                          _diff(ctrl, c_p))
+    err = _k3_cases(kc, rng, device)
     # K4 and K5 over slot lists: the stage layouts of K4_RANGES
     flat_ext = torch.from_numpy(np.concatenate([
         _combined(rng, (v, 1040), v),
@@ -1200,7 +1235,7 @@ def _dense_case(rng, v: int, avg: float, hubs: int, max_color: int,
 
 
 # (v, average degree, hubs, colors drawn below, budgets): V below, at and
-# past a multiple of the 256-vertex tile; one-hot widths of 128 and 2,432
+# past a multiple of the 256-vertex tile; budgets up to 128 and 2,432
 DENSE_CASES = (
     (1, 0, 0, 1, (1, 2)),
     (64, 6, 0, 5, (1, 3, 6, 128)),
@@ -1211,12 +1246,94 @@ DENSE_CASES = (
 )
 
 
+# K11's edge rows (row, its neighbors' first id, the colors 0..n-1 they
+# hold): a first free color past the first 32-bit word of the mask (40),
+# at the first bit of the second word (32), every color below 64 taken
+# (free only from k = 65), and the last bit of a 2,432-bit mask (2,431);
+# a budget past Vp (4,096 over 3,072) bounds the mask by Vp
+DENSE_EDGE_ROWS = ((0, 1, 40), (41, 42, 32), (100, 101, 64), (200, 201, 2431))
+DENSE_EDGE_V = 3000
+DENSE_EDGE_BUDGETS = (1, 32, 33, 40, 41, 64, 65, 2431, 2432, 4096)
+
+
+def _dense_edges(device):
+    """The adjacency, degrees and color buffers of ``DENSE_EDGE_ROWS``: each
+    edge row uncolored and joined to its colored neighbors; row 2,700
+    joined to neighbors whose colors lie at and past 2,432 (never
+    forbidden below it); every other row uncolored and isolated. Buffer 1
+    colors every row (a step with no uncolored row)."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    v = DENSE_EDGE_V
+    vp = kd.padded_size(v)
+    colors = np.full(v, -1, np.int64)
+    src, dst = [], []
+    for row, first, n in DENSE_EDGE_ROWS:
+        nb = np.arange(first, first + n)
+        colors[nb] = np.arange(n)
+        src.append(np.full(n, row))
+        dst.append(nb)
+    far = np.arange(2701, 2711)
+    colors[far] = 2432 + np.arange(10) * 1000
+    src.append(np.full(far.size, 2700))
+    dst.append(far)
+    s_ = torch.from_numpy(np.concatenate(src)).to(device)
+    d_ = torch.from_numpy(np.concatenate(dst)).to(device)
+    adj = torch.zeros((vp, vp), dtype=torch.bfloat16, device=device)
+    adj[s_, d_] = 1
+    adj[d_, s_] = 1
+    degrees = (adj != 0).sum(dim=1).to(torch.int32)
+    buf = np.full((2, vp), -1, np.int32)
+    buf[0, :v] = colors
+    buf[1, :v] = np.where(colors < 0, np.arange(v) % 7, colors)
+    return adj, degrees, torch.from_numpy(buf).to(device)
+
+
+def _dense_edge_cases(device) -> int:
+    """K11 then K12 against their plain versions on ``_dense_edges``'
+    buffers at ``DENSE_EDGE_BUDGETS``, either buffer current (buffer 1:
+    no uncolored row). Checks the first fits the edge rows must take;
+    returns the max abs difference."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    adj, degrees, state0 = _dense_edges(device)
+    v = DENSE_EDGE_V
+    err = 0
+    for cur in (0, 1):
+        for k in DENSE_EDGE_BUDGETS:
+            ctrl = kd.new_dense_ctrl(device)
+            ctrl[kd.DCTRL_CUR] = cur
+            state = state0.clone()
+            cand = torch.full((adj.shape[0],), 7, dtype=torch.int32,
+                              device=device)
+            held = [t.clone() for t in (ctrl, state, cand)]
+            kd.dense_forbid(ctrl, state, adj, cand, v, k)
+            kd.dense_forbid_reference(*held[:2], adj, held[2], v, k)
+            err = max(err, *(_diff(a, b) for a, b in
+                             zip((ctrl, state, cand), held)))
+            got = cand.tolist()
+            want = {row: (n if n < k else 0) for row, _f, n in
+                    DENSE_EDGE_ROWS} if cur == 0 else {}
+            check(all(got[r] == c for r, c in want.items())
+                  and (cur == 0 or max(got) == -1),
+                  f"K11's edge rows at k={k}, buffer {cur}: "
+                  f"{[got[r] for r in want]}, want {list(want.values())}")
+            kd.dense_resolve(ctrl, state, adj, cand, degrees, v,
+                             kd.INT32_MAX)
+            kd.dense_resolve_reference(held[0], held[1], adj, held[2],
+                                       degrees, v, kd.INT32_MAX)
+            err = max(err, *(_diff(a, b) for a, b in
+                             zip((ctrl, state, cand), held)))
+    return err
+
+
 def phase_dense_kernels(device) -> int:
     """K11 and K12 vs their plain versions on seeded random cases: colors
     with −1s (none, some, all), either buffer current, budgets below and
-    above the colors in use, isolated and pad rows, one-hot widths of 128
-    and 2,432, a step that fails, one that reaches ``max_steps`` and an
-    attempt no longer running; returns the max abs difference."""
+    above the colors in use, isolated and pad rows, budgets up to 128 and
+    2,432, a step that fails, one that reaches ``max_steps``, the edge rows
+    of ``_dense_edge_cases`` and an attempt no longer running; returns the
+    max abs difference."""
     from dgc_tpu_torch.kernels import dense as kd
 
     rng = np.random.default_rng(6)
@@ -1247,6 +1364,7 @@ def phase_dense_kernels(device) -> int:
                 err = max(err, *(_diff(a, b) for a, b in
                                  zip((ctrl, state, cand), held)))
                 cases += 1
+    err = max(err, _dense_edge_cases(device))
     # an attempt that already left RUNNING: neither kernel touches anything
     ctrl = kd.new_dense_ctrl(device)
     ctrl[kd.DCTRL_STATUS] = 1
@@ -1855,15 +1973,15 @@ class _HeldCompactKernels:
                             "entry_active": c[self.kc.CTRL_PREV_ACTIVE]})
         return self.stages[-1]
 
-    def compact_slots(self, ctrl, state, row0, pad):
+    def compact_slots(self, ctrl, state, row0, pad, scratch=None):
         stage = self._open(ctrl, pad)
         self._count(ctrl, "compact_slots", 4 * (2 * (state.shape[1] - 2 - row0)
                                                 + pad))
         c_p, s_p = ctrl.clone(), state.clone()
-        stage["k3"] = (c_p.clone(), s_p.clone(), row0, pad)
+        stage["k3"] = (c_p.clone(), s_p.clone(), row0, pad, scratch)
         idx_p = self._plain("compact_slots", self.kc.compact_slots_reference,
                             c_p, s_p, row0, pad)
-        idx = self.real["compact_slots"](ctrl, state, row0, pad)
+        idx = self.real["compact_slots"](ctrl, state, row0, pad, scratch)
         self._held((idx, idx_p), (state, s_p), (ctrl, c_p))
         return idx
 
@@ -1972,6 +2090,29 @@ class _HeldCompactKernels:
                    *(() if umax is None else ((umax, u_p),)))
 
 
+K3_REPLAYS = 50
+
+
+def _k3_replays(ctrl, state, row0: int, pad: int, scratch) -> int:
+    """K3 replayed ``K3_REPLAYS`` times on one stage's kept inputs and
+    scratch, each launch held against the plain version (the slot list and
+    both buffers): an epoch or flag race shows as a mismatch. Returns the
+    launches held."""
+    from dgc_tpu_torch.kernels import compact as kc
+
+    s_p = state.clone()
+    idx_p = kc.compact_slots_reference(ctrl.clone(), s_p, row0, pad)
+    worst = 0
+    for _ in range(K3_REPLAYS):
+        got = state.clone()
+        worst = max(worst, _diff(kc.compact_slots(ctrl, got, row0, pad,
+                                                  scratch), idx_p),
+                    _diff(got, s_p))
+    check(worst == 0, f"K3 replayed on a stage's inputs differs from its "
+                      f"plain version by {worst}")
+    return K3_REPLAYS
+
+
 def _time_stage(stage: dict, v: int) -> dict:
     """Time K3-K6 on one stage's kept inputs (K5 and K6 at its first
     superstep), their plain versions and library calls, and compute the
@@ -1984,7 +2125,7 @@ def _time_stage(stage: dict, v: int) -> dict:
     rec = {key: stage[key] for key in ("pad", "steps", "entry_step",
                                        "entry_active")}
     if stage["pad"] is not None:
-        ctrl, state, row0, pad = stage["k3"]
+        ctrl, state, row0, pad, scratch = stage["k3"]
         flat, idx, plan, desc, row0, _ = stage["k4"]
         pk = state[int(ctrl[kc.CTRL_CUR]), row0:v]
         act = (pk < 0) | ((pk & 1) == 1)
@@ -1996,8 +2137,9 @@ def _time_stage(stage: dict, v: int) -> dict:
         k4_bytes = (2 * pad + 2 * total) * 4
         rec.update({
             "ranges": [list(s_) for s_ in plan], "stage_entries": total,
+            "k3_replays_held": _k3_replays(ctrl, state, row0, pad, scratch),
             "k3_ms": _device_ms(lambda: kc.compact_slots(ctrl, state, row0,
-                                                         pad),
+                                                         pad, scratch),
                                 20, "compact_slots_kernel"),
             "k3_plain_ms": _host_ms(lambda: kc.compact_slots_reference(
                 ctrl, state, row0, pad), 3),
@@ -2914,7 +3056,6 @@ def phase_telemetry_main(card: str, out_dir: Path) -> dict:
 
 # ---- the dense engine at full width ------------------------------------------
 
-TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16
 DENSE_V = 16384  # the dense engine's cap
 DENSE_REPS = 3  # replays of each superstep in the timing profile
 DENSE_ARGS = {gen: ["--node-count", str(DENSE_V), "--max-degree", "32",
@@ -2962,10 +3103,10 @@ class _HeldDenseKernels:
 def measure_dense(engine, k: int) -> dict:
     """K11 and K12 over the supersteps of the attempt at ``k``: device time
     per superstep from ``torch.profiler``, the bound this data needs (each
-    step reads the adjacency rows of its uncolored vertices; K11's
-    product needs 2·Vp·(first-fit width) operations a row), the plain
+    step reads the adjacency rows of its uncolored vertices), the plain
     versions' time, and the library yardstick for K11 (``torch.matmul``
-    of the adjacency and the bf16 one-hot, then the first-fit argmax)."""
+    of the adjacency and the bf16 one-hot, then the first-fit argmax),
+    its device time from ``torch.profiler`` too (every event of a call)."""
     from dgc_tpu_torch.engine.base import AttemptStatus, clamp_budget
     from dgc_tpu_torch.kernels import dense as kd
 
@@ -2988,13 +3129,11 @@ def measure_dense(engine, k: int) -> dict:
         uncolored = int((colors[:v] < 0).sum())
         kd.dense_forbid(ctrl, state, adj, cand, v, k_run)
         kd.dense_resolve(ctrl, state, adj, cand, deg, v, max_steps)
-        c = cand[:v]
-        steps.append((uncolored, int((c[c >= 0] + 1).sum())))
+        steps.append(uncolored)
     n = len(steps)
     mid = state[int(ctrl[kd.DCTRL_CUR])].clone() if mid is None else mid
-    k11_bytes = sum(u * vp * 2 + 2 * vp * 4 for u, _ in steps) / n
-    k11_ops = sum(2 * vp * w for _, w in steps) / n
-    k12_bytes = sum(u * vp * 2 + 3 * vp * 4 + v * 4 for u, _ in steps) / n
+    k11_bytes = sum(u * vp * 2 + 2 * vp * 4 for u in steps) / n
+    k12_bytes = sum(u * vp * 2 + 3 * vp * 4 + v * 4 for u in steps) / n
 
     # the same supersteps under one profile, each replayed DENSE_REPS times
     # from its control block (K11 rewrites `cand`, K12 the other buffer:
@@ -3014,6 +3153,10 @@ def measure_dense(engine, k: int) -> dict:
                               "dense_resolve": n * DENSE_REPS}, 0.9)
     dev_ms = {name: sums[name][0] / sums[name][1] for name in
               ("dense_forbid", "dense_resolve")}
+    each = sums["dense_forbid"][2]  # K11 by superstep, where none was lost
+    k11_by_step = ([sum(each[i * DENSE_REPS:(i + 1) * DENSE_REPS])
+                    / DENSE_REPS for i in range(n)]
+                   if len(each) == n * DENSE_REPS else None)
 
     # the plain versions over the same supersteps, host clock each call
     plain = {"forbid": 0.0, "resolve": 0.0}
@@ -3040,25 +3183,23 @@ def measure_dense(engine, k: int) -> dict:
     full_bytes = vp * vp * 2
     return {
         "dense_k": k_run, "dense_supersteps": n, "kmax": engine.kmax,
-        "uncolored_per_step": [u for u, _ in steps],
+        "uncolored_per_step": steps,
         "k11_ms": dev_ms["dense_forbid"],
+        "k11_ms_by_step": k11_by_step,
         "k11_plain_ms": plain["forbid"] * 1e3 / n,
-        "k11_bytes": k11_bytes, "k11_ops": k11_ops,
-        "k11_bound_ms": max(k11_bytes / HBM_BYTES_PER_S,
-                            k11_ops / TENSOR_BF16_OPS_PER_S) * 1e3,
-        "k11_bound_by": ("bytes" if k11_bytes / HBM_BYTES_PER_S
-                         >= k11_ops / TENSOR_BF16_OPS_PER_S else "operations"),
-        "k11_library_ms": _cuda_ms(library, reps=10),
+        "k11_bytes": k11_bytes,
+        # a bit per nonzero and a search of the mask: far below the bytes
+        "k11_bound_ms": k11_bytes / HBM_BYTES_PER_S * 1e3,
+        "k11_bound_by": "bytes",
+        "k11_library_ms": _device_ms(library, 10),
         "k12_ms": dev_ms["dense_resolve"],
         "profiled_launches": {name: sums[name][1] for name in dev_ms},
         "k12_plain_ms": plain["resolve"] * 1e3 / n,
         "k12_bytes": k12_bytes,
         "k12_bound_ms": k12_bytes / HBM_BYTES_PER_S * 1e3,
-        # the whole adjacency once, and the product at the full one-hot
+        # the whole adjacency once
         "full_adjacency_bytes": full_bytes,
         "full_adjacency_bound_ms": full_bytes / HBM_BYTES_PER_S * 1e3,
-        "k11_full_mma_bound_ms": 2 * vp * vp * engine.kmax
-        / TENSOR_BF16_OPS_PER_S * 1e3,
     }
 
 
@@ -6119,6 +6260,62 @@ def phase_mesh_kernels(device) -> int:
     return worst
 
 
+def _mesh_lanes(inputs, cls, stages, devices: list):
+    """A fresh lane mesh of ``inputs`` for a sweep: the lanes split evenly
+    over slots on ``devices`` (one a slot)."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    per = inputs[1].shape[0] // len(devices)
+    return ks.new_mesh_lanes([_serve_lanes_of(
+        tuple(x[i * per:(i + 1) * per] for x in inputs), cls, stages, d,
+        ks.INT32_MAX) for i, d in enumerate(devices)])
+
+
+# the partial (kPartial) instances of K16 and K15 without the clock, as
+# the profiler names them
+_PARTIAL_NAMES = {"lane_reset": "lane_reset_kernel<false, true>",
+                  "lane_finish": "lane_finish_kernel<false, true>"}
+
+
+def _mesh_partial_timing(h: dict, cls, stages, device) -> dict:
+    """The partial K16/K15 apart, at the shape ``h`` (a held mesh sweep,
+    clock off) held them: one whole sweep of its inputs over as many slots
+    on ``device``, launched as the mesh path launches it, under the
+    profiler with its names filtered to the partial instances (the launch
+    counts from one unprofiled sweep). ``plain_ms`` and ``bound_ms``: the
+    held sweep's plain seconds and bytes a launch."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    staged = stages is not None
+
+    def sweep(M):
+        ks.mesh_reset(M)
+        while int(M.ctrl[ks.CTRL_LIVE]):
+            ks.mesh_superstep(M, staged)
+
+    def make():
+        return _mesh_lanes(h["inputs"], cls, stages,
+                           [torch.device(device)] * h["slots"])
+
+    before = dict(ks.partial_launch_counts)
+    sweep(make())
+    torch.cuda.synchronize()
+    want = {k_: ks.partial_launch_counts[k_] - before[k_] for k_ in before}
+    sums = _profiled(sweep, want, _DEVICE_MS_KEPT, _PARTIAL_NAMES,
+                     prepare=make)
+    mean = lambda xs: sum(xs) / len(xs)
+    return {name: {"ms": sums[name][0] / sums[name][1],
+                   "profiled_launches": sums[name][1], "launches": want[name],
+                   "held_launches": len(h["bytes"][name]),
+                   "plain_ms": mean(h["plain_s"][name]) * 1e3,
+                   "bound_ms": mean(h["bytes"][name]) / HBM_BYTES_PER_S * 1e3,
+                   "library_ms": None,
+                   "shape": f"{h['slots']} slots of "
+                            f"{h['inputs'][1].shape[0] // h['slots']} lanes "
+                            f"of {cls.name}, a whole sweep"}
+            for name in _PARTIAL_NAMES}
+
+
 def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
                      slice_steps: int | None) -> dict:
     """One sweep of ``inputs`` over lane slots on ``devices`` (one a slot,
@@ -6139,22 +6336,19 @@ def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
     from dgc_tpu_torch.layout import CARRY_PHASE, T_PREV, T_US
 
     n = len(devices)
-    per = inputs[1].shape[0] // n
     ks.enable_peer_access(devices)
-
-    def mesh():
-        return ks.new_mesh_lanes([_serve_lanes_of(
-            tuple(x[i * per:(i + 1) * per] for x in inputs), cls, stages,
-            d, ks.INT32_MAX) for i, d in enumerate(devices)])
 
     def sync():  # K26 on shard 0's card writes the other cards' words
         for d in set(devices):
             torch.cuda.synchronize(d)
 
-    kern, plain = mesh(), mesh()
+    kern, plain = (_mesh_lanes(inputs, cls, stages, devices) for _ in "kp")
     out = {"worst": 0, "rounds": 0, "changed": 0, "kern": kern,
            "plain": plain, "held": dict.fromkeys(_SERVE_KERNELS + (
-               "lane_mesh_fold",), 0)}
+               "lane_mesh_fold",), 0), "inputs": inputs, "slots": n,
+           # the partial K16/K15: each launch's bytes and plain seconds
+           "bytes": {"lane_reset": [], "lane_finish": []},
+           "plain_s": {"lane_reset": [], "lane_finish": []}}
     clocks = {"lane_reset": (T_PREV,), "lane_finish": (T_US, T_PREV)}
 
     def shard(i, launch, reference):
@@ -6164,7 +6358,15 @@ def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
         before = [c.clone() for c in p_.carry]
         with ks.current_card(k_.device):
             launch(k_, *args)
+            if name in clocks:
+                state = _serve_state(p_)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
             reference(p_, *args)
+            if name in clocks:
+                torch.cuda.synchronize()
+                out["plain_s"][name].append(time.perf_counter() - t)
+                out["bytes"][name].append(_serve_bytes(p_, name, state))
         out["worst"] = max(out["worst"], _serve_diff(
             k_, p_, clocks.get(name, ()) if timing else (), before))
         out["held"][name] += 1
@@ -6369,11 +6571,14 @@ def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
         "shape": permute["shape"]}
     check(worst == 0, f"the mesh kernels at the serving class differ from "
           f"their plain versions by {worst}")
+    partial = _mesh_partial_timing(held[f"4 slots, slices of {steps}"], cls,
+                                   stages, device)
     rec = {"phase": "mesh_measure", "class": cls.name, "a0": a0,
            "max_abs_err": worst,
            "held": _held_record(held), "lane_mesh_fold": fold,
            "carry_permute_mesh": permute, "inputs_resize_mesh": resize,
-           "card": card}
+           "lane_reset_partial": partial["lane_reset"],
+           "lane_finish_partial": partial["lane_finish"], "card": card}
     emit(rec)
     return rec
 
@@ -6593,11 +6798,11 @@ def phase_mesh_cards(card: str, out_dir: Path) -> dict:
 
 
 def mesh_kernels_line(mesh: dict, mesh_err: int) -> list[dict]:
-    """K26 and the mesh instances of K18/K19 on the lane mesh's main path
-    (``MESH_MAIN``: 4 slots, continuous, batch 8, the device carry; the
-    other mesh runs' launches beside), times at the serving class
-    (``measure_mesh``); K26's entry carries the partial K15/K16 launches
-    of that run."""
+    """K26, the mesh instances of K18/K19 and the partial K16/K15 on the
+    lane mesh's main path (``MESH_MAIN``: 4 slots, continuous, batch 8,
+    the device carry; the other mesh runs' launches beside), times at the
+    serving class (``measure_mesh``); K26's entry also carries the partial
+    K15/K16 launches of that run."""
     main = mesh["runs"][MESH_MAIN]
     meas = mesh["measure"]
     err = max(mesh_err, meas["max_abs_err"])
@@ -6623,6 +6828,16 @@ def mesh_kernels_line(mesh: dict, mesh_err: int) -> list[dict]:
         if name == "lane_mesh_fold":
             entry["partial_launches"] = main["partial_launches"]
         out.append(entry)
+    for name in ("lane_reset", "lane_finish"):  # the partial K16/K15
+        m = meas[f"{name}_partial"]
+        out.append({"name": f"{name}_partial", "route": "cuda",
+                    "source": "dgc_tpu_torch/csrc/serve.cu",
+                    "replaces": "dgc_tpu/serve/batched.py:821",
+                    "launches": main["partial_launches"][name],
+                    "max_abs_err": err, "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": "bytes", "library_ms": None,
+                    "shape": m["shape"]})
     return out
 
 
@@ -6814,7 +7029,8 @@ def kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
          "launches_rmat": rmat("compact_slots"),
          "max_abs_err": compact_err, "ms": first["k3_ms"],
          "plain_ms": first["k3_plain_ms"], "bound_ms": first["k3_bound_ms"],
-         "bound_by": "bytes", "library_ms": first["k3_library_ms"]},
+         "bound_by": "bytes", "library_ms": first["k3_library_ms"],
+         "replays_held": first["k3_replays_held"]},
         {"name": "stage_rows", "route": "cuda", "source": k3k6,
          "replaces": "dgc_tpu/engine/compact.py:1526",
          "launches": compact["launches"]["stage_rows"],

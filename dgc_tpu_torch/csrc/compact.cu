@@ -59,12 +59,21 @@
 // measured times). K5 must read each row's real neighbor entries once plus
 // the state gathered through them and the row's own word, and write the
 // row: ~76 MB for the full table, ~23 us at 3.35 TB/s, less in the stages
-// as the frontier shrinks. K3 reads and writes V words (8 MB, ~2.4 us) and
-// writes the slot list. K4 reads the slots' rows (at most pad x 32 words)
-// and writes them once. K6 is one control-block update, plus a copy of V
-// words into the ring when it pushes. These first kernels are one thread
-// per row (K5), per item (K3, K4) or per word (K6), written to be right and
-// simple, not yet shaped for coalesced table reads.
+// as the frontier shrinks. K3 reads and writes V words and writes the slot
+// list (9 MB at the first stage, ~2.7 us). K4 reads the slots' rows (at
+// most pad x 32 words) and writes them once. K6 is one control-block
+// update, plus a copy of V words into the ring when it pushes. K4-K6 are
+// one thread per row (K5), per item (K4) or per word (K6), written to be
+// right and simple, not yet shaped for coalesced table reads.
+//
+// K3 is bound by its bytes, and what kept it from them was latency, not
+// bandwidth: a single-pass scan over ~500 tiles waits on its predecessors'
+// flags one at a time, and the dummy fill (most of the slot list at the
+// first stage) fell to the last tile alone. So K3 is one wave of
+// co-resident blocks, 16-byte loads and stores, one exchange of the
+// blocks' counts in which every block reads every flag at once, and a
+// dummy fill shared by the whole grid; its flags carry an epoch, so the
+// engine's scratch is made once and never cleared between launches.
 
 #include <cuda_runtime.h>
 
@@ -89,8 +98,6 @@ constexpr int kMetaCols = 5;
 constexpr int kThreads = 256;
 constexpr int kMaxSegs = 64;    // segments of one plan (the wrapper checks)
 constexpr int kDescCols = 5;    // row0, rows, width, planes, flat0
-constexpr int kScanItems = 8;   // K3: items per thread
-constexpr int kScanTile = kThreads * kScanItems;
 
 __device__ __forceinline__ void load_desc(int* s_desc, const int* desc,
                                           int nseg) {
@@ -102,12 +109,33 @@ __device__ __forceinline__ void load_desc(int* s_desc, const int* desc,
 
 // ---- K3: ordered stream compaction ------------------------------------
 //
-// Tiles of kScanTile items, in the order of a ticket taken at block start
-// (so a tile only waits on tiles that already run), scanned with a
-// decoupled look-back: each tile publishes its count at once and its
-// inclusive prefix when it knows it, one 64-bit word (state << 32 | value)
-// per tile in `scratch[1 + tile]`. The last tile fills the unused slots
-// with the dummy index n.
+// One wave of co-resident blocks (a cooperative launch: the runtime
+// refuses a grid that could not all be resident at once), each owning a
+// contiguous range of the 16-byte chunks of `cur`'s rows [row0, V).
+//
+// Phase 1. A block reads its chunks with 16-byte loads and keeps each
+// chunk's four active bits in shared memory. Its count goes out as one
+// 64-bit flag (epoch << 32 | count) in `scratch[1 + block]`; only then
+// does it write its last chunks over the other buffer (16-byte stores when
+// the buffers' offset allows, else 8- or 4-byte ones), so no copy store
+// queues ahead of the flag. Every block then reads all the grid's flags at
+// once, one a thread (a look-back over the whole grid in one round trip:
+// co-residency makes the wait safe): its predecessors' counts sum to its
+// offset, all of them to the active count. Phase 2 writes the block's
+// slots in order from its bits, and every block fills its share of
+// [count, pad) with the dummy n.
+//
+// The epoch. `scratch[0]` holds the last launch's epoch; a launch uses the
+// next one (never 0, the value of a fresh scratch), so a flag a previous
+// launch left never reads as ready and the scratch needs no clearing.
+// Block 0 stores the new epoch once it has seen every block's flag, that
+// is once every block has read the old one.
+
+constexpr int kSlotThreads = 512;
+constexpr int kSlotWarps = kSlotThreads / 32;
+constexpr int kSlotBlocksPerSm = 2;
+constexpr int kSlotUnroll = 2;  // rounds of 16-byte loads in flight a thread
+constexpr int kSlotMaxSmem = 96 * 1024;  // the chunks' bits of one block
 
 __device__ __forceinline__ void store_flag(unsigned long long* p,
                                            unsigned long long v) {
@@ -119,93 +147,192 @@ __device__ __forceinline__ unsigned long long load_flag(
   return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_slots_kernel(const int* ctrl, int* state, size_t stride, int row0,
-                     int n, int pad, int* idx, unsigned long long* scratch) {
-  __shared__ int s_tile;
-  __shared__ int s_warp[kThreads / 32];
-  __shared__ int s_prefix;
-  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(scratch, 1ULL));
-  __syncthreads();
-  const int tile = s_tile;
-  const int cur = ctrl[kCur];
-  const int* __restrict__ src = state + cur * stride;
-  int* __restrict__ other = state + (1 - cur) * stride;
-
-  const int base = tile * kScanTile + threadIdx.x * kScanItems;
-  unsigned bits = 0u;
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    const int pos = base + i;
-    if (pos < n) {
-      const int w = src[row0 + pos];
-      other[row0 + pos] = w;
-      if (w < 0 || (w & 1) != 0) {
-        bits |= 1u << i;
-        ++cnt;
-      }
-    }
-  }
-
-  // block-wide exclusive scan of the per-thread counts
+// The exclusive prefix of x over the block and (in `total`) its sum; all
+// threads call it.
+__device__ __forceinline__ int slot_scan(int x, int* s_warp, int& total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int x = cnt;
+  int inc = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
+    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, o);
+    if (lane >= o) inc += y;
   }
-  if (lane == 31) s_warp[warp] = x;
+  if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    int t = lane < kThreads / 32 ? s_warp[lane] : 0;
+    int t = lane < kSlotWarps ? s_warp[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
       if (lane >= o) t += y;
     }
-    if (lane < kThreads / 32) s_warp[lane] = t;
+    if (lane < kSlotWarps) s_warp[lane] = t;
   }
   __syncthreads();
-  const int excl = x - cnt + (warp > 0 ? s_warp[warp - 1] : 0);
-  const int total = s_warp[kThreads / 32 - 1];
+  const int excl = inc - x + (warp > 0 ? s_warp[warp - 1] : 0);
+  total = s_warp[kSlotWarps - 1];
+  __syncthreads();  // s_warp is free for the next call
+  return excl;
+}
 
-  if (threadIdx.x == 0) {
-    unsigned long long* flags = scratch + 1;
-    int prefix = 0;
-    if (tile == 0) {
-      store_flag(flags, (2ULL << 32) | static_cast<unsigned>(total));
-    } else {
-      store_flag(flags + tile, (1ULL << 32) | static_cast<unsigned>(total));
-      int j = tile - 1;
-      while (true) {
-        const unsigned long long f = load_flag(flags + j);
-        const unsigned st = static_cast<unsigned>(f >> 32);
-        if (st == 0u) continue;  // tile j has not counted yet
-        prefix += static_cast<int>(f & 0xFFFFFFFFULL);
-        if (st == 2u) break;     // an inclusive prefix: done
-        --j;
-      }
-      store_flag(flags + tile,
-                 (2ULL << 32) | static_cast<unsigned>(prefix + total));
-    }
-    s_prefix = prefix;
+// Chunk c's four words over the other buffer at position p0 = 4c - head
+// (kStore: the widest store the alignment of dst + p0 allows).
+template <int kStore>
+__device__ __forceinline__ void copy_chunk(int* dst, int p0, const int4& q) {
+  if (kStore == 4) {
+    *reinterpret_cast<int4*>(dst + p0) = q;
+  } else if (kStore == 2) {
+    int2* d2 = reinterpret_cast<int2*>(dst + p0);
+    d2[0] = make_int2(q.x, q.y);
+    d2[1] = make_int2(q.z, q.w);
+  } else {
+    dst[p0] = q.x;
+    dst[p0 + 1] = q.y;
+    dst[p0 + 2] = q.z;
+    dst[p0 + 3] = q.w;
   }
-  __syncthreads();
+}
 
-  int off = s_prefix + excl;
+// kStore: the widest store the other buffer's alignment allows at a
+// chunk (4, 2 or 1 words: the buffers lie stride words apart).
+template <int kStore>
+__global__ void __launch_bounds__(kSlotThreads, kSlotBlocksPerSm)
+compact_slots_kernel(const int* ctrl, int* state, size_t stride, int row0,
+                     int n, int pad, int* __restrict__ idx,
+                     unsigned long long* scratch) {
+  extern __shared__ unsigned char s_bits[];  // a chunk's 4 bits a byte
+  __shared__ int s_warp[kSlotWarps];
+  __shared__ unsigned s_epoch;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const int grid = gridDim.x;
+  if (tid == 0) {
+    const unsigned e = static_cast<unsigned>(load_flag(scratch)) + 1u;
+    s_epoch = e == 0u ? 1u : e;
+  }
+
+  const int cur = ctrl[kCur];
+  const int* src = state + cur * stride + row0;
+  int* dst = state + (1 - cur) * stride + row0;
+  // chunk c holds positions 4c - head .. 4c - head + 3 (16-byte aligned)
+  const int head = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int4* __restrict__ src4 = reinterpret_cast<const int4*>(src - head);
+  const int nc = (head + n + 3) >> 2;
+  const int c0 = static_cast<int>(static_cast<long long>(nc) * b / grid);
+  const int c1 = static_cast<int>(static_cast<long long>(nc) * (b + 1) / grid);
+  const int rounds = (c1 - c0 + kSlotThreads - 1) / kSlotThreads;
+
+  // phase 1: count the actives; the last batch's copy waits for the flag
+  int cnt = 0;
+  int4 q[kSlotUnroll];
+  bool full[kSlotUnroll];
+  int last = 0;  // the last batch's first round
+  for (int r = 0; r < rounds; r += kSlotUnroll) {
+    last = r;
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    if ((bits >> i) & 1u) {
-      if (off < pad) idx[off] = base + i;  // actives past pad are dropped
-      ++off;
+    for (int u = 0; u < kSlotUnroll; ++u) {
+      const int c = c0 + (r + u) * kSlotThreads + tid;
+      const int p0 = 4 * c - head;
+      full[u] = r + u < rounds && c < c1 && p0 >= 0 && p0 + 4 <= n;
+      if (full[u]) q[u] = src4[c];
+    }
+    const bool copy_now = r + kSlotUnroll < rounds;
+#pragma unroll
+    for (int u = 0; u < kSlotUnroll; ++u) {
+      if (r + u >= rounds) break;
+      const int c = c0 + (r + u) * kSlotThreads + tid;
+      const int p0 = 4 * c - head;
+      int w[4] = {0, 0, 0, 0};  // 0: not active (a confirmed color 0)
+      if (full[u]) {
+        w[0] = q[u].x;
+        w[1] = q[u].y;
+        w[2] = q[u].z;
+        w[3] = q[u].w;
+        if (copy_now) copy_chunk<kStore>(dst, p0, q[u]);
+      } else if (c < c1) {  // the first or the last chunk: word by word
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = p0 + j;
+          if (p >= 0 && p < n) {
+            w[j] = src[p];
+            dst[p] = w[j];
+          }
+        }
+      }
+      unsigned bits = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (w[j] < 0 || (w[j] & 1) != 0) bits |= 1u << j;
+      }
+      s_bits[(r + u) * kSlotThreads + tid] = static_cast<unsigned char>(bits);
+      cnt += __popc(bits);
     }
   }
-  if (tile == static_cast<int>(gridDim.x) - 1) {
-    const int count = s_prefix + total;
-    for (int i = count + threadIdx.x; i < pad; i += kThreads) idx[i] = n;
+  int count;
+  slot_scan(cnt, s_warp, count);
+  const unsigned epoch = s_epoch;
+  unsigned long long* flags = scratch + 1;
+  if (tid == 0) {
+    store_flag(flags + b, (static_cast<unsigned long long>(epoch) << 32) |
+                              static_cast<unsigned>(count));
+  }
+#pragma unroll
+  for (int u = 0; u < kSlotUnroll; ++u) {
+    if (last + u < rounds && full[u]) {
+      copy_chunk<kStore>(dst, 4 * (c0 + (last + u) * kSlotThreads + tid) - head,
+                         q[u]);
+    }
+  }
+
+  // every block's count, all at once: this block's offset and the total
+  int before = 0;
+  int all = 0;
+  for (int j = tid; j < grid; j += kSlotThreads) {
+    unsigned long long f;
+    do {
+      f = load_flag(flags + j);
+    } while (static_cast<unsigned>(f >> 32) != epoch);
+    const int a = static_cast<int>(f & 0xFFFFFFFFULL);
+    all += a;
+    if (j < b) before += a;
+  }
+  int total;
+  slot_scan(before, s_warp, before);
+  slot_scan(all, s_warp, total);
+  // every block has read the old epoch (it published under the new one)
+  if (b == 0 && tid == 0) store_flag(scratch, epoch);
+
+  // phase 2: the slots in order; actives past pad are dropped
+  int run = before;
+  for (int r = 0; r < rounds && run < pad; ++r) {
+    const unsigned bits = s_bits[r * kSlotThreads + tid];
+    int sum;
+    int off = run + slot_scan(__popc(bits), s_warp, sum);
+    const int p0 = 4 * (c0 + r * kSlotThreads + tid) - head;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((bits >> j) & 1u) {
+        if (off < pad) idx[off] = p0 + j;
+        ++off;
+      }
+    }
+    run += sum;
+  }
+
+  // this block's share of the dummy fill [total, pad)
+  if (total < pad) {
+    const long long span = pad - total;
+    const int f0 = total + static_cast<int>(span * b / grid);
+    const int f1 = total + static_cast<int>(span * (b + 1) / grid);
+    const int a0 = min((f0 + 3) & ~3, f1);  // idx is 16-byte aligned
+    const int a1 = max(f1 & ~3, a0);
+    for (int i = f0 + tid; i < a0; i += kSlotThreads) idx[i] = n;
+    const int4 dummy = make_int4(n, n, n, n);
+    for (int i = a0 / 4 + tid; i < a1 / 4; i += kSlotThreads) {
+      reinterpret_cast<int4*>(idx)[i] = dummy;
+    }
+    for (int i = a1 + tid; i < f1; i += kSlotThreads) idx[i] = n;
   }
 }
 
@@ -469,27 +596,101 @@ unsigned finish_blocks(int stride, int record) {
   return blocks > 528 ? 528 : blocks;  // 4 per SM; the copy strides the rest
 }
 
+int slot_grid_max() {
+  int dev = 0;
+  int sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  return kSlotBlocksPerSm * sms;
+}
+
+// K3's grid: at most kSlotBlocksPerSm blocks an SM, fewer when the range
+// is short (at least a round of chunks a block) or the chunks' bits do not
+// let that many fit; all of them resident (the cooperative launch checks).
+template <int kStore>
+int launch_slots(const void* ctrl_p, void* state_p, int stride_i, int row0,
+                 int n, int pad, void* idx_p, void* scratch_p, int slots,
+                 cudaStream_t st) {
+  const int grid_max = slot_grid_max();
+  if (grid_max < 1) return static_cast<int>(cudaErrorInvalidDevice);
+  const void* fn = reinterpret_cast<const void*>(compact_slots_kernel<kStore>);
+  const long long nc = (static_cast<long long>(n) + 6) / 4;  // any head
+  long long grid = (nc + kSlotThreads - 1) / kSlotThreads;
+  if (grid > grid_max) grid = grid_max;
+  if (grid > slots) grid = slots;
+  if (grid < 1) grid = 1;
+  size_t smem = 0;
+  for (int tries = 0;; ++tries) {
+    const long long rounds =
+        ((nc + grid - 1) / grid + kSlotThreads - 1) / kSlotThreads;
+    smem = static_cast<size_t>(rounds) * kSlotThreads;
+    if (smem > static_cast<size_t>(kSlotMaxSmem) || tries == 4) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSlotMaxSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    int occ = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, fn, kSlotThreads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long fit =
+        static_cast<long long>(occ) * (grid_max / kSlotBlocksPerSm);
+    if (fit >= grid) break;
+    if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+    grid = fit;
+  }
+  const int* ctrl = static_cast<const int*>(ctrl_p);
+  int* state = static_cast<int*>(state_p);
+  size_t stride = static_cast<size_t>(stride_i);
+  int* idx = static_cast<int*>(idx_p);
+  unsigned long long* scratch = static_cast<unsigned long long*>(scratch_p);
+  void* args[] = {&ctrl, &state, &stride, &row0, &n, &pad, &idx, &scratch};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(static_cast<unsigned>(grid)), dim3(kSlotThreads), args, smem,
+      st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry point returns the launch's cudaError_t (0 = launched).
 
-// state: int32[2, stride]; idx: int32[pad]; scratch: uint64[1 + tiles],
-// zeroed, tiles = ceil(n / 2048) (dgc_compact_slots_tiles).
-int dgc_compact_slots_tiles(int n) { return (n + kScanTile - 1) / kScanTile; }
+// The most blocks K3 launches on the current device: its scratch holds
+// one flag a block after the epoch.
+int dgc_compact_slots_grid_max() { return slot_grid_max(); }
 
+// state: int32[2, stride]; idx: int32[pad], 16-byte aligned; scratch:
+// uint64[1 + slots], zeroed once when made (the epoch and the flags).
 int dgc_compact_slots(const void* ctrl, void* state, int stride, int row0,
-                      int n, int pad, void* idx, void* scratch,
+                      int n, int pad, void* idx, void* scratch, int slots,
                       void* stream) {
-  if (n <= 0 || pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned tiles = static_cast<unsigned>(dgc_compact_slots_tiles(n));
-  compact_slots_kernel<<<tiles, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ctrl), static_cast<int*>(state),
-      static_cast<size_t>(stride), row0, n, pad, static_cast<int*>(idx),
-      static_cast<unsigned long long*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || pad <= 0 || slots < 1 ||
+      (reinterpret_cast<uintptr_t>(idx) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (stride % 4) {
+    case 0:
+      return launch_slots<4>(ctrl, state, stride, row0, n, pad, idx, scratch,
+                             slots, static_cast<cudaStream_t>(stream));
+    case 2:
+      return launch_slots<2>(ctrl, state, stride, row0, n, pad, idx, scratch,
+                             slots, static_cast<cudaStream_t>(stream));
+    default:
+      return launch_slots<1>(ctrl, state, stride, row0, n, pad, idx, scratch,
+                             slots, static_cast<cudaStream_t>(stream));
+  }
 }
 
 // flat_ext: int32[n+1, w_flat]; desc: int32[nseg, 5] of the stage plan;

@@ -431,6 +431,10 @@ class CompactFrontierEngine(BucketedELLEngine):
                         self.flat_planes),))
             plan = plan_from_ranges(ranges)
             self._stage_plans[si] = (plan, kc.plan_desc(plan, self.device))
+        # K3's epoch and flags, made once for every stage entry (none on
+        # the CPU)
+        self._slots_scratch = (kc.new_slots_scratch(self.device)
+                               if self._stage_plans else None)
         self._init_ba = self._ba(self.init_bucket_active)
         self._build_full_plan()
         self.resumed_from_step = None  # the last sweep's confirm (None: scratch)
@@ -564,7 +568,7 @@ class CompactFrontierEngine(BucketedELLEngine):
             elif self._full_plan is not None:
                 plan, desc = self._stage_plans[si]
                 idx = kc.compact_slots(ctrl, state, self.flat_row0,
-                                       pow2_ceil(scale))
+                                       pow2_ceil(scale), self._slots_scratch)
                 seg, gidx = kc.stage_rows(self.flat_ext, idx, plan, desc,
                                           self.flat_row0, v)
                 flat = (seg, plan, desc, gidx)

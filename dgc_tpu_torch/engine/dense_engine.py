@@ -1,14 +1,15 @@
 """Dense-adjacency coloring engine (port of
-``dgc_tpu.engine.dense_engine``) — the tensor-core path for small graphs.
+``dgc_tpu.engine.dense_engine``) — the path for small graphs.
 
 For V up to 16,384 the whole superstep is two kernels over the dense
-adjacency (``kernels.dense``): K11 computes the forbidden sets as one
-product ``counts = A @ onehot(colors)`` (A bf16 [V, V], f32 accumulation,
-so the counts are exact) and each uncolored vertex's first free color
-below the budget k; K12 keeps a vertex's candidate unless an uncolored
-neighbor with the same candidate beats it ((degree desc, id asc), the ELL
-engines' priority), applies the step and folds the status. The host
-enqueues 64 supersteps at a time and syncs once per chunk.
+adjacency (``kernels.dense``, A bf16 [V, V]): K11 computes what the JAX
+body's product ``counts = A @ onehot(colors)`` feeds its first fit —
+each uncolored vertex's first free color below the budget k — from a
+bitmask of its neighbors' colors, reading its adjacency row once; K12
+keeps a vertex's candidate unless an uncolored neighbor with the same
+candidate beats it ((degree desc, id asc), the ELL engines' priority),
+applies the step and folds the status. The host enqueues 64 supersteps
+at a time and syncs once per chunk.
 
 ``kmax`` (the one-hot width) is Δ+1 rounded up to 128, as in the JAX
 engine: a budget at or above it is clamped to it (``clamp_budget``), the

@@ -3,7 +3,8 @@ plain PyTorch versions, and the control-block and ring layout they share.
 
 - ``compact_slots`` (K3): the ordered slot list of a stage's active rows
   (``compact_idx``, the port of ``dgc_tpu.engine.compact._compact_idx``),
-  after copying the current state buffer over the other one.
+  after copying the current state buffer over the other one; on the card
+  it takes a scratch its engine makes once (``new_slots_scratch``).
 - ``stage_rows`` (K4): each slot's row of the flat table, clipped to its
   range's width, into the stage's flat layout, and the slots' state
   indices (the dummy slot ``V+1`` for unused slots).
@@ -269,9 +270,10 @@ def _library():
     lib = load(SOURCE)
     if not getattr(lib, "_dgc_bound", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dgc_compact_slots_tiles.argtypes = [ci]
-        lib.dgc_compact_slots_tiles.restype = ci
-        lib.dgc_compact_slots.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
+        lib.dgc_compact_slots_grid_max.argtypes = []
+        lib.dgc_compact_slots_grid_max.restype = ci
+        lib.dgc_compact_slots.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, ci,
+                                          vp]
         lib.dgc_compact_slots.restype = ci
         lib.dgc_stage_rows.argtypes = [vp, ci, ci, vp, ci, vp, ci, cll, ci, ci,
                                        vp, vp, vp]
@@ -311,28 +313,59 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def new_slots_scratch(device) -> torch.Tensor | None:
+    """K3's scratch for one engine on ``device``: an epoch and one flag a
+    block (int64[1 + the most blocks K3 launches there]), zeroed once
+    here and never again — each launch takes the next epoch. None on the
+    CPU, whose plain version needs none."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return None
+    _check_cuda("compact_slots", device)
+    with torch.cuda.device(device):
+        slots = _library().dgc_compact_slots_grid_max()
+    if slots < 1:
+        raise RuntimeError(f"compact_slots: no grid on {device}")
+    return torch.zeros(1 + slots, dtype=torch.int64, device=device)
+
+
+def _check_slots_scratch(scratch, device) -> None:
+    if scratch is None:
+        raise ValueError("compact_slots needs its scratch on the card "
+                         "(new_slots_scratch)")
+    if scratch.device != device:
+        raise ValueError(f"scratch is on {scratch.device}, expected {device}")
+    if scratch.dtype != torch.int64:
+        raise TypeError(f"scratch must be int64, got {scratch.dtype}")
+    if scratch.dim() != 1 or scratch.shape[0] < 2 or \
+            not scratch.is_contiguous():
+        raise ValueError(f"scratch must be a contiguous int64[1 + blocks], "
+                         f"got shape {tuple(scratch.shape)}")
+
+
 def compact_slots(ctrl: torch.Tensor, state: torch.Tensor, row0: int,
-                  pad: int) -> torch.Tensor:
+                  pad: int, scratch: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """K3: int32[pad] slot list of the active rows of ``[row0, V)`` of
     buffer ``cur`` (dummy ``V − row0``), after copying those rows of
-    ``cur`` over the other buffer. Runs on the current stream."""
+    ``cur`` over the other buffer. On the card it needs ``scratch``
+    (``new_slots_scratch``), used by one stream at a time; the CPU's
+    plain version takes none. Runs on the current stream."""
     device = state.device
     if device.type == "cpu":
         return compact_slots_reference(ctrl, state, row0, pad)
     _check_cuda("compact_slots", device)
     _check_state(ctrl, state, device)
+    _check_slots_scratch(scratch, device)
     v = state.shape[1] - 2
     n = v - row0
     if not (0 <= row0 < v and pad >= 1):
         raise ValueError(f"bad row0={row0} / pad={pad} for V={v}")
-    lib = _library()
-    tiles = lib.dgc_compact_slots_tiles(n)
     idx = torch.empty(pad, dtype=torch.int32, device=device)
-    scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=device)
-    _raise_on(lib.dgc_compact_slots(
+    _raise_on(_library().dgc_compact_slots(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]), int(row0),
-        int(n), int(pad), idx.data_ptr(), scratch.data_ptr(), _stream(device)),
-        "compact_slots")
+        int(n), int(pad), idx.data_ptr(), scratch.data_ptr(),
+        int(scratch.shape[0]) - 1, _stream(device)), "compact_slots")
     launch_counts["compact_slots"] += 1
     return idx
 

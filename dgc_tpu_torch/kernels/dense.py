@@ -2,10 +2,11 @@
 PyTorch versions, and the chunked superstep loop of the dense engine.
 
 - ``dense_forbid`` (K11) computes, for every uncolored row, the first
-  color column below ``k`` that no neighbor holds — ``adj @ onehot(colors)``
-  on the tensor cores, then the first-fit — into ``cand`` (−1 for a
-  colored or pad row; 0 for an uncolored row with no free column, which
-  adds to the control block's fail count);
+  color column below ``k`` that no neighbor holds — the JAX body's
+  ``adj @ onehot(colors)`` and first fit, as a bitmask of the neighbors'
+  colors over each uncolored row's adjacency, read once — into ``cand``
+  (−1 for a colored or pad row; 0 for an uncolored row with no free
+  column, which adds to the control block's fail count);
 - ``dense_resolve`` (K12) keeps an uncolored row's candidate unless an
   uncolored neighbor with the same candidate beats it (higher degree, or
   the same degree and a lower id), writes the new colors into the other
@@ -40,8 +41,8 @@ from dgc_tpu_torch.kernels.superstep import (CHUNK_STEPS, INT32_MAX,
 DCTRL_STATUS, DCTRL_STEP, DCTRL_CUR, DCTRL_FAIL, DCTRL_UNCOL, \
     DCTRL_TICKET = range(6)
 DCTRL_LEN = 6
-# Vp's multiple: K11's vertices a product step (kChunk in csrc/dense.cu),
-# four of its 64-row blocks
+# Vp's multiple (kVertexTile in csrc/dense.cu): K11's bulk copies and
+# K12's 16-byte words divide a row evenly
 VERTEX_TILE = 256
 _RUNNING = int(AttemptStatus.RUNNING)
 

@@ -254,6 +254,57 @@ def test_compact_slots_copies_the_current_buffer():
         idx.numpy(), kc.compact_idx((pk < 0) | ((pk & 1) == 1), 256, v).numpy())
 
 
+# K3's plain version at the kernel's edges: V off its 2,048-item round, a
+# pad far above the active count (the first stage's ratio), row offsets
+@pytest.mark.parametrize("v,row0,pad,density", [
+    (2047, 0, 8192, 0.01), (4099, 0, 1 << 16, 0.002),
+    (5003, 3, 1 << 17, 0.01), (2049, 2048, 4096, 1.0)])
+def test_compact_slots_plain_with_a_far_pad_equals_jax(v, row0, pad,
+                                                        density):
+    rng = np.random.default_rng(v)
+    words = rng.integers(0, 400, (2, v + 2)) * 2
+    act = rng.random((2, v + 2)) < density
+    words[act] = np.where(rng.random(int(act.sum())) < 0.5, -1,
+                          words[act] + 1)
+    state = torch.from_numpy(words.astype(np.int32))
+    state[:, v], state[:, v + 1] = -1, 0
+    before = state.clone()
+    ctrl = kc.new_ctrl(step=3, prev_active=v, device="cpu")
+    ctrl[kc.CTRL_CUR] = 1
+    idx = kc.compact_slots_reference(ctrl, state, row0, pad)
+    pk = before[1, row0:v]
+    want = jc._compact_idx(jnp.asarray(((pk < 0) | ((pk & 1) == 1)).numpy()),
+                           pad, v - row0)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+    assert torch.equal(state[0, row0:v], before[1, row0:v])
+    assert torch.equal(state[0, :row0], before[0, :row0])
+    assert torch.equal(state[1], before[1])
+
+
+def test_slots_scratch_checks_and_the_cpu_needs_none():
+    cpu = torch.device("cpu")
+    assert kc.new_slots_scratch(cpu) is None
+    with pytest.raises(ValueError, match="needs its scratch"):
+        kc._check_slots_scratch(None, cpu)
+    with pytest.raises(ValueError, match="is on meta"):
+        kc._check_slots_scratch(torch.zeros(5, dtype=torch.int64,
+                                            device="meta"), cpu)
+    with pytest.raises(TypeError, match="int64"):
+        kc._check_slots_scratch(torch.zeros(5, dtype=torch.int32), cpu)
+    with pytest.raises(ValueError, match="1 \\+ blocks"):
+        kc._check_slots_scratch(torch.zeros(1, dtype=torch.int64), cpu)
+    kc._check_slots_scratch(torch.zeros(5, dtype=torch.int64), cpu)
+    # the plain version takes no scratch, and leaves one it is given alone
+    v = 300
+    state = torch.from_numpy(np.random.default_rng(3).integers(
+        -1, 40, (2, v + 2)).astype(np.int32))
+    ctrl = kc.new_ctrl(step=3, prev_active=v, device="cpu")
+    scratch = torch.full((4,), 5, dtype=torch.int64)
+    a = kc.compact_slots(ctrl, state.clone(), 0, 512)
+    b = kc.compact_slots(ctrl, state.clone(), 0, 512, scratch)
+    assert torch.equal(a, b) and (scratch == 5).all()
+
+
 # ---- the engine -------------------------------------------------------------
 
 ENGINE_GRAPHS = ["uniform", "rmat", "isolated"]

@@ -200,6 +200,42 @@ def test_plain_kernels_equal_the_jax_body(name):
             assert int(ctrl[kd.DCTRL_STATUS]) == status
 
 
+def _edge_rows_graph():
+    """Rows 0, 41 and 100 joined to 40, 32 and 64 neighbors that hold the
+    colors 0..n-1: first fits past a 32-bit word, at its first bit, and
+    none below 64; every other row uncolored and isolated."""
+    edges, colors = [], np.full(300, -1, np.int32)
+    for row, first, n in ((0, 1, 40), (41, 42, 32), (100, 101, 64)):
+        edges += [(row, first + i) for i in range(n)]
+        colors[first: first + n] = np.arange(n)
+    return JaxArrays.from_edge_list(300, np.array(edges)), colors
+
+
+def test_plain_first_fit_at_the_mask_words_equals_the_jax_body():
+    """K11's plain version — the card's yardstick for its bitmask — where
+    a first fit crosses or ends a 32-bit word, or finds no free color."""
+    g, colors = _edge_rows_graph()
+    jax_engine = JaxDense(g)
+    ours = convert.dense_from_jax(
+        np.asarray(jax_engine.adj, np.float32), np.asarray(jax_engine.degrees),
+        jax_engine.kmax, jax_engine.max_steps, device="cpu")
+    v, vp = g.num_vertices, ours.adj.shape[0]
+    buf = np.full((2, vp), -1, np.int32)
+    buf[0, :v] = colors
+    for k in (1, 32, 33, 40, 41, 64, 65, jax_engine.kmax):
+        want = _jax_body(jax_engine.adj, jax_engine.degrees,
+                         jnp.asarray(colors), k, jax_engine.kmax)
+        ctrl = kd.new_dense_ctrl("cpu")
+        cand = torch.full((vp,), 7, dtype=torch.int32)
+        kd.dense_forbid(ctrl, torch.from_numpy(buf), ours.adj, cand, v, k)
+        uncol = want["uncol"]
+        np.testing.assert_array_equal(cand[:v].numpy(),
+                                      np.where(uncol, want["cand"], -1))
+        assert [int(cand[r]) for r in (0, 41, 100)] == [
+            n if n < k else 0 for n in (40, 32, 64)]
+        assert int(ctrl[kd.DCTRL_FAIL]) == int((uncol & want["fail_v"]).sum())
+
+
 def test_cpu_run_counts_no_launch():
     kd.reset_launch_counts()
     g = graph("uniform400-s0")
