@@ -4373,9 +4373,10 @@ def _serve_slices(inputs, cls, stages, device, n: int = 2) -> list:
 def serve_kernels_line(serve: dict, serve_err: int) -> list[dict]:
     """K13-K16 on the serve replay's main path: launches from the default
     run (continuous, batch 8; the other runs' beside), times from
-    ``measure_serve`` at the serving class's shapes; the kTiming instances
-    of K15 and K16 with the timing run's launches and their own times,
-    plain times and bounds from the timing sweep."""
+    ``measure_serve`` at the serving class's shapes (with the launches of
+    the sweep they were measured on, ``timed_sweep_launches``); the kTiming
+    instances of K15 and K16 with the timing run's launches and their own
+    times, plain times and bounds from the timing sweep."""
     runs, meas = serve["runs"], serve["measure"]
     main = runs["continuous, batch 8"]
     timed = runs["continuous, batch 32, timing"]
@@ -4395,6 +4396,8 @@ def serve_kernels_line(serve: dict, serve_err: int) -> list[dict]:
                     "launches_other": {r: v["launches"][name]
                                        for r, v in runs.items()
                                        if v is not main},
+                    # in the measured sweep, the run the time is from
+                    "timed_sweep_launches": m["held_launches"],
                     "max_abs_err": err, "ms": m["ms"],
                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": "bytes", "library_ms": m["library_ms"]})
@@ -5069,9 +5072,7 @@ class _HeldShardKernels:
                     if i < len(args)] + [_diff_any(kw[k], kw_c[k])
                                          for k in kw_c if k in ("umax",
                                                                 "traj")])
-                # K23 and K24 share a wrapper: count them by kernel
-                key = name + ("_wide" if kw.get("wide") else "")
-                self.calls[key] = self.calls.get(key, 0) + 1
+                self.calls[name] = self.calls.get(name, 0) + 1
                 if name == "hub_slots":
                     self.branches.update(
                         args[2][kc.LIVE_BRANCH, : len(args[3].buckets)]
@@ -5090,6 +5091,7 @@ class _HeldShardKernels:
         wrap(kh, "hub_slots", kh.hub_slots_reference, (0, 1, 2, 4))
         wrap(kh, "hub_superstep", kh.hub_superstep_reference, (0, 1, 3, 5))
         wrap(kr, "ring_stats", kr.ring_stats_reference, (5,))
+        wrap(kr, "ring_stats_wide", kr.ring_stats_wide_reference, (4,))
         wrap(kr, "ring_apply", kr.ring_apply_reference, (0, 2, 3))
         return self
 
@@ -5632,29 +5634,59 @@ class _RingStub(_ShardStub):
         dst.copy_(self.rest[o * vl: (o + 1) * vl])
 
 
-def _ring_bytes(engine, ctrl, block, launches, planes: int) -> int:
-    """The bytes K23/K24 must move over ``launches`` on this state: each
-    launch's real table entries, the block words they name (at most one a
-    real entry, at most the block), the packed word of each real row, and
-    the accumulator words its stats make nonzero, read and written (the
-    clash flag written only where set): counted from each launch's own
-    stats, by its plain version into zeroed accumulators."""
+def _ring_bytes(engine, ctrl, block, launches, planes: int, *,
+                one_launch: bool = False) -> int:
+    """The bytes K23/K24 must move over ``launches`` (``(rows, table)``
+    pairs: K23's tables, a launch each, or the buckets of K24's
+    ``WideTables``, all in one launch with ``one_launch``) on this state:
+    the real table entries, the block words they name (at most one a real
+    entry, at most the block, once a launch), the packed word of each real
+    row, and the accumulator words its stats make nonzero and the mask of
+    each row they touch, read and written (the clash flag written only
+    where set): counted from each table's own stats, by the plain K23
+    into zeroed accumulators."""
     from dgc_tpu_torch.kernels import ring as kr
 
     vl = engine.packed_l.shape[0]
     own = kr.new_acc(planes, vl, block.device)
     total = 0
+    reals = []
     for rows, table in launches:
         real = int(((table & ((1 << 30) - 1)) != vl).sum())
+        reals.append(real)
         nrows = vl if rows is None else int((rows < vl).sum())
         own.zero_()
         kr.ring_stats_reference(ctrl, block, engine.packed_l, table, rows,
                                 own, planes)
         words = int((own[: 2 * planes] != 0).sum())
         clash = int(own[2 * planes].sum())
-        total += 4 * real + 4 * min(real, vl + 1) + 4 * nrows \
-            + 8 * words + 4 * clash
-    return total
+        masks = int((own[2 * planes + 1] != 0).sum())
+        total += 4 * real + 4 * nrows + 8 * words + 4 * clash + 8 * masks
+    gathers = [sum(reals)] if one_launch else reals
+    return total + sum(4 * min(g, vl + 1) for g in gathers)
+
+
+def _k25_bytes(acc: torch.Tensor, planes: int) -> dict:
+    """What K25 must move from accumulators ``acc``: each row's word, mask
+    and clash flag read and its new word written (16 bytes a row), the
+    words of the planes its mask names read and the nonzero ones zeroed,
+    the nonzero masks and set clash flags zeroed; beside it the dense
+    figure, every row's word, 2P + 1 accumulators and new word."""
+    from dgc_tpu_torch.kernels import ring as kr
+
+    vl = acc.shape[1]
+    group = torch.arange(planes, device=acc.device) // kr.mask_group(planes)
+    mask = acc[2 * planes + 1].to(torch.int64) & 0xFFFFFFFF
+    touched = ((mask[None, :] >> group[:, None]) & 1) == 1
+    both = torch.cat([touched, touched])
+    words = int(both.sum())
+    nonzero = int((both & (acc[: 2 * planes] != 0)).sum())
+    return {"k25_bytes": 16 * vl + 4 * words + 4 * nonzero
+            + 4 * int((mask != 0).sum())
+            + 4 * int((acc[2 * planes] != 0).sum()),
+            "k25_touched_words": words,
+            "k25_rows_touched": int((mask != 0).sum()),
+            "k25_dense_bytes": 4 * vl * (2 + 2 * planes + 1)}
 
 
 def _ring_held_steps(engine, k: int, planes: int, words: np.ndarray,
@@ -5687,7 +5719,11 @@ def _ring_edge_cases(device) -> int:
     that already hold bits: flat tables and bucket row lists with padding
     rows, sentinel entries, 1 to 40 planes, budgets from 1 past the
     window, fresh, confirmed and uncolored words, gated and counted fail,
-    a launch after the attempt ended. Returns the max abs error (0)."""
+    a launch after the attempt ended; K24 over its work list at chunks of
+    1, 64 and the default (a 1,500-entry row over many blocks), held
+    against its plain version (K23's over the same table); K25 on masks of no plane, one
+    and many (random words in the planes they do not name). Returns the
+    max abs error (0)."""
     from dgc_tpu_torch.kernels import ring as kr
     from dgc_tpu_torch.kernels import shard as ks
 
@@ -5711,8 +5747,16 @@ def _ring_edge_cases(device) -> int:
             nrows = len(rows)
         width = int(rng.choice([1, 3, 32, 300, 1500]))
         table = _combined(rng, (nrows, width), vl)
-        acc = rng.integers(-(1 << 31), 1 << 31, size=(2 * planes + 1, vl))
+        # rows of every real length, the sentinel past it
+        length = rng.integers(0, width + 1, size=nrows)
+        table[np.arange(width)[None, :] >= length[:, None]] = vl
+        acc = rng.integers(-(1 << 31), 1 << 31, size=(2 * planes + 2, vl))
         acc[2 * planes] = rng.integers(0, 2, size=vl)
+        # masks of no plane, of plane 0 alone, of random planes
+        acc[2 * planes + 1] = np.choose(rng.integers(0, 3, size=vl),
+                                        [np.zeros(vl, np.int64),
+                                         np.ones(vl, np.int64),
+                                         acc[2 * planes + 1]])
         c = [int(rng.choice([0, 0, 0, 1])), 3, 900, 2, 0,
              int(rng.integers(0, 5)), int(rng.integers(0, 50)),
              int(rng.integers(-1, 60))]
@@ -5724,11 +5768,17 @@ def _ring_edge_cases(device) -> int:
 
         blk, pk, tb = t(block), t(packed), t(table)
         rw = None if rows is None else t(rows)
-        for wide in (False, True):
-            a1, a2 = t(acc), t(acc)
-            kr.ring_stats(ctrl, blk, pk, tb, rw, a1, planes, wide=wide)
-            kr.ring_stats_reference(ctrl, blk, pk, tb, rw, a2, planes)
-            err = max(err, _diff(a1, a2))
+        a1, a2 = t(acc), t(acc)
+        kr.ring_stats(ctrl, blk, pk, tb, rw, a1, planes)
+        kr.ring_stats_reference(ctrl, blk, pk, tb, rw, a2, planes)
+        err = max(err, _diff(a1, a2))
+        chunks = [1, 64, kr.WIDE_CHUNK] if width <= 32 else [64, kr.WIDE_CHUNK]
+        wide = kr.WideTables([(rows, table)], vl, device,
+                             int(rng.choice(chunks)))
+        a3, a4 = t(acc), t(acc)
+        kr.ring_stats_wide(ctrl, blk, pk, wide, a3, planes)
+        kr.ring_stats_wide_reference(ctrl, blk, pk, wide, a4, planes)
+        err = max(err, _diff(a3, a4))
         back = t(rng.integers(-1, 80, size=vl))
         fv = bool(rng.integers(0, 2))
         args = [ctrl, pk, a1, back, planes, k, fv]
@@ -5769,10 +5819,11 @@ def phase_ring_kernels(device, graphs: dict) -> dict:
     """K23, K24 and K25 held against their plain versions as shard 3 of 4
     of the 1M rotation tables (``_RingStub``: the other shards' words
     fixed): the flat layout of the uniform draw and the bucketed layout of
-    the RMAT draw (K24 on every bucket wider than ``WIDE_WIDTH``, in every
-    rotation), two supersteps from seeded words at a one-plane window and
-    at the engine's, each at the main path's budget and at 12; then
-    ``_ring_edge_cases``. Returns the calls by kernel."""
+    the RMAT draw (K24 over every bucket wider than ``WIDE_WIDTH``, one
+    launch a rotation, in every rotation), two supersteps from seeded
+    words at a one-plane window and at the engine's, each at the main
+    path's budget and at 12; then ``_ring_edge_cases``. Returns the calls
+    by kernel."""
     from dgc_tpu_torch.engine.ring import RingHaloEngine
     from dgc_tpu_torch.kernels import ring as kr
 
@@ -5789,8 +5840,8 @@ def phase_ring_kernels(device, graphs: dict) -> dict:
         deg = np.zeros(vl * size, np.int32)
         deg[: arrays.num_vertices] = arrays.degrees
         mesh.rest = _rest_words(rng, deg, device)
-        wide = [sum(1 for _, t in launches if t.shape[1] > kr.WIDE_WIDTH)
-                for launches in engine.rot]
+        wide = [0 if w is None else len(w.buckets) for w in engine.wide]
+        items = [0 if w is None else w.work.shape[0] for w in engine.wide]
         k0 = engine._budget(int(arrays.max_degree) + 1)
         steps = []
         for planes in (1, engine.num_planes):
@@ -5809,7 +5860,8 @@ def phase_ring_kernels(device, graphs: dict) -> dict:
         if bucketed:
             check(all(wide), f"rmat: rotations without a K24 bucket {wide}")
         runs.append({"gen": gen, "bucketed": bucketed, "calls": calls,
-                     "k24_buckets_per_rotation": wide, "steps": steps})
+                     "k24_buckets_per_rotation": wide,
+                     "k24_items_per_rotation": items, "steps": steps})
         del engine
     err = _ring_edge_cases(device)
     return {"runs": runs, "max_abs_err": err}
@@ -5820,10 +5872,13 @@ def _ring_timing(engine, k: int, steps: int = 3) -> dict:
     size 1) on mid-attempt words: the carry after ``steps`` supersteps of
     the attempt at budget ``k`` (fresh, confirmed and uncolored words;
     the attempt still running), through every launch of rotation 0 (K23's
-    and K24's summed a superstep), then K25 from the accumulators they
-    leave. Beside each, its plain version's time and its bound (bytes over
-    the H100's 3.35 TB/s, ``_ring_bytes``; K25's reads each row's word and
-    accumulators and writes its new word)."""
+    summed a superstep; K24's one launch, and K24 over each of its buckets
+    alone, so the tail shows), then K25 from the accumulators they leave.
+    Beside each, its plain version's time and its bound (bytes over the
+    H100's 3.35 TB/s: ``_ring_bytes``; K25's ``_k25_bytes``, the touched
+    words, with the dense figure beside). K24 is launched 50 more times
+    from zeroed accumulators on the same inputs: the bytes must be the
+    first launch's (its blocks OR with atomics)."""
     from dgc_tpu_torch.engine.base import AttemptStatus
     from dgc_tpu_torch.engine.fused import shard_superstep_epilogue
     from dgc_tpu_torch.kernels import ring as kr
@@ -5851,27 +5906,63 @@ def _ring_timing(engine, k: int, steps: int = 3) -> dict:
                      "confirmed": int(((words >= 0)
                                        & (words & 1 == 0)).sum())},
            "launches_per_superstep": {}}
-    for name, wide in (("k23", False), ("k24", True)):
-        launches = [(r, t) for r, t in engine.rot[0]
-                    if (t.shape[1] > kr.WIDE_WIDTH) == wide]
-        if not launches:
-            continue
-
-        def stats(f=kr.ring_stats, launches=launches, wide=wide):
+    launches = engine.rot[0]
+    if launches:
+        def k23(f=kr.ring_stats):
             for rows, table in launches:
                 f(ctrl0, block, engine.packed_l, table, rows, engine.acc,
-                  planes, wide=wide)
+                  planes)
 
-        kname = {"k23": "ring_stats_kernel",
-                 "k24": "ring_stats_wide_kernel"}[name]
-        out[f"{name}_ms"] = _device_ms(stats, 10, kname,
-                                       per_call=len(launches))
-        out[f"{name}_plain_ms"] = _host_ms(
-            lambda f=kr.ring_stats_reference: stats(f), reps=2)
+        out["k23_ms"] = _device_ms(k23, 10, "ring_stats_kernel",
+                                   per_call=len(launches))
+        out["k23_plain_ms"] = _host_ms(lambda: k23(kr.ring_stats_reference),
+                                       reps=2)
         b = _ring_bytes(engine, ctrl0, block, launches, planes)
-        out.update({f"{name}_bytes": b,
-                    f"{name}_bound_ms": b / HBM_BYTES_PER_S * 1e3})
-        out["launches_per_superstep"][name] = len(launches)
+        out.update(k23_bytes=b, k23_bound_ms=b / HBM_BYTES_PER_S * 1e3)
+        out["launches_per_superstep"]["k23"] = len(launches)
+    wide = engine.wide[0]
+    if wide is not None:
+        def k24(w=wide, f=kr.ring_stats_wide):
+            f(ctrl0, block, engine.packed_l, w, engine.acc, planes)
+
+        out["k24_ms"] = _device_ms(k24, 10, "ring_stats_wide_kernel")
+        out["k24_plain_ms"] = _host_ms(
+            lambda: k24(f=kr.ring_stats_wide_reference), reps=2)
+        b = _ring_bytes(engine, ctrl0, block, wide.buckets, planes,
+                        one_launch=True)
+        out.update(k24_bytes=b, k24_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                   k24_items=wide.work.shape[0], k24_chunk=wide.chunk)
+        out["launches_per_superstep"]["k24"] = 1
+        by_bucket = []
+        for rows, table in wide.buckets:
+            one = kr.WideTables([(None if rows is None else rows.cpu().numpy(),
+                                  table.cpu().numpy())], vl, block.device,
+                                wide.chunk)
+            if one.work.shape[0] == 0:
+                continue
+            nb = _ring_bytes(engine, ctrl0, block, [(rows, table)], planes)
+            by_bucket.append({
+                "width": table.shape[1],
+                "rows": (table.shape[0] if rows is None
+                         else int((rows < vl).sum())),
+                "items": one.work.shape[0],
+                "ms": _device_ms(lambda w=one: k24(w), 10,
+                                 "ring_stats_wide_kernel"),
+                "bound_ms": nb / HBM_BYTES_PER_S * 1e3})
+        out["k24_by_bucket"] = by_bucket
+        # the atomics: 50 replays from zero, the first launch's bytes
+        first = kr.new_acc(planes, vl, block.device)
+        again = kr.new_acc(planes, vl, block.device)
+        kr.ring_stats_wide(ctrl0, block, engine.packed_l, wide, first, planes)
+        same = 0
+        for _ in range(50):
+            again.zero_()
+            kr.ring_stats_wide(ctrl0, block, engine.packed_l, wide, again,
+                               planes)
+            same += int(torch.equal(again, first))
+        check(same == 50, f"K24 replays: {same} of 50 equal the first")
+        out["k24_replays_equal"] = same
+        del first, again
     acc = engine.acc.clone()  # what the stats leave for K25
 
     def k25(fn=kr.ring_apply):
@@ -5882,9 +5973,10 @@ def _ring_timing(engine, k: int, steps: int = 3) -> dict:
     out["k25_ms"] = _device_ms(k25, 20, "ring_apply_kernel")
     out["k25_plain_ms"] = _host_ms(lambda: k25(kr.ring_apply_reference),
                                    reps=3)
-    k25_bytes = 4 * vl * (2 + 2 * planes + 1)
-    out.update(k25_bytes=k25_bytes,
-               k25_bound_ms=k25_bytes / HBM_BYTES_PER_S * 1e3)
+    out.update(_k25_bytes(acc, planes))
+    out.update(k25_bound_ms=out["k25_bytes"] / HBM_BYTES_PER_S * 1e3,
+               k25_dense_bound_ms=out["k25_dense_bytes"]
+               / HBM_BYTES_PER_S * 1e3)
     engine.acc.zero_()
     return out
 
@@ -6025,6 +6117,10 @@ def phase_ring_main(card: str, out_dir: Path, main_runs: dict,
                "attempts": attempts, "launches": launches,
                "colors_after_post_pass": result.minimal_colors,
                "ell_sweep_s": ref["sweep_s"],
+               # the default engine's sweep calls in the same run, beside
+               "ell_compact_attempt_s": (
+                   main_runs if args.gen_method == "fast"
+                   else rmat_runs)["ell-compact"]["attempt_s"],
                "confirm_resumed_from_step": engine.resumed_from_step,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "card": card}
@@ -6067,7 +6163,8 @@ def phase_ring_main(card: str, out_dir: Path, main_runs: dict,
 def ring_kernels_line(ring: dict) -> list[dict]:
     """K23-K25: launches on the 1M uniform ``sharded-ring`` sweep (K24 on
     the 1M RMAT one; the other run's beside), time, plain time and bound
-    at that path's shapes."""
+    at that path's shapes; K24's time bucket by bucket and its replays,
+    K25's on the RMAT run and its dense figure beside."""
     src = "dgc_tpu_torch/csrc/ring.cu"
     err = ring["held"]["max_abs_err"]
 
@@ -6083,10 +6180,17 @@ def ring_kernels_line(ring: dict) -> list[dict]:
                 "bound_ms": run[f"{key}_bound_ms"], "bound_by": "bytes",
                 "library_ms": None}
 
+    rmat = ring["runs"]["rmat"]
+    k24 = entry("ring_stats_wide", "k24", "rmat",
+                "dgc_tpu/engine/ring.py:355")
+    k24.update(by_bucket=rmat["k24_by_bucket"],
+               replays_equal=rmat["k24_replays_equal"])
+    k25 = entry("ring_apply", "k25", "fast", "dgc_tpu/engine/ring.py:310")
+    k25.update(dense_bound_ms=ring["runs"]["fast"]["k25_dense_bound_ms"],
+               rmat={key: rmat[f"k25_{key}"] for key in
+                     ("ms", "plain_ms", "bound_ms", "dense_bound_ms")})
     return [entry("ring_stats", "k23", "fast", "dgc_tpu/engine/ring.py:303"),
-            entry("ring_stats_wide", "k24", "rmat",
-                  "dgc_tpu/engine/ring.py:355"),
-            entry("ring_apply", "k25", "fast", "dgc_tpu/engine/ring.py:310")]
+            k24, k25]
 
 
 # ---- the lane-sharded serve tier (B12g): K26, the partial K15/K16, the mesh

@@ -23,13 +23,15 @@ ratio as ``dgc_tpu`` chooses it.
 One superstep on every rank (``kernels.ring``):
 
 1. block 0 ← the rank's words, −1 at slot ``V_l``;
-2. for each rotation r: K23 (one thread a row) or K24 (one warp a row, the
-   tables wider than ``kernels.ring.WIDE_WIDTH``) OR the neighbor stats of
-   table r's rows against the held block into the accumulators; then,
-   except after the last, the held block to the next rank and the
-   previous rank's into the other buffer;
-3. K25: ``apply_update_mc`` from the accumulators into ``back``, the
-   counters into the control block.
+2. for each rotation r: K23 (one thread a row, one launch a table or
+   bucket) and K24 (one launch over all the tables wider than
+   ``kernels.ring.WIDE_WIDTH``, a block a chunk of a row's real entries,
+   ``kernels.ring.WideTables``) OR the neighbor stats of table r's rows
+   against the held block into the accumulators and their touched-plane
+   masks; then, except after the last, the held block to the next rank
+   and the previous rank's into the other buffer;
+3. K25: ``apply_update_mc`` from the accumulators' touched planes into
+   ``back``, the counters into the control block.
 
 The loop around it is the all-gather engines' (``engine.fused``): the
 SUM/MAX reductions, K21 and the fused pair with K22, with the rank's
@@ -269,9 +271,17 @@ class RingHaloEngine(ShardEngine):
         def t(x):
             return torch.from_numpy(np.array(x, np.int32, order="C")).to(dev)
 
+        # K23's launches a rotation, and its tables wider than WIDE_WIDTH
+        # as K24's one launch (None where there is none)
         self.rot = tuple(tuple((None if rows is None else t(rows), t(table))
-                               for rows, table in launches)
+                               for rows, table in launches
+                               if table.shape[1] <= kr.WIDE_WIDTH)
                          for launches in rot)
+        self.wide = tuple(
+            kr.WideTables(wide, vl, dev) if wide else None
+            for wide in ([(rows, table) for rows, table in launches
+                          if table.shape[1] > kr.WIDE_WIDTH]
+                         for launches in rot))
         self.deg_l = t(deg_l)
         self.packed_l = torch.empty(vl, dtype=torch.int32, device=dev)
         self.back = torch.empty_like(self.packed_l)
@@ -288,7 +298,7 @@ class RingHaloEngine(ShardEngine):
         ``_superstep``."""
 
     def _start(self, k: int) -> torch.Tensor:
-        if self.acc.shape[0] != 2 * self.num_planes + 1:  # a widened window
+        if self.acc.shape[0] != 2 * self.num_planes + 2:  # a widened window
             self.acc = kr.new_acc(self.num_planes, self.packed_l.shape[0],
                                   self.packed_l.device)
         return ShardedELLEngine._start(self, k)
@@ -299,12 +309,14 @@ class RingHaloEngine(ShardEngine):
         vl = self.packed_l.shape[0]
         cur = 0
         self.blocks[0, :vl].copy_(self.packed_l)
-        for r, launches in enumerate(self.rot):
+        for r, (launches, wide) in enumerate(zip(self.rot, self.wide)):
             block = self.blocks[cur]
             for rows, table in launches:
                 kr.ring_stats(ctrl, block, self.packed_l, table, rows,
-                              self.acc, self.num_planes,
-                              wide=table.shape[1] > kr.WIDE_WIDTH)
+                              self.acc, self.num_planes)
+            if wide is not None:
+                kr.ring_stats_wide(ctrl, block, self.packed_l, wide,
+                                   self.acc, self.num_planes)
             if r + 1 < len(self.rot):
                 self.mesh.rotate(self.blocks[1 - cur, :vl], block[:vl])
                 cur = 1 - cur

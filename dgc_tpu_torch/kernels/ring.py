@@ -5,19 +5,24 @@ plain PyTorch versions.
   against the block the rank holds, one thread per row, OR-folded into the
   accumulators: a flat rotation table (table row j is local row j) or one
   degree bucket's rows (``rows``, sentinel ``V_l`` skipped).
-- ``ring_stats(..., wide=True)`` (K24, ``ring_stats_wide``): the same
-  function, one warp per row, for the tables wider than ``WIDE_WIDTH``;
-  ``ring_stats_reference`` is its plain version too.
+- ``ring_stats_wide`` (K24): the same function over all of a rotation's
+  tables wider than ``WIDE_WIDTH`` in one launch (``WideTables``): one
+  block per item of a work list of (row, chunk of at most ``WIDE_CHUNK``
+  real entries), so a hub row is split over the card by its real length.
 - ``ring_apply`` (K25): ``apply_update_mc`` from the accumulated stats: the
   new words into ``back``, the fail (where ``fail_valid``), active and
   ``mc`` counters into the control block (``kernels.shard``'s, the slots
-  K20 writes), the accumulators back to zero.
+  K20 writes); it reads and zeroes only the planes the row's mask names,
+  then the clash flag and the mask.
 
 Every kernel returns at once unless the control block's status is
 RUNNING. Layout (``csrc/ring.cu``): ``block`` int32[V_l + 1] with −1 at
-slot V_l, ``packed`` int32[V_l], ``acc`` int32[2P + 1, V_l] (P planes of
-forb_all, P of forb_old, the clash flags), tables of combined entries
-(block-local neighbor id, beats bit at ``BEATS_BIT``).
+slot V_l, ``packed`` int32[V_l], ``acc`` int32[2P + 2, V_l] (P planes of
+forb_all, P of forb_old, the clash flags, the touched-plane masks: bit
+``p // mask_group(P)`` of a row's mask set once plane p of its forb_all
+or forb_old took a nonzero word), tables of combined entries (block-local
+neighbor id, beats bit at ``BEATS_BIT``). The accumulators are zero
+between supersteps; K25 takes a plane whose mask bit is clear as zero.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from dgc_tpu_torch.engine.base import AttemptStatus
@@ -37,13 +43,17 @@ from dgc_tpu_torch.kernels.shard import _check_ctrl
 from dgc_tpu_torch.kernels.superstep import (CTRL_ACTIVE, CTRL_FAIL, CTRL_MC,
                                              CTRL_STATUS, INT32_MAX,
                                              _check_int32, _stream)
-from dgc_tpu_torch.ops.speculative import (apply_update_mc, decode_combined,
-                                           neighbor_stats)
+from dgc_tpu_torch.ops.bitmask import _as_int32_bits
+from dgc_tpu_torch.ops.speculative import (NBR_MASK, apply_update_mc,
+                                           decode_combined, neighbor_stats)
 
 SOURCE = "ring.cu"
-# a table wider than this goes to K24 (one warp a row), as the compact
-# engine's hub region takes the buckets wider than its flat cap
+# a table wider than this goes to K24, as the compact engine's hub region
+# takes the buckets wider than its flat cap
 WIDE_WIDTH = 256
+# K24's chunk: the most real entries one block of 256 threads reads (one
+# 16-byte load a thread; PERF.md §6 has the times by chunk size)
+WIDE_CHUNK = 1024
 _RUNNING = int(AttemptStatus.RUNNING)
 
 launch_counts = {"ring_stats": 0, "ring_stats_wide": 0, "ring_apply": 0}
@@ -54,9 +64,18 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def mask_group(planes: int) -> int:
+    """Planes a bit of the touched-plane mask: the least power of two
+    that fits ``planes`` into 32 bits (1 up to 32 planes)."""
+    group = 1
+    while 32 * group < planes:
+        group *= 2
+    return group
+
+
 def new_acc(planes: int, v_local: int, device) -> torch.Tensor:
     """The accumulators of a ``planes``-plane window, zero."""
-    return torch.zeros((2 * planes + 1, v_local), dtype=torch.int32,
+    return torch.zeros((2 * planes + 2, v_local), dtype=torch.int32,
                        device=device)
 
 
@@ -65,15 +84,91 @@ def new_blocks(v_local: int, device) -> torch.Tensor:
     return torch.full((2, v_local + 1), -1, dtype=torch.int32, device=device)
 
 
+def wide_work_list(buckets, vl: int, chunk: int = WIDE_CHUNK) -> np.ndarray:
+    """K24's work list over ``buckets`` (``(rows or None, table)`` NumPy
+    pairs, the tables in order as ``WideTables`` concatenates them):
+    int32[items, 4] of (local row, entry count, low and high word of the
+    offset of the chunk's first entry in the concatenation). A row's real
+    length runs to its last entry that is not the sentinel ``vl``; it is
+    cut into chunks of ``chunk`` entries, the last shorter; a padding row
+    (``rows`` at ``vl``) or a row with no real entry has none."""
+    out = []
+    base = 0
+    for rows, table in buckets:
+        n_rows, width = table.shape
+        real = (table & NBR_MASK) != vl
+        length = np.where(real.any(axis=1),
+                          width - np.argmax(real[:, ::-1], axis=1), 0)
+        local = (np.arange(n_rows, dtype=np.int64) if rows is None
+                 else np.asarray(rows, np.int64))
+        j = np.flatnonzero((local < vl) & (length > 0))
+        count = -(-length[j] // chunk)
+        first = np.cumsum(count) - count
+        item_row = np.repeat(j, count)
+        e0 = (np.arange(int(count.sum()), dtype=np.int64)
+              - np.repeat(first, count)) * chunk
+        off = base + item_row * width + e0
+        out.append(np.stack([local[item_row],
+                             np.minimum(chunk, length[item_row] - e0),
+                             off & 0xFFFFFFFF, off >> 32], axis=1))
+        base += n_rows * width
+    work = np.concatenate(out) if out else np.zeros((0, 4), np.int64)
+    return work.astype(np.uint32).view(np.int32)
+
+
+class WideTables:
+    """One rotation's tables wider than ``WIDE_WIDTH`` as K24 takes them:
+    ``entries`` int32[Σ rows·W], the tables concatenated; ``buckets`` the
+    ``(rows or None, table)`` pairs, each table a view of ``entries``;
+    ``work`` int32[items, 4], ``wide_work_list``'s, built once here."""
+
+    def __init__(self, buckets, vl: int, device, chunk: int = WIDE_CHUNK):
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
+                device)
+
+        tables = [np.asarray(table, np.int32) for _, table in buckets]
+        self.vl, self.chunk = int(vl), int(chunk)
+        self.entries = t(np.concatenate([tb.ravel() for tb in tables]))
+        self.work = t(wide_work_list(buckets, vl, chunk))
+        views, base = [], 0
+        for (rows, _), tb in zip(buckets, tables):
+            views.append((None if rows is None else t(rows),
+                          self.entries[base: base + tb.size].view(tb.shape)))
+            base += tb.size
+        self.buckets = tuple(views)
+
+
 # ---- plain versions ---------------------------------------------------------
+
+def _touched(fa: torch.Tensor, fo: torch.Tensor, planes: int) -> torch.Tensor:
+    """int32[rows] masks: bit b set where a plane of group b of the row's
+    ``fa`` or ``fo`` (int32[rows, P]) is nonzero."""
+    group = mask_group(planes)
+    ngroups = -(-planes // group)
+    nz = (fa | fo) != 0
+    pad = ngroups * group - planes
+    if pad:
+        nz = torch.cat([nz, nz.new_zeros((nz.shape[0], pad))], dim=1)
+    any_g = nz.reshape(nz.shape[0], ngroups, group).any(dim=2)
+    bit = torch.ones(ngroups, dtype=torch.int64, device=fa.device) << \
+        torch.arange(ngroups, dtype=torch.int64, device=fa.device)
+    return _as_int32_bits((any_g.to(torch.int64) * bit).sum(dim=1))
+
+
+def _or_stats(acc, local, fa, fo, clash, planes: int) -> None:
+    """OR stats into the accumulators of ``local`` (distinct rows)."""
+    acc[:planes, local] |= fa.T
+    acc[planes: 2 * planes, local] |= fo.T
+    acc[2 * planes, local] |= clash.to(torch.int32)
+    acc[2 * planes + 1, local] |= _touched(fa, fo, planes)
+
 
 def ring_stats_reference(ctrl: torch.Tensor, block: torch.Tensor,
                          packed: torch.Tensor, table: torch.Tensor, rows,
-                         acc: torch.Tensor, planes: int, *,
-                         wide: bool = False) -> None:
-    """K23's (and K24's) plain version: ``ops.speculative.neighbor_stats``
-    of the table's rows against ``block``, OR-merged into ``acc``
-    (``wide`` changes nothing here)."""
+                         acc: torch.Tensor, planes: int) -> None:
+    """K23's plain version: ``ops.speculative.neighbor_stats`` of the
+    table's rows against ``block``, OR-merged into ``acc``."""
     if int(ctrl[CTRL_STATUS]) != _RUNNING:
         return
     vl = packed.shape[0]
@@ -85,26 +180,43 @@ def ring_stats_reference(ctrl: torch.Tensor, block: torch.Tensor,
     nb, beats = decode_combined(table)
     fa, fo, clash = neighbor_stats(block[nb.to(torch.int64)], beats,
                                    packed[local] >> 1, planes)
-    acc[:planes, local] |= fa.T
-    acc[planes: 2 * planes, local] |= fo.T
-    acc[2 * planes, local] |= clash.to(torch.int32)
+    _or_stats(acc, local, fa, fo, clash, planes)
+
+
+def ring_stats_wide_reference(ctrl: torch.Tensor, block: torch.Tensor,
+                              packed: torch.Tensor, wide: WideTables,
+                              acc: torch.Tensor, planes: int) -> None:
+    """K24's plain version: K23's over each of ``wide``'s tables (OR is
+    order-free, so the chunks of a row need not be seen; the work list is
+    not read)."""
+    if int(ctrl[CTRL_STATUS]) != _RUNNING:
+        return
+    for rows, table in wide.buckets:
+        ring_stats_reference(ctrl, block, packed, table, rows, acc, planes)
 
 
 def ring_apply_reference(ctrl: torch.Tensor, packed: torch.Tensor,
                          acc: torch.Tensor, back: torch.Tensor, planes: int,
                          k: int, fail_valid: bool) -> None:
-    """K25's plain version: ``ops.speculative.apply_update_mc``."""
+    """K25's plain version: ``ops.speculative.apply_update_mc`` over the
+    planes the masks name (the others taken as zero); those planes, the
+    clash flags and the masks back to zero."""
     if int(ctrl[CTRL_STATUS]) != _RUNNING:
         return
+    group = torch.arange(planes, device=acc.device) // mask_group(planes)
+    mask = acc[2 * planes + 1].to(torch.int64) & 0xFFFFFFFF
+    touched = ((mask[None, :] >> group[:, None]) & 1) == 1  # [P, V_l]
+    fa = torch.where(touched, acc[:planes], 0)
+    fo = torch.where(touched, acc[planes: 2 * planes], 0)
     new, fail_mask, active_mask, mc = apply_update_mc(
-        packed, acc[:planes].T, acc[planes: 2 * planes].T,
-        acc[2 * planes] != 0, _clamp_k(k))
+        packed, fa.T, fo.T, acc[2 * planes] != 0, _clamp_k(k))
     back.copy_(new)
     if fail_valid:
         ctrl[CTRL_FAIL] += fail_mask.sum().to(torch.int32)
     ctrl[CTRL_ACTIVE] += active_mask.sum().to(torch.int32)
     ctrl[CTRL_MC] = torch.maximum(ctrl[CTRL_MC], mc)
-    acc.zero_()
+    acc[: 2 * planes].masked_fill_(torch.cat([touched, touched]), 0)
+    acc[2 * planes:].zero_()
 
 
 # ---- kernel launches --------------------------------------------------------
@@ -116,8 +228,11 @@ def _library():
     if not getattr(lib, "_dgc_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dgc_ring_stats.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp,
-                                       ci, ci, vp]
+                                       ci, vp]
         lib.dgc_ring_stats.restype = ci
+        lib.dgc_ring_stats_wide.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp,
+                                            ci, vp]
+        lib.dgc_ring_stats_wide.restype = ci
         lib.dgc_ring_apply.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.dgc_ring_apply.restype = ci
         lib._dgc_bound = True
@@ -127,34 +242,36 @@ def _library():
 def _check_acc(acc: torch.Tensor, planes: int, vl: int, device) -> None:
     _check_int32("acc", acc, device, 2)
     if not 1 <= planes <= INT32_MAX // 64 or \
-            tuple(acc.shape) != (2 * planes + 1, vl):
-        raise ValueError(f"acc must be [2*{planes}+1, {vl}], got "
+            tuple(acc.shape) != (2 * planes + 2, vl):
+        raise ValueError(f"acc must be [2*{planes}+2, {vl}], got "
                          f"{tuple(acc.shape)}")
 
 
+def _check_state(ctrl, block, packed, device) -> int:
+    _check_ctrl(ctrl, device)
+    _check_int32("block", block, device, 1)
+    _check_int32("packed", packed, device, 1)
+    vl = packed.shape[0]
+    if block.shape[0] != vl + 1 or vl < 1:
+        raise ValueError(f"block must be [V_l + 1] for packed [{vl}]")
+    return vl
+
+
 def ring_stats(ctrl: torch.Tensor, block: torch.Tensor, packed: torch.Tensor,
-               table: torch.Tensor, rows, acc: torch.Tensor, planes: int, *,
-               wide: bool = False) -> None:
-    """K23 (K24 with ``wide``: one warp per row): ``table`` int32[rows, W]
-    of combined entries; ``rows`` int32[rows] local row ids (sentinel V_l)
-    or None (a flat table of V_l rows). The launch counts under
-    ``ring_stats`` or ``ring_stats_wide``. Runs on the current stream,
-    does not synchronize."""
-    name = "ring_stats_wide" if wide else "ring_stats"
+               table: torch.Tensor, rows, acc: torch.Tensor,
+               planes: int) -> None:
+    """K23: ``table`` int32[rows, W] of combined entries; ``rows``
+    int32[rows] local row ids (sentinel V_l) or None (a flat table of V_l
+    rows). Runs on the current stream, does not synchronize."""
     device = packed.device
     if device.type == "cpu":
         return ring_stats_reference(ctrl, block, packed, table, rows, acc,
                                     planes)
     if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
-    _check_ctrl(ctrl, device)
-    _check_int32("block", block, device, 1)
-    _check_int32("packed", packed, device, 1)
+        raise ValueError(f"ring_stats: unsupported device {device}")
+    vl = _check_state(ctrl, block, packed, device)
     _check_int32("table", table, device, 2)
-    vl = packed.shape[0]
     nrows, width = table.shape
-    if block.shape[0] != vl + 1 or vl < 1:
-        raise ValueError(f"block must be [V_l + 1] for packed [{vl}]")
     if rows is None:
         if nrows != vl:
             raise ValueError(f"a flat table must have {vl} rows, got {nrows}")
@@ -169,8 +286,39 @@ def ring_stats(ctrl: torch.Tensor, block: torch.Tensor, packed: torch.Tensor,
         ctrl.data_ptr(), block.data_ptr(), packed.data_ptr(),
         table.data_ptr(), None if rows is None else rows.data_ptr(),
         int(nrows), int(width), int(vl), acc.data_ptr(), int(planes),
-        int(bool(wide)), _stream(device)), name)
-    launch_counts[name] += 1
+        _stream(device)), "ring_stats")
+    launch_counts["ring_stats"] += 1
+
+
+def ring_stats_wide(ctrl: torch.Tensor, block: torch.Tensor,
+                    packed: torch.Tensor, wide: WideTables,
+                    acc: torch.Tensor, planes: int) -> None:
+    """K24 over ``wide``'s work list (a rotation's wide tables). Runs on
+    the current stream, does not synchronize; a list with no item
+    launches nothing."""
+    device = packed.device
+    if device.type == "cpu":
+        return ring_stats_wide_reference(ctrl, block, packed, wide, acc,
+                                         planes)
+    if device.type != "cuda":
+        raise ValueError(f"ring_stats_wide: unsupported device {device}")
+    vl = _check_state(ctrl, block, packed, device)
+    _check_int32("entries", wide.entries, device, 1)
+    _check_int32("work", wide.work, device, 2)
+    if wide.vl != vl or wide.work.shape[1] != 4 or \
+            wide.work.data_ptr() % 16:
+        raise ValueError(f"a work list of [items, 4] (16-byte aligned) for "
+                         f"V_l {vl} expected, got {tuple(wide.work.shape)} "
+                         f"for {wide.vl}")
+    _check_acc(acc, planes, vl, device)
+    items = wide.work.shape[0]
+    if items == 0:
+        return
+    _raise_on(_library().dgc_ring_stats_wide(
+        ctrl.data_ptr(), block.data_ptr(), packed.data_ptr(),
+        wide.entries.data_ptr(), wide.work.data_ptr(), int(items), int(vl),
+        acc.data_ptr(), int(planes), _stream(device)), "ring_stats_wide")
+    launch_counts["ring_stats_wide"] += 1
 
 
 def ring_apply(ctrl: torch.Tensor, packed: torch.Tensor, acc: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Where K3 (`compact_slots`) and K11 (`dense_forbid`) spend their time on
-the card: device time from ``torch.profiler`` over a few shapes each, one
-JSON line a measurement, then the card's name and power limit.
+"""Where K3 (`compact_slots`), K11 (`dense_forbid`), K24
+(`ring_stats_wide`) and K25 (`ring_apply`) spend their time on the card:
+device time from ``torch.profiler`` over a few shapes each, one JSON line
+a measurement, then the card's name and power limit.
 
     python tools/kernel_costs.py
 
@@ -12,6 +13,15 @@ slots. K11 (16,384 vertices, k = 2,414 as on the RMAT cell): m uncolored
 rows of degree 0 or 256 at rows 0, G, 2G, ... (G the grid: K11's ranking
 deals them to m blocks, so this reads a launch's fixed cost), or m rows
 for every block (2,112 rows at m = 16 on 132 SMs: the rate at scale).
+K24 and K25 (``ring``): the 1M RMAT draw's ``sharded-ring`` engine at
+world size 1, on the carry of three supersteps of its first attempt;
+K24 over the rotation's wide tables at chunks of 256 to 4,096 entries
+(each launch first held against its plain version; ``chip_smoke.py``
+times it bucket by bucket at the default chunk); K25 from the
+accumulators the stats leave, with the rows' touched planes counted.
+
+    python tools/kernel_costs.py [k3] [k11] [ring]    # all three if none
+
 Needs one card; imports nothing of JAX.
 """
 
@@ -39,6 +49,7 @@ K11_VP = 16384
 K11_K = 2414
 K11_ROWS = (1, 4, 16)
 K11_DEGREES = (0, 256)
+RING_CHUNKS = (256, 512, 1024, 2048, 4096)
 
 
 def k3_costs() -> None:
@@ -98,12 +109,77 @@ def k11_costs() -> None:
                     flush=True)
 
 
-def main() -> int:
+def ring_costs() -> None:
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.engine.fused import shard_superstep_epilogue
+    from dgc_tpu_torch.kernels import ring as kr
+
+    args = cli.build_parser().parse_args(
+        cs.RMAT_ARGS + ["--backend", "sharded-ring",
+                        "--output-coloring", "unused.json"])
+    graph = cli.load_graph(args)
+    engine = cli.make_engine(args, graph)
+    k = engine._budget(graph.initial_k())
+    planes, vl = engine.num_planes, engine.packed_l.shape[0]
+    dev = engine.packed_l.device
+    ctrl = engine._start(k)
+    for _ in range(3):
+        engine._superstep(ctrl, k)
+        shard_superstep_epilogue(engine, ctrl, None)
+    block = engine.blocks[0]
+    block[:vl].copy_(engine.packed_l)
+    buckets = [(None if rows is None else rows.cpu().numpy(),
+                table.cpu().numpy()) for rows, table in
+               engine.wide[0].buckets]
+    real = [int(((t & ((1 << 30) - 1)) != vl).sum()) for _, t in buckets]
+    acc = kr.new_acc(planes, vl, dev)
+    plain = kr.new_acc(planes, vl, dev)
+    for chunk in RING_CHUNKS:
+        wide = kr.WideTables(buckets, vl, dev, chunk)
+        acc.zero_()
+        plain.zero_()
+        kr.ring_stats_wide(ctrl, block, engine.packed_l, wide, acc, planes)
+        kr.ring_stats_wide_reference(ctrl, block, engine.packed_l, wide,
+                                     plain, planes)
+        cs.check(torch.equal(acc, plain), f"K24 at chunk {chunk} differs "
+                                          f"from its plain version")
+        ms = cs._device_ms(lambda: kr.ring_stats_wide(
+            ctrl, block, engine.packed_l, wide, acc, planes), 20,
+            "ring_stats_wide_kernel")
+        print(json.dumps({"kernel": "ring_stats_wide", "chunk": chunk,
+                          "items": wide.work.shape[0],
+                          "real_entries": sum(real), "ms": ms}), flush=True)
+    # K25 from what the superstep's stats leave
+    acc.zero_()
+    for rows, table in engine.rot[0]:
+        kr.ring_stats(ctrl, block, engine.packed_l, table, rows, acc, planes)
+    kr.ring_stats_wide(ctrl, block, engine.packed_l, engine.wide[0], acc,
+                       planes)
+    left = acc.clone()
+    mask = left[2 * planes + 1].long() & 0xFFFFFFFF
+    pop = sum(int(((mask >> b) & 1).sum()) for b in range(32))
+    ctrl1 = ctrl.clone()
+
+    def k25():
+        ctrl1.copy_(ctrl)
+        acc.copy_(left)
+        kr.ring_apply(ctrl1, engine.packed_l, acc, engine.back, planes, k,
+                      True)
+
+    print(json.dumps({"kernel": "ring_apply", "planes": planes,
+                      "rows": vl, "touched_planes": pop,
+                      "rows_touched": int((mask != 0).sum()),
+                      "ms": cs._device_ms(k25, 20, "ring_apply_kernel")}),
+          flush=True)
+
+
+def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_costs: no CUDA device available", file=sys.stderr)
         return 1
-    k3_costs()
-    k11_costs()
+    parts = (sys.argv[1:] if argv is None else argv) or ["k3", "k11", "ring"]
+    for part in parts:
+        {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
