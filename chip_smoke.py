@@ -24,7 +24,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    finish) over 300 random loop carries with and without the ring and a
    hub region's live table. The hub kernels K7 (branch and slot lists)
    and K8 (the branches' rows) on 72 random hub regions: every ladder and
-   branch, captures that hold and fail, 1-, 32- and mixed-plane windows.
+   branch, captures that hold and fail, 1-, 32- and mixed-plane windows,
+   each row walked up to its real length. K5 again at every flat
+   width from 1 to 256 (every lane-group size) on ragged rows, over
+   spans and slot lists, covering and one-plane windows. K8 again on wide
+   hub rows from half its block width to eight times it and a
+   65,536-wide row of 40,000 real entries (items a warp and a block
+   each), every branch, windows of 1 to 64 planes. K5 and K8 (and their recording variants)
+   each replayed 50 times on one input: every launch the plain bytes.
    The attempt block's K9 (record) and K10 (start) on 240 random blocks:
    every status, open, done and full blocks, rings whose brackets hold
    the budget in no, one or several slots, 1 to 140,000 vertices. The
@@ -118,9 +125,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wrappers), K3-K6 timed on the uniform sweep's first stage inputs (K3
    replayed 50 times there first, each launch held), K7
    and K8 over the RMAT sweep's launches; the branches each hub bucket
-   took are counted. Then ``ell-compact`` again through the CLI's calls
-   with ``--attempts-per-dispatch``: on 1M uniform jump and strict
-   (from k0 = 33), sequential and at 4 a block, on 1M RMAT jump,
+   took are counted, K8 is timed on each hub bucket alone
+   (``k8_by_bucket``) and K5's launches are split into the full table
+   and the stages (``k5_split``). Then ``ell-compact`` again through the
+   CLI's calls with ``--attempts-per-dispatch``: on 1M uniform jump and
+   strict (from k0 = 33), sequential and at 4 a block, on 1M RMAT jump,
    sequential and at 4; each blocked sweep must equal its sequential one,
    launch K9 and K10 and bring no row of V words home between the
    attempts of a block. K9 and K10 are held against their plain versions
@@ -504,6 +513,14 @@ def phase_compact_kernels(device) -> int:
             for row_base in (0, 1000):
                 err = max(err, _k5_case(kc, rng, v, seg, plan, desc, k, device,
                                         row_base=row_base))
+    # K5 at every flat width, ragged rows, spans and slot lists, and its
+    # replays
+    for plan, seg, gidx, row_base in _k5_width_cases(rng, v, device):
+        desc = kc.plan_desc(plan, device)
+        for k in (1, 33, 300):
+            err = max(err, _k5_case(kc, rng, v, seg, plan, desc, k, device,
+                                    gidx=gidx, row_base=row_base))
+    err = max(err, _k5_replays(kc, rng, v, device))
     # K6 over random loop carries: pushes, failures, stalls, idle stages,
     # with and without a hub region's live table
     for _ in range(300):
@@ -565,6 +582,80 @@ def _k5_case(kc, rng, v, seg, plan, desc, k, device, gidx=None,
     return err
 
 
+def _ragged(rng, rows: int, width: int, v: int, real=None) -> np.ndarray:
+    """A combined table of ``rows`` rows whose real lengths are ``real``
+    (default: random from none to the whole width): ``_combined`` entries
+    (pad sentinels among them too) up to each row's length, the pad
+    sentinel ``v`` past it."""
+    t = _combined(rng, (rows, width), v)
+    if real is None:
+        real = rng.integers(0, width + 1, rows)
+    t[np.arange(width)[None, :] >= np.asarray(real)[:, None]] = v
+    return t
+
+
+FLAT_CAP = 256  # the compact engine's flat cap (DEFAULT_FLAT_CAP)
+
+
+def _k5_width_cases(rng, v: int, device) -> list:
+    """K5's cases at every flat width from 1 to ``FLAT_CAP`` (each width
+    its lanes a row): plans of up to 64 one-width segments of ragged rows,
+    windows covering their widths and capped at one plane, over row spans
+    and over slot lists with dummy slots."""
+    from dgc_tpu_torch.ops.bitmask import num_planes_for
+    from dgc_tpu_torch.ops.segmented_gather import plan_from_parts
+
+    cases = []
+    for w0 in range(1, FLAT_CAP + 1, 64):
+        widths = list(range(w0, min(w0 + 64, FLAT_CAP + 1)))
+        sizes = [int(rng.integers(1, 6)) for _ in widths]
+        seg = torch.from_numpy(np.concatenate([
+            _ragged(rng, n, w, v).reshape(-1) for n, w in zip(sizes, widths)
+        ])).to(device)
+        rows = sum(sizes)
+        gidx = rng.choice(v, size=rows, replace=False).astype(np.int32)
+        gidx[rng.random(rows) < 0.1] = v + 1
+        gidx = torch.from_numpy(gidx).to(device)
+        for capped in (False, True):
+            planes = [1 if capped else num_planes_for(w + 1) for w in widths]
+            plan = plan_from_parts(sizes, widths, planes)
+            cases += [(plan, seg, None, 0), (plan, seg, None, 1000),
+                      (plan, seg, gidx, 0)]
+    return cases
+
+
+REPLAYS = 50  # launches of K5 and K8 on one input, each equal to the first
+
+
+def _k5_replays(kc, rng, v: int, device, rec: bool = False) -> int:
+    """K5 (its recording variant with ``rec``) launched ``REPLAYS`` times
+    from the same inputs, a 256-wide segment among them: its shared-word
+    ORs must give the same bytes each time, the plain version's."""
+    from dgc_tpu_torch.ops.segmented_gather import plan_from_parts
+
+    plan = plan_from_parts((40, 300, 900), (256, 40, 12), (9, 2, 1))
+    seg = torch.from_numpy(np.concatenate([
+        _ragged(rng, s_.rows, s_.width, v).reshape(-1) for s_ in plan])
+    ).to(device)
+    desc = kc.plan_desc(plan, device)
+    state = _compact_state(rng, v, 300, 0.4, device)
+    ctrl = kc.new_ctrl(3, v, device)
+    umax = torch.zeros(2, dtype=torch.int32, device=device) if rec else None
+    s_p, c_p = state.clone(), ctrl.clone()
+    u_p = None if umax is None else umax.clone()
+    kc.segmented_superstep_reference(c_p, s_p, seg, plan, 300, 10, 50,
+                                     umax=u_p, ucol=1)
+    err = 0
+    for _ in range(REPLAYS):
+        s_k, c_k = state.clone(), ctrl.clone()
+        u_k = None if umax is None else umax.clone()
+        kc.segmented_superstep(c_k, s_k, seg, plan, desc, 300, 10, 50,
+                               umax=u_k, ucol=1)
+        err = max(err, _diff(s_k, s_p), _diff(c_k, c_p),
+                  0 if u_k is None else _diff(u_k, u_p))
+    return err
+
+
 # hub buckets (rows, width, ladder): None is the hub_pad_for ladder (a
 # compaction pad of 64 at 300 rows, none at 40), a tuple a prune config
 # (P, U) or (P, U, P2); P = rows drops the full branch
@@ -623,7 +714,8 @@ def phase_hub_kernels(device) -> int:
     for trial in range(72):
         planes = ((1,) * 6 if trial % 3 == 0 else (32,) * 6 if trial % 3 == 1
                   else tuple(int(p) for p in rng.choice([1, 2, 3, 32], 6)))
-        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond, device)
+        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond,
+                           device, table=table, v=v)
         pool = kh.new_pool(plan, device)
         _hub_pool(rng, plan, pool, device)
         nb = len(sizes) + 1
@@ -663,8 +755,121 @@ def phase_hub_kernels(device) -> int:
     check(branches == set(range(len(th.BRANCH_NAMES))),
           f"phase 1 reached only the hub branches {sorted(branches)}")
     check(oks == {0, 1}, f"rebase captures held only as {sorted(oks)}")
+    err = max(err, _k8_wide_cases(rng, device))
     check(err == 0, f"K7/K8 disagree with their plain versions: max abs "
                     f"err {err}")
+    return err
+
+
+def _wide_hub_region(kh, rng, device):
+    """Hub buckets (rows, width, ladder, pad) from half K8's block width to
+    eight times it, and a 65,536-wide row of 40,000 real entries, every
+    ladder among them (pads given, so a dozen rows compact), with ragged
+    real lengths; returns (v, row0s, sizes, widths, prune, uncond, pads,
+    table)."""
+    bw = kh.K8_BLOCK_WIDTH
+    buckets = ((1, 65536, "uncond", 0), (6, 4 * bw, (4, bw, 2), 0),
+               (12, 2 * bw, None, 4), (8, bw, (4, bw // 4), 0),
+               (20, bw // 2, (8, bw // 8, 4), 0), (3, 8 * bw, "uncond", 0))
+    v = 60_000
+    sizes = [b[0] for b in buckets]
+    widths = [b[1] for b in buckets]
+    prune = tuple(b[2] if isinstance(b[2], tuple) else None for b in buckets)
+    uncond = tuple(b[2] == "uncond" for b in buckets)
+    pads = [b[3] for b in buckets]
+    row0s = np.concatenate([[0], np.cumsum(sizes[:-1])]) + 101
+    parts = []
+    for n, w in zip(sizes, widths):
+        real = ([40_000] if w == 65536 else
+                rng.integers(w // 2, w + 1, n).tolist())
+        real[0] = w if n > 1 else real[0]  # a full row where there are two
+        parts.append(_ragged(rng, n, w, v, real).reshape(-1))
+    table = torch.from_numpy(np.concatenate(parts)).to(device)
+    return v, row0s, sizes, widths, prune, uncond, pads, table
+
+
+def _k8_wide_cases(rng, device, rec: bool = False) -> int:
+    """K7 and K8 (its recording variant with ``rec``) against their plain
+    versions on ``_wide_hub_region``, items a warp and a block: each branch
+    reached, windows of 1 to 64 planes (two passes),
+    budgets in and past the window; then ``REPLAYS`` launches of K8 from one
+    input, each equal to the first. Returns the max abs difference."""
+    from dgc_tpu_torch.engine import hub as th
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+
+    v, row0s, sizes, widths, prune, uncond, pads, table = \
+        _wide_hub_region(kh, rng, device)
+    nb = len(sizes) + 1
+    err = 0
+    replay = None
+    branches = set()
+    modes = set()
+    for trial in range(60):
+        if trial >= 12 and branches == set(range(len(th.BRANCH_NAMES))):
+            break
+        planes = tuple(int(p) for p in rng.choice(
+            [1, 2, 3, 32, 33, 64], len(sizes)))
+        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond,
+                           device, pads=pads, table=table, v=v)
+        modes |= {b.mode for b in plan.buckets}
+        pool = kh.new_pool(plan, device)
+        _hub_pool(rng, plan, pool, device)
+        live = torch.from_numpy(rng.integers(-5, 50, (kc.LIVE_ROWS, nb))
+                                .astype(np.int32)).to(device)
+        for bi, b in enumerate(plan.buckets):
+            cuts = [0, 1, b.pad, b.pad + 1, b.rows, b.p2, b.p2 + 1]
+            live[kc.LIVE_BA, bi] = int(rng.choice(
+                [c for c in cuts if 0 <= c <= b.rows]))
+            live[kc.LIVE_TIER, bi] = int(rng.integers(
+                0, 3 if b.p2 else 2 if b.u else 1))
+        state = _compact_state(rng, v, 32 * max(planes) + 40,
+                               float(rng.choice([0.05, 0.3, 1.0])),
+                               device)
+        ctrl = kc.new_ctrl(3, v, device)
+        ctrl[kc.CTRL_CUR] = trial % 2
+        ctrl[kc.CTRL_MC] = int(rng.integers(-1, 5))
+        k = int(rng.choice([1, 33, 32 * max(planes),
+                            32 * max(planes) + 7, v]))
+        umax = (torch.from_numpy(rng.integers(0, 9, nb).astype(np.int32))
+                .to(device) if rec else None)
+        kh.hub_slots(ctrl, state, live, plan, pool, 10, 50)
+        c_p, s_p, l_p, p_p = (t_.clone() for t_ in (ctrl, state, live,
+                                                     pool))
+        kh.hub_slots_reference(c_p, s_p, l_p, plan, p_p, 10, 50)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p),
+                  _diff(live, l_p), _diff(pool, p_p))
+        branches |= set(l_p[kc.LIVE_BRANCH, :len(sizes)].tolist())
+        u_p = None if umax is None else umax.clone()
+        if replay is None:
+            replay = (plan, *(t_.clone() for t_ in (ctrl, state, live,
+                                                    pool)), k, u_p)
+        kh.hub_superstep(ctrl, state, table, live, plan, pool, k, 10, 50,
+                         umax=umax)
+        kh.hub_superstep_reference(c_p, s_p, table, l_p, plan, p_p, k,
+                                   10, 50, umax=u_p)
+        err = max(err, _diff(ctrl, c_p), _diff(state, s_p),
+                  _diff(live, l_p), _diff(pool, p_p),
+                  0 if umax is None else _diff(umax, u_p))
+    check(branches == set(range(len(th.BRANCH_NAMES))),
+          f"the wide hub rows reached only the branches {sorted(branches)}")
+    check(modes == {kh.K8_WARP_ITEMS, kh.K8_BLOCK_ITEMS},
+          f"K8's layout dealt the wide buckets only as {sorted(modes)}")
+    # the replays: the 65,536-wide row uncolored, so its block walks it
+    plan, ctrl, state, live, pool, k, umax = replay
+    state[:, int(row0s[0])] = -1
+    want = [t_.clone() for t_ in (ctrl, state, live, pool)] + (
+        [] if umax is None else [umax.clone()])
+    kh.hub_superstep_reference(want[0], want[1], table, want[2], plan,
+                               want[3], k, 10, 50,
+                               umax=want[4] if rec else None)
+    for _ in range(REPLAYS):
+        got = [t_.clone() for t_ in (ctrl, state, live, pool)] + (
+            [] if umax is None else [umax.clone()])
+        kh.hub_superstep(got[0], got[1], table, got[2], plan, got[3], k, 10,
+                         50, umax=got[4] if rec else None)
+        err = max(err, *(_diff(a, b) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
     return err
 
 
@@ -842,6 +1047,7 @@ def phase_telemetry_kernels(device) -> int:
         seg = torch.from_numpy(_combined(
             rng, sum(a * w for a, w in zip(sizes, widths)), v)).to(device)
         k5_cases += [(plan, seg, None, 0), (plan, seg, None, 1000)]
+    k5_cases += _k5_width_cases(rng, v, device)
     for plan, seg, gidx, row_base in k5_cases:
         desc = kc.plan_desc(plan, device)
         for k in (1, 33, 5000):
@@ -918,7 +1124,8 @@ def phase_telemetry_kernels(device) -> int:
     for trial in range(72):
         planes = ((1,) * 6 if trial % 3 == 0 else (32,) * 6 if trial % 3 == 1
                   else tuple(int(p) for p in rng.choice([1, 2, 3, 32], 6)))
-        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond, device)
+        plan = kh.hub_plan(row0s, sizes, widths, planes, prune, uncond,
+                           device, table=table, v=v)
         pool = kh.new_pool(plan, device)
         _hub_pool(rng, plan, pool, device)
         live = rand(-5, 50, kc.LIVE_ROWS, len(sizes) + 1)
@@ -949,6 +1156,8 @@ def phase_telemetry_kernels(device) -> int:
                   _diff(pool, p_p), _diff(umax, u_p))
     check(branches == set(range(len(th.BRANCH_NAMES))),
           f"the recording K8 reached only the branches {sorted(branches)}")
+    err = max(err, _k5_replays(kc, rng, v, device, rec=True),
+              _k8_wide_cases(rng, device, rec=True))
 
     # K9 and K10 over random blocks, with a random span and stack
     for trial in range(120):
@@ -1931,6 +2140,7 @@ class _HeldCompactKernels:
         self.stages: list[dict] = []
         self.attempts = 0
         self._ctrl = None  # the open attempt's control block
+        self.k5_kinds: list[str] = []  # "full" or "stage", in call order
 
     def __enter__(self):
         for name, mod in self.mods.items():
@@ -1998,6 +2208,7 @@ class _HeldCompactKernels:
     def segmented_superstep(self, ctrl, state, seg, plan, desc, k, thresh,
                             max_steps, gidx=None, row_base=0, umax=None,
                             ucol=0):
+        self.k5_kinds.append("full" if gidx is None else "stage")
         stage = self.stages[-1] if self.stages else None
         if stage is None or stage["seg"] is not seg or ctrl is not self._ctrl:
             stage = self._open(ctrl, None, seg)  # the full-table phase
@@ -2307,6 +2518,64 @@ def _profiled(fn, launches: dict, min_share: float = 1.0, names=None,
                        f"launched {launches}")
 
 
+def _k5_split(each: list, kinds: list) -> dict:
+    """K5's launches of one profiled sweep (device ms, in order) split by
+    kind, full table or compaction stage, from the held sweep's kinds in
+    the same order: each kind's launches, sum and mean."""
+    check(len(each) == len(kinds), f"the profile kept {len(each)} K5 "
+                                   f"launches, the held sweep made "
+                                   f"{len(kinds)}")
+    out = {}
+    for kind in ("full", "stage"):
+        ms = [t for t, kd in zip(each, kinds) if kd == kind]
+        out[kind] = {"launches": len(ms), "sum_ms": sum(ms),
+                     "mean_ms": sum(ms) / len(ms) if ms else None}
+    return out
+
+
+def _k8_by_bucket(engine, k: int) -> list[dict]:
+    """K8 on each hub bucket alone, at a fresh attempt's first superstep
+    (every row with a neighbor active; the branch K7 picks there): a plan of
+    that bucket over its slice of the hub table, timed over repeated
+    launches (each redoes the same step), beside its bound."""
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+
+    hub = engine.hub_buckets
+    cbs = engine.combined_buckets[:hub]
+    v = engine.num_vertices
+    out = []
+    off = 0
+    for bi, cb in enumerate(cbs):
+        rows, width = cb.shape
+        table = engine.seg_flat[off: off + rows * width]
+        off += rows * width
+        plan = kh.hub_plan([engine.row0[bi]], [rows], [width],
+                           [engine.planes[bi]], [engine.hub_prune[bi]
+                                                 if bi < len(engine.hub_prune)
+                                                 else None],
+                           [bi < len(engine.hub_uncond)
+                            and bool(engine.hub_uncond[bi])],
+                           engine.device, table=table, v=v)
+        pool = kh.new_pool(plan, engine.device)
+        state, ctrl, _ = engine._fresh()
+        live = kc.new_live(torch.tensor([engine.init_bucket_active[bi]],
+                                        dtype=torch.int32,
+                                        device=engine.device))
+        kh.hub_slots(ctrl, state, live, plan, pool, 0, engine.max_steps)
+        nbytes = _k8_bytes(state[0], table, live, plan, pool, v)
+        real = int(((table & ((1 << 30) - 1)) != v).sum())
+        out.append({
+            "width": width, "rows": rows, "real_entries": real,
+            "branch": int(live[kc.LIVE_BRANCH, 0]),
+            "mode": plan.buckets[0].mode,
+            "ms": _device_ms(lambda: kh.hub_superstep(
+                ctrl, state, table, live, plan, pool, k, 0, engine.max_steps),
+                10, "hub_superstep_kernel"),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
 def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
     """Run ``engine.sweep(k)`` — the main path's first engine call — with
     every K3-K8 call held against its plain version; its attempts must
@@ -2383,7 +2652,14 @@ def measure_compact(engine, k: int, swept: list[tuple]) -> dict:
            "bytes_per_launch": {n: sweep_bytes[n] / held.calls[n]
                                 for n in held.real if held.calls[n]},
            "max_abs_err_rec": held_rec.err}
+    out["k5_split"] = _k5_split(prof["segmented_superstep"][2],
+                                held.k5_kinds)
     if engine.hub_buckets:
+        each = sorted(prof["hub_superstep"][2])
+        out["k8_launch_ms_quantiles"] = {
+            q: each[min(len(each) - 1, int(q * len(each)))]
+            for q in (0.0, 0.5, 0.9, 1.0)} if each else {}
+        out["k8_by_bucket"] = _k8_by_bucket(engine, k)
         for name, key in (("hub_slots", "k7"), ("hub_superstep", "k8")):
             t, n, _each = prof[name]
             out.update({f"{key}_ms": t / n, f"{key}_plain_ms":

@@ -62,9 +62,16 @@
 // as the frontier shrinks. K3 reads and writes V words and writes the slot
 // list (9 MB at the first stage, ~2.7 us). K4 reads the slots' rows (at
 // most pad x 32 words) and writes them once. K6 is one control-block
-// update, plus a copy of V words into the ring when it pushes. K4-K6 are
-// one thread per row (K5), per item (K4) or per word (K6), written to be
-// right and simple, not yet shaped for coalesced table reads.
+// update, plus a copy of V words into the ring when it pushes. K4 and K6
+// are one thread per item (K4) or per word (K6), written to be right and
+// simple, not yet shaped for coalesced table reads.
+//
+// K5 was one thread per row, and latency held it, not bandwidth: each
+// thread walked its row alone, one dependent gather after another, its
+// neighbors' loads width * 4 bytes apart. So a row takes a group of lanes
+// sized by its segment's width, reading it in 16-byte quads with eight
+// gathers in flight a lane, and a confirmed row (which transitions to
+// itself, counting nothing) reads no entry (the K5 section below).
 //
 // K3 is bound by its bytes, and what kept it from them was latency, not
 // bandwidth: a single-pass scan over ~500 tiles waits on its predecessors'
@@ -367,78 +374,186 @@ stage_rows_kernel(const int* __restrict__ flat_ext, int w_flat, int n,
 }
 
 // ---- K5: one superstep over a whole plan ---------------------------------
+//
+// A group of `lanes` lanes a row, the smallest power of two (at most 32)
+// whose lanes hold the row at kLaneEntries entries each
+// (seg_lanes; kernels/compact.py k5_lanes mirrors it). Each segment's rows
+// take whole warps of 32 / lanes rows (seg_warps: its rows' warps rounded
+// up, so no warp spans two segments and every group sits at a multiple of
+// its size within its warp); the host passes the plan's warp total. A
+// group reads its row in quads (walk_row: 16-byte loads where the row is
+// aligned, eight gathers in flight a lane), so a warp reads 32 / lanes rows
+// side by side; the group ORs the two register planes of each pass over
+// its lanes with shuffles and the rest through its shared words (`lanes`
+// words each of fa and fo a row: 64 a warp), so a pass holds 2 + lanes
+// planes and a wider window makes more passes over the row, as row_rule's
+// groups of PB. A confirmed row transitions to itself and counts nothing
+// (finish_rule), so its entries are not read; the recording variant counts
+// the unconfirmed real neighbors in the same pass.
 
-template <int PB, bool kRecord>
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowWords = 64;  // shared plane words of a warp's rows
+// a lane's share of a row (K5_LANE_ENTRIES in kernels/compact.py; 4 to 64
+// were timed, PERF.md)
+constexpr int kLaneEntries = 32;
+
+__device__ __forceinline__ int seg_lanes(int width) {
+  int lanes = 1;
+  while (lanes < 32 && lanes * kLaneEntries < width) lanes <<= 1;
+  return lanes;
+}
+
+__device__ __forceinline__ int seg_warps(const int* d) {
+  return (d[1] * seg_lanes(d[2]) + 31) >> 5;
+}
+
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
                            const int* __restrict__ seg,
-                           const int* __restrict__ desc, int nseg, int rows,
+                           const int* __restrict__ desc, int nseg,
                            const int* __restrict__ gidx, int row_base,
                            int dummy, int k, int thresh, int max_steps,
                            int* umax, int ucol) {
   // the predicate reads slots this kernel never writes: uniform exit
   if (!stage_live(ctrl, thresh, max_steps)) return;
   __shared__ int s_desc[kMaxSegs * kDescCols];
+  __shared__ int s_warp0[kMaxSegs + 1];  // each segment's first warp
+  __shared__ uint32_t s_rows[kWarps * kRowWords];
   load_desc(s_desc, desc, nseg);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (warp == 0) {  // the segments' warps, prefix-summed, two a lane
+    const int a = lane < nseg ? seg_warps(s_desc + lane * kDescCols) : 0;
+    const int b =
+        lane + 32 < nseg ? seg_warps(s_desc + (lane + 32) * kDescCols) : 0;
+    int x = a;
+    int y = b;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int xa = __shfl_up_sync(0xFFFFFFFFu, x, o);
+      const int yb = __shfl_up_sync(0xFFFFFFFFu, y, o);
+      if (lane >= o) {
+        x += xa;
+        y += yb;
+      }
+    }
+    const int first_half = __shfl_sync(0xFFFFFFFFu, x, 31);
+    if (lane == 0) s_warp0[0] = 0;
+    if (lane < nseg) s_warp0[lane + 1] = x;
+    if (lane + 32 < nseg) s_warp0[lane + 33] = first_half + y;
+  }
+  __syncthreads();
   const int cur = ctrl[kCur];
   const int* __restrict__ src = state + cur * stride;
   int* __restrict__ dst = state + (1 - cur) * stride;
+  const int pad = dummy - 1;  // the pad sentinel V
 
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const int gw = blockIdx.x * kWarps + warp;
   bool fail = false;
   bool active = false;
   int mc = -1;
   int unconf = 0;  // kRecord: the row's unconfirmed real neighbors
-  if (r < rows) {
+  if (gw < s_warp0[nseg]) {  // uniform over the warp
     int s = 0;
-    while (s + 1 < nseg && s_desc[(s + 1) * kDescCols] <= r) ++s;
+    while (s + 1 < nseg && s_warp0[s + 1] <= gw) ++s;
     const int* d = s_desc + s * kDescCols;
-    const int g = gidx != nullptr ? gidx[r] : row_base + r;
+    const int width = d[2];
+    const int planes = d[3];
+    const int lanes = seg_lanes(width);
+    const int sub = lane / lanes;       // the warp's row of this lane
+    const int gl = lane & (lanes - 1);  // the lane in its row's group
+    const int rs = (gw - s_warp0[s]) * (32 / lanes) + sub;
+    const bool valid = rs < d[1];
+    const int r = d[0] + rs;
+    const int g = valid ? (gidx != nullptr ? gidx[r] : row_base + r) : 0;
     // an unused slot is the dummy row: it changes nothing, counts nothing
-    if (gidx == nullptr || g != dummy) {
-      const int width = d[2];
-      const int planes = d[3];
-      const int* __restrict__ row =
-          seg + d[4] + static_cast<size_t>(r - d[0]) * width;
-      const int me = src[g];
-      const dgc::RowResult res =
-          dgc::row_rule<PB>(src, row, width, planes, k, me);
-      dst[g] = res.next;
-      const long long window = 32LL * planes;
-      const bool fail_valid = window >= width + 1LL || k <= window;
-      fail = res.fail && fail_valid;
-      active = res.active;
-      mc = res.mc;
-      if constexpr (kRecord) {
-        // the pad sentinel is V = dummy - 1; rows inactive before the
-        // step count 0
-        if (!is_confirmed(me)) unconf = row_unconf(src, row, width, dummy - 1);
+    const bool eval = valid && (gidx == nullptr || g != dummy);
+    const int me = eval ? src[g] : 0;
+    const bool walk = eval && !is_confirmed(me);  // uniform over the group
+    const int* __restrict__ row =
+        seg + d[4] + static_cast<size_t>(valid ? rs : 0) * width;
+    uint32_t* s_fa = s_rows + warp * kRowWords + sub * 2 * lanes;
+    uint32_t* s_fo = s_fa + lanes;
+    const int per_pass = kRegPlanes + lanes;
+    const int mycol = me >> 1;  // arithmetic: -1 stays -1
+    bool clash = false;
+    bool found = false;     // a color under k is free of every neighbor
+    int cand = k;           // first-fit over all colored neighbors
+    bool old_free = false;  // a color under k is free of confirmed ones
+    int cnt = 0;
+    for (int base = 0; base < planes; base += per_pass) {
+      const int gp = min(per_pass, planes - base);
+      s_fa[gl] = 0u;
+      s_fo[gl] = 0u;
+      __syncwarp();
+      PlaneRegs pl;
+      if (walk) {
+        walk_row(src, row, width, gl, lanes, pad, [&](int e, int word) {
+          add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
+          if constexpr (kRecord) {
+            if (base == 0 && (e & kNbrMask) < pad && !is_confirmed(word)) {
+              ++cnt;
+            }
+          }
+        });
       }
+      pl.or_xor(lanes >> 1);  // within the group
+      __syncwarp();  // the group's shared words are complete
+      if (walk && gl == 0) {
+        for (int p = 0; p < gp; ++p) {
+          const bool reg = p < kRegPlanes;
+          const uint32_t fa = reg ? pl.fa(p) : s_fa[p - kRegPlanes];
+          const uint32_t fo = reg ? pl.fo(p) : s_fo[p - kRegPlanes];
+          fold_plane(fa, fo, base + p, k, found, cand, old_free);
+        }
+      }
+      __syncwarp();  // read before the next pass clears them
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+      clash |= __shfl_xor_sync(0xFFFFFFFFu, clash ? 1 : 0, o) != 0;
+      if constexpr (kRecord) cnt += __shfl_xor_sync(0xFFFFFFFFu, cnt, o);
+    }
+    if (eval && gl == 0) {
+      int next = me;
+      if (walk) {
+        const dgc::RowResult res =
+            finish_rule(me, clash, found, cand, old_free);
+        next = res.next;
+        const long long window = 32LL * planes;
+        const bool fail_valid = window >= width + 1LL || k <= window;
+        fail = res.fail && fail_valid;
+        active = res.active;
+        mc = res.mc;
+        // rows inactive before the step count 0
+        if constexpr (kRecord) unconf = cnt;
+      }
+      dst[g] = next;
     }
   }
 
   const int nfail = __syncthreads_count(fail);
   const int nactive = __syncthreads_count(active);
   const int wmax = __reduce_max_sync(0xFFFFFFFFu, mc);
-  __shared__ int warp_max[kThreads / 32];
-  __shared__ int warp_unconf[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = wmax;
+  __shared__ int warp_max[kWarps];
+  __shared__ int warp_unconf[kWarps];
+  if (lane == 0) warp_max[warp] = wmax;
   if constexpr (kRecord) {
     const int wun = __reduce_max_sync(0xFFFFFFFFu, unconf);
-    if ((threadIdx.x & 31) == 0) warp_unconf[threadIdx.x >> 5] = wun;
+    if (lane == 0) warp_unconf[warp] = wun;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     int bmax = warp_max[0];
 #pragma unroll
-    for (int i = 1; i < kThreads / 32; ++i) bmax = max(bmax, warp_max[i]);
+    for (int i = 1; i < kWarps; ++i) bmax = max(bmax, warp_max[i]);
     if (nfail) atomicAdd(ctrl + kFail, nfail);
     if (nactive) atomicAdd(ctrl + kActive, nactive);
     if (bmax >= 0) atomicMax(ctrl + kMc, bmax);
     if constexpr (kRecord) {
       int bun = 0;
 #pragma unroll
-      for (int i = 0; i < kThreads / 32; ++i) bun = max(bun, warp_unconf[i]);
+      for (int i = 0; i < kWarps; ++i) bun = max(bun, warp_unconf[i]);
       if (bun > 0) atomicMax(umax + ucol, bun);
     }
   }
@@ -547,46 +662,6 @@ stage_finish_kernel(int* ctrl, const int* state, size_t stride,
   // max_steps was tested before the step (stage_live): no ELL stall rule
   finish_step(ctrl, INT_MAX, stall_window);
   ctrl[kDone] = 0;
-}
-
-template <int PB, bool kRecord>
-void launch_segmented(int* ctrl, int* state, int stride, const int* seg,
-                      const int* desc, int nseg, int rows, const int* gidx,
-                      int row_base, int dummy, int k, int thresh,
-                      int max_steps, int* umax, int ucol,
-                      cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
-  segmented_superstep_kernel<PB, kRecord><<<blocks, kThreads, 0, stream>>>(
-      ctrl, state, static_cast<size_t>(stride), seg, desc, nseg, rows, gidx,
-      row_base, dummy, k, thresh, max_steps, umax, ucol);
-}
-
-// K5 at the plane count that holds max_planes
-template <bool kRecord>
-void dispatch_segmented(int* c, int* s, int stride, const int* t,
-                        const int* d, int nseg, int rows, int max_planes,
-                        const int* g, int row_base, int dummy, int k,
-                        int thresh, int max_steps, int* umax, int ucol,
-                        cudaStream_t st) {
-  if (max_planes <= 1) {
-    launch_segmented<1, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                 dummy, k, thresh, max_steps, umax, ucol, st);
-  } else if (max_planes <= 2) {
-    launch_segmented<2, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                 dummy, k, thresh, max_steps, umax, ucol, st);
-  } else if (max_planes <= 4) {
-    launch_segmented<4, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                 dummy, k, thresh, max_steps, umax, ucol, st);
-  } else if (max_planes <= 8) {
-    launch_segmented<8, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                 dummy, k, thresh, max_steps, umax, ucol, st);
-  } else if (max_planes <= 16) {
-    launch_segmented<16, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                  dummy, k, thresh, max_steps, umax, ucol, st);
-  } else {
-    launch_segmented<32, kRecord>(c, s, stride, t, d, nseg, rows, g, row_base,
-                                  dummy, k, thresh, max_steps, umax, ucol, st);
-  }
 }
 
 unsigned finish_blocks(int stride, int record) {
@@ -712,34 +787,37 @@ int dgc_stage_rows(const void* flat_ext, int w_flat, int n, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// seg: the plan's flat table; desc: int32[nseg, 5]; gidx: int32[rows] state
-// indices, or null for rows row_base + r; dummy: the dummy slot (V+1);
-// umax: int32[>= ucol + 1], the unconf vector of the recording variant
-// (kRecord), or null for the plain K5.
+// seg: the plan's flat table; desc: int32[nseg, 5]; warps: the plan's
+// warps (the sum over its segments of ceil(rows * lanes / 32),
+// kernels/compact.py k5_warps); gidx: int32[rows]
+// state indices, or null for rows row_base + r; dummy: the dummy slot
+// (V+1); umax: int32[>= ucol + 1], the unconf vector of the recording
+// variant (kRecord), or null for the plain K5.
 int dgc_segmented_superstep(void* ctrl, void* state, int stride,
                             const void* seg, const void* desc, int nseg,
-                            int rows, int max_planes, const void* gidx,
+                            int warps, const void* gidx,
                             int row_base, int dummy, int k, int thresh,
                             int max_steps, void* umax, int ucol,
                             void* stream) {
-  if (rows <= 0 || nseg <= 0 || nseg > kMaxSegs || max_planes <= 0 ||
-      ucol < 0) {
+  if (warps <= 0 || nseg <= 0 || nseg > kMaxSegs || ucol < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const unsigned blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
   auto* c = static_cast<int*>(ctrl);
   auto* s = static_cast<int*>(state);
   const auto* sg = static_cast<const int*>(seg);
   const auto* d = static_cast<const int*>(desc);
   const auto* gi = static_cast<const int*>(gidx);
   auto st = static_cast<cudaStream_t>(stream);
+  const auto words = static_cast<size_t>(stride);
   if (umax == nullptr) {
-    dispatch_segmented<false>(c, s, stride, sg, d, nseg, rows, max_planes, gi,
-                              row_base, dummy, k, thresh, max_steps, nullptr,
-                              0, st);
+    segmented_superstep_kernel<false><<<blocks, kThreads, 0, st>>>(
+        c, s, words, sg, d, nseg, gi, row_base, dummy, k, thresh, max_steps,
+        nullptr, 0);
   } else {
-    dispatch_segmented<true>(c, s, stride, sg, d, nseg, rows, max_planes, gi,
-                             row_base, dummy, k, thresh, max_steps,
-                             static_cast<int*>(umax), ucol, st);
+    segmented_superstep_kernel<true><<<blocks, kThreads, 0, st>>>(
+        c, s, words, sg, d, nseg, gi, row_base, dummy, k, thresh, max_steps,
+        static_cast<int*>(umax), ucol);
   }
   return static_cast<int>(cudaGetLastError());
 }

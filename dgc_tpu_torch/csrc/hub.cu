@@ -14,10 +14,11 @@
 //                      _compact_idx over its active rows for compact and
 //                      rebase, over tier 1's active slots for shrink,
 //                      :626-631).
-//   K8 hub_superstep — a warp per row (or slot) of every bucket's branch:
-//                      the rule of rule.cuh's warp_row_rule against the
-//                      `cur` snapshot, seeded with the captured confirmed
-//                      planes on the pruned branches; the rebase capture
+//   K8 hub_superstep — a warp or a block per row (or slot) of every
+//                      bucket's branch (the design below):
+//                      the rule against the `cur` snapshot, seeded
+//                      with the captured confirmed planes on the pruned
+//                      branches; the rebase capture
 //                      (:646-663) and the shrink copy (:629-631); the
 //                      fail, active and mc counts into the control block
 //                      and the bucket's active count into the live table.
@@ -52,11 +53,22 @@
 // (7 hub buckets, 6,203 rows, 9.3M table entries) a full superstep of the
 // hub region is ~74 MB (~22 us at 3.35 TB/s); once the hubs confirm it is
 // their ~50 KB copy. A hub row is 512 to 65,536 entries wide and a bucket
-// may hold one row, so K8 gives each row a warp: lanes read strided
-// entries, the planes are OR-reduced over the warp (__reduce_or_sync) and
-// the clash any-reduced; the rebase capture's column order comes from a
-// ballot and a popcount prefix. Written to be right and simple: one warp
-// per row, not yet a block per very wide row.
+// may hold one row, and an unconditioned row is walked every superstep
+// until it confirms, so one thread team's latency on the widest row sets
+// the launch's time, not the bytes.
+//
+// The design. A bucket's items go one a warp or, from K8_BLOCK_WIDTH
+// entries wide, one a block of 512 threads (kernels/hub.py lays the
+// buckets' blocks out in the plan: dBlock0, dMode). A team walks only a
+// row's real entries, up to the length the plan took once from the table
+// (dLen0, `lens`: the last entry that is not the pad sentinel; the rest add
+// no color, capture or count), in quads of 16-byte loads with eight gathers
+// in flight a thread (rule.cuh walk_row); the fail gate still reads the
+// padded width. A pass holds 32 planes, two in registers (OR-reduced over
+// each warp, then into the block's shared words) and 30 in shared words
+// (atomicOr). The recording variant counts in the same pass. The rebase capture keeps its column order by a
+// ballot and popcount prefix a warp, or a block-wide prefix of the
+// threads' counts per tile of quads.
 
 #include <cuda_runtime.h>
 
@@ -104,7 +116,21 @@ constexpr int dConf1 = 13;
 constexpr int dSlots2 = 14;
 constexpr int dComb2 = 15;
 constexpr int dConf2 = 16;
-constexpr int kDescCols = 17;
+constexpr int dLen0 = 17;    // the bucket's first row in `lens`
+constexpr int dBlock0 = 18;  // its first block in K8's grid
+constexpr int dMode = 19;    // how K8 deals its items (below)
+constexpr int kDescCols = 20;
+
+// K8: 512 threads a block; a bucket's items one a warp (kWarpItems) or one
+// a block (kBlockItems), by its width (K8_* in kernels/hub.py)
+constexpr int kK8Threads = 512;
+constexpr int kK8Warps = kK8Threads / 32;
+constexpr int kWarpItems = 0;
+constexpr int kBlockItems = 1;
+// a pass over a row holds 32 planes (1,024 colors, the widest window
+// before one widens): kRegPlanes (2) in registers, 30 in shared words
+constexpr int kPassPlanes = 32;
+constexpr int kPassShared = kPassPlanes - kRegPlanes;
 
 __device__ __forceinline__ bool is_active(int word) {
   return word < 0 || (word & 1) != 0;
@@ -209,151 +235,95 @@ hub_slots_kernel(const int* ctrl, int* state, size_t stride,
 
 // ---- K8: the branches' rows ----------------------------------------------
 
-template <int PB, bool kRecord>
-__global__ void __launch_bounds__(kThreads)
-hub_superstep_kernel(int* ctrl, int* state, size_t stride,
-                     const int* __restrict__ table,
-                     const long long* __restrict__ desc, int* live, int nb,
-                     int* __restrict__ pool, int v, int k, int thresh,
-                     int max_steps, int* umax) {
-  if (!stage_live(ctrl, thresh, max_steps)) return;
-  const int bi = blockIdx.y;
-  const int branch = live[kLiveBranch * nb + bi];
-  if (branch == kSkip) return;
-  const long long* d = desc + static_cast<size_t>(bi) * kDescCols;
+// An item of a bucket's branch: its row of the bucket (-1: none, or a
+// dummy slot), the entries to walk (the table row up to its real length,
+// or a pruned row's captured list of u), the planes it is seeded with and
+// the rebase capture it writes.
+struct Item {
+  int r = -1;
+  const int* row = nullptr;
+  int len = 0;
+  const uint32_t* seed = nullptr;
+  int* comb_out = nullptr;       // rebase: the capture's neighbor list
+  uint32_t* conf_out = nullptr;  // rebase: its confirmed planes
+};
+
+// Item `item` of bucket `d`'s branch; thread t of the item's team of n
+// shares the shrink copy (tier 1's slot sel[item] into tier 2's slot item)
+// and a dummy rebase slot's fill. Every thread of the team gets the same
+// item.
+__device__ Item hub_item(const long long* d, int branch, int item, int t,
+                         int n, int* pool, const int* __restrict__ table,
+                         const int* __restrict__ lens, int v) {
+  Item it;
   const int rows = static_cast<int>(d[dRows]);
   const int pad = static_cast<int>(d[dPad]);
-  const int p2 = static_cast<int>(d[dP2]);
-  const int items = branch == kFull ? rows
-                    : (branch == kShrink || branch == kPruned2) ? p2 : pad;
-  if (static_cast<int>(blockIdx.x) * kWarps >= items) return;  // uniform
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int item = blockIdx.x * kWarps + warp;
-  const int row0 = static_cast<int>(d[dRow0]);
   const int w = static_cast<int>(d[dWidth]);
   const int planes = static_cast<int>(d[dPlanes]);
   const int u = static_cast<int>(d[dU]);
-  const int* __restrict__ cb = table + d[dCb];
-  const int cur = ctrl[kCur];
-  const int* __restrict__ src = state + cur * stride;
-  int* __restrict__ dst = state + (1 - cur) * stride;
-
-  // the warp's row r of the bucket (-1: none or a dummy slot), its entries
-  // and the planes it is seeded with
-  int r = -1;
-  const int* row = nullptr;
-  int width = w;
-  const uint32_t* seed = nullptr;
-  int* comb_out = nullptr;      // rebase: the capture's neighbor list
-  uint32_t* conf_out = nullptr;  // rebase: its confirmed planes
-  if (item < items) {
-    if (branch == kFull) {
-      r = item;
-    } else if (branch == kCompact || branch == kRebase) {
-      r = pool[d[dSlots] + item];
-      if (branch == kRebase) {
-        comb_out = pool + d[dComb1] + static_cast<size_t>(item) * u;
-        conf_out = reinterpret_cast<uint32_t*>(
-            pool + d[dConf1] + static_cast<size_t>(item) * planes);
-      }
-    } else if (branch == kPruned || branch == kPruned2) {
-      const bool t2 = branch == kPruned2;
-      const long long j = item;
-      r = pool[d[t2 ? dSlots2 : dSlots1] + j];
-      row = pool + d[t2 ? dComb2 : dComb1] + j * u;
-      seed = reinterpret_cast<const uint32_t*>(
-          pool + d[t2 ? dConf2 : dConf1] + j * planes);
-      width = u;
-    } else {  // shrink: tier 1's slot sel[item] into tier 2's slot item
-      const int s = pool[d[dSel] + item];
-      int* comb2 = pool + d[dComb2] + static_cast<size_t>(item) * u;
-      int* conf2 = pool + d[dConf2] + static_cast<size_t>(item) * planes;
-      if (s < pad) {
-        const int* comb1 = pool + d[dComb1] + static_cast<size_t>(s) * u;
-        const int* conf1 = pool + d[dConf1] + static_cast<size_t>(s) * planes;
-        for (int j = lane; j < u; j += 32) comb2[j] = comb1[j];
-        for (int p = lane; p < planes; p += 32) conf2[p] = conf1[p];
-        r = pool[d[dSlots1] + s];
-        row = comb1;
-        seed = reinterpret_cast<const uint32_t*>(conf1);
-        width = u;
-      } else {
-        for (int j = lane; j < u; j += 32) comb2[j] = v;
-        for (int p = lane; p < planes; p += 32) conf2[p] = 0;
-        r = rows;
-      }
-      if (lane == 0) pool[d[dSlots2] + item] = r;
+  int r;
+  if (branch == kFull) {
+    r = item;
+  } else if (branch == kCompact || branch == kRebase) {
+    r = pool[d[dSlots] + item];
+    if (branch == kRebase) {
+      it.comb_out = pool + d[dComb1] + static_cast<size_t>(item) * u;
+      it.conf_out = reinterpret_cast<uint32_t*>(
+          pool + d[dConf1] + static_cast<size_t>(item) * planes);
     }
-    if (r >= rows) {  // a dummy slot: confirmed color 0, no write
-      if (comb_out != nullptr) {
-        for (int j = lane; j < u; j += 32) comb_out[j] = v;
-        for (int p = lane; p < planes; p += 32) conf_out[p] = 0u;
-      }
-      r = -1;
-    } else if (row == nullptr) {
-      row = cb + static_cast<size_t>(r) * w;
+  } else if (branch == kPruned || branch == kPruned2) {
+    const bool t2 = branch == kPruned2;
+    r = pool[d[t2 ? dSlots2 : dSlots1] + item];
+    it.row = pool + d[t2 ? dComb2 : dComb1] + static_cast<size_t>(item) * u;
+    it.seed = reinterpret_cast<const uint32_t*>(
+        pool + d[t2 ? dConf2 : dConf1] + static_cast<size_t>(item) * planes);
+    it.len = u;
+  } else {  // shrink
+    const int s = pool[d[dSel] + item];
+    int* comb2 = pool + d[dComb2] + static_cast<size_t>(item) * u;
+    int* conf2 = pool + d[dConf2] + static_cast<size_t>(item) * planes;
+    if (s < pad) {
+      const int* comb1 = pool + d[dComb1] + static_cast<size_t>(s) * u;
+      const int* conf1 = pool + d[dConf1] + static_cast<size_t>(s) * planes;
+      for (int j = t; j < u; j += n) comb2[j] = comb1[j];
+      for (int p = t; p < planes; p += n) conf2[p] = conf1[p];
+      r = pool[d[dSlots1] + s];
+      it.row = comb1;
+      it.seed = reinterpret_cast<const uint32_t*>(conf1);
+      it.len = u;
+    } else {
+      for (int j = t; j < u; j += n) comb2[j] = v;
+      for (int p = t; p < planes; p += n) conf2[p] = 0;
+      r = rows;
     }
+    if (t == 0) pool[d[dSlots2] + item] = r;
   }
-
-  bool fail = false;
-  bool active = false;
-  int mc = -1;
-  int unconf = 0;  // kRecord: the row's unconfirmed real neighbors (lane 0)
-  const int me = r >= 0 ? src[row0 + r] : 0;
-  if constexpr (kRecord) {
-    if (r >= 0 && is_active(me)) {  // uniform over the warp
-      int cnt = 0;
-      for (int j = lane; j < width; j += 32) {
-        const int nbr = row[j] & kNbrMask;
-        if (nbr < v && !is_confirmed(src[nbr])) ++cnt;
-      }
-      unconf = static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, cnt));
+  if (r >= rows) {  // a dummy slot: confirmed color 0, no write
+    if (it.comb_out != nullptr) {
+      for (int j = t; j < u; j += n) it.comb_out[j] = v;
+      for (int p = t; p < planes; p += n) it.conf_out[p] = 0u;
     }
+    return Item{};
   }
-  // a confirmed row changes nothing and counts nothing; a rebase slot is
-  // evaluated all the same, for its capture
-  if (r >= 0 && (is_active(me) || comb_out != nullptr)) {
-    const RowResult res =
-        warp_row_rule<PB>(src, row, width, planes, k, me, seed, conf_out);
-    if (lane == 0) dst[row0 + r] = res.next;
-    const long long window = 32LL * planes;
-    fail = res.fail && (window >= w + 1LL || k <= window);
-    active = res.active;
-    mc = res.mc;
-    if (comb_out != nullptr) {
-      // the unconfirmed real neighbors, in column order, into the first
-      // u slots of the capture; the rest the pad sentinel v
-      int cnt = 0;
-      for (int j0 = 0; j0 < w; j0 += 32) {
-        const int j = j0 + lane;
-        bool un = false;
-        int e = 0;
-        if (j < w) {
-          e = row[j];
-          const int nbr = e & kNbrMask;
-          if (nbr < v) {
-            const int word = src[nbr];
-            un = !(word >= 0 && (word & 1) == 0);
-          }
-        }
-        const unsigned bal = __ballot_sync(0xFFFFFFFFu, un);
-        if (un) {
-          const int pos = cnt + __popc(bal & ((1u << lane) - 1u));
-          if (pos < u) comb_out[pos] = e;
-        }
-        cnt += __popc(bal);
-      }
-      for (int j = min(cnt, u) + lane; j < u; j += 32) comb_out[j] = v;
-      if (lane == 0 && cnt > u) live[kLiveTierNext * nb + bi] = 0;
-    }
+  it.r = r;
+  if (it.row == nullptr) {
+    it.row = table + d[dCb] + static_cast<size_t>(r) * w;
+    it.len = lens[d[dLen0] + r];
   }
+  return it;
+}
 
-  __shared__ int s_fail[kWarps];
-  __shared__ int s_active[kWarps];
-  __shared__ int s_mc[kWarps];
-  __shared__ int s_unconf[kWarps];
+// The block's counters into the control block and the bucket's staged
+// live count; each warp's lane 0 holds its warp's (or the defaults).
+template <bool kRecord>
+__device__ void fold_counts(int* ctrl, int* live, int nb, int bi, int* umax,
+                            bool fail, bool active, int mc, int unconf) {
+  __shared__ int s_fail[kK8Warps];
+  __shared__ int s_active[kK8Warps];
+  __shared__ int s_mc[kK8Warps];
+  __shared__ int s_unconf[kK8Warps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   if (lane == 0) {
     s_fail[warp] = fail;
     s_active[warp] = active;
@@ -366,7 +336,7 @@ hub_superstep_kernel(int* ctrl, int* state, size_t stride,
     int nactive = 0;
     int bmax = -1;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
+    for (int i = 0; i < kK8Warps; ++i) {
       nfail += s_fail[i];
       nactive += s_active[i];
       bmax = max(bmax, s_mc[i]);
@@ -380,60 +350,328 @@ hub_superstep_kernel(int* ctrl, int* state, size_t stride,
     if constexpr (kRecord) {
       int bun = 0;
 #pragma unroll
-      for (int i = 0; i < kWarps; ++i) bun = max(bun, s_unconf[i]);
+      for (int i = 0; i < kK8Warps; ++i) bun = max(bun, s_unconf[i]);
       if (bun > 0) atomicMax(umax + bi, bun);
     }
   }
 }
 
-template <int PB, bool kRecord>
-void launch_hub(dim3 grid, cudaStream_t stream, int* ctrl, int* state,
-                int stride, const int* table, const long long* desc,
-                int* live, int nb, int* pool, int k, int thresh,
-                int max_steps, int* umax) {
-  hub_superstep_kernel<PB, kRecord><<<grid, kThreads, 0, stream>>>(
-      ctrl, state, static_cast<size_t>(stride), table, desc, live, nb, pool,
-      stride - 2, k, thresh, max_steps, umax);
+// A warp an item: kK8Warps items of the bucket from `first`.
+template <bool kRecord>
+__device__ void warp_items(int* ctrl, const int* __restrict__ src,
+                           int* __restrict__ dst, const long long* d, int bi,
+                           int branch, int first, int items, int* live,
+                           int nb, int* pool, const int* __restrict__ table,
+                           const int* __restrict__ lens, int v, int k,
+                           int* umax) {
+  __shared__ uint32_t s_rows[kK8Warps][2 * kPassShared];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int item = first + warp;
+  const Item it = item < items
+                      ? hub_item(d, branch, item, lane, 32, pool, table,
+                                 lens, v)
+                      : Item{};
+  const int row0 = static_cast<int>(d[dRow0]);
+  const int w = static_cast<int>(d[dWidth]);
+  const int planes = static_cast<int>(d[dPlanes]);
+  const int u = static_cast<int>(d[dU]);
+  bool fail = false;
+  bool active = false;
+  int mc = -1;
+  int unconf = 0;  // kRecord: the row's unconfirmed real neighbors
+  const int me = it.r >= 0 ? src[row0 + it.r] : 0;
+  // a confirmed row changes nothing and counts nothing; a rebase slot is
+  // evaluated all the same, for its capture (uniform over the warp)
+  if (it.r >= 0 && (is_active(me) || it.comb_out != nullptr)) {
+    uint32_t* s_fa = s_rows[warp];
+    uint32_t* s_fo = s_fa + kPassShared;
+    const bool count = kRecord && is_active(me);
+    const int mycol = me >> 1;
+    bool clash = false;
+    bool found = false;
+    int cand = k;
+    bool old_free = false;
+    int cnt = 0;
+    for (int base = 0; base < planes; base += kPassPlanes) {
+      const int gp = min(kPassPlanes, planes - base);
+      if (lane < kPassShared) {
+        s_fa[lane] = 0u;
+        s_fo[lane] = 0u;
+      }
+      __syncwarp();
+      PlaneRegs pl;
+      walk_row(src, it.row, it.len, lane, 32, v, [&](int e, int word) {
+        add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
+        if (count && base == 0 && (e & kNbrMask) < v && !is_confirmed(word)) {
+          ++cnt;
+        }
+      });
+      pl.or_warp();
+      __syncwarp();
+      // every lane folds the same planes
+      for (int p = 0; p < gp; ++p) {
+        const bool reg = p < kRegPlanes;
+        uint32_t fa = reg ? pl.fa(p) : s_fa[p - kRegPlanes];
+        uint32_t fo = reg ? pl.fo(p) : s_fo[p - kRegPlanes];
+        const int pg = base + p;
+        if (it.conf_out != nullptr && lane == 0) it.conf_out[pg] = fo;
+        if (it.seed != nullptr) {
+          fa |= it.seed[pg];
+          fo |= it.seed[pg];
+        }
+        fold_plane(fa, fo, pg, k, found, cand, old_free);
+      }
+      __syncwarp();
+    }
+    clash = __any_sync(0xFFFFFFFFu, clash);
+    const RowResult res = finish_rule(me, clash, found, cand, old_free);
+    if (lane == 0) dst[row0 + it.r] = res.next;
+    const long long window = 32LL * planes;
+    fail = res.fail && (window >= w + 1LL || k <= window);
+    active = res.active;
+    mc = res.mc;
+    if constexpr (kRecord) {
+      unconf = static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, cnt));
+    }
+    if (it.comb_out != nullptr) {
+      // the unconfirmed real neighbors, in column order, into the first
+      // u slots of the capture; the rest the pad sentinel v
+      int nun = 0;
+      for (int j0 = 0; j0 < it.len; j0 += 32) {
+        const int j = j0 + lane;
+        bool un = false;
+        int e = 0;
+        if (j < it.len) {
+          e = it.row[j];
+          const int nbr = e & kNbrMask;
+          if (nbr < v) un = !is_confirmed(src[nbr]);
+        }
+        const unsigned bal = __ballot_sync(0xFFFFFFFFu, un);
+        if (un) {
+          const int pos = nun + __popc(bal & ((1u << lane) - 1u));
+          if (pos < u) it.comb_out[pos] = e;
+        }
+        nun += __popc(bal);
+      }
+      for (int j = min(nun, u) + lane; j < u; j += 32) it.comb_out[j] = v;
+      if (lane == 0 && nun > u) live[kLiveTierNext * nb + bi] = 0;
+    }
+  }
+  fold_counts<kRecord>(ctrl, live, nb, bi, umax, fail, active, mc, unconf);
 }
 
-// K8 at the plane count that holds max_planes
+// The rebase capture of a row by one block: tiles of a quad a thread in
+// column order, each thread's place from a block-wide prefix of the
+// threads' counts. Returns the row's unconfirmed real neighbors.
+__device__ int block_capture(const int* __restrict__ src, const int* row,
+                             int len, int u, int v, int* comb_out) {
+  __shared__ int s_warp[kK8Warps];
+  __shared__ int s_base;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_base = 0;
+  __syncthreads();
+  for (int j0 = 0; j0 < len; j0 += 4 * kK8Threads) {
+    const int j = j0 + 4 * tid;
+    int e[4];
+    bool un[4];
+    int c = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      e[q] = 0;
+      un[q] = false;
+      if (j + q < len) {
+        e[q] = row[j + q];
+        const int nbr = e[q] & kNbrMask;
+        if (nbr < v) un[q] = !is_confirmed(src[nbr]);
+      }
+      c += un[q] ? 1 : 0;
+    }
+    int x = c;  // inclusive over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) s_warp[warp] = x;
+    __syncthreads();
+    int pos = s_base + x - c;
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kK8Warps; ++i) {
+      if (i < warp) pos += s_warp[i];
+      total += s_warp[i];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (un[q]) {
+        if (pos < u) comb_out[pos] = e[q];
+        ++pos;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) s_base += total;
+    __syncthreads();
+  }
+  const int nun = s_base;
+  for (int j = min(nun, u) + tid; j < u; j += kK8Threads) comb_out[j] = v;
+  return nun;
+}
+
+// A block an item. Its warps OR their register planes into the block's
+// shared words beside the others, which then fold the row; thread 0 writes
+// it and counts it. The ORs and the count's adds are order-free, so a
+// replay gives the same bytes.
 template <bool kRecord>
-int dispatch_hub(void* ctrl, void* state, int stride, const void* table,
-                 const void* desc, int nh, void* live, int nb, void* pool,
-                 int max_rows, int max_planes, int k, int thresh,
-                 int max_steps, int* umax, void* stream) {
-  if (nh <= 0 || nh > 65535 || nb < nh || max_rows <= 0 || max_planes <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+__device__ void block_item(int* ctrl, const int* __restrict__ src,
+                           int* __restrict__ dst, const long long* d, int bi,
+                           int branch, int item, int* live, int nb,
+                           int* pool, const int* __restrict__ table,
+                           const int* __restrict__ lens, int v, int k,
+                           int* umax) {
+  __shared__ uint32_t s_fa[kPassShared];
+  __shared__ uint32_t s_fo[kPassShared];
+  // the pass's register planes: fa of planes 0 and 1, then their fo
+  __shared__ uint32_t s_lo[2 * kRegPlanes];
+  __shared__ int s_clash;
+  __shared__ int s_cnt;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const Item it =
+      hub_item(d, branch, item, tid, kK8Threads, pool, table, lens, v);
+  const int row0 = static_cast<int>(d[dRow0]);
+  const int me = it.r >= 0 ? src[row0 + it.r] : 0;
+  // uniform over the block
+  if (!(it.r >= 0 && (is_active(me) || it.comb_out != nullptr))) return;
+  const int w = static_cast<int>(d[dWidth]);
+  const int planes = static_cast<int>(d[dPlanes]);
+  const bool count = kRecord && is_active(me);
+  const int mycol = me >> 1;
+  bool clash_all = false;
+  bool found = false;
+  int cand = k;
+  bool old_free = false;
+  int cnt_all = 0;
+  for (int base = 0; base < planes; base += kPassPlanes) {
+    const int gp = min(kPassPlanes, planes - base);
+    if (tid < kPassShared) {
+      s_fa[tid] = 0u;
+      s_fo[tid] = 0u;
+    }
+    if (tid < 2 * kRegPlanes) s_lo[tid] = 0u;
+    if (tid == 0) {
+      s_clash = 0;
+      s_cnt = 0;
+    }
+    __syncthreads();
+    PlaneRegs pl;
+    bool clash = false;
+    int cnt = 0;
+    walk_row(src, it.row, it.len, tid, kK8Threads, v, [&](int e, int word) {
+      add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
+      if (count && base == 0 && (e & kNbrMask) < v && !is_confirmed(word)) {
+        ++cnt;
+      }
+    });
+    pl.or_warp();
+    clash = __any_sync(0xFFFFFFFFu, clash);
+    cnt = static_cast<int>(__reduce_add_sync(0xFFFFFFFFu, cnt));
+    if (lane == 0) {
+      for (int p = 0; p < kRegPlanes; ++p) {
+        if (pl.fa(p) != 0u) atomicOr(s_lo + p, pl.fa(p));
+        if (pl.fo(p) != 0u) atomicOr(s_lo + kRegPlanes + p, pl.fo(p));
+      }
+      if (clash) atomicOr(&s_clash, 1);
+      if (cnt != 0) atomicAdd(&s_cnt, cnt);
+    }
+    __syncthreads();
+    for (int p = 0; p < gp; ++p) {  // every thread folds the same planes
+      const bool reg = p < kRegPlanes;
+      uint32_t fa = reg ? s_lo[p] : s_fa[p - kRegPlanes];
+      uint32_t fo = reg ? s_lo[kRegPlanes + p] : s_fo[p - kRegPlanes];
+      const int pg = base + p;
+      if (it.conf_out != nullptr && tid == 0) it.conf_out[pg] = fo;
+      if (it.seed != nullptr) {
+        fa |= it.seed[pg];
+        fo |= it.seed[pg];
+      }
+      fold_plane(fa, fo, pg, k, found, cand, old_free);
+    }
+    clash_all = clash_all || s_clash != 0;
+    cnt_all += s_cnt;
+    __syncthreads();  // read before the next pass clears them
   }
-  const dim3 grid(static_cast<unsigned>((max_rows + kWarps - 1) / kWarps),
-                  static_cast<unsigned>(nh));
-  auto* c = static_cast<int*>(ctrl);
-  auto* s = static_cast<int*>(state);
-  const auto* t = static_cast<const int*>(table);
-  const auto* dd = static_cast<const long long*>(desc);
-  auto* l = static_cast<int*>(live);
-  auto* p = static_cast<int*>(pool);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (max_planes <= 1) {
-    launch_hub<1, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                           max_steps, umax);
-  } else if (max_planes <= 2) {
-    launch_hub<2, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                           max_steps, umax);
-  } else if (max_planes <= 4) {
-    launch_hub<4, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                           max_steps, umax);
-  } else if (max_planes <= 8) {
-    launch_hub<8, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k, thresh,
-                           max_steps, umax);
-  } else if (max_planes <= 16) {
-    launch_hub<16, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k,
-                            thresh, max_steps, umax);
+  const RowResult res = finish_rule(me, clash_all, found, cand, old_free);
+  bool fail = false;
+  bool active = false;
+  int mc = -1;
+  int unconf = 0;
+  if (tid == 0) {
+    dst[row0 + it.r] = res.next;
+    const long long window = 32LL * planes;
+    fail = res.fail && (window >= w + 1LL || k <= window);
+    active = res.active;
+    mc = res.mc;
+    if constexpr (kRecord) unconf = cnt_all;
+  }
+  if (it.comb_out != nullptr) {
+    const int nun = block_capture(src, it.row, it.len,
+                                  static_cast<int>(d[dU]), v, it.comb_out);
+    if (tid == 0 && nun > static_cast<int>(d[dU])) {
+      live[kLiveTierNext * nb + bi] = 0;
+    }
+  }
+  fold_counts<kRecord>(ctrl, live, nb, bi, umax, fail, active, mc, unconf);
+}
+
+// The bucket of this block: the last whose first block is at or before it.
+__device__ __forceinline__ int block_bucket(const long long* desc, int nh) {
+  int lo = 0;
+  int hi = nh - 1;
+  const long long b = blockIdx.x;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (desc[static_cast<size_t>(mid) * kDescCols + dBlock0] <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+template <bool kRecord>
+__global__ void __launch_bounds__(kK8Threads)
+hub_superstep_kernel(int* ctrl, int* state, size_t stride,
+                     const int* __restrict__ table,
+                     const long long* __restrict__ desc, int nh, int* live,
+                     int nb, int* pool, const int* __restrict__ lens, int v,
+                     int k, int thresh, int max_steps, int* umax) {
+  if (!stage_live(ctrl, thresh, max_steps)) return;
+  const int bi = block_bucket(desc, nh);
+  const int branch = live[kLiveBranch * nb + bi];
+  if (branch == kSkip) return;  // uniform over the block
+  const long long* d = desc + static_cast<size_t>(bi) * kDescCols;
+  const int rows = static_cast<int>(d[dRows]);
+  const int pad = static_cast<int>(d[dPad]);
+  const int p2 = static_cast<int>(d[dP2]);
+  const int items = branch == kFull ? rows
+                    : (branch == kShrink || branch == kPruned2) ? p2 : pad;
+  const int rel = static_cast<int>(blockIdx.x - d[dBlock0]);
+  const int cur = ctrl[kCur];
+  const int* __restrict__ src = state + cur * stride;
+  int* __restrict__ dst = state + (1 - cur) * stride;
+  if (d[dMode] == kWarpItems) {
+    if (rel * kK8Warps >= items) return;  // uniform
+    warp_items<kRecord>(ctrl, src, dst, d, bi, branch, rel * kK8Warps, items,
+                        live, nb, pool, table, lens, v, k, umax);
   } else {
-    launch_hub<32, kRecord>(grid, st, c, s, stride, t, dd, l, nb, p, k,
-                            thresh, max_steps, umax);
+    if (rel >= items) return;  // uniform
+    block_item<kRecord>(ctrl, src, dst, d, bi, branch, rel, live, nb, pool,
+                        table, lens, v, k, umax);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -442,7 +680,7 @@ extern "C" {
 
 // Every entry point returns the launch's cudaError_t (0 = launched).
 
-// state: int32[2, stride]; desc: int64[nh, 17]; live: int32[5, nb];
+// state: int32[2, stride]; desc: int64[nh, 20]; live: int32[5, nb];
 // pool: the plan's int32 pool.
 int dgc_hub_slots(const void* ctrl, void* state, int stride, const void* desc,
                   int nh, void* live, int nb, void* pool, int thresh,
@@ -458,21 +696,37 @@ int dgc_hub_slots(const void* ctrl, void* state, int stride, const void* desc,
 }
 
 // table: the hub buckets' tables (int32, at each descriptor's offset);
-// max_rows: the most rows of a bucket; max_planes: the widest window;
-// umax: int32[>= nh], the unconf vector of the recording variant (kRecord),
-// or null for the plain K8.
+// desc: int64[nh, 20]; lens: int32, each hub row's real length at its
+// bucket's dLen0; blocks: K8's grid, the last bucket's dBlock0 plus its
+// blocks; umax: int32[>= nh], the unconf vector of the recording variant
+// (kRecord), or null for the plain K8.
 int dgc_hub_superstep(void* ctrl, void* state, int stride, const void* table,
                       const void* desc, int nh, void* live, int nb,
-                      void* pool, int max_rows, int max_planes, int k,
+                      void* pool, const void* lens, int blocks, int k,
                       int thresh, int max_steps, void* umax, void* stream) {
-  if (umax == nullptr) {
-    return dispatch_hub<false>(ctrl, state, stride, table, desc, nh, live, nb,
-                               pool, max_rows, max_planes, k, thresh,
-                               max_steps, nullptr, stream);
+  if (nh <= 0 || nb < nh || blocks <= 0 || lens == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch_hub<true>(ctrl, state, stride, table, desc, nh, live, nb,
-                            pool, max_rows, max_planes, k, thresh, max_steps,
-                            static_cast<int*>(umax), stream);
+  auto* c = static_cast<int*>(ctrl);
+  auto* s = static_cast<int*>(state);
+  const auto* t = static_cast<const int*>(table);
+  const auto* dd = static_cast<const long long*>(desc);
+  auto* l = static_cast<int*>(live);
+  auto* p = static_cast<int*>(pool);
+  const auto* ln = static_cast<const int*>(lens);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto words = static_cast<size_t>(stride);
+  const auto grid = static_cast<unsigned>(blocks);
+  if (umax == nullptr) {
+    hub_superstep_kernel<false><<<grid, kK8Threads, 0, st>>>(
+        c, s, words, t, dd, nh, l, nb, p, ln, stride - 2, k, thresh,
+        max_steps, nullptr);
+  } else {
+    hub_superstep_kernel<true><<<grid, kK8Threads, 0, st>>>(
+        c, s, words, t, dd, nh, l, nb, p, ln, stride - 2, k, thresh,
+        max_steps, static_cast<int*>(umax));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 // What the superstep kernels share: the speculative rule for one row, on
-// one thread (row_rule: K1 in superstep.cu, K5 in compact.cu, K13 in
-// serve.cu, K20 in shard.cu) or on a whole warp with seeded planes (warp_row_rule: K8 in
-// hub.cu); the loop-control fold of one superstep (finish_step: K2 and
-// K6); the stage predicate (stage_live: K5-K8); and the hub region's live
-// table (K6-K8).
+// one thread (row_rule: K1 in superstep.cu, K13 in serve.cu, K20 in
+// shard.cu) or on a team of threads (add_word, fold_plane and walk_row:
+// K5 in compact.cu, K8 in hub.cu); the loop-control fold of one
+// superstep (finish_step: K2 and K6); the stage predicate (stage_live:
+// K5-K8); and the hub region's live table (K6-K8).
 //
 // The rule is the port of dgc_tpu/ops/speculative.py:40 neighbor_stats and
 // :67 apply_update_mc over dgc_tpu/ops/bitmask.py:28 plane_masks, :37
@@ -191,56 +191,138 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
   return finish_rule(me, clash, found, cand, old_free);
 }
 
-// The same rule on a whole warp, for the hub region's wide rows: lane l
-// reads entries l, l+32, ...; the planes are OR-reduced over the warp and
-// the clash any-reduced, so every lane returns the same result. `seed`
-// (or null) holds `planes` planes OR'd into both forbidden sets after the
-// reduction: the pruned branches' captured confirmed colors
-// (dgc_tpu/engine/compact.py:595-596). `fo_out` (or null) receives, from
-// lane 0, the row's confirmed-neighbor planes before the seed: the rebase
-// capture's `conf` (compact.py:663). All 32 lanes must call it together.
-template <int PB>
-__device__ __forceinline__ RowResult warp_row_rule(
-    const int* __restrict__ src, const int* __restrict__ row, int width,
-    int planes, int k, int me, const uint32_t* __restrict__ seed,
-    uint32_t* __restrict__ fo_out) {
-  const int lane = threadIdx.x & 31;
-  const int mycol = me >> 1;
-  bool clash = false;
-  bool found = false;
-  int cand = k;
-  bool old_free = false;
-  const int groups = (planes + PB - 1) / PB;
-  for (int g = 0; g < groups; ++g) {
-    const int base = g * PB;
-    uint32_t fa[PB];
-    uint32_t fo[PB];
-#pragma unroll
-    for (int p = 0; p < PB; ++p) {
-      fa[p] = 0u;
-      fo[p] = 0u;
+// ---- the team walk of K5 and K8 ----------------------------------------
+//
+// K5 (a group of lanes a row) and K8 (a warp, a block or a cluster of
+// blocks a row) read a row with a team of threads and keep the row's
+// planes two ways: the first two planes of a pass (where the first fit
+// picks mostly fall) in registers, OR-reduced over the team, and the rest
+// of the pass in shared words that the team ORs into with atomicOr. A
+// per-entry branch ladder over a register array of every plane costs ~3
+// instructions a plane an entry; this costs a handful. (Four planes in two
+// 64-bit registers were slower on the card: the shifts and the team's
+// shuffles cost more than the shared atomics they saved.)
+
+constexpr int kRegPlanes = 2;  // planes of a pass held in registers
+
+// Planes base and base + 1 of a pass, in registers.
+struct PlaneRegs {
+  uint32_t fa0 = 0u;
+  uint32_t fa1 = 0u;
+  uint32_t fo0 = 0u;
+  uint32_t fo1 = 0u;
+
+  // plane p (< kRegPlanes) of the pass: every colored neighbor's bits
+  // (fa), the confirmed ones' (fo)
+  __device__ __forceinline__ uint32_t fa(int p) const {
+    return p == 0 ? fa0 : fa1;
+  }
+  __device__ __forceinline__ uint32_t fo(int p) const {
+    return p == 0 ? fo0 : fo1;
+  }
+  // OR over the lanes o, o/2, ..., 1 apart (a group of 2o lanes)
+  __device__ __forceinline__ void or_xor(int o) {
+    for (; o > 0; o >>= 1) {
+      fa0 |= __shfl_xor_sync(0xFFFFFFFFu, fa0, o);
+      fa1 |= __shfl_xor_sync(0xFFFFFFFFu, fa1, o);
+      fo0 |= __shfl_xor_sync(0xFFFFFFFFu, fo0, o);
+      fo1 |= __shfl_xor_sync(0xFFFFFFFFu, fo1, o);
     }
-#pragma unroll 4
-    for (int j = lane; j < width; j += 32) {
-      add_neighbor<PB>(src, row[j], base, mycol, fa, fo, clash);
-    }
+  }
+  // OR over the whole warp
+  __device__ __forceinline__ void or_warp() {
+    fa0 = __reduce_or_sync(0xFFFFFFFFu, fa0);
+    fa1 = __reduce_or_sync(0xFFFFFFFFu, fa1);
+    fo0 = __reduce_or_sync(0xFFFFFFFFu, fo0);
+    fo1 = __reduce_or_sync(0xFFFFFFFFu, fo1);
+  }
+};
+
+// One gathered neighbor word `word` of entry `e` into the pass's `gp`
+// planes from `base`: its color's bit into the registers or into the
+// shared words s_fa/s_fo (plane base + kRegPlanes + i at index i), and
+// into fo when confirmed; a fresh neighbor of my color that beats me is a
+// clash (read in the pass from plane 0 only). A color past the pass adds
+// nothing, as add_neighbor.
+__device__ __forceinline__ void add_word(int e, int word, int base, int gp,
+                                         int mycol, PlaneRegs& pl,
+                                         uint32_t* s_fa, uint32_t* s_fo,
+                                         bool& clash) {
+  if (word < 0) return;  // uncolored neighbor or pad sentinel
+  const int c = word >> 1;
+  const bool fresh = (word & 1) != 0;
+  if (base == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) clash = true;
+  const int w = (c >> 5) - base;
+  if (w < 0 || w >= gp) return;
+  const uint32_t bit = 1u << (c & 31);
+  if (w == 0) {
+    pl.fa0 |= bit;
+    if (!fresh) pl.fo0 |= bit;
+  } else if (w == 1) {
+    pl.fa1 |= bit;
+    if (!fresh) pl.fo1 |= bit;
+  } else {
+    atomicOr(s_fa + (w - kRegPlanes), bit);
+    if (!fresh) atomicOr(s_fo + (w - kRegPlanes), bit);
+  }
+}
+
+// Plane pg (< the window) of a row into its first fit, as fold_planes.
+__device__ __forceinline__ void fold_plane(uint32_t fa, uint32_t fo, int pg,
+                                           int k, bool& found, int& cand,
+                                           bool& old_free) {
+  const uint32_t m = plane_mask(k, pg);
+  const uint32_t free_all = ~fa & m;
+  if (!found && free_all != 0u) {
+    found = true;
+    cand = 32 * pg + __ffs(free_all) - 1;
+  }
+  if ((~fo & m) != 0u) old_free = true;
+}
+
+// The entries [0, len) of `row` that fall to thread t of a team of n: the
+// quads (four consecutive entries) t, t + n, t + 2n, ..., two quads, so
+// eight independent gathers, in flight at a time; a quad is one 16-byte
+// load where the row is 16-byte aligned. An entry whose neighbor id is the
+// pad sentinel `pad` is not gathered: its word is the state's slot `pad`,
+// which holds −1 in every buffer K5 and K8 run on (kernels/compact.py
+// extend_packed, kernels/shard.py new_shard_state), and reads so here.
+// visit(e, word) for each entry of the thread's quads (the pad sentinel
+// and −1 past len). The row and `src` must not change during the launch.
+template <class Visit>
+__device__ __forceinline__ void walk_row(const int* __restrict__ src,
+                                         const int* __restrict__ row, int len,
+                                         int t, int n, int pad, Visit visit) {
+  const bool vec = (reinterpret_cast<uintptr_t>(row) & 15u) == 0u;
+  const int nq = (len + 3) >> 2;
+  for (int q0 = t; q0 < nq; q0 += 2 * n) {
+    int e[8];
 #pragma unroll
-    for (int p = 0; p < PB; ++p) {
-      fa[p] = __reduce_or_sync(0xFFFFFFFFu, fa[p]);
-      fo[p] = __reduce_or_sync(0xFFFFFFFFu, fo[p]);
-      const int pg = base + p;
-      if (pg < planes) {
-        if (fo_out != nullptr && lane == 0) fo_out[pg] = fo[p];
-        if (seed != nullptr) {
-          fa[p] |= seed[pg];
-          fo[p] |= seed[pg];
+    for (int h = 0; h < 2; ++h) {
+      const int q = q0 + h * n;
+      const int j = 4 * q;
+      if (vec && j + 4 <= len) {
+        const int4 v4 = __ldg(reinterpret_cast<const int4*>(row) + q);
+        e[4 * h] = v4.x;
+        e[4 * h + 1] = v4.y;
+        e[4 * h + 2] = v4.z;
+        e[4 * h + 3] = v4.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          e[4 * h + u] = q < nq && j + u < len ? __ldg(row + j + u) : pad;
         }
       }
     }
-    fold_planes<PB>(fa, fo, base, planes, k, found, cand, old_free);
+    int w[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int nbr = e[u] & kNbrMask;
+      w[u] = nbr != pad ? __ldg(src + nbr) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) visit(e[u], w[u]);
   }
-  clash = __any_sync(0xFFFFFFFFu, clash);
-  return finish_rule(me, clash, found, cand, old_free);
 }
 
 // Fold this superstep's counters into the loop carry, on one thread, for

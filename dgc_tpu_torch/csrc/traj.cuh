@@ -42,18 +42,4 @@ __device__ __forceinline__ bool is_confirmed(int word) {
   return word >= 0 && (word & 1) == 0;
 }
 
-// The unconfirmed real neighbors (id < v; v is the pad sentinel) among the
-// `width` entries at `row` of a combined table, read from `src`, on one
-// thread (dgc_tpu/engine/compact.py:257 _unconf_max's per-row count).
-__device__ __forceinline__ int row_unconf(const int* __restrict__ src,
-                                          const int* __restrict__ row,
-                                          int width, int v) {
-  int cnt = 0;
-  for (int j = 0; j < width; ++j) {
-    const int nbr = row[j] & kNbrMask;
-    if (nbr < v && !is_confirmed(src[nbr])) ++cnt;
-  }
-  return cnt;
-}
-
 }  // namespace dgc

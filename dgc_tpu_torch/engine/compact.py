@@ -477,7 +477,8 @@ class CompactFrontierEngine(BucketedELLEngine):
             self._hub_plan = kh.hub_plan(
                 self.row0[:hub], [cb.shape[0] for cb in cbs[:hub]],
                 [cb.shape[1] for cb in cbs[:hub]], self.planes[:hub],
-                self.hub_prune, self.hub_uncond, self.device)
+                self.hub_prune, self.hub_uncond, self.device,
+                table=self.seg_flat, v=self.num_vertices)
             self._hub_pool = kh.new_pool(self._hub_plan, self.device)
 
     def _maybe_widen_windows(self) -> bool:

@@ -296,7 +296,8 @@ class ShardedBucketedEngine(ShardEngine):
                     [self.row0s[bi] for bi in c], [shapes[bi][0] for bi in c],
                     [shapes[bi][1] for bi in c], [self.planes[bi] for bi in c],
                     [self.prune_cfg[bi] for bi in c], [False] * len(c), dev,
-                    pads=[self.pads[bi] for bi in c])
+                    pads=[self.pads[bi] for bi in c], table=self.hub_table,
+                    v=self.state.shape[1] - 2)
                 pool = kh.new_pool(hub, dev)
             self._plan_of = (self.planes, (seg, hub, pool))
         return self._plan_of[1]

@@ -11,6 +11,9 @@ plain PyTorch versions, and the control-block and ring layout they share.
 - ``segmented_superstep`` (K5): one superstep over a whole plan
   (``ops.segmented_gather``), rows from a slot list or from ``row_base``
   on; adds the fail count, active count and ``mc`` to the control block.
+  On the card a row takes a group of ``k5_lanes`` lanes (at
+  ``K5_LANE_ENTRIES`` entries a lane), each segment whole warps
+  (``k5_warps``).
 - ``stage_finish`` (K6): the superstep epilogue: the prefix-resume ring
   push (the pre-step state, live counts and meta), stall, status, the
   commit of the hub region's staged live counts and prune tiers, and the
@@ -49,6 +52,7 @@ launches and nowhere else.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -60,8 +64,8 @@ from dgc_tpu_torch.kernels.superstep import (  # the first eight slots
 from dgc_tpu_torch.layout import TRAJ_COLS
 from dgc_tpu_torch.obs.devclock import kernel_clock_us
 from dgc_tpu_torch.obs.kernel import trajstep
-from dgc_tpu_torch.ops.segmented_gather import (plan_max_planes, plan_rows,
-                                                plan_size, plan_unconf_max,
+from dgc_tpu_torch.ops.segmented_gather import (plan_rows, plan_size,
+                                                plan_unconf_max,
                                                 segmented_update)
 
 # the control block is kernels.superstep's eight slots (kStatus ... kMc)
@@ -78,6 +82,9 @@ MAX_SEGS = 64   # segments a plan may have on the card (kMaxSegs)
 _RUNNING = int(AttemptStatus.RUNNING)
 
 SOURCE = "compact.cu"
+# K5's lanes a row: the fewest (a power of two, at most 32) that hold the
+# row at this many entries each (kLaneEntries in csrc/compact.cu)
+K5_LANE_ENTRIES = 32
 
 launch_counts = {"compact_slots": 0, "stage_rows": 0,
                  "segmented_superstep": 0, "stage_finish": 0}
@@ -149,6 +156,22 @@ def stage_live(c, thresh: int, max_steps: int) -> bool:
     list)? The while conds of ``dgc_tpu.engine.compact._staged_pipeline``."""
     return (c[CTRL_STATUS] == _RUNNING and c[CTRL_PREV_ACTIVE] > thresh
             and c[CTRL_STEP] < max_steps)
+
+
+def k5_lanes(width: int) -> int:
+    """K5's lanes for a row of ``width`` entries (seg_lanes in
+    csrc/compact.cu)."""
+    lanes = 1
+    while lanes < 32 and lanes * K5_LANE_ENTRIES < width:
+        lanes *= 2
+    return lanes
+
+
+@lru_cache(maxsize=256)
+def k5_warps(plan: tuple) -> int:
+    """K5's warps over ``plan``: each segment's rows at ``32 / lanes`` a
+    warp, rounded up to whole warps (seg_warps in csrc/compact.cu)."""
+    return sum(-(-s.rows * k5_lanes(s.width) // 32) for s in plan)
 
 
 def plan_desc(plan: tuple, device) -> torch.Tensor:
@@ -278,9 +301,8 @@ def _library():
         lib.dgc_stage_rows.argtypes = [vp, ci, ci, vp, ci, vp, ci, cll, ci, ci,
                                        vp, vp, vp]
         lib.dgc_stage_rows.restype = ci
-        lib.dgc_segmented_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, ci,
-                                                vp, ci, ci, ci, ci, ci, vp, ci,
-                                                vp]
+        lib.dgc_segmented_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp,
+                                                ci, ci, ci, ci, ci, vp, ci, vp]
         lib.dgc_segmented_superstep.restype = ci
         lib.dgc_stage_finish.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
                                          ci, ci, ci, ci, vp, ci, ci, vp, vp,
@@ -444,8 +466,7 @@ def segmented_superstep(ctrl: torch.Tensor, state: torch.Tensor,
                     else ("segmented_superstep_rec", rec_launch_counts))
     _raise_on(_library().dgc_segmented_superstep(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
-        seg.data_ptr(), desc.data_ptr(), len(plan), int(rows),
-        int(plan_max_planes(plan)),
+        seg.data_ptr(), desc.data_ptr(), len(plan), k5_warps(plan),
         None if gidx is None else gidx.data_ptr(), int(row_base), v + 1,
         _clamp_k(k), int(thresh), int(min(max_steps, INT32_MAX)),
         None if umax is None else umax.data_ptr(), int(ucol),

@@ -28,6 +28,14 @@ holds the slot lists and the prune captures (tier 1: ``[P]`` slots,
 ``[P, U]`` neighbor lists, ``[P, planes]`` confirmed planes; tier 2 the
 same at ``P2``), each rebuilt when the windows widen.
 
+K8 deals each bucket's items to a warp or to a block by the bucket's width
+(``K8_BLOCK_WIDTH``: the plan lays the buckets' blocks out, ``k8_layout``)
+and walks only each table row's real entries, up to the length the plan
+takes once from the table (``hub_row_lengths``; K8 on the card needs a plan
+made with the table, the plain version none). Past that length a row holds
+the pad sentinel alone, which adds no color, capture or count, so the walk
+gives the padded width's bytes.
+
 For tensors on the CPU each wrapper runs its plain version, built on
 ``engine.hub``; for tensors on a card it launches its kernel or raises —
 it never falls back. ``launch_counts`` counts launches per kernel,
@@ -52,10 +60,18 @@ from dgc_tpu_torch.kernels.compact import (CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL,
                                            _check_state, _clamp_k, _raise_on,
                                            compact_idx, stage_live)
 from dgc_tpu_torch.kernels.superstep import INT32_MAX, _check_int32, _stream
+from dgc_tpu_torch.ops.speculative import NBR_MASK
 
 SOURCE = "hub.cu"
 
 KIND_UNCOND, KIND_PAD, KIND_PRUNE = range(3)
+
+# K8's items: a warp each, or a block each from K8_BLOCK_WIDTH entries wide
+# (kWarpItems, kBlockItems in csrc/hub.cu; PERF.md has the widths and the
+# clusters of blocks that were timed)
+K8_WARP_ITEMS, K8_BLOCK_ITEMS = range(2)
+K8_WARPS = 16  # K8's warps a block (kK8Warps)
+K8_BLOCK_WIDTH = 4096
 
 
 class HubBucket(NamedTuple):
@@ -82,6 +98,9 @@ class HubBucket(NamedTuple):
     slots2: int
     comb2: int
     conf2: int
+    len0: int     # K8: the bucket's first row in the plan's lens
+    block0: int   # K8: its first block
+    mode: int     # K8: how its items are dealt (K8_*_ITEMS)
 
     @property
     def uncond(self) -> bool:
@@ -98,16 +117,48 @@ class HubPlan(NamedTuple):
     buckets: tuple      # HubBucket per hub bucket
     desc: torch.Tensor  # int64[nh, len(HubBucket._fields)] on the device
     pool_size: int      # int32 words of the pool
-    max_rows: int       # the most rows of a bucket: K8's grid
-    max_planes: int
+    lens: torch.Tensor | None  # int32[Σ rows]: each row's real length
+    blocks: int         # K8's grid
+
+
+def k8_layout(rows, pads, p2s, widths) -> tuple[list, int]:
+    """K8's grid over buckets of these shapes: each bucket's (first block,
+    mode) and the blocks in all. A bucket holds blocks for its most items
+    on any branch (rows, pad, P2): ``K8_WARPS`` items a block, or one."""
+    out, block = [], 0
+    for r, pad, p2, w in zip(rows, pads, p2s, widths):
+        items = max(r, pad, p2, 1)
+        mode = K8_BLOCK_ITEMS if w >= K8_BLOCK_WIDTH else K8_WARP_ITEMS
+        out.append((block, mode))
+        block += -(-items // K8_WARPS) if mode == K8_WARP_ITEMS else items
+    return out, block
+
+
+def hub_row_lengths(table: torch.Tensor, buckets, v: int) -> torch.Tensor:
+    """int32[Σ rows] of ``buckets``' tables in ``table`` (HubBucket-like:
+    ``cb``, ``rows``, ``width``): each row's real length, one past its last
+    entry whose neighbor id is not the pad sentinel ``v`` (0 for a row of
+    sentinels alone)."""
+    out = [torch.zeros(0, dtype=torch.int32, device=table.device)]
+    for b in buckets:
+        if not b.rows:
+            continue
+        t = table[b.cb: b.cb + b.rows * b.width].view(b.rows, b.width)
+        col = torch.arange(1, b.width + 1, dtype=torch.int32,
+                           device=table.device)
+        out.append(torch.where((t & NBR_MASK) != v, col, 0).amax(dim=1)
+                   .to(torch.int32))
+    return torch.cat(out)
 
 
 def hub_plan(row0s, sizes, widths, planes, hub_prune, hub_uncond,
-             device, pads=None) -> HubPlan:
+             device, pads=None, table=None, v=None) -> HubPlan:
     """The plan of hub buckets ``0 .. len(sizes)-1``: their tables lie
     one after another from offset 0 of the hub table, in bucket order. A
     bucket without a prune config compacts at ``pads[bi]`` when given (the
-    sharded slices' ``shard_pad_for``), else at ``hub_pad_for``."""
+    sharded slices' ``shard_pad_for``), else at ``hub_pad_for``. Given the
+    hub ``table`` and its pad sentinel ``v``, the plan holds each row's
+    real length (``hub_row_lengths``), which K8 on the card needs."""
     out = []
     pool = cb = 0
 
@@ -138,13 +189,20 @@ def hub_plan(row0s, sizes, widths, planes, hub_prune, hub_uncond,
                 regions.update(sel=alloc(p2), slots2=alloc(p2),
                                comb2=alloc(p2 * u), conf2=alloc(p2 * p_b))
         out.append(HubBucket(int(row0), int(vb), int(w), int(p_b), cb, kind,
-                             int(pad), int(u), int(p2), **regions))
+                             int(pad), int(u), int(p2), **regions, len0=0,
+                             block0=0, mode=K8_WARP_ITEMS))
         cb += int(vb) * int(w)
+    lay, blocks = k8_layout([b.rows for b in out], [b.pad for b in out],
+                            [b.p2 for b in out], [b.width for b in out])
+    lens = (None if table is None
+            else hub_row_lengths(table, out, int(v)).to(device))
+    first = 0  # each bucket's first row in lens
+    for bi, (block0, mode) in enumerate(lay):
+        out[bi] = out[bi]._replace(len0=first, block0=block0, mode=mode)
+        first += out[bi].rows
     desc = torch.tensor([list(b) for b in out], dtype=torch.int64,
                         device=device).reshape(len(out), len(HubBucket._fields))
-    return HubPlan(tuple(out), desc, max(pool, 1),
-                   max((b.rows for b in out), default=0),
-                   max((b.planes for b in out), default=1))
+    return HubPlan(tuple(out), desc, max(pool, 1), lens, blocks)
 
 
 def new_pool(plan: HubPlan, device) -> torch.Tensor:
@@ -267,7 +325,7 @@ def _library():
                                       vp]
         lib.dgc_hub_slots.restype = ci
         lib.dgc_hub_superstep.argtypes = [vp, vp, ci, vp, vp, ci, vp, ci, vp,
-                                          ci, ci, ci, ci, ci, vp, vp]
+                                          vp, ci, ci, ci, ci, vp, vp]
         lib.dgc_hub_superstep.restype = ci
         lib._dgc_bound = True
     return lib
@@ -322,6 +380,12 @@ def hub_superstep(ctrl, state, table, live, plan: HubPlan, pool, k: int,
     _check_cuda("hub_superstep", device)
     _check_hub(ctrl, state, live, plan, pool, device)
     _check_int32("table", table, device, 1)
+    if plan.lens is None:
+        raise ValueError("K8 on the card needs the rows' real lengths: make "
+                         "the plan with hub_plan(..., table=, v=)")
+    _check_int32("lens", plan.lens, device, 1)
+    if plan.lens.shape[0] < sum(b.rows for b in plan.buckets):
+        raise ValueError("the plan's lens hold fewer rows than its buckets")
     if umax is not None:
         _check_int32("umax", umax, device, 1)
         if umax.shape[0] < len(plan.buckets):
@@ -338,7 +402,7 @@ def hub_superstep(ctrl, state, table, live, plan: HubPlan, pool, k: int,
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
         table.data_ptr(), plan.desc.data_ptr(), len(plan.buckets),
         live.data_ptr(), int(live.shape[1]), pool.data_ptr(),
-        int(plan.max_rows), int(plan.max_planes), _clamp_k(k), int(thresh),
+        plan.lens.data_ptr(), int(plan.blocks), _clamp_k(k), int(thresh),
         int(min(max_steps, INT32_MAX)),
         None if umax is None else umax.data_ptr(), _stream(device)), name)
     counts[name] += 1

@@ -1,5 +1,6 @@
-"""Where K3 (`compact_slots`), K11 (`dense_forbid`), K24
-(`ring_stats_wide`) and K25 (`ring_apply`) spend their time on the card:
+"""Where K3 (`compact_slots`), K5 (`segmented_superstep`), K8
+(`hub_superstep`), K11 (`dense_forbid`), K24 (`ring_stats_wide`) and K25
+(`ring_apply`) spend their time on the card:
 device time from ``torch.profiler`` over a few shapes each, one JSON line
 a measurement, then the card's name and power limit.
 
@@ -20,9 +21,21 @@ K24 over the rotation's wide tables at chunks of 256 to 4,096 entries
 times it bucket by bucket at the default chunk); K25 from the
 accumulators the stats leave, with the rows' touched planes counted.
 
-    python tools/kernel_costs.py [k3] [k11] [ring]    # all three if none
+K5 (``k5``): the 1M uniform draw's ``ell-compact`` engine: one sweep held
+launch by launch against the plain versions, one profiled (its launches
+split into the full table and the compaction stages), and the full-table
+superstep alone (its recording variant too), first held against the plain
+version; then the 1M RMAT sweep's K5 launches summed. K8 (``k8``): the 1M
+RMAT draw's ``ell-compact`` engine: one sweep held launch by launch
+against the plain versions, one profiled (K8's mean, sum and spread a
+launch, K5's sum). ``chip_smoke.py`` times K8 on each hub bucket alone.
 
-Needs one card; imports nothing of JAX.
+    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8]  # all if none
+    python tools/kernel_costs.py --tree DIR k5 k8
+
+``--tree DIR`` times another checkout's package (an unpacked ``git
+archive``, e.g. the parent commit's) with these parts. Needs one card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,8 +51,6 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402  (the timing helpers)
-from dgc_tpu_torch.kernels import compact as kc  # noqa: E402
-from dgc_tpu_torch.kernels import dense as kd  # noqa: E402
 
 K3_CASES = {"2048 items, pad 1": (2048, 0.3, 1),
             "200k items, pad 1": (200_000, 0.004, 1),
@@ -53,6 +64,8 @@ RING_CHUNKS = (256, 512, 1024, 2048, 4096)
 
 
 def k3_costs() -> None:
+    from dgc_tpu_torch.kernels import compact as kc
+
     rng = np.random.default_rng(7)
     scratch = kc.new_slots_scratch("cuda")
     for name, (v, density, pad) in K3_CASES.items():
@@ -74,6 +87,8 @@ def k3_costs() -> None:
 
 
 def k11_costs() -> None:
+    from dgc_tpu_torch.kernels import dense as kd
+
     rng = np.random.default_rng(0)
     vp = K11_VP
     adj = torch.zeros((vp, vp), dtype=torch.bfloat16, device="cuda")
@@ -173,13 +188,122 @@ def ring_costs() -> None:
           flush=True)
 
 
+def _compact_engine(argv: list[str]):
+    """(engine, k0) of the CLI's default backend on the draw ``argv``."""
+    from dgc_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        argv + ["--output-coloring", "unused.json"])
+    graph = cli.load_graph(args)
+    return cli.make_engine(args, graph), graph.initial_k()
+
+
+def _sweep_profile(engine, k: int) -> dict:
+    """One ``sweep(k)`` under the profiler: K5's launches split by kind
+    (full table or stage, in call order), K8's mean, sum and spread."""
+    from dgc_tpu_torch.kernels import compact as kc
+    from dgc_tpu_torch.kernels import hub as kh
+
+    kinds = []
+    real = kc.segmented_superstep
+
+    def k5(*a, gidx=None, **kw):
+        kinds.append("full" if gidx is None else "stage")
+        return real(*a, gidx=gidx, **kw)
+
+    kc.reset_launch_counts()
+    kh.reset_launch_counts()
+    engine.sweep(k)
+    launches = {"segmented_superstep": kc.launch_counts["segmented_superstep"]}
+    if engine.hub_buckets:
+        launches["hub_superstep"] = kh.launch_counts["hub_superstep"]
+
+    def sweep():
+        kinds.clear()
+        engine.sweep(k)
+
+    kc.segmented_superstep = k5
+    try:
+        prof = cs._profiled(sweep, launches, names={
+            "segmented_superstep": "segmented_superstep_kernel",
+            "hub_superstep": "hub_superstep_kernel"})
+    finally:
+        kc.segmented_superstep = real
+    out = {"k5": cs._k5_split(prof["segmented_superstep"][2], kinds),
+           "k5_sum_ms": prof["segmented_superstep"][0],
+           "k5_launches": prof["segmented_superstep"][1]}
+    if engine.hub_buckets:
+        t, n, each = prof["hub_superstep"]
+        each = sorted(each)
+        out.update(k8_sum_ms=t, k8_launches=n, k8_mean_ms=t / n,
+                   k8_median_ms=each[n // 2], k8_max_ms=each[-1])
+    return out
+
+
+def _held_sweep(engine, k: int) -> int:
+    """One ``sweep(k)`` with every K3-K8 launch held against its plain
+    version; the max abs difference."""
+    with cs._HeldCompactKernels() as held:
+        engine.sweep(k)
+    return held.err
+
+
+def k5_costs() -> None:
+    from dgc_tpu_torch.kernels import compact as kc
+
+    engine, k = _compact_engine(cs.MAIN_ARGS)
+    plan, desc, seg = engine._full_plan
+    thresh = engine.stages[0][1]
+    umax = torch.zeros(1, dtype=torch.int32, device="cuda")
+    state, ctrl, _ = engine._fresh()
+    s_p, c_p = state.clone(), ctrl.clone()
+    kc.segmented_superstep(ctrl, state, seg, plan, desc, k, thresh,
+                           engine.max_steps)
+    kc.segmented_superstep_reference(c_p, s_p, seg, plan, k, thresh,
+                                     engine.max_steps)
+    cs.check(torch.equal(state, s_p) and torch.equal(ctrl, c_p),
+             "K5 on the full table differs from its plain version")
+    state, ctrl, _ = engine._fresh()
+
+    def full(rec=False):
+        kc.segmented_superstep(ctrl, state, seg, plan, desc, k, thresh,
+                               engine.max_steps, umax=umax if rec else None)
+
+    print(json.dumps({
+        "kernel": "segmented_superstep", "graph": "1M uniform",
+        "held_sweep_err": _held_sweep(engine, k),
+        "full_table_ms": cs._device_ms(full, 20,
+                                       "segmented_superstep_kernel"),
+        "full_table_rec_ms": cs._device_ms(lambda: full(True), 20,
+                                           "segmented_superstep_kernel"),
+        **_sweep_profile(engine, k)}), flush=True)
+    del engine
+    engine, k = _compact_engine(cs.RMAT_ARGS)
+    print(json.dumps({"kernel": "segmented_superstep", "graph": "1M RMAT",
+                      **_sweep_profile(engine, k)}), flush=True)
+
+
+def k8_costs() -> None:
+    engine, k = _compact_engine(cs.RMAT_ARGS)
+    err = _held_sweep(engine, k)
+    cs.check(err == 0, f"K8 differs from its plain version by {err}")
+    print(json.dumps({
+        "kernel": "hub_superstep", "graph": "1M RMAT",
+        "held_sweep_err": err, **_sweep_profile(engine, k)}), flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_costs: no CUDA device available", file=sys.stderr)
         return 1
-    parts = (sys.argv[1:] if argv is None else argv) or ["k3", "k11", "ring"]
+    parts = list(sys.argv[1:] if argv is None else argv)
+    if parts[:1] == ["--tree"]:
+        sys.path.insert(0, str(Path(parts[1]).resolve()))
+        parts = parts[2:]
+    parts = parts or ["k3", "k11", "ring", "k5", "k8"]
     for part in parts:
-        {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs}[part]()
+        {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs,
+         "k5": k5_costs, "k8": k8_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
