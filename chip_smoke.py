@@ -12,7 +12,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    loop-control kernel (K2) on seeded random blocks — plane counts 1, 2,
    3, 32, 40; budgets 1, 31, 32, 33, 32P, above the window; exact and
    capped windows; rows full of pad sentinels; either state buffer
-   current; an attempt no longer running. The compact engine's kernels:
+   current; an attempt no longer running; then K1 in every team mode
+   (``K1_WIDTHS``: a lane, 2-32 lanes, a warp, a block, and a
+   65,536-wide row of 40,000 real entries) on ragged rows of every real
+   length, uncolored, fresh and confirmed words, 1 to 40 planes (a
+   widened window), budgets 1 to past the window, both fail gates, and
+   50 launches of a lane and a block case on one input, each the plain
+   bytes. The compact engine's kernels:
    K3 (compaction) at densities from none to all and pads below, at and
    above the active count, at V one below, at and one above a round of
    2,048 items, with every alignment of the other buffer, more rounds
@@ -120,7 +126,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``ell-compact``'s attempts and swept colors must equal
    ``ell-bucketed``'s. Then each kernel is held against its plain version
    at the shapes of that path and timed there: K1 and K2 at a first and
-   a mid-attempt superstep; K3-K8 at every call of one more ``sweep`` and
+   a mid-attempt superstep, K1 on each bucket alone (``k1_by_bucket``),
+   and on the RMAT ``ell-bucketed`` path over the sweep's attempts
+   replayed with every K1 launch held, then profiled (``k1_sweep_ms``
+   beside the bound over the same launches); K3-K8 at every call of one
+   more ``sweep`` and
    one more ``attempt`` of the compact engine (a test double over their
    wrappers), K3-K6 timed on the uniform sweep's first stage inputs (K3
    replayed 50 times there first, each launch held), K7
@@ -158,13 +168,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    calls at world size 1 under NCCL: the flat rotation tables on the 1M
    uniform draw, the bucketed ones on the 1M RMAT draw; the launch counts
    must show K23, K25, K21 and K22 (and K24 on RMAT), and the coloring
-   JSON and the attempts must be ``ell``'s (``ell-bucketed``'s); K23-K25
-   timed there. Two supersteps from seeded words as shard 3 of 4 of each
+   JSON and the attempts must be ``ell``'s (``ell-bucketed``'s); one
+   more sweep with every K23 launch held, then profiled (``k23_sweep_ms``
+   beside the bound over the same launches); K23-K25 timed on a
+   mid-attempt superstep. Two supersteps from seeded words as shard 3 of
+   4 of each
    draw's rotation tables (the other shards' words fixed), at a one-plane
    window and the engine's, at the main path's budget and at 12, hold
    every K23, K24, K25 and K21 launch against its plain version, and
-   K23-K25 run on 120 random blocks, tables (flat and row lists with
-   padding rows) and accumulators. A ``sharded-ring`` telemetry run
+   K23-K25 run on 120 random blocks, narrow layouts (a flat table, or one
+   to three buckets of widths 1 to 1,500 over row lists with padding
+   rows) and accumulators, K23 50 times more on one input and once on a
+   65,536-wide row of 40,000 real entries. A ``sharded-ring`` telemetry run
    launches K21's recording variant alone, with the same coloring. Then
    three gloo ranks on cuda:0 (the only run where the ring sends: its
    rotations staged through host buffers), 100k vertices, ``sharded`` and
@@ -358,9 +373,11 @@ def phase_kernels(device) -> int:
                 ctrl, state, table, row0, fv = _random_case(
                     rng, planes, k, capped, cur, device)
                 ctrl_p, state_p = ctrl.clone(), state.clone()
-                ks.superstep_rows(ctrl, state, table, row0, planes, k, fv)
+                plan = ks.row_plan(table, state.shape[1] - 1)
+                ks.superstep_rows(ctrl, state, table, row0, planes, k, fv,
+                                  plan)
                 ks.superstep_rows_reference(ctrl_p, state_p, table, row0,
-                                            planes, k, fv)
+                                            planes, k, fv, plan)
                 err = max(err, int((state - state_p).abs().max()),
                           int((ctrl - ctrl_p).abs().max()))
                 cases += 1
@@ -368,9 +385,11 @@ def phase_kernels(device) -> int:
     ctrl, state, table, row0, fv = _random_case(rng, 2, 40, False, 0, device)
     ctrl[ks.CTRL_STATUS] = 1
     before = (ctrl.clone(), state.clone())
-    ks.superstep_rows(ctrl, state, table, row0, 2, 40, fv)
+    ks.superstep_rows(ctrl, state, table, row0, 2, 40, fv,
+                      ks.row_plan(table, state.shape[1] - 1))
     err = max(err, int((state - before[1]).abs().max()),
               int((ctrl - before[0]).abs().max()))
+    err = max(err, _k1_team_cases(ks, rng, device))
     # K2 over random loop carries and both stall rules
     for _ in range(300):
         status = int(rng.choice([0, 0, 0, 1, 2, 3]))
@@ -390,6 +409,75 @@ def phase_kernels(device) -> int:
     torch.cuda.synchronize()
     check(err == 0, f"kernels disagree with their plain versions: max abs "
                     f"err {err}")
+    return err
+
+
+# K1's team cases (width, rows): a lane (1-32 wide), 2-32 lanes, a warp
+# (1,025-4,095), a block (from 4,096), and one 65,536-wide row of 40,000
+# real entries (the 1M RMAT draw's hub bucket holds one of 38,142)
+K1_WIDTHS = ((1, 600), (4, 600), (32, 600), (33, 400), (64, 300),
+             (256, 200), (1024, 120), (1025, 60), (4095, 40), (4096, 24),
+             (8192, 12), (65536, 1))
+
+
+def _k1_case(rng, rows: int, width: int, planes: int, device,
+             confirmed: float = 0.3):
+    """K1's inputs over a 5,000-vertex state: ``rows`` ragged rows of
+    ``width`` (real lengths from none to the whole width, the pad sentinel
+    past them, a row of 40,000 real entries at 65,536), words uncolored,
+    fresh and ``confirmed``, colors mostly low (one pass of planes reads
+    the row) and some past the window; either buffer current."""
+    v = 5000
+    real = (np.full(rows, 40_000) if width == 65536
+            else rng.integers(0, width + 1, rows))
+    table = torch.from_numpy(_ragged(rng, rows, width, v, real)).to(device)
+    cols = np.where(rng.random(v) < 0.8, rng.integers(0, 8, v),
+                    rng.integers(0, 32 * planes + 40, v))
+    kind = rng.random(v)
+    words = np.where(kind < 0.2, -1, np.where(kind < 1 - confirmed,
+                                              cols * 2 + 1, cols * 2))
+    state = torch.full((2, v + 1), -1, dtype=torch.int32, device=device)
+    state[0, :v] = torch.from_numpy(words.astype(np.int32)).to(device)
+    state[1, :v] = torch.from_numpy(
+        rng.permutation(words).astype(np.int32)).to(device)
+    row0 = int(rng.integers(0, v - rows + 1))
+    return table, state, row0
+
+
+def _k1_team_cases(ks, rng, device) -> int:
+    """K1 against its plain version in every team mode (``K1_WIDTHS``),
+    at 1, 2, 3, 32, 33 and 40 planes, budgets 1 to past the window, both
+    fail gates, either buffer current; then ``REPLAYS`` launches of a lane
+    and a block case on one input, each equal to the plain version's
+    bytes. Returns the max abs difference."""
+    err = 0
+    for width, rows in K1_WIDTHS:
+        for planes in ((1, 2, 32, 40) if width <= 64 else (3, 32, 33)):
+            table, state, row0 = _k1_case(rng, rows, width, planes, device)
+            plan = ks.row_plan(table, state.shape[1] - 1)
+            for k in (1, 32, 33, 64, 32 * planes, 32 * planes + 7):
+                for fv in (False, True):
+                    ctrl = ks.new_ctrl(3, 5000, device)
+                    ctrl[ks.CTRL_CUR] = int(rng.integers(0, 2))
+                    s_k, c_k = state.clone(), ctrl.clone()
+                    s_p, c_p = state.clone(), ctrl.clone()
+                    ks.superstep_rows(c_k, s_k, table, row0, planes, k, fv,
+                                      plan)
+                    ks.superstep_rows_reference(c_p, s_p, table, row0,
+                                                planes, k, fv, plan)
+                    err = max(err, _diff(s_k, s_p), _diff(c_k, c_p))
+    for width, rows in ((32, 600), (65536, 1)):
+        table, state, row0 = _k1_case(rng, rows, width, 32, device, 0.0)
+        plan = ks.row_plan(table, state.shape[1] - 1)
+        ctrl = ks.new_ctrl(3, 5000, device)
+        s_p, c_p = state.clone(), ctrl.clone()
+        ks.superstep_rows_reference(c_p, s_p, table, row0, 32, 1000, True,
+                                    plan)
+        for _ in range(REPLAYS):
+            s_k, c_k = state.clone(), ctrl.clone()
+            ks.superstep_rows(c_k, s_k, table, row0, 32, 1000, True, plan)
+            err = max(err, _diff(s_k, s_p), _diff(c_k, c_p))
+    torch.cuda.synchronize()
     return err
 
 
@@ -1874,13 +1962,116 @@ def _engine_parts(engine, k: int):
     from dgc_tpu_torch.engine.bucketed import fail_valid
 
     if hasattr(engine, "combined_buckets"):
-        parts = [(r0, cb, p, fail_valid(cb.shape[1], p, k)) for r0, cb, p in
-                 zip(engine.row0, engine.combined_buckets, engine.planes)]
+        parts = [(r0, cb, plan, p, fail_valid(cb.shape[1], p, k))
+                 for r0, cb, plan, p in zip(engine.row0,
+                                            engine.combined_buckets,
+                                            engine.plans, engine.planes)]
         packed0 = torch.where(engine.degrees == 0, 0, 1).to(torch.int32)
         return k, packed0, 1, parts
     k_eff = clamp_budget(k, 32 * engine.num_planes)
     packed0 = torch.where(engine.degrees == 0, 0, -1).to(torch.int32)
-    return k_eff, packed0, 0, [(0, engine.table, engine.num_planes, True)]
+    return k_eff, packed0, 0, [(0, engine.table, engine.plan,
+                                engine.num_planes, True)]
+
+
+def _k1_bytes(ctrl, state, row0: int, plan) -> int:
+    """The bytes K1 must move over a part's rows on this state: the new
+    word of each row written; for each row that is not confirmed, its real
+    length and its real entries (``plan.lens``, the sentinel padding past
+    them is not needed work); the state words the rows and those entries
+    name read once (at most the state). None for a launch past the
+    attempt's end."""
+    from dgc_tpu_torch.kernels import superstep as ks
+
+    c = ctrl.tolist()
+    if c[ks.CTRL_STATUS] != 0:
+        return 0
+    rows = plan.lens.shape[0]
+    words = state[c[ks.CTRL_CUR], row0: row0 + rows]
+    live = ~((words >= 0) & (words & 1 == 0))
+    real = int(plan.lens[live].sum())
+    return 4 * (rows + int(live.sum()) + real
+                + min(rows + real, state.shape[1]))
+
+
+class _HeldK1:
+    """While installed, every K1 launch runs its plain version on copies
+    first and the kernel on the engine's tensors, keeps the largest
+    difference, the launches and the bytes they needed (``_k1_bytes``),
+    and the plain versions' host time."""
+
+    def __init__(self):
+        from dgc_tpu_torch.kernels import superstep as ks
+
+        self.ks, self.real = ks, ks.superstep_rows
+        self.err = self.calls = self.bytes = 0
+        self.plain_s = 0.0
+
+    def __enter__(self):
+        self.ks.superstep_rows = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ks.superstep_rows = self.real
+
+    def __call__(self, ctrl, state, table, row0, planes, k, fv, plan):
+        self.bytes += _k1_bytes(ctrl, state, row0, plan)
+        c_p, s_p = ctrl.clone(), state.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.ks.superstep_rows_reference(c_p, s_p, table, row0, planes, k,
+                                         fv, plan)
+        torch.cuda.synchronize()
+        self.plain_s += time.perf_counter() - t
+        self.real(ctrl, state, table, row0, planes, k, fv, plan)
+        self.err = max(self.err, _diff(state, s_p), _diff(ctrl, c_p))
+        self.calls += 1
+
+
+def _k1_by_bucket(k: int, parts, packed0, step0: int) -> list[dict]:
+    """K1 on each part alone at a fresh attempt's first superstep (every
+    row with a neighbor active), timed over repeated launches (each redoes
+    the same step), beside its bound (``_k1_bytes``)."""
+    from dgc_tpu_torch.kernels import superstep as ks
+
+    v = packed0.shape[0]
+    out = []
+    for row0, table, plan, planes, fv in parts:
+        ctrl = ks.new_ctrl(step0, v + 1, packed0.device)
+        state = ks.new_state(packed0)
+        nbytes = _k1_bytes(ctrl, state, row0, plan)
+        out.append({
+            "width": table.shape[1], "rows": table.shape[0],
+            "real_entries": int(plan.lens.sum()),
+            "team": "block" if plan.block else f"{plan.lanes} lanes",
+            "ms": _device_ms(lambda: ks.superstep_rows(
+                ctrl, state, table, row0, planes, k, fv, plan), 10,
+                "superstep_rows"),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def _k1_sweep(engine, ks_swept: list[int]) -> dict:
+    """The main path's attempts (at the budgets ``ks_swept``, in order)
+    replayed with every K1 launch held against its plain version, then
+    again under the profiler: K1's device time summed over the same
+    launches, beside the bound over them (``_k1_bytes`` at each launch's
+    state) and the plain versions' time."""
+    with _HeldK1() as held:
+        for k in ks_swept:
+            engine.attempt(k)
+    check(held.err == 0, f"K1 disagrees with its plain version over the "
+                         f"replayed sweep: max abs err {held.err}")
+    prof = _profiled(lambda: [engine.attempt(k) for k in ks_swept],
+                     {"superstep_rows": held.calls},
+                     names={"superstep_rows": "superstep_rows"})
+    total, n, each = prof["superstep_rows"]
+    return {"k1_sweep_ms": total, "k1_sweep_launches": n,
+            "k1_sweep_max_launch_ms": max(each) if each else None,
+            "k1_sweep_bound_ms": held.bytes / HBM_BYTES_PER_S * 1e3,
+            "k1_sweep_bytes": held.bytes,
+            "k1_sweep_plain_ms": held.plain_s * 1e3,
+            "k1_sweep_held_err": held.err}
 
 
 def measure_kernels(engine, k: int, directed_edges: int) -> dict:
@@ -1898,8 +2089,8 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
                 ks.new_state(packed0))
 
     def k1(ctrl, state, fn=ks.superstep_rows):
-        for row0, table, planes, fv in parts:
-            fn(ctrl, state, table, row0, planes, k_run, fv)
+        for row0, table, plan, planes, fv in parts:
+            fn(ctrl, state, table, row0, planes, k_run, fv, plan)
 
     err = 0
     for steps in (0, 3):  # the first superstep, then a mid-attempt one
@@ -1919,8 +2110,7 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
     ctrl, state = fresh()
     k1_ms = _cuda_ms(lambda: k1(ctrl, state), reps=50)
     k1_device_ms = _device_ms(lambda: k1(ctrl, state), reps=20,
-                              name="superstep_rows_kernel",
-                              per_call=len(parts))
+                              name="superstep_rows", per_call=len(parts))
     ctrl, state = fresh()
     k1_plain_ms = _host_ms(
         lambda: k1(ctrl, state, ks.superstep_rows_reference), reps=3)
@@ -1954,27 +2144,35 @@ def measure_kernels(engine, k: int, directed_edges: int) -> dict:
     # yardstick only (the port never calls it): one torch gather of the
     # state through every table entry
     src = state[0]
-    masks = [(t & NBR_MASK).to(torch.int64) for _, t, _, _ in parts]
+    masks = [(t & NBR_MASK).to(torch.int64) for _, t, _, _, _ in parts]
     gather_ms = _cuda_ms(lambda: [src[m] for m in masks], reps=20)
 
-    # The bound counts what a superstep needs: each vertex's real neighbor
-    # entries once (the sentinel padding past its degree is not needed
-    # work), its degree, and the state read and written. The timed calls
-    # all run a first superstep, where every vertex with a neighbor is
-    # uncolored (ELL) or fresh (bucketed) and reads its whole list. The
-    # padded tables' bytes are kept beside it.
-    entries = sum(int(t.numel()) for _, t, _, _ in parts)
-    real = sum(int(((t & NBR_MASK) != v).sum()) for _, t, _, _ in parts)
+    # The bound counts what a superstep needs (_k1_bytes): each row's word
+    # read and written, and each row that is not confirmed its length, its
+    # real entries (the sentinel padding past its degree is not needed
+    # work) and the state words they name. The timed calls all run a first
+    # superstep, where every vertex with a neighbor is uncolored (ELL) or
+    # fresh (bucketed) and reads its whole list. The padded tables' bytes
+    # are kept beside it.
+    entries = sum(int(t.numel()) for _, t, _, _, _ in parts)
+    real = sum(int(((t & NBR_MASK) != v).sum()) for _, t, _, _, _ in parts)
     check(real == directed_edges, f"tables hold {real} real entries, the "
                                   f"graph {directed_edges} directed edges")
-    k1_bytes = real * 4 + 3 * v * 4 + 8 * 4
+    check(real == sum(int(plan.lens.sum()) for _, _, plan, _, _ in parts),
+          "the plans' lengths do not hold every real entry once")
+    ctrl, state = fresh()
+    k1_bytes = sum(_k1_bytes(ctrl, state, row0, plan)
+                   for row0, _, plan, _, _ in parts) + 8 * 4
     table_bytes = entries * 4 + 2 * v * 4 + 8 * 4
     # one whole attempt: host wall clock against the device's busy time
     t = time.perf_counter()
     engine.attempt(k)
     attempt_wall_ms = (time.perf_counter() - t) * 1e3
     attempt_device_ms = _device_ms(lambda: engine.attempt(k), reps=1)
+    by_bucket = (_k1_by_bucket(k_run, parts, packed0, step0)
+                 if len(parts) > 1 else None)
     return {
+        "k1_by_bucket": by_bucket,
         "k1_ms": k1_device_ms, "k1_event_ms": k1_ms,
         "k1_plain_ms": k1_plain_ms,
         "k1_bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3,
@@ -3064,9 +3262,12 @@ def phase_main_path(card: str, out_dir: Path, argv: list[str],
         meas = {}
         if backend == "ell-compact":
             meas = measure_compact(engine, graph.initial_k(), swept[backend][0])
-        elif not any(a == "rmat" for a in argv):
+        else:
             meas = measure_kernels(engine, graph.initial_k(),
                                    graph.arrays.num_directed_edges)
+            if any(a == "rmat" for a in argv):
+                meas.update(_k1_sweep(engine,
+                                      [a.k for a in result.attempts]))
         rec = {
             "phase": "main_path", "backend": backend,
             "graph": " ".join(argv),
@@ -5366,7 +5567,7 @@ class _HeldShardKernels:
         wrap(kc, "segmented_superstep", k5_plain, (0, 1))
         wrap(kh, "hub_slots", kh.hub_slots_reference, (0, 1, 2, 4))
         wrap(kh, "hub_superstep", kh.hub_superstep_reference, (0, 1, 3, 5))
-        wrap(kr, "ring_stats", kr.ring_stats_reference, (5,))
+        wrap(kr, "ring_stats", kr.ring_stats_reference, (4,))
         wrap(kr, "ring_stats_wide", kr.ring_stats_wide_reference, (4,))
         wrap(kr, "ring_apply", kr.ring_apply_reference, (0, 2, 3))
         return self
@@ -5912,32 +6113,38 @@ class _RingStub(_ShardStub):
 
 def _ring_bytes(engine, ctrl, block, launches, planes: int, *,
                 one_launch: bool = False) -> int:
-    """The bytes K23/K24 must move over ``launches`` (``(rows, table)``
-    pairs: K23's tables, a launch each, or the buckets of K24's
-    ``WideTables``, all in one launch with ``one_launch``) on this state:
-    the real table entries, the block words they name (at most one a real
-    entry, at most the block, once a launch), the packed word of each real
-    row, and the accumulator words its stats make nonzero and the mask of
-    each row they touch, read and written (the clash flag written only
-    where set): counted from each table's own stats, by the plain K23
-    into zeroed accumulators."""
+    """The bytes K23/K24 must move over ``launches`` (``(rows, table, ...)``
+    tuples: the buckets of K23's ``NarrowTables`` or of K24's
+    ``WideTables``, all in one launch with ``one_launch``, else a launch a
+    table) on this state: a row list's entries, the packed word of each
+    real row; for each row that is not confirmed, its real entries, the
+    block words they name (at most one a real entry, at most the block,
+    once a launch), its length where the layout has one (K23's), and the
+    accumulator words its stats make nonzero and its mask, read and
+    written (the clash flag written only where set): counted from each
+    table's own stats, by ``table_stats`` into zeroed accumulators."""
     from dgc_tpu_torch.kernels import ring as kr
 
     vl = engine.packed_l.shape[0]
     own = kr.new_acc(planes, vl, block.device)
     total = 0
     reals = []
-    for rows, table in launches:
-        real = int(((table & ((1 << 30) - 1)) != vl).sum())
+    for rows, table, *lens in launches:
+        local = (torch.arange(table.shape[0], device=block.device)
+                 if rows is None else rows.long())
+        real_row = local < vl
+        word = engine.packed_l[torch.where(real_row, local, 0)]
+        live = real_row & ~((word >= 0) & (word & 1 == 0))
+        real = int((((table & ((1 << 30) - 1)) != vl) & live[:, None]).sum())
         reals.append(real)
-        nrows = vl if rows is None else int((rows < vl).sum())
         own.zero_()
-        kr.ring_stats_reference(ctrl, block, engine.packed_l, table, rows,
-                                own, planes)
+        kr.table_stats(block, engine.packed_l, table, rows, own, planes)
         words = int((own[: 2 * planes] != 0).sum())
         clash = int(own[2 * planes].sum())
         masks = int((own[2 * planes + 1] != 0).sum())
-        total += 4 * real + 4 * nrows + 8 * words + 4 * clash + 8 * masks
+        total += (4 * real + 4 * int(real_row.sum()) + 8 * words + 4 * clash
+                  + 8 * masks + (0 if rows is None else 4 * table.shape[0])
+                  + (4 * int(live.sum()) if lens else 0))
     gathers = [sum(reals)] if one_launch else reals
     return total + sum(4 * min(g, vl + 1) for g in gathers)
 
@@ -5990,21 +6197,60 @@ def _ring_held_steps(engine, k: int, planes: int, words: np.ndarray,
             "ctrl": ctrl.tolist()[:8]}
 
 
+def _ring_tables(rng, vl: int, flat: bool, widths) -> list:
+    """A rotation's tables over ``vl`` local rows: one flat table of the
+    first width (every row, a row list of None), or a bucket a width over
+    disjoint random rows, each with its padding rows (the sentinel
+    ``vl``) in random places; every table row of a random real length,
+    the sentinel past it."""
+    if flat:
+        groups = [None]
+    else:
+        widths = widths[: max(1, min(len(widths), vl))]
+        cuts = np.sort(rng.choice(np.arange(1, vl), len(widths) - 1,
+                                  replace=False)) if len(widths) > 1 else []
+        groups = [np.concatenate([g, np.full(int(rng.integers(0, 4)), vl)])
+                  for g in np.split(rng.permutation(vl), cuts)]
+        groups = [rng.permutation(g).astype(np.int32) for g in groups]
+    out = []
+    for rows, width in zip(groups, widths):
+        n = vl if rows is None else len(rows)
+        out.append((rows, _ragged(rng, n, width, vl)))
+    return out
+
+
 def _ring_edge_cases(device) -> int:
     """K23, K24 and K25 on seeded random blocks, tables and accumulators
-    that already hold bits: flat tables and bucket row lists with padding
-    rows, sentinel entries, 1 to 40 planes, budgets from 1 past the
-    window, fresh, confirmed and uncolored words, gated and counted fail,
-    a launch after the attempt ended; K24 over its work list at chunks of
-    1, 64 and the default (a 1,500-entry row over many blocks), held
-    against its plain version (K23's over the same table); K25 on masks of no plane, one
-    and many (random words in the planes they do not name). Returns the
-    max abs error (0)."""
+    that already hold bits: K23 over a flat table or one to three buckets
+    of widths 1 to 1,500 (every team size) with padding rows, rows of
+    every real length, sentinel entries, 1 to 40 planes, budgets from 1
+    past the window, fresh, confirmed and uncolored words, gated and
+    counted fail, a launch after the attempt ended; K24 over its work list
+    at chunks of 1, 64 and the default (a 1,500-entry row over many
+    blocks), held against its plain version; K25 on masks of no plane, one
+    and many (random words in the planes they do not name). Then K23
+    ``REPLAYS`` times on one input, each launch's bytes the plain
+    version's, and once on a 65,536-wide row of 40,000 real entries.
+    Returns the max abs error (0)."""
     from dgc_tpu_torch.kernels import ring as kr
     from dgc_tpu_torch.kernels import shard as ks
 
     rng = np.random.default_rng(31)
     err = 0
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.int32)).to(device)
+
+    def random_acc(vl, planes):
+        acc = rng.integers(-(1 << 31), 1 << 31, size=(2 * planes + 2, vl))
+        acc[2 * planes] = rng.integers(0, 2, size=vl)
+        # masks of no plane, of plane 0 alone, of random planes
+        acc[2 * planes + 1] = np.choose(rng.integers(0, 3, size=vl),
+                                        [np.zeros(vl, np.int64),
+                                         np.ones(vl, np.int64),
+                                         acc[2 * planes + 1]])
+        return acc
+
     for case in range(120):
         vl = int(rng.choice([1, 5, 300, 4000]))
         planes = int(rng.choice([1, 2, 3, 5, 17, 32, 33, 40]))
@@ -6013,42 +6259,25 @@ def _ring_edge_cases(device) -> int:
         block = _packed_words(rng, vl + 1, max_color, 0.5)
         block[vl] = -1
         packed = _packed_words(rng, vl, max_color, 0.5)
-        if case % 2:
-            rows = None
-            nrows = vl
-        else:
-            keep = rng.permutation(vl)[: int(rng.integers(1, vl + 1))]
-            rows = np.concatenate([keep, np.full(int(rng.integers(0, 4)), vl)])
-            rows = rng.permutation(rows).astype(np.int32)
-            nrows = len(rows)
-        width = int(rng.choice([1, 3, 32, 300, 1500]))
-        table = _combined(rng, (nrows, width), vl)
-        # rows of every real length, the sentinel past it
-        length = rng.integers(0, width + 1, size=nrows)
-        table[np.arange(width)[None, :] >= length[:, None]] = vl
-        acc = rng.integers(-(1 << 31), 1 << 31, size=(2 * planes + 2, vl))
-        acc[2 * planes] = rng.integers(0, 2, size=vl)
-        # masks of no plane, of plane 0 alone, of random planes
-        acc[2 * planes + 1] = np.choose(rng.integers(0, 3, size=vl),
-                                        [np.zeros(vl, np.int64),
-                                         np.ones(vl, np.int64),
-                                         acc[2 * planes + 1]])
+        widths = [int(w) for w in rng.choice(
+            [1, 3, 4, 32, 33, 64, 256, 300, 1500], size=3)]
+        tables = _ring_tables(rng, vl, bool(case % 2),
+                              widths[: int(rng.integers(1, 4))])
+        acc = random_acc(vl, planes)
         c = [int(rng.choice([0, 0, 0, 1])), 3, 900, 2, 0,
              int(rng.integers(0, 5)), int(rng.integers(0, 50)),
              int(rng.integers(-1, 60))]
         ctrl = torch.tensor(c + [-1] * (ks.SC_LEN - 8), dtype=torch.int32,
                             device=device)
-
-        def t(x):
-            return torch.from_numpy(np.asarray(x, np.int32)).to(device)
-
-        blk, pk, tb = t(block), t(packed), t(table)
-        rw = None if rows is None else t(rows)
+        blk, pk = t(block), t(packed)
+        narrow = kr.NarrowTables(tables, vl, device)
         a1, a2 = t(acc), t(acc)
-        kr.ring_stats(ctrl, blk, pk, tb, rw, a1, planes)
-        kr.ring_stats_reference(ctrl, blk, pk, tb, rw, a2, planes)
+        kr.ring_stats(ctrl, blk, pk, narrow, a1, planes)
+        kr.ring_stats_reference(ctrl, blk, pk, narrow, a2, planes)
         err = max(err, _diff(a1, a2))
-        chunks = [1, 64, kr.WIDE_CHUNK] if width <= 32 else [64, kr.WIDE_CHUNK]
+        rows, table = tables[0]
+        chunks = ([1, 64, kr.WIDE_CHUNK] if table.shape[1] <= 32
+                  else [64, kr.WIDE_CHUNK])
         wide = kr.WideTables([(rows, table)], vl, device,
                              int(rng.choice(chunks)))
         a3, a4 = t(acc), t(acc)
@@ -6063,6 +6292,32 @@ def _ring_edge_cases(device) -> int:
         kr.ring_apply_reference(*plain)
         err = max(err, _diff_any([ctrl, a1, back],
                                  [plain[0], plain[2], plain[3]]))
+    # K23's team ORs on one input, REPLAYS times
+    vl, planes = 4000, 32
+    block = _packed_words(rng, vl + 1, 200, 0.5)
+    block[vl] = -1
+    blk, pk = t(block), t(_packed_words(rng, vl, 200, 0.7))
+    narrow = kr.NarrowTables(_ring_tables(rng, vl, False, [4, 32, 256]), vl,
+                             device)
+    ctrl = ks.new_shard_ctrl(0, vl + 1, 100, -1, device)
+    acc = t(random_acc(vl, planes))
+    plain = acc.clone()
+    kr.ring_stats_reference(ctrl, blk, pk, narrow, plain, planes)
+    for _ in range(REPLAYS):
+        again = acc.clone()
+        kr.ring_stats(ctrl, blk, pk, narrow, again, planes)
+        err = max(err, _diff(again, plain))
+    # a 65,536-wide row of 40,000 real entries (a warp's lanes), beside a
+    # bucket of 4-wide rows
+    narrow = kr.NarrowTables(
+        [(np.array([0], np.int32), _ragged(rng, 1, 65536, vl, [40_000])),
+         (np.arange(1, vl, dtype=np.int32), _ragged(rng, vl - 1, 4, vl))],
+        vl, device)
+    a1 = t(random_acc(vl, planes))
+    a2 = a1.clone()
+    kr.ring_stats(ctrl, blk, pk, narrow, a1, planes)
+    kr.ring_stats_reference(ctrl, blk, pk, narrow, a2, planes)
+    err = max(err, _diff(a1, a2))
     torch.cuda.synchronize()
     check(err == 0, f"K23-K25 disagree with their plain versions on random "
                     f"inputs: max abs err {err}")
@@ -6182,20 +6437,19 @@ def _ring_timing(engine, k: int, steps: int = 3) -> dict:
                      "confirmed": int(((words >= 0)
                                        & (words & 1 == 0)).sum())},
            "launches_per_superstep": {}}
-    launches = engine.rot[0]
-    if launches:
+    narrow = engine.rot[0]
+    if narrow is not None:
         def k23(f=kr.ring_stats):
-            for rows, table in launches:
-                f(ctrl0, block, engine.packed_l, table, rows, engine.acc,
-                  planes)
+            f(ctrl0, block, engine.packed_l, narrow, engine.acc, planes)
 
-        out["k23_ms"] = _device_ms(k23, 10, "ring_stats_kernel",
-                                   per_call=len(launches))
+        out["k23_ms"] = _device_ms(k23, 10, "ring_stats_kernel")
         out["k23_plain_ms"] = _host_ms(lambda: k23(kr.ring_stats_reference),
                                        reps=2)
-        b = _ring_bytes(engine, ctrl0, block, launches, planes)
-        out.update(k23_bytes=b, k23_bound_ms=b / HBM_BYTES_PER_S * 1e3)
-        out["launches_per_superstep"]["k23"] = len(launches)
+        b = _ring_bytes(engine, ctrl0, block, narrow.buckets, planes,
+                        one_launch=True)
+        out.update(k23_bytes=b, k23_bound_ms=b / HBM_BYTES_PER_S * 1e3,
+                   k23_tables=len(narrow.buckets), k23_warps=narrow.warps)
+        out["launches_per_superstep"]["k23"] = 1
     wide = engine.wide[0]
     if wide is not None:
         def k24(w=wide, f=kr.ring_stats_wide):
@@ -6255,6 +6509,48 @@ def _ring_timing(engine, k: int, steps: int = 3) -> dict:
                / HBM_BYTES_PER_S * 1e3)
     engine.acc.zero_()
     return out
+
+
+def _k23_sweep(engine, k: int) -> dict:
+    """``engine.sweep(k)`` with every K23 launch held against its plain
+    version, then again under the profiler: K23's device time summed over
+    the same launches, beside the bound over them (``_ring_bytes`` at each
+    launch's state) and the plain versions' time."""
+    from dgc_tpu_torch.kernels import ring as kr
+
+    real = kr.ring_stats
+    held = {"err": 0, "calls": 0, "bytes": 0, "plain_s": 0.0}
+
+    def ring_stats(ctrl, block, packed, narrow, acc, planes):
+        if int(ctrl[0]) == 0:  # RUNNING: a launch past the end moves nothing
+            held["bytes"] += _ring_bytes(engine, ctrl, block, narrow.buckets,
+                                         planes, one_launch=True)
+        plain = acc.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        kr.ring_stats_reference(ctrl, block, packed, narrow, plain, planes)
+        torch.cuda.synchronize()
+        held["plain_s"] += time.perf_counter() - t
+        real(ctrl, block, packed, narrow, acc, planes)
+        held["err"] = max(held["err"], _diff(acc, plain))
+        held["calls"] += 1
+
+    kr.ring_stats = ring_stats
+    try:
+        engine.sweep(k)
+    finally:
+        kr.ring_stats = real
+    check(held["err"] == 0, f"K23 disagrees with its plain version over the "
+                            f"sweep: max abs err {held['err']}")
+    prof = _profiled(lambda: engine.sweep(k), {"ring_stats": held["calls"]},
+                     names={"ring_stats": "ring_stats_kernel"})
+    total, n, each = prof["ring_stats"]
+    return {"k23_sweep_ms": total, "k23_sweep_launches": n,
+            "k23_sweep_max_launch_ms": max(each) if each else None,
+            "k23_sweep_bound_ms": held["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "k23_sweep_bytes": held["bytes"],
+            "k23_sweep_plain_ms": held["plain_s"] * 1e3,
+            "k23_sweep_held_err": held["err"]}
 
 
 def _ring_ranks_run(out_dir: Path) -> dict:
@@ -6401,6 +6697,7 @@ def phase_ring_main(card: str, out_dir: Path, main_runs: dict,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "card": card}
         k0 = engine._budget(graph.initial_k())
+        rec.update(_k23_sweep(engine, k0))
         rec.update(_ring_timing(engine, k0))
         rec["held"] = _ring_world1_held(engine, k0, bucketed)
         emit(rec)
@@ -6457,6 +6754,13 @@ def ring_kernels_line(ring: dict) -> list[dict]:
                 "library_ms": None}
 
     rmat = ring["runs"]["rmat"]
+    k23 = entry("ring_stats", "k23", "fast", "dgc_tpu/engine/ring.py:303")
+    k23["max_abs_err"] = max([err] + [r["k23_sweep_held_err"]
+                                      for r in ring["runs"].values()])
+    k23["sweeps"] = {gen: {key: r[f"k23_{key}"] for key in (
+        "ms", "plain_ms", "bound_ms", "sweep_ms", "sweep_launches",
+        "sweep_bound_ms", "sweep_plain_ms", "sweep_max_launch_ms")}
+        for gen, r in ring["runs"].items()}
     k24 = entry("ring_stats_wide", "k24", "rmat",
                 "dgc_tpu/engine/ring.py:355")
     k24.update(by_bucket=rmat["k24_by_bucket"],
@@ -6465,8 +6769,7 @@ def ring_kernels_line(ring: dict) -> list[dict]:
     k25.update(dense_bound_ms=ring["runs"]["fast"]["k25_dense_bound_ms"],
                rmat={key: rmat[f"k25_{key}"] for key in
                      ("ms", "plain_ms", "bound_ms", "dense_bound_ms")})
-    return [entry("ring_stats", "k23", "fast", "dgc_tpu/engine/ring.py:303"),
-            k24, k25]
+    return [k23, k24, k25]
 
 
 # ---- the lane-sharded serve tier (B12g): K26, the partial K15/K16, the mesh
@@ -7390,11 +7693,24 @@ def kernels_line(main_runs: dict, rmat_runs: dict, blocked: list,
          "replaces": "dgc_tpu/ops/speculative.py:124",
          "launches": bucketed["launches"]["superstep_rows"],
          "launches_by_backend": by_backend("superstep_rows"),
-         "max_abs_err": max([kernel_err] + [r["max_abs_err"] for b, r in
-                                            main_runs.items() if b != "ell-compact"]),
+         "max_abs_err": max(
+             [kernel_err, rmat_runs["ell-bucketed"]["max_abs_err"],
+              rmat_runs["ell-bucketed"]["k1_sweep_held_err"]]
+             + [r["max_abs_err"] for b, r in main_runs.items()
+                if b != "ell-compact"]),
          "ms": bucketed["k1_ms"], "plain_ms": bucketed["k1_plain_ms"],
          "bound_ms": bucketed["k1_bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "ell": {key: main_runs["ell"][f"k1_{key}"]
+                 for key in ("ms", "plain_ms", "bound_ms")},
+         "by_bucket": bucketed["k1_by_bucket"],
+         "rmat_bucketed": {
+             "launches": rmat_runs["ell-bucketed"]["launches"][
+                 "superstep_rows"],
+             **{key: rmat_runs["ell-bucketed"][key] for key in (
+                 "k1_ms", "k1_plain_ms", "k1_bound_ms", "k1_by_bucket",
+                 "k1_sweep_ms", "k1_sweep_launches", "k1_sweep_bound_ms",
+                 "k1_sweep_plain_ms", "k1_sweep_max_launch_ms")}}},
         {"name": "superstep_finish", "route": "cuda", "source": k1k2,
          "replaces": "dgc_tpu/engine/bucketed.py:273",
          "launches": bucketed["launches"]["superstep_finish"],

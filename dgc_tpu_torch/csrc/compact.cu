@@ -376,8 +376,8 @@ stage_rows_kernel(const int* __restrict__ flat_ext, int w_flat, int n,
 // ---- K5: one superstep over a whole plan ---------------------------------
 //
 // A group of `lanes` lanes a row, the smallest power of two (at most 32)
-// whose lanes hold the row at kLaneEntries entries each
-// (seg_lanes; kernels/compact.py k5_lanes mirrors it). Each segment's rows
+// whose lanes hold the row at kLaneEntries entries each (rule.cuh
+// team_lanes; kernels/compact.py k5_lanes mirrors it). Each segment's rows
 // take whole warps of 32 / lanes rows (seg_warps: its rows' warps rounded
 // up, so no warp spans two segments and every group sits at a multiple of
 // its size within its warp); the host passes the plan's warp total. A
@@ -392,19 +392,9 @@ stage_rows_kernel(const int* __restrict__ flat_ext, int w_flat, int n,
 // the unconfirmed real neighbors in the same pass.
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowWords = 64;  // shared plane words of a warp's rows
-// a lane's share of a row (K5_LANE_ENTRIES in kernels/compact.py; 4 to 64
-// were timed, PERF.md)
-constexpr int kLaneEntries = 32;
-
-__device__ __forceinline__ int seg_lanes(int width) {
-  int lanes = 1;
-  while (lanes < 32 && lanes * kLaneEntries < width) lanes <<= 1;
-  return lanes;
-}
 
 __device__ __forceinline__ int seg_warps(const int* d) {
-  return (d[1] * seg_lanes(d[2]) + 31) >> 5;
+  return (d[1] * team_lanes(d[2]) + 31) >> 5;
 }
 
 template <bool kRecord>
@@ -419,7 +409,7 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
   if (!stage_live(ctrl, thresh, max_steps)) return;
   __shared__ int s_desc[kMaxSegs * kDescCols];
   __shared__ int s_warp0[kMaxSegs + 1];  // each segment's first warp
-  __shared__ uint32_t s_rows[kWarps * kRowWords];
+  __shared__ uint32_t s_rows[kWarps * kTeamWords];
   load_desc(s_desc, desc, nseg);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -460,7 +450,7 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
     const int* d = s_desc + s * kDescCols;
     const int width = d[2];
     const int planes = d[3];
-    const int lanes = seg_lanes(width);
+    const int lanes = team_lanes(width);
     const int sub = lane / lanes;       // the warp's row of this lane
     const int gl = lane & (lanes - 1);  // the lane in its row's group
     const int rs = (gw - s_warp0[s]) * (32 / lanes) + sub;
@@ -473,7 +463,7 @@ segmented_superstep_kernel(int* ctrl, int* state, size_t stride,
     const bool walk = eval && !is_confirmed(me);  // uniform over the group
     const int* __restrict__ row =
         seg + d[4] + static_cast<size_t>(valid ? rs : 0) * width;
-    uint32_t* s_fa = s_rows + warp * kRowWords + sub * 2 * lanes;
+    uint32_t* s_fa = s_rows + warp * kTeamWords + sub * 2 * lanes;
     uint32_t* s_fo = s_fa + lanes;
     const int per_pass = kRegPlanes + lanes;
     const int mycol = me >> 1;  // arithmetic: -1 stays -1

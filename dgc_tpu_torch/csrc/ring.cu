@@ -7,8 +7,11 @@
 //                         shard's rows against the held block through
 //                         rotation r's table, OR-folded into forb_all,
 //                         forb_old and clash) and ring.py:355-368 (bucketed:
-//                         the same on one bucket's row list, its
-//                         gather-modify-scatter); one thread per row.
+//                         the same on each bucket's row list, its
+//                         gather-modify-scatter), over all of a rotation's
+//                         tables of at most kernels.ring.WIDE_WIDTH in one
+//                         launch: a team of lanes a row, sized by its
+//                         table's width.
 //   K24 ring_stats_wide — the same function over all of a rotation's
 //                         tables wider than kernels.ring.WIDE_WIDTH (the
 //                         heavy-tail buckets), in one launch: one block per
@@ -39,10 +42,21 @@
 // table row j belongs to local row rows[j], else to local row j. Every
 // row appears at most once in the tables of one rotation, so K23 ORs into
 // its accumulators without atomics; K24's blocks of one row OR theirs with
-// atomicOr. K25 reads the touched planes, the clash flag and the mask and
-// writes them back to 0, so every accumulator is zero at every
-// superstep's start (and after a launch past the attempt's end, which
-// returns at once as every kernel here does).
+// atomicOr. Both skip a confirmed row (its word colored and not fresh):
+// its accumulators and mask stay 0, and K25 transitions it to itself
+// whatever they hold. K25 reads the touched planes, the clash flag and
+// the mask and writes them back to 0, so every accumulator is zero at
+// every superstep's start (and after a launch past the attempt's end,
+// which returns at once as every kernel here does).
+//
+// K23's narrow layout (kernels.ring.NarrowTables, built once on the host
+// from the static tables): the tables concatenated (`entries`), their row
+// lists (`rows`, a flat table's 0 .. V_l - 1) and each table row's real
+// length (`lens`, up to its last non-sentinel entry), and a descriptor a
+// table, int64[nseg, 5] (its first row in `rows`, its rows, width, offset
+// in `entries`, first warp). A table's rows take whole warps of 32 / lanes
+// rows, lanes = team_lanes(width) (rule.cuh); a warp finds its table by a
+// binary search over the first warps.
 //
 // K24's work list (kernels.ring.wide_work_list, built once on the host
 // from the static tables): int32[items, 4] of (local row, entry count n,
@@ -56,9 +70,16 @@
 // the accumulator words and the mask the row's stats make nonzero (write
 // the clash flag where set); K25 reads each row's word, mask and clash
 // flag and the accumulator words of its touched planes, zeroes those that
-// are nonzero, and writes its new word. Design: K23 is one thread per row;
-// K24 reads a chunk with 16-byte loads (each thread's four gathers into
-// the L2-resident block independent), folds colors below 64 in registers
+// are nonzero, and writes its new word. Design: K23 walks a row's real
+// entries with its team in 16-byte quads, eight gathers in flight a lane
+// (rule.cuh walk_row), two planes in registers OR-reduced over the team
+// and 1-32 more in the team's shared words (add_word), a pass a group of
+// 2 + lanes planes; the first pass takes the highest plane of any
+// neighbor color over the warp, and no pass above it reads the row again
+// (its planes are zero); the team's first lane ORs each nonzero plane
+// into the accumulators and sets the mask. K24 reads a chunk with
+// 16-byte loads (each thread's four gathers into the L2-resident block
+// independent), folds colors below 64 in registers
 // (OR-reduced over the warp) and the higher planes into a shared bitmask,
 // and flushes each nonzero word with one atomicOr; K25 walks only the set
 // bits of the mask, with no plane registers, so a row whose mask is 0 or
@@ -102,79 +123,73 @@ __device__ __forceinline__ int mask_shift(int planes) {
   return shift;
 }
 
-// The mask bits of the planes base + p for the bits p of `planes_set`.
-__device__ __forceinline__ uint32_t mask_bits(uint32_t planes_set, int base,
-                                              int planes) {
-  if (planes <= 32) return planes_set << base;  // one plane a bit
-  const int shift = mask_shift(planes);
-  uint32_t bits = 0u;
-  for (; planes_set != 0u; planes_set &= planes_set - 1u) {
-    bits |= 1u << ((base + __ffs(planes_set) - 1) >> shift);
-  }
-  return bits;
-}
+// ---- K23: one rotation's narrow tables, a team of lanes a row -----------
 
-// OR one plane group of a row's stats into its accumulators; the mask
-// bits of the planes it touched into `touched`.
-template <int PB>
-__device__ __forceinline__ void or_planes(int* __restrict__ acc, int vl,
-                                          int r, int base, int planes,
-                                          const uint32_t (&fa)[PB],
-                                          const uint32_t (&fo)[PB],
-                                          uint32_t& touched) {
-  const size_t stride = static_cast<size_t>(vl);
-  uint32_t planes_set = 0u;  // bit p: plane base + p took a nonzero word
-#pragma unroll
-  for (int p = 0; p < PB; ++p) {
-    const int pg = base + p;
-    if (pg < planes) {
-      if (fa[p] != 0u) acc[pg * stride + r] |= static_cast<int>(fa[p]);
-      if (fo[p] != 0u) {
-        acc[(planes + pg) * stride + r] |= static_cast<int>(fo[p]);
-      }
-      if ((fa[p] | fo[p]) != 0u) planes_set |= 1u << p;
-    }
-  }
-  if (planes_set != 0u) touched |= mask_bits(planes_set, base, planes);
-}
+// a descriptor row (NarrowTables.desc), int64
+constexpr int dJ0 = 0;
+constexpr int dRows = 1;
+constexpr int dWidth = 2;
+constexpr int dOff = 3;
+constexpr int dWarp0 = 4;
+constexpr int kDescCols = 5;
 
-// ---- K23: one rotation's stats, one thread per row ------------------------
-
-template <int PB>
 __global__ void __launch_bounds__(kThreads)
 ring_stats_kernel(const int* ctrl, const int* __restrict__ block,
                   const int* __restrict__ packed,
-                  const int* __restrict__ table,
-                  const int* __restrict__ rows, int nrows, int width, int vl,
-                  int* __restrict__ acc, int planes) {
-  if (ctrl[kStatus] != kRunning) return;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= nrows) return;
-  const int r = rows != nullptr ? rows[j] : j;
-  if (r >= vl) return;  // a padding row of the bucket
-  const int mycol = packed[r] >> 1;  // arithmetic: -1 stays -1
-  const int* __restrict__ row = table + static_cast<size_t>(j) * width;
+                  const int* __restrict__ entries,
+                  const int* __restrict__ rows, const int* __restrict__ lens,
+                  const long long* __restrict__ desc, int nseg, int warps,
+                  int vl, int* __restrict__ acc, int planes) {
+  if (ctrl[kStatus] != kRunning) return;  // uniform over the grid
+  __shared__ uint32_t s_rows[(kThreads / 32) * kTeamWords];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gw = blockIdx.x * (kThreads / 32) + warp;
+  if (gw >= warps) return;  // a whole warp: no block-wide barrier follows
+  int lo = 0;  // the table of this warp: the last whose first warp <= gw
+  int hi = nseg - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(desc + static_cast<size_t>(mid) * kDescCols + dWarp0) <= gw) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const long long* d = desc + static_cast<size_t>(lo) * kDescCols;
+  const int nrows = static_cast<int>(__ldg(d + dRows));
+  const int width = static_cast<int>(__ldg(d + dWidth));
+  const int lanes = team_lanes(width);
+  const int sub = lane / lanes;       // the warp's row of this lane
+  const int gl = lane & (lanes - 1);  // the lane in its row's group
+  const int rs = static_cast<int>(gw - __ldg(d + dWarp0)) * (32 / lanes) + sub;
+  const bool valid = rs < nrows;
+  const long long j = __ldg(d + dJ0) + (valid ? rs : 0);
+  const int r = valid ? __ldg(rows + j) : vl;
+  const int me = r < vl ? __ldg(packed + r) : 0;
+  // a padding row or a confirmed one reads nothing (uniform over the group)
+  const bool walk = r < vl && !(me >= 0 && (me & 1) == 0);
+  const int* __restrict__ row =
+      entries + __ldg(d + dOff) + static_cast<size_t>(valid ? rs : 0) * width;
+  uint32_t* s_fa = s_rows + warp * kTeamWords + sub * 2 * lanes;
+  const int shift = mask_shift(planes);
+  const size_t stride = static_cast<size_t>(vl);
   bool clash = false;
   uint32_t touched = 0u;
-  const int groups = (planes + PB - 1) / PB;
-  for (int g = 0; g < groups; ++g) {
-    const int base = g * PB;
-    uint32_t fa[PB];
-    uint32_t fo[PB];
-#pragma unroll
-    for (int p = 0; p < PB; ++p) {
-      fa[p] = 0u;
-      fo[p] = 0u;
+  group_passes(block, row, walk ? __ldg(lens + j) : 0, gl, lanes, vl, walk,
+               planes, me >> 1, s_fa, s_fa + lanes, clash,
+               [&](int pg, uint32_t fa, uint32_t fo) {
+                 if (fa != 0u) acc[pg * stride + r] |= static_cast<int>(fa);
+                 if (fo != 0u) {
+                   acc[(planes + pg) * stride + r] |= static_cast<int>(fo);
+                 }
+                 if ((fa | fo) != 0u) touched |= 1u << (pg >> shift);
+               });
+  if (walk && gl == 0) {
+    if (clash) acc[2 * planes * stride + r] = 1;
+    if (touched != 0u) {
+      acc[(2 * planes + 1) * stride + r] |= static_cast<int>(touched);
     }
-    for (int e = 0; e < width; ++e) {
-      add_neighbor<PB>(block, row[e], base, mycol, fa, fo, clash);
-    }
-    or_planes<PB>(acc, vl, r, base, planes, fa, fo, touched);
-  }
-  const size_t stride = static_cast<size_t>(vl);
-  if (clash) acc[2 * planes * stride + r] = 1;
-  if (touched != 0u) {
-    acc[(2 * planes + 1) * stride + r] |= static_cast<int>(touched);
   }
 }
 
@@ -190,20 +205,22 @@ ring_stats_wide_kernel(const int* ctrl, const int* __restrict__ block,
   __shared__ uint32_t s_fa[kSharedPlanes];
   __shared__ uint32_t s_fo[kSharedPlanes];
   __shared__ int s_clash;
+  const int4 item = __ldg(work + blockIdx.x);
+  const int r = item.x;
+  const int me = __ldg(packed + r);
+  if (me >= 0 && (me & 1) == 0) return;  // a confirmed row: uniform
   const int tid = threadIdx.x;
   if (tid < kSharedPlanes) {
     s_fa[tid] = 0u;
     s_fo[tid] = 0u;
   }
   if (tid == 0) s_clash = 0;
-  const int4 item = __ldg(work + blockIdx.x);
-  const int r = item.x;
   const int n = item.y;
   const long long off = static_cast<long long>(
       static_cast<unsigned long long>(static_cast<unsigned>(item.z)) |
       (static_cast<unsigned long long>(static_cast<unsigned>(item.w)) << 32));
   const int* __restrict__ chunk = entries + off;
-  const int mycol = __ldg(packed + r) >> 1;
+  const int mycol = me >> 1;
   const int window = 32 * planes;
   const int shift = mask_shift(planes);
   const size_t stride = static_cast<size_t>(vl);
@@ -372,16 +389,6 @@ ring_apply_kernel(int* ctrl, const int* __restrict__ packed,
   }
 }
 
-template <int PB>
-void launch_stats(const int* ctrl, const int* block, const int* packed,
-                  const int* table, const int* rows, int nrows, int width,
-                  int vl, int* acc, int planes, cudaStream_t stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((nrows + kThreads - 1) / kThreads);
-  ring_stats_kernel<PB><<<blocks, kThreads, 0, stream>>>(
-      ctrl, block, packed, table, rows, nrows, width, vl, acc, planes);
-}
-
 }  // namespace
 
 extern "C" {
@@ -389,36 +396,26 @@ extern "C" {
 // Every entry point returns the launch's cudaError_t (0 = launched).
 
 // K23. ctrl: int32[19] (kernels/shard.py's control block; read only);
-// block: int32[vl + 1]; packed: int32[vl]; table: int32[nrows, width] of
-// combined entries; rows: int32[nrows] local row ids (sentinel vl) or null
-// (then nrows == vl); acc: int32[2 * planes + 2, vl].
+// block: int32[vl + 1]; packed: int32[vl]; entries, rows, lens, desc: the
+// narrow layout (above), desc int64[nseg, 5]; warps: the last table's
+// first warp plus its warps; acc: int32[2 * planes + 2, vl].
 int dgc_ring_stats(const void* ctrl, const void* block, const void* packed,
-                   const void* table, const void* rows, int nrows, int width,
-                   int vl, void* acc, int planes, void* stream) {
-  if (nrows <= 0 || width <= 0 || vl <= 0 || planes <= 0 ||
-      (rows == nullptr && nrows != vl)) {
+                   const void* entries, const void* rows, const void* lens,
+                   const void* desc, int nseg, int warps, int vl, void* acc,
+                   int planes, void* stream) {
+  if (nseg <= 0 || warps <= 0 || vl <= 0 || planes <= 0 ||
+      rows == nullptr || lens == nullptr || desc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* c = static_cast<const int*>(ctrl);
-  const auto* b = static_cast<const int*>(block);
-  const auto* pk = static_cast<const int*>(packed);
-  const auto* t = static_cast<const int*>(table);
-  const auto* rw = static_cast<const int*>(rows);
-  auto* a = static_cast<int*>(acc);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (planes <= 1) {
-    launch_stats<1>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  } else if (planes <= 2) {
-    launch_stats<2>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  } else if (planes <= 4) {
-    launch_stats<4>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  } else if (planes <= 8) {
-    launch_stats<8>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  } else if (planes <= 16) {
-    launch_stats<16>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  } else {
-    launch_stats<32>(c, b, pk, t, rw, nrows, width, vl, a, planes, st);
-  }
+  const int per_block = kThreads / 32;
+  ring_stats_kernel<<<static_cast<unsigned>((warps + per_block - 1) /
+                                            per_block),
+                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ctrl), static_cast<const int*>(block),
+      static_cast<const int*>(packed), static_cast<const int*>(entries),
+      static_cast<const int*>(rows), static_cast<const int*>(lens),
+      static_cast<const long long*>(desc), nseg, warps, vl,
+      static_cast<int*>(acc), planes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // What the superstep kernels share: the speculative rule for one row, on
-// one thread (row_rule: K1 in superstep.cu, K13 in serve.cu, K20 in
-// shard.cu) or on a team of threads (add_word, fold_plane and walk_row:
-// K5 in compact.cu, K8 in hub.cu); the loop-control fold of one
+// one thread (row_rule: K13 in serve.cu, K20 in shard.cu) or on a team of
+// threads (add_word, fold_plane and walk_row: K1 in superstep.cu, K5 in
+// compact.cu, K8 in hub.cu, K23 in ring.cu; a group of lanes a row:
+// team_lanes, group_passes); the loop-control fold of one
 // superstep (finish_step: K2 and K6); the stage predicate (stage_live:
 // K5-K8); and the hub region's live table (K6-K8).
 //
@@ -191,10 +192,11 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
   return finish_rule(me, clash, found, cand, old_free);
 }
 
-// ---- the team walk of K5 and K8 ----------------------------------------
+// ---- the team walk of K1, K5, K8 and K23 --------------------------------
 //
-// K5 (a group of lanes a row) and K8 (a warp, a block or a cluster of
-// blocks a row) read a row with a team of threads and keep the row's
+// K1, K5 and K23 (a group of lanes a row, K1 a block from its widest
+// tables) and K8 (a warp or a block a row) read a row with a team of
+// threads and keep the row's
 // planes two ways: the first two planes of a pass (where the first fit
 // picks mostly fall) in registers, OR-reduced over the team, and the rest
 // of the pass in shared words that the team ORs into with atomicOr. A
@@ -204,6 +206,20 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
 // shuffles cost more than the shared atomics they saved.)
 
 constexpr int kRegPlanes = 2;  // planes of a pass held in registers
+
+// A group of lanes a row: the least power of two, at most 32, whose lanes
+// hold a row of `width` at kLaneEntries entries each
+// (kernels.superstep.team_lanes mirrors it; 4 to 64 were timed for K5,
+// PERF.md). A warp's groups share kTeamWords shared plane words: `lanes`
+// of fa and `lanes` of fo a group.
+constexpr int kLaneEntries = 32;
+constexpr int kTeamWords = 64;
+
+__host__ __device__ __forceinline__ int team_lanes(int width) {
+  int lanes = 1;
+  while (lanes < 32 && lanes * kLaneEntries < width) lanes <<= 1;
+  return lanes;
+}
 
 // Planes base and base + 1 of a pass, in registers.
 struct PlaneRegs {
@@ -323,6 +339,60 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < 8; ++u) visit(e[u], w[u]);
   }
+}
+
+// The passes of a group of `lanes` lanes over its row's entries [0, len)
+// (K1, K23): a pass holds kRegPlanes + lanes planes from `base`, in
+// PlaneRegs and the group's shared words s_fa/s_fo, and hands each to
+// plane(pg, fa, fo) on the first lane of a group that walks (`walk`,
+// uniform over the group). The first pass also takes the highest plane
+// of any neighbor color over the warp; no pass reads the rows above it,
+// whose planes are zero for every row of the warp. Every lane of the warp
+// calls it with the same `lanes` and `planes`. Returns the planes handed
+// over, and leaves the group's clash in `clash` on each of its lanes.
+template <class Plane>
+__device__ __forceinline__ int group_passes(const int* __restrict__ src,
+                                            const int* __restrict__ row,
+                                            int len, int gl, int lanes,
+                                            int pad, bool walk, int planes,
+                                            int mycol, uint32_t* s_fa,
+                                            uint32_t* s_fo, bool& clash,
+                                            Plane plane) {
+  const int per_pass = kRegPlanes + lanes;
+  int top = -1;  // the highest plane of a neighbor's color
+  int done = planes;
+  for (int base = 0; base < planes; base += per_pass) {
+    const int gp = min(per_pass, planes - base);
+    s_fa[gl] = 0u;
+    s_fo[gl] = 0u;
+    __syncwarp();
+    PlaneRegs pl;
+    if (walk) {
+      walk_row(src, row, len, gl, lanes, pad, [&](int e, int word) {
+        add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
+        if (base == 0 && word >= 0) top = max(top, word >> 6);
+      });
+    }
+    pl.or_xor(lanes >> 1);  // within the group
+    __syncwarp();  // the group's shared words are complete
+    if (walk && gl == 0) {
+      for (int p = 0; p < gp; ++p) {
+        const bool reg = p < kRegPlanes;
+        plane(base + p, reg ? pl.fa(p) : s_fa[p - kRegPlanes],
+              reg ? pl.fo(p) : s_fo[p - kRegPlanes]);
+      }
+    }
+    __syncwarp();  // read before the next pass clears them
+    if (base == 0) top = __reduce_max_sync(0xFFFFFFFFu, top);
+    if (top < base + gp) {  // uniform over the warp
+      done = base + gp;
+      break;
+    }
+  }
+  for (int o = lanes >> 1; o > 0; o >>= 1) {
+    clash |= __shfl_xor_sync(0xFFFFFFFFu, clash ? 1 : 0, o) != 0;
+  }
+  return done;
 }
 
 // Fold this superstep's counters into the loop carry, on one thread, for

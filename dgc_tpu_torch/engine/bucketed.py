@@ -46,6 +46,7 @@ from dgc_tpu_torch.kernels.superstep import (
     INT32_MAX,
     new_ctrl,
     new_state,
+    row_plan,
     run_supersteps,
 )
 from dgc_tpu_torch.models.arrays import GraphArrays, csr_to_ell
@@ -211,6 +212,8 @@ class BucketedELLEngine:
         self.combined_buckets = tuple(
             torch.from_numpy(np.array(cb, dtype=np.int32)).to(self.device)
             for cb in combined_list)
+        # K1's plans: each row's real length and its team, taken once
+        self.plans = tuple(row_plan(cb, v) for cb in self.combined_buckets)
         self._window_cap = max_window_planes
         self.planes = (tuple(planes) if planes is not None else
                        bucket_planes(self.combined_buckets, max_planes=max_window_planes))
@@ -253,9 +256,10 @@ class BucketedELLEngine:
             packed0 = torch.where(self.degrees == 0, 0, 1).to(torch.int32)
             state = new_state(packed0)
             ctrl = new_ctrl(step=1, prev_active=v + 1, device=self.device)
-            parts = [(r0, cb, p, fail_valid(cb.shape[1], p, k))
-                     for r0, cb, p in zip(self.row0, self.combined_buckets,
-                                          self.planes)]
+            parts = [(r0, cb, plan, p, fail_valid(cb.shape[1], p, k))
+                     for r0, cb, plan, p in zip(self.row0,
+                                                self.combined_buckets,
+                                                self.plans, self.planes)]
             traj = (traj_empty(traj_cap_for(self.max_steps),
                                device=self.device)
                     if self.record_trajectory else None)

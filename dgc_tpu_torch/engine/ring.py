@@ -23,9 +23,10 @@ ratio as ``dgc_tpu`` chooses it.
 One superstep on every rank (``kernels.ring``):
 
 1. block 0 ← the rank's words, −1 at slot ``V_l``;
-2. for each rotation r: K23 (one thread a row, one launch a table or
-   bucket) and K24 (one launch over all the tables wider than
-   ``kernels.ring.WIDE_WIDTH``, a block a chunk of a row's real entries,
+2. for each rotation r: K23 (one launch over all the tables of at most
+   ``kernels.ring.WIDE_WIDTH``, a team of lanes a row by its table's
+   width, ``kernels.ring.NarrowTables``) and K24 (one launch over all the
+   tables wider, a block a chunk of a row's real entries,
    ``kernels.ring.WideTables``) OR the neighbor stats of table r's rows
    against the held block into the accumulators and their touched-plane
    masks; then, except after the last, the held block to the next rank
@@ -271,12 +272,13 @@ class RingHaloEngine(ShardEngine):
         def t(x):
             return torch.from_numpy(np.array(x, np.int32, order="C")).to(dev)
 
-        # K23's launches a rotation, and its tables wider than WIDE_WIDTH
-        # as K24's one launch (None where there is none)
-        self.rot = tuple(tuple((None if rows is None else t(rows), t(table))
-                               for rows, table in launches
-                               if table.shape[1] <= kr.WIDE_WIDTH)
-                         for launches in rot)
+        # a rotation's tables of at most WIDE_WIDTH as K23's one launch,
+        # and those wider as K24's (None where there is none)
+        self.rot = tuple(
+            kr.NarrowTables(narrow, vl, dev) if narrow else None
+            for narrow in ([(rows, table) for rows, table in launches
+                            if table.shape[1] <= kr.WIDE_WIDTH]
+                           for launches in rot))
         self.wide = tuple(
             kr.WideTables(wide, vl, dev) if wide else None
             for wide in ([(rows, table) for rows, table in launches
@@ -309,11 +311,11 @@ class RingHaloEngine(ShardEngine):
         vl = self.packed_l.shape[0]
         cur = 0
         self.blocks[0, :vl].copy_(self.packed_l)
-        for r, (launches, wide) in enumerate(zip(self.rot, self.wide)):
+        for r, (narrow, wide) in enumerate(zip(self.rot, self.wide)):
             block = self.blocks[cur]
-            for rows, table in launches:
-                kr.ring_stats(ctrl, block, self.packed_l, table, rows,
-                              self.acc, self.num_planes)
+            if narrow is not None:
+                kr.ring_stats(ctrl, block, self.packed_l, narrow, self.acc,
+                              self.num_planes)
             if wide is not None:
                 kr.ring_stats_wide(ctrl, block, self.packed_l, wide,
                                    self.acc, self.num_planes)

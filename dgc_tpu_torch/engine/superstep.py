@@ -37,6 +37,7 @@ from dgc_tpu_torch.kernels.superstep import (
     INT32_MAX,
     new_ctrl,
     new_state,
+    row_plan,
     run_supersteps,
 )
 from dgc_tpu_torch.models.arrays import GraphArrays
@@ -80,6 +81,8 @@ class ELLEngine:
         self.degrees = torch.from_numpy(degrees).to(self.device)
         self.table = ell_combined_table(torch.from_numpy(nbrs).to(self.device),
                                         self.degrees)
+        # K1's plan: each row's real length and its team, taken once
+        self.plan = row_plan(self.table, v)
         self.host_syncs = 0
         # in-kernel telemetry switch: K2's recording variant writes each
         # superstep's row of a trajectory buffer that rides the carry
@@ -95,7 +98,7 @@ class ELLEngine:
         packed0 = torch.where(self.degrees == 0, 0, -1).to(torch.int32)
         state = new_state(packed0)
         ctrl = new_ctrl(step=0, prev_active=v + 1, device=self.device)
-        parts = [(0, self.table, self.num_planes, True)]
+        parts = [(0, self.table, self.plan, self.num_planes, True)]
         traj = (traj_empty(traj_cap_for(self.max_steps), device=self.device)
                 if self.record_trajectory else None)
         while True:

@@ -60,7 +60,8 @@ import torch
 from dgc_tpu_torch.engine.base import AttemptStatus
 from dgc_tpu_torch.kernels.superstep import (  # the first eight slots
     CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL, CTRL_MC, CTRL_PREV_ACTIVE, CTRL_STALL,
-    CTRL_STATUS, CTRL_STEP, INT32_MAX, _check_int32, _stream, finish_step)
+    CTRL_STATUS, CTRL_STEP, INT32_MAX, LANE_ENTRIES, _check_int32, _stream,
+    finish_step, team_lanes)
 from dgc_tpu_torch.layout import TRAJ_COLS
 from dgc_tpu_torch.obs.devclock import kernel_clock_us
 from dgc_tpu_torch.obs.kernel import trajstep
@@ -83,8 +84,10 @@ _RUNNING = int(AttemptStatus.RUNNING)
 
 SOURCE = "compact.cu"
 # K5's lanes a row: the fewest (a power of two, at most 32) that hold the
-# row at this many entries each (kLaneEntries in csrc/compact.cu)
-K5_LANE_ENTRIES = 32
+# row at this many entries each (kLaneEntries in csrc/rule.cuh), the
+# lanes of K1's and K23's groups too
+K5_LANE_ENTRIES = LANE_ENTRIES
+k5_lanes = team_lanes
 
 launch_counts = {"compact_slots": 0, "stage_rows": 0,
                  "segmented_superstep": 0, "stage_finish": 0}
@@ -156,15 +159,6 @@ def stage_live(c, thresh: int, max_steps: int) -> bool:
     list)? The while conds of ``dgc_tpu.engine.compact._staged_pipeline``."""
     return (c[CTRL_STATUS] == _RUNNING and c[CTRL_PREV_ACTIVE] > thresh
             and c[CTRL_STEP] < max_steps)
-
-
-def k5_lanes(width: int) -> int:
-    """K5's lanes for a row of ``width`` entries (seg_lanes in
-    csrc/compact.cu)."""
-    lanes = 1
-    while lanes < 32 and lanes * K5_LANE_ENTRIES < width:
-        lanes *= 2
-    return lanes
 
 
 @lru_cache(maxsize=256)

@@ -59,8 +59,8 @@ from dgc_tpu_torch.kernels.compact import (CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL,
                                            LIVE_TIER_NEXT, _check_cuda,
                                            _check_state, _clamp_k, _raise_on,
                                            compact_idx, stage_live)
-from dgc_tpu_torch.kernels.superstep import INT32_MAX, _check_int32, _stream
-from dgc_tpu_torch.ops.speculative import NBR_MASK
+from dgc_tpu_torch.kernels.superstep import (INT32_MAX, _check_int32, _stream,
+                                             real_lengths)
 
 SOURCE = "hub.cu"
 
@@ -141,13 +141,9 @@ def hub_row_lengths(table: torch.Tensor, buckets, v: int) -> torch.Tensor:
     sentinels alone)."""
     out = [torch.zeros(0, dtype=torch.int32, device=table.device)]
     for b in buckets:
-        if not b.rows:
-            continue
-        t = table[b.cb: b.cb + b.rows * b.width].view(b.rows, b.width)
-        col = torch.arange(1, b.width + 1, dtype=torch.int32,
-                           device=table.device)
-        out.append(torch.where((t & NBR_MASK) != v, col, 0).amax(dim=1)
-                   .to(torch.int32))
+        if b.rows:
+            out.append(real_lengths(table[b.cb: b.cb + b.rows * b.width]
+                                    .view(b.rows, b.width), v))
     return torch.cat(out)
 
 

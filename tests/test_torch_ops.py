@@ -148,7 +148,8 @@ def test_superstep_plain_equals_bucketed_superstep(seed, k):
     ctrl = ks.new_ctrl(step=1, prev_active=151, device="cpu")
     for r0, cb, p in zip(b.row0, b.combined, planes):
         fv = 32 * p >= cb.shape[1] + 1 or k <= 32 * p
-        ks.superstep_rows(ctrl, state, t(cb), r0, p, k, fv)
+        ks.superstep_rows(ctrl, state, t(cb), r0, p, k, fv,
+                          ks.row_plan(t(cb), 150))
     np.testing.assert_array_equal(state[1, :150].numpy(), np.asarray(new))
     np.testing.assert_array_equal(state[0, :150].numpy(), packed)
     assert int(ctrl[ks.CTRL_FAIL]) == int(fail_count)

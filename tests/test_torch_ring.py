@@ -227,16 +227,19 @@ def test_plain_kernels_equal_jax(window, budget, layout):
     packed_t = torch.from_numpy(packed.copy())
     for r in range(n):
         block = torch.from_numpy(held(r))
-        for rows, table in rot[r]:
-            kr.ring_stats(ctrl, block, packed_t,
-                          torch.from_numpy(np.ascontiguousarray(table)),
-                          None if rows is None else torch.from_numpy(rows),
-                          acc, planes)
-    np.testing.assert_array_equal(acc[:planes].T.numpy(),
-                                  np.asarray(fa).view(np.int32))
-    np.testing.assert_array_equal(acc[planes: 2 * planes].T.numpy(),
-                                  np.asarray(fo).view(np.int32))
-    np.testing.assert_array_equal(acc[2 * planes].numpy(), np.asarray(cl))
+        kr.ring_stats(ctrl, block, packed_t, kr.NarrowTables(rot[r], vl, "cpu"),
+                      acc, planes)
+    # a confirmed row's stats are skipped: its accumulators stay 0
+    conf = (packed >= 0) & (packed & 1 == 0)
+    assert conf.any() and not conf.all()
+    np.testing.assert_array_equal(
+        acc[:planes].T.numpy(),
+        np.where(conf[:, None], 0, np.asarray(fa).view(np.int32)))
+    np.testing.assert_array_equal(
+        acc[planes: 2 * planes].T.numpy(),
+        np.where(conf[:, None], 0, np.asarray(fo).view(np.int32)))
+    np.testing.assert_array_equal(acc[2 * planes].numpy(),
+                                  np.asarray(cl) & ~conf)
     back = torch.empty_like(packed_t)
     kr.ring_apply(ctrl, packed_t, acc, back, planes, k, True)
     np.testing.assert_array_equal(back.numpy(), np.asarray(new))
@@ -250,9 +253,8 @@ def test_plain_kernels_equal_jax(window, budget, layout):
     # a launch past the attempt's end does nothing
     ctrl[ks.CTRL_STATUS] = 1
     before = (ctrl.clone(), back.clone())
-    kr.ring_stats(ctrl, block, packed_t, torch.from_numpy(
-        np.ascontiguousarray(rot[0][0][1])), None if rot[0][0][0] is None
-        else torch.from_numpy(rot[0][0][0]), acc, planes)
+    kr.ring_stats(ctrl, block, packed_t, kr.NarrowTables(rot[0], vl, "cpu"),
+                  acc, planes)
     kr.ring_apply(ctrl, packed_t, acc, back, planes, k, True)
     assert not acc.any()
     assert torch.equal(ctrl, before[0]) and torch.equal(back, before[1])

@@ -260,16 +260,19 @@ def test_plain_kernels_and_masks_equal_jax(window, budget):
                              chunk=64)
         chunks = max(chunks, int(torch.bincount(
             wide.work[:, 0].long()).max()))
-        for rows, table in narrow:
-            kr.ring_stats(ctrl, block, packed_t,
-                          torch.from_numpy(np.ascontiguousarray(table)),
-                          torch.from_numpy(rows), acc, planes)
+        kr.ring_stats(ctrl, block, packed_t,
+                      kr.NarrowTables(narrow, vl, "cpu"), acc, planes)
         kr.ring_stats_wide(ctrl, block, packed_t, wide, acc, planes)
     assert chunks >= 10  # a hub row over many blocks
-    fa_np, fo_np = np.asarray(fa).view(np.int32), np.asarray(fo).view(np.int32)
+    # a confirmed row's stats are skipped: its accumulators stay 0
+    conf = (packed >= 0) & (packed & 1 == 0)
+    assert conf.any() and not conf.all()
+    fa_np = np.where(conf[:, None], 0, np.asarray(fa).view(np.int32))
+    fo_np = np.where(conf[:, None], 0, np.asarray(fo).view(np.int32))
     np.testing.assert_array_equal(acc[:planes].T.numpy(), fa_np)
     np.testing.assert_array_equal(acc[planes: 2 * planes].T.numpy(), fo_np)
-    np.testing.assert_array_equal(acc[2 * planes].numpy(), np.asarray(cl))
+    np.testing.assert_array_equal(acc[2 * planes].numpy(),
+                                  np.asarray(cl) & ~conf)
     np.testing.assert_array_equal(acc[2 * planes + 1].numpy(),
                                   _touched_np(fa_np, fo_np, planes))
     assert (acc[2 * planes + 1] != 0).any()

@@ -1,6 +1,7 @@
-"""Where K3 (`compact_slots`), K5 (`segmented_superstep`), K8
-(`hub_superstep`), K11 (`dense_forbid`), K24 (`ring_stats_wide`) and K25
-(`ring_apply`) spend their time on the card:
+"""Where K1 (`superstep_rows`), K3 (`compact_slots`), K5
+(`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K23
+(`ring_stats`), K24 (`ring_stats_wide`) and K25 (`ring_apply`) spend their
+time on the card:
 device time from ``torch.profiler`` over a few shapes each, one JSON line
 a measurement, then the card's name and power limit.
 
@@ -30,8 +31,17 @@ RMAT draw's ``ell-compact`` engine: one sweep held launch by launch
 against the plain versions, one profiled (K8's mean, sum and spread a
 launch, K5's sum). ``chip_smoke.py`` times K8 on each hub bucket alone.
 
-    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8]  # all if none
-    python tools/kernel_costs.py --tree DIR k5 k8
+K1 (``k1``): the 1M uniform draw's ``ell`` and ``ell-bucketed`` engines
+at a fresh attempt's first superstep (every part), then the 1M RMAT
+draw's ``ell-bucketed`` sweep: the CLI's sweep once, then its attempts
+replayed under the profiler, K1's launches summed, and the replay's wall
+time. K23 (``k23``): both 1M draws' ``sharded-ring`` engines at world size
+1, one ``sweep`` call under the profiler (K23's launches summed) and one
+without (its wall time). Both parts drive the engines through their own
+calls only, so they time another checkout's package as well.
+
+    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8] [k1] [k23]
+    python tools/kernel_costs.py --tree DIR k1 k23   # all parts if none
 
 ``--tree DIR`` times another checkout's package (an unpacked ``git
 archive``, e.g. the parent commit's) with these parts. Needs one card;
@@ -43,6 +53,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -166,8 +177,7 @@ def ring_costs() -> None:
                           "real_entries": sum(real), "ms": ms}), flush=True)
     # K25 from what the superstep's stats leave
     acc.zero_()
-    for rows, table in engine.rot[0]:
-        kr.ring_stats(ctrl, block, engine.packed_l, table, rows, acc, planes)
+    kr.ring_stats(ctrl, block, engine.packed_l, engine.rot[0], acc, planes)
     kr.ring_stats_wide(ctrl, block, engine.packed_l, engine.wide[0], acc,
                        planes)
     left = acc.clone()
@@ -292,6 +302,110 @@ def k8_costs() -> None:
         "held_sweep_err": err, **_sweep_profile(engine, k)}), flush=True)
 
 
+def _k1_first_superstep(engine, k: int) -> float:
+    """K1's device time over every part of a fresh attempt's first
+    superstep (repeated launches redo the same step), on either
+    checkout's engine (a table's plan passed where the engine has one)."""
+    from dgc_tpu_torch.engine.base import clamp_budget
+    from dgc_tpu_torch.engine.bucketed import fail_valid
+    from dgc_tpu_torch.kernels import superstep as ks
+
+    if hasattr(engine, "combined_buckets"):
+        tables = [(r0, cb, p, fail_valid(cb.shape[1], p, k)) for r0, cb, p
+                  in zip(engine.row0, engine.combined_buckets, engine.planes)]
+        plans = getattr(engine, "plans", [None] * len(tables))
+        packed0 = torch.where(engine.degrees == 0, 0, 1).to(torch.int32)
+        step0, k_run = 1, k
+    else:
+        tables = [(0, engine.table, engine.num_planes, True)]
+        plans = [getattr(engine, "plan", None)]
+        packed0 = torch.where(engine.degrees == 0, 0, -1).to(torch.int32)
+        step0, k_run = 0, clamp_budget(k, 32 * engine.num_planes)
+    v = packed0.shape[0]
+    ctrl = ks.new_ctrl(step0, v + 1, packed0.device)
+    state = ks.new_state(packed0)
+
+    def k1():
+        for (row0, table, planes, fv), plan in zip(tables, plans):
+            ks.superstep_rows(ctrl, state, table, row0, planes, k_run, fv,
+                              *(() if plan is None else (plan,)))
+
+    return cs._device_ms(k1, 20, "superstep_rows", per_call=len(tables))
+
+
+def k1_costs() -> None:
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import superstep as ks
+
+    for argv, backends in ((cs.MAIN_ARGS, ("ell", "ell-bucketed")),
+                           (cs.RMAT_ARGS, ("ell-bucketed",))):
+        for backend in backends:
+            args = cli.build_parser().parse_args(
+                argv + ["--backend", backend,
+                        "--output-coloring", "unused.json"])
+            graph = cli.load_graph(args)
+            engine = cli.make_engine(args, graph)
+            k = graph.initial_k()
+            out = {"kernel": "superstep_rows", "backend": backend,
+                   "graph": args.gen_method,
+                   "first_superstep_ms": _k1_first_superstep(engine, k)}
+            if args.gen_method == "rmat":
+                result = cli.sweep(args, graph, engine)
+                ks_swept = [a.k for a in result.attempts]
+
+                def replay():
+                    for k_ in ks_swept:
+                        engine.attempt(k_)
+
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                replay()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+                ks.reset_launch_counts()
+                replay()
+                n = ks.launch_counts["superstep_rows"]
+                total, kept, _ = cs._profiled(
+                    replay, {"superstep_rows": n},
+                    names={"superstep_rows": "superstep_rows"})[
+                        "superstep_rows"]
+                out.update(attempts=len(ks_swept),
+                           supersteps=result.total_supersteps,
+                           replay_wall_ms=wall, sweep_k1_ms=total,
+                           sweep_k1_launches=kept)
+            print(json.dumps(out), flush=True)
+            del engine
+
+
+def k23_costs() -> None:
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import ring as kr
+
+    for argv in (cs.MAIN_ARGS, cs.RMAT_ARGS):
+        args = cli.build_parser().parse_args(
+            argv + ["--backend", "sharded-ring",
+                    "--output-coloring", "unused.json"])
+        graph = cli.load_graph(args)
+        engine = cli.make_engine(args, graph)
+        k = engine._budget(graph.initial_k())
+        engine.sweep(k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.sweep(k)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        kr.reset_launch_counts()
+        engine.sweep(k)
+        n = kr.launch_counts["ring_stats"]
+        total, kept, _ = cs._profiled(
+            lambda: engine.sweep(k), {"ring_stats": n},
+            names={"ring_stats": "ring_stats_kernel"})["ring_stats"]
+        print(json.dumps({"kernel": "ring_stats", "graph": args.gen_method,
+                          "sweep_wall_ms": wall, "sweep_k23_ms": total,
+                          "sweep_k23_launches": kept}), flush=True)
+        del engine
+
+
 def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_costs: no CUDA device available", file=sys.stderr)
@@ -300,10 +414,11 @@ def main(argv: list[str] | None = None) -> int:
     if parts[:1] == ["--tree"]:
         sys.path.insert(0, str(Path(parts[1]).resolve()))
         parts = parts[2:]
-    parts = parts or ["k3", "k11", "ring", "k5", "k8"]
+    parts = parts or ["k3", "k11", "ring", "k5", "k8", "k1", "k23"]
     for part in parts:
         {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs,
-         "k5": k5_costs, "k8": k8_costs}[part]()
+         "k5": k5_costs, "k8": k8_costs, "k1": k1_costs,
+         "k23": k23_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
