@@ -59,15 +59,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must be −1 where the plain version's is and a masked clock reading
    where it is not. The serve tier's K16 (lane reset), K14 (lane
    compaction), K13 (batched superstep) and K15 (lane finish) on seeded
-   random lanes: 1, 3 and 8 lanes of widths 8, 64 and 1,023 (1 to 32
-   planes), lanes in every phase, dead and reset lanes, random rungs and
-   slot lists, forced staged rungs, timing off and on, with and without
-   random spec and cancel vectors (K16 must kill a lane and spare a
-   cancelled reset one); every buffer is compared after every launch, the
-   clock slots by the same rule. The device-resident carry's K17 (lane
-   seat), K18 (carry permute) and K19 (inputs resize) on seeded random
-   stacks and carries of classes v2048w8, v2048w1023 and v32768w32 at 1,
-   2, 8 and 32 lanes: seats of one lane and of every lane (one twice),
+   random lanes laid out as ``pad_member`` lays them out (a row's real
+   entries, then the sentinel): 1 to 8 lanes of widths 8, 32, 64 and
+   1,023 (1 to 32 planes; K13's groups of 1, 2 and 32 lanes a row), 300
+   to 40,000 rows (K13's staged instance and its global one; each of
+   its paths, gathers from the staged state and from device memory, must
+   run, as its launch plan says), dummy lanes, lanes in every phase, dead
+   and reset lanes, random rungs and slot lists, forced staged rungs,
+   timing off and on, with and without random spec and cancel vectors
+   (K16 must kill a lane and spare a cancelled reset one); every buffer
+   is compared after every launch, the clock slots by the same rule; then
+   K13 and K15 each replayed 50 times on one input of 8 lanes, of 1,000
+   lanes (more than K13's blocks: a block stages its lanes one after
+   another) and of 40,000 rows. The device-resident carry's K17
+   (lane seat), K18 (carry permute) and K19 (inputs resize) on seeded
+   random stacks and carries of classes v2048w8, v2048w1023 and v32768w32
+   at 1, 2, 8 and 32 lanes: seats of one lane and of every lane (one twice),
    permutes keeping no, some and all lanes in random order at the same
    width, ×2 and ÷4, resizes ×2 and ÷4 with sources past the old width.
    The lane mesh's kernels (B12g): the partial K16/K15 and K26 on meshes
@@ -222,8 +229,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    rung or retry and K13-K16 launched (zeroed just before each run, read
    just after); then K13-K16 held against their plain versions and
    profiled over one 32-lane sweep of the serving class (and an armed
-   sweep, half its lanes spec-tagged). A sixth replay (continuous, batch
-   8) and two drawn-once runs (continuous, batch 8 and 32) run with
+   sweep, half its lanes spec-tagged) and one 8-lane sweep of the 100k
+   requests' class (K13 without a staged lane state), each K13 launch's
+   path read from its plan. A sixth replay (continuous, batch 8) and two
+   drawn-once runs
+   (continuous, batch 8 and 32) run with
    ``--device-carry``: equal to the same loop, K17-K19 launched there and
    nowhere else. Then speculative minimal-k on a 500,000-vertex uniform
    native draw (class v524288w32) from k0 = 33, strict, four ways: the
@@ -712,7 +722,8 @@ def _k5_width_cases(rng, v: int, device) -> list:
     return cases
 
 
-REPLAYS = 50  # launches of K5 and K8 on one input, each equal to the first
+# launches of K5, K8, K13 and K15 on one input, each equal to the first
+REPLAYS = 50
 
 
 def _k5_replays(kc, rng, v: int, device, rec: bool = False) -> int:
@@ -3796,9 +3807,18 @@ def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
 
 # ---- the serve tier (B12): K13-K16 ------------------------------------------
 
-# (lanes, width, rows) of the random serve cases: 1 to 32 planes
+# (lanes, width, rows) of the random serve cases: 1 to 32 planes, K13's
+# groups of 1, 2 and 32 lanes a row; V <= 32,768 runs K13's staged
+# instance (its blocks gather from the staged state on the full table and
+# the shallow rung, from device memory on the deep one: kernels.serve.
+# superstep_plan), V = 40,000 its global one
 SERVE_KERNEL_CASES = ((1, 8, 3000), (3, 64, 1200), (8, 1023, 300),
-                      (3, 8, 3000), (8, 64, 1200), (1, 1023, 300))
+                      (3, 8, 3000), (8, 64, 1200), (1, 1023, 300),
+                      (4, 32, 2048), (2, 32, 40000))
+# (lanes, width, rows) of the replayed inputs: a few lanes a block staged,
+# more lanes than blocks (each block stages its lanes one after another),
+# the global instance
+SERVE_REPLAY_CASES = ((8, 32, 2048), (1000, 8, 2048), (2, 32, 40000))
 SERVE_ROUNDS = 8
 # armed lanes of the 500k strict chain's class (lanes, width, rows:
 # v524288w32, 67 MB a lane) at the width of its --speculate-k 3 pool,
@@ -3811,9 +3831,25 @@ def _serve_ladder(v: int) -> tuple:
     return ((None, v // 2), (v // 2, v // 8), (v // 8, 0))
 
 
+def _serve_table(rng, b: int, v: int, w: int, dummies: float = 0.0):
+    """Seeded lane tables as ``pad_member`` lays them out: a row's degree
+    real entries (ids below ``v``, a random beats bit) first, the sentinel
+    ``v`` after them (K13 walks a row up to its degree); with ``dummies``,
+    that share of the lanes the class dummy (degree 0, every entry the
+    sentinel). Returns (comb, degrees)."""
+    degrees = rng.integers(0, w + 1, size=(b, v))
+    degrees[rng.random((b, v)) < 0.2] = 0
+    degrees[rng.random(b) < dummies] = 0
+    nbr = rng.integers(0, v, size=(b, v, w))
+    beats = rng.integers(0, 2, size=(b, v, w))
+    comb = np.where(np.arange(w) < degrees[..., None], nbr | (beats << 30), v)
+    return comb.astype(np.int32), degrees
+
+
 def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device,
                  armed: bool = False):
-    """Seeded random lanes: inputs and a carry with lanes in every phase,
+    """Seeded random lanes: inputs (``_serve_table``, dummy lanes among
+    them) and a carry with lanes in every phase,
     dead ones, random rungs and slot lists (forced staged rungs with
     ``staged``), budgets and ``max_steps`` that end attempts; the reset
     flags raised at random; with ``armed``, spec tags in half the carry's
@@ -3826,9 +3862,7 @@ def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device,
 
     stages, _pads, a0 = resolve_stages(_serve_ladder(v), v)
     n = len(stages)
-    comb = _combined(rng, (b, v, w), v, sentinel_rate=0.3)
-    degrees = rng.integers(0, w + 1, size=(b, v))
-    degrees[rng.random((b, v)) < 0.2] = 0
+    comb, degrees = _serve_table(rng, b, v, w, dummies=0.2)
     k = rng.integers(1, w + 2, size=b)
     step = rng.integers(1, 40, size=b)
     max_steps = rng.integers(2, 2 * v + 4, size=b)
@@ -3902,14 +3936,72 @@ def _serve_diff(kern, plain, clock: tuple, before) -> int:
     return worst
 
 
+def _k13_paths(L, paths: dict) -> dict:
+    """K13's plan on ``L`` (``kernels.serve.superstep_plan``), before its
+    launch, tallied into ``paths``: launches with a block that gathers
+    from the staged state (``shared``), with one that gathers from device
+    memory in a staged class (``global``) or in a wider one (``wide``)."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    plan = ks.superstep_plan(L)
+    paths["shared"] += plan["shared"] > 0
+    paths["global" if L.v <= 32768 else "wide"] += plan["global"] > 0
+    return plan
+
+
+def _serve_replays(rng, device) -> int:
+    """K13 and K15 each launched ``REPLAYS`` times on one input of each of
+    ``SERVE_REPLAY_CASES`` (after K16): every launch gives the first one's
+    bytes, and the first the plain version's; the many-lane case gives
+    some block several lanes to stage. Returns the max abs error."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    worst = 0
+    several = False
+    for b, w, v in SERVE_REPLAY_CASES:
+        kern, plain = _serve_lanes(rng, b, w, v, False, device)
+        ks.lane_reset(kern)
+        ks.lane_reset_reference(plain, False)
+        base = [t.clone() for t in kern.carry + [kern.nxt, kern.scratch,
+                                                 kern.ctrl]]
+
+        def restore(L):
+            for t, b_ in zip(L.carry + [L.nxt, L.scratch, L.ctrl], base):
+                t.copy_(b_)
+
+        plan = ks.superstep_plan(kern)
+        nlive = int((kern.carry[0] < 2).sum())
+        several |= plan["shared"] > 0 and nlive > plan["grid"]
+        for launch, reference in (
+                (ks.lane_superstep, ks.lane_superstep_reference),
+                (ks.lane_finish,
+                 lambda L: ks.lane_finish_reference(L, False))):
+            launch(kern)
+            reference(plain)
+            want = [t.clone() for t in kern.carry + [kern.nxt, kern.scratch,
+                                                     kern.ctrl]]
+            worst = max(worst, _serve_diff(kern, plain, (), want[:20]))
+            for _ in range(REPLAYS):
+                restore(kern)
+                launch(kern)
+                worst = max(worst, max(_diff(a, b_) for a, b_ in zip(
+                    kern.carry + [kern.nxt, kern.scratch, kern.ctrl], want)))
+            base = want  # K15 replays from K13's output
+        torch.cuda.synchronize()
+    check(several, "no replayed K13 block staged several lanes")
+    return worst
+
+
 def phase_serve_kernels(device) -> int:
     """K13-K16 against their plain versions on the card, on seeded random
     lanes (``_serve_lanes``): K16 on the random reset flags, then
     ``SERVE_ROUNDS`` rounds of K14, K13 and K15, every buffer compared
     after every launch, timing off and on, unarmed and armed with random
     spec and cancel vectors (K16 must kill some lane and leave a reset
-    lane it was told to cancel alive); then the armed lanes of
-    ``SERVE_SPEC_WIDE``. Returns the max abs error."""
+    lane it was told to cancel alive), K13's paths tallied from its plan
+    (``_k13_paths``: each must run); then the armed lanes of
+    ``SERVE_SPEC_WIDE``; then ``_serve_replays``. Returns the max abs
+    error."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import T_PREV, T_US
 
@@ -3924,6 +4016,7 @@ def phase_serve_kernels(device) -> int:
              for s_ in (False, True) for t_ in (False, True)
              for a_ in (False, True)]
     cases += [(*SERVE_SPEC_WIDE, s_, s_, True) for s_ in (False, True)]
+    paths = {"shared": 0, "global": 0, "wide": 0}
     for b, w, v, staged, timing, armed in cases:
         kern, plain = _serve_lanes(rng, b, w, v, staged, device, armed)
         before = [c.clone() for c in plain.carry]
@@ -3943,6 +4036,8 @@ def phase_serve_kernels(device) -> int:
                 before = [c.clone() for c in plain.carry]
                 idx_before = plain.carry[18].clone()
                 args = (timing,) if timed else ()
+                if launch is ks.lane_superstep:
+                    _k13_paths(kern, paths)
                 launch(kern, *args)
                 reference(plain, *args)
                 if launch is ks.lane_compact and not torch.equal(
@@ -3954,10 +4049,13 @@ def phase_serve_kernels(device) -> int:
         torch.cuda.synchronize()
     check(worst == 0, f"serve kernels differ from their plain versions by "
           f"{worst}")
+    check(all(paths.values()), f"K13's paths in the serve cases: {paths}")
     check({0, 1, 2} <= rexecs and compacted > 0,
           f"the serve cases ran rungs {sorted(rexecs)}, {compacted} rebuilds")
     check(killed > 0 and spared > 0, f"the armed serve cases killed "
           f"{killed} lanes and spared {spared} cancelled reset lanes")
+    replays = _serve_replays(rng, device)
+    check(replays == 0, f"K13/K15 replays differ by {replays}")
     return worst
 
 
@@ -4285,7 +4383,7 @@ def _recycled_ids(events: list) -> list:
 
 def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
     """``serve_main`` (``python -m dgc_tpu_torch serve``) on the 44-request
-    stream, five ways: every request's status, minimal colors,
+    stream, six ways: every request's status, minimal colors,
     ``batched``, ``shape_class``, coloring bytes and attempt tuples equal
     to the single-graph loop's on the card (so equal across the runs); no
     fallback or retry; health not degraded; K13-K16 launched (counts
@@ -4300,8 +4398,6 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
     from dgc_tpu_torch.serve.cli import serve_main
     from dgc_tpu_torch.serve.shape_classes import DEFAULT_LADDER
 
-    req = out_dir / "serve_requests.jsonl"
-    req.write_text("".join(json.dumps(d) + "\n" for d in SERVE_STREAM))
     ref = _serve_reference(out_dir, device)
     classes = {rid: DEFAULT_LADDER.class_for(g.num_vertices, g.max_degree)
                for rid, g in ref["graphs"].items()}
@@ -4321,6 +4417,9 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
     for i, (name, flags, telemetry) in enumerate(SERVE_RUNS):
         d = out_dir / f"serve_run{i}"
         d.mkdir()
+        ids = sorted(x["id"] for x in SERVE_STREAM)
+        req = d / "requests.jsonl"
+        req.write_text("".join(json.dumps(x) + "\n" for x in SERVE_STREAM))
         files = (["--log-json", str(d / "run.jsonl"), "--run-manifest",
                   str(d / "manifest.json"), "--metrics-prom",
                   str(d / "metrics.prom")] if telemetry else [])
@@ -4346,8 +4445,8 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
         sst, st = front.scheduler.stats_snapshot(), front.stats_snapshot()
         results = {str(r["id"]): r for r in (json.loads(x) for x in (
             d / "results.jsonl").read_text().splitlines())}
-        check(sorted(results) == sorted(classes), f"serve {name}: results "
-              f"for {sorted(results)}")
+        check(sorted(results) == ids, f"serve {name}: results for "
+              f"{sorted(results)}")
         for rid, r in results.items():
             want, cls = ref["results"][rid], classes[rid]
             check(r["status"] == "ok" and r["minimal_colors"] ==
@@ -4363,7 +4462,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
                   f"{want['attempts']}")
         health = front.health()
         metrics = front.registry.to_dict()
-        unbatched = sum(c_ is None for c_ in classes.values())
+        unbatched = sum(classes[rid] is None for rid in ids)
         check(not health["degraded"] and st["fallbacks"] == unbatched,
               f"serve {name}: health {health}, {st['fallbacks']} fallbacks")
         check(not any(k.startswith(("dgc_fallbacks_total",
@@ -4382,7 +4481,8 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
               f"serve {name}: carry launches {carry_launches}")
         slices = sst["slices"]
         rec = {"phase": "serve_main", "run": name, "argv": flags,
-               "wall_s": wall, "graphs_per_s": n / wall,
+               "requests": len(ids), "wall_s": wall,
+               "graphs_per_s": len(ids) / wall,
                "sequential_graphs_per_s": n / ref["sequential_s"],
                "slices": slices, "batches": sst["batches"],
                "recycles": sst["recycles"], "max_live": sst["max_live"],
@@ -4407,7 +4507,7 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
                   and not kinds & {"fallback", "retry"},
                   f"serve {name}: events {sorted(kinds)}")
             manifest = json.loads((d / "manifest.json").read_text())
-            check(manifest["serve"]["summary"]["completed"] == n,
+            check(manifest["serve"]["summary"]["completed"] == len(ids),
                   f"serve {name}: the manifest's serve summary")
             check("dgc_serve_slices_total" in (d / "metrics.prom").read_text(),
                   f"serve {name}: the metrics file")
@@ -4441,7 +4541,9 @@ def phase_serve_main(card: str, out_dir: Path, device: str = "cuda") -> dict:
         runs[name] = rec
     fronts = _serve_front_runs(card, ref, classes, device)
     meas = measure_serve(card, [g for rid, g in ref["graphs"].items()
-                                if rid.startswith("u")], device)
+                                if rid.startswith("u")], device,
+                         wide=[g for rid, g in ref["graphs"].items()
+                               if rid.startswith("w")])
     return {"runs": runs, "fronts": fronts, "measure": meas, "ref": ref,
             "classes": classes}
 
@@ -4582,6 +4684,19 @@ def _serve_bytes(L, kind: str, before: dict) -> int:
             sl = before["idx"][lane, :pad]
             rows.append(sl[sl < v])
     if kind == "lane_superstep":
+        # a lane's rows that are not confirmed: their real entries, their
+        # degrees and their new words; the lane's state read once, the
+        # slot list of a staged rung
+        deg, pk = before["degrees"], before["packed"]
+        total = scalars
+        for lane, r in zip(np.flatnonzero(live), rows):
+            me = pk[lane, r]
+            walked = r[(me < 0) | ((me & 1) == 1)]
+            total += (int(deg[lane, walked].sum()) + 2 * len(walked) + v
+                      + (pad or 0)) * 4
+        return total
+    if kind == "lane_superstep_all_rows":
+        # the bound before PR 18: every evaluated row's real entries
         deg = before["degrees"]
         return sum((int(deg[lane, r].sum()) + len(r) + v + (pad or 0)) * 4
                    for lane, r in zip(np.flatnonzero(live), rows)) + scalars
@@ -4606,6 +4721,7 @@ def _serve_state(L) -> dict:
     from dgc_tpu_torch.serve.batched import to_host
 
     return {"ctrl": L.ctrl.tolist(), "phase": to_host(L.carry[0]).copy(),
+            "packed": to_host(L.carry[2]).copy(),
             "reset": to_host(L.reset).copy(),
             "idx": to_host(L.carry[18]).copy(),
             "idx_rung": to_host(L.carry[17]).copy(),
@@ -4631,7 +4747,8 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
     version on the card (``_serve_diff``: every buffer exact, the clock
     slots of the kTiming instances by rule), the plain version timed
     (``plain_s``) and the bytes each launch must move counted from the
-    state before it (``bytes``); ``library_ms``: ``torch.nonzero`` on
+    state before it (``bytes``), K13's paths from its plans
+    (``k13_paths``, ``_k13_paths``); ``library_ms``: ``torch.nonzero`` on
     the active rows of the lanes K14 rebuilds first."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import T_PREV, T_US
@@ -4646,7 +4763,9 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
     plain = _serve_lanes_of(inputs, cls, stages, device, ks.INT32_MAX, armed)
     out = {"worst": 0, "rounds": 0, "library_ms": None,
            "bytes": {k: [] for k in _SERVE_KERNELS},
-           "plain_s": {k: [] for k in _SERVE_KERNELS}}
+           "plain_s": {k: [] for k in _SERVE_KERNELS},
+           "k13_all_rows_bytes": [],
+           "k13_paths": {"shared": 0, "global": 0, "wide": 0}}
 
     def held(name):
         before = _serve_state(plain)
@@ -4662,6 +4781,8 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
                 pk = kern.carry[2][torch.from_numpy(need).to(device)]
                 act = (pk < 0) | ((pk & 1) == 1)
                 out["library_ms"] = _cuda_ms(lambda: torch.nonzero(act), 20)
+        if name == "lane_superstep":
+            _k13_paths(kern, out["k13_paths"])
         launch(kern, *args)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -4669,6 +4790,9 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
         torch.cuda.synchronize()
         out["plain_s"][name].append(time.perf_counter() - t)
         out["bytes"][name].append(_serve_bytes(plain, name, before))
+        if name == "lane_superstep":
+            out["k13_all_rows_bytes"].append(_serve_bytes(
+                plain, "lane_superstep_all_rows", before))
         out["worst"] = max(out["worst"], _serve_diff(kern, plain, clock,
                                                      carry_before))
 
@@ -4681,7 +4805,45 @@ def _held_serve_sweep(inputs, cls, stages, device, timing: bool,
     return out
 
 
-def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
+def _serve_inputs(graphs: list, device) -> tuple:
+    """(class, its auto ladder, the stacked inputs) of ``graphs`` padded
+    into their class, one lane each."""
+    from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
+                                                   pad_member,
+                                                   stage_schedule_for)
+
+    cls = DEFAULT_LADDER.class_for(max(g.num_vertices for g in graphs),
+                                   max(g.max_degree for g in graphs))
+    members = [pad_member(g.arrays, cls) for g in graphs]
+    inputs = tuple(torch.from_numpy(np.stack(x)).to(device) for x in (
+        [m.comb for m in members], [m.degrees for m in members],
+        [np.int32(m.k0) for m in members],
+        [np.int32(m.max_steps) for m in members]))
+    return cls, stage_schedule_for(cls, "auto"), inputs
+
+
+def _serve_global(graphs: list, device) -> dict:
+    """K13's global path (a class past 32,768 rows: no lane state staged)
+    on the 8 100k requests (v131072w32), one lane each: one sweep held
+    launch by launch; K13's and K15's plain time and bound a launch
+    (``tools/kernel_costs.py k13`` times the same sweep on the card)."""
+    cls, stages, inputs = _serve_inputs(graphs, device)
+    held = _held_serve_sweep(inputs, cls, stages, device, False)
+    rounds = held["rounds"]
+    check(held["k13_paths"]["wide"] == rounds,
+          f"K13 on {cls.name}: paths {held['k13_paths']} in {rounds} rounds")
+    mean = lambda xs: sum(xs) / len(xs)
+    out = {"class": cls.name, "lanes": inputs[1].shape[0], "rounds": rounds,
+           "max_abs_err": held["worst"]}
+    for name in ("lane_superstep", "lane_finish"):
+        out[name] = {"plain_ms": mean(held["plain_s"][name]) * 1e3,
+                     "bound_ms": mean(held["bytes"][name])
+                     / HBM_BYTES_PER_S * 1e3, "held_launches": rounds}
+    return out
+
+
+def measure_serve(card: str, graphs: list, device: str = "cuda",
+                  wide: list | None = None) -> dict:
     """K13-K16 at the serving class's shapes: the 32 uniform 20k requests
     padded into their class (v32768w32, the auto ladder), one lane each.
     (1) Held sweeps (``_held_serve_sweep``), timing off and on: every
@@ -4691,20 +4853,13 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
     kTiming instances' from the timing sweep. (3) Slices as the scheduler
     runs them (``_serve_slices``): host wall against device busy. (4)
     ``torch.nonzero`` on the active rows of the lanes K14 rebuilt first
-    (``library_ms``)."""
+    (``library_ms``). (5) K13's paths from its plans: both must run. (6)
+    With ``wide`` (the 100k requests), ``_serve_global``: K13's path
+    without a staged lane state."""
     from dgc_tpu_torch.kernels import serve as ks
-    from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
-                                                   pad_member,
-                                                   stage_schedule_for)
 
-    cls = DEFAULT_LADDER.class_for(max(g.num_vertices for g in graphs),
-                                   max(g.max_degree for g in graphs))
-    stages = stage_schedule_for(cls, "auto")
-    members = [pad_member(g.arrays, cls) for g in graphs]
-    inputs = tuple(torch.from_numpy(np.stack(x)).to(device) for x in (
-        [m.comb for m in members], [m.degrees for m in members],
-        [np.int32(m.k0) for m in members],
-        [np.int32(m.max_steps) for m in members]))
+    cls, stages, inputs = _serve_inputs(graphs, device)
+    lanes = len(graphs)
     staged = stages is not None
     held = {t: _held_serve_sweep(inputs, cls, stages, device, t)
             for t in (False, True)}
@@ -4731,7 +4886,7 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
             inputs, cls, stages, device, ks.INT32_MAX, armed=True))
     slices = _serve_slices(inputs, cls, stages, device)
     mean = lambda xs: sum(xs) / len(xs) if xs else None
-    rec = {"phase": "serve_measure", "class": cls.name, "lanes": len(members),
+    rec = {"phase": "serve_measure", "class": cls.name, "lanes": lanes,
            "stages": [list(s) for s in stages] if stages else None,
            "rounds": rounds, "max_abs_err": worst, "slices": slices,
            "card": card}
@@ -4749,10 +4904,10 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
             # the launches that moved more than the per-lane flags (K14:
             # the rebuilds), where the profile kept every launch
             "working_ms": (mean([t_ for t_, b_ in zip(each, nbytes)
-                                 if b_ > 4 * len(members)])
+                                 if b_ > 4 * lanes])
                            if len(each) == len(nbytes) else None),
             "working_bound_ms": mean([b_ for b_ in nbytes
-                                      if b_ > 4 * len(members)] or [0])
+                                      if b_ > 4 * lanes] or [0])
             / HBM_BYTES_PER_S * 1e3,
             "plain_ms": mean(held[False]["plain_s"][name]) * 1e3,
             "bound_ms": mean(nbytes) / HBM_BYTES_PER_S * 1e3,
@@ -4775,6 +4930,21 @@ def measure_serve(card: str, graphs: list, device: str = "cuda") -> dict:
                 "spec_bound_ms": mean(nbytes_sp) / HBM_BYTES_PER_S * 1e3,
                 "spec_held_launches": len(nbytes_sp)})
     rec["spec_rounds"] = spec_rounds
+    # the full table's blocks gather from the staged state, a deep rung's
+    # from device memory
+    paths = held[False]["k13_paths"]
+    rec["lane_superstep"]["paths"] = paths
+    check(paths["shared"] > 0 and paths["global"] > 0,
+          f"K13's paths over the {cls.name} sweep: {paths}")
+    k13_all = held[False]["k13_all_rows_bytes"]
+    rec["lane_superstep"]["bound_all_rows_ms"] = (
+        mean(k13_all) / HBM_BYTES_PER_S * 1e3)
+    if wide:
+        rec["global"] = _serve_global(wide, device)
+        worst = max(worst, rec["global"]["max_abs_err"])
+        rec["max_abs_err"] = worst
+        check(worst == 0, f"K13's global path differs from its plain version "
+              f"by {worst}")
     emit(rec)
     return rec
 
@@ -4867,17 +5037,29 @@ def serve_kernels_line(serve: dict, serve_err: int) -> list[dict]:
     for name in ("lane_superstep", "lane_compact", "lane_finish",
                  "lane_reset"):
         m = meas[name]
-        out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces[name],
-                    "launches": main["launches"][name],
-                    "launches_other": {r: v["launches"][name]
-                                       for r, v in runs.items()
-                                       if v is not main},
-                    # in the measured sweep, the run the time is from
-                    "timed_sweep_launches": m["held_launches"],
-                    "max_abs_err": err, "ms": m["ms"],
-                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                    "bound_by": "bytes", "library_ms": m["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces[name],
+               "launches": main["launches"][name],
+               "launches_other": {r: v["launches"][name]
+                                  for r, v in runs.items()
+                                  if v is not main},
+               # in the measured sweep, the run the time is from
+               "timed_sweep_launches": m["held_launches"],
+               "max_abs_err": err, "ms": m["ms"],
+               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+               "bound_by": "bytes", "library_ms": m["library_ms"]}
+        if name == "lane_superstep":
+            # the full table (the sweep's first launch), the bound counting
+            # every evaluated row, and the path without a staged state
+            row.update(full_table_ms=m["first_ms"],
+                       full_table_bound_ms=m["first_bound_ms"],
+                       bound_all_rows_ms=m["bound_all_rows_ms"],
+                       paths=m["paths"])
+        if "global" in meas and name in meas["global"]:
+            g = meas["global"]
+            row["global"] = {"class": g["class"], "lanes": g["lanes"],
+                             **g[name]}
+        out.append(row)
     for name in ("lane_finish", "lane_reset"):
         m = meas[name]
         out.append({"name": f"{name}_timing", "route": "cuda",

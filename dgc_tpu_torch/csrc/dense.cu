@@ -61,13 +61,19 @@
 #include <cstdint>
 
 #include "rule.cuh"
+#include "tma.cuh"
 
 namespace {
 
+using dgc::bulk_load;
+using dgc::fence_async_shared;
 using dgc::kFailure;
 using dgc::kRunning;
 using dgc::kStalled;
 using dgc::kSuccess;
+using dgc::mbar_expect;
+using dgc::mbar_init;
+using dgc::mbar_test;
 
 // The control block (DCTRL_* in kernels/dense.py).
 constexpr int kDStatus = 0;
@@ -89,47 +95,6 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // ---- K11: forbidden sets and first fit --------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(1u)
-               : "memory");
-}
-
-// thread 0's arrival on `bar`, expecting `bytes` of bulk copies in this phase
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// the TMA's bulk copy of `bytes` (a multiple of 16) from device memory into
-// shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // bit h of the result: the h-th bf16 of x is nonzero
 __device__ __forceinline__ uint32_t nonzero_halves(uint32_t x) {
   return ((x & 0xFFFFu) != 0u ? 1u : 0u) | ((x >> 16) != 0u ? 2u : 0u);
@@ -148,12 +113,6 @@ __device__ __forceinline__ uint32_t color16(int c) {
 // a barrier of pipeline p's threads alone (named barrier 1 + p)
 __device__ __forceinline__ void pipe_sync(int p) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + p), "r"(kPipeThreads) : "memory");
-}
-
-// generic-proxy accesses of shared memory before async-proxy ones (the
-// next bulk copy into a stage the block has just read)
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __global__ void __launch_bounds__(kForbidThreads)

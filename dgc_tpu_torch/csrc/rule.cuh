@@ -1,8 +1,8 @@
 // What the superstep kernels share: the speculative rule for one row, on
-// one thread (row_rule: K13 in serve.cu, K20 in shard.cu) or on a team of
-// threads (add_word, fold_plane and walk_row: K1 in superstep.cu, K5 in
-// compact.cu, K8 in hub.cu, K23 in ring.cu; a group of lanes a row:
-// team_lanes, group_passes); the loop-control fold of one
+// one thread (row_rule: K20 in shard.cu) or on a team of threads
+// (add_word, fold_plane and walk_row: K1 in superstep.cu, K5 in
+// compact.cu, K8 in hub.cu, K13 in serve.cu, K23 in ring.cu; a group of
+// lanes a row: team_lanes, group_passes); the loop-control fold of one
 // superstep (finish_step: K2 and K6); the stage predicate (stage_live:
 // K5-K8); and the hub region's live table (K6-K8).
 //
@@ -192,9 +192,9 @@ __device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
   return finish_rule(me, clash, found, cand, old_free);
 }
 
-// ---- the team walk of K1, K5, K8 and K23 --------------------------------
+// ---- the team walk of K1, K5, K8, K13 and K23 ---------------------------
 //
-// K1, K5 and K23 (a group of lanes a row, K1 a block from its widest
+// K1, K5, K13 and K23 (a group of lanes a row, K1 a block from its widest
 // tables) and K8 (a warp or a block a row) read a row with a team of
 // threads and keep the row's
 // planes two ways: the first two planes of a pass (where the first fit
@@ -296,16 +296,27 @@ __device__ __forceinline__ void fold_plane(uint32_t fa, uint32_t fo, int pg,
   if ((~fo & m) != 0u) old_free = true;
 }
 
+// How walk_row gathers a neighbor's word from the state `src`. kGatherPad:
+// every id but the pad sentinel `pad`, from device memory (K1, K5, K8,
+// K23: their buffers hold −1 at slot pad). kGatherLim: every id below
+// `pad`, an id at or past it reading as uncolored (row_rule's kLim: the
+// serve carry's lanes have no pad slot), from device memory; kGatherShared
+// likewise from a state staged in shared memory (K13).
+constexpr int kGatherPad = 0;
+constexpr int kGatherLim = 1;
+constexpr int kGatherShared = 2;
+
 // The entries [0, len) of `row` that fall to thread t of a team of n: the
 // quads (four consecutive entries) t, t + n, t + 2n, ..., two quads, so
 // eight independent gathers, in flight at a time; a quad is one 16-byte
 // load where the row is 16-byte aligned. An entry whose neighbor id is the
 // pad sentinel `pad` is not gathered: its word is the state's slot `pad`,
 // which holds −1 in every buffer K5 and K8 run on (kernels/compact.py
-// extend_packed, kernels/shard.py new_shard_state), and reads so here.
+// extend_packed, kernels/shard.py new_shard_state), and reads so here
+// (kGather: which ids are gathered, and from where).
 // visit(e, word) for each entry of the thread's quads (the pad sentinel
 // and −1 past len). The row and `src` must not change during the launch.
-template <class Visit>
+template <int kGather = kGatherPad, class Visit>
 __device__ __forceinline__ void walk_row(const int* __restrict__ src,
                                          const int* __restrict__ row, int len,
                                          int t, int n, int pad, Visit visit) {
@@ -334,7 +345,13 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int nbr = e[u] & kNbrMask;
-      w[u] = nbr != pad ? __ldg(src + nbr) : -1;
+      if constexpr (kGather == kGatherPad) {
+        w[u] = nbr != pad ? __ldg(src + nbr) : -1;
+      } else if constexpr (kGather == kGatherLim) {
+        w[u] = nbr < pad ? __ldg(src + nbr) : -1;
+      } else {
+        w[u] = nbr < pad ? src[nbr] : -1;
+      }
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) visit(e[u], w[u]);
@@ -342,7 +359,7 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 }
 
 // The passes of a group of `lanes` lanes over its row's entries [0, len)
-// (K1, K23): a pass holds kRegPlanes + lanes planes from `base`, in
+// (K1, K13, K23): a pass holds kRegPlanes + lanes planes from `base`, in
 // PlaneRegs and the group's shared words s_fa/s_fo, and hands each to
 // plane(pg, fa, fo) on the first lane of a group that walks (`walk`,
 // uniform over the group). The first pass also takes the highest plane
@@ -350,7 +367,9 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 // whose planes are zero for every row of the warp. Every lane of the warp
 // calls it with the same `lanes` and `planes`. Returns the planes handed
 // over, and leaves the group's clash in `clash` on each of its lanes.
-template <class Plane>
+// kGather as walk_row (K13 in serve.cu gathers by kGatherLim or
+// kGatherShared).
+template <int kGather = kGatherPad, class Plane>
 __device__ __forceinline__ int group_passes(const int* __restrict__ src,
                                             const int* __restrict__ row,
                                             int len, int gl, int lanes,
@@ -368,7 +387,7 @@ __device__ __forceinline__ int group_passes(const int* __restrict__ src,
     __syncwarp();
     PlaneRegs pl;
     if (walk) {
-      walk_row(src, row, len, gl, lanes, pad, [&](int e, int word) {
+      walk_row<kGather>(src, row, len, gl, lanes, pad, [&](int e, int word) {
         add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
         if (base == 0 && word >= 0) top = max(top, word >> 6);
       });

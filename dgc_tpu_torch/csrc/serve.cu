@@ -7,10 +7,11 @@
 //                        :231 _full_lane_superstep, :245
 //                        _staged_lane_superstep and :223
 //                        _lane_superstep_math: the speculative rule
-//                        (rule.cuh row_rule) over every row of a lane
-//                        (rung 0) or over its slot list's first pads[s]
-//                        slots (rung s), into the back buffer `nxt`, and
-//                        each lane's fail and active counts.
+//                        (rule.cuh's team walk) over every unconfirmed
+//                        row of a lane (rung 0) or over the unconfirmed
+//                        rows of its slot list's first pads[s] slots
+//                        (rung s), into the back buffer `nxt`, and each
+//                        lane's fail and active counts.
 //   K14 lane_compact   — B12b, :268 _rebuild_idx over
 //                        dgc_tpu/engine/compact.py:288 _compact_idx, as
 //                        run at batched.py:333-346: the stage-entry
@@ -65,11 +66,12 @@
 // State. The carry is the reference's 20 slots (dgc_tpu_torch/layout.py),
 // one lane-leading tensor each; the packed state of lane b is row b of
 // slot 2, int32[B, V] with no pad slot: a neighbor id >= V reads as
-// uncolored (row_rule's kLim). Beside it: the back buffer `nxt`
+// uncolored (rule.cuh kGatherLim). Beside it: the back buffer `nxt`
 // int32[B, V], equal to `packed` in every lane between supersteps (made
 // as its copy; K16 re-inits a flagged lane's row as it re-inits the
-// lane's state; K15 restores it), so the BSP snapshot holds when K13 writes
-// only the slot rows of a staged rung; the per-lane counters `scratch`
+// lane's state; K15 restores it; the pool makes it again after a resize),
+// so the BSP snapshot holds when K13 writes only the slot rows of a staged
+// rung, or only the unconfirmed rows; the per-lane counters `scratch`
 // int32[3, B] (fail, active, max color); and the control block `ctrl`
 // (CTRL_* in kernels/serve.py): the executed rung, the live word (a lane
 // still running and steps left in the slice), the step count, the budget,
@@ -81,24 +83,57 @@
 // slice without a sync; dead lanes (phase >= 2) are frozen by doing nothing.
 //
 // Bounds (one batched superstep; PERF.md has the measured times). K13 must
-// read each evaluated row's W table entries, the lane's state once and
-// write the evaluated rows: full table B x V x (W + 2) words. K14 reads a
-// lane's V words and writes its A0 slots. K15 writes or copies the
-// evaluated rows (the fin lanes' V words three times), and B scalars. K16
-// reads a flagged lane's V degrees and writes its rows; an unflagged
-// lane costs its scalars only.
-// These first kernels are one thread per row (K13, K15) or one block per
-// lane (K14), written to be right and simple, not yet coalesced.
+// read the real entries of each evaluated row that is not confirmed, each
+// evaluated row's word and length, the lane's state once, and write the
+// rows it changes. K14 reads a lane's V words and writes its A0 slots.
+// K15 writes or copies the evaluated rows (the fin lanes' V words three
+// times), and B scalars. K16 reads a flagged lane's V degrees and writes
+// its rows; an unflagged lane costs its scalars only.
+//
+// K13 and K15 (the work the rung has). Each runs a bounded grid of
+// co-resident blocks over the executed rung's work: each live lane's rows
+// (the full table) or slots (a staged rung), and in K15 the V rows of a
+// lane that ended its attempt. Every block reads every lane's scalars (one
+// thread a lane, issued with the control block's words) and finds its
+// lanes by a block-wide scan, so the grid does not depend on which lanes
+// are live, and no host sync sizes it.
+//   K13 splits the live lanes over the blocks (lane i of L takes blocks
+// [iG/L, (i+1)G/L), which interleave its rows, so a lane's real rows and
+// its padding spread evenly; with fewer blocks than lanes a block takes
+// whole lanes). It walks only a row's real entries, up to its degree
+// (csr_to_ell puts them first and fills the rest with the sentinel V),
+// with rule.cuh's team walk (team_lanes, walk_row, group_passes: a group
+// of 1-32 lanes a row by the class width, as K1, K5 and K23), fetching a
+// warp's next rows while it walks the current ones, and skips a confirmed
+// row: its rule returns its own word and counts nothing, and `nxt`
+// already holds it. On a class of at most kStagedMaxV rows a block first
+// copies the lane's packed state into shared memory with one bulk copy of
+// the TMA (cp.async.bulk on an mbarrier) and gathers the neighbors' words
+// there, where its share of the lane is long enough to pay for the copy
+// (stage_rows_for; a gather from device memory costs a 32-byte sector);
+// other blocks and wider classes gather from device memory. The fail and
+// active counts go out as one atomic a warp and lane.
+//   K15 gives each block a contiguous range of the chunks; a thread's
+// words of a chunk are loaded together (four a load where the rows are
+// 16-byte aligned) before any is stored. The blocks that had a range take
+// a ticket; the last one runs every lane's scalar transition from the
+// scalars it read at its start, with the ladder's thresholds in shared
+// memory. K14 and K16 are one block a lane and one thread a row, written
+// to be right and simple.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <mutex>
 
 #include "rule.cuh"
+#include "tma.cuh"
 #include "traj.cuh"
 
 namespace {
+
+using dgc::kTeamWords;
 
 // the carry's slots (dgc_tpu_torch/layout.py CARRY_*)
 constexpr int kCarryLen = 20;
@@ -142,10 +177,17 @@ constexpr int kScrActive = 1;
 constexpr int kScrMaxc = 2;
 
 constexpr int kThreads = 256;
-constexpr int kFinishItems = 8;  // K15: rows (or slots) per thread
-constexpr int kFinishChunk = kThreads * kFinishItems;
 constexpr int kCompactThreads = 1024;
 constexpr int kCompactItems = 8;  // K14: rows per thread and tile
+// K13: a block's warps; the classes whose lane state a block stages
+constexpr int kStepThreads = 512;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStagedMaxV = 32768;  // 128 KB of shared memory
+// K15: a chunk of a lane's rows (or slots), 16 words a thread
+constexpr int kFinishThreads = 256;
+constexpr int kFinishItems = 16;
+constexpr int kFinishChunk = kFinishThreads * kFinishItems;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // What every launch gets, by value (the wrapper's _LaneArgs mirrors it).
 struct LaneArgs {
@@ -202,19 +244,42 @@ struct LaneStep {
   int step;
 };
 
-__device__ __forceinline__ LaneStep lane_step(const LaneArgs& a, int b,
-                                              int fail, int active) {
+// The scalars lane_step reads, loaded together.
+struct LaneScalars {
+  int phase;
+  int fail;
+  int active;
+  int prev_active;
+  int stall;
+  int step;
+  int max_steps;
+};
+
+__device__ __forceinline__ LaneScalars lane_scalars(const LaneArgs& a, int b) {
+  LaneScalars x;
+  x.phase = a.slot[kCPhase][b];
+  x.fail = a.scratch[kScrFail * a.b + b];
+  x.active = a.scratch[kScrActive * a.b + b];
+  x.prev_active = a.slot[kCPrevActive][b];
+  x.stall = a.slot[kCStall][b];
+  x.step = a.slot[kCStep][b];
+  x.max_steps = a.max_steps[b];
+  return x;
+}
+
+__device__ __forceinline__ LaneStep lane_step(const LaneScalars& x,
+                                              int stall_window) {
   LaneStep t;
-  t.any_fail = fail > 0;
-  t.stall = active < a.slot[kCPrevActive][b] ? 0 : a.slot[kCStall][b] + 1;
+  t.any_fail = x.fail > 0;
+  t.stall = x.active < x.prev_active ? 0 : x.stall + 1;
   // FAILURE > SUCCESS > STALLED > RUNNING (bucketed.py:193 status_step)
   t.status = t.any_fail ? dgc::kFailure
-             : active == 0 ? dgc::kSuccess
-             : t.stall >= a.stall_window ? dgc::kStalled
+             : x.active == 0 ? dgc::kSuccess
+             : t.stall >= stall_window ? dgc::kStalled
              : dgc::kRunning;
-  t.step = a.slot[kCStep][b] + 1;
-  t.fin = t.status != dgc::kRunning || t.step >= a.max_steps[b];
-  t.first = a.slot[kCPhase][b] == 0;
+  t.step = x.step + 1;
+  t.fin = t.status != dgc::kRunning || t.step >= x.max_steps;
+  t.first = x.phase == 0;
   t.store1 = t.fin && t.first;
   t.store2 = t.fin && !t.first;
   return t;
@@ -387,88 +452,411 @@ __global__ void __launch_bounds__(kCompactThreads) lane_compact_kernel(LaneArgs 
   if (threadIdx.x == 0) a.slot[kCIdxRung][b] = s;
 }
 
+// ---- K13 and K15: lanes and their work ----------------------------------
+
+// The control block's routing words, loaded together: the live word and
+// the executed rung's pad (every stage's pad read, the rung's selected).
+struct Route {
+  int live;
+  int pad;
+};
+
+__device__ __forceinline__ Route read_route(const int* ctrl) {
+  int pads[kMaxStages];
+#pragma unroll
+  for (int s = 0; s < kMaxStages; ++s) pads[s] = ctrl[kPad0 + s];
+  const int rexec = ctrl[kRexec];
+  Route r;
+  r.live = ctrl[kLive];
+  r.pad = pads[0];
+#pragma unroll
+  for (int s = 1; s < kMaxStages; ++s) {
+    if (rexec == s) r.pad = pads[s];
+  }
+  return r;
+}
+
+// The block's exclusive scan of x, in lane order, and the block's total
+// (blockDim.x a multiple of 32). Every thread calls it.
+__device__ __forceinline__ long long block_scan(long long x, long long* s_warp,
+                                                long long& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  long long inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  long long before = 0;
+  total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+    const long long c = s_warp[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  __syncthreads();  // read before the next scan writes them
+  return before + inc - x;
+}
+
+// The work units of every lane summed: work(l) is {units, flags} of lane
+// l, units 0 for a lane with none. Every thread calls it.
+template <class Work>
+__device__ __forceinline__ long long work_total(int b, long long* s_warp,
+                                                Work work) {
+  long long total = 0;
+  for (int t0 = 0; t0 < b; t0 += blockDim.x) {
+    const int l = t0 + threadIdx.x;
+    const int c = l < b ? work(l).x : 0;
+    long long tile;
+    block_scan(c, s_warp, tile);
+    total += tile;
+  }
+  return total;
+}
+
+// The shared words of each_lane, one a thread of the block.
+struct LaneList {
+  long long* warp;  // [blockDim / 32]
+  int* units;       // [blockDim]
+  long long* off;   // [blockDim]
+  int* flags;       // [blockDim]
+  int* first;       // the tile's first and last lanes of the range
+  int* last;
+};
+
+// Lane l's units [off, off + units) in the order of lanes: each lane
+// whose units meet [lo, hi), in lane order, as each(l, j0, j1, flags)
+// with [j0, j1) the lane's units in the range. Every thread calls it; the
+// lanes of a range are consecutive among those with work, so a tile's are
+// found by its first and last.
+template <class Work, class Each>
+__device__ __forceinline__ void each_lane(int b, long long lo, long long hi,
+                                          const LaneList& s, Work work,
+                                          Each each) {
+  long long base = 0;
+  for (int t0 = 0; t0 < b && base < hi; t0 += blockDim.x) {
+    const int t = threadIdx.x;
+    const int l = t0 + t;
+    const int2 wk = l < b ? work(l) : make_int2(0, 0);
+    if (t == 0) {
+      *s.first = blockDim.x;
+      *s.last = -1;
+    }
+    long long tile;
+    const long long off = base + block_scan(wk.x, s.warp, tile);
+    const bool meets = wk.x > 0 && off < hi && off + wk.x > lo;
+    s.units[t] = meets ? wk.x : 0;
+    s.off[t] = off;
+    s.flags[t] = wk.y;
+    if (meets) {
+      atomicMin(s.first, t);
+      atomicMax(s.last, t);
+    }
+    __syncthreads();
+    const int first = *s.first;
+    const int last = *s.last;
+    for (int i = first; i <= last; ++i) {  // uniform over the block
+      const int c = s.units[i];
+      if (c == 0) continue;
+      const long long o = s.off[i];
+      each(t0 + i, static_cast<int>((lo > o ? lo : o) - o),
+           static_cast<int>((hi < o + c ? hi : o + c) - o), s.flags[i]);
+    }
+    __syncthreads();  // read before the next tile writes them
+    base += tile;
+  }
+}
+
 // ---- K13: one batched superstep -----------------------------------------
 
-template <int PB>
-__global__ void __launch_bounds__(kThreads) lane_superstep_kernel(LaneArgs a) {
-  if (a.ctrl[kLive] == 0) return;
-  const int b = blockIdx.y;
-  if (a.slot[kCPhase][b] >= 2) return;  // frozen
-  const int pad = a.ctrl[kPad0 + a.ctrl[kRexec]];
-  const int n = pad == 0 ? a.v : pad;
-  if (static_cast<int>(blockIdx.x) * kThreads >= n) return;  // past the rung
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  const size_t lane = static_cast<size_t>(b) * a.v;
-  int row = -1;
-  if (t < n) {
-    row = pad == 0 ? t : a.slot[kCIdx][static_cast<size_t>(b) * a.a0 + t];
-    if (row >= a.v) row = -1;  // a dummy slot: inert, its write dropped
+// Lane b's rows (its rows, or its slots of a staged rung: a slot past V
+// is inert) in batches of a warp's rows: this block takes batches q0, q0 +
+// dq, ... of the n items (a lane's blocks interleave theirs, so each holds
+// as many real rows as another). A row goes to a group of team_lanes(w)
+// lanes of a warp (one lane a row up to 32 entries), which walks its real
+// entries, gathering the neighbors' words from `src` (the lane's state in
+// device memory, or staged in shared memory) as kGather says. A confirmed
+// row is skipped. A warp fetches its next rows' slots, words and degrees
+// while it walks the current ones. One atomic a warp for each of fail and
+// active.
+template <int kGather>
+__device__ __forceinline__ void lane_rows(const LaneArgs& a, int b,
+                                          const int* src, int n, int q0,
+                                          int dq, int pad, uint32_t* s_rows) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lanes = dgc::team_lanes(a.w);
+  const int per_warp = 32 / lanes;    // rows a warp takes at a time
+  const int sub = lane / lanes;       // the warp's row of this lane
+  const int gl = lane & (lanes - 1);  // the lane in its row's group
+  uint32_t* s_fa = s_rows + warp * kTeamWords + sub * 2 * lanes;
+  const size_t base = static_cast<size_t>(b) * a.v;
+  const int* __restrict__ idx = a.slot[kCIdx] + static_cast<size_t>(b) * a.a0;
+  const int k = a.slot[kCK][b];
+  // the row of item j (-1: past the items, or a dummy slot), its word and
+  // its degree
+  auto fetch = [&](int j, int& row, int& me, int& deg) {
+    row = -1;
+    if (j < n) {
+      row = pad == 0 ? j : idx[j];
+      if (row >= a.v) row = -1;
+    }
+    me = row >= 0 ? src[row] : 0;
+    deg = row >= 0 ? a.degrees[base + row] : 0;
+  };
+  int nfail = 0;
+  int nactive = 0;
+  int row, me, deg;
+  int q = q0 + warp;
+  fetch(q * per_warp + sub, row, me, deg);
+  for (; q * per_warp < n; q += dq) {
+    int next_row, next_me, next_deg;
+    fetch((q + dq) * per_warp + sub, next_row, next_me, next_deg);
+    const bool walk = row >= 0 && !dgc::is_confirmed(me);  // uniform a group
+    const int len = walk ? min(deg, a.w) : 0;
+    const int* __restrict__ entries =
+        a.comb + (base + (walk ? row : 0)) * static_cast<size_t>(a.w);
+    bool clash = false;
+    bool found = false;     // a color under k is free of every neighbor
+    int cand = k;           // first-fit over all colored neighbors
+    bool old_free = false;  // a color under k is free of confirmed ones
+    const int done = dgc::group_passes<kGather>(
+        src, entries, len, gl, lanes, a.v, walk, a.planes, me >> 1, s_fa,
+        s_fa + lanes, clash, [&](int pg, uint32_t fa, uint32_t fo) {
+          dgc::fold_plane(fa, fo, pg, k, found, cand, old_free);
+        });
+    bool fail = false;
+    bool active = false;
+    if (walk && gl == 0) {
+      if (done < a.planes) dgc::fold_plane(0u, 0u, done, k, found, cand, old_free);
+      const dgc::RowResult res = dgc::finish_rule(me, clash, found, cand, old_free);
+      a.nxt[base + row] = res.next;
+      fail = res.fail;
+      active = res.active;
+    }
+    nfail += __popc(__ballot_sync(kFull, fail));
+    nactive += __popc(__ballot_sync(kFull, active));
+    row = next_row;
+    me = next_me;
+    deg = next_deg;
   }
-  bool fail = false;
-  bool active = false;
-  if (row >= 0) {
-    const int* __restrict__ src = a.slot[kCPacked] + lane;
-    const int* __restrict__ entries = a.comb + (lane + row) * a.w;
-    const dgc::RowResult res = dgc::row_rule<PB, true>(
-        src, entries, a.w, a.planes, a.slot[kCK][b], src[row], a.v);
-    a.nxt[lane + row] = res.next;
-    fail = res.fail;
-    active = res.active;
-  }
-  const int nfail = __syncthreads_count(fail);
-  const int nactive = __syncthreads_count(active);
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     if (nfail) atomicAdd(a.scratch + kScrFail * a.b + b, nfail);
     if (nactive) atomicAdd(a.scratch + kScrActive * a.b + b, nactive);
   }
 }
 
+// The live lanes of ranks [r0, r0 + n) into s_list (n <= blockDim), and
+// the count of live lanes (live(l): lane l is live). Every thread calls
+// it; s_list is complete on return.
+template <class Live>
+__device__ __forceinline__ int live_lanes(int b, int r0, int n, int* s_list,
+                                          long long* s_warp, Live live) {
+  int base = 0;
+  for (int t0 = 0; t0 < b; t0 += blockDim.x) {
+    const int l = t0 + threadIdx.x;
+    const bool on = l < b && live(l);
+    long long tile;
+    const int rank = base + static_cast<int>(block_scan(on ? 1 : 0, s_warp, tile));
+    if (on && rank >= r0 && rank < r0 + n) s_list[rank - r0] = l;
+    base += static_cast<int>(tile);
+  }
+  __syncthreads();
+  return base;
+}
+
+// A block's share of the live lanes: the ranks [r0, r1), and the batches
+// q0, q0 + dq, ... of each lane's items (lane_rows). With G blocks for L
+// lanes (G >= L) lane i takes blocks [iG/L, (i+1)G/L), which interleave its
+// rows; with fewer blocks than lanes, block g takes the lanes [gL/G,
+// (g+1)L/G) whole.
+struct BlockShare {
+  int r0, r1, q0, dq;
+};
+
+__host__ __device__ inline BlockShare block_share(long long g, long long grid,
+                                                  int nlive) {
+  BlockShare s;
+  if (grid >= nlive) {
+    s.r0 = static_cast<int>(((g + 1) * nlive - 1) / grid);
+    s.r1 = s.r0 + 1;
+    const long long g0 = s.r0 * grid / nlive;
+    const long long g1 = (s.r0 + 1) * grid / nlive;
+    s.q0 = static_cast<int>(g - g0) * kStepWarps;
+    s.dq = static_cast<int>(g1 - g0) * kStepWarps;
+  } else {
+    s.r0 = static_cast<int>(g * nlive / grid);
+    s.r1 = static_cast<int>((g + 1) * nlive / grid);
+    s.q0 = 0;
+    s.dq = kStepWarps;
+  }
+  return s;
+}
+
+// Whether a block stages a lane's state (a class of at most kStagedMaxV
+// rows): when its share of the lane's n items is stage_rows rows or more.
+__host__ __device__ inline bool stages_lane(int n, int dq, int stage_rows) {
+  return static_cast<long long>(n) * kStepWarps >=
+         static_cast<long long>(stage_rows) * dq;
+}
+
+// The live lanes split over the grid by rank (block_share). With kStaged
+// (a class of at most kStagedMaxV rows) a block first copies a lane's
+// state into shared memory where stages_lane says so. Where the lanes fit
+// one tile of the block, each thread reads its lane's phase with the
+// control block, before either is needed.
+template <bool kStaged>
+__global__ void __launch_bounds__(kStepThreads, 1)
+lane_superstep_kernel(LaneArgs a, int stage_rows) {
+  extern __shared__ __align__(128) unsigned char s_dyn[];  // the lane's state
+  __shared__ uint32_t s_rows[kStepWarps * kTeamWords];
+  __shared__ long long s_warp[kStepWarps];
+  __shared__ int s_list[kStepThreads];
+  __shared__ __align__(8) uint64_t s_bar;
+  const bool one_tile = a.b <= kStepThreads;
+  const int my_phase =
+      one_tile && static_cast<int>(threadIdx.x) < a.b
+          ? a.slot[kCPhase][threadIdx.x] : 2;
+  const Route routing = read_route(a.ctrl);
+  if (routing.live == 0) return;
+  const int pad = routing.pad;
+  const int n = pad == 0 ? a.v : pad;
+  auto live = [&](int l) {
+    return (one_tile ? my_phase : a.slot[kCPhase][l]) < 2;
+  };
+  // one tile: every live lane's rank listed at once
+  const int nlive = live_lanes(a.b, 0, one_tile ? kStepThreads : 0, s_list,
+                               s_warp, live);
+  if (nlive == 0) return;
+  const BlockShare sh = block_share(blockIdx.x, gridDim.x, nlive);
+  const int r0 = sh.r0, r1 = sh.r1, q0 = sh.q0, dq = sh.dq;
+  const bool stage = kStaged && stages_lane(n, dq, stage_rows);
+  if (stage) {  // uniform over the block
+    if (threadIdx.x == 0) {
+      dgc::mbar_init(&s_bar);
+      dgc::fence_async_shared();  // the barrier, before the first bulk copy
+    }
+    __syncthreads();  // the barrier set up before any thread polls it
+  }
+  uint32_t parity = 0;
+  for (int c0 = r0; c0 < r1; c0 += kStepThreads) {
+    const int cn = min(kStepThreads, r1 - c0);
+    if (!one_tile) live_lanes(a.b, c0, cn, s_list, s_warp, live);
+    for (int r = c0; r < c0 + cn; ++r) {  // uniform over the block
+      const int b = s_list[one_tile ? r : r - c0];
+      const int* __restrict__ packed =
+          a.slot[kCPacked] + static_cast<size_t>(b) * a.v;
+      if (stage) {
+        if (threadIdx.x == 0) {
+          dgc::fence_async_shared();  // after the last lane's reads
+          const uint32_t bytes = static_cast<uint32_t>(a.v) * 4u;
+          dgc::mbar_expect(&s_bar, bytes);
+          dgc::bulk_load(s_dyn, packed, bytes, &s_bar);
+        }
+        while (!dgc::mbar_test(&s_bar, parity)) {
+        }
+        parity ^= 1u;
+        lane_rows<dgc::kGatherShared>(a, b, reinterpret_cast<const int*>(s_dyn),
+                                      n, q0, dq, pad, s_rows);
+        __syncthreads();  // every warp is done with the staged state
+      } else {
+        lane_rows<dgc::kGatherLim>(a, b, packed, n, q0, dq, pad, s_rows);
+      }
+    }
+    __syncthreads();  // s_list read before the next chunk lists
+  }
+}
+
 // ---- K15: transition, freeze, routing -----------------------------------
 
+// The ladder's deepest stage whose entry threshold covers a lane's
+// previous active count (batched.py:316-319), over thresholds in shared
+// memory.
+__device__ __forceinline__ int desired_rung_of(const int* s_thresh, int n,
+                                               int prev_active) {
+  int d = 0;
+  for (int s = 1; s < n; ++s) {
+    if (prev_active <= s_thresh[s - 1]) d = s;
+  }
+  return d;
+}
+
+// Every scalar of a lane K15 reads: lane_step's, and the tail's.
+struct LaneFull {
+  LaneScalars x;
+  int rung;
+  int used;
+  int spec;
+  int t_prev;
+  int t_us;
+};
+
+template <bool kTiming>
+__device__ __forceinline__ LaneFull lane_full(const LaneArgs& a, int l) {
+  LaneFull f;
+  f.x = lane_scalars(a, l);
+  f.rung = a.slot[kCRung][l];
+  f.used = a.slot[kCUsed][l];
+  f.spec = a.slot[kCSpec][l];
+  f.t_prev = kTiming ? a.slot[kCTPrev][l] : 0;
+  f.t_us = kTiming ? a.slot[kCTUs][l] : 0;
+  return f;
+}
+
 // The last block of K15: every live lane's scalars, the counters cleared,
-// the next superstep's routing and the live word.
+// the next superstep's routing and the live word. `mine` holds lane
+// threadIdx.x's scalars, loaded with the control block, where the lanes
+// fit one tile (`one_tile`); the others are loaded here, all together.
+// The counters are not reloaded: K13 wrote them before the launch, and the
+// max color only where a lane stores its first result.
 template <bool kTiming, bool kPartial>
-__device__ void finish_lanes(const LaneArgs& a) {
+__device__ void finish_lanes(const LaneArgs& a, bool one_tile,
+                             const LaneFull& mine, const int* s_ctrl) {
   __shared__ int s_ts;
   __shared__ int s_min;
   __shared__ int s_any;
+  const int* s_thresh = s_ctrl + kThresh0;
+  const int nstages = s_ctrl[kNStages];
   if (threadIdx.x == 0) {
     s_ts = kTiming ? dgc::globaltimer_us() : 0;  // one reading per superstep
-    s_min = a.ctrl[kNStages] - 1;
+    s_min = nstages - 1;
     s_any = 0;
   }
   __syncthreads();
   for (int l = threadIdx.x; l < a.b; l += blockDim.x) {
-    const int fail = load_volatile(a.scratch + kScrFail * a.b + l);
-    const int active = load_volatile(a.scratch + kScrActive * a.b + l);
-    const int maxc = load_volatile(a.scratch + kScrMaxc * a.b + l);
+    const LaneFull f = one_tile ? mine : lane_full<kTiming>(a, l);
+    const LaneScalars& x = f.x;
     a.scratch[kScrFail * a.b + l] = 0;
     a.scratch[kScrActive * a.b + l] = 0;
+    if (x.phase >= 2) {  // frozen
+      a.scratch[kScrMaxc * a.b + l] = -1;
+      continue;
+    }
+    const LaneStep t = lane_step(x, a.stall_window);
+    const int maxc = t.store1 ? load_volatile(a.scratch + kScrMaxc * a.b + l) : -1;
     a.scratch[kScrMaxc * a.b + l] = -1;
-    const int phase = a.slot[kCPhase][l];
-    if (phase >= 2) continue;  // frozen
-    const LaneStep t = lane_step(a, l, fail, active);
-    const int rung_now = max(a.slot[kCRung][l],
-                             desired_rung(a.ctrl, a.slot[kCPrevActive][l]));
-    const int used = t.store1 ? maxc + 1 : a.slot[kCUsed][l];
+    const int rung_now =
+        max(f.rung, desired_rung_of(s_thresh, nstages, x.prev_active));
+    const int used = t.store1 ? maxc + 1 : f.used;
     const int status =
         t.status == dgc::kRunning && t.fin ? dgc::kStalled : t.status;
     const int k2 = used - 1;
     // an attempt-only (spec-tagged) lane never runs the confirm (:409-412)
     const bool run2 = t.fin && t.first && status == dgc::kSuccess && k2 >= 1 &&
-                      a.slot[kCSpec][l] == 0;
+                      f.spec == 0;
     if constexpr (kTiming) {
-      const int prev = a.slot[kCTPrev][l];
-      if (prev > 0) {
-        const unsigned delta =
-            static_cast<unsigned>(s_ts - prev) & static_cast<unsigned>(dgc::kUsMask);
-        a.slot[kCTUs][l] =
-            static_cast<int>(static_cast<unsigned>(a.slot[kCTUs][l]) + delta);
+      if (f.t_prev > 0) {
+        const unsigned delta = static_cast<unsigned>(s_ts - f.t_prev) &
+                               static_cast<unsigned>(dgc::kUsMask);
+        a.slot[kCTUs][l] = static_cast<int>(static_cast<unsigned>(f.t_us) + delta);
       }
       a.slot[kCTPrev][l] = s_ts;
     }
-    const int phase_new = t.fin ? (run2 ? 1 : 2) : phase;
-    const int prev_new = t.fin ? a.v + 1 : active;
+    const int phase_new = t.fin ? (run2 ? 1 : 2) : x.phase;
+    const int prev_new = t.fin ? a.v + 1 : x.active;
     const int rung_new = t.fin ? 0 : rung_now;
     a.slot[kCPhase][l] = phase_new;
     if (run2) a.slot[kCK][l] = k2;
@@ -485,107 +873,210 @@ __device__ void finish_lanes(const LaneArgs& a) {
       a.slot[kCSt2][l] = status;
     }
     a.slot[kCRung][l] = rung_new;
-    a.slot[kCNc][l] = active;
+    a.slot[kCNc][l] = x.active;
     if (t.fin) a.slot[kCIdxRung][l] = 0;
-    if (phase_new < 2) route(a.ctrl, rung_new, prev_new, &s_min, &s_any);
+    if (phase_new < 2) {
+      atomicMin(&s_min, max(rung_new, desired_rung_of(s_thresh, nstages, prev_new)));
+      s_any = 1;
+    }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int steps = a.ctrl[kSteps] + 1;
+    const int steps = s_ctrl[kSteps] + 1;
     a.ctrl[kSteps] = steps;
     a.ctrl[kRexec] = s_min;
     // a shard's partial: any lane live (K26 applies the budget)
-    a.ctrl[kLive] = s_any != 0 && (kPartial || steps < a.ctrl[kBudget]);
+    a.ctrl[kLive] = s_any != 0 && (kPartial || steps < s_ctrl[kBudget]);
     a.ctrl[kTicket] = 0;
   }
 }
 
-// Blocks (chunk, lane): a live lane's rows in the chunk, or its slots in a
-// staged rung. A lane that finished its attempt: the result slot from the
-// step's state (the pre-step one if the step failed), its max color, the
-// re-init of both buffers. Else the step is adopted (packed <- nxt) or
-// reverted (nxt <- packed). Then a ticket; the last block folds.
-template <bool kTiming, bool kPartial>
-__global__ void __launch_bounds__(kThreads) lane_finish_kernel(LaneArgs a) {
-  if (a.ctrl[kLive] == 0) return;
-  const int b = blockIdx.y;
-  __shared__ int s_max[kThreads / 32];
-  __shared__ bool s_last;
-  if (a.slot[kCPhase][b] < 2) {
-    const LaneStep t = lane_step(a, b, a.scratch[kScrFail * a.b + b],
-                                 a.scratch[kScrActive * a.b + b]);
-    const int pad = a.ctrl[kPad0 + a.ctrl[kRexec]];
-    const size_t lane = static_cast<size_t>(b) * a.v;
-    int* __restrict__ packed = a.slot[kCPacked] + lane;
-    int* __restrict__ nxt = a.nxt + lane;
-    const int c0 = blockIdx.x * kFinishChunk;
-    if (t.fin) {
-      int* __restrict__ out = a.slot[t.store1 ? kCP1 : kCP2] + lane;
-      const int* __restrict__ deg = a.degrees + lane;
-      int cmax = -1;
+// K15's flags of a lane
+constexpr int kFin = 1;
+constexpr int kAnyFail = 2;
+constexpr int kStore1 = 4;
+
+__device__ __forceinline__ int4 ld4(const int* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+__device__ __forceinline__ void st4(int* p, int4 v) {
+  *reinterpret_cast<int4*>(p) = v;
+}
+__device__ __forceinline__ int pk0_of(int degree) { return degree == 0 ? 0 : 1; }
+__device__ __forceinline__ int color_of(int w) { return w >= 0 ? w >> 1 : -1; }
+
+// Chunk q of lane b's work. A lane that finished its attempt (kFin): the
+// result slot from the step's state (the pre-step one if the step
+// failed), its max color, the re-init of both buffers, over its V rows.
+// Else the step adopted (packed <- nxt) or reverted (nxt <- packed) over
+// its rows (the full table) or its slots. A thread's kFinishItems words:
+// every load first, then the stores (four words a load where `vec`: the
+// lanes' rows are 16-byte aligned).
+__device__ __forceinline__ void finish_chunk(const LaneArgs& a, int b, int q,
+                                             int flags, int pad, bool vec) {
+  const size_t base = static_cast<size_t>(b) * a.v;
+  int* __restrict__ packed = a.slot[kCPacked] + base;
+  int* __restrict__ nxt = a.nxt + base;
+  const bool fail = (flags & kAnyFail) != 0;
+  const int* __restrict__ src = fail ? packed : nxt;
+  const int j0 = q * kFinishChunk;
+  const int tid = threadIdx.x;
+  constexpr int kQuads = kFinishItems / 4;
+  if ((flags & kFin) != 0) {
+    const int r1 = min(a.v, j0 + kFinishChunk);
+    int* __restrict__ out = a.slot[(flags & kStore1) != 0 ? kCP1 : kCP2] + base;
+    const int* __restrict__ deg = a.degrees + base;
+    int cmax = -1;
+    if (vec) {
+      int4 w[kQuads];
+      int4 d[kQuads];
 #pragma unroll
-      for (int i = 0; i < kFinishItems; ++i) {
-        const int r = c0 + i * kThreads + threadIdx.x;
-        if (r < a.v) {
-          const int w = t.any_fail ? packed[r] : nxt[r];
-          out[r] = w;
-          cmax = max(cmax, w >= 0 ? w >> 1 : -1);
-          const int pk0 = deg[r] == 0 ? 0 : 1;
-          packed[r] = pk0;
-          nxt[r] = pk0;
+      for (int u = 0; u < kQuads; ++u) {
+        const int r = j0 + 4 * (tid + u * kFinishThreads);
+        if (r < r1) {
+          w[u] = ld4(src + r);
+          d[u] = ld4(deg + r);
         }
       }
-      if (t.store1) {  // the colors used, for the confirm's budget
-        cmax = __reduce_max_sync(0xFFFFFFFFu, cmax);
-        if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = cmax;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-          int m = s_max[0];
 #pragma unroll
-          for (int i = 1; i < kThreads / 32; ++i) m = max(m, s_max[i]);
-          if (m >= 0) atomicMax(a.scratch + kScrMaxc * a.b + b, m);
-        }
-      }
-    } else if (pad == 0) {
-#pragma unroll
-      for (int i = 0; i < kFinishItems; ++i) {
-        const int r = c0 + i * kThreads + threadIdx.x;
-        if (r < a.v) {
-          if (t.any_fail) {
-            nxt[r] = packed[r];
-          } else {
-            packed[r] = nxt[r];
-          }
+      for (int u = 0; u < kQuads; ++u) {
+        const int r = j0 + 4 * (tid + u * kFinishThreads);
+        if (r < r1) {
+          st4(out + r, w[u]);
+          cmax = max(cmax, max(max(color_of(w[u].x), color_of(w[u].y)),
+                               max(color_of(w[u].z), color_of(w[u].w))));
+          const int4 p = make_int4(pk0_of(d[u].x), pk0_of(d[u].y),
+                                   pk0_of(d[u].z), pk0_of(d[u].w));
+          st4(packed + r, p);
+          st4(nxt + r, p);
         }
       }
     } else {
-      const int* __restrict__ idx = a.slot[kCIdx] + static_cast<size_t>(b) * a.a0;
+      int w[kFinishItems];
+      int d[kFinishItems];
 #pragma unroll
-      for (int i = 0; i < kFinishItems; ++i) {
-        const int j = c0 + i * kThreads + threadIdx.x;
-        if (j < pad) {
-          const int r = idx[j];
-          if (r < a.v) {
-            if (t.any_fail) {
-              nxt[r] = packed[r];
-            } else {
-              packed[r] = nxt[r];
-            }
-          }
+      for (int u = 0; u < kFinishItems; ++u) {
+        const int r = j0 + tid + u * kFinishThreads;
+        if (r < r1) {
+          w[u] = src[r];
+          d[u] = deg[r];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFinishItems; ++u) {
+        const int r = j0 + tid + u * kFinishThreads;
+        if (r < r1) {
+          out[r] = w[u];
+          cmax = max(cmax, color_of(w[u]));
+          packed[r] = pk0_of(d[u]);
+          nxt[r] = pk0_of(d[u]);
         }
       }
     }
+    if ((flags & kStore1) != 0) {  // the colors used, for the confirm's budget
+      cmax = __reduce_max_sync(kFull, cmax);
+      if ((tid & 31) == 0 && cmax >= 0) {
+        atomicMax(a.scratch + kScrMaxc * a.b + b, cmax);
+      }
+    }
+    return;
   }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int total = static_cast<int>(gridDim.x * gridDim.y);
-    s_last = atomicAdd(a.ctrl + kTicket, 1) == total - 1;
+  int* __restrict__ dst = fail ? nxt : packed;
+  if (pad == 0 && vec) {
+    const int r1 = min(a.v, j0 + kFinishChunk);
+    int4 w[kQuads];
+#pragma unroll
+    for (int u = 0; u < kQuads; ++u) {
+      const int r = j0 + 4 * (tid + u * kFinishThreads);
+      if (r < r1) w[u] = ld4(src + r);
+    }
+#pragma unroll
+    for (int u = 0; u < kQuads; ++u) {
+      const int r = j0 + 4 * (tid + u * kFinishThreads);
+      if (r < r1) st4(dst + r, w[u]);
+    }
+    return;
   }
+  // the full table one word a load, or a staged rung's slots: their rows
+  // first, then the words
+  const int* __restrict__ idx = a.slot[kCIdx] + static_cast<size_t>(b) * a.a0;
+  const int j1 = min(pad == 0 ? a.v : pad, j0 + kFinishChunk);
+  int r[kFinishItems];
+#pragma unroll
+  for (int u = 0; u < kFinishItems; ++u) {
+    const int j = j0 + tid + u * kFinishThreads;
+    r[u] = j >= j1 ? a.v : pad == 0 ? j : idx[j];
+  }
+  int w[kFinishItems];
+#pragma unroll
+  for (int u = 0; u < kFinishItems; ++u) w[u] = r[u] < a.v ? src[r[u]] : 0;
+#pragma unroll
+  for (int u = 0; u < kFinishItems; ++u) {
+    if (r[u] < a.v) dst[r[u]] = w[u];
+  }
+}
+
+// A block's range of the live lanes' chunks: a lane that finished its
+// attempt has V rows, another its rows (the full table) or its slots.
+// Where the lanes fit one tile, each thread reads its lane's scalars with
+// the control block, before either is needed, and the last block's tail
+// uses them. The blocks that had a range take the ticket (after a fence
+// where they wrote a max color, the only word of theirs the tail reads);
+// the last one folds (one block alone when no lane had work).
+template <bool kTiming, bool kPartial>
+__global__ void __launch_bounds__(kFinishThreads)
+lane_finish_kernel(LaneArgs a, int vec) {
+  __shared__ long long s_warp[kFinishThreads / 32];
+  __shared__ int s_units[kFinishThreads];
+  __shared__ long long s_off[kFinishThreads];
+  __shared__ int s_flags[kFinishThreads];
+  __shared__ int s_first;
+  __shared__ int s_last;
+  __shared__ bool s_is_last;
+  __shared__ int s_ctrl[kPad0];  // the control block's words the tail reads
+  const bool one_tile = a.b <= kFinishThreads;
+  LaneFull mine{};
+  mine.x.phase = 2;
+  if (one_tile && static_cast<int>(threadIdx.x) < a.b) {
+    mine = lane_full<kTiming>(a, threadIdx.x);
+  }
+  const int ctrl_word = threadIdx.x < kPad0 ? a.ctrl[threadIdx.x] : 0;
+  const Route routing = read_route(a.ctrl);
+  if (routing.live == 0) return;
+  if (threadIdx.x < kPad0) s_ctrl[threadIdx.x] = ctrl_word;
+  const int pad = routing.pad;
+  const int chunks_v = (a.v + kFinishChunk - 1) / kFinishChunk;
+  const int chunks_p = (pad + kFinishChunk - 1) / kFinishChunk;
+  auto work = [&](int l) {
+    const LaneScalars x = one_tile ? mine.x : lane_scalars(a, l);
+    if (x.phase >= 2) return make_int2(0, 0);
+    const LaneStep t = lane_step(x, a.stall_window);
+    return make_int2(t.fin || pad == 0 ? chunks_v : chunks_p,
+                     (t.fin ? kFin : 0) | (t.any_fail ? kAnyFail : 0) |
+                         (t.store1 ? kStore1 : 0));
+  };
+  const long long total = work_total(a.b, s_warp, work);
+  const long long grid = total < gridDim.x ? total : gridDim.x;
+  const long long per = grid > 0 ? (total + grid - 1) / grid : 0;
+  const int used = per > 0 ? static_cast<int>((total + per - 1) / per) : 1;
+  if (static_cast<int>(blockIdx.x) >= used) return;  // uniform
+  bool maxed = false;  // uniform: this block wrote a max color
+  if (per > 0) {
+    const long long lo = static_cast<long long>(blockIdx.x) * per;
+    const long long hi = lo + per < total ? lo + per : total;
+    const LaneList list{s_warp, s_units, s_off, s_flags, &s_first, &s_last};
+    each_lane(a.b, lo, hi, list, work, [&](int b, int q0, int q1, int flags) {
+      for (int q = q0; q < q1; ++q) finish_chunk(a, b, q, flags, pad, vec != 0);
+      maxed = maxed || (flags & kStore1) != 0;
+    });
+  }
+  if (maxed) __threadfence();
   __syncthreads();
-  if (!s_last) return;
+  if (threadIdx.x == 0) s_is_last = atomicAdd(a.ctrl + kTicket, 1) == used - 1;
+  __syncthreads();
+  if (!s_is_last) return;
   __threadfence();
-  finish_lanes<kTiming, kPartial>(a);
+  finish_lanes<kTiming, kPartial>(a, one_tile, mine, s_ctrl);
 }
 
 // ---- K26: the lane mesh's fold ------------------------------------------
@@ -620,12 +1111,117 @@ bool args_ok(const LaneArgs* a) {
          a->planes >= 1 && a->planes <= 32;
 }
 
-template <int PB>
-void launch_superstep(const LaneArgs* a, cudaStream_t st) {
-  const dim3 grid((span_of(a) + kThreads - 1) / kThreads, a->b);
-  lane_superstep_kernel<PB><<<grid, kThreads, 0, st>>>(*a);
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
 }
 
+// The most co-resident blocks of `fn` at `threads` and `smem` bytes of
+// dynamic shared memory on the current device (0 on an error), cached per
+// device, instance and size. A kernel with more than 48 KB of dynamic
+// shared memory is allowed `max_smem` on each device once.
+int co_resident(const void* fn, int threads, size_t smem, size_t max_smem) {
+  struct Entry {
+    const void* fn;
+    size_t smem;
+    int dev;
+    int blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::lock_guard<std::mutex> hold(mu);
+  bool attr_set = max_smem <= 48 * 1024;
+  for (int i = 0; i < cached; ++i) {
+    const Entry& e = cache[i];
+    if (e.fn == fn && e.dev == dev) {
+      if (e.smem == smem) return e.blocks;
+      attr_set = true;  // set when the first size was
+    }
+  }
+  if (!attr_set &&
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(max_smem)) != cudaSuccess) {
+    return 0;
+  }
+  int occ = 0;
+  int sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, threads, smem) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
+  const int blocks = occ * sms;
+  if (cached < 64) cache[cached++] = Entry{fn, smem, dev, blocks};
+  return blocks;
+}
+
+// K13's rows a block's share of a lane needs before the block stages the
+// lane's state: a share of r rows of about w / 2 real entries each gathers
+// ~16 w r bytes of 32-byte sectors from device memory; staging copies the
+// lane's 4 V bytes once. Stage when the gathers would move more.
+int stage_rows_for(const LaneArgs* a) {
+  const int r = a->v / (4 * a->w);
+  return r > 1 ? r : 1;
+}
+
+// K13's launch: its instance (the lane state staged or not), dynamic
+// shared memory and grid; false on an error.
+struct StepLaunch {
+  bool staged;
+  size_t smem;
+  int grid;
+};
+
+bool superstep_launch(const LaneArgs* a, StepLaunch* s) {
+  s->staged = a->v <= kStagedMaxV && a->v % 4 == 0 &&
+              aligned16(a->slot[kCPacked]);
+  const void* fn = s->staged
+                       ? reinterpret_cast<const void*>(lane_superstep_kernel<true>)
+                       : reinterpret_cast<const void*>(lane_superstep_kernel<false>);
+  s->smem = s->staged ? static_cast<size_t>(a->v) * 4 : 0;
+  const int most = co_resident(fn, kStepThreads, s->smem,
+                               static_cast<size_t>(kStagedMaxV) * 4);
+  if (most < 1) return false;
+  const long long need = (static_cast<long long>(a->b) * span_of(a) +
+                          kStepThreads - 1) / kStepThreads;
+  s->grid = static_cast<int>(need < most ? need : most);
+  return true;
+}
+
+int launch_superstep(const LaneArgs* a, cudaStream_t st) {
+  StepLaunch s;
+  if (!superstep_launch(a, &s)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int rows = stage_rows_for(a);
+  if (s.staged) {
+    lane_superstep_kernel<true><<<s.grid, kStepThreads, s.smem, st>>>(*a, rows);
+  } else {
+    lane_superstep_kernel<false><<<s.grid, kStepThreads, 0, st>>>(*a, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTiming, bool kPartial>
+int launch_finish(const LaneArgs* a, cudaStream_t st) {
+  const void* fn =
+      reinterpret_cast<const void*>(lane_finish_kernel<kTiming, kPartial>);
+  const int most = co_resident(fn, kFinishThreads, 0, 0);
+  if (most < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long need =
+      static_cast<long long>(a->b) *
+      ((span_of(a) + kFinishChunk - 1) / kFinishChunk);
+  const int grid = static_cast<int>(need < most ? need : most);
+  const int vec = a->v % 4 == 0 && aligned16(a->slot[kCPacked]) &&
+                  aligned16(a->nxt) && aligned16(a->slot[kCP1]) &&
+                  aligned16(a->slot[kCP2]) && aligned16(a->degrees);
+  lane_finish_kernel<kTiming, kPartial><<<grid, kFinishThreads, 0, st>>>(*a,
+                                                                        vec);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -664,38 +1260,43 @@ int dgc_lane_compact(const void* args, void* stream) {
 int dgc_lane_superstep(const void* args, void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (a->planes <= 1) {
-    launch_superstep<1>(a, st);
-  } else if (a->planes <= 2) {
-    launch_superstep<2>(a, st);
-  } else if (a->planes <= 4) {
-    launch_superstep<4>(a, st);
-  } else if (a->planes <= 8) {
-    launch_superstep<8>(a, st);
-  } else if (a->planes <= 16) {
-    launch_superstep<16>(a, st);
-  } else {
-    launch_superstep<32>(a, st);
+  return launch_superstep(a, static_cast<cudaStream_t>(stream));
+}
+
+// K13's launch on `a` where `nlive` lanes are live and the executed rung
+// has `pad` slots (0: the full table), as the blocks would split it:
+// out[0] its grid, out[1] the blocks that stage a lane's state into shared
+// memory, out[2] those that gather from device memory (the others).
+int dgc_lane_superstep_plan(const void* args, int nlive, int pad, int* out) {
+  const auto* a = static_cast<const LaneArgs*>(args);
+  if (!args_ok(a) || nlive < 0 || nlive > a->b || pad < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  StepLaunch s;
+  if (!superstep_launch(a, &s)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const int n = pad == 0 ? a->v : pad;
+  const int rows = stage_rows_for(a);
+  out[0] = s.grid;
+  out[1] = 0;
+  out[2] = 0;
+  for (int g = 0; g < s.grid && nlive > 0; ++g) {
+    const BlockShare sh = block_share(g, s.grid, nlive);
+    if (sh.r0 == sh.r1) continue;  // no lane of its own
+    ++out[s.staged && stages_lane(n, sh.dq, rows) ? 1 : 2];
+  }
+  return 0;
 }
 
 int dgc_lane_finish(const void* args, int timing, int partial, void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((span_of(a) + kFinishChunk - 1) / kFinishChunk, a->b);
-  if (timing && partial) {
-    lane_finish_kernel<true, true><<<grid, kThreads, 0, st>>>(*a);
-  } else if (timing) {
-    lane_finish_kernel<true, false><<<grid, kThreads, 0, st>>>(*a);
-  } else if (partial) {
-    lane_finish_kernel<false, true><<<grid, kThreads, 0, st>>>(*a);
-  } else {
-    lane_finish_kernel<false, false><<<grid, kThreads, 0, st>>>(*a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (timing && partial) return launch_finish<true, true>(a, st);
+  if (timing) return launch_finish<true, false>(a, st);
+  if (partial) return launch_finish<false, true>(a, st);
+  return launch_finish<false, false>(a, st);
 }
 
 // K26 over the `n` control blocks `ctrl` (a host array of n device

@@ -14,9 +14,11 @@ runs one batched superstep at a time over the reference's 20-slot carry
   block's routing.
 - ``lane_compact`` (K14): at a staged rung, rebuild the slot list of each
   live lane whose list was built at a shallower rung (``_rebuild_idx``).
-- ``lane_superstep`` (K13): the rule over every row (rung 0) or over the
-  rung's slots of each live lane, into ``nxt``; each lane's fail and
-  active counts.
+- ``lane_superstep`` (K13): the rule over every unconfirmed row (rung 0)
+  or over the rung's unconfirmed slots of each live lane, each walked up
+  to its degree (the table's real entries come first, the sentinel ``V``
+  after them: ``check_lane_rows``), into ``nxt``; each lane's fail and
+  active counts. It relies on ``nxt`` equal to ``packed`` at entry.
 - ``lane_finish`` (K15): the transition and freeze of every lane, the
   adopt or revert of the step, the result slots (a spec-tagged lane runs
   no confirm), and the next superstep's routing; with ``timing`` it reads
@@ -64,7 +66,8 @@ from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_IDX_RUNG, CARRY_K,
                                   CARRY_STALL, CARRY_STEP, CARRY_USED, T_PREV,
                                   T_US, US_MASK)
 from dgc_tpu_torch.obs.devclock import kernel_clock_us
-from dgc_tpu_torch.ops.speculative import decode_combined, speculative_update_mc
+from dgc_tpu_torch.ops.speculative import (NBR_MASK, decode_combined,
+                                           speculative_update_mc)
 
 # the control block (kRexec ... kPad0 in csrc/serve.cu): the executed rung,
 # the live word, the slice's step count and budget, K15's block ticket,
@@ -306,25 +309,60 @@ def lane_compact_reference(L: Lanes) -> None:
         c[CARRY_IDX_RUNG][b] = s
 
 
+def _walked_rows(L: Lanes, b: int, pad: int) -> torch.Tensor:
+    """The rows K13 walks in lane ``b``: its rows (``pad`` 0) or its
+    rung's real slots, less the confirmed rows (a confirmed row's rule
+    returns its own word and counts nothing)."""
+    v = L.v
+    if pad == 0:
+        rows = torch.arange(v, device=L.device)
+    else:
+        slots = L.carry[CARRY_IDX][b, :pad].to(torch.int64)
+        rows = slots[slots < v]  # dummy slots are inert
+    me = L.carry[CARRY_PACKED][b][rows]
+    return rows[(me < 0) | ((me & 1) == 1)]
+
+
+def check_lane_rows(L: Lanes, b: int, rows: torch.Tensor) -> None:
+    """K13's table contract for ``rows`` of lane ``b``: a row's first
+    ``degrees[b, row]`` entries are neighbors (< V) and the rest the
+    sentinel (>= V), as ``csr_to_ell`` and ``pad_member`` lay them out.
+    K13 walks a row only up to its degree, so a table that breaks it would
+    give another result; raises ``ValueError``."""
+    nbr = L.comb[b][rows] & NBR_MASK
+    real = (torch.arange(nbr.shape[1], device=L.device)[None, :]
+            < L.degrees[b][rows][:, None])
+    if bool(((nbr >= L.v) & real).any()):
+        raise ValueError(f"lane_superstep: lane {b} has a row whose entry "
+                         f"before its degree is not a neighbor (>= {L.v})")
+    if bool(((nbr < L.v) & ~real).any()):
+        raise ValueError(f"lane_superstep: lane {b} has a row whose degree "
+                         f"cuts off a real entry (< {L.v} at or past it)")
+
+
 def lane_superstep_reference(L: Lanes) -> None:
     """K13's plain version: ``speculative_update_mc`` over each live
-    lane's rows (rung 0) or its rung's real slots, into ``nxt``; the fail
-    and active counts into ``scratch``."""
+    lane's unconfirmed rows (rung 0) or its rung's unconfirmed real slots,
+    into ``nxt``; the fail and active counts into ``scratch``. A confirmed
+    row is not walked and its ``nxt`` word not written, which is exact
+    because ``nxt`` equals ``packed`` at every entry (made as its copy;
+    K15, K16 and the pool's resize keep it so): raises ``ValueError``
+    where it does not, or where a walked row breaks the table contract
+    (``check_lane_rows``)."""
     ctrl = L.ctrl.tolist()
     if not ctrl[CTRL_LIVE]:
         return
-    pad = ctrl[CTRL_PAD0 + ctrl[CTRL_REXEC]]
     c, v = L.carry, L.v
+    if not torch.equal(L.nxt, c[CARRY_PACKED]):
+        raise ValueError("lane_superstep: nxt differs from packed at entry")
+    pad = ctrl[CTRL_PAD0 + ctrl[CTRL_REXEC]]
     sentinel = torch.full((1,), -1, dtype=torch.int32, device=L.device)
     for b in torch.nonzero(c[CARRY_PHASE] < 2).flatten().tolist():
         pk = c[CARRY_PACKED][b]
-        if pad == 0:
-            rows = torch.arange(v, device=L.device)
-        else:
-            slots = c[CARRY_IDX][b, :pad].to(torch.int64)
-            rows = slots[slots < v]  # dummy slots are inert
+        rows = _walked_rows(L, b, pad)
+        check_lane_rows(L, b, rows)
         nbr, beats = decode_combined(L.comb[b][rows])
-        gathered = torch.cat([pk, sentinel])[nbr.to(torch.int64)]
+        gathered = torch.cat([pk, sentinel])[nbr.clamp(max=v).to(torch.int64)]
         new, fail, active, _mc = speculative_update_mc(
             pk[rows], gathered, beats, int(c[CARRY_K][b]), L.planes)
         L.nxt[b, rows] = new
@@ -436,6 +474,9 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [vp, ci, ci, vp] if timed else [vp, vp]
             fn.restype = ci
+        lib.dgc_lane_superstep_plan.argtypes = [vp, ci, ci,
+                                                ctypes.POINTER(ci)]
+        lib.dgc_lane_superstep_plan.restype = ci
         lib.dgc_lane_mesh_fold.argtypes = [ctypes.POINTER(vp), ci, vp]
         lib.dgc_lane_mesh_fold.restype = ci
         lib.dgc_enable_peer_access.argtypes = [ci, ci]
@@ -548,6 +589,24 @@ def lane_superstep(L: Lanes) -> None:
                                             _stream(L.device)),
               "lane_superstep")
     launch_counts["lane_superstep"] += 1
+
+
+def superstep_plan(L: Lanes) -> dict:
+    """How K13 would run on ``L`` as it stands (reads the control block
+    and the lanes' phases: a host sync): its grid, and how many of its
+    blocks gather the neighbors' words from the lane's state staged in
+    shared memory (``shared``, classes of at most 32,768 rows where a
+    block's share of the lane is long enough) or from device memory
+    (``global``)."""
+    args = _args(L)
+    ctrl = L.ctrl.tolist()
+    nlive = (int((L.carry[CARRY_PHASE] < 2).sum()) if ctrl[CTRL_LIVE]
+             else 0)
+    out = (ctypes.c_int * 3)()
+    _raise_on(_library().dgc_lane_superstep_plan(
+        ctypes.byref(args), nlive, ctrl[CTRL_PAD0 + ctrl[CTRL_REXEC]], out),
+        "lane_superstep_plan")
+    return {"grid": out[0], "shared": out[1], "global": out[2]}
 
 
 def lane_finish(L: Lanes, timing: bool = False, partial: bool = False) -> None:

@@ -50,11 +50,13 @@ def random_case(seed: int, b: int, w: int, stages, staged: bool = False):
     rng = np.random.default_rng(seed)
     stages, pads, a0 = resolve_stages(stages, V)
     n = len(stages)
-    nbr = rng.integers(0, V + 1, size=(b, V, w))
-    nbr[rng.random((b, V)) < 0.1] = V          # rows of pad sentinels
-    comb = (nbr | rng.integers(0, 2, size=(b, V, w)) << 30).astype(np.int32)
     degrees = rng.integers(0, w + 1, size=(b, V)).astype(np.int32)
     degrees[rng.random((b, V)) < 0.2] = 0
+    # a row's degree real entries first, the pad sentinel V after them
+    # (csr_to_ell's layout, which K13 walks up to the degree)
+    nbr = rng.integers(0, V, size=(b, V, w))
+    nbr[np.arange(w)[None, None, :] >= degrees[:, :, None]] = V
+    comb = (nbr | rng.integers(0, 2, size=(b, V, w)) << 30).astype(np.int32)
     k = rng.integers(1, w + 2, size=b)
     step = rng.integers(1, 40, size=b)
     max_steps = rng.integers(2, 2 * V + 4, size=b)

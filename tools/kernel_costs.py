@@ -1,5 +1,6 @@
 """Where K1 (`superstep_rows`), K3 (`compact_slots`), K5
-(`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K23
+(`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K13
+(`lane_superstep`), K14 (`lane_compact`), K15 (`lane_finish`), K23
 (`ring_stats`), K24 (`ring_stats_wide`) and K25 (`ring_apply`) spend their
 time on the card:
 device time from ``torch.profiler`` over a few shapes each, one JSON line
@@ -40,7 +41,27 @@ time. K23 (``k23``): both 1M draws' ``sharded-ring`` engines at world size
 without (its wall time). Both parts drive the engines through their own
 calls only, so they time another checkout's package as well.
 
-    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8] [k1] [k23]
+K13 (``lane_superstep``), K14 (``lane_compact``) and K15 (``lane_finish``;
+``k13``, ``k14``, ``k15``, measured together once): the serve replay's
+default run (``serve_main`` on ``chip_smoke.SERVE_STREAM``, continuous,
+batch 8) once for its launches and wall time and once under the profiler
+(each kernel's launches summed, its mean a launch); the same graphs drawn
+once through a ``ServeFrontEnd`` (continuous, batch 8: graphs/s); then
+``measure_serve``'s sweep of the 32 uniform 20k requests in one 32-lane
+batch (v32768w32) and of the 8 100k requests (v131072w32), each under the
+profiler with its launches split by the executed rung (the full table,
+rung 0, and each staged rung), and each kernel in rounds past the live
+word; with ``k15``, K15's timing, spec and partial instances. Where the
+package has K13's launch plan (``kernels.serve.superstep_plan``), each
+sweep's K13 launches are also split by path: every block gathering from
+the lane's state staged in shared memory, every block from device
+memory, or both. ``rate``: the drawn-once run alone, three times after
+a warm run, then once more with the host threads' stacks sampled every
+millisecond (the share of samples by innermost frame, and by innermost
+frame of the port's package).
+
+    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8] [k1] [k23] \
+        [k13] [k14] [k15] [rate]
     python tools/kernel_costs.py --tree DIR k1 k23   # all parts if none
 
 ``--tree DIR`` times another checkout's package (an unpacked ``git
@@ -53,6 +74,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -406,6 +428,313 @@ def k23_costs() -> None:
         del engine
 
 
+_SERVE_PARTS = {"k13": "lane_superstep", "k14": "lane_compact",
+                "k15": "lane_finish"}
+
+
+def _replay(out_dir: Path, i: int) -> tuple:
+    """``serve_main`` on ``chip_smoke.SERVE_STREAM``, continuous, batch 8:
+    (rc, wall seconds)."""
+    from dgc_tpu_torch.serve.cli import serve_main
+
+    d = out_dir / f"replay{i}"
+    d.mkdir()
+    req = d / "requests.jsonl"
+    req.write_text("".join(json.dumps(x) + "\n" for x in cs.SERVE_STREAM))
+    t = time.perf_counter()
+    rc = serve_main(["--requests", str(req), "--results",
+                     str(d / "results.jsonl"), "--output-colorings",
+                     str(d / "colorings"), "--device", "cuda",
+                     "--batch-max", "8"])
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t
+
+
+def _drawn_once(graphs: dict) -> float:
+    """The stream's graphs, drawn once, through a ``ServeFrontEnd``
+    (continuous, batch 8, as ``chip_smoke._serve_front_runs``): graphs/s."""
+    from dgc_tpu_torch.serve.queue import ServeFrontEnd
+
+    front = ServeFrontEnd(batch_max=8, workers=8, mode="continuous",
+                          queue_depth=max(64, 2 * len(graphs)),
+                          device="cuda").start()
+    t = time.perf_counter()
+    tickets = [front.submit(g.arrays, request_id=rid)
+               for rid, g in graphs.items()]
+    for x in tickets:
+        cs.check(x.result(timeout=900).ok, "a drawn-once request failed")
+    wall = time.perf_counter() - t
+    front.shutdown()
+    return len(graphs) / wall
+
+
+def _rung_sweep(inputs, cls, stages, names: dict) -> dict:
+    """One sweep of ``inputs`` in one batch (``chip_smoke._serve_sweep``)
+    under the profiler, K13's launches split by the executed rung (read
+    from the control block before each)."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    staged = stages is not None
+    plan = getattr(ks, "superstep_plan", None)
+    rungs, paths = [], []
+
+    def sweep(L):
+        rungs.clear()
+        paths.clear()
+        ks.lane_reset(L)
+        while int(L.ctrl[ks.CTRL_LIVE]):
+            rungs.append(int(L.ctrl[ks.CTRL_REXEC]))
+            if staged:
+                ks.lane_compact(L)
+            if plan is not None:
+                p = plan(L)
+                paths.append("shared" if p["global"] == 0 else
+                             "global" if p["shared"] == 0 else "both")
+            ks.lane_superstep(L)
+            ks.lane_finish(L)
+
+    def make():
+        return cs._serve_lanes_of(inputs, cls, stages, "cuda", ks.INT32_MAX)
+
+    sweep(make())
+    torch.cuda.synchronize()
+    n = len(rungs)
+    want = {name: n for name in names.values()
+            if name != "lane_compact" or staged}
+    prof = cs._profiled(sweep, want, cs._DEVICE_MS_KEPT,
+                        {k: cs._SERVE_NAMES[k] for k in want}, prepare=make)
+    out = {"rounds": n}
+    for name in want:
+        t, kept, _each = prof[name]
+        out[name] = {"launches": n, "profiled": kept, "mean_ms": t / kept,
+                     "sum_ms": t / kept * n}
+    # the split needs every launch's record, in order
+    if "lane_superstep" in want and prof["lane_superstep"][1] == n:
+        by = {}
+        for r, ms in zip(rungs, prof["lane_superstep"][2]):
+            by.setdefault(r, []).append(ms)
+        out["lane_superstep"]["by_rung"] = {
+            str(r): {"launches": len(x), "mean_ms": sum(x) / len(x),
+                     "sum_ms": sum(x)} for r, x in sorted(by.items())}
+        if paths:  # by the path its plan gave: all blocks staged or not
+            by = {}
+            for path, ms in zip(paths, prof["lane_superstep"][2]):
+                by.setdefault(path, []).append(ms)
+            out["lane_superstep"]["by_path"] = {
+                k: {"launches": len(x), "mean_ms": sum(x) / len(x),
+                    "sum_ms": sum(x)} for k, x in sorted(by.items())}
+    return out
+
+
+def _noop_ms(inputs, cls, stages) -> dict:
+    """K14, K13 and K15 launched in turn, as a slice launches them, on
+    lanes whose sweep is over (the live word 0: each returns at once, as
+    in the rounds a slice enqueues past its last live superstep): each
+    kernel's device time a launch."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    L = cs._serve_lanes_of(inputs, cls, stages, "cuda", ks.INT32_MAX)
+    cs._serve_sweep(L, stages is not None, False)
+    n = 100
+
+    def rounds():
+        for _ in range(n):
+            ks.lane_compact(L)
+            ks.lane_superstep(L)
+            ks.lane_finish(L)
+
+    rounds()
+    prof = cs._profiled(rounds, {k: n for k in _SERVE_PARTS.values()},
+                        cs._DEVICE_MS_KEPT,
+                        {k: cs._SERVE_NAMES[k] for k in _SERVE_PARTS.values()})
+    return {k: t / kept for k, (t, kept, _each) in prof.items()}
+
+
+def _k15_instances(cls, stages, inputs) -> dict:
+    """K15's kTiming instance (a timing sweep of ``inputs``), K15 on armed
+    lanes (every other lane spec-tagged) and its partial instance (the
+    first 8 lanes over a mesh of 4 slots on the card, as
+    ``chip_smoke.measure_mesh``): device time a launch of each."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    staged = stages is not None
+
+    def sweep(timing):
+        def run(L):
+            ks.lane_reset(L, timing)
+            while int(L.ctrl[ks.CTRL_LIVE]):
+                if staged:
+                    ks.lane_compact(L)
+                ks.lane_superstep(L)
+                ks.lane_finish(L, timing)
+        return run
+
+    def mesh_sweep(M):
+        ks.mesh_reset(M)
+        while int(M.ctrl[ks.CTRL_LIVE]):
+            ks.mesh_superstep(M, staged)
+
+    eight = tuple(x[:8] for x in inputs)
+    cases = {
+        "timing": (sweep(True), lambda: cs._serve_lanes_of(
+            inputs, cls, stages, "cuda", ks.INT32_MAX), "lane_finish_kernel"),
+        "spec": (sweep(False), lambda: cs._serve_lanes_of(
+            inputs, cls, stages, "cuda", ks.INT32_MAX, armed=True),
+                 "lane_finish_kernel"),
+        "partial, 4 slots of 2 lanes": (mesh_sweep, lambda: cs._mesh_lanes(
+            eight, cls, stages, [torch.device("cuda")] * 4),
+            "lane_finish_kernel<false, true>")}
+    out = {}
+    for name, (run, make, kname) in cases.items():
+        before = ks.launch_counts["lane_finish"]
+        run(make())
+        torch.cuda.synchronize()
+        n = ks.launch_counts["lane_finish"] - before
+        t, kept, _each = cs._profiled(run, {"k": n}, cs._DEVICE_MS_KEPT,
+                                      {"k": kname}, prepare=make)["k"]
+        out[name] = {"launches": n, "profiled": kept, "mean_ms": t / kept}
+    return out
+
+
+def serve_costs(parts: list[str]) -> None:
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.serve.cli import _load_request_graph
+
+    names = {p: _SERVE_PARTS[p] for p in parts}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp)
+        rc, wall = _replay(out_dir, 0)
+        cs.check(rc == 0, f"the serve replay: rc {rc}")
+        ks.reset_launch_counts()
+        rc, wall = _replay(out_dir, 1)
+        cs.check(rc == 0, f"the serve replay: rc {rc}")
+        launches = {n: ks.launch_counts[n] for n in names.values()}
+        i = [2]
+        # each launch's batch (class rows x lanes), in launch order
+        shapes = {n: [] for n in names.values()}
+        real = {n: getattr(ks, n) for n in names.values()}
+
+        def recorded(n):
+            def launch(L, *args, **kw):
+                shapes[n].append(f"v{L.v} x{L.b}")
+                return real[n](L, *args, **kw)
+            return launch
+
+        def replay():
+            for n in shapes:
+                shapes[n].clear()
+            _replay(out_dir, i[0])
+            i[0] += 1
+
+        for n in names.values():
+            setattr(ks, n, recorded(n))
+        try:
+            prof = cs._profiled(replay, launches, 0.5,
+                                {n: cs._SERVE_NAMES[n] for n in names.values()})
+        finally:
+            for n in names.values():
+                setattr(ks, n, real[n])
+    n_req = len(cs.SERVE_STREAM)
+    rec = {"kernel": "serve", "run": "replay, continuous, batch 8",
+           "wall_s": wall, "graphs_per_s": n_req / wall}
+    for name in names.values():
+        t, kept, each = prof[name]
+        rec[name] = {"launches": launches[name], "profiled": kept,
+                     "mean_ms": t / kept,
+                     "sum_ms": t / kept * launches[name]}
+        if kept == len(shapes[name]):  # every record kept: split by batch
+            by = {}
+            for shape, ms in zip(shapes[name], each):
+                by.setdefault(shape, []).append(ms)
+            rec[name]["by_batch"] = {k: {"launches": len(x), "sum_ms": sum(x)}
+                                     for k, x in sorted(by.items())}
+    graphs = {d["id"]: _load_request_graph(d) for d in cs.SERVE_STREAM}
+    _drawn_once(graphs)  # warm
+    rec["drawn_once_graphs_per_s"] = _drawn_once(graphs)
+    print(json.dumps(rec), flush=True)
+
+    for prefix in ("u", "w"):
+        cls, stages, inputs = cs._serve_inputs(
+            [g for rid, g in graphs.items() if rid.startswith(prefix)], "cuda")
+        out = _rung_sweep(inputs, cls, stages, names)
+        print(json.dumps({"kernel": "serve", "run": f"one sweep of "
+                          f"{inputs[1].shape[0]} lanes", "class": cls.name,
+                          **out}), flush=True)
+        print(json.dumps({"kernel": "serve", "run": "rounds past the live "
+                          "word", "class": cls.name,
+                          "lanes": inputs[1].shape[0],
+                          "noop_ms": _noop_ms(inputs, cls, stages)}),
+              flush=True)
+        if prefix == "u" and "lane_finish" in names.values():
+            print(json.dumps({"kernel": "lane_finish", "class": cls.name,
+                              "instances": _k15_instances(cls, stages,
+                                                          inputs)}),
+                  flush=True)
+        del inputs
+
+
+RATE_RUNS = 3
+SAMPLE_S = 0.001
+
+
+def _host_samples(fn) -> tuple:
+    """``fn()`` with every other thread's Python stack sampled each
+    ``SAMPLE_S``: (its result, the samples, the share of them by innermost
+    frame, and by innermost frame of the port's package, the first 15
+    each)."""
+    import threading
+    from collections import Counter
+
+    leaf, ours = Counter(), Counter()
+    n = [0]
+    done = threading.Event()
+    me = threading.get_ident()
+
+    def where(f):
+        return (f"{Path(f.f_code.co_filename).name}:{f.f_lineno} "
+                f"{f.f_code.co_name}")
+
+    def sample():
+        while not done.wait(SAMPLE_S):
+            for tid, f in sys._current_frames().items():
+                if tid in (me, sampler.ident):
+                    continue
+                n[0] += 1
+                leaf[where(f)] += 1
+                while f is not None and "dgc_tpu_torch" not in \
+                        f.f_code.co_filename:
+                    f = f.f_back
+                if f is not None:
+                    ours[where(f)] += 1
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    share = lambda c: {k: v / max(n[0], 1) for k, v in c.most_common(15)}
+    return out, n[0], share(leaf), share(ours)
+
+
+def rate_costs() -> None:
+    """``rate``: the serve stream's graphs drawn once (``_drawn_once``:
+    continuous, batch 8, as ``chip_smoke._serve_front_runs``): a warm
+    run, then ``RATE_RUNS`` runs' graphs/s, then one more under a sampling
+    profiler of the host threads (``_host_samples``)."""
+    from dgc_tpu_torch.serve.cli import _load_request_graph
+
+    graphs = {d["id"]: _load_request_graph(d) for d in cs.SERVE_STREAM}
+    _drawn_once(graphs)  # warm
+    rates = [_drawn_once(graphs) for _ in range(RATE_RUNS)]
+    rate, n, leaf, ours = _host_samples(lambda: _drawn_once(graphs))
+    print(json.dumps({"kernel": "serve", "run": "drawn once, continuous, "
+                      "batch 8", "graphs_per_s": rates,
+                      "sampled_graphs_per_s": rate, "host_samples": n,
+                      "by_frame": leaf, "by_port_frame": ours}), flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("kernel_costs: no CUDA device available", file=sys.stderr)
@@ -414,11 +743,17 @@ def main(argv: list[str] | None = None) -> int:
     if parts[:1] == ["--tree"]:
         sys.path.insert(0, str(Path(parts[1]).resolve()))
         parts = parts[2:]
-    parts = parts or ["k3", "k11", "ring", "k5", "k8", "k1", "k23"]
+    parts = parts or ["k3", "k11", "ring", "k5", "k8", "k1", "k23", "k13",
+                      "k14", "k15", "rate"]
+    serve = [p for p in parts if p in _SERVE_PARTS]
     for part in parts:
+        if part in _SERVE_PARTS:
+            if part == serve[0]:
+                serve_costs(serve)
+            continue
         {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs,
          "k5": k5_costs, "k8": k8_costs, "k1": k1_costs,
-         "k23": k23_costs}[part]()
+         "k23": k23_costs, "rate": rate_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
