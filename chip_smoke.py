@@ -3920,6 +3920,11 @@ def _serve_diff(kern, plain, clock: tuple, before) -> int:
         worst = max(worst, _diff(kern.carry[j], plain.carry[j]))
     for name in ("nxt", "scratch", "ctrl"):
         worst = max(worst, _diff(getattr(kern, name), getattr(plain, name)))
+    # K14's epoch (the flags after it are the kernel's alone)
+    ke = getattr(kern, "compact_scratch", None)
+    pe = getattr(plain, "compact_scratch", None)
+    if ke is not None and pe is not None:
+        worst = max(worst, _diff(ke[:1], pe[:1]))
     for j in clock:
         k_, p_, b_ = kern.carry[j], plain.carry[j], before[j]
         moved = p_ != b_
@@ -3992,6 +3997,123 @@ def _serve_replays(rng, device) -> int:
     return worst
 
 
+# K14's cases: (lanes, width, rows, what it holds). Every lane's active
+# count is chosen (some past the rung's pad, some 0); dead lanes and lanes
+# whose list is already at the rung are among them.
+K14_CASES = ((1, 8, 131072, "one lane of v131072"),
+             (12, 8, 32768, "lanes of different counts"),
+             (5, 8, 3001, "rows not 16-byte aligned"),
+             (128, 1, 65536, "a lane's part of several tiles"),
+             (600, 1, 20000, "more lanes than blocks and than a tile"))
+K14_BACK_TO_BACK = 6  # rebuilds in a row on one batch's scratch
+
+
+def _k14_batch(rng, b: int, w: int, v: int, device):
+    """Lanes (kernel, plain) at rung 1 of ``_serve_ladder(v)``: the live
+    word set, every lane's active count drawn from none, one, around the
+    rung's pad, past it and every row; a lane dead or already at the rung
+    now and then."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_IDX_RUNG, CARRY_LEN,
+                                      CARRY_P1, CARRY_P2, CARRY_PACKED,
+                                      CARRY_PHASE)
+    from dgc_tpu_torch.serve.batched import resolve_stages
+
+    stages, pads, a0 = resolve_stages(_serve_ladder(v), v)
+    carry = [np.zeros((b, a0) if j == CARRY_IDX else
+                      (b, v) if j in (CARRY_PACKED, CARRY_P1, CARRY_P2)
+                      else (b,), dtype=np.int32) for j in range(CARRY_LEN)]
+    carry[CARRY_PACKED][:] = _k14_words(rng, b, v, pads[1])
+    carry[CARRY_IDX][:] = v
+    carry[CARRY_PHASE][:] = np.where(rng.random(b) < 0.1, 2, rng.integers(
+        0, 2, b))
+    carry[CARRY_IDX_RUNG][:] = np.where(rng.random(b) < 0.1, 1, 0)
+    comb = np.full((b, v, w), v, dtype=np.int32)
+    zeros = np.zeros(b, dtype=np.int32)
+
+    def lanes():
+        t = lambda x: torch.tensor(np.asarray(x, np.int32), device=device)
+        ctrl = ks.ladder_ctrl(stages, device)
+        ctrl[ks.CTRL_LIVE] = 1
+        ctrl[ks.CTRL_REXEC] = 1
+        L = ks.new_lanes([t(c) for c in carry], t(comb),
+                         t(np.zeros((b, v))), t(zeros), t(zeros), t(zeros),
+                         ctrl, planes=1, stall_window=64, budget=1)
+        L.scratch.zero_()  # K16's to fill; K14 reads none of it
+        return L
+    return lanes(), lanes()
+
+
+def _k14_words(rng, b: int, v: int, pad: int) -> np.ndarray:
+    """``b`` lanes of packed words, each with an active count drawn from
+    0, 1, pad - 1, pad, pad + 1, a random count and v (every row)."""
+    out = np.empty((b, v), dtype=np.int32)
+    for lane in range(b):
+        n = int(rng.choice([0, 1, min(pad - 1, v), min(pad, v),
+                            min(pad + 1, v), int(rng.integers(0, v + 1)), v]))
+        active = np.zeros(v, dtype=bool)
+        active[rng.choice(v, size=n, replace=False)] = True
+        col = rng.integers(0, 40, v)
+        out[lane] = np.where(active, np.where(rng.random(v) < 0.5, -1,
+                                              col * 2 + 1), col * 2)
+    return out
+
+
+def _k14_cases(device) -> int:
+    """K14 against its plain version on ``K14_CASES`` (every buffer and
+    the scratch's epoch compared after each launch), then
+    ``K14_BACK_TO_BACK`` rebuilds in a row on the lanes of different
+    counts (new words, rungs 1 and 2 in turn, a launch with no lane to
+    rebuild and one past the live word between them) on the one scratch
+    their lanes were made with: its epoch must count the launches that
+    rebuilt. Returns the max abs error."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_IDX_RUNG, CARRY_PACKED
+
+    rng = np.random.default_rng(14)
+    worst = 0
+    over = 0
+
+    def held(kern, plain):
+        nonlocal worst
+        before = [c.clone() for c in plain.carry]
+        ks.lane_compact(kern)
+        ks.lane_compact_reference(plain)
+        worst = max(worst, _serve_diff(kern, plain, (), before))
+
+    for b, w, v, _what in K14_CASES:
+        kern, plain = _k14_batch(rng, b, w, v, device)
+        pad = int(plain.ctrl[ks.CTRL_PAD0 + 1])
+        over += int(((plain.carry[CARRY_PACKED] < 0)
+                     | (plain.carry[CARRY_PACKED] & 1 == 1)).sum(1)
+                    .gt(pad).sum())
+        held(kern, plain)
+        del kern, plain
+    kern, plain = _k14_batch(rng, 12, 8, 32768, device)
+    rebuilt = 0
+    for i in range(K14_BACK_TO_BACK):
+        words = torch.from_numpy(_k14_words(rng, 12, 32768, 1 << 14))
+        rung = 1 + i % 2
+        for L in (kern, plain):
+            L.carry[CARRY_PACKED].copy_(words)
+            L.carry[CARRY_IDX_RUNG].fill_(rung - 1)
+            L.ctrl[ks.CTRL_REXEC] = rung
+        rebuilt += bool((plain.carry[0] < 2).any())
+        held(kern, plain)
+        held(kern, plain)  # every list now at the rung: nothing to rebuild
+        for L in (kern, plain):
+            L.ctrl[ks.CTRL_LIVE] = 0
+            L.carry[CARRY_IDX_RUNG].zero_()
+        held(kern, plain)  # past the live word
+        for L in (kern, plain):
+            L.ctrl[ks.CTRL_LIVE] = 1
+    torch.cuda.synchronize()
+    epoch = int(kern.compact_scratch[0])
+    check(epoch == rebuilt, f"K14's epoch {epoch} after {rebuilt} rebuilds")
+    check(over > 0, "no K14 case had a lane past its pad")
+    return worst
+
+
 def phase_serve_kernels(device) -> int:
     """K13-K16 against their plain versions on the card, on seeded random
     lanes (``_serve_lanes``): K16 on the random reset flags, then
@@ -4056,6 +4178,8 @@ def phase_serve_kernels(device) -> int:
           f"{killed} lanes and spared {spared} cancelled reset lanes")
     replays = _serve_replays(rng, device)
     check(replays == 0, f"K13/K15 replays differ by {replays}")
+    k14 = _k14_cases(device)
+    check(k14 == 0, f"K14's cases differ from its plain version by {k14}")
     return worst
 
 
@@ -5852,6 +5976,57 @@ def _shard_edge_cases(device) -> int:
     return err
 
 
+# K20's team cases: (width, rows of the shard), a group of 1, 2, 4, 8, 16
+# and 32 lanes a row, the widest at max_ell_width
+K20_WIDTHS = ((1, 700), (32, 600), (33, 500), (64, 400), (100, 300),
+              (256, 200), (513, 100), (1024, 64), (2048, 40))
+
+
+def _k20_team_cases(device) -> int:
+    """K20 against its plain version at shard 3 of 4 of a 4 V_l-vertex
+    state, on ragged tables of ``K20_WIDTHS`` (plain ids, real lengths
+    from none to the whole width, the sentinel V past them), degrees with
+    many ties, words uncolored, fresh and confirmed (colors mostly low,
+    some past the window), at 1, 2 and 3 planes with budgets inside and
+    past the window, both fail gates. Returns the max abs error."""
+    from dgc_tpu_torch.kernels import shard as ks
+    from dgc_tpu_torch.kernels.superstep import real_lengths
+
+    rng = np.random.default_rng(20)
+    size, rank = HELD_SHARD
+    err = 0
+    for width, vl in K20_WIDTHS:
+        v = size * vl
+        row_off = rank * vl
+        real = rng.integers(0, width + 1, vl)
+        table = np.where(np.arange(width) < real[:, None],
+                         rng.integers(0, v, (vl, width)), v)
+        nbrs = torch.from_numpy(table.astype(np.int32)).to(device)
+        lens = real_lengths(nbrs, v)
+        deg = torch.from_numpy(np.concatenate(
+            [rng.integers(0, 5, v), [-1]]).astype(np.int32)).to(device)
+        cols = np.where(rng.random(v) < 0.8, rng.integers(0, 6, v),
+                        rng.integers(0, 140, v))
+        kind = rng.random(v)
+        words = np.where(kind < 0.2, -1, np.where(kind < 0.7, cols * 2 + 1,
+                                                  cols * 2))
+        state = ks.new_shard_state(v, device)
+        state[0, :v] = torch.from_numpy(words.astype(np.int32)).to(device)
+        for planes in (1, 2, 3):
+            for k in (1, 6, 33, 32 * planes, 32 * planes + 7):
+                for fv in (False, True):
+                    ctrl = ks.new_shard_ctrl(3, v, k, -1, device)
+                    s_k, c_k = state.clone(), ctrl.clone()
+                    s_p, c_p = state.clone(), ctrl.clone()
+                    ks.shard_superstep(c_k, s_k, nbrs, lens, deg, row_off,
+                                       planes, k, fv)
+                    ks.shard_superstep_reference(c_p, s_p, nbrs, lens, deg,
+                                                 row_off, planes, k, fv)
+                    err = max(err, _diff(s_k, s_p), _diff(c_k, c_p))
+    torch.cuda.synchronize()
+    return err
+
+
 def phase_shard_kernels(device, graphs: dict) -> dict:
     """K20-K22 and the sharded-bucketed engine's K5, K7 and K8 held against
     their plain versions: one sweep of each engine as shard 3 of 4 of the
@@ -5900,6 +6075,9 @@ def phase_shard_kernels(device, graphs: dict) -> dict:
           and any(r["calls"].get("hub_superstep") for r in runs),
           "no held sweep ran K5 and K8")
     err = _shard_edge_cases(device)
+    teams = _k20_team_cases(device)
+    check(teams == 0, f"K20's team cases differ from its plain version by "
+                      f"{teams}")
     return {"runs": runs, "branches": sorted(taken), "max_abs_err": err}
 
 
@@ -5944,8 +6122,8 @@ def _shard_timing(engine, k: int) -> dict:
 
         def k20(fn=ks.shard_superstep):
             reset(ctrl0)
-            fn(ctrl, engine.state, engine.nbrs, engine.deg_g, engine.row_off,
-               engine.num_planes, k, fv)
+            fn(ctrl, engine.state, engine.nbrs, engine.lens, engine.deg_g,
+               engine.row_off, engine.num_planes, k, fv)
 
         out["k20_ms"] = _device_ms(k20, 20, "shard_superstep_kernel")
         out["k20_plain_ms"] = _host_ms(

@@ -144,16 +144,6 @@ constexpr int kSlotBlocksPerSm = 2;
 constexpr int kSlotUnroll = 2;  // rounds of 16-byte loads in flight a thread
 constexpr int kSlotMaxSmem = 96 * 1024;  // the chunks' bits of one block
 
-__device__ __forceinline__ void store_flag(unsigned long long* p,
-                                           unsigned long long v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-__device__ __forceinline__ unsigned long long load_flag(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
 // The exclusive prefix of x over the block and (in `total`) its sum; all
 // threads call it.
 __device__ __forceinline__ int slot_scan(int x, int* s_warp, int& total) {
@@ -386,10 +376,10 @@ stage_rows_kernel(const int* __restrict__ flat_ext, int w_flat, int n,
 // side by side; the group ORs the two register planes of each pass over
 // its lanes with shuffles and the rest through its shared words (`lanes`
 // words each of fa and fo a row: 64 a warp), so a pass holds 2 + lanes
-// planes and a wider window makes more passes over the row, as row_rule's
-// groups of PB. A confirmed row transitions to itself and counts nothing
-// (finish_rule), so its entries are not read; the recording variant counts
-// the unconfirmed real neighbors in the same pass.
+// planes and a wider window makes more passes over the row. A confirmed
+// row transitions to itself and counts nothing (finish_rule), so its
+// entries are not read; the recording variant counts the unconfirmed real
+// neighbors in the same pass.
 
 constexpr int kWarps = kThreads / 32;
 

@@ -1,15 +1,17 @@
-// What the superstep kernels share: the speculative rule for one row, on
-// one thread (row_rule: K20 in shard.cu) or on a team of threads
-// (add_word, fold_plane and walk_row: K1 in superstep.cu, K5 in
-// compact.cu, K8 in hub.cu, K13 in serve.cu, K23 in ring.cu; a group of
-// lanes a row: team_lanes, group_passes); the loop-control fold of one
-// superstep (finish_step: K2 and K6); the stage predicate (stage_live:
+// What the superstep kernels share: the speculative rule for one row on a
+// team of threads (add_word, fold_plane and walk_row: K1 in superstep.cu,
+// K5 in compact.cu, K8 in hub.cu, K13 in serve.cu, K20 in shard.cu, K23 in
+// ring.cu; a group of lanes a row: team_lanes, group_passes) and the
+// transition it ends in (finish_rule); the epoch flags of the count
+// exchanges (store_flag, load_flag: K3 and K14); the loop-control fold of
+// one superstep (finish_step: K2 and K6); the stage predicate (stage_live:
 // K5-K8); and the hub region's live table (K6-K8).
 //
 // The rule is the port of dgc_tpu/ops/speculative.py:40 neighbor_stats and
 // :67 apply_update_mc over dgc_tpu/ops/bitmask.py:28 plane_masks, :37
 // forbidden_planes and :75 first_fit, for one row of a combined table
-// (neighbor id | beats bit 30) gathered from the state buffer `src`.
+// (neighbor id | beats bit 30) gathered from the state buffer `src`, or of
+// a table of plain ids whose priority is read from the degrees (K20).
 
 #pragma once
 
@@ -56,29 +58,6 @@ struct RowResult {
   int mc;       // divergence candidate: -1, the candidate, or kDivergeBig
 };
 
-// First-fit over one group of PB planes starting at plane `base`: `fa`
-// holds every colored neighbor's bit, `fo` the confirmed ones'. Sets the
-// first free color under k (`found`, `cand`) and whether a color under k is
-// free of confirmed neighbors (`old_free`).
-template <int PB>
-__device__ __forceinline__ void fold_planes(const uint32_t (&fa)[PB],
-                                            const uint32_t (&fo)[PB],
-                                            int base, int planes, int k,
-                                            bool& found, int& cand,
-                                            bool& old_free) {
-#pragma unroll
-  for (int p = 0; p < PB; ++p) {
-    const int pg = base + p;
-    const uint32_t m = pg < planes ? plane_mask(k, pg) : 0u;
-    const uint32_t free_all = ~fa[p] & m;
-    if (!found && free_all != 0u) {
-      found = true;
-      cand = 32 * pg + __ffs(free_all) - 1;
-    }
-    if ((~fo[p] & m) != 0u) old_free = true;
-  }
-}
-
 // The state transition of a row whose packed word is `me`, from its
 // neighbor stats (apply_update_mc).
 __device__ __forceinline__ RowResult finish_rule(int me, bool clash,
@@ -104,98 +83,10 @@ __device__ __forceinline__ RowResult finish_rule(int me, bool clash,
   return r;
 }
 
-// The priority of a row whose table holds plain neighbor ids (kPrio): the
-// degrees `deg` (-1 at the pad sentinel's slot) and the row's own degree
-// and id. A neighbor beats the row when its degree is larger, or equal
-// with a smaller id (dgc_tpu/ops/speculative.py beats_rule).
-struct Prio {
-  const int* deg = nullptr;
-  int my_deg = 0;
-  int my_id = 0;
-};
-
-// One neighbor entry `e` into the planes of group `base`: its color's bit
-// into `fa` (and into `fo` when confirmed); a fresh neighbor of my color
-// that beats me is a clash (read in group 0 only). With kLim, a neighbor id
-// at or past `lim` is the pad sentinel of a state buffer that has no pad
-// slot (the serve carry's lanes) and reads as uncolored. With kPrio, `e`
-// is a plain id and whether it beats me is read from `prio` instead of
-// bit 30, and only where the clash test needs it.
-template <int PB, bool kLim = false, bool kPrio = false>
-__device__ __forceinline__ void add_neighbor(const int* __restrict__ src,
-                                             int e, int base, int mycol,
-                                             uint32_t (&fa)[PB],
-                                             uint32_t (&fo)[PB],
-                                             bool& clash, int lim = 0,
-                                             const Prio& prio = Prio{}) {
-  if constexpr (kLim) {
-    if ((e & kNbrMask) >= lim) return;
-  }
-  const int word = src[e & kNbrMask];
-  if (word < 0) return;  // uncolored neighbor or pad sentinel
-  const int c = word >> 1;
-  const bool fresh = (word & 1) != 0;
-  if (base == 0 && fresh && c == mycol) {
-    bool beats;
-    if constexpr (kPrio) {
-      const int nd = prio.deg[e];
-      beats = nd > prio.my_deg || (nd == prio.my_deg && e < prio.my_id);
-    } else {
-      beats = (e >> kBeatsBit) != 0;
-    }
-    if (beats) clash = true;
-  }
-  const int w = (c >> 5) - base;
-  const uint32_t bit = 1u << (c & 31);
-#pragma unroll
-  for (int p = 0; p < PB; ++p) {
-    if (p == w) {
-      fa[p] |= bit;
-      if (!fresh) fo[p] |= bit;
-    }
-  }
-}
-
-// The rule for a row whose packed word is `me`, over the `width` entries
-// at `row`, with a window of `planes` planes, on one thread. PB planes are
-// held in registers at a time; a wider window is scanned in groups of PB,
-// re-reading the row for each group. kLim/lim and kPrio/prio as
-// add_neighbor: with kPrio the neighbors' words come from `src`, the
-// gathered state, whatever buffer the row's own word `me` came from.
-template <int PB, bool kLim = false, bool kPrio = false>
-__device__ __forceinline__ RowResult row_rule(const int* __restrict__ src,
-                                              const int* __restrict__ row,
-                                              int width, int planes, int k,
-                                              int me, int lim = 0,
-                                              const Prio& prio = Prio{}) {
-  const int mycol = me >> 1;  // arithmetic: -1 stays -1
-  bool clash = false;
-  bool found = false;     // a color under k is free of every neighbor
-  int cand = k;           // first-fit over all colored neighbors
-  bool old_free = false;  // a color under k is free of confirmed ones
-  const int groups = (planes + PB - 1) / PB;
-  for (int g = 0; g < groups; ++g) {
-    const int base = g * PB;
-    uint32_t fa[PB];
-    uint32_t fo[PB];
-#pragma unroll
-    for (int p = 0; p < PB; ++p) {
-      fa[p] = 0u;
-      fo[p] = 0u;
-    }
-    for (int j = 0; j < width; ++j) {
-      add_neighbor<PB, kLim, kPrio>(src, row[j], base, mycol, fa, fo, clash,
-                                    lim, prio);
-    }
-    fold_planes<PB>(fa, fo, base, planes, k, found, cand, old_free);
-  }
-  return finish_rule(me, clash, found, cand, old_free);
-}
-
-// ---- the team walk of K1, K5, K8, K13 and K23 ---------------------------
+// ---- the team walk of K1, K5, K8, K13, K20 and K23 ----------------------
 //
-// K1, K5, K13 and K23 (a group of lanes a row, K1 a block from its widest
-// tables) and K8 (a warp or a block a row) read a row with a team of
+// K1, K5, K13, K20 and K23 (a group of lanes a row, K1 a block from its
+// widest tables) and K8 (a warp or a block a row) read a row with a team of
 // threads and keep the row's
 // planes two ways: the first two planes of a pass (where the first fit
 // picks mostly fall) in registers, OR-reduced over the team, and the rest
@@ -254,20 +145,31 @@ struct PlaneRegs {
   }
 };
 
+// Whether the neighbor of entry `e` beats the row: bit 30 of a combined
+// table's entry (BeatsBit). A table of plain ids (K20) passes its own
+// functor, which reads the priority from the degrees. Asked only of a fresh
+// neighbor of the row's own color, the one place the clash test needs it.
+struct BeatsBit {
+  __device__ __forceinline__ bool operator()(int e) const {
+    return (e >> kBeatsBit) != 0;
+  }
+};
+
 // One gathered neighbor word `word` of entry `e` into the pass's `gp`
 // planes from `base`: its color's bit into the registers or into the
 // shared words s_fa/s_fo (plane base + kRegPlanes + i at index i), and
-// into fo when confirmed; a fresh neighbor of my color that beats me is a
-// clash (read in the pass from plane 0 only). A color past the pass adds
-// nothing, as add_neighbor.
+// into fo when confirmed; a fresh neighbor of my color that beats me
+// (`beats`) is a clash (read in the pass from plane 0 only). A color past
+// the pass adds nothing.
+template <class Beats = BeatsBit>
 __device__ __forceinline__ void add_word(int e, int word, int base, int gp,
                                          int mycol, PlaneRegs& pl,
                                          uint32_t* s_fa, uint32_t* s_fo,
-                                         bool& clash) {
+                                         bool& clash, Beats beats = Beats{}) {
   if (word < 0) return;  // uncolored neighbor or pad sentinel
   const int c = word >> 1;
   const bool fresh = (word & 1) != 0;
-  if (base == 0 && fresh && c == mycol && (e >> kBeatsBit) != 0) clash = true;
+  if (base == 0 && fresh && c == mycol && beats(e)) clash = true;
   const int w = (c >> 5) - base;
   if (w < 0 || w >= gp) return;
   const uint32_t bit = 1u << (c & 31);
@@ -283,7 +185,10 @@ __device__ __forceinline__ void add_word(int e, int word, int base, int gp,
   }
 }
 
-// Plane pg (< the window) of a row into its first fit, as fold_planes.
+// Plane pg (< the window) of a row into its first fit: `fa` holds every
+// colored neighbor's bit of the plane, `fo` the confirmed ones'. Sets the
+// first free color under k (`found`, `cand`) and whether a color under k is
+// free of confirmed neighbors (`old_free`).
 __device__ __forceinline__ void fold_plane(uint32_t fa, uint32_t fo, int pg,
                                            int k, bool& found, int& cand,
                                            bool& old_free) {
@@ -298,10 +203,10 @@ __device__ __forceinline__ void fold_plane(uint32_t fa, uint32_t fo, int pg,
 
 // How walk_row gathers a neighbor's word from the state `src`. kGatherPad:
 // every id but the pad sentinel `pad`, from device memory (K1, K5, K8,
-// K23: their buffers hold −1 at slot pad). kGatherLim: every id below
-// `pad`, an id at or past it reading as uncolored (row_rule's kLim: the
-// serve carry's lanes have no pad slot), from device memory; kGatherShared
-// likewise from a state staged in shared memory (K13).
+// K20, K23: their buffers hold −1 at slot pad). kGatherLim: every id below
+// `pad`, an id at or past it reading as uncolored (the serve carry's lanes
+// have no pad slot), from device memory; kGatherShared likewise from a
+// state staged in shared memory (K13).
 constexpr int kGatherPad = 0;
 constexpr int kGatherLim = 1;
 constexpr int kGatherShared = 2;
@@ -359,7 +264,7 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 }
 
 // The passes of a group of `lanes` lanes over its row's entries [0, len)
-// (K1, K13, K23): a pass holds kRegPlanes + lanes planes from `base`, in
+// (K1, K13, K20, K23): a pass holds kRegPlanes + lanes planes from `base`, in
 // PlaneRegs and the group's shared words s_fa/s_fo, and hands each to
 // plane(pg, fa, fo) on the first lane of a group that walks (`walk`,
 // uniform over the group). The first pass also takes the highest plane
@@ -368,15 +273,16 @@ __device__ __forceinline__ void walk_row(const int* __restrict__ src,
 // calls it with the same `lanes` and `planes`. Returns the planes handed
 // over, and leaves the group's clash in `clash` on each of its lanes.
 // kGather as walk_row (K13 in serve.cu gathers by kGatherLim or
-// kGatherShared).
-template <int kGather = kGatherPad, class Plane>
+// kGatherShared); `beats` as add_word (K20 reads the degrees).
+template <int kGather = kGatherPad, class Plane, class Beats = BeatsBit>
 __device__ __forceinline__ int group_passes(const int* __restrict__ src,
                                             const int* __restrict__ row,
                                             int len, int gl, int lanes,
                                             int pad, bool walk, int planes,
                                             int mycol, uint32_t* s_fa,
                                             uint32_t* s_fo, bool& clash,
-                                            Plane plane) {
+                                            Plane plane,
+                                            Beats beats = Beats{}) {
   const int per_pass = kRegPlanes + lanes;
   int top = -1;  // the highest plane of a neighbor's color
   int done = planes;
@@ -388,7 +294,7 @@ __device__ __forceinline__ int group_passes(const int* __restrict__ src,
     PlaneRegs pl;
     if (walk) {
       walk_row<kGather>(src, row, len, gl, lanes, pad, [&](int e, int word) {
-        add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash);
+        add_word(e, word, base, gp, mycol, pl, s_fa, s_fo, clash, beats);
         if (base == 0 && word >= 0) top = max(top, word >> 6);
       });
     }
@@ -412,6 +318,19 @@ __device__ __forceinline__ int group_passes(const int* __restrict__ src,
     clash |= __shfl_xor_sync(0xFFFFFFFFu, clash ? 1 : 0, o) != 0;
   }
   return done;
+}
+
+// A 64-bit flag (epoch << 32 | count) a block publishes and the grid's
+// other blocks poll (K3's and K14's count exchanges): a volatile store and
+// load, so a poll reads what another block stored, not a cached copy.
+__device__ __forceinline__ void store_flag(unsigned long long* p,
+                                           unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+__device__ __forceinline__ unsigned long long load_flag(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
 // Fold this superstep's counters into the loop carry, on one thread, for

@@ -118,8 +118,16 @@
 // 16-byte aligned) before any is stored. The blocks that had a range take
 // a ticket; the last one runs every lane's scalar transition from the
 // scalars it read at its start, with the ladder's thresholds in shared
-// memory. K14 and K16 are one block a lane and one thread a row, written
-// to be right and simple.
+// memory. K16 is one thread a row, written to be right and simple.
+//
+// K14 is one wave of co-resident blocks over the rebuilding lanes, several
+// blocks a lane, 16-byte loads, one exchange of the blocks' counts in
+// which every block reads every flag at once, and a dummy fill shared by
+// the lane's blocks; its flags carry an epoch, so its scratch is made once
+// with the lanes and never cleared (the K14 section below; K3's design in
+// compact.cu). A block a lane walking its rows tile after tile is held by
+// latency, not bandwidth, and on a one-lane batch (every batch of the
+// serve replay) it would keep one SM of 132 busy.
 
 #include <cuda_runtime.h>
 
@@ -177,8 +185,13 @@ constexpr int kScrActive = 1;
 constexpr int kScrMaxc = 2;
 
 constexpr int kThreads = 256;
-constexpr int kCompactThreads = 1024;
-constexpr int kCompactItems = 8;  // K14: rows per thread and tile
+// K14: a block's threads; the 16-byte chunks a thread takes a tile, side by
+// side (the grid is sized to give a block one tile)
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kCompactBlocksPerSm = 4;
+constexpr int kCompactItems = 4;
+constexpr int kCompactTile = kCompactThreads * kCompactItems;
 // K13: a block's warps; the classes whose lane state a block stages
 constexpr int kStepThreads = 512;
 constexpr int kStepWarps = kStepThreads / 32;
@@ -377,87 +390,13 @@ __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
   }
 }
 
-// ---- K14: stage-entry recompaction --------------------------------------
-//
-// One block per lane; the lane's rows in tiles of kCompactThreads x
-// kCompactItems, each scanned block-wide, in order, the running count in
-// shared memory. Active rows (uncolored or fresh) past the pad are
-// dropped; the rest of the A0-wide list is the dummy V.
-
-__global__ void __launch_bounds__(kCompactThreads) lane_compact_kernel(LaneArgs a) {
-  const int b = blockIdx.x;
-  if (a.ctrl[kLive] == 0) return;
-  const int s = a.ctrl[kRexec];
-  const int pad = a.ctrl[kPad0 + s];
-  if (pad == 0) return;  // the full table: no slot list
-  if (a.slot[kCPhase][b] >= 2 || a.slot[kCIdxRung][b] >= s) return;
-  const int* __restrict__ pk = a.slot[kCPacked] + static_cast<size_t>(b) * a.v;
-  int* __restrict__ idx = a.slot[kCIdx] + static_cast<size_t>(b) * a.a0;
-
-  __shared__ int s_warp[kCompactThreads / 32];
-  __shared__ int s_base;
-  if (threadIdx.x == 0) s_base = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int t0 = 0; t0 < a.v; t0 += kCompactThreads * kCompactItems) {
-    const int base = t0 + threadIdx.x * kCompactItems;
-    unsigned bits = 0u;
-    int cnt = 0;
-#pragma unroll
-    for (int i = 0; i < kCompactItems; ++i) {
-      const int pos = base + i;
-      if (pos < a.v) {
-        const int w = pk[pos];
-        if (w < 0 || (w & 1) != 0) {
-          bits |= 1u << i;
-          ++cnt;
-        }
-      }
-    }
-    int x = cnt;  // inclusive scan within the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) s_warp[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int t = s_warp[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
-        if (lane >= o) t += y;
-      }
-      s_warp[lane] = t;
-    }
-    __syncthreads();
-    int off = s_base + x - cnt + (warp > 0 ? s_warp[warp - 1] : 0);
-    const int total = s_warp[kCompactThreads / 32 - 1];
-#pragma unroll
-    for (int i = 0; i < kCompactItems; ++i) {
-      if ((bits >> i) & 1u) {
-        if (off < pad) idx[off] = base + i;
-        ++off;
-      }
-    }
-    __syncthreads();  // every thread has read s_base and s_warp
-    if (threadIdx.x == 0) s_base += total;
-    __syncthreads();
-  }
-  for (int j = min(s_base, pad) + threadIdx.x; j < a.a0; j += kCompactThreads) {
-    idx[j] = a.v;
-  }
-  if (threadIdx.x == 0) a.slot[kCIdxRung][b] = s;
-}
-
 // ---- K13 and K15: lanes and their work ----------------------------------
 
-// The control block's routing words, loaded together: the live word and
-// the executed rung's pad (every stage's pad read, the rung's selected).
+// The control block's routing words, loaded together: the live word, the
+// executed rung and its pad (every stage's pad read, the rung's selected).
 struct Route {
   int live;
+  int rexec;
   int pad;
 };
 
@@ -468,6 +407,7 @@ __device__ __forceinline__ Route read_route(const int* ctrl) {
   const int rexec = ctrl[kRexec];
   Route r;
   r.live = ctrl[kLive];
+  r.rexec = rexec;
   r.pad = pads[0];
 #pragma unroll
   for (int s = 1; s < kMaxStages; ++s) {
@@ -668,30 +608,32 @@ __device__ __forceinline__ int live_lanes(int b, int r0, int n, int* s_list,
   return base;
 }
 
-// A block's share of the live lanes: the ranks [r0, r1), and the batches
-// q0, q0 + dq, ... of each lane's items (lane_rows). With G blocks for L
-// lanes (G >= L) lane i takes blocks [iG/L, (i+1)G/L), which interleave its
-// rows; with fewer blocks than lanes, block g takes the lanes [gL/G,
-// (g+1)L/G) whole.
+// A block's share of the live lanes (K13) or the rebuilding ones (K14):
+// the ranks [r0, r1), and its part of the `parts` blocks of lane r0. With
+// G blocks for L lanes (G >= L) lane i takes blocks [iG/L, (i+1)G/L); with
+// fewer blocks than lanes, block g takes the lanes [gL/G, (g+1)L/G) whole
+// (part 0 of 1). In 32-bit arithmetic, which a 64-bit division would slow
+// by about a microsecond a launch: grid * nlive < 2^32, both at most
+// 65,535 (args_ok, and a grid of co-resident blocks).
 struct BlockShare {
-  int r0, r1, q0, dq;
+  int r0, r1, part, parts;
 };
 
-__host__ __device__ inline BlockShare block_share(long long g, long long grid,
-                                                  int nlive) {
+__host__ __device__ inline BlockShare block_share(unsigned g, unsigned grid,
+                                                  unsigned nlive) {
   BlockShare s;
   if (grid >= nlive) {
     s.r0 = static_cast<int>(((g + 1) * nlive - 1) / grid);
     s.r1 = s.r0 + 1;
-    const long long g0 = s.r0 * grid / nlive;
-    const long long g1 = (s.r0 + 1) * grid / nlive;
-    s.q0 = static_cast<int>(g - g0) * kStepWarps;
-    s.dq = static_cast<int>(g1 - g0) * kStepWarps;
+    const unsigned g0 = s.r0 * grid / nlive;
+    const unsigned g1 = (s.r0 + 1) * grid / nlive;
+    s.part = static_cast<int>(g - g0);
+    s.parts = static_cast<int>(g1 - g0);
   } else {
     s.r0 = static_cast<int>(g * nlive / grid);
     s.r1 = static_cast<int>((g + 1) * nlive / grid);
-    s.q0 = 0;
-    s.dq = kStepWarps;
+    s.part = 0;
+    s.parts = 1;
   }
   return s;
 }
@@ -731,8 +673,10 @@ lane_superstep_kernel(LaneArgs a, int stage_rows) {
   const int nlive = live_lanes(a.b, 0, one_tile ? kStepThreads : 0, s_list,
                                s_warp, live);
   if (nlive == 0) return;
+  // a lane's blocks interleave its batches of rows
   const BlockShare sh = block_share(blockIdx.x, gridDim.x, nlive);
-  const int r0 = sh.r0, r1 = sh.r1, q0 = sh.q0, dq = sh.dq;
+  const int r0 = sh.r0, r1 = sh.r1;
+  const int q0 = sh.part * kStepWarps, dq = sh.parts * kStepWarps;
   const bool stage = kStaged && stages_lane(n, dq, stage_rows);
   if (stage) {  // uniform over the block
     if (threadIdx.x == 0) {
@@ -767,6 +711,265 @@ lane_superstep_kernel(LaneArgs a, int stage_rows) {
       }
     }
     __syncthreads();  // s_list read before the next chunk lists
+  }
+}
+
+// ---- K14: stage-entry recompaction --------------------------------------
+//
+// One wave of co-resident blocks (a cooperative launch: the runtime refuses
+// a grid that could not all be resident at once) over the lanes that
+// rebuild: each live lane whose slot list was built at a shallower rung
+// than the executed one s (phase < 2, idx_rung < s). Every block reads the
+// control block first and returns at once when the live word is 0 or rung
+// s has no slot list (pad 0); then it finds the rebuilding lanes by a
+// block-wide scan over every lane's phase and idx_rung (one thread a lane),
+// so the grid does not depend on which lanes rebuild and no host sync
+// sizes it, and returns when there are none.
+//   The lanes split over the grid as K13's do: with G blocks for L lanes
+// (G >= L) lane i takes blocks [iG/L, (i+1)G/L), each a contiguous part of
+// the lane's 16-byte chunks of `packed`; with fewer blocks than lanes,
+// block g takes lanes [gL/G, (g+1)L/G) whole. A block reads its part in
+// tiles, kCompactItems neighbouring chunks a thread (their loads in flight
+// together), and counts the active rows (uncolored or fresh) with one
+// block-wide scan a tile; the first tile's bits and scan stay in registers
+// for the writes, a later tile is read again.
+//   The exchange. Every block publishes one 64-bit flag, epoch << 32 |
+// count, in scratch[1 + block], and reads every block's flag at once, one a
+// thread, until each carries this launch's epoch (a look-back over the
+// whole grid in one round trip; co-residency makes the wait safe). Its
+// lane's earlier blocks' counts give its first slot, all its lane's blocks'
+// counts the lane's count. It then lists a tile's slots in shared memory
+// and stores them in order, neighbouring threads on neighbouring slots (the
+// slots at or past pad are dropped), and writes its share of the lane's
+// dummy fill [min(count, pad), A0), four slots a store where aligned. A
+// block that has its lanes whole writes them before the exchange.
+//   The trap. Every block reads every lane's idx_rung to find its lanes, so
+// idx_rung[b] = s is written only after the exchange, when every block has
+// published, and so has read them: by the lane's first block. The epoch:
+// scratch[0] holds the last rebuilding launch's; a launch that rebuilds
+// takes the next one (never 0, a fresh scratch's), and block 0 stores it
+// after the exchange, once every block has read the old one. So the
+// scratch, made once with the lanes (kernels/serve.py new_lanes), is never
+// cleared: no flag an earlier launch left reads as this launch's.
+
+// A part of lane b's rows in 16-byte chunks: chunk c holds rows 4c - head
+// to 4c - head + 3 (those in [0, V)); the part is chunks [c0, c1), in
+// tiles of kCompactTile. Its bounds in 32 bits (launch_compact checks that
+// the products fit), as block_share's.
+struct LanePart {
+  const int* pk;  // the lane's packed words
+  int* idx;       // the lane's slot list
+  int head;
+  int c0;
+  int c1;
+  int tiles;
+};
+
+__device__ __forceinline__ LanePart lane_part(const LaneArgs& a, int b,
+                                              unsigned part, unsigned parts) {
+  LanePart p;
+  p.pk = a.slot[kCPacked] + static_cast<size_t>(b) * a.v;
+  p.idx = a.slot[kCIdx] + static_cast<size_t>(b) * a.a0;
+  p.head = static_cast<int>((reinterpret_cast<uintptr_t>(p.pk) >> 2) & 3);
+  const unsigned nc = (static_cast<unsigned>(a.v) + p.head + 3) >> 2;
+  p.c0 = static_cast<int>(nc * part / parts);
+  p.c1 = static_cast<int>(nc * (part + 1) / parts);
+  p.tiles = (p.c1 - p.c0 + kCompactTile - 1) / kCompactTile;
+  return p;
+}
+
+// This thread's first chunk of tile t.
+__device__ __forceinline__ int tile_chunk(const LanePart& p, int t) {
+  return p.c0 + t * kCompactTile + threadIdx.x * kCompactItems;
+}
+
+// This thread's chunks of tile t, their active bits (bit 4u + j: row j of
+// its chunk u is uncolored or fresh); a row outside [0, V) or a chunk past
+// the part is not active. The loads are issued together.
+__device__ __forceinline__ unsigned tile_bits(const LanePart& p, int v,
+                                              int t) {
+  const int cb = tile_chunk(p, t);
+  const int4* pk4 = reinterpret_cast<const int4*>(p.pk - p.head);
+  int4 q[kCompactItems];
+#pragma unroll
+  for (int u = 0; u < kCompactItems; ++u) {
+    const int c = cb + u;
+    const int p0 = 4 * c - p.head;
+    q[u] = make_int4(0, 0, 0, 0);  // 0: a confirmed color 0, not active
+    if (c >= p.c1) continue;
+    if (p0 >= 0 && p0 + 4 <= v) {
+      q[u] = __ldg(pk4 + c);
+    } else {
+      int w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = p0 + j >= 0 && p0 + j < v ? __ldg(p.pk + p0 + j) : 0;
+      }
+      q[u] = make_int4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  const auto act = [](int w) { return w < 0 || (w & 1) != 0 ? 1u : 0u; };
+  unsigned bits = 0u;
+#pragma unroll
+  for (int u = 0; u < kCompactItems; ++u) {
+    bits |= (act(q[u].x) | act(q[u].y) << 1 | act(q[u].z) << 2 |
+             act(q[u].w) << 3) << (4 * u);
+  }
+  return bits;
+}
+
+// A part's count: one scan a tile; the first tile's bits, scan and total
+// kept (every thread calls it).
+struct PartCount {
+  unsigned bits0;
+  int excl0;
+  int total0;
+  int count;
+};
+
+__device__ __forceinline__ PartCount count_part(const LanePart& p, int v,
+                                                long long* s_warp) {
+  PartCount c{0u, 0, 0, 0};
+  for (int t = 0; t < p.tiles; ++t) {
+    const unsigned bits = tile_bits(p, v, t);
+    long long total;
+    const int excl = static_cast<int>(block_scan(__popc(bits), s_warp, total));
+    if (t == 0) {
+      c.bits0 = bits;
+      c.excl0 = excl;
+      c.total0 = static_cast<int>(total);
+    }
+    c.count += static_cast<int>(total);
+  }
+  return c;
+}
+
+// The part's slots from `first` on, in order (those at or past pad
+// dropped): a tile's listed in s_out at their places, then stored side by
+// side; then its share (part of parts) of the lane's dummy fill
+// [min(count, pad), A0) with V. Every thread calls it.
+__device__ __forceinline__ void write_part(const LaneArgs& a,
+                                          const LanePart& p,
+                                          const PartCount& c, int first,
+                                          int count, int pad, int part,
+                                          int parts, long long* s_warp,
+                                          int* s_out) {
+  const int tid = threadIdx.x;
+  int run = first;
+  for (int t = 0; t < p.tiles && run < pad; ++t) {  // uniform
+    unsigned bits = c.bits0;
+    int excl = c.excl0;
+    int total = c.total0;
+    if (t > 0) {
+      bits = tile_bits(p, a.v, t);
+      long long sum;
+      excl = static_cast<int>(block_scan(__popc(bits), s_warp, sum));
+      total = static_cast<int>(sum);
+    }
+    const int p0 = 4 * tile_chunk(p, t) - p.head;
+    int k = excl;
+    while (bits != 0u) {
+      const int j = __ffs(bits) - 1;
+      bits &= bits - 1u;
+      s_out[k++] = p0 + j;
+    }
+    __syncthreads();
+    const int n = min(total, pad - run);
+    for (int i = tid; i < n; i += kCompactThreads) p.idx[run + i] = s_out[i];
+    __syncthreads();  // s_out read before the next tile lists
+    run += total;
+  }
+  const int f = min(count, pad);
+  const unsigned span = static_cast<unsigned>(a.a0 - f);
+  const unsigned up = static_cast<unsigned>(part);
+  const unsigned ups = static_cast<unsigned>(parts);
+  const int f0 = f + static_cast<int>(span * up / ups);
+  const int f1 = f + static_cast<int>(span * (up + 1) / ups);
+  // slot i is 16-byte aligned iff (ih + i) % 4 == 0
+  const int ih =
+      static_cast<int>((reinterpret_cast<uintptr_t>(p.idx) >> 2) & 3);
+  const int q0 = min(f0 + ((4 - (ih + f0) % 4) % 4), f1);
+  const int q1 = max(f1 - (ih + f1) % 4, q0);
+  for (int i = f0 + tid; i < q0; i += kCompactThreads) p.idx[i] = a.v;
+  const int4 dummy = make_int4(a.v, a.v, a.v, a.v);
+  for (int i = q0 + 4 * tid; i < q1; i += 4 * kCompactThreads) {
+    *reinterpret_cast<int4*>(p.idx + i) = dummy;
+  }
+  for (int i = q1 + tid; i < f1; i += kCompactThreads) p.idx[i] = a.v;
+}
+
+__global__ void __launch_bounds__(kCompactThreads, kCompactBlocksPerSm)
+lane_compact_kernel(LaneArgs a, unsigned long long* scratch) {
+  __shared__ int s_out[4 * kCompactTile];  // a tile's slots
+  __shared__ long long s_warp[kCompactWarps];
+  __shared__ int s_list[kCompactThreads];
+  __shared__ unsigned s_epoch;
+  const Route routing = read_route(a.ctrl);
+  if (routing.live == 0 || routing.pad == 0) return;  // uniform
+  const int s = routing.rexec;
+  const int pad = routing.pad;
+  const bool one_tile = a.b <= kCompactThreads;
+  auto rebuilds = [&](int l) {
+    return a.slot[kCPhase][l] < 2 && a.slot[kCIdxRung][l] < s;
+  };
+  // one tile of lanes: every rebuilding lane's rank listed at once
+  const int nl = live_lanes(a.b, 0, one_tile ? kCompactThreads : 0, s_list,
+                            s_warp, rebuilds);
+  if (nl == 0) return;  // uniform: no lane rebuilds, the epoch stays
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const unsigned e = static_cast<unsigned>(dgc::load_flag(scratch)) + 1u;
+    s_epoch = e == 0u ? 1u : e;
+  }
+  const long long grid = gridDim.x;
+  const long long g = blockIdx.x;
+  const BlockShare sh = block_share(blockIdx.x, gridDim.x, nl);
+  const int r0 = sh.r0, r1 = sh.r1, part = sh.part, parts = sh.parts;
+  const long long g0 = g - part;  // the lane's first block
+  if (!one_tile) live_lanes(a.b, r0, r1 - r0, s_list, s_warp, rebuilds);
+  const int list0 = one_tile ? 0 : r0;
+  // a block with its lanes whole writes them now; a part of a lane counts
+  PartCount mine{0u, 0, 0, 0};
+  for (int r = r0; r < r1; ++r) {  // uniform
+    const LanePart p = lane_part(a, s_list[r - list0], part, parts);
+    mine = count_part(p, a.v, s_warp);
+    if (parts == 1) {
+      write_part(a, p, mine, 0, mine.count, pad, 0, 1, s_warp, s_out);
+    }
+  }
+
+  // the exchange: every block's flag, all at once
+  __syncthreads();  // s_epoch set; every thread has read the lanes
+  const unsigned epoch = s_epoch;
+  unsigned long long* flags = scratch + 1;
+  if (tid == 0) {
+    dgc::store_flag(flags + g,
+                    static_cast<unsigned long long>(epoch) << 32 |
+                        static_cast<unsigned>(parts > 1 ? mine.count : 0));
+  }
+  // the counts of the lane's earlier blocks (high word) and of all its
+  // blocks (low word): each under 2^30, so the sums do not mix
+  long long both = 0;
+  const long long g1 = g0 + parts;
+  for (long long j = tid; j < grid; j += kCompactThreads) {
+    unsigned long long f;
+    do {
+      f = dgc::load_flag(flags + j);
+    } while (static_cast<unsigned>(f >> 32) != epoch);
+    const long long c = static_cast<long long>(f & 0xFFFFFFFFULL);
+    if (j >= g0 && j < g1) both += (j < g ? c << 32 : 0) + c;
+  }
+  block_scan(both, s_warp, both);
+  // every block has read the old epoch and every lane's idx_rung
+  if (g == 0 && tid == 0) dgc::store_flag(scratch, epoch);
+  if (parts > 1) {
+    const LanePart p = lane_part(a, s_list[r0 - list0], part, parts);
+    write_part(a, p, mine, static_cast<int>(both >> 32),
+               static_cast<int>(both & 0xFFFFFFFFLL), pad, part, parts,
+               s_warp, s_out);
+  }
+  if (part == 0 && tid < r1 - r0) {
+    a.slot[kCIdxRung][s_list[r0 - list0 + tid]] = s;
   }
 }
 
@@ -1205,6 +1408,45 @@ int launch_superstep(const LaneArgs* a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+int compact_grid_max() {
+  return co_resident(reinterpret_cast<const void*>(lane_compact_kernel),
+                     kCompactThreads, 0, 0);
+}
+
+// K14's grid: a tile of chunks a block were every lane to rebuild, at
+// least enough blocks that none lists more than a tile of lanes, at most
+// every block resident at once (the cooperative launch checks) and a flag
+// a block in the scratch.
+int launch_compact(const LaneArgs* a, unsigned long long* scratch, int slots,
+                   cudaStream_t st) {
+  int most = compact_grid_max();
+  if (most > slots) most = slots;
+  const long long chunks = static_cast<long long>(a->b) * ((a->v + 6) / 4);
+  const long long floor = (a->b + kCompactThreads - 1) / kCompactThreads;
+  long long grid = (chunks + kCompactTile - 1) / kCompactTile;
+  if (grid < floor) grid = floor;
+  if (grid > most) grid = most;
+  if (most < 1 || grid < floor) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // lane_part's and write_part's 32-bit products
+  if ((a->v / 4 + 2LL) * grid > 0xFFFFFFFFLL ||
+      static_cast<long long>(a->a0) * grid > 0xFFFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LaneArgs args = *a;
+  void* params[] = {&args, &scratch};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(lane_compact_kernel),
+      dim3(static_cast<unsigned>(grid)), dim3(kCompactThreads), params, 0,
+      st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kTiming, bool kPartial>
 int launch_finish(const LaneArgs* a, cudaStream_t st) {
   const void* fn =
@@ -1249,12 +1491,20 @@ int dgc_lane_reset(const void* args, int timing, int partial, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int dgc_lane_compact(const void* args, void* stream) {
+// The most blocks K14 launches on the current device (0 on an error): its
+// scratch holds one flag a block after the epoch.
+int dgc_lane_compact_grid_max() { return compact_grid_max(); }
+
+// scratch: uint64[1 + slots], zeroed once when made (the epoch and the
+// flags), used by one stream at a time.
+int dgc_lane_compact(const void* args, void* scratch, int slots,
+                     void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
-  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  lane_compact_kernel<<<a->b, kCompactThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+  if (!args_ok(a) || scratch == nullptr || slots < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_compact(a, static_cast<unsigned long long*>(scratch), slots,
+                        static_cast<cudaStream_t>(stream));
 }
 
 int dgc_lane_superstep(const void* args, void* stream) {
@@ -1284,7 +1534,7 @@ int dgc_lane_superstep_plan(const void* args, int nlive, int pad, int* out) {
   for (int g = 0; g < s.grid && nlive > 0; ++g) {
     const BlockShare sh = block_share(g, s.grid, nlive);
     if (sh.r0 == sh.r1) continue;  // no lane of its own
-    ++out[s.staged && stages_lane(n, sh.dq, rows) ? 1 : 2];
+    ++out[s.staged && stages_lane(n, sh.parts * kStepWarps, rows) ? 1 : 2];
   }
   return 0;
 }

@@ -7,7 +7,8 @@
 //                         _shard_superstep (the rule against the
 //                         all-gathered state), with B13b's loop-invariant
 //                         priority (sharded.py:107-111 pre_beats) read from
-//                         the degrees instead of a precomputed mask.
+//                         the degrees instead of a precomputed mask, where
+//                         the clash test needs it.
 //   K21 shard_finish    — B13b's loop tail and B13d's: the epilogue of
 //                         dgc_tpu/engine/fused.py:127 shard_superstep_epilogue
 //                         (the prefix-resume ring push of compact.py:1004
@@ -45,15 +46,27 @@
 // K7 and K8, which read none of slots 8-10.
 //
 // Bounds (1M vertices, average degree 16, width 32, one shard; PERF.md has
-// the measured times). K20 reads each row's 32 table entries (the padding
-// included: the flat engine's table is V*W), the state words through them
-// and the degree of each fresh neighbor of its color, its own word and
-// degree, and writes its word: ~128 MB of table and ~12 MB of state and
-// degrees, ~42 us at 3.35 TB/s. K21 reads the back buffer and the carry and
-// writes the carry (12 MB, ~3.6 us), plus V_l words into the ring on a
-// push. K22 copies the carry into the result slot and writes the start
-// (12 MB). These first kernels are one thread per row (K20) or per word
-// (K21, K22), written to be right and simple.
+// the measured times). K20 must read each unconfirmed row's real neighbor
+// entries (the table's sentinel padding past a row's length is not work:
+// ~16M entries of the V*W table, 64 MB), the state words through them,
+// each row's length, word and degree, and write its word: ~76 MB, ~23 us
+// at 3.35 TB/s (PERF.md counts the launch's own entries). K21 reads the
+// back buffer and the carry and writes the carry (12 MB, ~3.6 us), plus
+// V_l words into the ring on a push. K22 copies the carry into the result
+// slot and writes the start (12 MB). K21 and K22 are one thread a word,
+// written to be right and simple.
+//
+// K20 gives a row K1's team walk (rule.cuh team_lanes, walk_row,
+// group_passes), since a thread a row walking all W entries, the padding
+// included, one dependent gather after another, is held by latency, not
+// bandwidth. A group of team_lanes(W) lanes (at most a warp) reads only the
+// row's real entries, up to the length the engine's plan took once from
+// the table, in 16-byte quads with eight gathers in flight a lane; a
+// confirmed row reads no entry and copies its word into buffer 1 (K21
+// reads buffer 1 for every row). The priority is read from the degrees
+// only for a fresh neighbor of the row's own color, the one place the
+// clash test needs it (BeatsByDegree). One atomic a block for each of
+// fail, active and mc.
 
 #include <cuda_runtime.h>
 
@@ -135,31 +148,76 @@ __device__ __forceinline__ int next_gcalls(const int* live, int nh, int nb,
 
 // ---- K20: one superstep on a shard's rows ---------------------------------
 
-template <int PB>
+constexpr int kWarps = kThreads / 32;
+
+// B13b's priority (dgc_tpu/ops/speculative.py beats_rule): the neighbor of
+// entry `e` (a plain id) beats the row when its degree is larger, or equal
+// with a smaller id. `deg` holds -1 at the pad sentinel's slot.
+struct BeatsByDegree {
+  const int* deg;
+  int my_deg;
+  int my_id;
+  __device__ __forceinline__ bool operator()(int e) const {
+    const int nd = __ldg(deg + e);
+    return nd > my_deg || (nd == my_deg && e < my_id);
+  }
+};
+
+// A group of team_lanes(width) lanes a row, 32 / lanes rows a warp side by
+// side; each group's shared plane words are `lanes` of fa and `lanes` of
+// fo. Rows past `rows` walk nothing but keep the warp's loops uniform.
 __global__ void __launch_bounds__(kThreads)
 shard_superstep_kernel(int* ctrl, int* state, size_t stride,
-                       const int* __restrict__ nbrs, int rows, int width,
+                       const int* __restrict__ nbrs,
+                       const int* __restrict__ lens, int rows, int width,
                        const int* __restrict__ deg, int row_off, int planes,
                        int k, int fail_valid) {
   // the status is the same for every thread of the grid: a uniform exit
   if (ctrl[kStatus] != kRunning) return;
+  __shared__ uint32_t s_rows[kWarps * kTeamWords];
   const int* __restrict__ src = state;  // the gathered state
   int* __restrict__ dst = state + stride;
+  const int pad = static_cast<int>(stride) - 2;  // the pad sentinel V
 
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int lanes = team_lanes(width);
+  const int sub = lane / lanes;       // the warp's row of this lane
+  const int gl = lane & (lanes - 1);  // the lane in its row's group
+  const int r = (blockIdx.x * kWarps + warp) * (32 / lanes) + sub;
+  const bool valid = r < rows;
+  const int v = row_off + r;
+  const int me = valid ? src[v] : 0;
+  const bool walk = valid && !is_confirmed(me);  // uniform over the group
+  const int* __restrict__ row =
+      nbrs + static_cast<size_t>(valid ? r : 0) * width;
+  uint32_t* s_fa = s_rows + warp * kTeamWords + sub * 2 * lanes;
+  const BeatsByDegree beats{deg, walk ? __ldg(deg + v) : 0, v};
+  bool clash = false;
+  bool found = false;     // a color under k is free of every neighbor
+  int cand = k;           // first-fit over all colored neighbors
+  bool old_free = false;  // a color under k is free of confirmed ones
+  const int done = group_passes(
+      src, row, walk ? __ldg(lens + r) : 0, gl, lanes, pad, walk, planes,
+      me >> 1, s_fa, s_fa + lanes, clash,
+      [&](int pg, uint32_t fa, uint32_t fo) {
+        fold_plane(fa, fo, pg, k, found, cand, old_free);
+      },
+      beats);
   bool fail = false;
   bool active = false;
   int mc = -1;
-  if (r < rows) {
-    const int v = row_off + r;
-    const Prio prio{deg, deg[v], v};
-    const RowResult res = row_rule<PB, false, true>(
-        src, nbrs + static_cast<size_t>(r) * width, width, planes, k, src[v],
-        0, prio);
-    dst[v] = res.next;
-    fail = res.fail && fail_valid != 0;
-    active = res.active;
-    mc = res.mc;
+  if (valid && gl == 0) {
+    int next = me;  // a confirmed row transitions to itself
+    if (walk) {
+      if (done < planes) fold_plane(0u, 0u, done, k, found, cand, old_free);
+      const RowResult res = finish_rule(me, clash, found, cand, old_free);
+      next = res.next;
+      fail = res.fail && fail_valid != 0;
+      active = res.active;
+      mc = res.mc;
+    }
+    dst[v] = next;
   }
   const int nfail = __syncthreads_count(fail);
   const int nactive = __syncthreads_count(active);
@@ -336,16 +394,6 @@ shard_pair_kernel(int* ctrl, int* __restrict__ packed, int* __restrict__ p1,
   ctrl[kGc] = gc;
 }
 
-template <int PB>
-void launch_superstep(int* ctrl, int* state, int stride, const int* nbrs,
-                      int rows, int width, const int* deg, int row_off,
-                      int planes, int k, int fail_valid, cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
-  shard_superstep_kernel<PB><<<blocks, kThreads, 0, stream>>>(
-      ctrl, state, static_cast<size_t>(stride), nbrs, rows, width, deg,
-      row_off, planes, k, fail_valid);
-}
-
 unsigned word_blocks(int words) {
   const int per_block = kThreads * 4;
   unsigned blocks = static_cast<unsigned>((words + per_block - 1) / per_block);
@@ -360,33 +408,26 @@ extern "C" {
 // Every entry point returns the launch's cudaError_t (0 = launched).
 
 // ctrl: int32[19]; state: int32[2, stride], stride = V+2; nbrs: int32[rows,
-// width] of global ids (sentinel V); deg: int32[V+1], -1 at V; the rows
-// are the global rows [row_off, row_off + rows).
+// width] of global ids (sentinel V); lens: int32[rows], each row's real
+// length (every entry past it the sentinel); deg: int32[V+1], -1 at V; the
+// rows are the global rows [row_off, row_off + rows).
 int dgc_shard_superstep(void* ctrl, void* state, int stride, const void* nbrs,
-                        int rows, int width, const void* deg, int row_off,
-                        int planes, int k, int fail_valid, void* stream) {
+                        const void* lens, int rows, int width,
+                        const void* deg, int row_off, int planes, int k,
+                        int fail_valid, void* stream) {
   if (rows <= 0 || width <= 0 || planes <= 0 || row_off < 0 ||
-      row_off + rows > stride - 2) {
+      lens == nullptr || row_off + rows > stride - 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* c = static_cast<int*>(ctrl);
-  auto* s = static_cast<int*>(state);
-  const auto* t = static_cast<const int*>(nbrs);
-  const auto* d = static_cast<const int*>(deg);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (planes <= 1) {
-    launch_superstep<1>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  } else if (planes <= 2) {
-    launch_superstep<2>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  } else if (planes <= 4) {
-    launch_superstep<4>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  } else if (planes <= 8) {
-    launch_superstep<8>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  } else if (planes <= 16) {
-    launch_superstep<16>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  } else {
-    launch_superstep<32>(c, s, stride, t, rows, width, d, row_off, planes, k, fail_valid, st);
-  }
+  const long long per_warp = 32 / team_lanes(width);
+  const long long warps = (rows + per_warp - 1) / per_warp;
+  const auto blocks = static_cast<unsigned>((warps + kWarps - 1) / kWarps);
+  shard_superstep_kernel<<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(ctrl), static_cast<int*>(state),
+      static_cast<size_t>(stride), static_cast<const int*>(nbrs),
+      static_cast<const int*>(lens), rows, width,
+      static_cast<const int*>(deg), row_off, planes, k, fail_valid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,7 @@ import torch
 from dgc_tpu_torch.engine.base import clamp_budget
 from dgc_tpu_torch.engine.fused import ShardEngine
 from dgc_tpu_torch.kernels import shard as ks
+from dgc_tpu_torch.kernels.superstep import real_lengths
 from dgc_tpu_torch.models.arrays import GraphArrays
 from dgc_tpu_torch.ops.bitmask import num_planes_for
 from dgc_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple
@@ -86,6 +87,8 @@ class ShardedELLEngine(ShardEngine):
         # sentinel's slot
         self.nbrs = torch.from_numpy(
             np.array(np.asarray(nbrs_p)[blk], dtype=np.int32)).to(dev)
+        # K20's plan: each row's real length, taken once
+        self.lens = real_lengths(self.nbrs, v_pad)
         self.deg_g = torch.from_numpy(np.concatenate(
             [np.asarray(deg_p, np.int32), [-1]]).astype(np.int32)).to(dev)
         self.deg_l = self.deg_g[blk]
@@ -107,8 +110,9 @@ class ShardedELLEngine(ShardEngine):
     def _superstep(self, ctrl, k: int) -> None:
         window = 32 * self.num_planes
         fail_valid = window >= self.max_degree + 1 or k <= window
-        ks.shard_superstep(ctrl, self.state, self.nbrs, self.deg_g,
-                           self.row_off, self.num_planes, k, fail_valid)
+        ks.shard_superstep(ctrl, self.state, self.nbrs, self.lens,
+                           self.deg_g, self.row_off, self.num_planes, k,
+                           fail_valid)
 
     def _budget(self, k: int) -> int:
         return clamp_budget(k, 32 * num_planes_for(self.max_degree + 1))

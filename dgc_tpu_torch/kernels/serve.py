@@ -14,6 +14,10 @@ runs one batched superstep at a time over the reference's 20-slot carry
   block's routing.
 - ``lane_compact`` (K14): at a staged rung, rebuild the slot list of each
   live lane whose list was built at a shallower rung (``_rebuild_idx``).
+  It takes the lanes' ``compact_scratch`` (``new_compact_scratch``, made
+  once with the lanes and never cleared): the epoch of the last launch
+  that rebuilt, and on the card one flag a block, through which the
+  blocks that share a lane's rows exchange their counts.
 - ``lane_superstep`` (K13): the rule over every unconfirmed row (rung 0)
   or over the rung's unconfirmed slots of each live lane, each walked up
   to its degree (the table's real entries come first, the sentinel ``V``
@@ -147,9 +151,9 @@ class Lanes:
     plane count, the stall window and the slice's step budget
     (``INT32_MAX`` for a whole sweep); the speculation plane's optional
     ``spec``/``cancel`` int32[B] vectors (``arm_spec``; None: the plain
-    slice). A caller may keep them from slice to slice, writing new
-    inputs into their tensors (``serve.engine``): the launch arguments
-    are built once."""
+    slice); K14's ``compact_scratch`` (``new_compact_scratch``). A caller
+    may keep them from slice to slice, writing new inputs into their
+    tensors (``serve.engine``): the launch arguments are built once."""
 
     carry: list
     comb: torch.Tensor
@@ -165,6 +169,7 @@ class Lanes:
     budget: int
     spec: torch.Tensor | None = None
     cancel: torch.Tensor | None = None
+    compact_scratch: torch.Tensor | None = None
     _args: object = field(default=None, repr=False)
 
     @property
@@ -204,11 +209,28 @@ class Lanes:
             self._args.budget = self.budget
 
 
+def new_compact_scratch(device) -> torch.Tensor:
+    """K14's scratch for one batch's lanes on ``device``, zeroed once here
+    and never again: int64[1 + the most blocks K14 launches there] on a
+    card (the epoch, then a flag a block), int64[2] on the CPU, whose
+    plain version keeps only the epoch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        slots = _library().dgc_lane_compact_grid_max()
+    if slots < 1:
+        raise RuntimeError(f"lane_compact: no grid on {device}")
+    return torch.zeros(1 + slots, dtype=torch.int64, device=device)
+
+
 def new_lanes(carry, comb, degrees, k0, max_steps, reset, ctrl, *,
               planes: int, stall_window: int, budget: int) -> Lanes:
     """The ``Lanes`` of a batch: ``nxt`` a copy of the carry's
     ``packed``, ``scratch`` allocated (K16 fills it), ``ctrl`` a fresh
-    control block of the class's ladder (``ladder_ctrl``)."""
+    control block of the class's ladder (``ladder_ctrl``), K14's scratch
+    made (``new_compact_scratch``): a pool resize makes new lanes, and
+    with them a new scratch."""
     b, _v = degrees.shape
     device = degrees.device
     return Lanes(carry=list(carry), comb=comb, degrees=degrees, k0=k0,
@@ -217,7 +239,8 @@ def new_lanes(carry, comb, degrees, k0, max_steps, reset, ctrl, *,
                  scratch=torch.empty((3, b), dtype=torch.int32, device=device),
                  ctrl=ctrl, planes=int(planes),
                  stall_window=int(min(stall_window, INT32_MAX)),
-                 budget=int(min(budget, INT32_MAX)))
+                 budget=int(min(budget, INT32_MAX)),
+                 compact_scratch=new_compact_scratch(device))
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -292,7 +315,9 @@ def lane_reset_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
 
 def lane_compact_reference(L: Lanes) -> None:
     """K14's plain version: ``compact_idx`` of each rebuilding lane's
-    active rows into its slot list, the dummy ``V`` past them."""
+    active rows into its slot list, the dummy ``V`` past them; a launch
+    that rebuilds a lane takes the next epoch (32 bits, never 0) into
+    ``compact_scratch[0]`` where the lanes have one."""
     ctrl = L.ctrl.tolist()
     if not ctrl[CTRL_LIVE]:
         return
@@ -302,7 +327,11 @@ def lane_compact_reference(L: Lanes) -> None:
         return
     c, v = L.carry, L.v
     need = (c[CARRY_PHASE] < 2) & (c[CARRY_IDX_RUNG] < s)
-    for b in torch.nonzero(need).flatten().tolist():
+    lanes = torch.nonzero(need).flatten().tolist()
+    if lanes and L.compact_scratch is not None:
+        epoch = (int(L.compact_scratch[0]) + 1) & 0xFFFFFFFF
+        L.compact_scratch[0] = epoch or 1
+    for b in lanes:
         pk = c[CARRY_PACKED][b]
         c[CARRY_IDX][b].fill_(v)
         c[CARRY_IDX][b, :pad] = compact_idx((pk < 0) | ((pk & 1) == 1), pad, v)
@@ -468,12 +497,15 @@ def _library():
     if not getattr(lib, "_dgc_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name, timed in (("dgc_lane_reset", True),
-                            ("dgc_lane_compact", False),
                             ("dgc_lane_superstep", False),
                             ("dgc_lane_finish", True)):
             fn = getattr(lib, name)
             fn.argtypes = [vp, ci, ci, vp] if timed else [vp, vp]
             fn.restype = ci
+        lib.dgc_lane_compact.argtypes = [vp, vp, ci, vp]
+        lib.dgc_lane_compact.restype = ci
+        lib.dgc_lane_compact_grid_max.argtypes = []
+        lib.dgc_lane_compact_grid_max.restype = ci
         lib.dgc_lane_superstep_plan.argtypes = [vp, ci, ci,
                                                 ctypes.POINTER(ci)]
         lib.dgc_lane_superstep_plan.restype = ci
@@ -571,12 +603,19 @@ def lane_reset(L: Lanes, timing: bool = False, partial: bool = False) -> None:
 
 
 def lane_compact(L: Lanes) -> None:
-    """K14. Runs on the current stream."""
+    """K14, on the lanes' ``compact_scratch`` (one stream at a time). Runs
+    on the current stream."""
     if L.device.type == "cpu":
         return lane_compact_reference(L)
     args = _args(L)
-    _raise_on(_library().dgc_lane_compact(ctypes.byref(args),
-                                          _stream(L.device)), "lane_compact")
+    t = L.compact_scratch
+    if t is None or t.device != L.device or t.dtype != torch.int64 or \
+            t.dim() != 1 or t.shape[0] < 2 or not t.is_contiguous():
+        raise ValueError("lane_compact needs the lanes' int64[1 + blocks] "
+                         "scratch on their card (new_compact_scratch)")
+    _raise_on(_library().dgc_lane_compact(
+        ctypes.byref(args), t.data_ptr(), int(t.shape[0]) - 1,
+        _stream(L.device)), "lane_compact")
     launch_counts["lane_compact"] += 1
 
 

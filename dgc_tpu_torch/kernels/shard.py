@@ -6,7 +6,11 @@ share.
   the shard's rows, against the all-gathered state (buffer 0 of
   ``state``), the neighbor priority read from the degrees; the new words
   into buffer 1 at their global rows, the fail count (when
-  ``fail_valid``), active count and ``mc`` into the control block.
+  ``fail_valid``), active count and ``mc`` into the control block. It
+  takes the table's plan, each row's real length (``real_lengths``, taken
+  once where the engine builds the table): on the card a row gets a group
+  of ``team_lanes(W)`` lanes that walks only its real entries, and a
+  confirmed row reads none.
 - ``shard_finish`` (K21): the superstep's tail after the collectives: the
   ring push of the shard's pre-step words, the new words into the carry
   unless the step failed, the max color when the attempt ends, the live
@@ -52,7 +56,7 @@ from dgc_tpu_torch.kernels.superstep import (CTRL_ACTIVE, CTRL_CUR, CTRL_FAIL,
                                              CTRL_STALL, CTRL_STATUS,
                                              CTRL_STEP, INT32_MAX,
                                              _check_int32, _stream,
-                                             finish_step)
+                                             check_plan, finish_step)
 from dgc_tpu_torch.layout import TRAJ_COLS
 from dgc_tpu_torch.obs.kernel import trajstep
 from dgc_tpu_torch.ops.speculative import beats_rule, speculative_update_mc
@@ -99,17 +103,21 @@ def new_shard_state(v_pad: int, device) -> torch.Tensor:
 # ---- plain versions ---------------------------------------------------------
 
 def shard_superstep_reference(ctrl: torch.Tensor, state: torch.Tensor,
-                              nbrs: torch.Tensor, deg: torch.Tensor,
-                              row_off: int, planes: int, k: int,
-                              fail_valid: bool) -> None:
+                              nbrs: torch.Tensor, lens: torch.Tensor,
+                              deg: torch.Tensor, row_off: int, planes: int,
+                              k: int, fail_valid: bool) -> None:
     """K20's plain version: ``ops.speculative`` over the shard's rows with
-    ``beats_rule`` from the degrees (``deg`` int32[V+1], −1 at V)."""
+    ``beats_rule`` from the degrees (``deg`` int32[V+1], −1 at V), read up
+    to the longest real row (``lens``, checked against the table: every
+    entry past a row's length must be the pad sentinel V)."""
     if int(ctrl[CTRL_STATUS]) != _RUNNING:
         return
+    check_plan(nbrs, lens, state.shape[1] - 2)
     src = state[0]
     rows = nbrs.shape[0]
     ids = torch.arange(row_off, row_off + rows, dtype=torch.int32,
                        device=nbrs.device)
+    nbrs = nbrs[:, :max(1, int(lens.max()))]
     nb = nbrs.to(torch.int64)
     beats = beats_rule(deg[nb], nbrs, deg[row_off: row_off + rows, None],
                        ids[:, None])
@@ -219,8 +227,8 @@ def _library():
     lib = load(SOURCE)
     if not getattr(lib, "_dgc_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dgc_shard_superstep.argtypes = [vp, vp, ci, vp, ci, ci, vp, ci, ci,
-                                            ci, ci, vp]
+        lib.dgc_shard_superstep.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp,
+                                            ci, ci, ci, ci, vp]
         lib.dgc_shard_superstep.restype = ci
         lib.dgc_shard_finish.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, vp,
                                          ci, ci, ci, ci, ci, vp, ci, ci, vp]
@@ -261,34 +269,39 @@ def _check_live(live, nh: int, device) -> int:
 
 
 def shard_superstep(ctrl: torch.Tensor, state: torch.Tensor,
-                    nbrs: torch.Tensor, deg: torch.Tensor, row_off: int,
-                    planes: int, k: int, fail_valid: bool) -> None:
+                    nbrs: torch.Tensor, lens: torch.Tensor, deg: torch.Tensor,
+                    row_off: int, planes: int, k: int,
+                    fail_valid: bool) -> None:
     """K20 over the shard rows ``[row_off, row_off + nbrs.shape[0])``
-    (``nbrs`` int32[V_l, W] of global ids, sentinel V; ``deg`` int32[V+1],
+    (``nbrs`` int32[V_l, W] of global ids, sentinel V; ``lens`` int32[V_l]
+    each row's real length, ``real_lengths(nbrs, V)``; ``deg`` int32[V+1],
     −1 at V). Runs on the current stream, does not synchronize."""
     device = state.device
     if device.type == "cpu":
-        return shard_superstep_reference(ctrl, state, nbrs, deg, row_off,
-                                         planes, k, fail_valid)
+        return shard_superstep_reference(ctrl, state, nbrs, lens, deg,
+                                         row_off, planes, k, fail_valid)
     if device.type != "cuda":
         raise ValueError(f"shard_superstep: unsupported device {device}")
     _check_ctrl(ctrl, device)
     _check_int32("state", state, device, 2)
     _check_int32("nbrs", nbrs, device, 2)
+    _check_int32("lens", lens, device, 1)
     _check_int32("deg", deg, device, 1)
     rows, width = nbrs.shape
     v = state.shape[1] - 2
     if state.shape[0] != 2 or deg.shape[0] != v + 1:
         raise ValueError(f"state must be [2, V+2] and deg [V+1], V={v}")
+    if lens.shape[0] != rows:
+        raise ValueError(f"lens must be [{rows}], got {tuple(lens.shape)}")
     if not (0 <= row_off and row_off + rows <= v):
         raise ValueError(f"rows [{row_off}, {row_off + rows}) outside [0, {v})")
     if not (1 <= planes <= INT32_MAX // 32 and width >= 1 and rows >= 1):
         raise ValueError(f"bad planes={planes} / width={width} / rows={rows}")
     _raise_on(_library().dgc_shard_superstep(
         ctrl.data_ptr(), state.data_ptr(), int(state.shape[1]),
-        nbrs.data_ptr(), int(rows), int(width), deg.data_ptr(), int(row_off),
-        int(planes), _clamp_k(k), int(bool(fail_valid)), _stream(device)),
-        "shard_superstep")
+        nbrs.data_ptr(), lens.data_ptr(), int(rows), int(width),
+        deg.data_ptr(), int(row_off), int(planes), _clamp_k(k),
+        int(bool(fail_valid)), _stream(device)), "shard_superstep")
     launch_counts["shard_superstep"] += 1
 
 

@@ -1,8 +1,8 @@
 """Where K1 (`superstep_rows`), K3 (`compact_slots`), K5
 (`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K13
-(`lane_superstep`), K14 (`lane_compact`), K15 (`lane_finish`), K23
-(`ring_stats`), K24 (`ring_stats_wide`) and K25 (`ring_apply`) spend their
-time on the card:
+(`lane_superstep`), K14 (`lane_compact`), K15 (`lane_finish`), K20
+(`shard_superstep`), K23 (`ring_stats`), K24 (`ring_stats_wide`) and K25
+(`ring_apply`) spend their time on the card:
 device time from ``torch.profiler`` over a few shapes each, one JSON line
 a measurement, then the card's name and power limit.
 
@@ -55,13 +55,20 @@ word; with ``k15``, K15's timing, spec and partial instances. Where the
 package has K13's launch plan (``kernels.serve.superstep_plan``), each
 sweep's K13 launches are also split by path: every block gathering from
 the lane's state staged in shared memory, every block from device
-memory, or both. ``rate``: the drawn-once run alone, three times after
+memory, or both. With ``k14``, one rebuild of K14 (every lane at a
+staged rung's entry, 40 % of its rows active) at each of
+``K14_REBUILDS``, first held against its plain version, beside
+``torch.nonzero`` on the same rows. K20 (``k20``): the 1M uniform draw's
+``sharded`` engine at world size 1: one ``sweep`` held launch by launch
+against the plain versions, one timed by its wall, one under the
+profiler (K20's launches summed), and a fresh attempt's first superstep
+alone. ``rate``: the drawn-once run alone, three times after
 a warm run, then once more with the host threads' stacks sampled every
 millisecond (the share of samples by innermost frame, and by innermost
 frame of the port's package).
 
     python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8] [k1] [k23] \
-        [k13] [k14] [k15] [rate]
+        [k13] [k14] [k15] [k20] [rate]
     python tools/kernel_costs.py --tree DIR k1 k23   # all parts if none
 
 ``--tree DIR`` times another checkout's package (an unpacked ``git
@@ -428,6 +435,149 @@ def k23_costs() -> None:
         del engine
 
 
+def k20_costs() -> None:
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import shard as ks
+
+    args = cli.build_parser().parse_args(
+        cs.MAIN_ARGS + ["--backend", "sharded",
+                        "--output-coloring", "unused.json"])
+    graph = cli.load_graph(args)
+    engine = cli.make_engine(args, graph)
+    k = engine._budget(graph.initial_k())
+    with cs._HeldShardKernels() as held:
+        engine.sweep(k)
+        torch.cuda.synchronize()
+    cs.check(held.err == 0, f"K20-K22 differ from their plain versions by "
+                            f"{held.err}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine.sweep(k)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    ks.reset_launch_counts()
+    engine.sweep(k)
+    n = ks.launch_counts["shard_superstep"]
+    total, kept, each = cs._profiled(
+        lambda: engine.sweep(k), {"shard_superstep": n},
+        names={"shard_superstep": "shard_superstep_kernel"})[
+            "shard_superstep"]
+    # a fresh attempt's first superstep, through the engine's own call
+    ctrl0 = engine._start(k)
+    v = engine.state.shape[1] - 2
+    engine.mesh.all_gather(engine.state[0, :v], engine.packed_l)
+    ctrl = ctrl0.clone()
+
+    def first():
+        ctrl.copy_(ctrl0)
+        engine._superstep(ctrl, k)
+
+    print(json.dumps({
+        "kernel": "shard_superstep", "graph": "1M uniform",
+        "held_sweep_calls": held.calls, "sweep_wall_ms": wall,
+        "sweep_k20_ms": total, "sweep_k20_launches": kept,
+        "mean_ms": total / kept, "min_ms": min(each), "max_ms": max(each),
+        "first_superstep_ms": cs._device_ms(first, 20,
+                                            "shard_superstep_kernel")}),
+        flush=True)
+    del engine
+
+
+# K14's rebuilds timed alone: (name, lanes, rows) of the class v{rows}w32
+K14_REBUILDS = (("32 lanes of v32768w32", 32, 32768),
+                ("one lane of v32768w32", 1, 32768),
+                ("one lane of v131072w32", 1, 131072),
+                ("one lane of v524288w32", 1, 524288))
+K14_ACTIVE = 0.4  # a rebuilt lane's share of active rows (rung 1's pad: V/2)
+
+
+def _k14_lanes(rng, b: int, v: int):
+    """``b`` lanes of the class v{v}w32 at the entry of its ladder's rung
+    1: every lane live, its slot list built at rung 0, ``K14_ACTIVE`` of
+    its rows active; the control block routing rung 1."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import (CARRY_IDX, CARRY_LEN, CARRY_P1,
+                                      CARRY_P2, CARRY_PACKED)
+    from dgc_tpu_torch.serve.batched import resolve_stages
+    from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
+                                                   stage_schedule_for)
+
+    cls = DEFAULT_LADDER.class_for(v // 2 + 1, 32)
+    cs.check(cls.v_pad == v, f"class {cls.name} for {v} rows")
+    stages, _pads, a0 = resolve_stages(stage_schedule_for(cls, "auto"), v)
+    carry = [torch.zeros((b, a0) if j == CARRY_IDX else
+                         (b, v) if j in (CARRY_PACKED, CARRY_P1, CARRY_P2)
+                         else (b,), dtype=torch.int32, device="cuda")
+             for j in range(CARRY_LEN)]
+    carry[CARRY_PACKED].copy_(torch.from_numpy(np.stack(
+        [cs._packed_words(rng, v, 33, K14_ACTIVE) for _ in range(b)])))
+    carry[CARRY_IDX].fill_(v)
+    ctrl = ks.ladder_ctrl(stages, "cuda")
+    ctrl[ks.CTRL_LIVE] = 1
+    ctrl[ks.CTRL_REXEC] = 1
+    lanes = torch.zeros(b, dtype=torch.int32, device="cuda")
+    return ks.new_lanes(carry, torch.full((b, v, 32), v, dtype=torch.int32,
+                                          device="cuda"),
+                        torch.zeros((b, v), dtype=torch.int32,
+                                    device="cuda"), lanes, lanes, lanes,
+                        ctrl, planes=cls.planes, stall_window=64, budget=1)
+
+
+def k14_rebuilds() -> None:
+    """One K14 rebuild at each of ``K14_REBUILDS``: held once against its
+    plain version (the slot lists and ``idx_rung``), then timed with every
+    lane's ``idx_rung`` cleared before each launch; its bound (each lane's
+    words read, its slot list written) and ``torch.nonzero`` on the same
+    active rows."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_IDX, CARRY_IDX_RUNG, CARRY_PACKED
+
+    rng = np.random.default_rng(14)
+    for name, b, v in K14_REBUILDS:
+        L = _k14_lanes(rng, b, v)
+        plain = _k14_lanes(np.random.default_rng(0), b, v)
+        for j in (CARRY_PACKED, CARRY_IDX, CARRY_IDX_RUNG):
+            plain.carry[j].copy_(L.carry[j])
+        ks.lane_compact(L)
+        ks.lane_compact_reference(plain)
+        err = max(cs._diff(L.carry[j], plain.carry[j])
+                  for j in (CARRY_IDX, CARRY_IDX_RUNG))
+        cs.check(err == 0, f"K14 ({name}) differs from its plain version "
+                           f"by {err}")
+
+        def rebuild():
+            L.carry[CARRY_IDX_RUNG].zero_()
+            ks.lane_compact(L)
+
+        pk = L.carry[CARRY_PACKED]
+        ms = cs._device_ms(rebuild, 20, "lane_compact_kernel")
+        lib = cs._device_ms(
+            lambda: torch.nonzero((pk < 0) | ((pk & 1) == 1)), 20)
+        moved = (b * v + b * L.a0) * 4
+        print(json.dumps({"kernel": "lane_compact", "case": name,
+                          "a0": L.a0, "max_abs_err": err, "ms": ms,
+                          "bytes": moved,
+                          "bound_ms": moved / cs.HBM_BYTES_PER_S * 1e3,
+                          "library_nonzero_ms": lib}), flush=True)
+        del L, plain
+
+
+def _k14_kind(L) -> str:
+    """What a K14 launch on ``L`` finds (a host read of the control block
+    and the lanes' phases and rungs)."""
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_IDX_RUNG, CARRY_PHASE
+
+    ctrl = L.ctrl.tolist()
+    s = ctrl[ks.CTRL_REXEC]
+    if not ctrl[ks.CTRL_LIVE]:
+        return "past the live word"
+    if ctrl[ks.CTRL_PAD0 + s] == 0:
+        return "full table"
+    need = (L.carry[CARRY_PHASE] < 2) & (L.carry[CARRY_IDX_RUNG] < s)
+    return "rebuild" if bool(need.any()) else "live, none to rebuild"
+
+
 _SERVE_PARTS = {"k13": "lane_superstep", "k14": "lane_compact",
                 "k15": "lane_finish"}
 
@@ -610,19 +760,24 @@ def serve_costs(parts: list[str]) -> None:
         cs.check(rc == 0, f"the serve replay: rc {rc}")
         launches = {n: ks.launch_counts[n] for n in names.values()}
         i = [2]
-        # each launch's batch (class rows x lanes), in launch order
+        # each launch's batch (class rows x lanes), in launch order, and
+        # what each K14 launch found
         shapes = {n: [] for n in names.values()}
+        kinds = []
         real = {n: getattr(ks, n) for n in names.values()}
 
         def recorded(n):
             def launch(L, *args, **kw):
                 shapes[n].append(f"v{L.v} x{L.b}")
+                if n == "lane_compact":
+                    kinds.append(_k14_kind(L))
                 return real[n](L, *args, **kw)
             return launch
 
         def replay():
             for n in shapes:
                 shapes[n].clear()
+            kinds.clear()
             _replay(out_dir, i[0])
             i[0] += 1
 
@@ -648,6 +803,13 @@ def serve_costs(parts: list[str]) -> None:
                 by.setdefault(shape, []).append(ms)
             rec[name]["by_batch"] = {k: {"launches": len(x), "sum_ms": sum(x)}
                                      for k, x in sorted(by.items())}
+        if name == "lane_compact" and kept == len(kinds):
+            by = {}
+            for kind, ms in zip(kinds, each):
+                by.setdefault(kind, []).append(ms)
+            rec[name]["by_kind"] = {
+                k: {"launches": len(x), "sum_ms": sum(x),
+                    "mean_ms": sum(x) / len(x)} for k, x in sorted(by.items())}
     graphs = {d["id"]: _load_request_graph(d) for d in cs.SERVE_STREAM}
     _drawn_once(graphs)  # warm
     rec["drawn_once_graphs_per_s"] = _drawn_once(graphs)
@@ -671,6 +833,8 @@ def serve_costs(parts: list[str]) -> None:
                                                           inputs)}),
                   flush=True)
         del inputs
+    if "lane_compact" in names.values():
+        k14_rebuilds()
 
 
 RATE_RUNS = 3
@@ -744,7 +908,7 @@ def main(argv: list[str] | None = None) -> int:
         sys.path.insert(0, str(Path(parts[1]).resolve()))
         parts = parts[2:]
     parts = parts or ["k3", "k11", "ring", "k5", "k8", "k1", "k23", "k13",
-                      "k14", "k15", "rate"]
+                      "k14", "k15", "k20", "rate"]
     serve = [p for p in parts if p in _SERVE_PARTS]
     for part in parts:
         if part in _SERVE_PARTS:
@@ -753,7 +917,7 @@ def main(argv: list[str] | None = None) -> int:
             continue
         {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs,
          "k5": k5_costs, "k8": k8_costs, "k1": k1_costs,
-         "k23": k23_costs, "rate": rate_costs}[part]()
+         "k23": k23_costs, "k20": k20_costs, "rate": rate_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
