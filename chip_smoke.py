@@ -50,7 +50,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    free color is 32, 40, 64 (every color below 64 taken) and 2,431 (the
    last bit of a 2,432-bit mask) at budgets on either side, a row whose
    neighbors' colors all lie at or past 2,432, and a step with no
-   uncolored row. The recording variants (B11, in-kernel telemetry):
+   uncolored row. K12 alone on drawn candidates (``_k12_cases``) at 1,003,
+   4,101 and 16,384 vertices (off a 16-byte word and the tile, hub rows of
+   thousands, candidates and degrees near 16,383 at the last): a row whose
+   only beater sits in the last word of the graph's columns, one beaten in
+   its own word at equal degree by a lower id, one not beaten by a higher
+   id, one whose same-candidate neighbor is colored, a stalling and a
+   failed step. The recording variants (B11, in-kernel telemetry):
    K2 writing rows into buffers that hold the step or not; K5 and K8
    filling the unconf vector over the cases above (every hub branch); K6
    writing rows from 300 random loop carries and live tables, its clock
@@ -77,10 +83,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at 1, 2, 8 and 32 lanes: seats of one lane and of every lane (one twice),
    permutes keeping no, some and all lanes in random order at the same
    width, ×2 and ÷4, resizes ×2 and ÷4 with sources past the old width.
-   The lane mesh's kernels (B12g): the partial K16/K15 and K26 on meshes
-   of 2, 4 and 8 slots on cuda:0 (lanes of widths 8 and 64, staged or
-   not, the clock and the speculation vectors on in some, the last shard
-   all dead lanes), every shard's buffers compared after every launch;
+   The lane mesh's kernels (B12g): the partial K16/K15, the last shard's
+   folding in its tail (K26's fold), on meshes of 2, 4 and 8 slots on
+   cuda:0 (lanes of widths 8 and 64, staged or not, the clock and the
+   speculation vectors on in some, the last shard all dead lanes), every
+   shard's buffers compared after every launch, every control block
+   against the plain partials plus the plain fold, the card's folds
+   counted against the plain ones;
    the sharded seat (K17 a shard), permute and resize (the mesh K18/K19)
    growing, keeping and shrinking, kept lanes crossing shards, against
    the same twins on CPU slots.
@@ -210,7 +219,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``--max-degree 32 --seed 0``, uniform and RMAT, kmax 128 and 2,432):
    both kernels must launch, the sweep held call by call against the
    plain versions on the card's tensors must give the same attempts and
-   colors, K11 and K12 are timed per superstep over the k0 attempt
+   colors (some K12 call giving a warp a row, some a whole block),
+   K11 and K12 are timed per superstep over the k0 attempt
    beside their bounds, plain versions and (K11) ``torch.matmul`` (device
    time, as the kernels');
    ``oracle`` and ``reference-sim`` run on the same graphs; and
@@ -246,15 +256,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    drawn-once stream through the front end over 2 and 4 lane slots on
    cuda:0 (``lane_mesh_over``), continuous with and without the device
    carry, sync at 2, beside the unsharded run: every request equal to the
-   single-graph loop's, K26 and the partial K15/K16 launched on every
-   mesh run, the mesh K18/K19 on the device-carry ones; a device loss at
+   single-graph loop's, the partial K15/K16 launched and folding on every
+   mesh run (no standalone K26), the mesh K18/K19 on the device-carry
+   ones; a device loss at
    4 slots (the ``mesh`` fault point) degrading to 2, and a restore to 4;
    at the serving class (``measure_mesh``) the 8 uniform 20k requests of
    a batch swept over 4 slots of 2 lanes (in the main path's priced
    slices, the clock off and on, and in slices of 7 that the budget cuts)
-   and over 2 slots of 4 (whole, as sync mode runs it), every partial K16/K15, K13, K14 and K26 launch held
-   exact against its plain version, each K26 on the partial words its
-   shards just wrote; K26 and the mesh K18/K19 timed there.
+   and over 2 slots of 4 (whole, as sync mode runs it), every partial
+   K16/K15, K13 and K14 launch held exact against its plain version, each
+   fold in the last shard's tail against the plain fold of the partial
+   words the shards just wrote; the fold's cost in the tail and the mesh
+   K18/K19 timed there.
 4. The long strict chain: a 3,000-vertex RMAT graph (seed 1, average
    degree 16) from k = 465, about 450 attempts, and its jump sweep,
    blocked on the card at 2 and 4 a block against the CPU sequential
@@ -263,7 +276,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checkpoint on the card must equal the uninterrupted one.
 5. Only with ``--mesh-cards`` (and then alone): the lane mesh with one
    slot on each card of the host (``phase_mesh_cards``): peer access,
-   K26 reaching the other cards' control blocks, the events ordering each
+   the folding tail reaching the other cards' control blocks, the events
+   ordering each
    round and each resize's gathers. The held sweeps of phase 3 with shard
    i on card i mod the count, then the drawn-once stream over every card
    (continuous with and without the device carry, and sync) beside the
@@ -1635,13 +1649,119 @@ def _dense_edge_cases(device) -> int:
     return err
 
 
+# K12's layout cases (v, hub rows, candidates drawn from [lo, hi), degrees
+# from [dlo, dhi)): v off a 16-byte word and off the 256-vertex tile, hub
+# rows of thousands of neighbors (rows several times the grid), and
+# v = 16,384 with candidates and degrees near 16,383, the int16 edge
+K12_CASES = ((1003, 2, 0, 6, 0, 4), (4101, 3, 0, 40, 0, 9),
+             (16384, 4, 16376, 16384, 16370, 16384))
+
+
+def _k12_rows(rng, v: int, hubs: int, lo: int, hi: int, dlo: int, dhi: int,
+              device):
+    """K12's inputs drawn directly (no K11 before it) on ``v`` >= 24
+    vertices: a symmetric random 0/1 adjacency among the rows below
+    ``base`` (the last multiple of 8 at or below v - 16; about 12 a row,
+    ``hubs`` rows joined to a third of the graph), degrees drawn from [dlo,
+    dhi) (ties common), about 60 % of the rows uncolored with candidates
+    drawn from [lo, hi) (-1 for the others and the pads), colors below
+    ``hi`` in buffer 0. Then the edge rows: row ``a`` = base whose only
+    same-candidate neighbor, v - 1, sits in the last 16-byte word of the
+    graph's columns and beats it by degree; row ``b`` = base + 5 beaten by
+    base + 4, in its word, at equal degree and a lower id; row ``c`` = base
+    + 6 not beaten by base + 7 at equal degree and a higher id; row ``d`` =
+    base + 9 whose neighbor base + 2 holds ``d``'s candidate as its color
+    (cand -1): no beater. Returns the adjacency, degrees, color buffers,
+    candidates and (a, b, c, d)."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    vp = kd.padded_size(v)
+    base = (v - 16) & ~7
+    m = 6 * v
+    src = [rng.integers(0, base, m)]
+    dst = [rng.integers(0, base, m)]
+    for _ in range(hubs):
+        n = v // 3
+        src.append(np.full(n, rng.integers(0, base)))
+        dst.append(rng.choice(base, size=n, replace=False))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    keep = src != dst
+    src, dst = list(src[keep]), list(dst[keep])
+    deg = rng.integers(dlo, dhi, vp).astype(np.int32)
+    deg[v:] = 0
+    uncol = rng.random(v) < 0.6
+    cand = np.full(vp, -1, np.int32)
+    cand[:v] = np.where(uncol, rng.integers(lo, hi, v), -1)
+    colors = np.full(vp, -1, np.int32)
+    colors[:v] = np.where(uncol, -1, rng.integers(0, hi, v))
+    a, b, c, d = base, base + 5, base + 6, base + 9
+    for row, nb, cand_both, deg_row, deg_nb in (
+            (a, v - 1, hi - 1, dlo, dhi - 1), (b, base + 4, lo, dlo, dlo),
+            (c, base + 7, lo + 1, dlo, dlo)):
+        src.append(row)
+        dst.append(nb)
+        cand[row] = cand[nb] = cand_both
+        deg[row], deg[nb] = deg_row, deg_nb
+        colors[row] = colors[nb] = -1
+    e = base + 2
+    src.append(d)
+    dst.append(e)
+    cand[d], colors[d] = hi - 2, -1
+    cand[e], colors[e] = -1, hi - 2
+    s_ = torch.tensor(src, device=device)
+    t_ = torch.tensor(dst, device=device)
+    adj = torch.zeros((vp, vp), dtype=torch.bfloat16, device=device)
+    adj[s_, t_] = 1
+    adj[t_, s_] = 1
+    state = torch.full((2, vp), -1, dtype=torch.int32, device=device)
+    state[0] = torch.from_numpy(colors).to(device)
+    return (adj, torch.from_numpy(deg).to(device), state,
+            torch.from_numpy(cand).to(device), (a, b, c, d))
+
+
+def _k12_cases(device) -> int:
+    """K12 against its plain version on ``K12_CASES``' draws (``_k12_rows``),
+    either buffer current: a step that resolves, one that reaches
+    ``max_steps``, one that failed (K11's fail count set: nothing written);
+    the edge rows must come out as drawn (a, b beaten; c, d keep their
+    candidate). Returns the max abs difference."""
+    from dgc_tpu_torch.kernels import dense as kd
+
+    rng = np.random.default_rng(12)
+    err = 0
+    for v, hubs, lo, hi, dlo, dhi in K12_CASES:
+        adj, deg, state0, cand, (a, b, c, d) = _k12_rows(
+            rng, v, hubs, lo, hi, dlo, dhi, device)
+        for cur, fail, max_steps in ((0, 0, kd.INT32_MAX), (1, 0, 1),
+                                     (0, 3, kd.INT32_MAX)):
+            state = state0.flip(0).contiguous() if cur else state0.clone()
+            ctrl = kd.new_dense_ctrl(device)
+            ctrl[kd.DCTRL_CUR], ctrl[kd.DCTRL_FAIL] = cur, fail
+            held = [t.clone() for t in (ctrl, state)]
+            kd.dense_resolve(ctrl, state, adj, cand, deg, v, max_steps)
+            kd.dense_resolve_reference(held[0], held[1], adj, cand, deg, v,
+                                       max_steps)
+            err = max(err, *(_diff(x, y) for x, y in
+                             zip((ctrl, state), held)))
+            if fail:
+                check(torch.equal(state, state0.flip(0) if cur else state0),
+                      f"K12 at v={v}: a failed step wrote a color")
+                continue
+            new = state[1 - cur].tolist()
+            check([new[r] for r in (a, b, c, d)]
+                  == [-1, -1, int(cand[c]), int(cand[d])],
+                  f"K12's edge rows at v={v}: {[new[r] for r in (a, b, c, d)]}")
+    torch.cuda.synchronize()
+    return err
+
+
 def phase_dense_kernels(device) -> int:
     """K11 and K12 vs their plain versions on seeded random cases: colors
     with −1s (none, some, all), either buffer current, budgets below and
     above the colors in use, isolated and pad rows, budgets up to 128 and
     2,432, a step that fails, one that reaches ``max_steps``, the edge rows
-    of ``_dense_edge_cases`` and an attempt no longer running; returns the
-    max abs difference."""
+    of ``_dense_edge_cases``, K12's layout cases (``_k12_cases``) and an
+    attempt no longer running; returns the max abs difference."""
     from dgc_tpu_torch.kernels import dense as kd
 
     rng = np.random.default_rng(6)
@@ -1672,7 +1792,7 @@ def phase_dense_kernels(device) -> int:
                 err = max(err, *(_diff(a, b) for a, b in
                                  zip((ctrl, state, cand), held)))
                 cases += 1
-    err = max(err, _dense_edge_cases(device))
+    err = max(err, _dense_edge_cases(device), _k12_cases(device))
     # an attempt that already left RUNNING: neither kernel touches anything
     ctrl = kd.new_dense_ctrl(device)
     ctrl[kd.DCTRL_STATUS] = 1
@@ -3555,12 +3675,13 @@ class _HeldDenseKernels:
     """While active, every K11 and K12 call made through
     ``kernels.dense``'s wrappers (as the engine makes them) also runs its
     plain version on copies of its inputs; ``err`` is the largest
-    difference seen over ``calls`` calls."""
+    difference seen over ``calls`` calls, ``resolve_rows`` the rows each
+    K12 call ranked (uncolored, below v; none on a failed step)."""
 
     def __enter__(self):
         from dgc_tpu_torch.kernels import dense as kd
 
-        self.kd, self.err, self.calls = kd, 0, 0
+        self.kd, self.err, self.calls, self.resolve_rows = kd, 0, 0, []
         self._orig = forbid, resolve = kd.dense_forbid, kd.dense_resolve
 
         def held_forbid(ctrl, state, adj, cand, v, k):
@@ -3570,6 +3691,9 @@ class _HeldDenseKernels:
             self._hold((ctrl, state, cand), ref)
 
         def held_resolve(ctrl, state, adj, cand, degrees, v, max_steps):
+            if int(ctrl[kd.DCTRL_STATUS]) == int(kd.AttemptStatus.RUNNING) \
+                    and not int(ctrl[kd.DCTRL_FAIL]):
+                self.resolve_rows.append(int((cand[:v] >= 0).sum()))
             ref = [t.clone() for t in (ctrl, state)]
             kd.dense_resolve_reference(ref[0], ref[1], adj, cand, degrees, v,
                                        max_steps)
@@ -3590,8 +3714,9 @@ class _HeldDenseKernels:
 
 def measure_dense(engine, k: int) -> dict:
     """K11 and K12 over the supersteps of the attempt at ``k``: device time
-    per superstep from ``torch.profiler``, the bound this data needs (each
-    step reads the adjacency rows of its uncolored vertices), the plain
+    per superstep from ``torch.profiler``, the bound this data needs (K11
+    reads the adjacency rows of a step's uncolored vertices; K12 a kept
+    row's whole row and a sector of a beaten one), the plain
     versions' time, and the library yardstick for K11 (``torch.matmul``
     of the adjacency and the bf16 one-hot, then the first-fit argmax),
     its device time from ``torch.profiler`` too (every event of a call)."""
@@ -3609,19 +3734,29 @@ def measure_dense(engine, k: int) -> dict:
 
     # one superstep at a time: what each step's data needs
     ctrl, state, cand = fresh()
-    steps, mid = [], None
+    steps, kept, mid = [], [], None
     while int(ctrl[kd.DCTRL_STATUS]) == int(AttemptStatus.RUNNING):
         colors = state[int(ctrl[kd.DCTRL_CUR])]
         if len(steps) == 2:
             mid = colors.clone()
         uncolored = int((colors[:v] < 0).sum())
         kd.dense_forbid(ctrl, state, adj, cand, v, k_run)
+        failed = int(ctrl[kd.DCTRL_FAIL]) != 0
         kd.dense_resolve(ctrl, state, adj, cand, deg, v, max_steps)
+        after = int((state[int(ctrl[kd.DCTRL_CUR])][:v] < 0).sum())
         steps.append(uncolored)
+        # the rows that keep their candidate (None: a failed step)
+        kept.append(None if failed else uncolored - after)
     n = len(steps)
     mid = state[int(ctrl[kd.DCTRL_CUR])].clone() if mid is None else mid
     k11_bytes = sum(u * vp * 2 + 2 * vp * 4 for u in steps) / n
-    k12_bytes = sum(u * vp * 2 + 3 * vp * 4 + v * 4 for u in steps) / n
+    k12_full_bytes = sum(u * vp * 2 + 3 * vp * 4 + v * 4 for u in steps) / n
+    # what K12 needs of this data: a kept row's whole adjacency row (no
+    # beater anywhere), one 32-byte sector of a beaten row (one that holds
+    # a beater), the candidates, degrees and the source colors once and the
+    # new colors written; a failed step reads its control block alone
+    k12_bytes = sum(0 if k_ is None else k_ * vp * 2 + (u - k_) * 32
+                    + 3 * vp * 4 + v * 4 for u, k_ in zip(steps, kept)) / n
 
     # the same supersteps under one profile, each replayed DENSE_REPS times
     # from its control block (K11 rewrites `cand`, K12 the other buffer:
@@ -3641,10 +3776,10 @@ def measure_dense(engine, k: int) -> dict:
                               "dense_resolve": n * DENSE_REPS}, 0.9)
     dev_ms = {name: sums[name][0] / sums[name][1] for name in
               ("dense_forbid", "dense_resolve")}
-    each = sums["dense_forbid"][2]  # K11 by superstep, where none was lost
-    k11_by_step = ([sum(each[i * DENSE_REPS:(i + 1) * DENSE_REPS])
-                    / DENSE_REPS for i in range(n)]
-                   if len(each) == n * DENSE_REPS else None)
+    def by_step(name):  # by superstep, where no record was lost
+        each = sums[name][2]
+        return ([sum(each[i * DENSE_REPS:(i + 1) * DENSE_REPS]) / DENSE_REPS
+                 for i in range(n)] if len(each) == n * DENSE_REPS else None)
 
     # the plain versions over the same supersteps, host clock each call
     plain = {"forbid": 0.0, "resolve": 0.0}
@@ -3673,7 +3808,7 @@ def measure_dense(engine, k: int) -> dict:
         "dense_k": k_run, "dense_supersteps": n, "kmax": engine.kmax,
         "uncolored_per_step": steps,
         "k11_ms": dev_ms["dense_forbid"],
-        "k11_ms_by_step": k11_by_step,
+        "k11_ms_by_step": by_step("dense_forbid"),
         "k11_plain_ms": plain["forbid"] * 1e3 / n,
         "k11_bytes": k11_bytes,
         # a bit per nonzero and a search of the mask: far below the bytes
@@ -3681,10 +3816,16 @@ def measure_dense(engine, k: int) -> dict:
         "k11_bound_by": "bytes",
         "k11_library_ms": _device_ms(library, 10),
         "k12_ms": dev_ms["dense_resolve"],
+        "k12_ms_by_step": by_step("dense_resolve"),
+        # the attempt's K12 launches, summed
+        "k12_attempt_ms": dev_ms["dense_resolve"] * n,
         "profiled_launches": {name: sums[name][1] for name in dev_ms},
         "k12_plain_ms": plain["resolve"] * 1e3 / n,
+        "k12_kept_per_step": kept,
         "k12_bytes": k12_bytes,
         "k12_bound_ms": k12_bytes / HBM_BYTES_PER_S * 1e3,
+        # the bound of PRs 6-19: every uncolored row read whole
+        "k12_full_rows_bound_ms": k12_full_bytes / HBM_BYTES_PER_S * 1e3,
         # the whole adjacency once
         "full_adjacency_bytes": full_bytes,
         "full_adjacency_bound_ms": full_bytes / HBM_BYTES_PER_S * 1e3,
@@ -3753,6 +3894,14 @@ def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
         check(held.err == 0 and held.calls > 0,
               f"dense on {gen}: K11/K12 disagree with their plain versions "
               f"over the sweep ({held.err} over {held.calls} calls)")
+        # K12 sizes a row's team by the rows a block holds (one block an
+        # SM): the sweep must take one warp a row (32 rows a block and more)
+        # and the whole block a row (one row a block at most)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        check(max(held.resolve_rows, default=0) >= 32 * sms
+              and min(held.resolve_rows, default=sms + 1) <= sms,
+              f"dense on {gen}: K12's calls ranked {held.resolve_rows} rows, "
+              f"not both past {32 * sms} and within {sms}")
         check(_attempt_rows(again) == rows
               and np.array_equal(again.colors, result.colors),
               f"dense on {gen}: the held sweep gave {_attempt_rows(again)}, "
@@ -3770,6 +3919,7 @@ def phase_dense_main(card: str, out_dir: Path, cpu_coloring: str) -> dict:
                "colors_after_post_pass": result.minimal_colors,
                "launches": launches, "host_syncs": engine.host_syncs,
                "held_calls": held.calls, "max_abs_err": held.err,
+               "k12_held_rows": held.resolve_rows,
                "max_memory_allocated": peak_bytes, "card": card,
                **measure_dense(engine, graph.initial_k())}
         del engine, timed
@@ -3903,8 +4053,10 @@ def _serve_lanes(rng, b: int, w: int, v: int, staged: bool, device,
     return lanes(), lanes()
 
 
-def _serve_diff(kern, plain, clock: tuple, before) -> int:
-    """Max abs difference of every buffer of two Lanes; the carry slots in
+def _serve_diff(kern, plain, clock: tuple, before,
+                ctrl_len: int | None = None) -> int:
+    """Max abs difference of every buffer of two Lanes (the control block's
+    first ``ctrl_len`` words where given); the carry slots in
     ``clock`` (those the step's clock reading feeds: T_PREV in K16, T_US
     and T_PREV in K15 under timing) by rule: equal where the plain
     version's did not move (from ``before``), else the kernel's moved too,
@@ -3918,8 +4070,9 @@ def _serve_diff(kern, plain, clock: tuple, before) -> int:
         if j in clock:
             continue
         worst = max(worst, _diff(kern.carry[j], plain.carry[j]))
-    for name in ("nxt", "scratch", "ctrl"):
+    for name in ("nxt", "scratch"):
         worst = max(worst, _diff(getattr(kern, name), getattr(plain, name)))
+    worst = max(worst, _diff(kern.ctrl[:ctrl_len], plain.ctrl[:ctrl_len]))
     # K14's epoch (the flags after it are the kernel's alone)
     ke = getattr(kern, "compact_scratch", None)
     pe = getattr(plain, "compact_scratch", None)
@@ -7132,8 +7285,8 @@ def ring_kernels_line(ring: dict) -> list[dict]:
     return [k23, k24, k25]
 
 
-# ---- the lane-sharded serve tier (B12g): K26, the partial K15/K16, the mesh
-# instances of K18/K19 ------------------------------------------------------
+# ---- the lane-sharded serve tier (B12g): the partial K15/K16 and their tail
+# (K26's fold), the mesh instances of K18/K19 -------------------------------
 
 # shard counts of the held mesh cases; lanes a shard, width, rows
 MESH_SHARDS = (2, 4, 8)
@@ -7146,14 +7299,47 @@ def _mesh_of(n: int, device):
     return lane_mesh_over([torch.device(device)] * n)
 
 
+def _plain_fold(plain, i: int, ran: bool) -> bool:
+    """After shard ``i``'s plain partial K15/K16 (no mesh): where it is the
+    mesh's last shard and its tail ran (``ran``: K16 always, K15 in a live
+    round), the plain fold over every shard (``lane_mesh_fold_reference``),
+    what the kernels' tail must equal. Returns whether it folded."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    if not ran or i != plain.n - 1:
+        return False
+    ks.lane_mesh_fold_reference([L.ctrl for L in plain.shards])
+    return True
+
+
+def _mesh_ctrl_diff(kern, plain, ticket: int) -> int:
+    """Every shard's control block, the kernels' against the plain twin's,
+    but the mesh ticket, which the plain twin never takes: on the card
+    shard 0's must be ``ticket`` (across cards the shards whose tail ran
+    this round, 0 once the last folded; on one card always 0), the
+    others' 0."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    t = ks.CTRL_MESH_TICKET
+    got = [int(L.ctrl[t]) for L in kern.shards]
+    check(got == [ticket] + [0] * (kern.n - 1),
+          f"the mesh ticket: {got}, want {ticket} in shard 0")
+    return max(_diff(k_.ctrl[:t], p_.ctrl[:t])
+               for k_, p_ in zip(kern.shards, plain.shards))
+
+
 def _mesh_serve_case(rng, n: int, b: int, w: int, v: int, staged: bool,
                      timing: bool, armed: bool, device) -> int:
     """n shards of ``_serve_lanes``' random lanes as a lane mesh, the last
     shard's lanes all dead and unflagged (its fold adds the identities):
-    the partial K16 on each shard, K26, then ``SERVE_ROUNDS`` rounds of
-    each shard's K14 (staged), K13 and partial K15 and K26, every shard's
-    buffers held against the plain versions after every launch (the clock
-    slots by ``_serve_diff``'s rule). Returns the max abs error."""
+    the partial K16 on each shard, the last folding in its tail, then
+    ``SERVE_ROUNDS`` rounds of each shard's K14 (staged), K13 and partial
+    K15 (the last folding where the round is live), every shard's buffers
+    held against the plain versions after every launch (the clock slots by
+    ``_serve_diff``'s rule), every control block against the plain partial
+    plus the plain fold (``_plain_fold``, ``_mesh_ctrl_diff``), and the
+    folds the card counted (``mesh_folds``) against the plain ones.
+    Returns the max abs error."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import CARRY_PHASE, T_PREV, T_US
 
@@ -7164,41 +7350,41 @@ def _mesh_serve_case(rng, n: int, b: int, w: int, v: int, staged: bool,
         L.reset.zero_()
     kern = ks.new_mesh_lanes([k for k, _p in pairs])
     plain = ks.new_mesh_lanes([p for _k, p in pairs])
-    worst = 0
-
-    def fold():
-        nonlocal worst
-        before = [[c.clone() for c in L.carry] for L in plain.shards]
-        ks.lane_mesh_fold(kern)
-        ks.lane_mesh_fold_reference([L.ctrl for L in plain.shards])
-        for k_, p_, b_ in zip(kern.shards, plain.shards, before):
-            worst = max(worst, _serve_diff(k_, p_, (), b_))
-        check(all(torch.equal(L.ctrl, kern.ctrl) for L in kern.shards),
-              "K26 left the shards' control blocks unequal")
-
-    for (k_, p_) in pairs:
+    worst, folds = 0, 0
+    folds0 = ks.mesh_folds()
+    t = ks.CTRL_MESH_TICKET
+    for i, (k_, p_) in enumerate(pairs):
         before = [c.clone() for c in p_.carry]
-        ks.lane_reset(k_, timing, partial=True)
+        ks.lane_reset(k_, timing, mesh=kern)
         ks.lane_reset_reference(p_, timing, partial=True)
+        folds += _plain_fold(plain, i, True)
         worst = max(worst, _serve_diff(k_, p_, (T_PREV,) if timing else (),
-                                       before))
-    fold()
+                                       before, t),
+                    _mesh_ctrl_diff(kern, plain, 0))
     steps = ((ks.lane_compact, ks.lane_compact_reference, False),
              (ks.lane_superstep, ks.lane_superstep_reference, False),
              (ks.lane_finish, ks.lane_finish_reference, True))
     for _ in range(SERVE_ROUNDS):
-        for k_, p_ in pairs:
+        live = bool(int(plain.ctrl[ks.CTRL_LIVE]))
+        for i, (k_, p_) in enumerate(pairs):
             for launch, reference, last in steps:
                 if launch is ks.lane_compact and not staged:
                     continue
                 before = [c.clone() for c in p_.carry]
-                args = (timing, True) if last else ()
-                launch(k_, *args)
-                reference(p_, *args)
+                if last:
+                    launch(k_, timing, mesh=kern)
+                    reference(p_, timing, partial=True)
+                    folds += _plain_fold(plain, i, live)
+                else:
+                    launch(k_)
+                    reference(p_)
                 worst = max(worst, _serve_diff(
                     k_, p_, (T_US, T_PREV) if timing and last else (),
-                    before))
-        fold()
+                    before, t))
+            worst = max(worst, _mesh_ctrl_diff(kern, plain, 0))
+    check(ks.mesh_folds() - folds0 == folds,
+          f"the card folded {ks.mesh_folds() - folds0} times, the plain "
+          f"twin {folds}")
     torch.cuda.synchronize()
     return worst
 
@@ -7266,9 +7452,10 @@ def _mesh_carry_case(rng, n: int, per_old: int, per_new: int, v: int,
 
 def phase_mesh_kernels(device) -> int:
     """The lane mesh's kernels against their plain versions on the card,
-    exact: the partial K16/K15 and K26 on meshes of ``MESH_SHARDS`` slots
-    of ``MESH_LANES`` (staged and not, timing and the speculation vectors
-    on in some), each with a shard of dead lanes; the sharded seat (K17 a
+    exact: the partial K16/K15 and the fold in their tail (K26) on meshes
+    of ``MESH_SHARDS`` slots of ``MESH_LANES`` (staged and not, timing and
+    the speculation vectors on in some), each with a shard of dead lanes;
+    no standalone K26 launch; the sharded seat (K17 a
     shard), permute and resize (the mesh K18/K19) on random carries and
     stacks growing, keeping and shrinking, lanes crossing shards. Returns
     the max abs error."""
@@ -7291,14 +7478,15 @@ def phase_mesh_kernels(device) -> int:
                                                 2048, 8, 8, device))
     check(worst == 0, f"the lane mesh's kernels differ from their plain "
           f"versions by {worst}")
-    folds = ks.launch_counts["lane_mesh_fold"]
+    folds = ks.mesh_folds()
     partial = dict(ks.partial_launch_counts)
     check(folds > 0 and all(v_ > 0 for v_ in partial.values())
+          and "lane_mesh_fold" not in ks.launch_counts
           and kcar.launch_counts["carry_permute_mesh"] > 0
           and kcar.launch_counts["inputs_resize_mesh"] > 0,
-          f"a mesh kernel never launched: K26 {folds}, partial {partial}, "
-          f"carry {kcar.launch_counts}")
-    emit({"phase": "mesh_kernels", "max_abs_err": worst, "k26": folds,
+          f"a mesh kernel never launched: folds {folds}, partial {partial}, "
+          f"launches {ks.launch_counts}, carry {kcar.launch_counts}")
+    emit({"phase": "mesh_kernels", "max_abs_err": worst, "folds": folds,
           "partial": partial, "carry": dict(kcar.launch_counts)})
     return worst
 
@@ -7362,71 +7550,75 @@ def _mesh_partial_timing(h: dict, cls, stages, device) -> dict:
 def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
                      slice_steps: int | None) -> dict:
     """One sweep of ``inputs`` over lane slots on ``devices`` (one a slot,
-    repeats allowed), launched
-    as the mesh path launches it (``mesh_reset``, ``mesh_superstep``):
-    each shard's partial K16, K26, then until the folded live word drops
-    each shard's K14 (staged), K13 and partial K15, then K26. Whole, as
+    repeats allowed), launched as the mesh path launches it
+    (``mesh_reset``, ``mesh_superstep``): each shard's partial K16, the
+    last folding in its tail, then until the folded live word drops each
+    shard's K14 (staged), K13 and partial K15, the last folding. Whole, as
     sync mode runs it, or (``slice_steps``) as continuous mode does: a
     slice of at most that many supersteps, then the next from where it
-    stopped (reset flags down) until no lane is live. Every launch
-    is held against its plain version on a twin mesh: each shard's buffers
-    after each K13-K16 (the clock slots by ``_serve_diff``'s rule), every
-    shard's control block after each K26, which folds the partial words
-    the shards' K15/K16 have just written. ``changed`` counts the K26
-    launches whose fold moved a word of some shard's control block (a K26
-    that wrote nothing fails on those)."""
+    stopped (reset flags down) until no lane is live. Every launch is held
+    against its plain version on a twin mesh: each shard's buffers after
+    each K13-K16 (the clock slots by ``_serve_diff``'s rule), and after each
+    partial K15/K16 every shard's control block against the plain partials
+    plus the plain fold once the last shard's ran (``_plain_fold``,
+    ``_mesh_ctrl_diff``). ``folds`` counts the plain folds,
+    ``kernel_folds`` the card's (``mesh_folds``), ``changed`` the folds
+    that moved a word of some shard's control block (a fold that wrote
+    nothing fails on those)."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import CARRY_PHASE, T_PREV, T_US
 
     n = len(devices)
     ks.enable_peer_access(devices)
 
-    def sync():  # K26 on shard 0's card writes the other cards' words
+    def sync():  # the last shard's tail writes the other cards' words
         for d in set(devices):
             torch.cuda.synchronize(d)
 
     kern, plain = (_mesh_lanes(inputs, cls, stages, devices) for _ in "kp")
-    out = {"worst": 0, "rounds": 0, "changed": 0, "kern": kern,
-           "plain": plain, "held": dict.fromkeys(_SERVE_KERNELS + (
-               "lane_mesh_fold",), 0), "inputs": inputs, "slots": n,
+    out = {"worst": 0, "rounds": 0, "changed": 0, "folds": 0, "kern": kern,
+           "plain": plain, "held": dict.fromkeys(_SERVE_KERNELS, 0),
+           "inputs": inputs, "slots": n,
            # the partial K16/K15: each launch's bytes and plain seconds
            "bytes": {"lane_reset": [], "lane_finish": []},
            "plain_s": {"lane_reset": [], "lane_finish": []}}
     clocks = {"lane_reset": (T_PREV,), "lane_finish": (T_US, T_PREV)}
+    t_word = ks.CTRL_MESH_TICKET
+    folds0 = ks.mesh_folds()
 
     def shard(i, launch, reference):
         k_, p_ = kern.shards[i], plain.shards[i]
         name = launch.__name__
-        args = (timing, True) if name in clocks else ()
+        partial = name in clocks
         before = [c.clone() for c in p_.carry]
+        # the tail runs: K16 always, K15 in a live round
+        ran = name == "lane_reset" or bool(int(p_.ctrl[ks.CTRL_LIVE]))
         with ks.current_card(k_.device):
-            launch(k_, *args)
-            if name in clocks:
+            if partial:
+                launch(k_, timing, mesh=kern)
                 state = _serve_state(p_)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-            reference(p_, *args)
-            if name in clocks:
+                reference(p_, timing, partial=True)
                 torch.cuda.synchronize()
                 out["plain_s"][name].append(time.perf_counter() - t)
                 out["bytes"][name].append(_serve_bytes(p_, name, state))
+                partials = [L.ctrl.clone() for L in plain.shards]
+                if _plain_fold(plain, i, ran):
+                    out["folds"] += 1
+                    out["changed"] += any(
+                        not torch.equal(a_[:t_word], L.ctrl[:t_word])
+                        for a_, L in zip(partials, plain.shards))
+            else:
+                launch(k_)
+                reference(p_)
         out["worst"] = max(out["worst"], _serve_diff(
-            k_, p_, clocks.get(name, ()) if timing else (), before))
+            k_, p_, clocks.get(name, ()) if timing else (), before, t_word))
+        if partial:
+            sync()
+            out["worst"] = max(out["worst"], _mesh_ctrl_diff(
+                kern, plain, (i + 1) % n if ran and kern.spread else 0))
         out["held"][name] += 1
-
-    def fold():
-        partials = [L.ctrl.clone() for L in plain.shards]
-        sync()
-        with ks.current_card(kern.device):
-            ks.lane_mesh_fold(kern)
-        ks.lane_mesh_fold_reference([L.ctrl for L in plain.shards])
-        sync()
-        out["changed"] += any(not torch.equal(a, L.ctrl)
-                              for a, L in zip(partials, plain.shards))
-        out["worst"] = max([out["worst"]] + [
-            _diff(k_.ctrl, p_.ctrl)
-            for k_, p_ in zip(kern.shards, plain.shards)])
-        out["held"]["lane_mesh_fold"] += 1
 
     out["slices"] = 0
     while True:
@@ -7435,14 +7627,12 @@ def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
             plain.set_budget(slice_steps)
         for i in range(n):
             shard(i, ks.lane_reset, ks.lane_reset_reference)
-        fold()
         while int(plain.ctrl[ks.CTRL_LIVE]):
             for i in range(n):
                 if stages is not None:
                     shard(i, ks.lane_compact, ks.lane_compact_reference)
                 shard(i, ks.lane_superstep, ks.lane_superstep_reference)
                 shard(i, ks.lane_finish, ks.lane_finish_reference)
-            fold()
             out["rounds"] += 1
         out["slices"] += 1
         if slice_steps is None or not any(
@@ -7451,6 +7641,7 @@ def _held_mesh_sweep(inputs, cls, stages, devices: list, timing: bool,
         for L in kern.shards + plain.shards:
             L.reset.zero_()
     sync()
+    out["kernel_folds"] = ks.mesh_folds() - folds0
     return out
 
 
@@ -7466,9 +7657,10 @@ def _held_mesh_sweeps(graphs: list, devices_of) -> tuple:
     """``_held_mesh_sweep`` at the serving class, once for each of
     ``MESH_HELD`` (``devices_of(slots)``: the slots' devices): the first
     8 uniform 20k requests (the main path's batch) padded into their class
-    (v32768w32, the auto ladder). Checks every launch exact, some K26
-    moving a word in each sweep, a sweep resumed across slices, and every
-    K15 of the sweeps the partial instance. Returns (class, stages, lanes, slice size, the sweeps)."""
+    (v32768w32, the auto ladder). Checks every launch exact, the card's
+    folds as many as the plain twin's and some moving a word in each sweep,
+    a sweep resumed across slices, and every K15 of the sweeps the partial
+    instance. Returns (class, stages, lanes, slice size, the sweeps)."""
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.serve.batched import auto_slice_steps
     from dgc_tpu_torch.serve.shape_classes import (DEFAULT_LADDER,
@@ -7498,20 +7690,78 @@ def _held_mesh_sweeps(graphs: list, devices_of) -> tuple:
     partial = {k_: ks.partial_launch_counts[k_] - partial0[k_]
                for k_ in partial0}
     check(worst == 0 and all(h["changed"] > 0 for h in held.values())
+          and all(h["kernel_folds"] == h["folds"] for h in held.values())
           and any(h["slices"] > 1 for h in held.values())
           and partial["lane_finish"] == sum(h["held"]["lane_finish"]
                                             for h in held.values()),
-          f"the held mesh sweeps at {cls.name}: error {worst}, folds that "
-          f"moved a word {[h['changed'] for h in held.values()]}, partial "
-          f"launches {partial}")
+          f"the held mesh sweeps at {cls.name}: error {worst}, folds "
+          f"{[(h['kernel_folds'], h['folds']) for h in held.values()]}, "
+          f"folds that moved a word {[h['changed'] for h in held.values()]},"
+          f" partial launches {partial}")
     return cls, stages, b, steps, held
 
 
 def _held_record(held: dict) -> dict:
     return {k_: {"rounds": h["rounds"], "slices": h["slices"],
-                 "launches": h["held"],
+                 "launches": h["held"], "folds": h["kernel_folds"],
                  "folds_that_moved_a_word": h["changed"]}
             for k_, h in held.items()}
+
+
+def _fold_cost(h: dict, cls, stages, device, reps: int = 10,
+               fold: bool = True) -> dict:
+    """The fold's cost in the partial K15's tail, at the shape the held
+    mesh sweep ``h`` ran: a fresh mesh of its inputs run to its first
+    superstep's last K15, whose buffers (that shard's carry, ``nxt`` and
+    counters, every control block) are kept;
+    that K15 replayed ``reps`` times from them as the shard's partial alone
+    (``alone_ms``) and, with ``fold``, as the mesh's last shard, which
+    folds (``ms``), each under the profiler (its device time a launch).
+    ``bound_ms``: the fold's bytes (each shard's partial rung and live
+    word, the steps and budget read once; four words written into each
+    control block, and the count). Without ``fold`` (a package
+    whose K15 has no fold in its tail) the other shards run their partial
+    alone and only ``alone_ms`` is taken."""
+    from dgc_tpu_torch.kernels import serve as ks
+
+    M = _mesh_lanes(h["inputs"], cls, stages,
+                    [torch.device(device)] * h["slots"])
+    ks.mesh_reset(M)
+    for L in M.shards:
+        if stages is not None:
+            ks.lane_compact(L)
+        ks.lane_superstep(L)
+    for L in M.shards[:-1]:
+        ks.lane_finish(L, **({"mesh": M} if fold else {"partial": True}))
+    last = M.shards[-1]
+    bufs = list(last.carry) + [last.nxt, last.scratch] + [
+        L.ctrl for L in M.shards]
+    kept = [t_.clone() for t_ in bufs]
+    n = M.n
+    check(int(last.ctrl[ks.CTRL_LIVE]) == 1,
+          f"the fold's cost: the last K15 of a live round not reached "
+          f"({M.shards[0].ctrl.tolist()})")
+
+    def replay(**kw):
+        def run():
+            for t_, k_ in zip(bufs, kept):
+                t_.copy_(k_)
+            ks.lane_finish(last, partial=True, **kw)
+        return run
+
+    name = _PARTIAL_NAMES["lane_finish"]
+    out = {"alone_ms": _kernel_ms(replay(), name, reps),
+           "shape": f"{n} shards of {last.b} lanes of {cls.name}, the "
+                    f"last shard's K15 of the first superstep"}
+    if fold:
+        folds = ks.mesh_folds()
+        out["ms"] = _kernel_ms(replay(mesh=M), name, reps)
+        made = ks.mesh_folds() - folds  # a replay each (a window or more)
+        check(made > 0 and made % reps == 0,
+              f"the fold's cost: {made} folds in windows of {reps} replays")
+        out["added_ms"] = out["ms"] - out["alone_ms"]
+        out["bound_ms"] = (2 * n + 2 + 4 * n + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    return out
 
 
 def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
@@ -7519,17 +7769,18 @@ def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
     8 uniform 20k requests (the main path's batch) padded into their class
     (v32768w32, the auto ladder). (1) Held sweeps (``_held_mesh_sweep``,
     ``MESH_HELD``) over 4 slots of 2 lanes and over 2 slots of 4:
-    every partial K16/K15, K13, K14 and K26 launch exact against its plain
-    version; some K26 must move a word. (2) K26 timed on the 4-slot
-    mesh's folded control blocks. (3) The mesh K18/K19 growing a 4-slot
+    every partial K16/K15, K13 and K14 launch exact against its plain
+    version, and every fold in the partial K15/K16's tail against the plain
+    fold; some fold must move a word. (2) The fold's cost in the tail
+    (``_fold_cost``). (3) The mesh K18/K19 growing a 4-slot
     pool 8 → 32 lanes, all 8 kept (the batch-32 ramp: new shard 0 gathers
     a lane from every old shard), on random words, held exact. ``ms``
-    device time from ``torch.profiler`` (one launch: K26, or K18/K19 into
-    new shard 0), ``plain_ms`` the plain version's host wall on the card,
+    device time from ``torch.profiler`` (one launch: K18/K19 into new
+    shard 0), ``plain_ms`` the plain version's host wall on the card,
     ``bound_ms`` the launch's bytes (each input word read once, each
     output word written once) over 3.35 TB/s, ``library_ms`` PyTorch
     calls doing the same where there are (K18/K19: the old shards
-    concatenated, then an indexed copy per slot or stack; K26: none)."""
+    concatenated, then an indexed copy per slot or stack)."""
     from dgc_tpu_torch.kernels import carry as kcar
     from dgc_tpu_torch.kernels import serve as ks
     from dgc_tpu_torch.layout import CARRY_LEN
@@ -7541,16 +7792,11 @@ def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
     v, w = cls.v_pad, cls.w_pad
     a0 = stage_idx_width(stages)
     n = 4
-    M, P = (held[f"4 slots, slices of {steps}"][k_]
-            for k_ in ("kern", "plain"))
-    fold = {"ms": _kernel_ms(lambda: ks.lane_mesh_fold(M),
-                             "lane_mesh_fold_kernel"),
-            "plain_ms": _host_ms(lambda: ks.lane_mesh_fold_reference(
-                [L.ctrl for L in P.shards]), 3),
-            # the n partials (rung, live), steps and budget read once; four
-            # words written into each control block
-            "bound_ms": (2 * n + 2 + 4 * n) * 4 / HBM_BYTES_PER_S * 1e3,
-            "library_ms": None, "shape": f"{n} shards"}
+    P = held[f"4 slots, slices of {steps}"]["plain"]
+    fold = _fold_cost(held[f"4 slots, slices of {steps}"], cls, stages,
+                      device)
+    fold["plain_ms"] = _host_ms(lambda: ks.lane_mesh_fold_reference(
+        [L.ctrl for L in P.shards]), 3)
     gen = torch.Generator(device=device)
     gen.manual_seed(59)
 
@@ -7618,7 +7864,7 @@ def measure_mesh(card: str, graphs: list, device: str = "cuda") -> dict:
                                    stages, device)
     rec = {"phase": "mesh_measure", "class": cls.name, "a0": a0,
            "max_abs_err": worst,
-           "held": _held_record(held), "lane_mesh_fold": fold,
+           "held": _held_record(held), "fold": fold,
            "carry_permute_mesh": permute, "inputs_resize_mesh": resize,
            "lane_reset_partial": partial["lane_reset"],
            "lane_finish_partial": partial["lane_finish"], "card": card}
@@ -7687,13 +7933,16 @@ def _mesh_front(ref: dict, classes: dict, name: str, n, mode: str,
               f"{want['attempts']}")
     launches = dict(ks.launch_counts)
     carry_launches = dict(kcar.launch_counts)
+    folds = ks.mesh_folds()
     sst = front.scheduler.stats_snapshot()
     supersteps = launches["lane_superstep"] / (n or 1)
     check(all(launches[k_] > 0 for k_ in _SERVE_KERNELS)
-          and (launches["lane_mesh_fold"] > 0) == (n is not None),
-          f"{name}: launches {launches}")
+          and "lane_mesh_fold" not in launches
+          and (folds > 0) == (n is not None),
+          f"{name}: launches {launches}, folds {folds}")
     if n is not None:
-        # every superstep: n × (K13, K15) and one K26 (K14 on staged rungs)
+        # every superstep: n × (K13, K15), the last K15 folding (K14 on
+        # staged rungs)
         check(ks.partial_launch_counts["lane_finish"]
               == launches["lane_finish"], f"{name}: an unsharded K15 ran "
               f"{ks.partial_launch_counts}")
@@ -7705,15 +7954,15 @@ def _mesh_front(ref: dict, classes: dict, name: str, n, mode: str,
     rec = {"phase": "mesh_main", "run": name, "mesh": n,
            "devices": None if mesh is None else [str(d) for d in
                                                   mesh.devices],
-           "mode": mode,
+           "mode": mode, "mesh_folds": folds,
            "device_carry": carry, "requests": len(ids), "wall_s": wall,
            "graphs_per_s": len(ids) / wall, "slices": sst["slices"],
            "batches": sst["batches"], "launches": launches,
            "partial_launches": dict(ks.partial_launch_counts),
            "carry_launches": carry_launches,
            "launches_per_superstep": (sum(launches[k_] for k_ in (
-               "lane_superstep", "lane_finish", "lane_compact",
-               "lane_mesh_fold")) / supersteps if supersteps else None),
+               "lane_superstep", "lane_finish", "lane_compact"))
+               / supersteps if supersteps else None),
            "mesh_snapshot": front.scheduler.mesh_snapshot(),
            "mesh_health": front.scheduler.mesh_health(),
            "h2d_mb": sst["h2d_bytes"] / 1e6, "d2h_mb": sst["d2h_bytes"] / 1e6}
@@ -7726,8 +7975,9 @@ def phase_mesh_main(card: str, serve: dict, device: str = "cuda") -> dict:
     on cuda:0 (``lane_mesh_over``), continuous with the host mirror and
     the device carry, sync at 2, beside the unsharded run in the same
     call: every request equal to the single-graph loop's (so to the
-    unsharded run's); K26 and the partial K15/K16 launched on every mesh
-    run, the mesh K18/K19 on the device-carry ones. Then the failure-
+    unsharded run's); the partial K15/K16 launched and folding on every
+    mesh run, no standalone K26, the mesh K18/K19 on the device-carry ones.
+    Then the failure-
     domain plane at 4 slots: ``mesh@3=device_loss:1`` degrades to 2
     (every request still equal), then ``mark_healthy`` and
     ``request_restore`` bring 4 back and the 20k requests run again. One
@@ -7809,8 +8059,10 @@ MESH_CARD_RUNS = (
 
 def phase_mesh_cards(card: str, out_dir: Path) -> dict:
     """The lane mesh with one slot on each card of the host (peer access,
-    K26 on cuda:0 reading and writing the other cards' control blocks, the
-    events that order each round and each resize's gathers across cards):
+    the last shard's partial K15/K16 to finish folding in its tail, on
+    whichever card, through the other cards' control blocks and the mesh
+    ticket on cuda:0, the events that order each round and each resize's
+    gathers across cards):
     the held mesh sweeps at the serving class with shard i on card i mod
     the count, then the drawn-once stream through the front end over
     every card, continuous with the host mirror and with the device
@@ -7841,46 +8093,49 @@ def phase_mesh_cards(card: str, out_dir: Path) -> dict:
 
 
 def mesh_kernels_line(mesh: dict, mesh_err: int) -> list[dict]:
-    """K26, the mesh instances of K18/K19 and the partial K16/K15 on the
-    lane mesh's main path (``MESH_MAIN``: 4 slots, continuous, batch 8,
-    the device carry; the other mesh runs' launches beside), times at the
-    serving class (``measure_mesh``); K26's entry also carries the partial
-    K15/K16 launches of that run."""
+    """The mesh instances of K18/K19 and the partial K16/K15 on the lane
+    mesh's main path (``MESH_MAIN``: 4 slots, continuous, batch 8, the
+    device carry; the other mesh runs' launches beside), times at the
+    serving class (``measure_mesh``). K26 is no launch of its own: its fold
+    is the partial K15/K16's tail, so their entries carry the folds the
+    main path made (``mesh_folds``) and the partial K15's the fold's cost
+    (``_fold_cost``)."""
     main = mesh["runs"][MESH_MAIN]
     meas = mesh["measure"]
     err = max(mesh_err, meas["max_abs_err"])
-    rows = (("lane_mesh_fold", "dgc_tpu_torch/csrc/serve.cu",
-             "dgc_tpu/serve/batched.py:821", main["launches"]),
-            ("carry_permute_mesh", "dgc_tpu_torch/csrc/carry.cu",
-             "dgc_tpu/serve/batched.py:892", main["carry_launches"]),
+    rows = (("carry_permute_mesh", "dgc_tpu_torch/csrc/carry.cu",
+             "dgc_tpu/serve/batched.py:892"),
             ("inputs_resize_mesh", "dgc_tpu_torch/csrc/carry.cu",
-             "dgc_tpu/serve/batched.py:901", main["carry_launches"]))
+             "dgc_tpu/serve/batched.py:901"))
     out = []
-    for name, source, replaces, launches in rows:
+    for name, source, replaces in rows:
         m = meas[name]
-        key = "launches" if name == "lane_mesh_fold" else "carry_launches"
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
-                 "launches_other": {r: v[key][name]
-                                    for r, v in mesh["runs"].items()
-                                    if v is not main and v["mesh"]},
-                 "max_abs_err": err, "ms": m["ms"],
-                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                 "bound_by": "bytes", "library_ms": m["library_ms"],
-                 "shape": m["shape"]}
-        if name == "lane_mesh_fold":
-            entry["partial_launches"] = main["partial_launches"]
-        out.append(entry)
-    for name in ("lane_reset", "lane_finish"):  # the partial K16/K15
-        m = meas[f"{name}_partial"]
-        out.append({"name": f"{name}_partial", "route": "cuda",
-                    "source": "dgc_tpu_torch/csrc/serve.cu",
-                    "replaces": "dgc_tpu/serve/batched.py:821",
-                    "launches": main["partial_launches"][name],
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": main["carry_launches"][name],
+                    "launches_other": {r: v["carry_launches"][name]
+                                       for r, v in mesh["runs"].items()
+                                       if v is not main and v["mesh"]},
                     "max_abs_err": err, "ms": m["ms"],
                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                    "bound_by": "bytes", "library_ms": None,
+                    "bound_by": "bytes", "library_ms": m["library_ms"],
                     "shape": m["shape"]})
+    for name in ("lane_reset", "lane_finish"):  # the partial K16/K15
+        m = meas[f"{name}_partial"]
+        entry = {"name": f"{name}_partial", "route": "cuda",
+                 "source": "dgc_tpu_torch/csrc/serve.cu",
+                 "replaces": "dgc_tpu/serve/batched.py:821",
+                 "launches": main["partial_launches"][name],
+                 "max_abs_err": err, "ms": m["ms"],
+                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None,
+                 "shape": m["shape"], "mesh_folds": main["mesh_folds"],
+                 "mesh_folds_other": {r: v["mesh_folds"]
+                                      for r, v in mesh["runs"].items()
+                                      if v is not main and v["mesh"]}}
+        if name == "lane_finish":
+            entry["fold"] = meas["fold"]
+        out.append(entry)
     return out
 
 

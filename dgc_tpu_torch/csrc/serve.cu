@@ -48,20 +48,35 @@
 //                        nothing), whether any of its lanes is live (the
 //                        budget not applied), and the step count. The
 //                        ticket stays per launch.
-//   K26 lane_mesh_fold — one small launch after every shard's K15 (and
-//                        after every shard's K16): the min of the partial
-//                        rungs, live = any(shard live) && steps < budget,
-//                        the step count and a zeroed ticket, written into
-//                        every shard's control block through a table of
-//                        their pointers. Every shard's next K14/K13 reads
-//                        those words first, exactly as the unsharded slice
-//                        does, so the host still enqueues a whole slice
-//                        without a sync. On folded words K26 is a fixed
-//                        point (min of equal rungs, any of zeros), so a
-//                        round past the live word changes nothing.
+//   K26 lane_mesh_fold — the tail of those partial instances (mesh_tail):
+//                        the last shard to finish folds: the min of the
+//                        partial rungs, live = any(shard live) && steps <
+//                        budget, the step count and a zeroed ticket,
+//                        written into every shard's control block through
+//                        a table of their pointers (FoldArgs, a launch
+//                        argument of the partial instances alone). On one
+//                        card the shards share a stream, so the last
+//                        shard's launch folds, and only it gets the table:
+//                        the others' partial is written before it starts.
+//                        Across cards (FoldArgs.spread) every shard's
+//                        block takes a ticket in shard 0's control block
+//                        after a system fence, and the one that draws
+//                        n - 1 folds and zeroes the ticket; system fences
+//                        and atomics cost microseconds a launch, so the
+//                        one-card mesh takes none.
+//                        Every shard's next K14/K13 reads those words first,
+//                        exactly as the unsharded slice does, so the host
+//                        still enqueues a whole slice without a sync. A
+//                        round past the live word runs no K15 tail, so
+//                        it folds nothing; the folded words are a fixed
+//                        point of the fold (min of equal rungs, any of
+//                        zeros) all the same. K26 was a launch of its own
+//                        after every round, one warp moving 104 bytes: its
+//                        time was the launch's, which only a tail can save.
 // Shards on other cards are read and written through peer access
-// (dgc_enable_peer_access); the host orders the launches across streams
-// with events (kernels/serve.py MeshLanes).
+// (dgc_enable_peer_access); the host orders the rounds across streams with
+// events (kernels/serve.py MeshLanes), so the last shard to finish, on
+// whichever card, folds before any shard's next launch.
 //
 // State. The carry is the reference's 20 slots (dgc_tpu_torch/layout.py),
 // one lane-leading tensor each; the packed state of lane b is row b of
@@ -134,6 +149,7 @@
 #include <climits>
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #include "rule.cuh"
 #include "tma.cuh"
@@ -176,8 +192,9 @@ constexpr int kNStages = 5;
 constexpr int kThresh0 = 6;
 constexpr int kMaxStages = 8;
 constexpr int kPad0 = kThresh0 + kMaxStages;
+constexpr int kMeshTicket = kPad0 + kMaxStages;  // shard 0's: shards done
 
-constexpr int kMaxShards = 64;  // K26's pointer table
+constexpr int kMaxShards = 64;  // the fold's pointer table
 
 // the per-lane counters (SCR_* in kernels/serve.py)
 constexpr int kScrFail = 0;
@@ -212,7 +229,7 @@ struct LaneArgs {
   const int* reset;       // int32[B]
   int* nxt;               // int32[B, V]
   int* scratch;           // int32[3, B]
-  int* ctrl;              // int32[kPad0 + kMaxStages]
+  int* ctrl;              // int32[kMeshTicket + 1]
   const int* spec;        // int32[B] or null: the tag a flagged lane gets
   const int* cancel;      // int32[B] or null: kill a spec-tagged lane
   int b;
@@ -224,11 +241,24 @@ struct LaneArgs {
   int budget;
 };
 
-// K26's arguments, by value: each shard's control block.
+// The fold's arguments (the partial instances', by value): each shard's
+// control block, a count of the folds made (on shard 0's card), the shard
+// count (0: a shard's partial alone, no fold), whether the shards sit on
+// several cards (then every shard takes the ticket; else this launch is
+// the last shard's on a stream the shards share, and folds).
 struct FoldArgs {
   int* ctrl[kMaxShards];
+  int* folds;
   int n;
+  int spread;
 };
+
+// The other instances' place for it: nothing, so their launches stay as
+// they were.
+struct NoFold {};
+
+template <bool kPartial>
+using FoldOf = typename std::conditional<kPartial, FoldArgs, NoFold>::type;
 
 // The deepest stage whose entry threshold covers the lane's previous
 // active count (batched.py:316-319).
@@ -306,10 +336,119 @@ __device__ __forceinline__ void route(const int* ctrl, int rung,
   *s_any = 1;
 }
 
+// ---- K26: the lane mesh's fold, in the partial K15/K16's tail -------------
+//
+// A shard's partial as its tail writes it (thread 0's): the rung, whether
+// any lane is live, the steps and the budget.
+struct Partial {
+  int rung;
+  int live;
+  int steps;
+  int budget;
+};
+
+// On one card, the other shards' partials, read by warp 0 of every block
+// with the control block at the launch's start (their launches have ended;
+// the last block folds): lane i reads shards i and i + 32 unless they are
+// its own, and shard 0's steps and budget unless shard 0 is its own (own0),
+// into registers that nothing reads until the fold. Across cards nothing:
+// the fold reads after the ticket.
+struct FoldPre {
+  int rung[2];
+  int live[2];
+  int steps0;
+  int budget0;
+  int own0;
+};
+
+__device__ __forceinline__ FoldPre fold_pre(const FoldArgs& f,
+                                            const int* own) {
+  FoldPre p{{INT_MAX, INT_MAX}, {0, 0}, 0, 0, 0};
+  if (f.n == 0 || f.spread || threadIdx.x >= 32) return p;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int i = threadIdx.x + 32 * k;
+    const bool take = i < f.n && f.ctrl[i] != own;
+    if (take) {
+      p.rung[k] = load_volatile(f.ctrl[i] + kRexec);
+      p.live[k] = load_volatile(f.ctrl[i] + kLive);
+    }
+  }
+  p.own0 = f.ctrl[0] == own;
+  if (!p.own0) {
+    p.steps0 = load_volatile(f.ctrl[0] + kSteps);
+    p.budget0 = load_volatile(f.ctrl[0] + kBudget);
+  }
+  return p;
+}
+
+__device__ __forceinline__ FoldPre fold_pre(const NoFold&, const int*) {
+  return FoldPre{};
+}
+
+// Called by every thread of the block that has just written its shard's
+// partial (`own`, thread 0's); warp 0 alone goes on, with no block barrier.
+// Across cards thread 0 publishes the partial and takes the mesh ticket, and
+// only the block that draws n - 1 goes on, then reads every shard's
+// partial; on one card this block goes on with `pre`. The warp folds: the
+// rungs' min, the live words' OR, shard 0's steps and budget; then every
+// lane writes the folded words into its shards' control blocks.
+__device__ __forceinline__ void mesh_tail(const FoldArgs& f,
+                                          const FoldPre& pre,
+                                          const Partial& own) {
+  if (f.n == 0 || threadIdx.x >= 32) return;  // uniform: a partial alone
+  int fold = 1;
+  if (f.spread && threadIdx.x == 0) {
+    __threadfence_system();  // the partial, before the ticket
+    fold = atomicAdd_system(f.ctrl[0] + kMeshTicket, 1) == f.n - 1;
+  }
+  if (__shfl_sync(0xFFFFFFFFu, fold, 0) == 0) return;
+  // thread 0's partial
+  const Partial s_own{__shfl_sync(0xFFFFFFFFu, own.rung, 0),
+                      __shfl_sync(0xFFFFFFFFu, own.live, 0),
+                      __shfl_sync(0xFFFFFFFFu, own.steps, 0),
+                      __shfl_sync(0xFFFFFFFFu, own.budget, 0)};
+  int rung = INT_MAX;
+  int any = 0;
+  int steps0;
+  int budget0;
+  if (f.spread) {
+    __threadfence_system();  // every partial, after the ticket
+    for (int i = threadIdx.x; i < f.n; i += 32) {
+      rung = min(rung, load_volatile(f.ctrl[i] + kRexec));
+      any |= load_volatile(f.ctrl[i] + kLive) != 0;
+    }
+    steps0 = load_volatile(f.ctrl[0] + kSteps);
+    budget0 = load_volatile(f.ctrl[0] + kBudget);
+  } else {
+    rung = min(min(pre.rung[0], pre.rung[1]), s_own.rung);
+    any = (pre.live[0] | pre.live[1]) != 0 || s_own.live != 0;
+    steps0 = pre.own0 ? s_own.steps : pre.steps0;
+    budget0 = pre.own0 ? s_own.budget : pre.budget0;
+  }
+  rung = __reduce_min_sync(0xFFFFFFFFu, rung);
+  any = __reduce_or_sync(0xFFFFFFFFu, any);
+  const int live = any != 0 && steps0 < budget0;
+  for (int i = threadIdx.x; i < f.n; i += 32) {
+    f.ctrl[i][kRexec] = rung;
+    f.ctrl[i][kLive] = live;
+    f.ctrl[i][kSteps] = steps0;
+    f.ctrl[i][kTicket] = 0;
+  }
+  if (threadIdx.x == 0) {
+    if (f.spread) f.ctrl[0][kMeshTicket] = 0;
+    atomicAdd_system(f.folds, 1);
+  }
+}
+
+__device__ __forceinline__ void mesh_tail(const NoFold&, const FoldPre&,
+                                          const Partial&) {}
+
 // ---- K16: slice entry ---------------------------------------------------
 
 template <bool kTiming, bool kPartial>
-__global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
+__global__ void __launch_bounds__(kThreads)
+lane_reset_kernel(LaneArgs a, FoldOf<kPartial> f) {
   const int b = blockIdx.y;
   const int r = blockIdx.x * kThreads + threadIdx.x;
   const bool fresh = a.reset[b] != 0;
@@ -328,6 +467,7 @@ __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
   if (blockIdx.x != 0 || blockIdx.y != 0) return;
 
   // block (0, 0): every lane's scalars, the counters, the control block
+  const FoldPre pre = fold_pre(f, a.ctrl);
   __shared__ int s_ts;
   __shared__ int s_min;
   __shared__ int s_any;
@@ -382,12 +522,13 @@ __global__ void __launch_bounds__(kThreads) lane_reset_kernel(LaneArgs a) {
   __syncthreads();
   if (threadIdx.x == 0) {
     a.ctrl[kRexec] = s_min;
-    // a shard's partial: any lane live (K26 applies the budget)
+    // a shard's partial: any lane live (the fold applies the budget)
     a.ctrl[kLive] = s_any != 0 && (kPartial || a.budget > 0);
     a.ctrl[kSteps] = 0;
     a.ctrl[kBudget] = a.budget;
     a.ctrl[kTicket] = 0;
   }
+  mesh_tail(f, pre, Partial{s_min, s_any, 0, a.budget});
 }
 
 // ---- K13 and K15: lanes and their work ----------------------------------
@@ -1016,8 +1157,8 @@ __device__ __forceinline__ LaneFull lane_full(const LaneArgs& a, int l) {
 // The counters are not reloaded: K13 wrote them before the launch, and the
 // max color only where a lane stores its first result.
 template <bool kTiming, bool kPartial>
-__device__ void finish_lanes(const LaneArgs& a, bool one_tile,
-                             const LaneFull& mine, const int* s_ctrl) {
+__device__ Partial finish_lanes(const LaneArgs& a, bool one_tile,
+                                const LaneFull& mine, const int* s_ctrl) {
   __shared__ int s_ts;
   __shared__ int s_min;
   __shared__ int s_any;
@@ -1084,14 +1225,15 @@ __device__ void finish_lanes(const LaneArgs& a, bool one_tile,
     }
   }
   __syncthreads();
+  const int steps = s_ctrl[kSteps] + 1;
   if (threadIdx.x == 0) {
-    const int steps = s_ctrl[kSteps] + 1;
     a.ctrl[kSteps] = steps;
     a.ctrl[kRexec] = s_min;
-    // a shard's partial: any lane live (K26 applies the budget)
+    // a shard's partial: any lane live (the fold applies the budget)
     a.ctrl[kLive] = s_any != 0 && (kPartial || steps < s_ctrl[kBudget]);
     a.ctrl[kTicket] = 0;
   }
+  return Partial{s_min, s_any, steps, s_ctrl[kBudget]};
 }
 
 // K15's flags of a lane
@@ -1228,7 +1370,7 @@ __device__ __forceinline__ void finish_chunk(const LaneArgs& a, int b, int q,
 // the last one folds (one block alone when no lane had work).
 template <bool kTiming, bool kPartial>
 __global__ void __launch_bounds__(kFinishThreads)
-lane_finish_kernel(LaneArgs a, int vec) {
+lane_finish_kernel(LaneArgs a, int vec, FoldOf<kPartial> f) {
   __shared__ long long s_warp[kFinishThreads / 32];
   __shared__ int s_units[kFinishThreads];
   __shared__ long long s_off[kFinishThreads];
@@ -1244,6 +1386,9 @@ lane_finish_kernel(LaneArgs a, int vec) {
     mine = lane_full<kTiming>(a, threadIdx.x);
   }
   const int ctrl_word = threadIdx.x < kPad0 ? a.ctrl[threadIdx.x] : 0;
+  // the fold's other partials (the last block folds), read with the
+  // control block
+  const FoldPre pre = fold_pre(f, a.ctrl);
   const Route routing = read_route(a.ctrl);
   if (routing.live == 0) return;
   if (threadIdx.x < kPad0) s_ctrl[threadIdx.x] = ctrl_word;
@@ -1279,32 +1424,8 @@ lane_finish_kernel(LaneArgs a, int vec) {
   __syncthreads();
   if (!s_is_last) return;
   __threadfence();
-  finish_lanes<kTiming, kPartial>(a, one_tile, mine, s_ctrl);
-}
-
-// ---- K26: the lane mesh's fold ------------------------------------------
-//
-// One warp: lane i < n reads shard i's partial, the warp reduces, then
-// every lane writes the folded words into its shards' control blocks.
-
-__global__ void __launch_bounds__(32) lane_mesh_fold_kernel(FoldArgs a) {
-  int rung = INT_MAX;
-  int any = 0;
-  for (int i = threadIdx.x; i < a.n; i += 32) {
-    rung = min(rung, load_volatile(a.ctrl[i] + kRexec));
-    any |= load_volatile(a.ctrl[i] + kLive) != 0;
-  }
-  rung = __reduce_min_sync(0xFFFFFFFFu, rung);
-  any = __reduce_or_sync(0xFFFFFFFFu, any);
-  const int steps = load_volatile(a.ctrl[0] + kSteps);
-  const int live = any != 0 && steps < load_volatile(a.ctrl[0] + kBudget);
-  __syncwarp();
-  for (int i = threadIdx.x; i < a.n; i += 32) {
-    a.ctrl[i][kRexec] = rung;
-    a.ctrl[i][kLive] = live;
-    a.ctrl[i][kSteps] = steps;
-    a.ctrl[i][kTicket] = 0;
-  }
+  const Partial own = finish_lanes<kTiming, kPartial>(a, one_tile, mine, s_ctrl);
+  mesh_tail(f, pre, own);
 }
 
 int span_of(const LaneArgs* a) { return a->v > a->a0 ? a->v : a->a0; }
@@ -1448,7 +1569,8 @@ int launch_compact(const LaneArgs* a, unsigned long long* scratch, int slots,
 }
 
 template <bool kTiming, bool kPartial>
-int launch_finish(const LaneArgs* a, cudaStream_t st) {
+int launch_finish(const LaneArgs* a, const FoldOf<kPartial>& f,
+                  cudaStream_t st) {
   const void* fn =
       reinterpret_cast<const void*>(lane_finish_kernel<kTiming, kPartial>);
   const int most = co_resident(fn, kFinishThreads, 0, 0);
@@ -1460,9 +1582,21 @@ int launch_finish(const LaneArgs* a, cudaStream_t st) {
   const int vec = a->v % 4 == 0 && aligned16(a->slot[kCPacked]) &&
                   aligned16(a->nxt) && aligned16(a->slot[kCP1]) &&
                   aligned16(a->slot[kCP2]) && aligned16(a->degrees);
-  lane_finish_kernel<kTiming, kPartial><<<grid, kFinishThreads, 0, st>>>(*a,
-                                                                        vec);
+  lane_finish_kernel<kTiming, kPartial><<<grid, kFinishThreads, 0, st>>>(
+      *a, vec, f);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTiming, bool kPartial>
+int launch_reset(const LaneArgs* a, const FoldOf<kPartial>& f,
+                 cudaStream_t st) {
+  const dim3 grid((span_of(a) + kThreads - 1) / kThreads, a->b);
+  lane_reset_kernel<kTiming, kPartial><<<grid, kThreads, 0, st>>>(*a, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool fold_ok(const FoldArgs* f) {
+  return f->n >= 0 && f->n <= kMaxShards && (f->n == 0 || f->folds != nullptr);
 }
 
 }  // namespace
@@ -1472,23 +1606,22 @@ extern "C" {
 // Each returns the launch's cudaError_t (0 = launched); `a` is read on the
 // host before the call returns.
 
-// K16 and K15 take the instance from `timing` (kTiming) and `partial`
-// (kPartial: a shard of the lane mesh, K26 folds next).
-int dgc_lane_reset(const void* args, int timing, int partial, void* stream) {
+// K16 and K15 take the instance from `timing` (kTiming) and `fold`
+// (kPartial where it is not null: a shard of the lane mesh, its partial
+// and the fold's tail, with the fold's arguments, read on the host before
+// the call returns; n = 0 for a shard's partial alone).
+int dgc_lane_reset(const void* args, int timing, const void* fold,
+                   void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
-  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((span_of(a) + kThreads - 1) / kThreads, a->b);
-  if (timing && partial) {
-    lane_reset_kernel<true, true><<<grid, kThreads, 0, st>>>(*a);
-  } else if (timing) {
-    lane_reset_kernel<true, false><<<grid, kThreads, 0, st>>>(*a);
-  } else if (partial) {
-    lane_reset_kernel<false, true><<<grid, kThreads, 0, st>>>(*a);
-  } else {
-    lane_reset_kernel<false, false><<<grid, kThreads, 0, st>>>(*a);
+  const auto* f = static_cast<const FoldArgs*>(fold);
+  if (!args_ok(a) || (f != nullptr && !fold_ok(f))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  if (timing && f) return launch_reset<true, true>(a, *f, st);
+  if (timing) return launch_reset<true, false>(a, NoFold{}, st);
+  if (f) return launch_reset<false, true>(a, *f, st);
+  return launch_reset<false, false>(a, NoFold{}, st);
 }
 
 // The most blocks K14 launches on the current device (0 on an error): its
@@ -1539,25 +1672,18 @@ int dgc_lane_superstep_plan(const void* args, int nlive, int pad, int* out) {
   return 0;
 }
 
-int dgc_lane_finish(const void* args, int timing, int partial, void* stream) {
+int dgc_lane_finish(const void* args, int timing, const void* fold,
+                    void* stream) {
   const auto* a = static_cast<const LaneArgs*>(args);
-  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* f = static_cast<const FoldArgs*>(fold);
+  if (!args_ok(a) || (f != nullptr && !fold_ok(f))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto st = static_cast<cudaStream_t>(stream);
-  if (timing && partial) return launch_finish<true, true>(a, st);
-  if (timing) return launch_finish<true, false>(a, st);
-  if (partial) return launch_finish<false, true>(a, st);
-  return launch_finish<false, false>(a, st);
-}
-
-// K26 over the `n` control blocks `ctrl` (a host array of n device
-// pointers, copied into the launch's arguments).
-int dgc_lane_mesh_fold(void* const* ctrl, int n, void* stream) {
-  if (n < 1 || n > kMaxShards) return static_cast<int>(cudaErrorInvalidValue);
-  FoldArgs a{};
-  for (int i = 0; i < n; ++i) a.ctrl[i] = static_cast<int*>(ctrl[i]);
-  a.n = n;
-  lane_mesh_fold_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (timing && f) return launch_finish<true, true>(a, *f, st);
+  if (timing) return launch_finish<true, false>(a, NoFold{}, st);
+  if (f) return launch_finish<false, true>(a, *f, st);
+  return launch_finish<false, false>(a, NoFold{}, st);
 }
 
 // Let `device` read and write `peer`'s memory (a lane mesh over several
@@ -1579,6 +1705,7 @@ int dgc_enable_peer_access(int device, int peer) {
 }
 
 int dgc_lane_args_size() { return static_cast<int>(sizeof(LaneArgs)); }
+int dgc_fold_args_size() { return static_cast<int>(sizeof(FoldArgs)); }
 int dgc_max_shards() { return kMaxShards; }
 
 }  // extern "C"

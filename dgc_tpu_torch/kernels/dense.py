@@ -12,7 +12,9 @@ PyTorch versions, and the chunked superstep loop of the dense engine.
   the same degree and a lower id), writes the new colors into the other
   buffer, and folds the step into the status (FAILURE, SUCCESS, then
   STALLED once ``step + 1 >= max_steps``), flipping the buffer unless the
-  step failed.
+  step failed. On the card it keeps the candidates in shared memory as
+  int16, so it takes Vp up to ``RESOLVE_MAX_VP`` (the engine's cap is
+  16,384) and reads ``state`` and ``cand`` in 16-byte words.
 
 The state is ``dgc_tpu.engine.dense_engine._attempt_kernel_dense``'s loop
 carry on buffers: colors int32[2, Vp] (Vp = V padded to ``VERTEX_TILE``;
@@ -44,6 +46,9 @@ DCTRL_LEN = 6
 # Vp's multiple (kVertexTile in csrc/dense.cu): K11's bulk copies and
 # K12's 16-byte words divide a row evenly
 VERTEX_TILE = 256
+# the largest Vp K12 takes on the card (kResolveMaxVp in csrc/dense.cu): its
+# candidates, below Vp, are int16 in shared memory
+RESOLVE_MAX_VP = 32768
 _RUNNING = int(AttemptStatus.RUNNING)
 
 SOURCE = "dense.cu"
@@ -241,6 +246,11 @@ def dense_resolve(ctrl: torch.Tensor, state: torch.Tensor, adj: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"dense_resolve: unsupported device {device}")
     vp = _check_dense(ctrl, state, adj, {"cand": cand, "degrees": degrees}, v)
+    if vp > RESOLVE_MAX_VP:
+        raise ValueError(f"dense_resolve: Vp={vp} above {RESOLVE_MAX_VP}")
+    if state.data_ptr() % 16 or cand.data_ptr() % 16:
+        raise ValueError("dense_resolve: state and cand must be 16-byte "
+                         "aligned")
     rc = _library().dgc_dense_resolve(
         ctrl.data_ptr(), state.data_ptr(), adj.data_ptr(), cand.data_ptr(),
         degrees.data_ptr(), vp, int(v), int(min(max_steps, INT32_MAX)),

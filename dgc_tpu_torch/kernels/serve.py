@@ -34,13 +34,19 @@ enqueued without a host sync (``serve.batched``).
 
 The lane mesh (``MeshLanes``: the lane axis split over n shards, each a
 ``Lanes`` with a control block of its own, ``serve.batched``'s sharded
-section): K16 and K15 run per shard as their partial instances
-(``partial=True``: the shard's min rung, whether any of its lanes is live,
-the step count, into its own control block), and after each round of them
-K26 ``lane_mesh_fold`` writes the folded routing (the min rung, any live
-and steps within the budget) into every shard's control block.
-``mesh_reset`` and ``mesh_superstep`` are the host loops; across cards the
-launches are ordered by events, never a host sync.
+section): K16 and K15 run per shard as their partial instances (the
+shard's min rung, whether any of its lanes is live, the step count, into
+its own control block), and with ``mesh=`` the mesh they belong to, their
+tail is K26's fold: the last shard to finish writes the folded routing
+(the min rung, any live and steps within the budget) into every shard's
+control block (``mesh_tail_reference`` on the CPU: the plain partial, then
+``lane_mesh_fold_reference``). On one card the shards' launches share a
+stream, so the last shard's launch folds; across cards every shard takes
+a ticket in shard 0's control block (``CTRL_MESH_TICKET``) and the one
+that draws n - 1 folds. ``mesh_reset`` and ``mesh_superstep`` are
+the host loops; across cards the rounds are ordered by events, never a
+host sync. ``mesh_folds`` counts the folds made (on the card: a counter
+on each mesh's first card, which the folding block adds to).
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 a card it launches its kernel or raises — it never falls back.
@@ -73,15 +79,20 @@ from dgc_tpu_torch.obs.devclock import kernel_clock_us
 from dgc_tpu_torch.ops.speculative import (NBR_MASK, decode_combined,
                                            speculative_update_mc)
 
-# the control block (kRexec ... kPad0 in csrc/serve.cu): the executed rung,
-# the live word, the slice's step count and budget, K15's block ticket,
-# then the ladder: the stage count, 8 thresholds, 8 pads (0 = full table)
+# the control block (kRexec ... kMeshTicket in csrc/serve.cu): the executed
+# rung, the live word, the slice's step count and budget, K15's block
+# ticket, then the ladder: the stage count, 8 thresholds, 8 pads (0 = full
+# table); last the mesh ticket (shard 0's of a lane mesh across cards: the
+# shards whose partial K15/K16 has finished this round, 0 between rounds)
 CTRL_REXEC, CTRL_LIVE, CTRL_STEPS, CTRL_BUDGET, CTRL_TICKET, \
     CTRL_NSTAGES = range(6)
 MAX_STAGES = 8
 CTRL_THRESH0 = 6
 CTRL_PAD0 = CTRL_THRESH0 + MAX_STAGES
-CTRL_LEN = CTRL_PAD0 + MAX_STAGES
+CTRL_MESH_TICKET = CTRL_PAD0 + MAX_STAGES
+CTRL_LEN = CTRL_MESH_TICKET + 1
+# the fold's pointer table (kMaxShards in csrc/serve.cu)
+MAX_SHARDS = 64
 # the per-lane counters, int32[3, B]
 SCR_FAIL, SCR_ACTIVE, SCR_MAXC = range(3)
 INT32_MAX = (1 << 31) - 1
@@ -94,7 +105,7 @@ _STALLED = int(AttemptStatus.STALLED)
 SOURCE = "serve.cu"
 
 launch_counts = {"lane_superstep": 0, "lane_compact": 0, "lane_finish": 0,
-                 "lane_reset": 0, "lane_mesh_fold": 0}
+                 "lane_reset": 0}
 # the clock-reading (kTiming) instances among the launches above
 timing_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 # the launches above on lanes armed with the spec/cancel vectors
@@ -103,11 +114,38 @@ spec_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 partial_launch_counts = {"lane_finish": 0, "lane_reset": 0}
 
 
+# the folds made in the partial K15/K16's tails: the plain path's, and on
+# the card a counter on each mesh's first card (``_fold_counter``)
+_plain_folds = [0]
+_fold_counters: dict = {}
+
+
 def reset_launch_counts() -> None:
+    """Zero every count above and the fold counts (``mesh_folds``)."""
     for counts in (launch_counts, timing_launch_counts, spec_launch_counts,
                    partial_launch_counts):
         for name in counts:
             counts[name] = 0
+    _plain_folds[0] = 0
+    for t in _fold_counters.values():
+        t.zero_()
+
+
+def mesh_folds() -> int:
+    """The folds made in the partial K15/K16's tails since the last
+    ``reset_launch_counts``, on the plain path and on the card (reading
+    the card's counters: a host sync)."""
+    return _plain_folds[0] + sum(int(t.item())
+                                 for t in _fold_counters.values())
+
+
+def _fold_counter(device) -> torch.Tensor:
+    """The int32[1] count of the folds made by the meshes whose first shard
+    is on ``device``."""
+    key = str(device)
+    if key not in _fold_counters:
+        _fold_counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _fold_counters[key]
 
 
 def ladder_ctrl(stages: tuple, device) -> torch.Tensor:
@@ -139,6 +177,19 @@ class _LaneArgs(ctypes.Structure):
                 ("b", ctypes.c_int), ("v", ctypes.c_int), ("w", ctypes.c_int),
                 ("a0", ctypes.c_int), ("planes", ctypes.c_int),
                 ("stall_window", ctypes.c_int), ("budget", ctypes.c_int)]
+
+
+class _FoldArgs(ctypes.Structure):
+    """``FoldArgs`` of ``csrc/serve.cu``: each shard's control block, the
+    folds' counter, the shard count (0: a shard's partial alone), whether
+    the shards sit on several cards."""
+
+    _fields_ = [("ctrl", ctypes.c_void_p * MAX_SHARDS),
+                ("folds", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("spread", ctypes.c_int)]
+
+
+_PARTIAL_ALONE = _FoldArgs()
 
 
 @dataclass
@@ -266,11 +317,14 @@ def _route(L: Lanes, ctrl: list) -> tuple[int, bool]:
     return int(rung_now[live].min()), True
 
 
-def lane_reset_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
+def lane_reset_reference(L: Lanes, timing: bool, partial: bool = False,
+                         mesh: "MeshLanes | None" = None) -> None:
     """K16's plain version: ``_fresh_lanes`` for the flagged lanes and
     their ``nxt`` rows, the timing seed, the counters cleared and the
     control block's routing (``partial``: the shard's, the budget left to
-    the fold)."""
+    the fold; ``mesh``, the mesh of ``L``: the partial, then the fold's
+    tail, ``mesh_tail_reference``)."""
+    partial = partial or mesh is not None
     c, v = L.carry, L.v
     fresh = L.reset != 0
     wide = fresh[:, None]
@@ -311,6 +365,8 @@ def lane_reset_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
     L.ctrl[CTRL_STEPS] = 0
     L.ctrl[CTRL_BUDGET] = L.budget
     L.ctrl[CTRL_TICKET] = 0
+    if mesh is not None:
+        mesh_tail_reference(mesh, L)
 
 
 def lane_compact_reference(L: Lanes) -> None:
@@ -399,11 +455,14 @@ def lane_superstep_reference(L: Lanes) -> None:
         L.scratch[SCR_ACTIVE, b] += active.sum().to(torch.int32)
 
 
-def lane_finish_reference(L: Lanes, timing: bool, partial: bool = False) -> None:
+def lane_finish_reference(L: Lanes, timing: bool, partial: bool = False,
+                          mesh: "MeshLanes | None" = None) -> None:
     """K15's plain version: ``_superstep_body``'s transition and freeze
     (``dgc_tpu.serve.batched:363-466``) over the counters K13 left, the
     step adopted or reverted in ``packed`` and ``nxt``, the next routing
-    (``partial``: the shard's, the budget left to the fold)."""
+    (``partial`` and ``mesh`` as ``lane_reset_reference``'s; a round past
+    the live word does nothing, so it does not fold)."""
+    partial = partial or mesh is not None
     ctrl = L.ctrl.tolist()
     if not ctrl[CTRL_LIVE]:
         return
@@ -473,6 +532,18 @@ def lane_finish_reference(L: Lanes, timing: bool, partial: bool = False) -> None
     L.ctrl[CTRL_REXEC] = rexec
     L.ctrl[CTRL_LIVE] = int(any_live and (partial or steps < ctrl[CTRL_BUDGET]))
     L.ctrl[CTRL_TICKET] = 0
+    if mesh is not None:
+        mesh_tail_reference(mesh, L)
+
+
+def mesh_tail_reference(M: "MeshLanes", L: Lanes) -> None:
+    """The plain partial K15/K16's tail on shard ``L`` of ``M``, which has
+    just written its partial (``mesh_tail`` in ``csrc/serve.cu``, one
+    device: the shards run in order): the last shard folds
+    (``lane_mesh_fold_reference``) and counts the fold."""
+    if L is M.shards[-1]:
+        lane_mesh_fold_reference([S.ctrl for S in M.shards])
+        _plain_folds[0] += 1
 
 
 def lane_mesh_fold_reference(ctrls: list) -> None:
@@ -500,7 +571,7 @@ def _library():
                             ("dgc_lane_superstep", False),
                             ("dgc_lane_finish", True)):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, ci, ci, vp] if timed else [vp, vp]
+            fn.argtypes = [vp, ci, vp, vp] if timed else [vp, vp]
             fn.restype = ci
         lib.dgc_lane_compact.argtypes = [vp, vp, ci, vp]
         lib.dgc_lane_compact.restype = ci
@@ -509,14 +580,16 @@ def _library():
         lib.dgc_lane_superstep_plan.argtypes = [vp, ci, ci,
                                                 ctypes.POINTER(ci)]
         lib.dgc_lane_superstep_plan.restype = ci
-        lib.dgc_lane_mesh_fold.argtypes = [ctypes.POINTER(vp), ci, vp]
-        lib.dgc_lane_mesh_fold.restype = ci
         lib.dgc_enable_peer_access.argtypes = [ci, ci]
         lib.dgc_enable_peer_access.restype = ci
         lib.dgc_max_shards.restype = ci
         lib.dgc_lane_args_size.restype = ci
+        lib.dgc_fold_args_size.restype = ci
         if lib.dgc_lane_args_size() != ctypes.sizeof(_LaneArgs):
             raise RuntimeError("csrc/serve.cu's LaneArgs and _LaneArgs differ")
+        if lib.dgc_fold_args_size() != ctypes.sizeof(_FoldArgs) or \
+                lib.dgc_max_shards() != MAX_SHARDS:
+            raise RuntimeError("csrc/serve.cu's FoldArgs and _FoldArgs differ")
         lib._dgc_bound = True
     return lib
 
@@ -578,6 +651,15 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _fold_arg(L: Lanes, partial: bool, mesh):
+    """The fold argument of a K15/K16 launch on ``L``: none (not partial),
+    the partial alone, or ``mesh``'s fold (``_fold_args``), which on one
+    card only the last shard's launch takes."""
+    if mesh is not None and (mesh.spread or L is mesh.shards[-1]):
+        return ctypes.byref(_fold_args(mesh))
+    return ctypes.byref(_PARTIAL_ALONE) if partial else None
+
+
 def _count(name: str, L: Lanes, timing: bool, partial: bool) -> None:
     launch_counts[name] += 1
     if timing:
@@ -588,16 +670,20 @@ def _count(name: str, L: Lanes, timing: bool, partial: bool) -> None:
         partial_launch_counts[name] += 1
 
 
-def lane_reset(L: Lanes, timing: bool = False, partial: bool = False) -> None:
+def lane_reset(L: Lanes, timing: bool = False, partial: bool = False,
+               mesh: "MeshLanes | None" = None) -> None:
     """K16 (its kTiming instance with ``timing``, its partial instance
-    with ``partial``: a shard of a lane mesh, K26 folds next; it reads
+    with ``partial``: a shard of a lane mesh; with ``mesh``, the mesh of
+    ``L``, the partial instance whose tail is the fold; it reads
     ``L.spec`` and ``L.cancel`` when the lanes are armed). Runs on the
     current stream."""
+    partial = partial or mesh is not None
     if L.device.type == "cpu":
-        return lane_reset_reference(L, timing, partial)
+        return lane_reset_reference(L, timing, partial, mesh)
     args = _args(L)
     rc = _library().dgc_lane_reset(ctypes.byref(args), int(bool(timing)),
-                                   int(bool(partial)), _stream(L.device))
+                                   _fold_arg(L, partial, mesh),
+                                   _stream(L.device))
     _raise_on(rc, "lane_reset")
     _count("lane_reset", L, timing, partial)
 
@@ -648,14 +734,18 @@ def superstep_plan(L: Lanes) -> dict:
     return {"grid": out[0], "shared": out[1], "global": out[2]}
 
 
-def lane_finish(L: Lanes, timing: bool = False, partial: bool = False) -> None:
+def lane_finish(L: Lanes, timing: bool = False, partial: bool = False,
+                mesh: "MeshLanes | None" = None) -> None:
     """K15 (its kTiming instance with ``timing``, its partial instance
-    with ``partial``, as ``lane_reset``). Runs on the current stream."""
+    with ``partial`` or ``mesh``, as ``lane_reset``). Runs on the current
+    stream."""
+    partial = partial or mesh is not None
     if L.device.type == "cpu":
-        return lane_finish_reference(L, timing, partial)
+        return lane_finish_reference(L, timing, partial, mesh)
     args = _args(L)
     rc = _library().dgc_lane_finish(ctypes.byref(args), int(bool(timing)),
-                                    int(bool(partial)), _stream(L.device))
+                                    _fold_arg(L, partial, mesh),
+                                    _stream(L.device))
     _raise_on(rc, "lane_finish")
     _count("lane_finish", L, timing, partial)
 
@@ -664,8 +754,9 @@ def lane_finish(L: Lanes, timing: bool = False, partial: bool = False) -> None:
 
 def enable_peer_access(devices) -> None:
     """Let every card of ``devices`` (``torch.device``s, repeats allowed)
-    read and write every other's memory, as K26 and the mesh instances of
-    K18/K19 do; raises when a pair cannot (no quiet slower route)."""
+    read and write every other's memory, as the fold in the partial
+    K15/K16's tail and the mesh instances of K18/K19 do; raises when a pair
+    cannot (no quiet slower route)."""
     cards = sorted({d.index for d in devices if d.type == "cuda"})
     if len(cards) < 2:
         return
@@ -684,12 +775,14 @@ def enable_peer_access(devices) -> None:
 class MeshLanes:
     """The lanes of a lane-sharded batch: ``shards[i]`` holds lanes
     ``i * per .. (i + 1) * per`` (``per`` each, on its own device, with a
-    control block of its own). The fold (K26) runs on the first shard's
-    device and stream; with shards on several devices each round is
-    ordered by events."""
+    control block of its own), launched in shard order. The fold (K26) is
+    the tail of the last shard's partial K15/K16 to finish (on one device
+    the last shard's; across devices the one that draws the last ticket),
+    its counter on the first shard's device; with shards on several
+    devices each round is ordered by events."""
 
     shards: list
-    _ptrs: object = field(default=None, repr=False)
+    _fold: object = field(default=None, repr=False)
 
     @property
     def n(self) -> int:
@@ -728,30 +821,25 @@ def new_mesh_lanes(shards: list) -> MeshLanes:
     return MeshLanes(shards=list(shards))
 
 
-def _fold_ptrs(M: MeshLanes):
-    if M._ptrs is None:
-        if M.n > _library().dgc_max_shards():
-            raise ValueError(f"lane_mesh_fold: {M.n} shards, at most "
-                             f"{_library().dgc_max_shards()}")
+def _fold_args(M: MeshLanes) -> _FoldArgs:
+    """The fold's arguments of ``M``, checked and built once: each shard's
+    control block, the counter on the first shard's card, the count."""
+    if M._fold is None:
+        if M.n > MAX_SHARDS:
+            raise ValueError(f"lane mesh: {M.n} shards, at most {MAX_SHARDS}")
         for L in M.shards:
             if L.device.type != "cuda":
-                raise ValueError(f"lane_mesh_fold: unsupported device "
+                raise ValueError(f"lane mesh fold: unsupported device "
                                  f"{L.device}")
             _check_int32("ctrl", L.ctrl, L.device, 1)
-        M._ptrs = (ctypes.c_void_p * M.n)(*(L.ctrl.data_ptr()
-                                              for L in M.shards))
-    return M._ptrs
-
-
-def lane_mesh_fold(M: MeshLanes) -> None:
-    """K26: the shards' partials folded into every shard's control block.
-    Runs on the first shard's current stream."""
-    if M.device.type == "cpu":
-        return lane_mesh_fold_reference([L.ctrl for L in M.shards])
-    ptrs = _fold_ptrs(M)
-    _raise_on(_library().dgc_lane_mesh_fold(ptrs, M.n, _stream(M.device)),
-              "lane_mesh_fold")
-    launch_counts["lane_mesh_fold"] += 1
+        fold = _FoldArgs()
+        for i, L in enumerate(M.shards):
+            fold.ctrl[i] = L.ctrl.data_ptr()
+        fold.folds = _fold_counter(M.device).data_ptr()
+        fold.n = M.n
+        fold.spread = int(M.spread)
+        M._fold = fold
+    return M._fold
 
 
 def current_card(device):
@@ -765,8 +853,8 @@ def current_card(device):
 
 
 def _join(M: MeshLanes) -> None:
-    """Shards on other devices: the fold's stream waits for each shard's
-    last launch."""
+    """Shards on other devices: the first shard's stream waits for each
+    shard's last launch (one of them folded)."""
     if M.device.type == "cuda" and M.spread:
         home = torch.cuda.current_stream(M.device)
         for L in M.shards[1:]:
@@ -777,7 +865,8 @@ def _join(M: MeshLanes) -> None:
 
 
 def _fork(M: MeshLanes) -> None:
-    """Shards on other devices: each shard's stream waits for the fold."""
+    """Shards on other devices: each shard's stream waits for the joined
+    round, so for the fold."""
     if M.device.type == "cuda" and M.spread:
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(M.device))
@@ -787,26 +876,23 @@ def _fork(M: MeshLanes) -> None:
 
 
 def mesh_reset(M: MeshLanes, timing: bool = False) -> None:
-    """The mesh's slice entry: each shard's partial K16, then K26."""
+    """The mesh's slice entry: each shard's partial K16, the last to
+    finish folding."""
     for L in M.shards:
         with current_card(L.device):
-            lane_reset(L, timing, partial=True)
+            lane_reset(L, timing, mesh=M)
     _join(M)
-    with current_card(M.device):
-        lane_mesh_fold(M)
     _fork(M)
 
 
 def mesh_superstep(M: MeshLanes, staged: bool, timing: bool = False) -> None:
     """One batched superstep of the mesh: each shard's K14 (staged
-    ladders), K13 and partial K15, then K26."""
+    ladders), K13 and partial K15, the last K15 to finish folding."""
     for L in M.shards:
         with current_card(L.device):
             if staged:
                 lane_compact(L)
             lane_superstep(L)
-            lane_finish(L, timing, partial=True)
+            lane_finish(L, timing, mesh=M)
     _join(M)
-    with current_card(M.device):
-        lane_mesh_fold(M)
     _fork(M)

@@ -48,7 +48,8 @@ D2H_SLOTS = (0, 13, 15, 16, 6, 7, 8, 9, 10, 11, 12)
 # The lane-sharded serve tier splits every batch-leading buffer (the carry
 # slots above, the input stacks, the scheduling and speculation vectors)
 # over a one-axis mesh of shard slots, axis LANES_AXIS, in contiguous
-# blocks; the executed rung and the live word stay global (K26 folds them).
+# blocks; the executed rung and the live word stay global (the fold in the
+# partial K15/K16's tail, K26, makes them so).
 LANES_AXIS = 0         # the axis every serve buffer shards on
 MESH_AXIS = "lanes"    # the serve mesh's single axis name
 

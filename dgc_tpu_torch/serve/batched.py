@@ -60,10 +60,10 @@ section): a :class:`LaneMesh` is an ordered list of n shard slots, each a
 (carry rows, inputs, ``nxt``, counters, control block). The reference's
 cross-lane values are full reductions (the executed rung, the live
 predicate), which its SPMD partitioner turns into all-reductions; here
-each shard runs the partial instances of K16/K15 and K26
-``lane_mesh_fold`` writes the folded routing into every shard's control
-block (``kernels.serve.mesh_reset`` / ``mesh_superstep``), so a lane's
-values are byte-identical to the unsharded run's. The six ``_sharded``
+each shard runs the partial instances of K16/K15, and the last of them to
+finish writes the folded routing into every shard's control block in its
+tail, K26's fold (``kernels.serve.mesh_reset`` / ``mesh_superstep``), so
+a lane's values are byte-identical to the unsharded run's. The six ``_sharded``
 twins (``batched_sweep_kernel_sharded``, ``batched_slice_kernel_sharded``
 and its ``_donated`` form, ``seat_lane_kernel_sharded``,
 ``permute_carry_kernel_sharded``, ``resize_inputs_kernel_sharded``) take
@@ -406,7 +406,7 @@ class LaneMesh:
 
     @property
     def device(self) -> torch.device:
-        """The first slot's device (where K26 runs)."""
+        """The first slot's device (where the fold's ticket lives)."""
         return self.devices[0]
 
     def per(self, b: int) -> int:
@@ -566,8 +566,8 @@ def _mesh_rounds(M: ks.MeshLanes, n: int, staged: bool, timing: bool) -> None:
 
 def run_mesh_slice(M: ks.MeshLanes, *, slice_steps: int, staged: bool,
                    timing: bool = False) -> list:
-    """``run_slice`` over a lane mesh: every shard's partial K16 and K26,
-    then at most ``slice_steps`` mesh supersteps, enqueued without a host
+    """``run_slice`` over a lane mesh: every shard's partial K16 (the last
+    folding), then at most ``slice_steps`` mesh supersteps, enqueued without a host
     sync. Returns the sharded carry, advanced in place."""
     if int(slice_steps) < 1:
         raise ValueError(f"slice_steps must be >= 1, got {slice_steps}")

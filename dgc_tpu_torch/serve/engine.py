@@ -60,7 +60,8 @@ pool's lane axis is split over a ``serve.batched.LaneMesh`` of n shard
 slots (lane ``i`` on shard ``i // (b_pad / n)``, each shard its own
 tensors and control block), pool widths floored at n, seats placed in the
 least-loaded shard, and the slices, seats and resizes run through the
-sharded twins (K16/K15 partial per shard, K26 folding the routing; K17 per
+sharded twins (K16/K15 partial per shard, the last to finish folding the
+routing in its tail (K26); K17 per
 shard with seats; the mesh instances of K18/K19, where kept lanes may
 cross shards). ``serve_slice``/``serve_batch`` events carry
 ``mesh_devices`` and the per-shard ``device_occupancy``. A resolved mesh

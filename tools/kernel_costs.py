@@ -1,8 +1,9 @@
 """Where K1 (`superstep_rows`), K3 (`compact_slots`), K5
-(`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K13
-(`lane_superstep`), K14 (`lane_compact`), K15 (`lane_finish`), K20
-(`shard_superstep`), K23 (`ring_stats`), K24 (`ring_stats_wide`) and K25
-(`ring_apply`) spend their time on the card:
+(`segmented_superstep`), K8 (`hub_superstep`), K11 (`dense_forbid`), K12
+(`dense_resolve`), K13 (`lane_superstep`), K14 (`lane_compact`), K15
+(`lane_finish`), K20 (`shard_superstep`), K23 (`ring_stats`), K24
+(`ring_stats_wide`), K25 (`ring_apply`) and the lane mesh's fold (K26)
+spend their time on the card:
 device time from ``torch.profiler`` over a few shapes each, one JSON line
 a measurement, then the card's name and power limit.
 
@@ -62,13 +63,27 @@ staged rung's entry, 40 % of its rows active) at each of
 ``sharded`` engine at world size 1: one ``sweep`` held launch by launch
 against the plain versions, one timed by its wall, one under the
 profiler (K20's launches summed), and a fresh attempt's first superstep
-alone. ``rate``: the drawn-once run alone, three times after
+alone. K12 (``k12``): the dense backend at its cap, 16,384 vertices, on the
+uniform and the RMAT draw (``chip_smoke.DENSE_ARGS``), through the CLI's
+calls: one sweep held call by call against the plain versions, the
+sweep's wall five times (the dense run's figure), one sweep under the
+profiler (K11's and K12's launches summed), and the k0 attempt's
+supersteps one by one (``chip_smoke.measure_dense``: K12 a superstep,
+summed over the attempt, its bound). K26 (``k26``): the lane mesh over 4
+slots of 2 lanes on one card, the first 8 uniform 20k requests
+(v32768w32, the auto ladder), swept in continuous mode's priced slices
+through ``serve.batched.run_mesh_slice``: the launches a round (the
+standalone K26 launches apart) and the serve kernels' device time under
+the profiler, summed and a round's mean; then the last shard's partial
+K15 replayed from a kept state, alone and, where the package folds in
+the tail, folding (``chip_smoke._fold_cost``). ``rate``: the drawn-once
+run alone, three times after
 a warm run, then once more with the host threads' stacks sampled every
 millisecond (the share of samples by innermost frame, and by innermost
 frame of the port's package).
 
-    python tools/kernel_costs.py [k3] [k11] [ring] [k5] [k8] [k1] [k23] \
-        [k13] [k14] [k15] [k20] [rate]
+    python tools/kernel_costs.py [k3] [k11] [k12] [ring] [k5] [k8] [k1] \
+        [k23] [k13] [k14] [k15] [k20] [k26] [rate]
     python tools/kernel_costs.py --tree DIR k1 k23   # all parts if none
 
 ``--tree DIR`` times another checkout's package (an unpacked ``git
@@ -78,6 +93,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -162,6 +178,111 @@ def k11_costs() -> None:
                     "degree": deg, "rows": len(rows),
                     "ms": cs._device_ms(launch, 20, "dense_forbid_kernel")}),
                     flush=True)
+
+
+DENSE_WALLS = 5  # timed runs of each dense sweep
+
+
+def k12_costs() -> None:
+    from dgc_tpu_torch import cli
+    from dgc_tpu_torch.kernels import dense as kd
+
+    for gen, argv in cs.DENSE_ARGS.items():
+        args = cli.build_parser().parse_args(
+            argv + ["--output-coloring", "unused.json"])
+        graph = cli.load_graph(args)
+        engine = cli.make_engine(args, graph)
+        with cs._HeldDenseKernels() as held:
+            ref = cli.sweep(args, graph, engine)
+        torch.cuda.synchronize()
+        cs.check(held.err == 0, f"K11/K12 differ from their plain versions "
+                                f"by {held.err}")
+        walls = []
+        for _ in range(DENSE_WALLS):
+            res = cli.sweep(args, graph, engine)
+            cs.check(np.array_equal(res.colors, ref.colors),
+                     f"dense on {gen}: the colors moved")
+            walls.append((res.wall_time_s - res.post_reduce_s) * 1e3)
+        kd.reset_launch_counts()
+        cli.sweep(args, graph, engine)
+        launches = dict(kd.launch_counts)
+        prof = cs._profiled(lambda: cli.sweep(args, graph, engine), launches,
+                            names={k: f"{k}_kernel" for k in launches})
+        meas = cs.measure_dense(engine, graph.initial_k())
+        print(json.dumps({
+            "kernel": "dense_resolve", "graph": f"16,384 {gen}",
+            "held_calls": held.calls, "sweep_ms": walls,
+            "sweep_launches": launches,
+            "sweep_k12_ms": prof["dense_resolve"][0],
+            "sweep_k11_ms": prof["dense_forbid"][0],
+            **{k: meas[k] for k in (
+                "dense_supersteps", "uncolored_per_step",
+                "k12_kept_per_step", "k12_ms", "k12_ms_by_step",
+                "k12_attempt_ms", "k12_bound_ms", "k12_full_rows_bound_ms",
+                "k11_ms", "k11_bound_ms") if k in meas}}), flush=True)
+        del engine
+
+
+def k26_costs() -> None:
+    from dgc_tpu_torch.kernels import serve as ks
+    from dgc_tpu_torch.layout import CARRY_PHASE
+    from dgc_tpu_torch.serve.batched import auto_slice_steps, run_mesh_slice
+    from dgc_tpu_torch.serve.cli import _load_request_graph
+
+    graphs = [_load_request_graph(d) for d in cs.SERVE_STREAM
+              if str(d["id"]).startswith("u")][:8]
+    cls, stages, inputs = cs._serve_inputs(graphs, "cuda")
+    staged = stages is not None
+    steps = auto_slice_steps(cls.entries(), len(graphs), "gpu")
+    n = 4
+
+    def make():
+        return cs._mesh_lanes(inputs, cls, stages, [torch.device("cuda")] * n)
+
+    def sweep(M):  # continuous mode's slices, resumed until no lane runs
+        while True:
+            run_mesh_slice(M, slice_steps=steps, staged=staged)
+            if not any(bool((L.carry[CARRY_PHASE] < 2).any())
+                       for L in M.shards):
+                return
+            for L in M.shards:
+                L.reset.zero_()
+
+    sweep(make())  # warm
+    ks.reset_launch_counts()
+    M = make()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sweep(M)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    launches = dict(ks.launch_counts)
+    fold = "mesh" in inspect.signature(ks.lane_finish).parameters
+    folds = ks.mesh_folds() if fold else None
+    rounds = launches["lane_superstep"] // n
+    names = {k: cs._SERVE_NAMES[k] for k in cs._SERVE_KERNELS}
+    names["lane_mesh_fold"] = "lane_mesh_fold_kernel"
+    prof = cs._profiled(sweep, {k: launches[k] for k in (
+        "lane_superstep", "lane_finish")}, cs._DEVICE_MS_KEPT, names,
+        prepare=make)
+    device = {k: v[0] for k, v in prof.items()}
+    k15 = prof["lane_finish"][2]
+    by_shard = ([sum(k15[i::n]) / len(k15[i::n]) for i in range(n)]
+                if len(k15) == launches["lane_finish"] else None)
+    print(json.dumps({
+        "kernel": "lane_mesh_fold", "run": f"{n} slots of 2 lanes of "
+        f"{cls.name}, slices of {steps}", "rounds": rounds,
+        "launches": launches,
+        "k26_launches": launches.get("lane_mesh_fold", 0),
+        "launches_per_round": sum(launches[k] for k in (
+            "lane_superstep", "lane_compact", "lane_finish",
+            "lane_mesh_fold") if k in launches) / rounds,
+        "folds": folds,
+        "sweep_wall_ms": wall, "device_ms": device,
+        "round_device_ms": sum(device.values()) / rounds,
+        "k15_mean_ms_by_shard": by_shard,
+        "last_k15": cs._fold_cost({"inputs": inputs, "slots": n}, cls,
+                                  stages, "cuda", 20, fold)}), flush=True)
 
 
 def ring_costs() -> None:
@@ -907,17 +1028,18 @@ def main(argv: list[str] | None = None) -> int:
     if parts[:1] == ["--tree"]:
         sys.path.insert(0, str(Path(parts[1]).resolve()))
         parts = parts[2:]
-    parts = parts or ["k3", "k11", "ring", "k5", "k8", "k1", "k23", "k13",
-                      "k14", "k15", "k20", "rate"]
+    parts = parts or ["k3", "k11", "k12", "ring", "k5", "k8", "k1", "k23",
+                      "k13", "k14", "k15", "k20", "k26", "rate"]
     serve = [p for p in parts if p in _SERVE_PARTS]
     for part in parts:
         if part in _SERVE_PARTS:
             if part == serve[0]:
                 serve_costs(serve)
             continue
-        {"k3": k3_costs, "k11": k11_costs, "ring": ring_costs,
-         "k5": k5_costs, "k8": k8_costs, "k1": k1_costs,
-         "k23": k23_costs, "k20": k20_costs, "rate": rate_costs}[part]()
+        {"k3": k3_costs, "k11": k11_costs, "k12": k12_costs,
+         "ring": ring_costs, "k5": k5_costs, "k8": k8_costs, "k1": k1_costs,
+         "k23": k23_costs, "k20": k20_costs, "k26": k26_costs,
+         "rate": rate_costs}[part]()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
